@@ -16,19 +16,43 @@ from ``--seed``) it runs, each phase printing one JSON line:
    against their plain PyTorch versions on the card, 2 sweeps from the same
    init state: rel-max |ΔO| ≤ 1e-5, rel-max |ΔP| ≤ 1e-4 (f32 against f32,
    differing only in summation order), metrics rtol 1e-4, and the kernels'
-   pupil exactly 0 outside the NA support.
-3. ``main_path``: the dataset written as TIFFs + ``dataset.json``, then
-   ``python -m fpm_torch run ... -n 10 --use-pallas`` (through
-   ``fpm_torch.cli.main``) in ``batched`` (chunk 32) and ``sequential``
-   mode; each run's kernel launch counters start at 0 and must move; the
-   output file set must be complete and the amplitude RMSE against the
-   true object below 0.05.
-4. ``timing``: per-sweep milliseconds of each kernel (through its wrapper),
-   of its plain version on the card, and of the eager ``torch.fft`` sweep
+   pupil exactly 0 outside the NA support. K3, one call each on the full
+   block (R=360, chunk 0 of the chunk-32 schedule, init state) and on the
+   two halo-extended tile blocks of tile=2 (R=180+90=270, each tile's
+   workset of chunk 0 with block-relative starts and its padded slots
+   masked, the state after one sweep), and on each at the slot count a rank
+   of mesh (4,1) or (2,2) gives it on the main path: d ≤ 1e-5, v ≤
+   1e-4, metrics rtol 1e-4, v exactly 0 outside the support, d exactly 0
+   outside every valid window.
+3. ``sharded_vs_single``: 2 sweeps on meshes (led, tile) = (4,1), (2,2) and
+   (1,8) (tile height 45 < Np: a two-hop halo), all ranks on the one card,
+   against 2 sweeps of K1 single-device at chunk 32 from the same init (the
+   chunk membership is the same, so only summation order differs): the same
+   limits; and the collectives the mesh counted (calls, payload bytes)
+   against the analytic model of ``fpm_torch.parallel.comm``: equal.
+4. ``main_path``: the dataset written as TIFFs + ``dataset.json``, then
+   ``python -m fpm_torch run ... -n 10 --use-pallas --chunk-size 32``
+   (through ``fpm_torch.cli.main``) in ``batched`` and ``sequential`` mode
+   and with ``--mesh 4 1`` and ``--mesh 2 2``; every kernel's launch counter
+   starts at 0 before each run and only that run's kernel (K1, K2, K3, K3)
+   must move; the output file set must be complete, the amplitude RMSE
+   against the true object below 0.05, and a mesh run's ``metrics.jsonl``
+   must record its mesh.
+5. ``timing``: per-sweep milliseconds of each kernel (through its wrapper),
+   of its plain version on the card, and of the eager ``torch.fft`` route
    (``library_ms``); the launches of one sweep, counted by the wrapper; and
-   the least time the card could take (``bound_ms``: the sweep's work done
-   as pruned FFTs plus its element-wise work, and its bytes, against the
-   H100 SXM peaks of 67 TFLOP/s FP32 and 3.35 TB/s).
+   the least time the card could take (``bound_ms``: the work done as
+   pruned FFTs plus its element-wise work, and its bytes, against the H100
+   SXM peaks of 67 TFLOP/s FP32 and 3.35 TB/s; of the spectrum a K3 call
+   must read only its valid LEDs' windows, while it writes d whole). K3 is
+   timed per call and per sweep's worth of calls (7) as rank (0,0) of mesh
+   (4,1) makes them (8 LED slots per call on the 360×360 block).
+   ``sharded_sweep`` lines give
+   the wall time of one sharded sweep per mesh shape, through the entry point
+   (``reconstruct_*_sharded`` with 1 sweep less with 0 sweeps) and of the
+   sweep alone on prepared grids, and the share of the latter the card was
+   busy (``torch.profiler``): one-card times with all ranks sharing the
+   card, not scaling results.
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and the result line.
 Any failure raises and exits non-zero; without a CUDA device it exits 1
@@ -118,6 +142,9 @@ def fft_flops(n: int) -> float:
 # the touched element for the max 3, update norm 4.
 FLOPS_PER_IMAGE_ELEM = 16
 FLOPS_PER_BBOX_ELEM = 54
+# K3 returns the increments and applies nothing: no O update (2), pupil step
+# (4) or |O|² for the max (3).
+FLOPS_PER_BBOX_ELEM_K3 = FLOPS_PER_BBOX_ELEM - 9
 
 
 def sweep_work(n_leds: int, n: int, b: int, nl: int, n_slots: int,
@@ -133,6 +160,38 @@ def sweep_work(n_leds: int, n: int, b: int, nl: int, n_slots: int,
               + n_leds * n * n * 4           # amplitude frames of real LEDs
               + n_slots * (3 if has_valid else 2) * 4  # starts (and valid)
               + 2 * 4)                       # metrics
+    return nbytes, flops
+
+
+def window_union(starts, valid, n: int, b: int, lo: int, n_rows: int, n_cols: int) -> int:
+    """Elements of an (n_rows, n_cols) block that lie in the b×b window of at
+    least one valid LED (patch starts clamped into the block, as the kernels
+    clamp them): all of the block that a K3 call has to read."""
+    import numpy as np
+
+    covered = np.zeros((n_rows, n_cols), dtype=bool)
+    for (y, x), ok in zip(starts, valid):
+        if ok:
+            y = min(max(int(y), 0), n_rows - n) + lo
+            x = min(max(int(x), 0), n_cols - n) + lo
+            covered[y:y + b, x:x + b] = True
+    return int(covered.sum())
+
+
+def increments_work(n_valid: int, n_slots: int, n: int, b: int, n_rows: int,
+                    n_cols: int, o_elems: int) -> tuple[int, float]:
+    """(bytes, flops) one K3 call needs at least: of the spectrum block only
+    the ``o_elems`` elements inside a valid LED's window are read (once,
+    where windows overlap); the increment block d is written once, whole, on
+    every call; the pupil, support and numerator v, the valid LEDs' frames;
+    per valid LED the transforms as pruned FFTs plus K3's element-wise work."""
+    flops = n_valid * (2 * (n + b) * fft_flops(n) + FLOPS_PER_IMAGE_ELEM * n * n
+                       + FLOPS_PER_BBOX_ELEM_K3 * b * b)
+    nbytes = (2 * o_elems * 4                  # O: the valid windows' union, in
+              + 2 * n_rows * n_cols * 4        # d: the whole block, out
+              + 2 * 2 * n * n * 4 + n * n * 4  # pupil in, v out, support
+              + n_valid * n * n * 4            # amplitude frames of valid LEDs
+              + n_slots * 3 * 4 + 2 * 4)       # starts, valid, metrics
     return nbytes, flops
 
 
@@ -185,6 +244,7 @@ def main(argv=None) -> int:
     from fpm_torch.geometry import compute_geometry, pupil_support
     from fpm_torch.models import epry
     from fpm_torch.ops import build, kernels
+    from fpm_torch.parallel import comm, led_shard, make_mesh, tile_shard
 
     # ------------------------------------------------------------ 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -254,52 +314,164 @@ def main(argv=None) -> int:
         check(rel_o <= TOL_O and rel_p <= TOL_P and rel_m <= TOL_METRICS and leak == 0.0,
               f"{name} disagrees with its plain version")
 
-    # --------------------------------------------------------- 3. main_path
+    # K3: one call per case. (d, v, mets) against the plain version; d exactly
+    # 0 outside the valid windows; v exactly 0 outside the support.
+    o1_planes, p1_planes, _ = kernels.fused_epry_chunked(
+        o_planes, p_planes, sup_r, amps_it, starts_it.reshape(-1), valid, **common,
+        pupil_step_scale=1.0)
+    k3_common = {k: v for k, v in common.items() if k != "n_large"}
+    # The full block with a whole chunk and with the 8 slots rank (0,0) of mesh
+    # (4,1) gets; the halo-extended blocks of tile=2 with each tile's whole
+    # workset (led=1) and with the share a rank of mesh (2,2) gets (led=2).
+    k3_cases = {
+        "K3 full block": (o_planes, p_planes, amps_it[0], starts_it[0].reshape(-1),
+                          valid[:32].contiguous()),
+        "K3 full block, rank of mesh (4,1)": (
+            o_planes, p_planes, amps_it[0, :8].contiguous(),
+            starts_it[0, :8].reshape(-1).contiguous(), valid[:8].contiguous()),
+    }
+    ring = torch.cat([o1_planes, o1_planes[:, :n]], dim=1)      # the halo wraps the ring
+    for n_led, ti in ((1, 0), (1, 1), (2, 0), (2, 1)):
+        idx, tile_s = tile_shard.partition_leds_by_tile(geom, nl, 2, n_led, n, chunk_size=32)
+        sel = torch.as_tensor(idx[0, 0, ti], device=dev)
+        live = sel >= 0
+        check(int(live.sum()) > 1 and (n_led > 1 or not bool(live.all())),
+              f"tile {ti}'s workset has too few LEDs, or no masked slot to check")
+        starts_rel = (starts[sel.clamp(min=0)] - torch.tensor(
+            [ti * tile_s, 0], dtype=torch.int32, device=dev)) * live[:, None]
+        name = f"K3 tile block {ti}" + (", rank of mesh (2,2)" if n_led == 2 else "")
+        k3_cases[name] = (
+            ring[:, ti * tile_s:(ti + 1) * tile_s + n].contiguous(), p1_planes,
+            amps[sel.clamp(min=0)] * live[:, None, None],
+            starts_rel.to(torch.int32).reshape(-1).contiguous(), live.to(torch.int32))
+    for name, (blk, pp, a_, st_, va_) in k3_cases.items():
+        kw = dict(k3_common, n_rows=blk.shape[1], n_cols=blk.shape[2])
+        kd, kv, km = kernels.fused_chunk_increments(blk, pp, sup_r, a_, st_, va_, **kw)
+        torch.cuda.synchronize()
+        pd, pv, pm = kernels.fused_chunk_increments_plain(blk, pp, sup_r, a_, st_, va_, **kw)
+        rel_d = ((kd - pd).abs().max() / pd.abs().max()).item()
+        rel_v = ((kv - pv).abs().max() / pv.abs().max()).item()
+        max_abs = max((kd - pd).abs().max().item(), (kv - pv).abs().max().item())
+        rel_m = ((km - pm).abs() / pm.abs()).max().item()
+        covered = torch.zeros(blk.shape[1:], dtype=torch.bool, device=dev)
+        for (y, x), ok in zip(st_.view(-1, 2).tolist(), va_.tolist()):
+            if ok:
+                covered[y + lo:y + lo + b, x + lo:x + lo + b] = True
+        d_leak = kd[:, ~covered].abs().max().item()
+        v_leak = kv[:, outside].abs().max().item()
+        errs[name] = max_abs
+        emit({"phase": "kernel_vs_plain", "case": name, "block": list(blk.shape[1:]),
+              "slots": int(va_.numel()), "valid": int(va_.sum()), "rel_err_d": rel_d,
+              "rel_err_v": rel_v, "max_abs_err": max_abs, "metrics_rel_err": rel_m,
+              "d_outside_windows": d_leak, "v_outside_support": v_leak,
+              "limits": {"rel_d": TOL_O, "rel_v": TOL_P, "metrics_rtol": TOL_METRICS}})
+        check(rel_d <= TOL_O and rel_v <= TOL_P and rel_m <= TOL_METRICS
+              and d_leak == 0.0 and v_leak == 0.0 and kd.abs().max().item() > 0,
+              f"{name} disagrees with its plain version")
+
+    # ------------------------------------------------- 3. sharded_vs_single
+    mesh_shapes = ((4, 1), (2, 2), (1, 8))
+    sharded_kw = dict(iterations=2, use_pallas=True, chunk_size=32)
+    single = epry.reconstruct(frames, geom, cfg, mode="batched", **sharded_kw)
+
+    def sharded_fn(tile):
+        return (led_shard.reconstruct_led_sharded if tile == 1
+                else tile_shard.reconstruct_tile_sharded)
+
+    for led, tile in mesh_shapes:
+        mesh = make_mesh(led=led, tile=tile)
+        got = sharded_fn(tile)(frames, geom, cfg, mesh=mesh, **sharded_kw)
+        rel_o = float(np.abs(got.obj_f_centered - single.obj_f_centered).max()
+                      / np.abs(single.obj_f_centered).max())
+        rel_p = float(np.abs(got.pupil - single.pupil).max() / np.abs(single.pupil).max())
+        rel_m = max(float(np.max(np.abs(got.metrics[key] - single.metrics[key])
+                                 / np.abs(single.metrics[key])))
+                    for key in ("data_residual", "update_norm"))
+        if tile == 1:
+            model = comm.led_shard_comm(nl, n, k_leds, 32, led)
+        else:
+            model = comm.tile_shard_comm(nl, n, k_leds, led, tile, 32)
+        hops = 1 if tile == 1 else -(-n // (nl // tile))
+        diffs = comm.counted_mismatches(mesh.counts, model, sweeps=2, halo_hops=hops)
+        emit({"phase": "sharded_vs_single", "mesh": [led, tile], "ranks": mesh.describe(),
+              "sweeps": 2, "rel_err_o": rel_o, "rel_err_p": rel_p, "metrics_rel_err": rel_m,
+              "limits": {"rel_o": TOL_O, "rel_p": TOL_P, "metrics_rtol": TOL_METRICS},
+              "halo_hops": hops,
+              "counted_collectives": {f"{op} over {ax}": v for (op, ax), v in mesh.counts.items()},
+              "model_collectives_per_sweep": [
+                  {k: c[k] for k in ("op", "axis", "payload_bytes", "calls_per_sweep")}
+                  for c in model["collectives"]],
+              "counted_vs_model": diffs})
+        check(rel_o <= TOL_O and rel_p <= TOL_P and rel_m <= TOL_METRICS,
+              f"mesh {(led, tile)} disagrees with the single-device K1 sweeps")
+        check(not diffs, f"mesh {(led, tile)}: counted collectives differ from the model: {diffs}")
+
+    # --------------------------------------------------------- 4. main_path
     launches = {}
     with tempfile.TemporaryDirectory(prefix="fpm_chip_smoke_") as tmp:
         cfg_path = write_dataset(os.path.join(tmp, "data"), cfg, geom, frames)
-        for mode, wrapper, key in (("batched", kernels.fused_epry_chunked, "K1"),
-                                   ("sequential", kernels.fused_epry_sweep, "K2")):
-            out = os.path.join(tmp, f"out_{mode}")
-            kernels.fused_epry_chunked.launches = 0
-            kernels.fused_epry_sweep.launches = 0
+        wrappers = {"K1": kernels.fused_epry_chunked, "K2": kernels.fused_epry_sweep,
+                    "K3": kernels.fused_chunk_increments}
+        runs = (
+            ("batched", ["--mode", "batched"], "K1",
+             lambda: epry.reconstruct(frames, geom, cfg, iterations=10, use_pallas=True,
+                                      mode="batched", chunk_size=32)),
+            ("sequential", ["--mode", "sequential"], "K2",
+             lambda: epry.reconstruct(frames, geom, cfg, iterations=10, use_pallas=True,
+                                      mode="sequential")),
+            ("mesh 4 1", ["--mesh", "4", "1"], "K3",
+             lambda: sharded_fn(1)(frames, geom, cfg, mesh=make_mesh(4, 1), iterations=10,
+                                   use_pallas=True, chunk_size=32)),
+            ("mesh 2 2", ["--mesh", "2", "2"], "K3",
+             lambda: sharded_fn(2)(frames, geom, cfg, mesh=make_mesh(2, 2), iterations=10,
+                                   use_pallas=True, chunk_size=32)),
+        )
+        for label, flags, key, again in runs:
+            out = os.path.join(tmp, "out_" + label.replace(" ", "_"))
+            for w in wrappers.values():
+                w.launches = 0
             t0 = time.perf_counter()
             rc = cli.main(["run", cfg_path, "-n", "10", "-o", out, "--use-pallas",
-                           "--mode", mode, "--chunk-size", "32"])
+                           "--chunk-size", "32", *flags])
             wall = time.perf_counter() - t0
-            counts = {"K1": kernels.fused_epry_chunked.launches,
-                      "K2": kernels.fused_epry_sweep.launches}
-            launches[key] = wrapper.launches
-            check(rc == 0, f"fpm_torch run --mode {mode} exited {rc}")
-            check(wrapper.launches > 0, f"--mode {mode} launched no {key} kernel")
+            counts = {k: w.launches for k, w in wrappers.items()}
+            launches[label] = counts[key]
+            check(rc == 0, f"fpm_torch run {label} exited {rc}")
+            check(counts[key] > 0, f"run {label} launched no {key} kernel")
+            check(all(c == 0 for k, c in counts.items() if k != key),
+                  f"run {label} launched other kernels than {key}: {counts}")
             missing = [f for f in OUTPUT_FILES if not os.path.exists(os.path.join(out, f))]
-            check(not missing, f"--mode {mode} wrote no {missing}")
+            check(not missing, f"run {label} wrote no {missing}")
             obj = np.load(os.path.join(out, "object.npy"))
             check(obj.shape == (nl, nl) and np.isfinite(obj).all(),
-                  f"--mode {mode}: object {obj.shape} not finite of shape {(nl, nl)}")
+                  f"run {label}: object {obj.shape} not finite of shape {(nl, nl)}")
             rmse = amplitude_rmse(obj, obj_true)
             with open(os.path.join(out, "manifest.json")) as f:
                 resid = json.load(f)["metrics"]["data_residual"]
             with open(os.path.join(out, "metrics.jsonl")) as f:
-                phase_s = {r["name"]: r["seconds"] for r in map(json.loads, f)
-                           if r["event"] == "phase"}
+                records = [json.loads(line) for line in f]
+            phase_s = {r["name"]: r["seconds"] for r in records if r["event"] == "phase"}
+            options = next(r for r in records if r["event"] == "solver_options")
+            want_mesh = [int(x) for x in flags[1:]] if flags[0] == "--mesh" else None
+            check(options["mesh"] == want_mesh and (want_mesh is None
+                                                    or options["mode"] == "batched"),
+                  f"run {label} recorded mesh {options['mesh']}, mode {options['mode']}")
             # The same solve again in this process, warm (cuFFT plans and
             # libraries loaded): what a second reconstruction pays.
             warm_s = []
             for _ in range(2):
                 t0 = time.perf_counter()
-                epry.reconstruct(frames, geom, cfg, iterations=10, use_pallas=True,
-                                 mode=mode, chunk_size=32)
+                again()
                 torch.cuda.synchronize()
                 warm_s.append(time.perf_counter() - t0)
-            emit({"phase": "main_path", "mode": mode, "iterations": 10, "wall_s": wall,
+            emit({"phase": "main_path", "run": label, "iterations": 10, "wall_s": wall,
                   "phase_s": phase_s, "reconstruct_warm_s": warm_s[-1],
-                  "launches": counts,
+                  "launches": counts, "recorded_mesh": options["mesh"],
                   "amp_rmse": rmse, "rmse_limit": RMSE_LIMIT,
                   "data_residual_first_last": [resid[0], resid[-1]]})
-            check(rmse < RMSE_LIMIT, f"--mode {mode} amplitude RMSE {rmse} >= {RMSE_LIMIT}")
+            check(rmse < RMSE_LIMIT, f"run {label} amplitude RMSE {rmse} >= {RMSE_LIMIT}")
 
-    # ------------------------------------------------------------ 4. timing
+    # ------------------------------------------------------------ 5. timing
     support_c = sup_r.to(torch.complex64)
     library = {
         "K1": lambda: epry.sweep_batched(o0, p0, amps_it, starts_it, support=support_c,
@@ -329,7 +501,8 @@ def main(argv=None) -> int:
         bound_ms, bound_by = bound(nbytes, flops)
         err = errs["K1"] if key == "K1" else max(errs["K2 exact"], errs["K2 lazy"])
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                     "launches": launches[key], "launches_per_sweep": per_sweep,
+                     "launches": launches["batched" if key == "K1" else "sequential"],
+                     "launches_per_sweep": per_sweep,
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms})
         emit({"phase": "timing", "kernel": name, "ms_per_sweep": ms, "plain_ms": plain_ms,
@@ -337,6 +510,107 @@ def main(argv=None) -> int:
               "bytes": nbytes, "flops": flops, "launches_per_sweep": per_sweep,
               "led_frames_per_s": k_leds / ms * 1e3, "device_ms_by_kernel": by_kernel,
               "device_busy_share": sum(by_kernel.values()) / ms, "gpu": smi})
+
+    # K3 as rank (0,0) of mesh (4,1) calls it: its slice (8 slots) of each of
+    # the sweep's 7 chunks, on the whole 360×360 spectrum, init state.
+    mesh41 = make_mesh(4, 1)
+    (og, pg, sg, ag, stg, mg), opts41 = led_shard.prepare_led_sharded(
+        frames, geom, cfg, mesh41, use_pallas=True, chunk_size=32)
+    r_amps, r_starts, r_mask = ag[0][0], stg[0][0].reshape(stg[0][0].shape[0], -1), mg[0][0]
+    r_valid = (r_mask > 0).to(torch.int32)
+    n_chunks, c_local = r_valid.shape
+    k3_kw = dict(k3_common, n_rows=nl, n_cols=nl)
+
+    def k3_call(fn, c):
+        return fn(o_planes, p_planes, sup_r, r_amps[c], r_starts[c], r_valid[c], **k3_kw)
+
+    def k3_sweep(fn):
+        for c in range(n_chunks):
+            k3_call(fn, c)
+
+    k3 = kernels.fused_chunk_increments
+    k3.launches = 0
+    k3_sweep(k3)
+    per_sweep = k3.launches
+    ms_call = cuda_ms(lambda: k3_call(k3, 0), 20)
+    ms_sweep = cuda_ms(lambda: k3_sweep(k3), 5)
+    by_kernel = device_ms_by_kernel(lambda: k3_call(k3, 0))
+    plain_ms = cuda_ms(lambda: k3_call(kernels.fused_chunk_increments_plain, 0), 3)
+    eager41 = dataclasses.replace(opts41, use_pallas=False)
+    library_ms = cuda_ms(lambda: led_shard._chunk_increments(
+        o0, p0, support_c, r_amps[0], stg[0][0][0], r_mask[0], opts=eager41), 3)
+    n_valid = int(r_valid[0].sum())
+    o_elems = window_union(stg[0][0][0].tolist(), r_valid[0].tolist(), n, b, lo, nl, nl)
+    nbytes, flops = increments_work(n_valid, c_local, n, b, nl, nl, o_elems)
+    bound_ms, bound_by = bound(nbytes, flops)
+    rows.append({"name": "fused_chunk_increments", "route": "cuda",
+                 "source": "fpm_torch/ops/csrc/epry_increments.cu",
+                 "replaces": "fpm_tpu/ops/pallas_kernels.py:1006",
+                 "launches": launches["mesh 4 1"], "launches_per_sweep": per_sweep,
+                 "max_abs_err": max(v for k, v in errs.items() if k.startswith("K3")),
+                 "ms": ms_call, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": bound_by, "library_ms": library_ms})
+    emit({"phase": "timing", "kernel": "fused_chunk_increments",
+          "as": "rank (0,0) of mesh (4,1): 8 slots per call on the 360x360 block",
+          "ms_per_call": ms_call, "calls_per_sweep": n_chunks, "ms_per_sweep_of_calls": ms_sweep,
+          "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+          "bound_by": bound_by, "bytes": nbytes, "flops": flops, "valid_leds": n_valid,
+          "o_bytes_read": 8 * o_elems, "d_bytes_written": 8 * nl * nl,
+          "launches_per_sweep": per_sweep, "launches_main_path": {
+              k: v for k, v in launches.items() if k.startswith("mesh")},
+          "device_ms_by_kernel": by_kernel, "gpu": smi})
+
+    # One sharded sweep per mesh shape, on the host's clock, synchronised: all
+    # ranks share the one card, so these are not scaling results. Through the
+    # entry point, a reconstruction of 1 sweep less one of 0 sweeps (set-up,
+    # the gather of the spectrum and the result are in both); and the sweep
+    # alone on prepared grids, which is what the profiler is put around.
+    def median(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    def entry_ms(fn, mesh, sweeps):
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn(frames, geom, cfg, mesh=mesh, iterations=sweeps, use_pallas=True, chunk_size=32)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return walls
+
+    for led, tile in mesh_shapes:
+        mesh = make_mesh(led, tile)
+        entry_0, entry_1 = (entry_ms(sharded_fn(tile), mesh, it) for it in (0, 1))
+        if tile == 1:
+            grids, sopts = led_shard.prepare_led_sharded(frames, geom, cfg, mesh,
+                                                         use_pallas=True, chunk_size=32)
+            def one_sweep():
+                return led_shard._sharded_sweep(mesh, *grids, opts=sopts)
+        else:
+            grids, sopts, s_rows = tile_shard.prepare_tile_sharded(
+                frames, geom, cfg, mesh, use_pallas=True, chunk_size=32)
+            def one_sweep():
+                return tile_shard._tile_sweep(mesh, *grids, opts=sopts, s=s_rows)
+        k3.launches = 0
+        one_sweep()
+        torch.cuda.synchronize()
+        sweep_launches = k3.launches
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            one_sweep()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        by_kernel = device_ms_by_kernel(one_sweep)
+        wall_ms = median(walls)
+        emit({"phase": "sharded_sweep", "mesh": [led, tile], "ranks_share_one_card": True,
+              "entry_point_ms_per_sweep": median(entry_1) - median(entry_0),
+              "entry_point_ms_1_sweep_all": entry_1, "entry_point_ms_0_sweeps_all": entry_0,
+              "sweep_alone_wall_ms": wall_ms, "sweep_alone_wall_ms_all": walls,
+              "k3_launches_per_sweep": sweep_launches,
+              "device_ms_total": sum(by_kernel.values()),
+              "device_busy_share": sum(by_kernel.values()) / wall_ms,
+              "device_kernel_count_by_name": len(by_kernel),
+              "device_ms_top_kernels": dict(list(by_kernel.items())[:6]), "gpu": smi})
 
     emit({"kernels": rows})
     print(smi, flush=True)

@@ -3,14 +3,19 @@ fpmMain.cpp:500-592), with the flag set of ``python -m fpm_tpu``:
 
     python -m fpm_torch run dataset.json -n 10 -o out/ --use-pallas   # on the GPU
     python -m fpm_torch run dataset.json -n 10 --platform cpu          # on the CPU
+    python -m fpm_torch run dataset.json -n 10 --use-pallas --mesh 2 2 # (led, tile) mesh
     python -m fpm_torch info dataset.json
     python -m fpm_torch simulate out_dir/ --np-size 32
 
 ``--platform cuda`` (the default) runs on the GPU, where the sweep goes
 through the port's CUDA kernels and so needs ``--use-pallas``; ``--platform
-cpu`` runs on the CPU. Flags of paths not yet ported (multi-device meshes,
-large-FOV tiling, RGB, debug dumps, the watchdog, the native decoder) are
-accepted by the parser and refused with an error naming them.
+cpu`` runs on the CPU. ``--mesh LED TILE`` (or the config's ``tileGrid`` key)
+runs the LED-sharded (TILE = 1) or tile-sharded sweep of ``fpm_torch.parallel``
+on a mesh of LED·TILE ranks, placed round-robin over the visible GPUs (on a
+one-GPU machine they share it) or, with ``--platform cpu``, on the CPU. Flags
+of paths not yet ported (multi-process ``--distributed``, large-FOV tiling,
+RGB, debug dumps, the watchdog, the native decoder) are accepted by the parser
+and refused with an error naming them.
 """
 
 from __future__ import annotations
@@ -62,18 +67,24 @@ def _add_run_parser(sub):
                         "'rgb' is not yet ported")
     p.add_argument("--use-pallas", action="store_true",
                    help="run the sweep through the port's CUDA kernels (K1 "
-                        "batched, K2 sequential); on --platform cpu, through "
-                        "their plain PyTorch versions")
+                        "batched, K2 sequential, K3 on a mesh); on --platform "
+                        "cpu, through their plain PyTorch versions")
     p.add_argument("--dft-precision", choices=["bf16x3", "highest"],
                    default="highest",
                    help="kernels' DFT products: exact FP32 ('bf16x3', the "
                         "3xTF32 tier, is not yet ported)")
     p.add_argument("--mesh", type=int, nargs=2, metavar=("LED", "TILE"),
-                   default=None, help="(not yet ported) multi-device mesh")
+                   default=None,
+                   help="run on an LED x TILE mesh of ranks (batched sweep "
+                        "semantics): TILE = 1 shards each chunk's LEDs, TILE > 1 "
+                        "also row-shards the spectrum; ranks go round-robin over "
+                        "the visible GPUs and may share one")
     p.add_argument("--comm-precision", choices=["f32", "bf16"], default="f32",
-                   help="(mesh runs; not yet ported)")
+                   help="mesh runs: consensus payload precision (bf16 halves "
+                        "every psum and reverse-halo payload; needs --use-pallas)")
     p.add_argument("--stale-consensus", action="store_true",
-                   help="(mesh runs; not yet ported)")
+                   help="mesh runs: compute chunk c+1's increments before chunk "
+                        "c's consensus is applied (one chunk stale)")
     p.add_argument("--distributed", action="store_true", help="(not yet ported)")
     p.add_argument("--watchdog-timeout", type=float, default=0,
                    help="(not yet ported)")
@@ -83,7 +94,6 @@ def _add_run_parser(sub):
 def _refuse_unported(args) -> None:
     """Raise on any flag whose path this package does not have yet."""
     unported = {
-        "--mesh": args.mesh is not None,
         "--fov-grid": args.fov_grid is not None,
         "--fov-overlap": args.fov_overlap is not None,
         "--color-mode rgb": args.color_mode == "rgb",
@@ -92,8 +102,6 @@ def _refuse_unported(args) -> None:
         "--distributed": args.distributed,
         "--watchdog-timeout": args.watchdog_timeout > 0,
         "--no-native": args.no_native,
-        "--comm-precision bf16": args.comm_precision != "f32",
-        "--stale-consensus": args.stale_consensus,
     }
     for flag, given in unported.items():
         if given:
@@ -232,6 +240,12 @@ def _cmd_simulate(args) -> int:
 
 
 def _cmd_run(args) -> int:
+    if args.mesh and args.color_mode == "rgb":
+        raise ValueError("--color-mode rgb does not support --mesh (the three "
+                         "channels already batch in one program)")
+    if args.mesh and args.fov_grid:
+        raise ValueError("--fov-grid auto-shards ROIs over all devices; --mesh is "
+                         "not supported with it")
     _refuse_unported(args)
     import numpy as np
     import torch
@@ -283,23 +297,36 @@ def _cmd_run(args) -> int:
             print(f"[fpm-torch] loaded {dataset.geom.num_leds} LED frames "
                   f"(Np={cfg.np_size}, Nlarge={cfg.n_large})")
 
+            # --mesh, or the config's tileGrid key, resolved before the
+            # fingerprint so that provenance records what runs: a mesh run
+            # always has batched (chunked-Jacobi) sweep semantics.
+            mesh_req = args.mesh or (
+                list(cfg.tile_grid) if tuple(cfg.tile_grid) != (1, 1) else None)
+            effective_mode = "batched" if mesh_req else args.mode
             # Provenance: everything that changes the iteration trajectory,
-            # with the chunk that will actually run. The keys match
-            # fpm_tpu's, so checkpoints carry over between the packages.
+            # with the chunk that will actually run (a pure LED mesh rounds it
+            # up to a multiple of its led axis). The keys match fpm_tpu's, so
+            # checkpoints carry over between the packages.
+            n_led_fp = mesh_req[0] if (mesh_req and mesh_req[1] == 1) else 1
             eff_chunk = effective_chunk_size(cfg.np_size, args.chunk_size,
                                              int(dataset.geom.num_leds),
-                                             bool(args.use_pallas), args.mode)
+                                             bool(args.use_pallas), effective_mode,
+                                             n_led=n_led_fp)
             run_fp = fingerprint(
-                cfg, dataset.geom, mode=args.mode, chunk_size=eff_chunk,
+                cfg, dataset.geom, mode=effective_mode, chunk_size=eff_chunk,
                 chunk_assign=args.chunk_assign, global_max=args.global_max,
                 use_pallas=bool(args.use_pallas), dft_precision=args.dft_precision,
                 comm_precision=args.comm_precision,
-                stale_consensus=bool(args.stale_consensus), mesh=None,
+                stale_consensus=bool(args.stale_consensus),
+                mesh="x".join(map(str, mesh_req)) if mesh_req else None,
             )
-            logger.log("solver_options", mode=args.mode, chunk_size=eff_chunk,
+            logger.log("solver_options", mode=effective_mode, chunk_size=eff_chunk,
                        chunk_assign=args.chunk_assign, global_max=args.global_max,
                        use_pallas=bool(args.use_pallas),
-                       dft_precision=args.dft_precision, device=device)
+                       dft_precision=args.dft_precision,
+                       comm_precision=args.comm_precision,
+                       stale_consensus=bool(args.stale_consensus),
+                       mesh=list(mesh_req) if mesh_req else None, device=device)
 
             initial_state, start_iter = None, 0
             if args.resume:
@@ -317,18 +344,41 @@ def _cmd_run(args) -> int:
                     f"requested total {total}; nothing to resume (raise -n to "
                     "extend the run)")
             chunk = args.checkpoint_every if args.checkpoint_every > 0 else total
+            solver_kwargs = dict(global_max=args.global_max, chunk_size=args.chunk_size,
+                                 chunk_assign=args.chunk_assign, use_pallas=args.use_pallas,
+                                 dft_precision=args.dft_precision)
+            if mesh_req:
+                from .parallel import (
+                    make_mesh,
+                    reconstruct_led_sharded,
+                    reconstruct_tile_sharded,
+                )
+
+                n_ranks = mesh_req[0] * mesh_req[1]
+                mesh = make_mesh(led=mesh_req[0], tile=mesh_req[1],
+                                 devices=["cpu"] * n_ranks if device == "cpu" else None)
+                print(f"[fpm-torch] mesh: {mesh.describe()}")
+                # TILE = 1: pure LED-batch sharding (replicated spectrum).
+                sharded = (reconstruct_led_sharded if mesh_req[1] == 1
+                           else reconstruct_tile_sharded)
+
+                def run_chunk(step, initial_state):
+                    return sharded(dataset.images, dataset.geom, cfg, mesh=mesh,
+                                   iterations=step, initial_state=initial_state,
+                                   comm_precision=args.comm_precision,
+                                   stale_consensus=args.stale_consensus, **solver_kwargs)
+            else:
+                def run_chunk(step, initial_state):
+                    return reconstruct(dataset.images, dataset.geom, cfg, iterations=step,
+                                       initial_state=initial_state, device=device,
+                                       mode=args.mode, **solver_kwargs)
+
             result = None
             with phase("solve", logger):
                 done = start_iter
                 while done < total:
                     step = min(chunk, total - done)
-                    result = reconstruct(
-                        dataset.images, dataset.geom, cfg, iterations=step,
-                        initial_state=initial_state, device=device,
-                        mode=args.mode, global_max=args.global_max,
-                        chunk_size=args.chunk_size, chunk_assign=args.chunk_assign,
-                        use_pallas=args.use_pallas, dft_precision=args.dft_precision,
-                    )
+                    result = run_chunk(step, initial_state)
                     done += step
                     initial_state = (result.obj_f_centered, result.pupil)
                     logger.log("iterations", done=done,

@@ -64,6 +64,12 @@ class EPRYOptions:
     pupil_radius: int = 0             # NA-disk radius px: the kernels' bbox
     n_large: int = 0
     dtype: str = "complex64"          # solver complex dtype
+    comm_precision: str = "f32"       # sharded sweeps' consensus payloads:
+    #                                   "f32" | "bf16" (halves every psum and
+    #                                   reverse-halo payload; kernel route only)
+    stale_consensus: bool = False     # sharded sweeps: chunk c+1's increments
+    #                                   come from the state BEFORE chunk c's
+    #                                   consensus is applied (one chunk stale)
 
     def __post_init__(self):
         if self.mode not in ("sequential", "batched"):
@@ -84,6 +90,14 @@ class EPRYOptions:
             raise ValueError(f"chunk_size must be >= 0, got {self.chunk_size}")
         if self.dtype not in _COMPLEX:
             raise ValueError(f"dtype must be complex64 or complex128, got {self.dtype!r}")
+        if self.comm_precision not in ("f32", "bf16"):
+            raise ValueError(
+                f"comm_precision must be 'f32' or 'bf16', got {self.comm_precision!r}")
+        if self.comm_precision == "bf16" and not self.use_pallas:
+            raise ValueError(
+                "comm_precision='bf16' requires the kernel (f32-planes) sharded "
+                "bodies (use_pallas=True); the eager complex parity route keeps "
+                "full-precision consensus")
 
     @classmethod
     def from_config(cls, cfg: FPMConfig, **overrides) -> "EPRYOptions":
@@ -320,16 +334,24 @@ def sweep_batched_pallas(obj_f, pupil, amps_it, starts_it, mask, *, support,
 
 
 def effective_chunk_size(np_size: int, chunk_size: int, k: int,
-                         use_pallas: bool, mode: str) -> int:
-    """The chunk size that will actually run (recorded in provenance).
+                         use_pallas: bool, mode: str, n_led: int = 1) -> int:
+    """The chunk size that will actually run (recorded in provenance), on
+    every solver path: :func:`reconstruct`, the sharded sweeps of
+    ``fpm_torch.parallel`` and the CLI's fingerprint all call it.
 
-    Sequential mode and the eager batched route pass the request through;
-    the kernel route runs ``min(chunk or K, K)``. (The JAX package also
-    clamps to a TPU compiler ceiling; the CUDA kernels have none.)
+    Sequential mode and the single-device eager batched route pass the
+    request through; the single-device kernel route runs ``min(chunk or K,
+    K)``. The LED-sharded sweep (``n_led`` > 1) rounds ``chunk or K`` UP to a
+    multiple of ``n_led`` so every rank gets an equal slice (padded with
+    masked dummies), on both routes. (The JAX package also clamps to a TPU
+    compiler ceiling; the CUDA kernels have none.)
     """
-    if mode != "batched" or not use_pallas:
+    if mode != "batched":
         return chunk_size
-    return min(chunk_size if chunk_size > 0 else k, k)
+    eff = chunk_size if chunk_size > 0 else k
+    if n_led == 1:
+        return min(eff, k) if use_pallas else chunk_size
+    return -(-eff // n_led) * n_led
 
 
 def chunk_schedule(k: int, chunk_size: int, assign: str) -> tuple[np.ndarray, np.ndarray, int]:
@@ -383,11 +405,12 @@ def jacobi_chunk(obj_f, pupil, amps, starts, mask, *, support, opts: EPRYOptions
     return obj_f, pupil, torch.stack([resid, upd])
 
 
-def _chunk_inputs(amps, starts, opts: EPRYOptions, real_dtype):
-    """Pad and permute flat (K, ...) schedule arrays into (n_chunks, C, ...)."""
+def chunk_permute(amps, starts, chunk_size: int, assign: str, real_dtype):
+    """Pad and permute flat (K, ...) schedule arrays into (n_chunks, C, ...)
+    chunks of ``chunk_size`` (0 = one whole-sweep chunk; :func:`chunk_schedule`),
+    with the (n_chunks, C) mask of real LEDs."""
     k = amps.shape[0]
-    csize = effective_chunk_size(opts.np_size, opts.chunk_size, k, opts.use_pallas, "batched")
-    perm, mask_np, n_chunks = chunk_schedule(k, csize, opts.chunk_assign)
+    perm, mask_np, n_chunks = chunk_schedule(k, chunk_size, assign)
     pad = perm.size - k
     if pad:
         amps = torch.cat([amps, amps.new_zeros((pad,) + tuple(amps.shape[1:]))])
@@ -397,6 +420,13 @@ def _chunk_inputs(amps, starts, opts: EPRYOptions, real_dtype):
     mask = torch.as_tensor(mask_np, dtype=real_dtype, device=amps.device)
     return (amps[perm_t].reshape(n_chunks, c, *amps.shape[1:]),
             starts[perm_t].reshape(n_chunks, c, 2), mask.reshape(n_chunks, c))
+
+
+def _chunk_inputs(amps, starts, opts: EPRYOptions, real_dtype):
+    """:func:`chunk_permute` at the single-device chunk size of ``opts``."""
+    csize = effective_chunk_size(opts.np_size, opts.chunk_size, amps.shape[0],
+                                 opts.use_pallas, "batched")
+    return chunk_permute(amps, starts, csize, opts.chunk_assign, real_dtype)
 
 
 def sweep_batched(obj_f, pupil, amps, starts, *, support, opts: EPRYOptions, mask=None):

@@ -1,0 +1,86 @@
+// Device code shared by the two chunk kernels (epry_chunked.cu, K1, which
+// applies a chunk's increments; epry_increments.cu, K3, which returns them):
+// the per-LED forward launch and the deterministic sums over a chunk's LEDs.
+//
+// The spectrum block is R rows × Ncols columns (row stride Ncols): the whole
+// NL×NL spectrum for K1, any block of it for K3. A patch start is clamped so
+// that its n rows lie in [0, R) and its n columns in [0, Ncols).
+#pragma once
+
+#include "epry_common.cuh"
+
+namespace fpm {
+
+// grid = C, one block per LED of the chunk: the forward pass and the
+// increments (epry_common.cuh) from the chunk-start (O, P) into scratch:
+//   d_obj (C, b, b)  dO_j          num (C, b, b)  pupil numerator_j
+//   parts (C, 2)     (Σ(A − |img|)², Σ|dO|²) of LED j, zeros unless ``metrics``
+// A masked dummy (valid_j = 0) exits at once: its slots are never read.
+__global__ void __launch_bounds__(kThreads)
+chunk_forward(const float* __restrict__ o_re, const float* __restrict__ o_im,
+              int n_rows, int n_cols,
+              const float* __restrict__ p_re, const float* __restrict__ p_im,
+              const float* __restrict__ sup, const float* __restrict__ amps,
+              const int* __restrict__ starts, const int* __restrict__ valid,
+              DftMats m, int n, int b, int lo, float eps, float delta1, float delta2,
+              int metrics, float2* __restrict__ d_obj, float2* __restrict__ num,
+              float* __restrict__ parts) {
+  const int j = blockIdx.x;
+  const int bb = b * b;
+  if (!valid[j]) {
+    if (threadIdx.x == 0) parts[2 * j] = parts[2 * j + 1] = 0.f;
+    return;
+  }
+  extern __shared__ float4 smem_raw[];
+  const LedSmem s = carve_smem(smem_raw, n, b);
+  const float pmax = pupil_abs_max(p_re, p_im, bb, s.red);
+  const int y0 = clamp_start(starts[2 * j], n_rows, n) + lo;
+  const int x0 = clamp_start(starts[2 * j + 1], n_cols, n) + lo;
+  const float resid = led_forward(o_re, o_im, n_cols, y0, x0, p_re, p_im,
+                                  amps + (size_t)j * n * n, m, n, b, eps, metrics != 0, s);
+  const float upd = led_increments(s, o_re, o_im, n_cols, y0, x0, b, p_re, p_im, sup, pmax,
+                                   delta1, delta2, metrics != 0, d_obj + (size_t)j * bb,
+                                   num + (size_t)j * bb);
+  if (threadIdx.x == 0) {
+    parts[2 * j] = resid;
+    parts[2 * j + 1] = upd;
+  }
+}
+
+// Σ_j valid_j·dO_j over the windows of the chunk that cover block element
+// (r, col), in LED order: a gather, so the sum is deterministic and needs no
+// atomics. *touched says whether any window covered the element.
+__device__ __forceinline__ float2 gather_increments(
+    int r, int col, int n_rows, int n_cols, const int* __restrict__ starts,
+    const int* __restrict__ valid, int c, int n, int b, int lo,
+    const float2* __restrict__ d_obj, bool* touched) {
+  float2 acc = make_float2(0.f, 0.f);
+  *touched = false;
+  for (int j = 0; j < c; ++j) {
+    if (!valid[j]) continue;
+    const unsigned dy = (unsigned)(r - clamp_start(starts[2 * j], n_rows, n) - lo);
+    const unsigned dx = (unsigned)(col - clamp_start(starts[2 * j + 1], n_cols, n) - lo);
+    if (dy < (unsigned)b && dx < (unsigned)b) {
+      const float2 d = d_obj[(size_t)j * b * b + dy * b + dx];
+      acc.x += d.x;
+      acc.y += d.y;
+      *touched = true;
+    }
+  }
+  return acc;
+}
+
+// Σ_j valid_j·v_j[e] over the chunk, in LED order; v is (c, stride) float2.
+__device__ __forceinline__ float2 sum_valid(const float2* __restrict__ v, int stride, int e,
+                                            const int* __restrict__ valid, int c) {
+  float2 acc = make_float2(0.f, 0.f);
+  for (int j = 0; j < c; ++j) {
+    if (!valid[j]) continue;
+    const float2 x = v[(size_t)j * stride + e];
+    acc.x += x.x;
+    acc.y += x.y;
+  }
+  return acc;
+}
+
+}  // namespace fpm

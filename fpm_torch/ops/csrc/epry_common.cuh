@@ -1,8 +1,11 @@
-// Device code shared by the two EPRY sweep kernels (epry_chunked.cu, K1;
-// epry_sweep.cu, K2): the per-LED forward pass and the per-LED increments.
+// Device code shared by the EPRY kernels (epry_chunked.cu, K1; epry_sweep.cu,
+// K2; epry_increments.cu, K3): the per-LED forward pass and the per-LED
+// increments.
 //
-// Data layout. The object spectrum O is two f32 planes (re, im) of
-// NL×NL in the centered frame. The pupil P and its support live in the
+// Data layout. The object spectrum O is two f32 planes (re, im) in the
+// centered frame: NL×NL for K1 and K2, any R×Ncols block of it for K3 (the
+// device code here takes the row stride ``ld``; the callers clamp a window's
+// rows and columns to their own extents). The pupil P and its support live in the
 // centered frame, cropped to the NA disk's bounding box (b×b at offset lo
 // inside the Np×Np patch); the wrapper in fpm_torch/ops/kernels.py rolls and
 // crops them. The four bbox DFT matrices, with the fftshifts folded in, are
@@ -148,6 +151,26 @@ int set_led_smem(Kernel kernel, int n, int b, int device, size_t* smem) {
                                    (int)*smem);
 }
 
+// Makes ``device`` current for an entry point's launches and gives the
+// caller's device back when the entry point returns, so that one process
+// driving several cards keeps the current device it had.
+struct DeviceGuard {
+  int prev = -1;
+  cudaError_t err;
+  explicit DeviceGuard(int device) {
+    int cur = -1;
+    err = cudaGetDevice(&cur);
+    if (err != cudaSuccess || cur == device) return;
+    err = cudaSetDevice(device);
+    if (err == cudaSuccess) prev = cur;
+  }
+  ~DeviceGuard() {
+    if (prev >= 0) cudaSetDevice(prev);
+  }
+  DeviceGuard(const DeviceGuard&) = delete;
+  DeviceGuard& operator=(const DeviceGuard&) = delete;
+};
+
 // The error of the launch just made; counts it in *launches if accepted.
 inline cudaError_t count_launch(int* launches) {
   const cudaError_t err = cudaGetLastError();
@@ -166,11 +189,12 @@ __device__ inline LedSmem carve_smem(void* base, int n, int b) {
 
 // A patch start as the JAX package's crop (``lax.dynamic_slice``) takes it:
 // a negative start counts from the end, then it is clamped so the n×n patch
-// lies inside the nl×nl spectrum. Every window access stays in bounds
-// whatever the caller passes (ops/complexops.py clamp_start is the same).
-__device__ __forceinline__ int clamp_start(int s, int nl, int n) {
-  if (s < 0) s += nl;
-  return min(max(s, 0), nl - n);
+// lies inside the spectrum's extent ``dim`` along that axis. Every window
+// access stays in bounds whatever the caller passes (ops/complexops.py
+// clamp_start is the same).
+__device__ __forceinline__ int clamp_start(int s, int dim, int n) {
+  if (s < 0) s += dim;
+  return min(max(s, 0), dim - n);
 }
 
 // max|P| over the bbox pupil (the object update's max|P|, fpmMain.cpp:404-419).
@@ -182,7 +206,8 @@ __device__ float pupil_abs_max(const float* p_re, const float* p_im, int bb, flo
 }
 
 // The forward pass of one LED from the state (O, P):
-//   oc   = O[y0:y0+b, x0:x0+b]                     (centered window)
+//   oc   = O[y0:y0+b, x0:x0+b]                     (centered window; O's row
+//                                                   stride is ld)
 //   img  = Ai·(oc∘P)·Bi                            (image plane, n×n)
 //   rep  = img · amp / |img + eps(1+i)|            (eps on BOTH channels)
 //   up   = Af·rep·Bf                               (b×b)
@@ -190,14 +215,14 @@ __device__ float pupil_abs_max(const float* p_re, const float* p_im, int bb, flo
 // Σ(amp − |img|)² when ``metrics`` (else 0). All threads must call.
 // O is read without __restrict__: K2 writes it later in the same launch.
 __device__ float led_forward(const float* o_re, const float* o_im,
-                             int nl, int y0, int x0,
+                             int ld, int y0, int x0,
                              const float* __restrict__ p_re, const float* __restrict__ p_im,
                              const float* __restrict__ amp, const DftMats m,
                              int n, int b, float eps, bool metrics, const LedSmem s) {
   const int bb = b * b;
   for (int e = threadIdx.x; e < bb; e += blockDim.x) {
     const int i = e / b, j = e - i * b;
-    const size_t g = (size_t)(y0 + i) * nl + (x0 + j);
+    const size_t g = (size_t)(y0 + i) * ld + (x0 + j);
     s.z[e] = cmul(make_float2(o_re[g], o_im[g]), make_float2(p_re[e], p_im[e]));
   }
   __syncthreads();
@@ -226,8 +251,8 @@ __device__ float led_forward(const float* o_re, const float* o_im,
 }
 
 // Per-element increments of one LED, from the window oc (re-read from O,
-// which neither kernel has changed yet), up (s.z) and the pupil/support at
-// the chunk (K1) or step (K2) start:
+// which no kernel has changed yet), up (s.z) and the pupil/support at
+// the chunk (K1, K3) or step (K2) start:
 //   diff = up − oc∘P
 //   dO   = diff · |P|·conj(P) / (max|P| · (|P|² + delta2))       (fpmMain.cpp:404-419)
 //   num  = diff · |oc|·conj(oc) · support / (|oc|² + delta1)     (fpmMain.cpp:457-472,
@@ -235,7 +260,7 @@ __device__ float led_forward(const float* o_re, const float* o_im,
 // Writes dO[e] and num[e] (either may point into shared memory; dO may be
 // s.z itself) and returns the block-wide Σ|dO|² when ``metrics``.
 __device__ float led_increments(const LedSmem s, const float* o_re, const float* o_im,
-                                int nl, int y0, int x0, int b,
+                                int ld, int y0, int x0, int b,
                                 const float* __restrict__ p_re,
                                 const float* __restrict__ p_im,
                                 const float* __restrict__ sup, float pmax,
@@ -244,7 +269,7 @@ __device__ float led_increments(const LedSmem s, const float* o_re, const float*
   float upd = 0.f;
   for (int e = threadIdx.x; e < b * b; e += blockDim.x) {
     const int i = e / b, j = e - i * b;
-    const size_t g = (size_t)(y0 + i) * nl + (x0 + j);
+    const size_t g = (size_t)(y0 + i) * ld + (x0 + j);
     const float2 oc = make_float2(o_re[g], o_im[g]);
     const float2 p = make_float2(p_re[e], p_im[e]);
     const float2 ocp = cmul(oc, p);

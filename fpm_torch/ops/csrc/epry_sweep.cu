@@ -106,7 +106,8 @@ extern "C" int fpm_k2_sweep(float* o, float* p, const float* sup, const float* a
                             int b, int lo, int nl, float eps, float delta1, float delta2,
                             int exact, int metrics, int device, void* stream, int* launches) {
   using namespace fpm;
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const DftMats m{static_cast<const float2*>(ai), static_cast<const float2*>(bi),

@@ -1,4 +1,4 @@
-"""The fused EPRY sweep kernels K1 and K2, each beside its plain version.
+"""The fused EPRY kernels K1, K2 and K3, each beside its plain version.
 
 * K1 :func:`fused_epry_chunked` — one chunked Gauss–Seidel-over-Jacobi
   sweep (the ``--mode batched`` path). Replaces
@@ -8,15 +8,22 @@
   ``--mode sequential`` path). Replaces
   ``fpm_tpu/ops/pallas_kernels.py:fused_epry_sweep``; CUDA source
   ``csrc/epry_sweep.cu``.
+* K3 :func:`fused_chunk_increments` — one chunk's local increments with
+  nothing applied, on any (R, Ncols) block of the spectrum (the per-rank body
+  of the sharded sweeps, ``fpm_torch.parallel``). Replaces
+  ``fpm_tpu/ops/pallas_kernels.py:fused_chunk_increments``; CUDA source
+  ``csrc/epry_increments.cu``.
 
-Both take and return the JAX package's operands: the centered object
-spectrum as (2, NL, NL) float32 (re, im) planes, the pupil as (2, Np, Np)
-planes in the DC-at-corner frame, the support as (Np, Np) float32, and
-return ``(o_planes, p_planes, mets)`` with ``mets`` the per-sweep
-(data-residual, update-norm) sums (zeros unless ``collect_metrics``).
+All take and return the JAX package's operands: the centered object
+spectrum as (2, NL, NL) float32 (re, im) planes (K3: any (2, R, Ncols)
+block of it), the pupil as (2, Np, Np) planes in the DC-at-corner frame, the
+support as (Np, Np) float32. K1 and K2 return ``(o_planes, p_planes, mets)``
+with ``mets`` the per-sweep (data-residual, update-norm) sums (zeros unless
+``collect_metrics``); K3 returns ``(d_planes, v_planes, mets)``.
 Around the kernel, plain PyTorch rolls the pupil and support to the
 centered frame and crops them to the NA disk's bounding box, and undoes
-that afterwards (so the pupil is exactly zero outside the box).
+that afterwards (so the pupil, and K3's numerator, is exactly zero outside
+the box).
 
 Dispatch: a wrapper launches its CUDA kernel for CUDA tensors and runs its
 plain PyTorch version (``*_plain``, same function, same operands) for CPU
@@ -128,13 +135,14 @@ def _pupil_from_bbox(pc, n: int, lo: int):
 # bbox pupil planes, sc (b, b) support, amps, int32 starts (and valid).
 
 
-def _windows(starts, n: int, nl: int, b: int, lo: int):
-    """The (rows, cols) slices of each LED's b×b window: the patch start
-    clamped as the kernels and JAX's crop clamp it, plus lo."""
-    def one(s):
-        s = clamp_start(s, nl, n) + lo
+def _windows(starts, n: int, shape, b: int, lo: int):
+    """The (rows, cols) slices of each LED's b×b window in a spectrum block
+    of ``shape`` (rows, cols): the patch start clamped as the kernels and
+    JAX's crop clamp it, plus lo."""
+    def one(s, dim):
+        s = clamp_start(s, dim, n) + lo
         return slice(s, s + b)
-    return [(one(y), one(x)) for y, x in starts.view(-1, 2).tolist()]
+    return [(one(y, shape[-2]), one(x, shape[-1])) for y, x in starts.view(-1, 2).tolist()]
 
 
 def _complex(planes):
@@ -181,7 +189,7 @@ def _sweep_core_plain(o, pc, sc, amps, starts, *, lo, eps, delta1, delta2,
     obj, pup = _complex(o), _complex(pc)
     mets = torch.zeros(2, dtype=torch.float32, device=o.device)
     omax_lazy = _abs_max(obj)
-    for k, win in enumerate(_windows(starts, n, o.shape[-1], b, lo)):
+    for k, win in enumerate(_windows(starts, n, o.shape, b, lo)):
         oc = obj[win].clone()
         img, up = _forward(oc, pup, amps[k], mats, eps)
         diff = up - oc * pup
@@ -201,7 +209,7 @@ def _chunked_core_plain(o, pc, sc, amps, starts, valid, *, lo, eps, delta1, delt
     mats = _dft_mats(n, b, lo, o.device)
     obj, pup = _complex(o), _complex(pc)
     mets = torch.zeros(2, dtype=torch.float32, device=o.device)
-    windows = _windows(starts, n, o.shape[-1], b, lo)
+    windows = _windows(starts, n, o.shape, b, lo)
     valid_l = valid.view(n_chunks, c).tolist()
     for k in range(n_chunks):
         live = [j for j in range(c) if valid_l[k][j]]     # masked dummies skipped
@@ -222,14 +230,39 @@ def _chunked_core_plain(o, pc, sc, amps, starts, valid, *, lo, eps, delta1, delt
     return _planes(obj), _planes(pup), mets
 
 
+def _increments_core_plain(o, pc, sc, amps, starts, valid, *, lo, eps, delta1, delta2,
+                           collect_metrics):
+    n, b = amps.shape[-1], pc.shape[-1]
+    obj, pup = _complex(o), _complex(pc)
+    d = torch.zeros_like(obj)
+    v = torch.zeros_like(pup)
+    mets = torch.zeros(2, dtype=torch.float32, device=o.device)
+    windows = _windows(starts, n, o.shape, b, lo)
+    live = [j for j, ok in enumerate(valid.tolist()) if ok]   # masked dummies skipped
+    if live:
+        wins = [windows[j] for j in live]
+        oc = torch.stack([obj[w] for w in wins])
+        amp = amps[live]
+        img, up = _forward(oc, pup, amp, _dft_mats(n, b, lo, o.device), eps)
+        diff = up - oc * pup
+        d_obj = diff * _object_weight(pup, delta2)
+        for w, dj in zip(wins, d_obj):
+            d[w] += dj
+        v = (diff * _pupil_weight(oc, sc, delta1)).sum(0)
+        if collect_metrics:
+            mets = torch.stack([((amp - img.abs()) ** 2).sum(), _sq_sum(d_obj, (0, 1, 2))])
+    return _planes(d), _planes(v), mets
+
+
 # ---------------------------------------------------------------- CUDA route
 
 
-def _check_cuda_operands(o, pc, sc, amps, starts, *, n_slots, valid=None):
-    """Raise on anything the kernels do not take: device, dtype and shapes.
+def _check_cuda_operands(o, pc, sc, amps, starts, *, n_slots, valid=None, square=True):
+    """Raise on anything the kernels do not take: device, dtype and shapes
+    (``square``: the spectrum is the whole NL×NL one, not a block of it).
     (Patch starts need no check: the kernels clamp them. An Np too large for
     one block's shared memory is refused by the kernels' entry points.)"""
-    dev, n, b, nl = o.device, amps.shape[-1], pc.shape[-1], o.shape[-1]
+    dev, n, b = o.device, amps.shape[-1], pc.shape[-1]
     operands = [("o_planes", o, torch.float32), ("pupil", pc, torch.float32),
                 ("support", sc, torch.float32), ("amps", amps, torch.float32),
                 ("starts", starts, torch.int32)]
@@ -240,7 +273,9 @@ def _check_cuda_operands(o, pc, sc, amps, starts, *, n_slots, valid=None):
             raise ValueError(f"{name} is on {t.device}, the spectrum on {dev}")
         if t.dtype != dt:
             raise ValueError(f"{name} must be {dt}, got {t.dtype}")
-    if (o.shape != (2, nl, nl) or pc.shape != (2, b, b) or sc.shape != (b, b)
+    if (o.ndim != 3 or o.shape[0] != 2 or min(o.shape[1:]) < n
+            or (square and o.shape[1] != o.shape[2])
+            or pc.shape != (2, b, b) or sc.shape != (b, b)
             or amps.shape[-2] != n or amps.numel() != n_slots * n * n
             or starts.numel() != 2 * n_slots
             or (valid is not None and valid.numel() != n_slots)):
@@ -299,6 +334,32 @@ def _chunked_cuda(o, pc, sc, amps, starts, valid, *, lo, eps, delta1, delta2,
     fused_epry_chunked.launches += launched.value
     build.check(lib, err, "K1 fused_epry_chunked")
     return o, pc, mets
+
+
+def _increments_cuda(o, pc, sc, amps, starts, valid, *, lo, eps, delta1, delta2,
+                     collect_metrics):
+    c, n, b = amps.shape[0], amps.shape[-1], pc.shape[-1]
+    _check_cuda_operands(o, pc, sc, amps, starts, n_slots=c, valid=valid, square=False)
+    lib = build.library("epry_increments")
+    o, pc, sc, amps = o.contiguous(), pc.contiguous(), sc.contiguous(), amps.contiguous()
+    starts, valid = starts.contiguous(), valid.contiguous()
+    dev = o.device
+    mats = _dft_mats(n, b, lo, dev)
+    d_obj = torch.empty((c, b, b, 2), dtype=torch.float32, device=dev)
+    num = torch.empty((c, b, b, 2), dtype=torch.float32, device=dev)
+    parts = torch.empty((c, 2), dtype=torch.float32, device=dev)
+    d_out, v_out = torch.empty_like(o), torch.empty_like(pc)
+    mets = torch.empty(2, dtype=torch.float32, device=dev)
+    launched = ctypes.c_int(0)
+    err = lib.fpm_k3_increments(
+        o.data_ptr(), pc.data_ptr(), sc.data_ptr(), amps.data_ptr(), starts.data_ptr(),
+        valid.data_ptr(), *(m.data_ptr() for m in mats), d_obj.data_ptr(), num.data_ptr(),
+        parts.data_ptr(), d_out.data_ptr(), v_out.data_ptr(), mets.data_ptr(),
+        c, n, b, lo, o.shape[1], o.shape[2], eps, delta1, delta2, int(collect_metrics),
+        dev.index, torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(launched))
+    fused_chunk_increments.launches += launched.value
+    build.check(lib, err, "K3 fused_chunk_increments")
+    return d_out, v_out, mets
 
 
 # ------------------------------------------------------------------ wrappers
@@ -387,5 +448,45 @@ def fused_epry_chunked_plain(o_planes, p_planes, support, amps, starts_flat, val
                 collect_metrics=collect_metrics)
 
 
+def _check_block(o_planes, n_rows, n_cols):
+    if tuple(o_planes.shape) != (2, n_rows, n_cols):
+        raise ValueError(f"spectrum block {tuple(o_planes.shape)} is not "
+                         f"(2, n_rows={n_rows}, n_cols={n_cols})")
+
+
+def fused_chunk_increments(o_planes, p_planes, support, amps, starts_flat, valid, *,
+                           np_size, n_rows, n_cols, delta1, delta2, eps, pupil_radius=0,
+                           collect_metrics=True):
+    """K3: one Jacobi chunk's local increments, nothing applied (the per-rank
+    body of ``fpm_torch.parallel``'s sharded sweeps).
+
+    ``o_planes`` (2, n_rows, n_cols) float32: this rank's spectrum block,
+    centered frame — the whole spectrum, or a halo-extended row tile.
+    ``amps`` (C, Np, Np) float32, ``starts_flat`` (2C,) int32 patch starts
+    relative to the block, ``valid`` (C,) int32 (0 = masked dummy). Returns
+    ``(d_planes, v_planes, mets)``: the object increments window-added into a
+    zeroed block of ``o_planes``' shape; the pupil numerator sum in the
+    DC-at-corner frame WITHOUT the 1/max|O| factor (divide by the max of the
+    spectrum after the consensus); the (residual, update-norm) partial sums
+    (zeros unless ``collect_metrics``).
+    """
+    _check_block(o_planes, n_rows, n_cols)
+    core = _route(o_planes, _increments_cuda, _increments_core_plain)
+    return _run(core, o_planes, p_planes, support, amps, starts_flat, valid,
+                np_size=np_size, pupil_radius=pupil_radius, eps=eps, delta1=delta1,
+                delta2=delta2, collect_metrics=collect_metrics)
+
+
+def fused_chunk_increments_plain(o_planes, p_planes, support, amps, starts_flat, valid, *,
+                                 np_size, n_rows, n_cols, delta1, delta2, eps,
+                                 pupil_radius=0, collect_metrics=True):
+    """The plain PyTorch version of :func:`fused_chunk_increments`, on any device."""
+    _check_block(o_planes, n_rows, n_cols)
+    return _run(_increments_core_plain, o_planes, p_planes, support, amps, starts_flat,
+                valid, np_size=np_size, pupil_radius=pupil_radius, eps=eps, delta1=delta1,
+                delta2=delta2, collect_metrics=collect_metrics)
+
+
 fused_epry_sweep.launches = 0
 fused_epry_chunked.launches = 0
+fused_chunk_increments.launches = 0

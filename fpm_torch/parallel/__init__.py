@@ -1,0 +1,28 @@
+"""Multi-rank reconstruction on an (led, tile) mesh: LED-batch sharding and
+spectrum-tile sharding with halo exchange (the port of ``fpm_tpu.parallel``,
+less ``multihost`` and ``roi_shard``). The mesh is single-controller: one
+process drives every rank, and ranks may share a device (``mesh.py``)."""
+
+from .comm import counted_mismatches, led_shard_comm, project_weak_scaling, tile_shard_comm
+from .led_shard import prepare_led_sharded, reconstruct_led_sharded
+from .mesh import Mesh, make_mesh, mesh_shape_for
+from .tile_shard import (
+    partition_leds_by_tile,
+    prepare_tile_sharded,
+    reconstruct_tile_sharded,
+)
+
+__all__ = [
+    "Mesh",
+    "make_mesh",
+    "mesh_shape_for",
+    "reconstruct_led_sharded",
+    "reconstruct_tile_sharded",
+    "partition_leds_by_tile",
+    "prepare_led_sharded",
+    "prepare_tile_sharded",
+    "led_shard_comm",
+    "tile_shard_comm",
+    "project_weak_scaling",
+    "counted_mismatches",
+]

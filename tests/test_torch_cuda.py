@@ -1,6 +1,7 @@
-"""The CUDA kernels K1 and K2 against their plain PyTorch versions, on the
-card. They skip without a CUDA device. This file imports neither JAX nor
-fpm_tpu, so it also runs where JAX is not installed:
+"""The CUDA kernels K1, K2 and K3 against their plain PyTorch versions, and
+a sharded sweep (K3) against the single-device one (K1), on the card. They
+skip without a CUDA device (one case needs two). This file imports neither
+JAX nor fpm_tpu, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
@@ -18,6 +19,8 @@ from fpm_torch.data.simulate import synthetic_dataset
 from fpm_torch.geometry import pupil_support
 from fpm_torch.models import epry
 from fpm_torch.ops import kernels
+from fpm_torch.parallel import make_mesh, reconstruct_led_sharded, reconstruct_tile_sharded
+from fpm_torch.parallel.tile_shard import partition_leds_by_tile
 
 TOL_O, TOL_P, TOL_M = 1e-5, 1e-4, 1e-4
 
@@ -130,7 +133,115 @@ def test_out_of_range_starts_are_clamped_like_the_plain_version(cuda):
         kernels.fused_epry_sweep(o, p, sup, amps[:-1], starts, **common)
 
 
-@pytest.mark.parametrize("kernel", ["K1", "K2"])
+def k3_operands(ds, dev, block):
+    """One chunk on the init state. ``square``: the whole spectrum, chunk 0
+    of the chunk-8 schedule (its padding slot masked); ``tile``: tile 1 of 3
+    extended by its halo, that tile's chunk-0 workset (padded slots masked,
+    starts relative to the block)."""
+    (o, p, sup), (amps, starts), common = operands(ds, dev, "sequential")
+    n, nl, k = ds.cfg.np_size, ds.cfg.n_large, ds.geom.num_leds
+    if block == "square":
+        perm, _, n_chunks = epry.chunk_schedule(k, 8, "strided")
+        sel = perm.reshape(n_chunks, 8)[0]
+        sel = np.where(sel < k, sel, -1)
+        row0 = 0
+    else:
+        idx, s = partition_leds_by_tile(ds.geom, nl, 3, 1, n, chunk_size=8)
+        sel, row0 = idx[0, 0, 1], s
+        o = o[:, s:2 * s + n].contiguous()
+        assert (sel < 0).any() and (sel >= 0).sum() > 1
+    live = torch.as_tensor(sel >= 0, device=dev)
+    pick = torch.as_tensor(np.where(sel >= 0, sel, 0), device=dev)
+    st = starts.view(-1, 2)[pick] - torch.tensor([row0, 0], dtype=torch.int32, device=dev)
+    st = st * live[:, None].to(torch.int32)
+    common = {k_: v for k_, v in common.items() if k_ not in ("n_large", "collect_metrics")}
+    return (o, p, sup, amps[pick] * live[:, None, None], st.reshape(-1).contiguous(),
+            live.to(torch.int32)), dict(common, n_rows=o.shape[1], n_cols=o.shape[2])
+
+
+@pytest.mark.parametrize("np_size", [16, 64, 100])
+@pytest.mark.parametrize("block", ["square", "tile"])
+@pytest.mark.parametrize("collect_metrics", [True, False])
+def test_k3_matches_plain(cuda, np_size, block, collect_metrics):
+    ds = synthetic_dataset(np_size=np_size, grid=5, seed=3)
+    args, kw = k3_operands(ds, cuda, block)
+    before = kernels.fused_chunk_increments.launches
+    kd, kv, km = kernels.fused_chunk_increments(*args, collect_metrics=collect_metrics, **kw)
+    torch.cuda.synchronize()
+    assert kernels.fused_chunk_increments.launches == before + 3
+    pd, pv, pm = kernels.fused_chunk_increments_plain(*args, collect_metrics=collect_metrics,
+                                                      **kw)
+    assert kd.shape == args[0].shape and kv.shape == args[1].shape
+    assert rel(kd, pd) < TOL_O
+    assert rel(kv, pv) < TOL_P
+    if collect_metrics:
+        np.testing.assert_allclose(km.cpu().numpy(), pm.cpu().numpy(), rtol=TOL_M)
+    else:
+        assert (km == 0).all() and (pm == 0).all()
+    outside = torch.as_tensor(pupil_support(ds.cfg), device=cuda) == 0
+    assert kv[:, outside].abs().max().item() == 0.0
+    assert kd[:, pd[0] == 0].abs().max().item() == 0.0     # nothing outside the valid windows
+    # A masked slot is never read: poison its frame and its start.
+    o, p, sup, amps, starts, valid = args
+    amps, starts = amps.clone(), starts.clone()
+    amps[valid == 0] = float("nan")
+    starts.view(-1, 2)[valid == 0] = 10 ** 6
+    jd, jv, jm = kernels.fused_chunk_increments(o, p, sup, amps, starts, valid,
+                                                collect_metrics=collect_metrics, **kw)
+    assert torch.equal(jd, kd) and torch.equal(jv, kv) and torch.equal(jm, km)
+
+
+@pytest.mark.parametrize("led,tile", [(4, 1), (2, 3), (1, 6)])
+def test_sharded_sweep_on_the_card_matches_k1(cuda, led, tile):
+    """All ranks share the one card; (1,6): tile height 8 below Np=16."""
+    ds = synthetic_dataset(np_size=16, grid=5, seed=5)
+    kw = dict(iterations=3, chunk_size=8, use_pallas=True)
+    single = epry.reconstruct(ds.images, ds.geom, ds.cfg, mode="batched", **kw)
+    mesh = make_mesh(led=led, tile=tile)
+    assert mesh.size == led * tile and all(d.type == "cuda" for row in mesh.devices for d in row)
+    before = kernels.fused_chunk_increments.launches
+    fn = reconstruct_led_sharded if tile == 1 else reconstruct_tile_sharded
+    got = fn(ds.images, ds.geom, ds.cfg, mesh=mesh, **kw)
+    assert kernels.fused_chunk_increments.launches == before + 3 * 3 * 3 * led * tile
+    scale = np.abs(single.obj_f_centered).max()
+    assert np.abs(got.obj_f_centered - single.obj_f_centered).max() / scale < TOL_O
+    assert np.abs(got.pupil - single.pupil).max() / np.abs(single.pupil).max() < TOL_P
+    np.testing.assert_allclose(got.metrics["update_norm"], single.metrics["update_norm"],
+                               rtol=TOL_M)
+    with pytest.raises(ValueError, match="use_pallas"):
+        fn(ds.images, ds.geom, ds.cfg, mesh=mesh, iterations=1, chunk_size=8)
+
+
+@pytest.mark.parametrize("led,tile", [(4, 1), (2, 2)])
+def test_a_sweep_over_several_cards_keeps_the_current_device(cuda, led, tile):
+    """One process drives ranks on every visible card; each kernel entry
+    point makes its rank's card current for its launches and gives the
+    caller's back, for PyTorch and for the CUDA runtime alike."""
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        pytest.skip("needs two CUDA devices: the ranks of one mesh on different cards")
+    ds = synthetic_dataset(np_size=16, grid=5, seed=5)
+    kw = dict(iterations=2, chunk_size=8, use_pallas=True)
+    mesh = make_mesh(led=led, tile=tile)
+    assert len({d.index for row in mesh.devices for d in row}) == min(n_cards, led * tile)
+    fn = reconstruct_led_sharded if tile == 1 else reconstruct_tile_sharded
+    for current in (0, n_cards - 1):
+        with torch.cuda.device(current):
+            got = fn(ds.images, ds.geom, ds.cfg, mesh=mesh, **kw)
+            assert torch.cuda.current_device() == current
+            # A launch on another card straight through the wrapper
+            # (current_device asks the CUDA runtime, not a cached value).
+            other = torch.device("cuda", (current + 1) % n_cards)
+            args, k3_kw = k3_operands(ds, other, "square")
+            kernels.fused_chunk_increments(*args, **k3_kw)
+            assert torch.cuda.current_device() == current
+    single = epry.reconstruct(ds.images, ds.geom, ds.cfg, mode="batched", **kw)
+    scale = np.abs(single.obj_f_centered).max()
+    assert np.abs(got.obj_f_centered - single.obj_f_centered).max() / scale < TOL_O
+    assert np.abs(got.pupil - single.pupil).max() / np.abs(single.pupil).max() < TOL_P
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3"])
 def test_kernels_refuse_an_np_whose_buffers_do_not_fit_a_block(cuda, kernel):
     """One LED's buffers live in one block's shared memory: Np 90 (mono) and
     100 (cellScope) fit, as the cases above show; Np 200 (dogStomach) is
@@ -141,11 +252,17 @@ def test_kernels_refuse_an_np_whose_buffers_do_not_fit_a_block(cuda, kernel):
     amps = torch.ones((1, 1, n, n), device=cuda)
     starts = torch.zeros(2, dtype=torch.int32, device=cuda)
     common = dict(np_size=n, n_large=nl, delta1=5.0, delta2=10.0, eps=1e-10)
-    before = (kernels.fused_epry_chunked.launches, kernels.fused_epry_sweep.launches)
+    wrappers = (kernels.fused_epry_chunked, kernels.fused_epry_sweep,
+                kernels.fused_chunk_increments)
+    before = [w.launches for w in wrappers]
+    one = torch.ones(1, dtype=torch.int32, device=cuda)
     with pytest.raises(RuntimeError, match="shared memory"):
         if kernel == "K1":
-            kernels.fused_epry_chunked(o, p, sup, amps, starts,
-                                       torch.ones(1, dtype=torch.int32, device=cuda), **common)
-        else:
+            kernels.fused_epry_chunked(o, p, sup, amps, starts, one, **common)
+        elif kernel == "K2":
             kernels.fused_epry_sweep(o, p, sup, amps[0], starts, **common)
-    assert (kernels.fused_epry_chunked.launches, kernels.fused_epry_sweep.launches) == before
+        else:
+            common.pop("n_large")
+            kernels.fused_chunk_increments(o, p, sup, amps[0], starts, one, n_rows=nl,
+                                           n_cols=nl, **common)
+    assert [w.launches for w in wrappers] == before

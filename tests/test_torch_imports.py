@@ -34,3 +34,15 @@ def test_scan_sees_the_forbidden_forms():
     src = "import jax.numpy as jnp\nfrom fpm_tpu.ops import fft\nimport ml_dtypes, os\n"
     assert imported_roots(src) == {"jax", "fpm_tpu", "ml_dtypes", "os"}
     assert len(FILES) > 15
+    for name in ("__init__", "mesh", "comm", "led_shard", "tile_shard"):
+        assert f"fpm_torch/parallel/{name}.py" in FILES
+
+
+def test_the_port_imports_and_builds_nothing():
+    """``import fpm_torch.parallel`` needs no nvcc, no triton and no GPU: a
+    kernel's library is built and loaded at its first launch, not at import."""
+    import fpm_torch.parallel
+    from fpm_torch.ops import build
+
+    assert callable(fpm_torch.parallel.reconstruct_tile_sharded)
+    assert build.library.cache_info().currsize == 0

@@ -1,8 +1,10 @@
-"""The plain PyTorch versions of kernels K1 and K2 (float32, on the CPU)
+"""The plain PyTorch versions of kernels K1, K2 and K3 (float32, on the CPU)
 against fpm_tpu's Pallas kernels run in interpret mode, with the cases and
 tolerances of tests/test_pallas.py: rel-max 1e-5 on the object spectrum,
 1e-4 on the pupil, metrics rtol 1e-4 (f32 against f32: the two differ in
-summation order only). The CUDA kernels themselves are held against these
+summation order only); K3, which the JAX package tests only through its
+sharded sweeps, at their limits (tests/test_sharding.py:114-117: 1e-5, 1e-4,
+metrics rtol 1e-3). The CUDA kernels themselves are held against these
 plain versions on the card (tests/test_torch_cuda.py, chip_smoke.py)."""
 
 import jax.numpy as jnp
@@ -13,7 +15,9 @@ import torch
 from fpm_torch.geometry import pupil_radius as t_pupil_radius
 from fpm_torch.models import epry as tepry
 from fpm_torch.ops import kernels as tk
+from fpm_torch.parallel.tile_shard import partition_leds_by_tile
 from fpm_tpu.data.simulate import synthetic_dataset
+from fpm_tpu.geometry import pupil_support
 from fpm_tpu.models.epry import EPRYOptions, _sorted_device_inputs
 from fpm_tpu.models.epry import reconstruct as jreconstruct
 from fpm_tpu.ops import pallas_kernels as jk
@@ -81,8 +85,6 @@ def test_wrappers_match_pallas_on_the_same_planes(mode):
     rng = np.random.default_rng(0)
     pupil = start.pupil * np.exp(0.3j * rng.standard_normal(start.pupil.shape))
     o_pl, p_pl = _planes_np(start.obj_f_centered), _planes_np(pupil)
-    from fpm_tpu.geometry import pupil_support
-
     sup = pupil_support(cfg).astype(np.float32)
     opts = EPRYOptions.from_config(cfg, dtype="complex64", mode=mode, chunk_size=8,
                                    use_pallas=True, dft_precision="highest")
@@ -131,3 +133,94 @@ def test_cpu_route_runs_the_plain_versions_and_counts_no_launch():
                             device="cpu")
     assert np.isfinite(got.obj_crop).all()
     assert (tk.fused_epry_sweep.launches, tk.fused_epry_chunked.launches) == before
+
+
+# ------------------------------------------------------------------ K3 alone
+
+
+def _k3_operands(ds, block):
+    """One chunk's operands from a state that is not the init (a spectrum
+    after one sweep, a pupil with phase). ``block='square'``: the whole
+    spectrum and one chunk of the chunk-8 schedule (one masked dummy);
+    ``'tile'``: tile 1 of 3 extended by its halo (rows 16..47: 32×48), that
+    tile's workset of chunk 0 (one -1 slot, masked), block-relative starts."""
+    cfg, n, nl = ds.cfg, ds.cfg.np_size, ds.cfg.n_large
+    start = jreconstruct(ds.images, ds.geom, cfg, iterations=1, dtype="complex64")
+    rng = np.random.default_rng(0)
+    pupil = start.pupil * np.exp(0.3j * rng.standard_normal(start.pupil.shape))
+    o_pl, p_pl = _planes_np(start.obj_f_centered), _planes_np(pupil)
+    sup = pupil_support(cfg).astype(np.float32)
+    order = ds.geom.schedule
+    amps_all = np.sqrt(np.asarray(ds.images, np.float64))[order].astype(np.float32)
+    starts_all = ds.geom.crop_start[order].astype(np.int32)
+    k = len(order)
+    if block == "square":
+        perm, mask, n_chunks = tepry.chunk_schedule(k, 8, "strided")
+        sel = perm.reshape(n_chunks, 8)[1]
+        valid = (sel < k).astype(np.int32)
+        sel = np.where(sel < k, sel, 0)
+        starts = starts_all[sel] * valid[:, None]
+    else:
+        idx, s = partition_leds_by_tile(ds.geom, nl, 3, 1, n, chunk_size=8)
+        sel = idx[0, 0, 1]
+        valid = (sel >= 0).astype(np.int32)
+        sel = np.where(sel >= 0, sel, 0)
+        starts = (starts_all[sel] - np.array([s, 0], np.int32)) * valid[:, None]
+        o_pl = o_pl[:, s:2 * s + n]
+        assert o_pl.shape == (2, 32, 48) and 1 < valid.sum() < valid.size
+        assert starts[:, 0].max() + n > s               # a patch reaches into the halo
+    amps = (amps_all[sel] * valid[:, None, None]).astype(np.float32)
+    return (o_pl, p_pl, sup, amps, starts.reshape(-1).astype(np.int32), valid), dict(
+        np_size=n, n_rows=o_pl.shape[1], n_cols=o_pl.shape[2], delta1=cfg.delta1,
+        delta2=cfg.delta2, eps=cfg.eps, pupil_radius=EPRYOptions.from_config(
+            cfg).pupil_radius)
+
+
+@pytest.mark.parametrize("block", ["square", "tile"])
+@pytest.mark.parametrize("collect_metrics", [True, False])
+def test_k3_plain_matches_pallas(block, collect_metrics):
+    """fused_chunk_increments_plain against fpm_tpu's fused_chunk_increments
+    (interpret mode) called directly on identical planes."""
+    ds = synthetic_dataset(np_size=16, grid=5, seed=5, aberrated_pupil=True)
+    args, kw = _k3_operands(ds, block)
+    rd, rv, rm = (np.asarray(x) for x in jk.fused_chunk_increments(
+        *(jnp.asarray(a) for a in args), interpret=True, dft_precision="highest",
+        collect_metrics=collect_metrics, **kw))
+    for fn in (tk.fused_chunk_increments_plain, tk.fused_chunk_increments):   # CPU: both plain
+        gd, gv, gm = (x.numpy() for x in fn(*(torch.tensor(a) for a in args),
+                                            collect_metrics=collect_metrics, **kw))
+        assert gd.shape == rd.shape and gv.shape == rv.shape and gd.dtype == np.float32
+        assert rel(gd, rd) < 1e-5
+        assert rel(gv, rv) < 1e-4
+        if collect_metrics:
+            np.testing.assert_allclose(gm, rm, rtol=1e-3)
+        else:
+            assert (gm == 0).all() and (rm == 0).all()
+        assert np.abs(gv[:, pupil_support(ds.cfg) == 0]).max() == 0.0
+
+
+def test_k3_masked_slots_add_nothing_and_d_is_zero_outside_the_windows():
+    ds = synthetic_dataset(np_size=16, grid=5, seed=5, aberrated_pupil=True)
+    args, kw = _k3_operands(ds, "tile")
+    o, p, sup, amps, starts, valid = (torch.tensor(a) for a in args)
+    d, v, m = tk.fused_chunk_increments(o, p, sup, amps, starts, valid, **kw)
+    live = valid > 0
+    junk_amps = amps.clone()
+    junk_amps[~live] = 7.0                       # a masked slot's frame is never read
+    d2, v2, m2 = tk.fused_chunk_increments(
+        o, p, sup, junk_amps, starts, valid, **kw)
+    assert torch.equal(d, d2) and torch.equal(v, v2) and torch.equal(m, m2)
+    d3, v3, m3 = tk.fused_chunk_increments(
+        o, p, sup, amps[live], starts.view(-1, 2)[live].reshape(-1), valid[live], **kw)
+    assert torch.equal(d, d3) and torch.equal(v, v3) and torch.equal(m, m3)
+    covered = torch.zeros(d.shape[1:], dtype=torch.bool)
+    b, lo = tk.bbox_extent(kw["np_size"], kw["pupil_radius"])
+    for y, x in starts.view(-1, 2)[live].tolist():
+        covered[y + lo:y + lo + b, x + lo:x + lo + b] = True
+    assert d[:, ~covered].abs().max() == 0 and d[:, covered].abs().max() > 0
+    before = tk.fused_chunk_increments.launches
+    with pytest.raises(ValueError, match="n_rows"):
+        tk.fused_chunk_increments(o, p, sup, amps, starts, valid, **dict(kw, n_rows=48))
+    with pytest.raises(ValueError, match="no kernel"):
+        tk.fused_chunk_increments(o.to("meta"), p, sup, amps, starts, valid, **kw)
+    assert tk.fused_chunk_increments.launches == before    # the CPU route counts no launch
