@@ -16,7 +16,11 @@ from ``--seed``) it runs, each phase printing one JSON line:
    against their plain PyTorch versions on the card, 2 sweeps from the same
    init state: rel-max |ΔO| ≤ 1e-5, rel-max |ΔP| ≤ 1e-4 (f32 against f32,
    differing only in summation order), metrics rtol 1e-4, and the kernels'
-   pupil exactly 0 outside the NA support. K3, one call each on the full
+   pupil exactly 0 outside the NA support. Every kernel runs one LED on a
+   thread-block cluster; each case runs at the cluster size the kernel's
+   entry point chooses and at forced sizes 1 (one block per LED) and 2
+   (blocks reading each other's shared memory), and K1 and K2 once more
+   from the same state: bitwise equal. K3, one call each on the full
    block (R=360, chunk 0 of the chunk-32 schedule, init state) and on the
    two halo-extended tile blocks of tile=2 (R=180+90=270, each tile's
    workset of chunk 0 with block-relative starts and its padded slots
@@ -39,8 +43,13 @@ from ``--seed``) it runs, each phase printing one JSON line:
    against the true object below 0.05, and a mesh run's ``metrics.jsonl``
    must record its mesh.
 5. ``timing``: per-sweep milliseconds of each kernel (through its wrapper),
-   of its plain version on the card, and of the eager ``torch.fft`` route
-   (``library_ms``); the launches of one sweep, counted by the wrapper; and
+   at the chosen cluster size and at forced sizes 1, 2, 4, 8, beside the
+   figures of the one-block-per-LED kernels it replaced (``previous``); of
+   its plain version on the card, and of the eager ``torch.fft`` route
+   (``library_ms``); device milliseconds by kernel name (``torch.profiler``)
+   and, for K2's one persistent launch, the share of each phase of an LED
+   (``k2_phase_profile``, the kernel's cycle-counting build); the launches
+   of one sweep, counted by the wrapper (K2: at most 2); and
    the least time the card could take (``bound_ms``: the work done as
    pruned FFTs plus its element-wise work, and its bytes, against the H100
    SXM peaks of 67 TFLOP/s FP32 and 3.35 TB/s; of the spectrum a K3 call
@@ -288,31 +297,54 @@ def main(argv=None) -> int:
     }
 
     # --------------------------------------------------- 2. kernel_vs_plain
+    # Each kernel at the cluster size its entry point chooses (forced = 0) and
+    # at forced sizes 1 (one block per LED) and 2 (the smallest cluster whose
+    # blocks read each other's shared memory), against one run of the plain
+    # version; then the chosen size once more from the same state: bitwise equal.
     outside = torch.as_tensor(pupil_support(cfg), device=dev) == 0
-    errs = {}
-    for name, (kern, plain, rest, extra) in cases.items():
-        state = {"kernel": (o_planes, p_planes), "plain": (o_planes, p_planes)}
-        mets = {"kernel": [], "plain": []}
+    errs, chosen_cs = {}, {}
+
+    def sweeps(fn, rest, extra):
+        state, mets = (o_planes, p_planes), []
         for _ in range(2):
-            for route, fn in (("kernel", kern), ("plain", plain)):
-                o, p, m = fn(*state[route], sup_r, *rest, **common, **extra)
-                state[route] = (o, p)
-                mets[route].append(m.tolist())
+            o, p, m = fn(*state, sup_r, *rest, **common, **extra)
+            state = (o, p)
+            mets.append(m.tolist())
         torch.cuda.synchronize()
-        (ok_, pk), (op_, pp_) = state["kernel"], state["plain"]
-        rel_o = ((ok_ - op_).abs().max() / op_.abs().max()).item()
-        rel_p = ((pk - pp_).abs().max() / pp_.abs().max()).item()
-        max_abs = max((ok_ - op_).abs().max().item(), (pk - pp_).abs().max().item())
-        mk, mp = np.array(mets["kernel"]), np.array(mets["plain"])
-        rel_m = float(np.max(np.abs(mk - mp) / np.abs(mp)))
-        leak = pk[:, outside].abs().max().item()
-        errs[name] = max_abs
-        emit({"phase": "kernel_vs_plain", "case": name, "sweeps": 2, "rel_err_o": rel_o,
-              "rel_err_p": rel_p, "max_abs_err": max_abs, "metrics_rel_err": rel_m,
-              "pupil_outside_support": leak,
-              "limits": {"rel_o": TOL_O, "rel_p": TOL_P, "metrics_rtol": TOL_METRICS}})
-        check(rel_o <= TOL_O and rel_p <= TOL_P and rel_m <= TOL_METRICS and leak == 0.0,
-              f"{name} disagrees with its plain version")
+        return state, np.array(mets)
+
+    for name, (kern, plain, rest, extra) in cases.items():
+        (op_, pp_), mp = sweeps(plain, rest, extra)
+        for forced in (0, 1, 2):
+            kern.force_cluster_size = forced
+            (ok_, pk), mk = sweeps(kern, rest, extra)
+            kern.force_cluster_size = 0
+            rel_o = ((ok_ - op_).abs().max() / op_.abs().max()).item()
+            rel_p = ((pk - pp_).abs().max() / pp_.abs().max()).item()
+            max_abs = max((ok_ - op_).abs().max().item(), (pk - pp_).abs().max().item())
+            rel_m = float(np.max(np.abs(mk - mp) / np.abs(mp)))
+            leak = pk[:, outside].abs().max().item()
+            errs[name] = max(errs.get(name, 0.0), max_abs)
+            if not forced:
+                chosen_cs[name] = kern.cluster_size
+                first = (ok_, pk, mk)
+            emit({"phase": "kernel_vs_plain", "case": name, "forced_cluster_size": forced,
+                  "cluster_size": kern.cluster_size, "sweeps": 2, "rel_err_o": rel_o,
+                  "rel_err_p": rel_p, "max_abs_err": max_abs, "metrics_rel_err": rel_m,
+                  "pupil_outside_support": leak,
+                  "limits": {"rel_o": TOL_O, "rel_p": TOL_P, "metrics_rtol": TOL_METRICS}})
+            check(kern.cluster_size == (forced or chosen_cs[name]),
+                  f"{name} ran at cluster size {kern.cluster_size}, forced {forced}")
+            check(rel_o <= TOL_O and rel_p <= TOL_P and rel_m <= TOL_METRICS and leak == 0.0,
+                  f"{name} (forced cluster size {forced}) disagrees with its plain version")
+        (ok_, pk), mk = sweeps(kern, rest, extra)
+        same = (torch.equal(ok_, first[0]) and torch.equal(pk, first[1])
+                and np.array_equal(mk, first[2]))
+        emit({"phase": "kernel_vs_plain", "case": name + ", repeated",
+              "cluster_size": kern.cluster_size, "sweeps": 2, "bitwise_equal": same})
+        check(same, f"{name}: two runs from the same state differ")
+    check(chosen_cs["K1"] > 1 and chosen_cs["K2 exact"] > 1,
+          f"one LED does not run on a cluster of several blocks: {chosen_cs}")
 
     # K3: one call per case. (d, v, mets) against the plain version; d exactly
     # 0 outside the valid windows; v exactly 0 outside the support.
@@ -344,30 +376,41 @@ def main(argv=None) -> int:
             ring[:, ti * tile_s:(ti + 1) * tile_s + n].contiguous(), p1_planes,
             amps[sel.clamp(min=0)] * live[:, None, None],
             starts_rel.to(torch.int32).reshape(-1).contiguous(), live.to(torch.int32))
+    k3 = kernels.fused_chunk_increments
     for name, (blk, pp, a_, st_, va_) in k3_cases.items():
         kw = dict(k3_common, n_rows=blk.shape[1], n_cols=blk.shape[2])
-        kd, kv, km = kernels.fused_chunk_increments(blk, pp, sup_r, a_, st_, va_, **kw)
-        torch.cuda.synchronize()
         pd, pv, pm = kernels.fused_chunk_increments_plain(blk, pp, sup_r, a_, st_, va_, **kw)
-        rel_d = ((kd - pd).abs().max() / pd.abs().max()).item()
-        rel_v = ((kv - pv).abs().max() / pv.abs().max()).item()
-        max_abs = max((kd - pd).abs().max().item(), (kv - pv).abs().max().item())
-        rel_m = ((km - pm).abs() / pm.abs()).max().item()
         covered = torch.zeros(blk.shape[1:], dtype=torch.bool, device=dev)
         for (y, x), ok in zip(st_.view(-1, 2).tolist(), va_.tolist()):
             if ok:
                 covered[y + lo:y + lo + b, x + lo:x + lo + b] = True
-        d_leak = kd[:, ~covered].abs().max().item()
-        v_leak = kv[:, outside].abs().max().item()
-        errs[name] = max_abs
-        emit({"phase": "kernel_vs_plain", "case": name, "block": list(blk.shape[1:]),
-              "slots": int(va_.numel()), "valid": int(va_.sum()), "rel_err_d": rel_d,
-              "rel_err_v": rel_v, "max_abs_err": max_abs, "metrics_rel_err": rel_m,
-              "d_outside_windows": d_leak, "v_outside_support": v_leak,
-              "limits": {"rel_d": TOL_O, "rel_v": TOL_P, "metrics_rtol": TOL_METRICS}})
-        check(rel_d <= TOL_O and rel_v <= TOL_P and rel_m <= TOL_METRICS
-              and d_leak == 0.0 and v_leak == 0.0 and kd.abs().max().item() > 0,
-              f"{name} disagrees with its plain version")
+        for forced in (0, 1, 2):
+            k3.force_cluster_size = forced
+            kd, kv, km = k3(blk, pp, sup_r, a_, st_, va_, **kw)
+            k3.force_cluster_size = 0
+            torch.cuda.synchronize()
+            rel_d = ((kd - pd).abs().max() / pd.abs().max()).item()
+            rel_v = ((kv - pv).abs().max() / pv.abs().max()).item()
+            max_abs = max((kd - pd).abs().max().item(), (kv - pv).abs().max().item())
+            rel_m = ((km - pm).abs() / pm.abs()).max().item()
+            d_leak = kd[:, ~covered].abs().max().item()
+            v_leak = kv[:, outside].abs().max().item()
+            errs[name] = max(errs.get(name, 0.0), max_abs)
+            if not forced:
+                chosen_cs[name] = k3.cluster_size
+            emit({"phase": "kernel_vs_plain", "case": name, "forced_cluster_size": forced,
+                  "cluster_size": k3.cluster_size, "block": list(blk.shape[1:]),
+                  "slots": int(va_.numel()), "valid": int(va_.sum()), "rel_err_d": rel_d,
+                  "rel_err_v": rel_v, "max_abs_err": max_abs, "metrics_rel_err": rel_m,
+                  "d_outside_windows": d_leak, "v_outside_support": v_leak,
+                  "limits": {"rel_d": TOL_O, "rel_v": TOL_P, "metrics_rtol": TOL_METRICS}})
+            check(k3.cluster_size == (forced or chosen_cs[name]),
+                  f"{name} ran at cluster size {k3.cluster_size}, forced {forced}")
+            check(rel_d <= TOL_O and rel_v <= TOL_P and rel_m <= TOL_METRICS
+                  and d_leak == 0.0 and v_leak == 0.0 and kd.abs().max().item() > 0,
+                  f"{name} (forced cluster size {forced}) disagrees with its plain version")
+    check(chosen_cs["K3 full block, rank of mesh (4,1)"] > 1,
+          f"K3 at 8 slots does not run one LED on several blocks: {chosen_cs}")
 
     # ------------------------------------------------- 3. sharded_vs_single
     mesh_shapes = ((4, 1), (2, 2), (1, 8))
@@ -479,6 +522,23 @@ def main(argv=None) -> int:
         "K2": lambda: epry.sweep_sequential(o0, p0, amps, starts, support=support_c,
                                             opts=opts),
     }
+    # The same figures from the one-block-per-LED kernels this design
+    # replaced, copied from PERF.md (NVIDIA H100 80GB HBM3, 700.00 W): a
+    # record of another run, printed on the timing lines only and marked as
+    # not measured here; the ``kernels`` line holds none of them.
+    previous = {
+        "K1": {"ms_per_sweep": 1.148, "launches_per_sweep": 21, "cluster_size": 1,
+               "device_ms_by_kernel": {"chunk_forward": 0.841, "k1_pupil": 0.161,
+                                       "k1_apply": 0.060}},
+        "K2": {"ms_per_sweep": 24.60, "launches_per_sweep": 194, "cluster_size": 1,
+               "device_ms_by_kernel": {"k2_step": 24.31, "k2_rowmax_init": 0.002}},
+        "K3": {"ms_per_call": 0.232, "device_ms_per_call": 0.1415, "launches_per_call": 3,
+               "cluster_size": 1,
+               "device_ms_by_kernel": {"chunk_forward": 0.116, "k3_sums": 0.0065,
+                                       "k3_gather": 0.0040}},
+    }
+    for record in previous.values():
+        record["source"] = "PERF.md, the one-block-per-LED kernels: not measured in this run"
     rows = []
     for key, name, src, replaces in (
             ("K1", "fused_epry_chunked", "fpm_torch/ops/csrc/epry_chunked.cu",
@@ -491,9 +551,15 @@ def main(argv=None) -> int:
 
         kern.launches = 0
         sweep()
-        per_sweep = kern.launches
+        per_sweep, cs = kern.launches, kern.cluster_size
+        check(key != "K2" or per_sweep <= 2, f"K2 made {per_sweep} launches in one sweep")
         ms = cuda_ms(sweep, 5)
         by_kernel = device_ms_by_kernel(sweep)
+        by_cs = {}
+        for forced in (1, 2, 4, 8):
+            kern.force_cluster_size = forced
+            by_cs[str(forced)] = cuda_ms(sweep, 3)
+            kern.force_cluster_size = 0
         plain_ms = cuda_ms(lambda: plain(o_planes, p_planes, sup_r, *rest, **common, **extra), 2)
         library_ms = cuda_ms(library[key], 2)
         nbytes, flops = sweep_work(k_leds, n, b, nl, n_slots if key == "K1" else k_leds,
@@ -502,14 +568,39 @@ def main(argv=None) -> int:
         err = errs["K1"] if key == "K1" else max(errs["K2 exact"], errs["K2 lazy"])
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                      "launches": launches["batched" if key == "K1" else "sequential"],
-                     "launches_per_sweep": per_sweep,
+                     "launches_per_sweep": per_sweep, "cluster_size": cs,
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms})
-        emit({"phase": "timing", "kernel": name, "ms_per_sweep": ms, "plain_ms": plain_ms,
+        emit({"phase": "timing", "kernel": name, "cluster_size": cs,
+              "blocks_per_forward_launch": cs * (amps_it.shape[1] if key == "K1" else 1),
+              "previous": previous[key], "ms_per_sweep": ms,
+              "ms_per_sweep_by_forced_cluster_size": by_cs, "plain_ms": plain_ms,
               "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
               "bytes": nbytes, "flops": flops, "launches_per_sweep": per_sweep,
               "led_frames_per_s": k_leds / ms * 1e3, "device_ms_by_kernel": by_kernel,
               "device_busy_share": sum(by_kernel.values()) / ms, "gpu": smi})
+
+    # Where K2's time goes inside its one persistent launch, which the
+    # profiler sees only whole: the profile build of the kernel counts the SM
+    # cycles of each phase of an LED on the cluster's first block.
+    k2, (_, _, k2_rest, k2_extra) = kernels.fused_epry_sweep, cases["K2 exact"]
+
+    def k2_profiled():
+        return kernels.k2_phase_profile(o_planes, p_planes, sup_r, *k2_rest, **common,
+                                        **k2_extra)
+
+    k2_profiled()                                       # built and warm
+    (po, pp, _), cycles = k2_profiled()
+    ko, kp, _ = k2(o_planes, p_planes, sup_r, *k2_rest, **common, **k2_extra)
+    check(torch.equal(po, ko) and torch.equal(pp, kp),
+          "K2's profile build gives another result than the plain build")
+    check(all(c > 0 for c in cycles.values()), f"a phase of K2 counted no cycle: {cycles}")
+    total = sum(cycles.values())
+    emit({"phase": "timing", "kernel": "fused_epry_sweep", "k2_phase_profile": {
+        "cluster_size": k2.cluster_size, "leds": k_leds, "cycles_per_led": total / k_leds,
+        "share_by_phase": {name: c / total for name, c in cycles.items()},
+        "cycles_per_led_by_phase": {name: c / k_leds for name, c in cycles.items()}},
+        "gpu": smi})
 
     # K3 as rank (0,0) of mesh (4,1) calls it: its slice (8 slots) of each of
     # the sweep's 7 chunks, on the whole 360×360 spectrum, init state.
@@ -528,10 +619,9 @@ def main(argv=None) -> int:
         for c in range(n_chunks):
             k3_call(fn, c)
 
-    k3 = kernels.fused_chunk_increments
     k3.launches = 0
     k3_sweep(k3)
-    per_sweep = k3.launches
+    per_sweep, cs = k3.launches, k3.cluster_size
     ms_call = cuda_ms(lambda: k3_call(k3, 0), 20)
     ms_sweep = cuda_ms(lambda: k3_sweep(k3), 5)
     by_kernel = device_ms_by_kernel(lambda: k3_call(k3, 0))
@@ -547,10 +637,13 @@ def main(argv=None) -> int:
                  "source": "fpm_torch/ops/csrc/epry_increments.cu",
                  "replaces": "fpm_tpu/ops/pallas_kernels.py:1006",
                  "launches": launches["mesh 4 1"], "launches_per_sweep": per_sweep,
+                 "cluster_size": cs,
                  "max_abs_err": max(v for k, v in errs.items() if k.startswith("K3")),
-                 "ms": ms_call, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                 "bound_by": bound_by, "library_ms": library_ms})
-    emit({"phase": "timing", "kernel": "fused_chunk_increments",
+                 "ms": ms_call, "device_ms": sum(by_kernel.values()), "plain_ms": plain_ms,
+                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms})
+    emit({"phase": "timing", "kernel": "fused_chunk_increments", "cluster_size": cs,
+          "blocks_per_forward_launch": cs * c_local, "previous": previous["K3"],
+          "device_ms_per_call": sum(by_kernel.values()),
           "as": "rank (0,0) of mesh (4,1): 8 slots per call on the 360x360 block",
           "ms_per_call": ms_call, "calls_per_sweep": n_chunks, "ms_per_sweep_of_calls": ms_sweep,
           "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,

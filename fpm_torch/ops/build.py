@@ -7,6 +7,10 @@ in parallel, one ``nvcc`` each. A library's file name carries a hash of the
 sources and flags, so an edited source rebuilds and a stale library is
 never loaded. Nothing is built or imported until a kernel is first
 launched: this module imports on machines without ``nvcc`` or a GPU.
+
+``profile_library(stem)`` builds a second variant with ``-DFPM_PROFILE``,
+whose K2 kernel counts SM cycles per phase of an LED (``csrc/epry_common.cuh``,
+``FPM_PHASES``); only measurements ask for it, no wrapper does.
 """
 
 from __future__ import annotations
@@ -33,23 +37,28 @@ def _nvcc() -> str:
                        "(nvcc on PATH or /usr/local/cuda/bin/nvcc)")
 
 
-def _lib_path(source: Path) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+PROFILE_FLAGS = ["-DFPM_PROFILE"]
+
+
+def _lib_path(source: Path, flags: list[str]) -> Path:
+    h = hashlib.sha256(" ".join(flags).encode())
     for f in sorted(CSRC.glob("*.cu*")):
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return BUILD_DIR / f"lib{source.stem}_{h.hexdigest()[:12]}.so"
 
 
-def build_all() -> dict[str, Path]:
-    """Compile every source whose library is missing; returns {stem: path}.
+def build_all(stems=None, profile: bool = False) -> dict[str, Path]:
+    """Compile every source (or those named in ``stems``) whose library is
+    missing; returns {stem: path}.
 
     ``nvcc``'s resource report (registers, shared memory, spills per kernel)
     is kept beside each library as ``<name>.log``. A failed build raises
     with the compiler's output.
     """
-    sources = sorted(CSRC.glob("*.cu"))
-    targets = {src.stem: _lib_path(src) for src in sources}
+    flags = NVCC_FLAGS + (PROFILE_FLAGS if profile else [])
+    sources = sorted(src for src in CSRC.glob("*.cu") if stems is None or src.stem in stems)
+    targets = {src.stem: _lib_path(src, flags) for src in sources}
     todo = [src for src in sources if not targets[src.stem].exists()]
     if todo:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -57,7 +66,7 @@ def build_all() -> dict[str, Path]:
         procs = []
         for src in todo:
             tmp = targets[src.stem].with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+            cmd = [nvcc, *flags, "-o", str(tmp), str(src)]
             procs.append((src, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
         failures = []
@@ -81,23 +90,44 @@ _IP = ctypes.POINTER(ctypes.c_int)
 
 # C signatures of the entry points (see the sources for the argument meaning).
 _SIGNATURES = {
-    "epry_chunked": {"fpm_k1_sweep": [_P] * 15 + [_I] * 6 + [_F] * 4 + [_I, _I, _P, _IP]},
-    "epry_sweep": {"fpm_k2_sweep": [_P] * 11 + [_I] * 5 + [_F] * 3 + [_I, _I, _I, _P, _IP]},
+    "epry_chunked": {"fpm_k1_sweep": [_P] * 15 + [_I] * 6 + [_F] * 4
+                     + [_I, _I, _P, _I, _IP, _IP]},
+    "epry_sweep": {"fpm_k2_sweep": [_P] * 11 + [_I] * 5 + [_F] * 3
+                   + [_I, _I, _I, _P, _I, _IP, _IP]},
     "epry_increments": {"fpm_k3_increments": [_P] * 16 + [_I] * 6 + [_F] * 3
-                        + [_I, _I, _P, _IP]},
+                        + [_I, _I, _P, _I, _IP, _IP]},
 }
 
 
-@functools.lru_cache(maxsize=None)
-def library(stem: str) -> ctypes.CDLL:
-    """The loaded library built from ``csrc/<stem>.cu`` (built on first use)."""
-    lib = ctypes.CDLL(str(build_all()[stem]))
+def _load(path: Path, stem: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES[stem].items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     lib.fpm_cuda_error_string.argtypes = [ctypes.c_int]
     lib.fpm_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def library(stem: str) -> ctypes.CDLL:
+    """The loaded library built from ``csrc/<stem>.cu`` (built on first use)."""
+    return _load(build_all()[stem], stem)
+
+
+@functools.lru_cache(maxsize=None)
+def profile_library(stem: str) -> ctypes.CDLL:
+    """The cycle-counting variant of ``csrc/<stem>.cu`` (built alone, on
+    first use): the same entry points, plus ``fpm_phase_count()``,
+    ``fpm_phase_name(i)`` and ``fpm_phase_read(out, reset)``."""
+    lib = _load(build_all((stem,), profile=True)[stem], stem)
+    lib.fpm_phase_count.argtypes = []
+    lib.fpm_phase_count.restype = ctypes.c_int
+    lib.fpm_phase_name.argtypes = [ctypes.c_int]
+    lib.fpm_phase_name.restype = ctypes.c_char_p
+    lib.fpm_phase_read.argtypes = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int]
+    lib.fpm_phase_read.restype = ctypes.c_int
     return lib
 
 

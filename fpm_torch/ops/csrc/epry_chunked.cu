@@ -8,19 +8,20 @@
 // and P += scale · Σ_j valid_j · num_j / max|O|.
 //
 // Per chunk, three launches on the caller's stream:
-//   chunk_forward  (epry_chunk.cuh) grid = C, one block per LED: the forward
-//               pass and the increments into scratch; masked dummies exit
-//               at once.
+//   chunk_forward  (epry_chunk.cuh) grid = C·cs, one cluster of cs blocks
+//               per LED: the forward pass and the increments into scratch;
+//               masked dummies exit at once.
 //   k1_apply    one thread per spectrum element: O += Σ_j valid_j·dO_j over
 //               the windows covering it, in LED order (gather_increments,
 //               epry_chunk.cuh), then a block max of |O|² and
 //               one atomicMax on its float bits (non-negative floats order
 //               as unsigned ints) into the chunk's max slot.
-//   k1_pupil    one block: the pupil consensus and the metric sums, in LED
-//               order.
-// Bound: FP32 operations in chunk_forward (see epry_common.cuh); the chunk's C
-// LEDs run on C SMs at once. k1_apply reads and writes the 1 MB spectrum
-// once per chunk.
+//   k1_pupil    one thread per bbox element: the pupil consensus, summed
+//               in LED order; the first block also sums the metrics.
+// Bound: FP32 operations in chunk_forward (see epry_common.cuh). The
+// chunk's C LEDs run at once on C·cs SMs, cs the largest cluster size with
+// which the chunk still fits one wave of the card (4 at chunk 32 on 132
+// SMs). k1_apply reads and writes the 1 MB spectrum once per chunk.
 
 #include "epry_chunk.cuh"
 
@@ -51,18 +52,19 @@ k1_apply(float* __restrict__ o_re, float* __restrict__ o_im, int nl,
   if (threadIdx.x == 0) atomicMax(omax_bits, __float_as_uint(m2));
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(256)
 k1_pupil(float* __restrict__ p_re, float* __restrict__ p_im, const int* __restrict__ valid,
          int c, int bb, const float2* __restrict__ num,
          const unsigned int* __restrict__ omax_bits, float scale,
          const float* __restrict__ parts, float* __restrict__ mets, int metrics) {
-  const float recip = 1.f / sqrtf(__uint_as_float(*omax_bits));
-  for (int e = threadIdx.x; e < bb; e += blockDim.x) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e < bb) {
+    const float recip = 1.f / sqrtf(__uint_as_float(*omax_bits));
     const float2 v = sum_valid(num, bb, e, valid, c);
     p_re[e] += scale * (v.x * recip);
     p_im[e] += scale * (v.y * recip);
   }
-  if (metrics && threadIdx.x == 0) {
+  if (metrics && e == 0) {
     const float2 m = sum_valid(reinterpret_cast<const float2*>(parts), 1, 0, valid, c);
     mets[0] += m.x;
     mets[1] += m.y;
@@ -81,15 +83,19 @@ k1_pupil(float* __restrict__ p_re, float* __restrict__ p_im, const int* __restri
 //   d_obj, num         scratch, (c, b, b) complex64 each
 //   parts  (c, 2) f32 scratch; omax_bits (n_chunks) u32, zeroed by the caller
 //   mets   (2) f32, accumulated into
+//   force_cs           tests only: the cluster size to take (0 = choose)
 //   launches           host int, incremented at each accepted launch
-// Returns a cudaError_t value (0 = every launch was accepted) or kErrLedSmem.
+//   cluster_size       host int, set to the cluster size chosen
+// Returns a cudaError_t value (0 = every launch was accepted), kErrLedSmem or
+// kErrCluster.
 extern "C" int fpm_k1_sweep(float* o, float* p, const float* sup, const float* amps,
                             const int* starts, const int* valid, const void* ai,
                             const void* bi, const void* af, const void* bf, void* d_obj,
                             void* num, float* parts, unsigned int* omax_bits, float* mets,
                             int n_chunks, int c, int n, int b, int lo, int nl, float eps,
                             float delta1, float delta2, float scale, int metrics,
-                            int device, void* stream, int* launches) {
+                            int device, void* stream, int force_cs, int* launches,
+                            int* cluster_size) {
   using namespace fpm;
   const DeviceGuard guard(device);
   cudaError_t err = guard.err;
@@ -97,8 +103,10 @@ extern "C" int fpm_k1_sweep(float* o, float* p, const float* sup, const float* a
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const DftMats m{static_cast<const float2*>(ai), static_cast<const float2*>(bi),
                   static_cast<const float2*>(af), static_cast<const float2*>(bf)};
-  size_t smem = 0;
-  if (const int e = set_led_smem(chunk_forward, n, b, device, &smem)) return e;
+  LedPlan plan;
+  if (const int e = plan_led(chunk_forward, n, b, c, 0, force_cs, device, &plan)) return e;
+  *cluster_size = plan.cs;
+  const ClusterLaunch forward(c, plan, st);
   const size_t plane = (size_t)nl * nl;
   const int bb = b * b;
   const int apply_blocks = (int)((plane + 255) / 256);
@@ -106,15 +114,15 @@ extern "C" int fpm_k1_sweep(float* o, float* p, const float* sup, const float* a
     const float* a_k = amps + (size_t)k * c * n * n;
     const int* s_k = starts + 2 * k * c;
     const int* v_k = valid + k * c;
-    chunk_forward<<<c, kThreads, smem, st>>>(o, o + plane, nl, nl, p, p + bb, sup, a_k, s_k, v_k,
-                                             m, n, b, lo, eps, delta1, delta2, metrics,
-                                             static_cast<float2*>(d_obj),
-                                             static_cast<float2*>(num), parts);
+    cudaLaunchKernelEx(&forward.cfg, chunk_forward, (const float*)o, (const float*)(o + plane),
+                       nl, nl, (const float*)p, (const float*)(p + bb), sup, a_k, s_k, v_k, m,
+                       n, b, lo, eps, delta1, delta2, metrics, static_cast<float2*>(d_obj),
+                       static_cast<float2*>(num), parts, plan);
     if ((err = count_launch(launches)) != cudaSuccess) return (int)err;
     k1_apply<<<apply_blocks, 256, 0, st>>>(o, o + plane, nl, s_k, v_k, c, n, b, lo,
                                            static_cast<const float2*>(d_obj), omax_bits + k);
     if ((err = count_launch(launches)) != cudaSuccess) return (int)err;
-    k1_pupil<<<1, kThreads, 0, st>>>(p, p + bb, v_k, c, bb, static_cast<const float2*>(num),
+    k1_pupil<<<(bb + 255) / 256, 256, 0, st>>>(p, p + bb, v_k, c, bb, static_cast<const float2*>(num),
                                      omax_bits + k, scale, parts, mets, metrics);
     if ((err = count_launch(launches)) != cudaSuccess) return (int)err;
   }

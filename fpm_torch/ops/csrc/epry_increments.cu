@@ -16,15 +16,17 @@
 //                       ``metrics``
 //
 // Three launches on the caller's stream:
-//   chunk_forward  (epry_chunk.cuh, shared with K1) grid = C, one block per
-//               LED into scratch; masked dummies exit at once.
+//   chunk_forward  (epry_chunk.cuh, shared with K1) grid = C·cs, one cluster
+//               of cs blocks per LED into scratch; masked dummies exit at
+//               once.
 //   k3_gather   one thread per block element: WRITES d = the sum over the
 //               windows covering it, in LED order, or 0 (gather_increments):
 //               every element is written, so d needs no memset, and the sum
 //               is deterministic with no atomics.
-//   k3_sums     one block: v and mets, in LED order.
+//   k3_sums     one thread per bbox element: v, summed in LED order; the
+//               first block also sums mets.
 // Bound: FP32 operations in chunk_forward (see epry_common.cuh) for the
-// rank's C_local LEDs on C_local SMs. k3_gather reads only the LEDs' scratch
+// rank's C_local LEDs on C_local·cs SMs (cs = 8 at 8 slots). k3_gather reads only the LEDs' scratch
 // but writes all of d, R·Ncols·8 bytes per call: most of the call's bytes.
 
 #include "epry_chunk.cuh"
@@ -45,16 +47,17 @@ k3_gather(float* __restrict__ d_re, float* __restrict__ d_im, int n_rows, int n_
   d_im[idx] = d.y;
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(256)
 k3_sums(float* __restrict__ v_re, float* __restrict__ v_im, const int* __restrict__ valid,
         int c, int bb, const float2* __restrict__ num, const float* __restrict__ parts,
         float* __restrict__ mets, int metrics) {
-  for (int e = threadIdx.x; e < bb; e += blockDim.x) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e < bb) {
     const float2 v = sum_valid(num, bb, e, valid, c);
     v_re[e] = v.x;
     v_im[e] = v.y;
   }
-  if (threadIdx.x == 0) {
+  if (e == 0) {
     float2 m = make_float2(0.f, 0.f);
     if (metrics) m = sum_valid(reinterpret_cast<const float2*>(parts), 1, 0, valid, c);
     mets[0] = m.x;
@@ -73,8 +76,11 @@ k3_sums(float* __restrict__ v_re, float* __restrict__ v_im, const int* __restric
 //   ai/bi/af/bf        complex64 DFT matrices (epry_common.cuh)
 //   d_obj, num         scratch, (c, b, b) complex64 each; parts (c, 2) f32 scratch
 //   d_out  (2, n_rows, n_cols) f32, v_out (2, b, b) f32, mets (2) f32: written whole
+//   force_cs           tests only: the cluster size to take (0 = choose)
 //   launches           host int, incremented at each accepted launch
-// Returns a cudaError_t value (0 = every launch was accepted) or kErrLedSmem.
+//   cluster_size       host int, set to the cluster size chosen
+// Returns a cudaError_t value (0 = every launch was accepted), kErrLedSmem or
+// kErrCluster.
 extern "C" int fpm_k3_increments(const float* o, const float* p, const float* sup,
                                  const float* amps, const int* starts, const int* valid,
                                  const void* ai, const void* bi, const void* af,
@@ -82,7 +88,7 @@ extern "C" int fpm_k3_increments(const float* o, const float* p, const float* su
                                  float* d_out, float* v_out, float* mets, int c, int n, int b,
                                  int lo, int n_rows, int n_cols, float eps, float delta1,
                                  float delta2, int metrics, int device, void* stream,
-                                 int* launches) {
+                                 int force_cs, int* launches, int* cluster_size) {
   using namespace fpm;
   const DeviceGuard guard(device);
   cudaError_t err = guard.err;
@@ -90,20 +96,21 @@ extern "C" int fpm_k3_increments(const float* o, const float* p, const float* su
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const DftMats m{static_cast<const float2*>(ai), static_cast<const float2*>(bi),
                   static_cast<const float2*>(af), static_cast<const float2*>(bf)};
-  size_t smem = 0;
-  if (const int e = set_led_smem(chunk_forward, n, b, device, &smem)) return e;
+  LedPlan plan;
+  if (const int e = plan_led(chunk_forward, n, b, c, 0, force_cs, device, &plan)) return e;
+  *cluster_size = plan.cs;
+  const ClusterLaunch forward(c, plan, st);
   const size_t plane = (size_t)n_rows * n_cols;
   const int bb = b * b;
-  chunk_forward<<<c, kThreads, smem, st>>>(o, o + plane, n_rows, n_cols, p, p + bb, sup, amps,
-                                           starts, valid, m, n, b, lo, eps, delta1, delta2,
-                                           metrics, static_cast<float2*>(d_obj),
-                                           static_cast<float2*>(num), parts);
+  cudaLaunchKernelEx(&forward.cfg, chunk_forward, o, o + plane, n_rows, n_cols, p, p + bb, sup,
+                     amps, starts, valid, m, n, b, lo, eps, delta1, delta2, metrics,
+                     static_cast<float2*>(d_obj), static_cast<float2*>(num), parts, plan);
   if ((err = count_launch(launches)) != cudaSuccess) return (int)err;
   k3_gather<<<(int)((plane + 255) / 256), 256, 0, st>>>(
       d_out, d_out + plane, n_rows, n_cols, starts, valid, c, n, b, lo,
       static_cast<const float2*>(d_obj));
   if ((err = count_launch(launches)) != cudaSuccess) return (int)err;
-  k3_sums<<<1, kThreads, 0, st>>>(v_out, v_out + bb, valid, c, bb,
+  k3_sums<<<(bb + 255) / 256, 256, 0, st>>>(v_out, v_out + bb, valid, c, bb,
                                   static_cast<const float2*>(num), parts, mets, metrics);
   if ((err = count_launch(launches)) != cudaSuccess) return (int)err;
   return 0;

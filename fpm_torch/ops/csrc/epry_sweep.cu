@@ -4,19 +4,36 @@
 // _sweep_kernel). Semantics of models.epry.sweep_sequential: LED k+1 starts
 // from the state LED k left, so the sweep is sequential by definition.
 //
-// Launches on the caller's stream: one k2_rowmax_init (one block per
-// spectrum row: the row maxima of |O|², the sweep-start cache), then K
-// launches of k2_step, one block each, in schedule order. A step runs the
-// forward pass (epry_common.cuh), adds dO into the window, and takes
-// max|O| over the UPDATED spectrum:
-//   global_max = exact: re-reduces the b rows the update touched into the
-//     row cache, then reduces the cache (NL values) — exact, since no other
-//     row changed;
-//   global_max = lazy: reduces the frozen sweep-start cache.
-// Then P += num / max|O| and the metrics accumulate.
-// Bound: FP32 operations of the forward pass on ONE SM of the card's 132 —
-// the sweep's data dependence allows one LED at a time, and this first
-// design gives each LED a single block.
+// Two launches on the caller's stream: k2_rowmax_init (one block per
+// spectrum row: the row maxima of |O|², the sweep-start cache), then
+// k2_sweep, ONE persistent cluster of cs blocks that walks the K LEDs in
+// schedule order. Per LED the cluster runs the forward pass on its row
+// slabs (epry_common.cuh); each block adds its slab of dO into the window
+// (led_increments) and takes max|O| over the UPDATED spectrum:
+//   global_max = exact: each block re-reduces the window rows it just
+//     wrote into the row cache; after a cluster barrier every block
+//     reduces the cache (NL values) to the same value (a max has no
+//     order) — exact, since no other row changed;
+//   global_max = lazy: the frozen sweep-start cache, reduced once.
+// Then each block steps its slab of P by num / max|O|, and a cluster
+// barrier ends the LED: with the forward pass's two, four cluster barriers
+// per LED in all.
+//
+// State between LEDs (O, P, the row cache) lives in device memory, written
+// by one block and read by its peers after the next cluster barrier, whose
+// release/acquire orders those accesses; the reads are ld.global.cg
+// (ld_state: from L2, never L1 or the non-coherent path) and none of the
+// three is const __restrict__ here. What the persistent kernel keeps on
+// chip instead is what does not change: each block's slices of the DFT
+// matrices, loaded into shared memory once per sweep; and the next LED's
+// frame slab, prefetched with cp.async into the second of two buffers
+// while this LED's products run (its start is read one LED ahead too).
+// The metric sums accumulate per block and are combined in rank order at
+// the end.
+//
+// Bound: FP32 operations of one LED's forward pass on cs SMs of the card's
+// 132 (cs = 8, the largest portable cluster) — the sweep's data dependence
+// allows one LED at a time — plus four cluster barriers per LED.
 
 #include "epry_common.cuh"
 
@@ -34,59 +51,118 @@ k2_rowmax_init(const float* __restrict__ o_re, const float* __restrict__ o_im, i
   if (threadIdx.x == 0) rowmax[blockIdx.x] = m;
 }
 
-__global__ void __launch_bounds__(kThreads)
-k2_step(float* o_re, float* o_im, int nl,
-        float* __restrict__ p_re, float* __restrict__ p_im, const float* __restrict__ sup,
-        const float* __restrict__ amps, const int* __restrict__ starts, int k, DftMats m,
-        int n, int b, int lo, float eps, float delta1, float delta2, int exact, int metrics,
-        float* rowmax, float* __restrict__ mets) {
-  extern __shared__ float4 smem_raw[];
-  const LedSmem s = carve_smem(smem_raw, n, b);
-  const int bb = b * b;
-  const int y0 = clamp_start(starts[2 * k], nl, n) + lo;
-  const int x0 = clamp_start(starts[2 * k + 1], nl, n) + lo;
-
-  const float pmax = pupil_abs_max(p_re, p_im, bb, s.red);
-  const float resid = led_forward(o_re, o_im, nl, y0, x0, p_re, p_im,
-                                  amps + (size_t)k * n * n, m, n, b, eps, metrics != 0, s);
-  // dO overwrites ``up`` in s.z element by element; the pupil numerator
-  // goes to s.t (free after the last product).
-  const float upd = led_increments(s, o_re, o_im, nl, y0, x0, b, p_re, p_im, sup, pmax,
-                                   delta1, delta2, metrics != 0, s.z, s.t);
-
-  for (int e = threadIdx.x; e < bb; e += blockDim.x) {
-    const int i = e / b, j = e - i * b;
-    const size_t g = (size_t)(y0 + i) * nl + (x0 + j);
-    o_re[g] += s.z[e].x;
-    o_im[g] += s.z[e].y;
+// Starts the copy of this block's rows of one frame into ``dst``, 16 bytes
+// at a time where both ends and the count allow; the caller waits for it
+// with cp_async_wait before the next block barrier.
+__device__ __forceinline__ void prefetch_frame(float* dst, const float* src, int count) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  const size_t g = __cvta_generic_to_global(src);
+  if (((g | d) & 15) == 0 && (count & 3) == 0) {
+    for (int e = 4 * threadIdx.x; e < count; e += 4 * blockDim.x)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d + 4 * e),
+                   "l"(g + 4 * (size_t)e));
+  } else {
+    for (int e = threadIdx.x; e < count; e += blockDim.x)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d + 4 * e),
+                   "l"(g + 4 * (size_t)e));
   }
-  __syncthreads();
+  asm volatile("cp.async.commit_group;\n" ::);
+}
 
-  if (exact) {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    for (int i = warp; i < b; i += blockDim.x >> 5) {
-      const size_t base = (size_t)(y0 + i) * nl;
-      float mr = 0.f;
-      for (int c = lane; c < nl; c += 32)
-        mr = fmaxf(mr, o_re[base + c] * o_re[base + c] + o_im[base + c] * o_im[base + c]);
-      for (int o = 16; o > 0; o >>= 1) mr = fmaxf(mr, __shfl_xor_sync(0xffffffffu, mr, o));
-      if (lane == 0) rowmax[y0 + i] = mr;
-    }
-    __syncthreads();
-  }
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// 1 / max|O| from the row cache; every thread of the block gets it.
+__device__ float recip_abs_max(const float* rowmax, int nl, float* red) {
   float m2 = 0.f;
-  for (int r = threadIdx.x; r < nl; r += blockDim.x) m2 = fmaxf(m2, rowmax[r]);
-  const float recip = 1.f / sqrtf(block_max(m2, s.red));
+  for (int r = threadIdx.x; r < nl; r += blockDim.x) m2 = fmaxf(m2, ld_state(rowmax + r));
+  return 1.f / sqrtf(block_max(m2, red));
+}
 
-  for (int e = threadIdx.x; e < bb; e += blockDim.x) {
-    const float2 v = s.t[e];
-    p_re[e] += v.x * recip;
-    p_im[e] += v.y * recip;
+__global__ void __launch_bounds__(kThreads)
+k2_sweep(float* o_re, float* o_im, int nl, float* p_re, float* p_im,
+         const float* __restrict__ sup, const float* __restrict__ amps,
+         const int* __restrict__ starts, int k_leds, DftMats m, int n, int b, int lo, float eps,
+         float delta1, float delta2, int exact, int metrics, float* rowmax,
+         float* __restrict__ mets, LedPlan plan) {
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ float4 smem_raw[];
+  const LedSmem s = carve_smem(smem_raw, m, n, b, plan, (int)cluster.block_rank());
+  const int frame_stride = frame_units(n, plan.nr);
+  const int slab_count = s.rows * n;           // this block's floats of a frame
+  const float* slab0 = amps + (size_t)s.row0 * n;
+  float2* num = s.t;                            // free after the fourth product
+
+  // Without room for the two buffers (plan.frames = 0) a frame is read in
+  // place from device memory.
+  const bool buffered = plan.frames == 2;
+  if (buffered) prefetch_frame(s.frame, slab0, slab_count);
+  float recip = exact ? 0.f : recip_abs_max(rowmax, nl, s.red);
+  float resid_sum = 0.f, upd_sum = 0.f;
+  int y_next = starts[0], x_next = starts[1];
+  FPM_PHASE_START();
+  for (int k = 0; k < k_leds; ++k) {
+    const int y0 = clamp_start(y_next, nl, n) + lo;
+    const int x0 = clamp_start(x_next, nl, n) + lo;
+    const float* amp = buffered ? s.frame + (k & 1) * frame_stride
+                                : slab0 + (size_t)k * n * n;
+    cp_async_wait();
+    __syncthreads();                            // frame k is in shared memory
+    if (k + 1 < k_leds) {
+      y_next = starts[2 * k + 2];
+      x_next = starts[2 * k + 3];
+      if (buffered)
+        prefetch_frame(s.frame + ((k + 1) & 1) * frame_stride,
+                       slab0 + (size_t)(k + 1) * n * n, slab_count);
+    }
+    FPM_PHASE(kPhaseFrameWait);
+    float pmax;
+    resid_sum += led_forward(o_re, o_im, nl, y0, x0, p_re, p_im, amp, n, b, eps, metrics != 0,
+                             s, &pmax);
+    upd_sum += led_increments(s, o_re, o_im, nl, y0, x0, b, p_re, p_im, sup, pmax, delta1,
+                              delta2, metrics != 0, nullptr, num, o_re, o_im);
+    FPM_PHASE_SYNC(kPhaseIncrements);
+    if (exact) {
+      __syncthreads();                          // this block wrote all of these rows' updates
+      const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+      for (int i = warp; i < s.brows; i += blockDim.x >> 5) {
+        const size_t base = (size_t)(y0 + s.brow0 + i) * nl;
+        float mr = 0.f;
+#pragma unroll 4
+        for (int c = lane; c < nl; c += 32) {
+          const float re = ld_state(o_re + base + c), im = ld_state(o_im + base + c);
+          mr = fmaxf(mr, re * re + im * im);
+        }
+        for (int o = 16; o > 0; o >>= 1) mr = fmaxf(mr, __shfl_xor_sync(0xffffffffu, mr, o));
+        if (lane == 0) rowmax[y0 + s.brow0 + i] = mr;
+      }
+    }
+    FPM_PHASE_SYNC(kPhaseRowMax);
+    cluster.sync();   // O and the row cache are updated; every slab of V has been read
+    FPM_PHASE(kPhaseBarrier3);
+    if (exact) recip = recip_abs_max(rowmax, nl, s.red);
+    FPM_PHASE(kPhaseMaxReduce);
+    for (int l = threadIdx.x; l < s.brows * b; l += blockDim.x) {
+      const int e = s.brow0 * b + l;
+      p_re[e] = ld_state(p_re + e) + num[l].x * recip;
+      p_im[e] = ld_state(p_im + e) + num[l].y * recip;
+    }
+    FPM_PHASE_SYNC(kPhasePupilStep);
+    cluster.sync();   // P is updated: the next LED may start
+    FPM_PHASE(kPhaseBarrier4);
   }
-  if (metrics && threadIdx.x == 0) {
-    mets[0] += resid;
-    mets[1] += upd;
+  if (!metrics) return;
+  if (threadIdx.x == 0) {
+    s.share[0] = resid_sum;
+    s.share[1] = upd_sum;
   }
+  cluster.sync();
+  if (s.rank == 0 && threadIdx.x == 0) {
+    mets[0] += cluster_share_sum(s, 0);
+    mets[1] += cluster_share_sum(s, 1);
+  }
+  cluster.sync();     // no block exits while the first still reads its share
 }
 
 }  // namespace fpm
@@ -98,13 +174,17 @@ k2_step(float* o_re, float* o_im, int nl,
 //   amps   (k_leds, n, n) f32, schedule order; starts (2·k_leds) int32
 //   ai/bi/af/bf        complex64 DFT matrices (epry_common.cuh)
 //   rowmax (nl) f32 scratch; mets (2) f32, accumulated into
+//   force_cs           tests only: the cluster size to take (0 = choose)
 //   launches           host int, incremented at each accepted launch
-// Returns a cudaError_t value (0 = every launch was accepted) or kErrLedSmem.
+//   cluster_size       host int, set to the cluster size chosen
+// Returns a cudaError_t value (0 = every launch was accepted), kErrLedSmem or
+// kErrCluster.
 extern "C" int fpm_k2_sweep(float* o, float* p, const float* sup, const float* amps,
                             const int* starts, const void* ai, const void* bi, const void* af,
                             const void* bf, float* rowmax, float* mets, int k_leds, int n,
                             int b, int lo, int nl, float eps, float delta1, float delta2,
-                            int exact, int metrics, int device, void* stream, int* launches) {
+                            int exact, int metrics, int device, void* stream, int force_cs,
+                            int* launches, int* cluster_size) {
   using namespace fpm;
   const DeviceGuard guard(device);
   cudaError_t err = guard.err;
@@ -112,16 +192,43 @@ extern "C" int fpm_k2_sweep(float* o, float* p, const float* sup, const float* a
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const DftMats m{static_cast<const float2*>(ai), static_cast<const float2*>(bi),
                   static_cast<const float2*>(af), static_cast<const float2*>(bf)};
-  size_t smem = 0;
-  if (const int e = set_led_smem(k2_step, n, b, device, &smem)) return e;
+  LedPlan plan;
+  if (const int e = plan_led(k2_sweep, n, b, 1, 2, force_cs, device, &plan)) return e;
+  *cluster_size = plan.cs;
   const size_t plane = (size_t)nl * nl;
   const int bb = b * b;
   k2_rowmax_init<<<nl, 256, 0, st>>>(o, o + plane, nl, rowmax);
   if ((err = count_launch(launches)) != cudaSuccess) return (int)err;
-  for (int k = 0; k < k_leds; ++k) {
-    k2_step<<<1, kThreads, smem, st>>>(o, o + plane, nl, p, p + bb, sup, amps, starts, k, m, n,
-                                       b, lo, eps, delta1, delta2, exact, metrics, rowmax, mets);
-    if ((err = count_launch(launches)) != cudaSuccess) return (int)err;
-  }
+  if (k_leds < 1) return 0;
+  const ClusterLaunch sweep(1, plan, st);
+  cudaLaunchKernelEx(&sweep.cfg, k2_sweep, o, o + plane, nl, p, p + bb, sup, amps, starts,
+                     k_leds, m, n, b, lo, eps, delta1, delta2, exact, metrics, rowmax, mets,
+                     plan);
+  if ((err = count_launch(launches)) != cudaSuccess) return (int)err;
   return 0;
 }
+
+#ifdef FPM_PROFILE
+extern "C" int fpm_phase_count() { return fpm::kPhases; }
+
+// The name of phase ``i`` of an LED (FPM_PHASES), or null.
+extern "C" const char* fpm_phase_name(int i) {
+  static const char* const names[] = {
+#define FPM_PHASE_NAME(id, name) name,
+      FPM_PHASES(FPM_PHASE_NAME)
+#undef FPM_PHASE_NAME
+  };
+  return i >= 0 && i < fpm::kPhases ? names[i] : nullptr;
+}
+
+// The cycles per phase summed since the last call with ``reset``; waits for
+// the device first. ``out`` holds fpm_phase_count() values.
+extern "C" int fpm_phase_read(long long* out, int reset) {
+  const long long zeros[fpm::kPhases] = {0};
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(out, fpm::fpm_phase_cycles, sizeof(zeros));
+  if (err == cudaSuccess && reset)
+    err = cudaMemcpyToSymbol(fpm::fpm_phase_cycles, zeros, sizeof(zeros));
+  return (int)err;
+}
+#endif

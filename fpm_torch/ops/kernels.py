@@ -28,12 +28,16 @@ the box).
 Dispatch: a wrapper launches its CUDA kernel for CUDA tensors and runs its
 plain PyTorch version (``*_plain``, same function, same operands) for CPU
 tensors; nothing falls back. Each wrapper adds to ``<wrapper>.launches``
-the launches its C entry point counted, one per kernel launch accepted.
+the launches its C entry point counted, one per kernel launch accepted, and
+leaves in ``<wrapper>.cluster_size`` the cluster size that entry point
+chose. ``<wrapper>.force_cluster_size`` (tests only; 0 = let the entry point
+choose) makes it take 1, 2, 4 or 8 blocks per LED, or raise.
 
 What bounds the kernels on an H100, and what the design does about it: see
 ``csrc/epry_common.cuh`` (FP32 operations of four small complex DFT
-products per LED, all intermediates of one LED held in one block's shared
-memory).
+products per LED; one LED runs on a thread-block cluster, each block
+holding a slab of the image plane's rows in its shared memory, so the
+kernels need a card of compute capability 9.0).
 """
 
 from __future__ import annotations
@@ -161,6 +165,15 @@ def _forward(oc, p, amp, mats, eps):
     return img, af @ rep @ bf
 
 
+def slab_bounds(n: int, cs: int) -> list[tuple[int, int]]:
+    """The [start, stop) rows of the ``cs`` slabs that a cluster of ``cs``
+    blocks cuts ``n`` rows into (``carve_smem`` in csrc/epry_common.cuh
+    follows the same rule): ceil(n/cs) rows each, the last may be short, or
+    empty."""
+    per = -(-n // cs)
+    return [(min(r * per, n), min((r + 1) * per, n)) for r in range(cs)]
+
+
 def _object_weight(p, delta2):
     """|P|·conj(P) / (max|P| · (|P|² + delta2))."""
     pabs2 = p.real * p.real + p.imag * p.imag
@@ -261,7 +274,8 @@ def _check_cuda_operands(o, pc, sc, amps, starts, *, n_slots, valid=None, square
     """Raise on anything the kernels do not take: device, dtype and shapes
     (``square``: the spectrum is the whole NL×NL one, not a block of it).
     (Patch starts need no check: the kernels clamp them. An Np too large for
-    one block's shared memory is refused by the kernels' entry points.)"""
+    a block's shared memory at every cluster size is refused by the kernels'
+    entry points.)"""
     dev, n, b = o.device, amps.shape[-1], pc.shape[-1]
     operands = [("o_planes", o, torch.float32), ("pupil", pc, torch.float32),
                 ("support", sc, torch.float32), ("amps", amps, torch.float32),
@@ -286,23 +300,27 @@ def _check_cuda_operands(o, pc, sc, amps, starts, *, n_slots, valid=None, square
 
 
 def _sweep_cuda(o, pc, sc, amps, starts, *, lo, eps, delta1, delta2, global_max,
-                collect_metrics):
+                collect_metrics, lib=None):
+    """``lib``: another build of csrc/epry_sweep.cu than the one
+    ``build.library`` hands out (:func:`k2_phase_profile` passes its own)."""
     n, b, nl, k = amps.shape[-1], pc.shape[-1], o.shape[-1], amps.shape[0]
     _check_cuda_operands(o, pc, sc, amps, starts, n_slots=k)
-    lib = build.library("epry_sweep")
+    lib = lib or build.library("epry_sweep")
     o, pc = o.contiguous().clone(), pc.contiguous().clone()
     sc, amps, starts = sc.contiguous(), amps.contiguous(), starts.contiguous()
     mats = _dft_mats(n, b, lo, o.device)
     rowmax = torch.empty(nl, dtype=torch.float32, device=o.device)
     mets = torch.zeros(2, dtype=torch.float32, device=o.device)
-    launched = ctypes.c_int(0)
+    launched, cluster = ctypes.c_int(0), ctypes.c_int(0)
     err = lib.fpm_k2_sweep(
         o.data_ptr(), pc.data_ptr(), sc.data_ptr(), amps.data_ptr(), starts.data_ptr(),
         *(m.data_ptr() for m in mats), rowmax.data_ptr(), mets.data_ptr(),
         k, n, b, lo, nl, eps, delta1, delta2,
         int(global_max == "exact"), int(collect_metrics), o.device.index,
-        torch.cuda.current_stream(o.device).cuda_stream, ctypes.byref(launched))
+        torch.cuda.current_stream(o.device).cuda_stream,
+        fused_epry_sweep.force_cluster_size, ctypes.byref(launched), ctypes.byref(cluster))
     fused_epry_sweep.launches += launched.value
+    fused_epry_sweep.cluster_size = cluster.value
     build.check(lib, err, "K2 fused_epry_sweep")
     return o, pc, mets
 
@@ -323,15 +341,17 @@ def _chunked_cuda(o, pc, sc, amps, starts, valid, *, lo, eps, delta1, delta2,
     parts = torch.empty((c, 2), dtype=torch.float32, device=dev)
     omax_bits = torch.zeros(n_chunks, dtype=torch.int32, device=dev)
     mets = torch.zeros(2, dtype=torch.float32, device=dev)
-    launched = ctypes.c_int(0)
+    launched, cluster = ctypes.c_int(0), ctypes.c_int(0)
     err = lib.fpm_k1_sweep(
         o.data_ptr(), pc.data_ptr(), sc.data_ptr(), amps.data_ptr(), starts.data_ptr(),
         valid.data_ptr(), *(m.data_ptr() for m in mats), d_obj.data_ptr(),
         num.data_ptr(), parts.data_ptr(), omax_bits.data_ptr(), mets.data_ptr(),
         n_chunks, c, n, b, lo, nl, eps, delta1, delta2, pupil_step_scale,
         int(collect_metrics), dev.index, torch.cuda.current_stream(dev).cuda_stream,
-        ctypes.byref(launched))
+        fused_epry_chunked.force_cluster_size, ctypes.byref(launched),
+        ctypes.byref(cluster))
     fused_epry_chunked.launches += launched.value
+    fused_epry_chunked.cluster_size = cluster.value
     build.check(lib, err, "K1 fused_epry_chunked")
     return o, pc, mets
 
@@ -350,14 +370,17 @@ def _increments_cuda(o, pc, sc, amps, starts, valid, *, lo, eps, delta1, delta2,
     parts = torch.empty((c, 2), dtype=torch.float32, device=dev)
     d_out, v_out = torch.empty_like(o), torch.empty_like(pc)
     mets = torch.empty(2, dtype=torch.float32, device=dev)
-    launched = ctypes.c_int(0)
+    launched, cluster = ctypes.c_int(0), ctypes.c_int(0)
     err = lib.fpm_k3_increments(
         o.data_ptr(), pc.data_ptr(), sc.data_ptr(), amps.data_ptr(), starts.data_ptr(),
         valid.data_ptr(), *(m.data_ptr() for m in mats), d_obj.data_ptr(), num.data_ptr(),
         parts.data_ptr(), d_out.data_ptr(), v_out.data_ptr(), mets.data_ptr(),
         c, n, b, lo, o.shape[1], o.shape[2], eps, delta1, delta2, int(collect_metrics),
-        dev.index, torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(launched))
+        dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        fused_chunk_increments.force_cluster_size, ctypes.byref(launched),
+        ctypes.byref(cluster))
     fused_chunk_increments.launches += launched.value
+    fused_chunk_increments.cluster_size = cluster.value
     build.check(lib, err, "K3 fused_chunk_increments")
     return d_out, v_out, mets
 
@@ -420,6 +443,27 @@ def fused_epry_sweep_plain(o_planes, p_planes, support, amps, starts_flat, *, np
     return _run(_sweep_core_plain, o_planes, p_planes, support, amps, starts_flat,
                 np_size=np_size, pupil_radius=pupil_radius, eps=eps, delta1=delta1,
                 delta2=delta2, global_max=global_max, collect_metrics=collect_metrics)
+
+
+def k2_phase_profile(o_planes, p_planes, support, amps, starts_flat, *, np_size, n_large,
+                     delta1, delta2, eps, pupil_radius=0, global_max="exact",
+                     collect_metrics=False):
+    """A measurement aid: one :func:`fused_epry_sweep` on the card through
+    the cycle-counting build of K2 (``build.profile_library``; the wrapper
+    itself never loads it). Returns the sweep's ``(o_planes, p_planes,
+    mets)``, bitwise those of the wrapper, and ``{phase: SM cycles}`` that
+    the cluster's first block spent in each phase of an LED, summed over the
+    sweep, under the names the library gives its phases. Waits for the card."""
+    _check_global_max(global_max)
+    lib = build.profile_library("epry_sweep")
+    cycles = (ctypes.c_longlong * lib.fpm_phase_count())()
+    build.check(lib, lib.fpm_phase_read(cycles, 1), "K2 phase profile")     # counts to 0
+    out = _run(functools.partial(_sweep_cuda, lib=lib), o_planes, p_planes, support, amps,
+               starts_flat, np_size=np_size, pupil_radius=pupil_radius, eps=eps,
+               delta1=delta1, delta2=delta2, global_max=global_max,
+               collect_metrics=collect_metrics)
+    build.check(lib, lib.fpm_phase_read(cycles, 1), "K2 phase profile")
+    return out, {lib.fpm_phase_name(i).decode(): int(c) for i, c in enumerate(cycles)}
 
 
 def fused_epry_chunked(o_planes, p_planes, support, amps, starts_flat, valid, *,
@@ -487,6 +531,7 @@ def fused_chunk_increments_plain(o_planes, p_planes, support, amps, starts_flat,
                 delta2=delta2, collect_metrics=collect_metrics)
 
 
-fused_epry_sweep.launches = 0
-fused_epry_chunked.launches = 0
-fused_chunk_increments.launches = 0
+for _wrapper in (fused_epry_sweep, fused_epry_chunked, fused_chunk_increments):
+    _wrapper.launches = 0
+    _wrapper.cluster_size = 0          # as chosen by the last launch
+    _wrapper.force_cluster_size = 0    # tests only

@@ -8,7 +8,10 @@ JAX nor fpm_tpu, so it also runs where JAX is not installed:
 (``--noconftest`` skips tests/conftest.py, which configures JAX.)
 Tolerances: rel-max 1e-5 on the object spectrum, 1e-4 on the pupil,
 metrics rtol 1e-4 — float32 against float32, differing only in summation
-order.
+order. The kernels run one LED on a thread-block cluster (compute
+capability 9.0); the cases with a forced cluster size hold the one-block
+path (1) and the distributed-shared-memory path (2, 4, 8) whatever size
+the entry points would choose.
 """
 
 import numpy as np
@@ -30,6 +33,20 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel is compared with its plain version there")
     return torch.device("cuda")
+
+
+@pytest.fixture
+def force_cluster():
+    """Sets a wrapper's test-only cluster size, and takes it back."""
+    touched = []
+
+    def force(wrapper, cs):
+        touched.append(wrapper)
+        wrapper.force_cluster_size = cs
+
+    yield force
+    for wrapper in touched:
+        wrapper.force_cluster_size = 0
 
 
 def rel(a, b):
@@ -81,7 +98,8 @@ def test_k2_matches_plain(cuda, np_size, global_max):
     before = kernels.fused_epry_sweep.launches
     kp = assert_kernel_matches_plain(kernels.fused_epry_sweep, kernels.fused_epry_sweep_plain,
                                      planes, rest, common, global_max=global_max)
-    assert kernels.fused_epry_sweep.launches == before + 2 * (1 + ds.geom.num_leds)
+    assert kernels.fused_epry_sweep.launches == before + 2 * 2    # row-max init + the sweep
+    assert kernels.fused_epry_sweep.cluster_size in (1, 2, 4, 8)
     outside = torch.as_tensor(pupil_support(ds.cfg), device=cuda) == 0
     assert kp[:, outside].abs().max().item() == 0.0
 
@@ -95,6 +113,68 @@ def test_k1_matches_plain(cuda, np_size, chunk):
                                 planes, rest, common)
     n_chunks = rest[0].shape[0]
     assert kernels.fused_epry_chunked.launches == before + 2 * 3 * n_chunks
+
+
+@pytest.mark.parametrize("np_size", [16, 64, 90, 100])
+@pytest.mark.parametrize("cs", [1, 2, 4, 8])
+def test_k2_matches_plain_at_a_forced_cluster_size(cuda, force_cluster, np_size, cs):
+    ds = synthetic_dataset(np_size=np_size, grid=5, seed=3)
+    planes, rest, common = operands(ds, cuda, "sequential")
+    force_cluster(kernels.fused_epry_sweep, cs)
+    assert_kernel_matches_plain(kernels.fused_epry_sweep, kernels.fused_epry_sweep_plain,
+                                planes, rest, common)
+    assert kernels.fused_epry_sweep.cluster_size == cs
+
+
+@pytest.mark.parametrize("np_size", [16, 64, 90, 100])
+@pytest.mark.parametrize("cs", [1, 2, 4, 8])
+def test_k1_matches_plain_at_a_forced_cluster_size(cuda, force_cluster, np_size, cs):
+    ds = synthetic_dataset(np_size=np_size, grid=5, seed=3)
+    planes, rest, common = operands(ds, cuda, "batched", 7)
+    force_cluster(kernels.fused_epry_chunked, cs)
+    assert_kernel_matches_plain(kernels.fused_epry_chunked, kernels.fused_epry_chunked_plain,
+                                planes, rest, common)
+    assert kernels.fused_epry_chunked.cluster_size == cs
+
+
+@pytest.mark.parametrize("kernel,mode,chunk", [("K2", "sequential", 0), ("K1", "batched", 7)])
+def test_a_repeated_sweep_is_bitwise_equal(cuda, kernel, mode, chunk):
+    """Every sum has one fixed order (each element of each product is one
+    thread's sum over the whole contraction in index order, whatever the
+    cluster size; the chunk's increments are added in LED order)."""
+    ds = synthetic_dataset(np_size=64, grid=5, seed=3)
+    planes, rest, common = operands(ds, cuda, mode, chunk)
+    fn = kernels.fused_epry_sweep if kernel == "K2" else kernels.fused_epry_chunked
+    first = two_sweeps(fn, planes, rest, common)
+    again = two_sweeps(fn, planes, rest, common)
+    assert fn.cluster_size > 1
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+def test_k2_profile_build_counts_every_phase_and_changes_no_result(cuda):
+    """The cycle-counting build of K2 (a measurement aid the wrapper never
+    loads) computes the same sweep, bit for bit, and every phase of an LED
+    gets cycles, anew in each run."""
+    ds = synthetic_dataset(np_size=64, grid=5, seed=3)
+    (o, p, sup), rest, common = operands(ds, cuda, "sequential")
+    plain_build = kernels.fused_epry_sweep(o, p, sup, *rest, **common)
+    _, first = kernels.k2_phase_profile(o, p, sup, *rest, **common)
+    profiled, cycles = kernels.k2_phase_profile(o, p, sup, *rest, **common)
+    for a, b in zip(plain_build, profiled):
+        assert torch.equal(a, b)
+    assert len(cycles) == 17 and all(c > 0 for c in cycles.values())
+    assert list(cycles) == list(first) and sum(cycles.values()) < 2 * sum(first.values())
+
+
+def test_a_cluster_size_that_is_no_power_of_two_up_to_8_is_refused(cuda, force_cluster):
+    ds = synthetic_dataset(np_size=16, grid=5, seed=3)
+    (o, p, sup), rest, common = operands(ds, cuda, "sequential")
+    force_cluster(kernels.fused_epry_sweep, 3)
+    before = kernels.fused_epry_sweep.launches
+    with pytest.raises(RuntimeError, match="K2"):
+        kernels.fused_epry_sweep(o, p, sup, *rest, **common)
+    assert kernels.fused_epry_sweep.launches == before
 
 
 @pytest.mark.parametrize("kw", [dict(), dict(mode="batched", chunk_size=8)])
@@ -191,6 +271,26 @@ def test_k3_matches_plain(cuda, np_size, block, collect_metrics):
     assert torch.equal(jd, kd) and torch.equal(jv, kv) and torch.equal(jm, km)
 
 
+@pytest.mark.parametrize("cs", [1, 2, 8])
+def test_k3_masked_slots_are_never_read_at_a_forced_cluster_size(cuda, force_cluster, cs):
+    """A masked slot's whole cluster leaves before its first barrier: with
+    its frame and start poisoned the call neither hangs nor changes."""
+    ds = synthetic_dataset(np_size=64, grid=5, seed=3)
+    (o, p, sup, amps, starts, valid), kw = k3_operands(ds, cuda, "tile")
+    force_cluster(kernels.fused_chunk_increments, cs)
+    kd, kv, km = kernels.fused_chunk_increments(o, p, sup, amps, starts, valid, **kw)
+    assert kernels.fused_chunk_increments.cluster_size == cs
+    pd, pv, pm = kernels.fused_chunk_increments_plain(o, p, sup, amps, starts, valid, **kw)
+    assert rel(kd, pd) < TOL_O and rel(kv, pv) < TOL_P
+    np.testing.assert_allclose(km.cpu().numpy(), pm.cpu().numpy(), rtol=TOL_M)
+    amps, starts = amps.clone(), starts.clone()
+    amps[valid == 0] = float("nan")
+    starts.view(-1, 2)[valid == 0] = 10 ** 6
+    jd, jv, jm = kernels.fused_chunk_increments(o, p, sup, amps, starts, valid, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(jd, kd) and torch.equal(jv, kv) and torch.equal(jm, km)
+
+
 @pytest.mark.parametrize("led,tile", [(4, 1), (2, 3), (1, 6)])
 def test_sharded_sweep_on_the_card_matches_k1(cuda, led, tile):
     """All ranks share the one card; (1,6): tile height 8 below Np=16."""
@@ -243,9 +343,10 @@ def test_a_sweep_over_several_cards_keeps_the_current_device(cuda, led, tile):
 
 @pytest.mark.parametrize("kernel", ["K1", "K2", "K3"])
 def test_kernels_refuse_an_np_whose_buffers_do_not_fit_a_block(cuda, kernel):
-    """One LED's buffers live in one block's shared memory: Np 90 (mono) and
-    100 (cellScope) fit, as the cases above show; Np 200 (dogStomach) is
-    refused before any launch."""
+    """One LED's b×b window lives whole in each block's shared memory beside
+    its slabs: Np 90 (mono) and 100 (cellScope) fit, as the cases above
+    show; Np 200 (dogStomach) fits at no cluster size and is refused before
+    any launch."""
     n, nl = 200, 400
     o = torch.zeros((2, nl, nl), device=cuda)
     p, sup = torch.ones((2, n, n), device=cuda), torch.ones((n, n), device=cuda)

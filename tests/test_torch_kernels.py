@@ -224,3 +224,22 @@ def test_k3_masked_slots_add_nothing_and_d_is_zero_outside_the_windows():
     with pytest.raises(ValueError, match="no kernel"):
         tk.fused_chunk_increments(o.to("meta"), p, sup, amps, starts, valid, **kw)
     assert tk.fused_chunk_increments.launches == before    # the CPU route counts no launch
+
+
+# ------------------------------------------- the cluster's slab decomposition
+
+
+@pytest.mark.parametrize("rows", [16, 48, 64, 90, 100])
+@pytest.mark.parametrize("cs", [1, 2, 4, 8, 16])
+def test_slabs_cover_every_row_once(cs, rows):
+    """The rule by which a cluster of ``cs`` blocks cuts ``rows`` rows (of
+    the image plane or of the bbox) into slabs: ragged and empty slabs
+    included (90 rows on 8 blocks: 7 slabs of 12 and one of 6; 90 on 16: 15
+    of 6 and an empty one). That the kernels compute the right function on
+    such slabs is held on the card (tests/test_torch_cuda.py, forced cluster
+    sizes)."""
+    bounds = tk.slab_bounds(rows, cs)
+    assert len(bounds) == cs and bounds[0][0] == 0 and bounds[-1][1] == rows
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    assert all(0 <= r1 - r0 <= -(-rows // cs) for r0, r1 in bounds)
+    assert sorted(r for r0, r1 in bounds for r in range(r0, r1)) == list(range(rows))
