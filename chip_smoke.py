@@ -27,7 +27,15 @@ from ``--seed``) it runs, each phase printing one JSON line:
    masked, the state after one sweep), and on each at the slot count a rank
    of mesh (4,1) or (2,2) gives it on the main path: d ≤ 1e-5, v ≤
    1e-4, metrics rtol 1e-4, v exactly 0 outside the support, d exactly 0
-   outside every valid window.
+   outside every valid window. The problem axis of K1 and K2: K2 (exact
+   and lazy) and K1 (chunk 32) at P = 3, 16 and 140 problems in one launch
+   (140 is more than one wave of the card), the problems being Np=90 ROIs
+   of whole simulated 568×568 camera frames (the mono dome optics at
+   np_size=568, NL=2272, object from ``--seed``, 16-bit frames; ROI origins
+   34 px apart): every problem bitwise equal to its solo launch, problems 0
+   and P−1 within the limits above of the plain version, and with problem
+   1's frames set to NaN every other problem still bitwise equal to its
+   solo launch; 2 launches per K2 sweep and 21 per K1 sweep, whatever P.
 3. ``sharded_vs_single``: 2 sweeps on meshes (led, tile) = (4,1), (2,2) and
    (1,8) (tile height 45 < Np: a two-hop halo), all ranks on the one card,
    against 2 sweeps of K1 single-device at chunk 32 from the same init (the
@@ -42,6 +50,26 @@ from ``--seed``) it runs, each phase printing one JSON line:
    must move; the output file set must be complete, the amplitude RMSE
    against the true object below 0.05, and a mesh run's ``metrics.jsonl``
    must record its mesh.
+   ``large_fov``: the whole 568×568 frames as TIFFs with a ``dataset.json``
+   at Np=90, then ``run ... -n 10 --use-pallas --fov-grid 8 8
+   --checkpoint-every 1`` in sequential and batched mode: 64 ROI tiles at
+   overlap 22 (stride 68) solved in rounds, the tiles of a round in one
+   problem-axis launch per sweep; the kernel's launch counter must be its
+   per-sweep count × 10 × rounds and no other counter may move; 64 ``tile``
+   events, ``object_stitched.npy`` of 2264×2264 and its PNGs; every stored
+   tile and the stitch bitwise equal to ``reconstruct_large_fov`` (tile
+   after tile through ``reconstruct`` on the card, timed beside the ROI
+   path); the stitched amplitude error against the true object
+   (tests/test_largefov.py's formula, less the 88-px high-res overlap
+   margin) below 0.3. Then half of ``out/tiles`` deleted and ``--resume``:
+   the stitch bitwise that of the first run, ``tile`` events for the
+   deleted tiles only.
+   ``rgb``: three objects (seeds ``seed``, ``seed+1``, ``seed+2``) in the
+   planes of 8-bit RGB TIFFs of the mono dome frames, ``run ... -n 10
+   --use-pallas --color-mode rgb`` in both modes: one launch sequence per
+   sweep for all three channels, ``red/``, ``green/``, ``blue/`` and
+   ``object_rgb.png`` written, each channel bitwise that channel solved
+   alone by ``reconstruct``, amplitude RMSE below 0.05 per channel.
 5. ``timing``: per-sweep milliseconds of each kernel (through its wrapper),
    at the chosen cluster size and at forced sizes 1, 2, 4, 8, beside the
    figures of the one-block-per-LED kernels it replaced (``previous``); of
@@ -55,7 +83,9 @@ from ``--seed``) it runs, each phase printing one JSON line:
    SXM peaks of 67 TFLOP/s FP32 and 3.35 TB/s; of the spectrum a K3 call
    must read only its valid LEDs' windows, while it writes d whole). K3 is
    timed per call and per sweep's worth of calls (7) as rank (0,0) of mesh
-   (4,1) makes them (8 LED slots per call on the 360×360 block).
+   (4,1) makes them (8 LED slots per call on the 360×360 block). K1 and K2
+   with a problem axis at P = 1, 3, 16, 33, 66 and 132 at the cluster size
+   the entry point picks: ms per sweep and per problem-sweep, LED-frames/s.
    ``sharded_sweep`` lines give
    the wall time of one sharded sweep per mesh shape, through the entry point
    (``reconstruct_*_sharded`` with 1 sweep less with 0 sweeps) and of the
@@ -83,6 +113,11 @@ PEAK_FP32_FLOPS = 67e12      # H100 SXM, FP32 outside the tensor cores
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 TOL_O, TOL_P, TOL_METRICS = 1e-5, 1e-4, 1e-4
 RMSE_LIMIT = 0.05
+STITCH_LIMIT = 0.3
+AXIS_P = (3, 16, 140)             # problem counts held against solo launches
+TIMING_P = (1, 3, 16, 33, 66, 132)
+WIDE = 568                        # camera frame of the large-FOV and problem-axis phases
+ROI_STEP = 34                     # origins of the problem-axis ROIs
 OUTPUT_FILES = ("object.npy", "object_spectrum.npy", "pupil.npy", "object_amp.png",
                 "object_phase.png", "pupil_amp.png", "pupil_phase.png",
                 "manifest.json", "metrics.jsonl")
@@ -211,7 +246,8 @@ def bound(nbytes: int, flops: float) -> tuple[float, str]:
 
 def write_dataset(out_dir, cfg, geom, frames) -> str:
     """The mono dome stack as ``iLED_<n>.tif`` frames plus ``dataset.json``
-    (no background, whole frame = ROI; LED positions from the dome table)."""
+    (no background, ROI at the frame's corner; LED positions from the dome
+    table). ``frames`` (K, H, W) uint16, or (K, H, W, 3) uint8 for RGB."""
     from PIL import Image
 
     os.makedirs(out_dir, exist_ok=True)
@@ -232,6 +268,22 @@ def write_dataset(out_dir, cfg, geom, frames) -> str:
     return path
 
 
+def read_records(out_dir) -> list[dict]:
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def stitched_error(stitched, truth, margin: int) -> float:
+    """tests/test_largefov.py's measure: the scale-aligned amplitude RMSE,
+    normalized by the mean true amplitude, on the interior of the stitch
+    less ``margin`` high-res pixels at each edge."""
+    import numpy as np
+
+    h, w = stitched.shape
+    sl = np.s_[margin:h - margin, margin:w - margin]
+    return amplitude_rmse(stitched[sl], truth[:h, :w][sl])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the test object")
@@ -248,10 +300,13 @@ def main(argv=None) -> int:
     import numpy as np
 
     from fpm_torch import cli
-    from fpm_torch.config import FPMConfig
+    from fpm_torch.config import FPMConfig, load_config
+    from fpm_torch.data.loader import load_dataset, load_dataset_rgb
     from fpm_torch.data.simulate import make_test_object, simulate_images
     from fpm_torch.geometry import compute_geometry, pupil_support
     from fpm_torch.models import epry
+    from fpm_torch.models.largefov import reconstruct_large_fov, stitch_fields
+    from fpm_torch.parallel.roi_shard import reconstruct_large_fov_sharded
     from fpm_torch.ops import build, kernels
     from fpm_torch.parallel import comm, led_shard, make_mesh, tile_shard
 
@@ -295,6 +350,39 @@ def main(argv=None) -> int:
         "K2 lazy": (kernels.fused_epry_sweep, kernels.fused_epry_sweep_plain,
                     (amps, starts.reshape(-1)), dict(global_max="lazy")),
     }
+
+    # Whole camera frames: the mono dome optics at np_size=568 (NL=2272),
+    # the same 193 LEDs; their Np=90 ROIs are the problems of the
+    # problem-axis checks and the tiles of the large-FOV run.
+    t0 = time.perf_counter()
+    cfg_wide = FPMConfig(max_illumination_na=0.45, np_size=WIDE, iterations=10)
+    geom_wide = compute_geometry(cfg_wide)
+    check(np.array_equal(geom_wide.led_numbers, geom.led_numbers),
+          "the 568-px frames light other LEDs than the Np=90 problem")
+    obj_wide = make_test_object(cfg_wide.n_large, seed=args.seed)
+    wide_frames = simulate_images(obj_wide, geom_wide, cfg_wide, quantize=True)
+    wide_sim_s = time.perf_counter() - t0
+    origins = [(y, x) for y in range(0, WIDE - n + 1, ROI_STEP)
+               for x in range(0, WIDE - n + 1, ROI_STEP)][:max(AXIS_P)]
+    amps_p = torch.stack([
+        epry._sorted_device_inputs(wide_frames[:, y:y + n, x:x + n], geom, torch.complex64,
+                                   dev)[0] for y, x in origins])
+    inits = [epry.init_traced(a, sup_r, opts) for a in amps_p]
+    o_p = torch.stack([torch.stack([o.real, o.imag]) for o, _ in inits]).contiguous()
+    p_p = torch.stack([torch.stack([p.real, p.imag]) for _, p in inits]).contiguous()
+    del inits
+    amps_it_p = torch.stack([epry._chunk_inputs(a, starts, opts_b, torch.float32)[0]
+                             for a in amps_p])
+    axis_cases = {   # name: (wrapper, plain version, the (P, ...) frames, shared operands, options)
+        "K1": (kernels.fused_epry_chunked, kernels.fused_epry_chunked_plain, amps_it_p,
+               (starts_it.reshape(-1), valid), dict(pupil_step_scale=1.0)),
+        "K2 exact": (kernels.fused_epry_sweep, kernels.fused_epry_sweep_plain, amps_p,
+                     (starts.reshape(-1),), dict(global_max="exact")),
+        "K2 lazy": (kernels.fused_epry_sweep, kernels.fused_epry_sweep_plain, amps_p,
+                    (starts.reshape(-1),), dict(global_max="lazy")),
+    }
+    emit({"phase": "setup", "wide_frames": list(wide_frames.shape), "wide_sim_s": wide_sim_s,
+          "problem_axis_problems": len(origins), "roi_step": ROI_STEP})
 
     # --------------------------------------------------- 2. kernel_vs_plain
     # Each kernel at the cluster size its entry point chooses (forced = 0) and
@@ -412,6 +500,67 @@ def main(argv=None) -> int:
     check(chosen_cs["K3 full block, rank of mesh (4,1)"] > 1,
           f"K3 at 8 slots does not run one LED on several blocks: {chosen_cs}")
 
+    # The problem axis: P problems in one launch against each problem's solo
+    # launch (bitwise), problems 0 and P-1 against the plain version, and
+    # with problem 1's frames NaN the others still bitwise their solo launch.
+    def two_sweeps(fn, o, p, frames, shared, extra):
+        mets = []
+        for _ in range(2):
+            o, p, m = fn(o, p, sup_r, frames, *shared, **common, **extra)
+            mets.append(m)
+        return o, p, torch.stack(mets)
+
+    def same(got, want) -> bool:
+        return all(torch.equal(a, b) for a, b in zip(got, want))
+
+    for name, (kern, plain, frames_p, shared, extra) in axis_cases.items():
+        solo = [two_sweeps(kern, o_p[q], p_p[q], frames_p[q], shared, extra)
+                for q in range(max(AXIS_P))]
+        solo_cs = kern.cluster_size
+        plain_of = {}
+        for n_prob in AXIS_P:
+            kern.launches = 0
+            o, p, m = two_sweeps(kern, o_p[:n_prob], p_p[:n_prob], frames_p[:n_prob], shared,
+                                 extra)
+            torch.cuda.synchronize()
+            launched, cs = kern.launches, kern.cluster_size
+            bitwise = [same((o[q], p[q], m[:, q]), solo[q]) for q in range(n_prob)]
+            rel = {}
+            for q in (0, n_prob - 1):
+                if q not in plain_of:
+                    plain_of[q] = two_sweeps(plain, o_p[q], p_p[q], frames_p[q], shared, extra)
+                po, pp, pm = plain_of[q]
+                rel[q] = {"rel_err_o": ((o[q] - po).abs().max() / po.abs().max()).item(),
+                          "rel_err_p": ((p[q] - pp).abs().max() / pp.abs().max()).item(),
+                          "metrics_rel_err": ((m[:, q] - pm).abs() / pm.abs()).max().item(),
+                          "max_abs_err": max((o[q] - po).abs().max().item(),
+                                             (p[q] - pp).abs().max().item())}
+                errs[name] = max(errs[name], rel[q]["max_abs_err"])
+            poisoned = frames_p[:n_prob].clone()
+            poisoned[1] = float("nan")
+            no, np_, nm = two_sweeps(kern, o_p[:n_prob], p_p[:n_prob], poisoned, shared, extra)
+            torch.cuda.synchronize()
+            del poisoned
+            isolated = [same((no[q], np_[q], nm[:, q]), solo[q]) for q in range(n_prob) if q != 1]
+            per_sweep = 2 if name.startswith("K2") else 3 * amps_it.shape[0]
+            emit({"phase": "kernel_vs_plain", "case": f"{name}, problem axis", "problems": n_prob,
+                  "cluster_size": cs, "solo_cluster_size": solo_cs, "sweeps": 2,
+                  "launches": launched, "bitwise_equal_to_solo": sum(bitwise),
+                  "vs_plain": {str(q): v for q, v in rel.items()},
+                  "nan_problem_1_finite": bool(torch.isfinite(no[1]).all().item()),
+                  "others_bitwise_with_problem_1_nan": sum(isolated),
+                  "limits": {"rel_o": TOL_O, "rel_p": TOL_P, "metrics_rtol": TOL_METRICS}})
+            check(all(bitwise), f"{name}: {n_prob - sum(bitwise)} of {n_prob} problems differ "
+                                f"from their solo launch")
+            check(all(isolated) and not torch.isfinite(no[1]).all(),
+                  f"{name}: a NaN problem changed another problem of the launch")
+            check(launched == 2 * per_sweep,
+                  f"{name}: {launched} launches for 2 sweeps of {n_prob} problems")
+            check(all(v["rel_err_o"] <= TOL_O and v["rel_err_p"] <= TOL_P
+                      and v["metrics_rel_err"] <= TOL_METRICS for v in rel.values()),
+                  f"{name} with {n_prob} problems disagrees with its plain version")
+        del solo, plain_of
+
     # ------------------------------------------------- 3. sharded_vs_single
     mesh_shapes = ((4, 1), (2, 2), (1, 8))
     sharded_kw = dict(iterations=2, use_pallas=True, chunk_size=32)
@@ -514,6 +663,184 @@ def main(argv=None) -> int:
                   "data_residual_first_last": [resid[0], resid[-1]]})
             check(rmse < RMSE_LIMIT, f"run {label} amplitude RMSE {rmse} >= {RMSE_LIMIT}")
 
+    # --------------------------------------------------- 4b. large_fov, rgb
+    per_sweep_launches = {"K1": 3 * amps_it.shape[0], "K2": 2}
+    mode_kernel = {"sequential": "K2", "batched": "K1"}
+    path_launches = {}
+
+    def run_cli(flags):
+        """``fpm_torch run`` through cli.main with every counter at 0 before;
+        returns (wall s, the counters after)."""
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        rc = cli.main(["run", *flags])
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"fpm_torch run {flags} exited {rc}")
+        return wall, {k: w.launches for k, w in wrappers.items()}
+
+    def tile_planes(path):
+        with np.load(path) as z:
+            return {k: z[k] for k in ("obj_crop_p", "obj_f_p", "pupil_p", "metrics")}
+
+    def result_planes(res):
+        return {"obj_crop_p": np.stack([res.obj_crop.real, res.obj_crop.imag]),
+                "obj_f_p": np.stack([res.obj_f_centered.real, res.obj_f_centered.imag]),
+                "pupil_p": np.stack([res.pupil.real, res.pupil.imag]),
+                "metrics": np.stack([res.metrics["data_residual"],
+                                     res.metrics["update_norm"]], axis=1)}
+
+    with tempfile.TemporaryDirectory(prefix="fpm_chip_smoke_wide_") as tmp:
+        fov_path = write_dataset(os.path.join(tmp, "wide"), cfg, geom, wide_frames)
+        cfg_fov = load_config(fov_path, iterations=10)
+        full = load_dataset(cfg_fov, full_frames=True)
+        grid, overlap = 8, n // 4
+        hr = cfg.res_improvement_factor * (n + (n - overlap) * (grid - 1))
+        firsts = {}
+        for mode in ("sequential", "batched"):
+            key = mode_kernel[mode]
+            out = os.path.join(tmp, "fov_" + mode)
+            flags = [fov_path, "-n", "10", "-o", out, "--use-pallas", "--chunk-size", "32",
+                     "--mode", mode, "--fov-grid", str(grid), str(grid), "--checkpoint-every", "1"]
+            wall, counts = run_cli(flags)
+            records = read_records(out)
+            tiles_logged = [(r["row"], r["col"]) for r in records if r["event"] == "tile"]
+            options = next(r for r in records if r["event"] == "solver_options")
+            rounds = -(-grid * grid // options["roi_ranks"])
+            phase_s = {r["name"]: r["seconds"] for r in records if r["event"] == "phase"}
+            stitched = np.load(os.path.join(out, "object_stitched.npy"))
+            firsts[mode] = (flags, stitched)
+            path_launches[f"fov-grid {mode}"] = counts[key]
+            missing = [f for f in ("object_stitched.npy", "object_stitched_amp.png",
+                                   "object_stitched_phase.png")
+                       if not os.path.exists(os.path.join(out, f))]
+            # The ROI runner in this process without a tile store, then the
+            # same 64 tiles one after another through reconstruct, on the card.
+            fov_kw = dict(grid=(grid, grid), use_pallas=True, mode=mode, chunk_size=32)
+
+            def roi_runner():
+                return reconstruct_large_fov_sharded(full.images, full.geom, cfg_fov, **fov_kw)
+
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            roi_tiles = roi_runner().tiles
+            torch.cuda.synchronize()
+            roi_s = time.perf_counter() - t0
+            # The stitch (NumPy on the host, fpm_tpu's own) is part of both runs.
+            rif = cfg.res_improvement_factor
+            t0 = time.perf_counter()
+            stitch_fields([t.obj_crop for t in roi_tiles], (grid, grid), n * rif,
+                          (n - overlap) * rif, overlap * rif)
+            stitch_s = time.perf_counter() - t0
+            del roi_tiles
+            t0 = time.perf_counter()
+            roi_by_kernel = device_ms_by_kernel(roi_runner)
+            roi_profiled_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            seq = reconstruct_large_fov(full.images, full.geom, cfg_fov, device="cuda", **fov_kw)
+            torch.cuda.synchronize()
+            tile_after_tile_s = time.perf_counter() - t0
+            tiles_equal = sum(
+                all(np.array_equal(a, b) for a, b in zip(
+                    tile_planes(os.path.join(out, "tiles", f"tile_{i:04d}.npz")).values(),
+                    result_planes(t).values()))
+                for i, t in enumerate(seq.tiles))
+            err = stitched_error(stitched, obj_wide, overlap * cfg.res_improvement_factor)
+            emit({"phase": "large_fov", "mode": mode, "grid": [grid, grid], "overlap": overlap,
+                  "frames": list(full.images.shape), "tiles": grid * grid,
+                  "roi_ranks": options["roi_ranks"], "rounds": rounds,
+                  "wall_s": wall, "phase_s": phase_s,
+                  "solve_s_roi_path_with_tile_store": phase_s.get("solve"),
+                  "solve_s_roi_runner": roi_s, "solve_s_tile_after_tile": tile_after_tile_s,
+                  "stitch_s_host": stitch_s,
+                  "led_frames_per_s_roi_runner": grid * grid * 10 * k_leds / roi_s,
+                  "led_frames_per_s_tile_after_tile":
+                      grid * grid * 10 * k_leds / tile_after_tile_s,
+                  "roi_runner_device_ms": sum(roi_by_kernel.values()),
+                  "roi_runner_device_busy_share": sum(roi_by_kernel.values()) / 1e3
+                  / roi_profiled_s,
+                  "roi_runner_device_ms_top": dict(list(roi_by_kernel.items())[:6]),
+                  "launches": counts, "tile_events": len(tiles_logged),
+                  "tiles_bitwise_equal_to_reconstruct": tiles_equal,
+                  "stitch_bitwise_equal_to_tile_after_tile":
+                      bool(np.array_equal(stitched, seq.stitched)),
+                  "stitched_shape": list(stitched.shape), "stitched_amp_error": err,
+                  "stitched_error_limit": STITCH_LIMIT, "gpu": smi})
+            check(not missing, f"fov-grid {mode} wrote no {missing}")
+            check(stitched.shape == (hr, hr) and np.isfinite(stitched).all(),
+                  f"fov-grid {mode}: stitch {stitched.shape} not finite of shape {(hr, hr)}")
+            check(sorted(tiles_logged) == [(r, c) for r in range(grid) for c in range(grid)],
+                  f"fov-grid {mode} logged {len(tiles_logged)} tile events")
+            check(counts[key] == per_sweep_launches[key] * 10 * rounds
+                  and all(c == 0 for k, c in counts.items() if k != key),
+                  f"fov-grid {mode}: launches {counts} for {rounds} round(s) of 10 sweeps")
+            check(tiles_equal == grid * grid and np.array_equal(stitched, seq.stitched),
+                  f"fov-grid {mode}: {grid * grid - tiles_equal} tiles differ from "
+                  "reconstruct on the tile alone")
+            check(err < STITCH_LIMIT, f"fov-grid {mode}: stitched error {err} >= {STITCH_LIMIT}")
+            del seq
+
+        # Resume: half of the sequential run's tiles deleted, the rest loaded.
+        flags, stitched = firsts["sequential"]
+        out = flags[flags.index("-o") + 1]
+        deleted = list(range(0, grid * grid, 2))
+        for i in deleted:
+            os.remove(os.path.join(out, "tiles", f"tile_{i:04d}.npz"))
+        before = len(read_records(out))
+        wall, counts = run_cli(flags + ["--resume"])
+        resumed = [(r["row"], r["col"]) for r in read_records(out)[before:] if r["event"] == "tile"]
+        again = np.load(os.path.join(out, "object_stitched.npy"))
+        emit({"phase": "large_fov", "mode": "sequential, --resume", "tiles_deleted": len(deleted),
+              "tile_events": len(resumed), "launches": counts, "wall_s": wall,
+              "stitch_bitwise_equal_to_first_run": bool(np.array_equal(again, stitched))})
+        check(sorted(resumed) == [divmod(i, grid) for i in deleted],
+              f"the resumed run solved {len(resumed)} tiles, not the {len(deleted)} deleted")
+        check(np.array_equal(again, stitched), "the resumed stitch differs from the first run's")
+    del full, firsts
+
+    # RGB: three objects in the planes of 8-bit RGB frames.
+    objs_rgb = [make_test_object(nl, seed=args.seed + c) for c in range(3)]
+    planes8 = []
+    for obj in objs_rgb:
+        inten = simulate_images(obj, geom, cfg, quantize=False)
+        planes8.append(np.clip(np.rint(inten * (255.0 / inten.max())), 0, 255).astype(np.uint8))
+    with tempfile.TemporaryDirectory(prefix="fpm_chip_smoke_rgb_") as tmp:
+        rgb_path = write_dataset(os.path.join(tmp, "rgb"), cfg, geom, np.stack(planes8, axis=-1))
+        cfg_rgb = load_config(rgb_path, iterations=10)
+        channels = load_dataset_rgb(cfg_rgb)
+        for mode in ("sequential", "batched"):
+            key = mode_kernel[mode]
+            out = os.path.join(tmp, "rgb_" + mode)
+            wall, counts = run_cli([rgb_path, "-n", "10", "-o", out, "--use-pallas",
+                                    "--chunk-size", "32", "--mode", mode, "--color-mode", "rgb"])
+            path_launches[f"rgb {mode}"] = counts[key]
+            phase_s = {r["name"]: r["seconds"] for r in read_records(out) if r["event"] == "phase"}
+            missing = [f for f in ("object_rgb.png", *(os.path.join(c, f) for c in
+                                                      ("red", "green", "blue")
+                                                      for f in OUTPUT_FILES[:-1]))
+                       if not os.path.exists(os.path.join(out, f))]
+            rmse, equal = {}, {}
+            for name, ch, obj in zip(("red", "green", "blue"), channels, objs_rgb):
+                alone = epry.reconstruct(ch.images, ch.geom, cfg_rgb, iterations=10,
+                                         use_pallas=True, mode=mode, chunk_size=32)
+                wanted = {"object.npy": alone.obj_crop, "pupil.npy": alone.pupil,
+                          "object_spectrum.npy": alone.obj_f_centered}
+                equal[name] = all(np.array_equal(np.load(os.path.join(out, name, f)), a)
+                                  for f, a in wanted.items())
+                rmse[name] = amplitude_rmse(np.load(os.path.join(out, name, "object.npy")), obj)
+            emit({"phase": "rgb", "mode": mode, "iterations": 10, "wall_s": wall,
+                  "phase_s": phase_s, "launches": counts,
+                  "bitwise_equal_to_channel_alone": equal, "amp_rmse": rmse,
+                  "rmse_limit": RMSE_LIMIT})
+            check(not missing, f"rgb {mode} wrote no {missing}")
+            check(counts[key] == per_sweep_launches[key] * 10
+                  and all(c == 0 for k, c in counts.items() if k != key),
+                  f"rgb {mode}: launches {counts}, not one launch sequence per sweep")
+            check(all(equal.values()), f"rgb {mode}: channels differ from solo solves: {equal}")
+            check(all(v < RMSE_LIMIT for v in rmse.values()),
+                  f"rgb {mode}: amplitude RMSE {rmse} not below {RMSE_LIMIT}")
+
     # ------------------------------------------------------------ 5. timing
     support_c = sup_r.to(torch.complex64)
     library = {
@@ -555,10 +882,11 @@ def main(argv=None) -> int:
         check(key != "K2" or per_sweep <= 2, f"K2 made {per_sweep} launches in one sweep")
         ms = cuda_ms(sweep, 5)
         by_kernel = device_ms_by_kernel(sweep)
-        by_cs = {}
+        by_cs, device_by_cs = {}, {}
         for forced in (1, 2, 4, 8):
             kern.force_cluster_size = forced
             by_cs[str(forced)] = cuda_ms(sweep, 3)
+            device_by_cs[str(forced)] = sum(device_ms_by_kernel(sweep).values())
             kern.force_cluster_size = 0
         plain_ms = cuda_ms(lambda: plain(o_planes, p_planes, sup_r, *rest, **common, **extra), 2)
         library_ms = cuda_ms(library[key], 2)
@@ -574,11 +902,54 @@ def main(argv=None) -> int:
         emit({"phase": "timing", "kernel": name, "cluster_size": cs,
               "blocks_per_forward_launch": cs * (amps_it.shape[1] if key == "K1" else 1),
               "previous": previous[key], "ms_per_sweep": ms,
-              "ms_per_sweep_by_forced_cluster_size": by_cs, "plain_ms": plain_ms,
+              "ms_per_sweep_by_forced_cluster_size": by_cs,
+              "device_ms_per_sweep_by_forced_cluster_size": device_by_cs, "plain_ms": plain_ms,
               "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
               "bytes": nbytes, "flops": flops, "launches_per_sweep": per_sweep,
               "led_frames_per_s": k_leds / ms * 1e3, "device_ms_by_kernel": by_kernel,
               "device_busy_share": sum(by_kernel.values()) / ms, "gpu": smi})
+
+    # The problem axis: P problems per launch at the cluster size the entry
+    # point picks (the ROI problems of the wide frames).
+    for row, case in zip(rows, ("K1", "K2 exact")):
+        kern, _, frames_p, shared, extra = axis_cases[case]
+        by_p = {}
+        for n_prob in TIMING_P:
+            if n_prob == 1:
+                operands = (o_p[0], p_p[0], sup_r, frames_p[0])
+            else:
+                operands = (o_p[:n_prob], p_p[:n_prob], sup_r, frames_p[:n_prob])
+
+            def sweep():
+                return kern(*operands, *shared, **common, **extra)
+
+            kern.launches = 0
+            sweep()
+            launched, cs = kern.launches, kern.cluster_size
+            ms = cuda_ms(sweep, 5 if n_prob <= 16 else 3)
+            bound_ms, _ = bound(*(n_prob * w for w in sweep_work(
+                k_leds, n, b, nl, n_slots if case == "K1" else k_leds, has_valid=case == "K1")))
+            # Every cluster size, forced, and how many clusters of it the
+            # card holds at once (CUDA's occupancy query) for these slots.
+            slots = n_prob * (amps_it.shape[1] if case == "K1" else 1)
+            forced_ms, resident = {}, {}
+            for forced in (1, 2, 4, 8):
+                kern.force_cluster_size = forced
+                forced_ms[str(forced)] = cuda_ms(sweep, 3)
+                kern.force_cluster_size = 0
+                resident[str(forced)] = kernels.resident_clusters(kern, n, opts.pupil_radius,
+                                                                  slots, forced)
+            by_p[str(n_prob)] = {"cluster_size": cs, "launches_per_sweep": launched,
+                                 "ms_per_sweep": ms, "ms_per_problem_sweep": ms / n_prob,
+                                 "led_frames_per_s": n_prob * k_leds / ms * 1e3,
+                                 "bound_ms": bound_ms,
+                                 "ms_per_sweep_by_forced_cluster_size": forced_ms,
+                                 "resident_clusters_by_cluster_size": resident}
+        row["problem_axis"] = by_p
+        row["launches_by_path"] = {k: v for k, v in path_launches.items()
+                                   if k.endswith("sequential" if case != "K1" else "batched")}
+        emit({"phase": "timing", "kernel": row["name"], "problem_axis": by_p,
+              "problems_from": f"Np={n} ROIs of the {WIDE}x{WIDE} frames", "gpu": smi})
 
     # Where K2's time goes inside its one persistent launch, which the
     # profiler sees only whole: the profile build of the kernel counts the SM

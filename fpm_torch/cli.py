@@ -4,6 +4,8 @@ fpmMain.cpp:500-592), with the flag set of ``python -m fpm_tpu``:
     python -m fpm_torch run dataset.json -n 10 -o out/ --use-pallas   # on the GPU
     python -m fpm_torch run dataset.json -n 10 --platform cpu          # on the CPU
     python -m fpm_torch run dataset.json -n 10 --use-pallas --mesh 2 2 # (led, tile) mesh
+    python -m fpm_torch run dataset.json -n 10 --use-pallas --fov-grid 8 8  # large FOV
+    python -m fpm_torch run dataset.json -n 10 --use-pallas --color-mode rgb
     python -m fpm_torch info dataset.json
     python -m fpm_torch simulate out_dir/ --np-size 32
 
@@ -12,10 +14,17 @@ through the port's CUDA kernels and so needs ``--use-pallas``; ``--platform
 cpu`` runs on the CPU. ``--mesh LED TILE`` (or the config's ``tileGrid`` key)
 runs the LED-sharded (TILE = 1) or tile-sharded sweep of ``fpm_torch.parallel``
 on a mesh of LED·TILE ranks, placed round-robin over the visible GPUs (on a
-one-GPU machine they share it) or, with ``--platform cpu``, on the CPU. Flags
-of paths not yet ported (multi-process ``--distributed``, large-FOV tiling,
-RGB, debug dumps, the watchdog, the native decoder) are accepted by the parser
-and refused with an error naming them.
+one-GPU machine they share it) or, with ``--platform cpu``, on the CPU.
+``--fov-grid R C`` tiles whole camera frames into R×C overlapping ROIs and
+stitches them: on the GPU in rounds of tiles, the tiles of a round that
+share a card in ONE problem-axis launch per sweep (``parallel/roi_shard.py``),
+on the CPU tile after tile. ``--color-mode rgb`` decodes each file once and
+solves the three channels together (one launch per sweep on the GPU).
+``--watchdog-timeout S`` aborts a run that makes no progress for S seconds
+(armed before the first chunk, after the kernels are built). Flags of paths
+not yet ported (multi-process ``--distributed``, debug dumps, the native
+decoder, the ``bf16x3`` tier) are accepted by the parser and refused with an
+error naming them.
 """
 
 from __future__ import annotations
@@ -59,12 +68,16 @@ def _add_run_parser(sub):
                    help="(not yet ported)")
     p.add_argument("--no-native", action="store_true", help="(not yet ported)")
     p.add_argument("--fov-grid", type=int, nargs=2, metavar=("R", "C"), default=None,
-                   help="(not yet ported) large-FOV ROI grid")
+                   help="large field of view: reconstruct an R x C grid of "
+                        "overlapping Np x Np ROIs of the whole frames and stitch "
+                        "them (object_stitched.npy); --checkpoint-every > 0 or "
+                        "--resume keeps each solved tile under out/tiles/")
     p.add_argument("--fov-overlap", type=int, default=None,
-                   help="(not yet ported) ROI overlap for --fov-grid")
+                   help="camera-pixel overlap of neighbouring ROIs for "
+                        "--fov-grid (default Np // 4)")
     p.add_argument("--color-mode", choices=["single", "rgb"], default="single",
-                   help="'single' keeps one channel like the reference; "
-                        "'rgb' is not yet ported")
+                   help="'single' keeps one channel like the reference; 'rgb' "
+                        "decodes each file once and reconstructs R, G and B")
     p.add_argument("--use-pallas", action="store_true",
                    help="run the sweep through the port's CUDA kernels (K1 "
                         "batched, K2 sequential, K3 on a mesh); on --platform "
@@ -87,20 +100,18 @@ def _add_run_parser(sub):
                         "c's consensus is applied (one chunk stale)")
     p.add_argument("--distributed", action="store_true", help="(not yet ported)")
     p.add_argument("--watchdog-timeout", type=float, default=0,
-                   help="(not yet ported)")
+                   help="abort the process (exit 42) after this many seconds "
+                        "without progress (0 = off); resume from the latest "
+                        "checkpoint or tiles")
     return p
 
 
 def _refuse_unported(args) -> None:
     """Raise on any flag whose path this package does not have yet."""
     unported = {
-        "--fov-grid": args.fov_grid is not None,
-        "--fov-overlap": args.fov_overlap is not None,
-        "--color-mode rgb": args.color_mode == "rgb",
         "--debug": args.debug,
         "--debug-led": args.debug_led is not None,
         "--distributed": args.distributed,
-        "--watchdog-timeout": args.watchdog_timeout > 0,
         "--no-native": args.no_native,
     }
     for flag, given in unported.items():
@@ -240,6 +251,9 @@ def _cmd_simulate(args) -> int:
 
 
 def _cmd_run(args) -> int:
+    if args.fov_grid and args.color_mode == "rgb":
+        raise ValueError("--fov-grid and --color-mode rgb are not supported "
+                         "together (tile the channels as separate runs)")
     if args.mesh and args.color_mode == "rgb":
         raise ValueError("--color-mode rgb does not support --mesh (the three "
                          "channels already batch in one program)")
@@ -251,17 +265,8 @@ def _cmd_run(args) -> int:
     import torch
 
     from .config import load_config
-    from .data.loader import load_dataset
-    from .models.epry import effective_chunk_size, reconstruct
-    from .utils.checkpoint import (
-        fingerprint,
-        latest_checkpoint,
-        load_checkpoint,
-        save_checkpoint,
-    )
     from .utils.metrics import MetricsLogger
-    from .utils.outputs import save_results
-    from .utils.profiling import phase, trace
+    from .utils.profiling import trace
 
     device = args.platform or "cuda"
     if device == "cuda" and not torch.cuda.is_available():
@@ -287,114 +292,298 @@ def _cmd_run(args) -> int:
     os.makedirs(args.output, exist_ok=True)
     logger = MetricsLogger(args.metrics_jsonl or os.path.join(args.output, "metrics.jsonl"),
                            resume=bool(args.resume))
+    watchdog = _RunWatchdog(args.watchdog_timeout, build_kernels=(
+        device == "cuda" and args.use_pallas))
     try:
         logger.log("config", path=os.path.abspath(args.config), iterations=cfg.iterations,
                    n_large=cfg.n_large, np_size=cfg.np_size, device=device)
         with trace(args.trace_dir):
-            with phase("ingest", logger):
-                dataset = load_dataset(cfg)
-            logger.log("dataset", leds=int(dataset.geom.num_leds))
-            print(f"[fpm-torch] loaded {dataset.geom.num_leds} LED frames "
-                  f"(Np={cfg.np_size}, Nlarge={cfg.n_large})")
-
-            # --mesh, or the config's tileGrid key, resolved before the
-            # fingerprint so that provenance records what runs: a mesh run
-            # always has batched (chunked-Jacobi) sweep semantics.
-            mesh_req = args.mesh or (
-                list(cfg.tile_grid) if tuple(cfg.tile_grid) != (1, 1) else None)
-            effective_mode = "batched" if mesh_req else args.mode
-            # Provenance: everything that changes the iteration trajectory,
-            # with the chunk that will actually run (a pure LED mesh rounds it
-            # up to a multiple of its led axis). The keys match fpm_tpu's, so
-            # checkpoints carry over between the packages.
-            n_led_fp = mesh_req[0] if (mesh_req and mesh_req[1] == 1) else 1
-            eff_chunk = effective_chunk_size(cfg.np_size, args.chunk_size,
-                                             int(dataset.geom.num_leds),
-                                             bool(args.use_pallas), effective_mode,
-                                             n_led=n_led_fp)
-            run_fp = fingerprint(
-                cfg, dataset.geom, mode=effective_mode, chunk_size=eff_chunk,
-                chunk_assign=args.chunk_assign, global_max=args.global_max,
-                use_pallas=bool(args.use_pallas), dft_precision=args.dft_precision,
-                comm_precision=args.comm_precision,
-                stale_consensus=bool(args.stale_consensus),
-                mesh="x".join(map(str, mesh_req)) if mesh_req else None,
-            )
-            logger.log("solver_options", mode=effective_mode, chunk_size=eff_chunk,
-                       chunk_assign=args.chunk_assign, global_max=args.global_max,
-                       use_pallas=bool(args.use_pallas),
-                       dft_precision=args.dft_precision,
-                       comm_precision=args.comm_precision,
-                       stale_consensus=bool(args.stale_consensus),
-                       mesh=list(mesh_req) if mesh_req else None, device=device)
-
-            initial_state, start_iter = None, 0
-            if args.resume:
-                ck = latest_checkpoint(args.output)
-                if ck:
-                    obj_f, pupil, start_iter = load_checkpoint(
-                        ck, expect=run_fp, strict=not args.resume_unsafe)
-                    initial_state = (obj_f, pupil)
-                    print(f"[fpm-torch] resuming from {ck} (iteration {start_iter})")
-
-            total = cfg.iterations
-            if start_iter >= total:
-                raise ValueError(
-                    f"checkpoint is already at iteration {start_iter} >= the "
-                    f"requested total {total}; nothing to resume (raise -n to "
-                    "extend the run)")
-            chunk = args.checkpoint_every if args.checkpoint_every > 0 else total
-            solver_kwargs = dict(global_max=args.global_max, chunk_size=args.chunk_size,
-                                 chunk_assign=args.chunk_assign, use_pallas=args.use_pallas,
-                                 dft_precision=args.dft_precision)
-            if mesh_req:
-                from .parallel import (
-                    make_mesh,
-                    reconstruct_led_sharded,
-                    reconstruct_tile_sharded,
-                )
-
-                n_ranks = mesh_req[0] * mesh_req[1]
-                mesh = make_mesh(led=mesh_req[0], tile=mesh_req[1],
-                                 devices=["cpu"] * n_ranks if device == "cpu" else None)
-                print(f"[fpm-torch] mesh: {mesh.describe()}")
-                # TILE = 1: pure LED-batch sharding (replicated spectrum).
-                sharded = (reconstruct_led_sharded if mesh_req[1] == 1
-                           else reconstruct_tile_sharded)
-
-                def run_chunk(step, initial_state):
-                    return sharded(dataset.images, dataset.geom, cfg, mesh=mesh,
-                                   iterations=step, initial_state=initial_state,
-                                   comm_precision=args.comm_precision,
-                                   stale_consensus=args.stale_consensus, **solver_kwargs)
-            else:
-                def run_chunk(step, initial_state):
-                    return reconstruct(dataset.images, dataset.geom, cfg, iterations=step,
-                                       initial_state=initial_state, device=device,
-                                       mode=args.mode, **solver_kwargs)
-
-            result = None
-            with phase("solve", logger):
-                done = start_iter
-                while done < total:
-                    step = min(chunk, total - done)
-                    result = run_chunk(step, initial_state)
-                    done += step
-                    initial_state = (result.obj_f_centered, result.pupil)
-                    logger.log("iterations", done=done,
-                               data_residual=float(result.metrics["data_residual"][-1]),
-                               update_norm=float(result.metrics["update_norm"][-1]))
-                    if (args.checkpoint_every > 0 and done < total
-                            and (done - start_iter) % args.checkpoint_every == 0):
-                        save_checkpoint(os.path.join(args.output, f"ckpt_{done}.npz"),
-                                        result.obj_f_centered, result.pupil, done,
-                                        meta=run_fp)
-            with phase("output", logger):
-                save_results(result, args.output, cfg)
+            run = (_run_large_fov if args.fov_grid
+                   else _run_rgb if args.color_mode == "rgb" else _run_single)
+            message = run(args, cfg, logger, device, watchdog)
     finally:
+        watchdog.stop()
         logger.close()
-    print(f"[fpm-torch] results written to {args.output}")
+    print(f"[fpm-torch] {message}")
     return 0
+
+
+class _RunWatchdog:
+    """``--watchdog-timeout`` for one run (a timeout of 0: nothing). Each
+    path calls :meth:`arm` just before its solve, once ingest is done: the
+    kernels are built first (nvcc at first use takes seconds and is no
+    stall), then the stall clock starts, so a run that hangs in its first
+    chunk is caught too. :meth:`beat` after every chunk or tile."""
+
+    def __init__(self, timeout: float, build_kernels: bool):
+        self.timeout, self.build_kernels, self.dog = timeout, build_kernels, None
+
+    def arm(self) -> None:
+        if self.timeout <= 0:
+            return
+        from .utils.watchdog import Watchdog
+
+        if self.build_kernels:
+            from .ops import build
+
+            build.build_all()
+        self.dog = Watchdog(self.timeout).start()
+
+    def beat(self) -> None:
+        if self.dog is not None:
+            self.dog.beat()
+
+    def stop(self) -> None:
+        if self.dog is not None:
+            self.dog.stop()
+
+
+def _resume_state(args, run_fp):
+    """``(initial_state, start_iter)`` from the latest checkpoint when
+    ``--resume`` finds one (fingerprint-checked), else ``(None, 0)``."""
+    from .utils.checkpoint import latest_checkpoint, load_checkpoint
+
+    if args.resume:
+        ck = latest_checkpoint(args.output)
+        if ck:
+            obj_f, pupil, start_iter = load_checkpoint(ck, expect=run_fp,
+                                                       strict=not args.resume_unsafe)
+            print(f"[fpm-torch] resuming from {ck} (iteration {start_iter})")
+            return (obj_f, pupil), start_iter
+    return None, 0
+
+
+def _solve_in_chunks(args, cfg, watchdog, run_fp, initial_state, start_iter, run_chunk,
+                     log_chunk, state_of):
+    """The sweep loop of the single and RGB paths: ``--checkpoint-every``
+    sweeps per ``run_chunk(step, initial_state)`` call, a watchdog beat and a
+    log record after each, a checkpoint where due. Returns the last result."""
+    from .utils.checkpoint import save_checkpoint
+
+    total = cfg.iterations
+    if start_iter >= total:
+        raise ValueError(
+            f"checkpoint is already at iteration {start_iter} >= the "
+            f"requested total {total}; nothing to resume (raise -n to "
+            "extend the run)")
+    chunk = args.checkpoint_every if args.checkpoint_every > 0 else total
+    result, done = None, start_iter
+    watchdog.arm()
+    while done < total:
+        step = min(chunk, total - done)
+        result = run_chunk(step, initial_state)
+        done += step
+        watchdog.beat()
+        initial_state = state_of(result)
+        log_chunk(done, result)
+        if (args.checkpoint_every > 0 and done < total
+                and (done - start_iter) % args.checkpoint_every == 0):
+            save_checkpoint(os.path.join(args.output, f"ckpt_{done}.npz"),
+                            initial_state[0], initial_state[1], done, meta=run_fp)
+    return result
+
+
+def _solver_kwargs(args) -> dict:
+    return dict(mode=args.mode, global_max=args.global_max, chunk_size=args.chunk_size,
+                chunk_assign=args.chunk_assign, use_pallas=args.use_pallas,
+                dft_precision=args.dft_precision)
+
+
+def _run_single(args, cfg, logger, device, watchdog) -> str:
+    from .data.loader import load_dataset
+    from .models.epry import effective_chunk_size, reconstruct
+    from .utils.checkpoint import fingerprint
+    from .utils.outputs import save_results
+    from .utils.profiling import phase
+
+    with phase("ingest", logger):
+        dataset = load_dataset(cfg)
+    logger.log("dataset", leds=int(dataset.geom.num_leds))
+    print(f"[fpm-torch] loaded {dataset.geom.num_leds} LED frames "
+          f"(Np={cfg.np_size}, Nlarge={cfg.n_large})")
+
+    # --mesh, or the config's tileGrid key, resolved before the fingerprint
+    # so that provenance records what runs: a mesh run always has batched
+    # (chunked-Jacobi) sweep semantics.
+    mesh_req = args.mesh or (
+        list(cfg.tile_grid) if tuple(cfg.tile_grid) != (1, 1) else None)
+    effective_mode = "batched" if mesh_req else args.mode
+    # Provenance: everything that changes the iteration trajectory, with the
+    # chunk that will actually run (a pure LED mesh rounds it up to a
+    # multiple of its led axis). The keys match fpm_tpu's, so checkpoints
+    # carry over between the packages.
+    n_led_fp = mesh_req[0] if (mesh_req and mesh_req[1] == 1) else 1
+    eff_chunk = effective_chunk_size(cfg.np_size, args.chunk_size,
+                                     int(dataset.geom.num_leds), bool(args.use_pallas),
+                                     effective_mode, n_led=n_led_fp)
+    run_fp = fingerprint(
+        cfg, dataset.geom, mode=effective_mode, chunk_size=eff_chunk,
+        chunk_assign=args.chunk_assign, global_max=args.global_max,
+        use_pallas=bool(args.use_pallas), dft_precision=args.dft_precision,
+        comm_precision=args.comm_precision, stale_consensus=bool(args.stale_consensus),
+        mesh="x".join(map(str, mesh_req)) if mesh_req else None,
+    )
+    logger.log("solver_options", mode=effective_mode, chunk_size=eff_chunk,
+               chunk_assign=args.chunk_assign, global_max=args.global_max,
+               use_pallas=bool(args.use_pallas), dft_precision=args.dft_precision,
+               comm_precision=args.comm_precision,
+               stale_consensus=bool(args.stale_consensus),
+               mesh=list(mesh_req) if mesh_req else None, device=device)
+    initial_state, start_iter = _resume_state(args, run_fp)
+    solver_kwargs = {k: v for k, v in _solver_kwargs(args).items() if k != "mode"}
+    if mesh_req:
+        from .parallel import make_mesh, reconstruct_led_sharded, reconstruct_tile_sharded
+
+        n_ranks = mesh_req[0] * mesh_req[1]
+        mesh = make_mesh(led=mesh_req[0], tile=mesh_req[1],
+                         devices=["cpu"] * n_ranks if device == "cpu" else None)
+        print(f"[fpm-torch] mesh: {mesh.describe()}")
+        # TILE = 1: pure LED-batch sharding (replicated spectrum).
+        sharded = (reconstruct_led_sharded if mesh_req[1] == 1
+                   else reconstruct_tile_sharded)
+
+        def run_chunk(step, initial_state):
+            return sharded(dataset.images, dataset.geom, cfg, mesh=mesh,
+                           iterations=step, initial_state=initial_state,
+                           comm_precision=args.comm_precision,
+                           stale_consensus=args.stale_consensus, **solver_kwargs)
+    else:
+        def run_chunk(step, initial_state):
+            return reconstruct(dataset.images, dataset.geom, cfg, iterations=step,
+                               initial_state=initial_state, device=device,
+                               mode=args.mode, **solver_kwargs)
+
+    def log_chunk(done, result):
+        logger.log("iterations", done=done,
+                   data_residual=float(result.metrics["data_residual"][-1]),
+                   update_norm=float(result.metrics["update_norm"][-1]))
+
+    with phase("solve", logger):
+        result = _solve_in_chunks(args, cfg, watchdog, run_fp, initial_state,
+                                  start_iter, run_chunk, log_chunk,
+                                  lambda r: (r.obj_f_centered, r.pupil))
+    with phase("output", logger):
+        save_results(result, args.output, cfg)
+    return f"results written to {args.output}"
+
+
+def _run_large_fov(args, cfg, logger, device, watchdog) -> str:
+    import numpy as np
+
+    from .data.loader import load_dataset
+    from .models.epry import effective_chunk_size
+    from .models.largefov import reconstruct_large_fov
+    from .utils.checkpoint import TileStore, fingerprint
+    from .utils.outputs import SHOW_AMP_PHASE, save_complex_img
+    from .utils.profiling import phase
+
+    with phase("ingest", logger):
+        dataset = load_dataset(cfg, full_frames=True)
+    rows, cols = args.fov_grid
+    eff_chunk = effective_chunk_size(cfg.np_size, args.chunk_size,
+                                     int(dataset.geom.num_leds), bool(args.use_pallas),
+                                     args.mode)
+    solver_kwargs = _solver_kwargs(args)
+    # Per-tile fault tolerance: --checkpoint-every > 0 or --resume keeps each
+    # solved tile under out/tiles/, and --resume loads the stored tiles
+    # (fingerprint-checked) instead of solving them again. A stored tile is a
+    # COMPLETE solve, so the iteration count is part of its fingerprint. The
+    # keys are fpm_tpu's: tiles resume across the packages.
+    run_fp = fingerprint(
+        cfg, dataset.geom, fov_grid=f"{rows}x{cols}", iterations=int(cfg.iterations),
+        fov_overlap=args.fov_overlap, mode=args.mode, chunk_size=eff_chunk,
+        chunk_assign=args.chunk_assign, global_max=args.global_max,
+        use_pallas=bool(args.use_pallas), dft_precision=args.dft_precision,
+    )
+    tile_store = None
+    if args.checkpoint_every > 0 or args.resume:
+        tile_store = TileStore(os.path.join(args.output, "tiles"), meta=run_fp,
+                               resume=bool(args.resume), strict=not args.resume_unsafe)
+
+    def on_tile(r, c, t):
+        logger.log("tile", row=r, col=c, data_residual=float(t.metrics["data_residual"][-1]))
+        watchdog.beat()
+
+    common = dict(grid=(rows, cols), overlap=args.fov_overlap, progress=on_tile,
+                  tile_store=tile_store, **solver_kwargs)
+    with phase("solve", logger):
+        watchdog.arm()
+        if device == "cuda":
+            from .parallel.roi_shard import (
+                make_roi_mesh,
+                reconstruct_large_fov_sharded,
+                tile_bytes,
+            )
+
+            mesh = make_roi_mesh(bytes_per_tile=tile_bytes(cfg, dataset.geom.num_leds))
+            print(f"[fpm-torch] large-FOV: {rows}x{cols} tiles of Np={cfg.np_size} in "
+                  f"rounds of {mesh.size} ({mesh.describe()})")
+            logger.log("solver_options", fov_grid=[rows, cols], roi_ranks=mesh.size,
+                       roi_devices=len(set(mesh.ranks)),
+                       **{**solver_kwargs, "chunk_size": eff_chunk})
+            res = reconstruct_large_fov_sharded(dataset.images, dataset.geom, cfg,
+                                                mesh=mesh, **common)
+        else:
+            print(f"[fpm-torch] large-FOV: {rows}x{cols} tiles of Np={cfg.np_size}")
+            res = reconstruct_large_fov(dataset.images, dataset.geom, cfg, device=device,
+                                        **common)
+    with phase("output", logger):
+        np.save(os.path.join(args.output, "object_stitched.npy"), res.stitched)
+        save_complex_img(res.stitched, SHOW_AMP_PHASE,
+                         os.path.join(args.output, "object_stitched"))
+    return f"stitched {rows * cols} tiles -> {args.output}"
+
+
+def _run_rgb(args, cfg, logger, device, watchdog) -> str:
+    import numpy as np
+
+    from .data.loader import load_dataset_rgb
+    from .models.epry import effective_chunk_size, reconstruct_channels
+    from .utils.checkpoint import fingerprint
+    from .utils.outputs import save_png, save_results
+    from .utils.profiling import phase
+
+    # Decode-once ingest: every file is read and decoded once and the three
+    # channels are preprocessed from that decode (bitwise three per-channel
+    # loads), at the price of holding the three channel stacks at once.
+    with phase("ingest[rgb]", logger):
+        channels = load_dataset_rgb(cfg)
+    geom = channels[0].geom
+    eff_chunk = effective_chunk_size(cfg.np_size, args.chunk_size, int(geom.num_leds),
+                                     bool(args.use_pallas), args.mode)
+    solver_kwargs = _solver_kwargs(args)
+    run_fp = fingerprint(
+        cfg, geom, color_mode="rgb", mode=args.mode, chunk_size=eff_chunk,
+        chunk_assign=args.chunk_assign, global_max=args.global_max,
+        use_pallas=bool(args.use_pallas), dft_precision=args.dft_precision,
+    )
+    logger.log("solver_options", color_mode="rgb", channels=3, chunk_size=eff_chunk,
+               **{k: v for k, v in solver_kwargs.items() if k != "chunk_size"})
+    # The sweep checkpoints hold the stacked (3, ...) channel state.
+    initial_state, start_iter = _resume_state(args, run_fp)
+
+    def run_chunk(step, initial_state):
+        return reconstruct_channels([d.images for d in channels], geom, cfg, iterations=step,
+                                    initial_state=initial_state, device=device,
+                                    **solver_kwargs)
+
+    def log_chunk(done, results):
+        logger.log("iterations", done=done, **{
+            name: float(r.metrics["data_residual"][-1])
+            for name, r in zip(("red", "green", "blue"), results)})
+
+    with phase("solve[rgb]", logger):
+        results = _solve_in_chunks(
+            args, cfg, watchdog, run_fp, initial_state, start_iter, run_chunk,
+            log_chunk, lambda rs: (np.stack([r.obj_f_centered for r in rs]),
+                                   np.stack([r.pupil for r in rs])))
+    amps = []
+    for name, res, dataset in zip(("red", "green", "blue"), results, channels):
+        save_results(res, os.path.join(args.output, name), dataset.cfg)
+        amps.append(np.abs(res.obj_crop))
+    rgb = np.stack(amps, axis=-1)
+    save_png(os.path.join(args.output, "object_rgb.png"), rgb / (rgb.max() + 1e-30))
+    return f"RGB reconstruction -> {args.output}"
 
 
 if __name__ == "__main__":

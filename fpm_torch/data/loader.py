@@ -4,7 +4,9 @@ The same ingestion contract as ``fpm_tpu.data.loader`` (fpmMain.cpp:36-271):
 directory scan with ``{prefix}{led#}{ext}`` filename parsing, per-LED PIL
 decode, ROI crop, darkfield exposure division, two-point background
 estimation clamped at ``bgThreshold`` and saturating subtraction. Only the
-Python decode path is ported; the ctypes wrapper over the native C++ decoder
+Python decode path is ported, with whole camera frames for the large-FOV
+tiling mode (``full_frames=True``) and the decode-once RGB ingest
+(:func:`load_dataset_rgb`); the ctypes wrapper over the native C++ decoder
 (``fpm_tpu/native/fpm_io.cpp``) comes in a later slice, so
 ``use_native=True`` raises.
 """
@@ -25,7 +27,8 @@ from ..geometry import LEDGeometry, compute_geometry
 class LoadedDataset:
     cfg: FPMConfig
     geom: LEDGeometry
-    images: np.ndarray     # (K, Np, Np) uint16, bg-subtracted, ordered by geom.led_numbers
+    images: np.ndarray     # (K, Np, Np) uint16 (full frames: (K, H, W)), bg-subtracted,
+    #                        ordered by geom.led_numbers
     bg_values: np.ndarray  # (K,) int16 per-LED background estimate
 
 
@@ -63,6 +66,23 @@ def _decode_image(path: str, color: bool, color_channel: int) -> np.ndarray:
     return arr.astype(np.uint16, copy=False)
 
 
+def _decode_image_rgb(path: str) -> np.ndarray:
+    """Decode one image ONCE to (3, H, W) uint16 RGB planes; a grayscale
+    image replicates to all three (what three per-channel
+    :func:`_decode_image` calls would each return)."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        arr = np.asarray(im)
+    if arr.ndim == 2:
+        arr = np.broadcast_to(arr, (3,) + arr.shape)
+    else:
+        arr = np.moveaxis(arr[..., :3], -1, 0)
+    if arr.dtype == np.uint8:
+        arr = arr.astype(np.uint16)
+    return arr.astype(np.uint16, copy=False)
+
+
 def preprocess_image(
     full_img: np.ndarray, cfg: FPMConfig, is_darkfield: bool
 ) -> tuple[np.ndarray, int]:
@@ -91,6 +111,28 @@ def preprocess_image(
 
     img = np.clip(img - bg, 0, 65535).astype(np.uint16)  # saturating cv::subtract
     return img, bg
+
+
+def preprocess_full_frame(
+    full_img: np.ndarray, cfg: FPMConfig, is_darkfield: bool
+) -> tuple[np.ndarray, int]:
+    """Darkfield scaling + background subtraction WITHOUT the ROI crop, for
+    the large-FOV tiling mode (models/largefov.py), which crops many
+    overlapping ROIs later. Same background estimate and saturation as
+    :func:`preprocess_image`."""
+    np_sz = cfg.np_size
+    img = full_img.astype(np.float64)
+    if cfg.darkfield_exp_multiplier != 1 and is_darkfield:
+        img = np.rint(img / cfg.darkfield_exp_multiplier)
+    bk1 = full_img[
+        cfg.bk1_crop_y : cfg.bk1_crop_y + np_sz, cfg.bk1_crop_x : cfg.bk1_crop_x + np_sz
+    ].mean()
+    bk2 = full_img[
+        cfg.bk2_crop_y : cfg.bk2_crop_y + np_sz, cfg.bk2_crop_x : cfg.bk2_crop_x + np_sz
+    ].mean()
+    bg_val = min((bk1 + bk2) / 2.0, cfg.bg_threshold)
+    bg = int(round(bg_val))
+    return np.clip(img - bg, 0, 65535).astype(np.uint16), bg
 
 
 def _scan_and_prepare(cfg: FPMConfig):
@@ -130,17 +172,61 @@ def _scan_and_prepare(cfg: FPMConfig):
     return geom, paths
 
 
-def load_dataset(cfg: FPMConfig, use_native: bool | None = None) -> LoadedDataset:
+def _refuse_native(use_native) -> None:
+    if use_native:
+        raise ValueError("the native TIFF decoder is not yet ported to fpm_torch")
+
+
+def load_dataset(cfg: FPMConfig, use_native: bool | None = None,
+                 full_frames: bool = False) -> LoadedDataset:
     """Scan, filter by NA, decode and preprocess the full LED stack.
 
     ``use_native=None`` or ``False`` takes the Python (PIL) decode path.
+    ``full_frames=True`` keeps whole camera frames (no ROI crop) for the
+    large-FOV tiling mode; their shape comes from the first file.
     """
-    if use_native:
-        raise ValueError("the native TIFF decoder is not yet ported to fpm_torch")
+    _refuse_native(use_native)
     geom, paths = _scan_and_prepare(cfg)
+    if full_frames:
+        first = _decode_image(paths[int(geom.led_numbers[0])], cfg.color, cfg.color_channel)
+        images = np.empty((geom.num_leds,) + first.shape, dtype=np.uint16)
+        bgs = np.empty(geom.num_leds, dtype=np.int16)
+        for i, led in enumerate(geom.led_numbers):
+            full = first if i == 0 else _decode_image(paths[led], cfg.color,
+                                                      cfg.color_channel)
+            images[i], bgs[i] = preprocess_full_frame(full, cfg, geom.is_darkfield[i])
+        return LoadedDataset(cfg=cfg, geom=geom, images=images, bg_values=bgs)
     images = np.empty((geom.num_leds, cfg.np_size, cfg.np_size), dtype=np.uint16)
     bgs = np.empty(geom.num_leds, dtype=np.int16)
     for i, led in enumerate(geom.led_numbers):
         full = _decode_image(paths[led], cfg.color, cfg.color_channel)
         images[i], bgs[i] = preprocess_image(full, cfg, geom.is_darkfield[i])
     return LoadedDataset(cfg=cfg, geom=geom, images=images, bg_values=bgs)
+
+
+def load_dataset_rgb(cfg: FPMConfig, use_native: bool | None = None) -> list[LoadedDataset]:
+    """Decode-once RGB ingestion: returns [R, G, B] channel datasets.
+
+    Each is bitwise ``load_dataset(replace(cfg, color=True,
+    color_channel=bgr))`` for the matching BGR channel index (R↔2, G↔1,
+    B↔0), per-channel background estimate included, but every file is read
+    and decoded ONCE instead of three times: the ingest of ``--color-mode
+    rgb`` (the reference decodes each color TIFF and throws two channels
+    away, fpmMain.cpp:109-115).
+    """
+    _refuse_native(use_native)
+    geom, paths = _scan_and_prepare(cfg)
+    k = geom.num_leds
+    images = np.empty((k, 3, cfg.np_size, cfg.np_size), dtype=np.uint16)
+    bgs = np.empty((k, 3), dtype=np.int16)
+    for i, led in enumerate(geom.led_numbers):
+        planes = _decode_image_rgb(paths[int(led)])
+        for c in range(3):
+            images[i, c], bgs[i, c] = preprocess_image(planes[c], cfg, geom.is_darkfield[i])
+    out = []
+    for rgb_idx, bgr_idx in ((0, 2), (1, 1), (2, 0)):
+        ch_cfg = dataclasses.replace(cfg, color=True, color_channel=bgr_idx)
+        out.append(LoadedDataset(cfg=ch_cfg, geom=geom,
+                                 images=np.ascontiguousarray(images[:, rgb_idx]),
+                                 bg_values=np.ascontiguousarray(bgs[:, rgb_idx])))
+    return out

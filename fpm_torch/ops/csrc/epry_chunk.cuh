@@ -11,59 +11,71 @@
 
 namespace fpm {
 
-// grid = C · cs in clusters of cs blocks, one cluster per LED of the chunk
-// (LED j = blockIdx.x / cs): the forward pass and the increments
-// (epry_common.cuh) from the chunk-start (O, P) into scratch, each block
-// writing its slab of bbox rows:
-//   d_obj (C, b, b)  dO_j          num (C, b, b)  pupil numerator_j
-//   parts (C, 2)     (Σ(A − |img|)², Σ|dO|²) of LED j, zeros unless
-//                    ``metrics``: the blocks' shares summed in rank order by
-//                    the cluster's first block
-// A masked dummy (valid_j = 0) exits at once, before any cluster barrier:
-// every block of its cluster sees the same valid_j, so none waits for a
-// peer that left, and its frame and start are never read.
+// grid = P · C · cs in clusters of cs blocks, one cluster per problem and
+// LED of the chunk (cluster g = blockIdx.x / cs is LED j = g mod C of
+// problem q = g / C): the forward pass and the increments (epry_common.cuh)
+// from problem q's chunk-start (O, P) into its scratch, each block writing
+// its slab of bbox rows:
+//   d_obj (P, C, b, b)  dO_j          num (P, C, b, b)  pupil numerator_j
+//   parts (P, C, 2)     (Σ(A − |img|)², Σ|dO|²) of LED j, zeros unless
+//                       ``metrics``: the segment sums added in a fixed order
+//                       in the cluster's first block (ordered_sum)
+// Problem q's spectrum starts at o + q·o_stride (re plane, then the im
+// plane n_rows·n_cols further), its pupil at p + q·p_stride (re, then im b·b
+// further) and its chunk frames at amps + q·a_stride; the support, starts,
+// valid flags and DFT matrices are shared by all problems. No block reads or
+// writes another problem's data. A masked dummy (valid_j = 0) exits at once,
+// before any cluster barrier: every block of its cluster sees the same
+// valid_j, so none waits for a peer that left, and its frame and start are
+// never read.
 __global__ void __launch_bounds__(kThreads)
-chunk_forward(const float* o_re, const float* o_im, int n_rows, int n_cols,
-              const float* p_re, const float* p_im,
-              const float* __restrict__ sup, const float* __restrict__ amps,
-              const int* __restrict__ starts, const int* __restrict__ valid,
+chunk_forward(const float* o, size_t o_stride, int n_rows, int n_cols,
+              const float* p, size_t p_stride,
+              const float* __restrict__ sup, const float* __restrict__ amps, size_t a_stride,
+              const int* __restrict__ starts, const int* __restrict__ valid, int c,
               DftMats m, int n, int b, int lo, float eps, float delta1, float delta2,
               int metrics, float2* __restrict__ d_obj, float2* __restrict__ num,
               float* __restrict__ parts, LedPlan plan) {
   cg::cluster_group cluster = cg::this_cluster();
-  const int j = blockIdx.x / plan.cs;
+  const int g = blockIdx.x / plan.cs;
+  const int q = g / c, j = g - q * c;
   const int rank = (int)cluster.block_rank();
   const int bb = b * b;
+  float* const part = parts + 2 * (size_t)g;
   if (!valid[j]) {
-    if (rank == 0 && threadIdx.x == 0) parts[2 * j] = parts[2 * j + 1] = 0.f;
+    if (rank == 0 && threadIdx.x == 0) part[0] = part[1] = 0.f;
     return;
   }
+  const float* o_re = o + q * o_stride;
+  const float* o_im = o_re + (size_t)n_rows * n_cols;
+  const float* p_re = p + q * p_stride;
+  const float* p_im = p_re + bb;
   extern __shared__ float4 smem_raw[];
   const LedSmem s = carve_smem(smem_raw, m, n, b, plan, rank);
   const int y0 = clamp_start(starts[2 * j], n_rows, n) + lo;
   const int x0 = clamp_start(starts[2 * j + 1], n_cols, n) + lo;
   float pmax;
-  const float resid = led_forward(o_re, o_im, n_cols, y0, x0, p_re, p_im,
-                                  amps + ((size_t)j * n + s.row0) * n, n, b, eps,
-                                  metrics != 0, s, &pmax);
-  const size_t slab = (size_t)j * bb + (size_t)s.brow0 * b;
-  const float upd = led_increments(s, o_re, o_im, n_cols, y0, x0, b, p_re, p_im, sup, pmax,
-                                   delta1, delta2, metrics != 0, d_obj + slab, num + slab,
-                                   nullptr, nullptr);
-  if (threadIdx.x == 0) {
-    s.share[0] = resid;
-    s.share[1] = upd;
-  }
-  cluster.sync();   // the peers have read this block's slab of V; the shares are written
+  led_forward(o_re, o_im, n_cols, y0, x0, p_re, p_im,
+              amps + q * a_stride + ((size_t)j * n + s.row0) * n, n, b, eps, metrics != 0, s,
+              &pmax);
+  const size_t slab = (size_t)g * bb + (size_t)s.brow0 * b;
+  led_increments(s, o_re, o_im, n_cols, y0, x0, b, p_re, p_im, sup, pmax, delta1, delta2,
+                 metrics != 0, d_obj + slab, num + slab, nullptr, nullptr);
+  cluster.sync();   // the peers have read this block's slab of V; the segment sums are final
   if (!metrics) {
-    if (rank == 0 && threadIdx.x == 0) parts[2 * j] = parts[2 * j + 1] = 0.f;
+    if (rank == 0 && threadIdx.x == 0) part[0] = part[1] = 0.f;
     return;
   }
-  if (rank == 0 && threadIdx.x == 0) {
-    parts[2 * j] = cluster_share_sum(s, 0);
-    parts[2 * j + 1] = cluster_share_sum(s, 1);
+  send_segment_sums(s, n, b);
+  cluster.sync();   // every segment's sum is in the first block
+  if (rank == 0 && threadIdx.x < 32) {
+    const float resid = ordered_sum(s.sums, n * segments(n));
+    const float upd = ordered_sum(s.sums + n * segments(n), b * segments(b));
+    if (threadIdx.x == 0) {
+      part[0] = resid;
+      part[1] = upd;
+    }
   }
-  cluster.sync();   // no block exits while the first still reads its share
 }
 
 // Σ_j valid_j·dO_j over the windows of the chunk that cover block element

@@ -46,6 +46,12 @@
 // reaches, the DFT matrices its products read (Bi, Bf, Ai[rows_r,:], Af:
 // 144 KB at cs=8), so the contraction loops read both operands from shared
 // memory. cs=1 is the single-block layout: nothing is gathered.
+// The metric sums do not depend on cs either: one warp sums each 32-column
+// segment of an image row (and of a bbox row), lane l on column 32·seg + l,
+// the block that owns the row adds that into the segment's accumulator;
+// every block stores its accumulators into the cluster's first block at the
+// segments' places in the whole image (send_segment_sums), and one warp
+// there adds them in a fixed order (ordered_sum).
 // cgemm gives a thread a 4×2, 2×2 or 1×2 complex register tile, the
 // largest that still leaves the block kMinTiles tiles for its warps (the
 // slab products are skinny: 12 rows at cs=8, where only img = T·Bi is
@@ -319,6 +325,13 @@ __device__ float block_max(float v, float* red) {
   return red[0];
 }
 
+// Warp-wide sum; every lane of the warp must call and gets the same value
+// (a xor butterfly: each step adds the same two values on both lanes).
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
 // How one LED is laid out on its cluster; made by plan_led on the host and
 // passed to the kernel by value.
 struct LedPlan {
@@ -359,14 +372,25 @@ __host__ __device__ inline int repc_units(int n, int nr, int cs) {
   return cs > 1 ? n * even_up(nr) : 0;
 }
 
+// 32-column segments of a row of m columns: the unit of the metric sums.
+__host__ __device__ inline int segments(int m) { return (m + 31) >> 5; }
+
+// Floats of the metric sums of all segments of an LED: the n image rows',
+// then the b bbox rows'.
+__host__ __device__ inline int sums_units(int n, int b) {
+  return n * segments(n) + b * segments(b);
+}
+
 // Bytes of a block's shared memory before any staged matrix: the four
-// buffers, the frame buffers, 32 floats for reductions and 4 for the
-// cluster's metric partials.
+// buffers, the frame buffers, 32 floats for reductions, the metric
+// accumulators of the segments of the block's nr image rows and br bbox
+// rows, and room for the sums of all segments (read in the first block).
 __host__ __device__ inline size_t led_base_bytes(int n, int b, int cs, int nr, int br,
                                                  int frames) {
   return (size_t)(z_units(b, nr) + t_units(n, b, nr, br) + img_units(n, nr)
                   + repc_units(n, nr, cs)) * sizeof(float2)
-         + (size_t)(frames * frame_units(n, nr) + 32 + 4) * sizeof(float);
+         + (size_t)(frames * frame_units(n, nr) + 32 + nr * segments(n)
+                    + br * segments(b) + sums_units(n, b)) * sizeof(float);
 }
 
 // One block's view of its shared memory and of its slabs.
@@ -375,14 +399,17 @@ struct LedSmem {
   const float2 *bi, *bf, *ai, *af;      // the DFT matrices: staged or global
   float* frame;  // frames · frame_units floats
   float* red;    // 32 floats
-  float* share;  // 4 floats a peer may read
-  int rank, cs, nr, nrp;   // nrp = even_up(nr): the row stride of z as V and of repc
+  float* rsum;   // Σ(amp − |img|)² of each segment of this block's image rows
+  float* usum;   // Σ|dO|² of each segment of this block's bbox rows
+  float* sums;   // the first block: every segment's sum (sums_units floats)
+  int rank, cs, nr, br, nrp;   // nrp = even_up(nr): the row stride of z as V and of repc
   int row0, rows;          // this block's image rows, and image columns
   int brow0, brows;        // this block's bbox rows
 };
 
-// Carves the block's dynamic shared memory and copies the staged slices of
-// the DFT matrices into it. Ends with a block barrier. Slab r of m rows cut
+// Carves the block's dynamic shared memory, zeroes the metric accumulators
+// and copies the staged slices of the DFT matrices into it. Ends with a block
+// barrier. Slab r of m rows cut
 // for cs blocks is [min(r·per, m), min((r+1)·per, m)) with per = ceil(m/cs)
 // (fpm_torch/ops/kernels.py slab_bounds states the same rule, and a test
 // holds that such slabs cover every row once).
@@ -392,6 +419,7 @@ __device__ inline LedSmem carve_smem(void* base, const DftMats m, int n, int b,
   s.rank = rank;
   s.cs = plan.cs;
   s.nr = plan.nr;
+  s.br = plan.br;
   s.nrp = even_up(plan.nr);
   s.row0 = min(rank * plan.nr, n);
   s.rows = min(plan.nr, n - s.row0);
@@ -432,7 +460,12 @@ __device__ inline LedSmem carve_smem(void* base, const DftMats m, int n, int b,
   }
   s.frame = reinterpret_cast<float*>(f);
   s.red = s.frame + plan.frames * frame_units(n, plan.nr);
-  s.share = s.red + 32;
+  s.rsum = s.red + 32;
+  s.usum = s.rsum + plan.nr * segments(n);
+  s.sums = s.usum + plan.br * segments(b);
+  for (int e = threadIdx.x; e < plan.nr * segments(n) + plan.br * segments(b);
+       e += blockDim.x)
+    s.rsum[e] = 0.f;
   __syncthreads();
   return s;
 }
@@ -488,20 +521,75 @@ struct ClusterLaunch {
   ClusterLaunch& operator=(const ClusterLaunch&) = delete;
 };
 
-// Chooses the cluster size for ``kernel`` running ``slots`` LEDs at once
-// and sets the kernel's shared-memory attribute: the largest cs of 8, 4, 2,
-// 1 such that slots·cs blocks fit one wave of the card's SMs (cs = 1 always
-// may run more), a block's buffers fit its shared memory, and the card says
-// such a cluster can be resident (no such cluster is an answer and the next
-// smaller size is tried; an error of the query is returned). ``force_cs``
-// (tests only; 0 = choose) takes that size or fails. Stages as many matrix
-// slices as fit beside the buffers, in the order Bi, Bf, Ai, Af. Returns 0,
-// a cudaError_t value, kErrLedSmem (no cs fits) or kErrCluster (the forced
-// cs cannot run). A plan, once made, is kept by (kernel, shapes, device):
-// an entry point called once per chunk asks the card once.
+// The plan of ``slots`` LEDs on clusters of cs blocks (staging as many
+// matrix slices as fit beside the buffers, in the order Bi, Bf, Ai, Af; K2's
+// frame buffers only if they fit too) and in *clusters how many such
+// clusters the card holds at once (0: none). ``limit`` is the card's
+// shared memory per block. Returns 0, kErrLedSmem (the buffers do not fit)
+// or a cudaError_t value of the occupancy query.
 template <typename Kernel>
-int plan_led(Kernel kernel, int n, int b, int slots, int frames, int force_cs, int device,
-             LedPlan* plan) {
+int plan_at(Kernel kernel, int n, int b, int slots, int frames, int cs, int limit,
+            LedPlan* plan, int* clusters) {
+  LedPlan p{cs, (n + cs - 1) / cs, (b + cs - 1) / cs, 0, frames, 0};
+  size_t bytes = led_base_bytes(n, b, cs, p.nr, p.br, frames);
+  if (bytes > (size_t)limit) {   // then without frame buffers: frames read in place
+    p.frames = 0;
+    bytes = led_base_bytes(n, b, cs, p.nr, p.br, 0);
+  }
+  if (bytes > (size_t)limit) return kErrLedSmem;
+  for (int bit = kStageBi; bit <= kStageAf; bit <<= 1) {
+    const size_t more = (size_t)stage_units(bit, n, b, p.nr) * sizeof(float2);
+    if (bytes + more <= (size_t)limit) {
+      bytes += more;
+      p.stage |= bit;
+    }
+  }
+  p.smem = (unsigned)bytes;
+  *plan = p;
+  const ClusterLaunch launch(slots, p, nullptr);
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(clusters, kernel, &launch.cfg);
+  if (err != cudaSuccess) cudaGetLastError();   // returned here, not left for the next launch
+  return (int)err;
+}
+
+// The card's shared memory per block, set as ``kernel``'s limit: the most the
+// card allows, whatever a plan takes, so a kept plan of another size needs
+// no second call.
+template <typename Kernel>
+int smem_limit(Kernel kernel, int device, int* limit) {
+  cudaError_t err =
+      cudaDeviceGetAttribute(limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *limit);
+  return (int)err;
+}
+
+// The time of one LED on a cluster of cs = 1, 2, 4, 8 blocks relative to
+// cs = 1: K2's sweep at forced cluster sizes on an H100 (22.06, 12.36,
+// 7.34, 4.40 ms; PERF.md §5), the weight plan_led gives a wave at each cs.
+constexpr float kLedTime[4] = {1.f, 0.56f, 0.333f, 0.2f};
+
+// Chooses the cluster size for ``kernel`` running ``slots`` LEDs at once
+// (K2: one per problem; K1: the chunk's LEDs of every problem) and sets the
+// kernel's shared-memory attribute. Of the sizes 8, 4, 2, 1 at which a
+// block's buffers fit its shared memory and the card says a cluster can be
+// resident, it takes the one with the least estimated time: the waves the
+// slots need times kLedTime[cs]; a tie goes to the larger cs. A wave of a
+// ``persistent`` kernel (K2: a cluster walks its problem's whole sweep) is
+// as many clusters as the card holds at once (its own count: clusters must
+// sit inside one GPC, and an H100 holds 15 of 8 blocks, 30 of 4); a cluster
+// that finds no room waits a whole sweep. A wave of one-LED clusters (K1,
+// K3) is as many as the SMs take: one left without room starts as soon as
+// any finishes, and measured on an H100 K1's 32 clusters of 4 (30 resident)
+// beat 32 of 2 (all resident) 0.54 to 0.69 ms per sweep (PERF.md §5). ``force_cs``
+// (tests only; 0 = choose) takes that size or fails. Returns 0, a
+// cudaError_t value (an error of the occupancy query), kErrLedSmem (no cs
+// fits) or kErrCluster (the forced cs cannot run). A plan, once made, is
+// kept by (kernel, shapes, slots, device): an entry point called once per
+// chunk asks the card once.
+template <typename Kernel>
+int plan_led(Kernel kernel, int n, int b, int slots, int frames, bool persistent, int force_cs,
+             int device, LedPlan* plan) {
   if (force_cs != 0 && force_cs != 1 && force_cs != 2 && force_cs != 4 && force_cs != 8)
     return (int)cudaErrorInvalidValue;
   using Key = std::tuple<const void*, int, int, int, int, int, int>;
@@ -515,47 +603,46 @@ int plan_led(Kernel kernel, int n, int b, int slots, int frames, int force_cs, i
     return 0;
   }
   int limit = 0, sms = 0;
-  cudaError_t err =
-      cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (const int e = smem_limit(kernel, device, &limit)) return e;
+  const cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return (int)err;
-  // The most the card allows, whatever this plan takes: a kept plan of
-  // another size then needs no second call.
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
-  if (err != cudaSuccess) return (int)err;
-  bool fits_smem = false;
-  for (int cs = kMaxCluster; cs >= 1; cs >>= 1) {
-    if (force_cs ? cs != force_cs : (cs > 1 && slots * cs > sms)) continue;
-    LedPlan p{cs, (n + cs - 1) / cs, (b + cs - 1) / cs, 0, frames, 0};
-    size_t bytes = led_base_bytes(n, b, cs, p.nr, p.br, frames);
-    if (bytes > (size_t)limit) {   // then without frame buffers: frames read in place
-      p.frames = 0;
-      bytes = led_base_bytes(n, b, cs, p.nr, p.br, 0);
-    }
-    if (bytes > (size_t)limit) continue;
-    fits_smem = true;
-    for (int bit = kStageBi; bit <= kStageAf; bit <<= 1) {
-      const size_t more = (size_t)stage_units(bit, n, b, p.nr) * sizeof(float2);
-      if (bytes + more <= (size_t)limit) {
-        bytes += more;
-        p.stage |= bit;
-      }
-    }
-    p.smem = (unsigned)bytes;
-    const ClusterLaunch launch(slots, p, nullptr);
+  bool fits_smem = false, found = false;
+  float best = 0.f;
+  for (int cs = kMaxCluster, log_cs = 3; cs >= 1; cs >>= 1, --log_cs) {
+    if (force_cs && cs != force_cs) continue;
+    LedPlan p;
     int clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &launch.cfg);
-    if (err != cudaSuccess) {
-      cudaGetLastError();   // returned here, not left for the next launch to find
-      return (int)err;
-    }
+    const int e = plan_at(kernel, n, b, slots, frames, cs, limit, &p, &clusters);
+    if (e == kErrLedSmem) continue;
+    if (e) return e;
+    fits_smem = true;
     if (clusters < 1) continue;
-    plans[key] = p;
-    *plan = p;
-    return 0;
+    const int wave = persistent ? clusters : imax(1, sms / cs);
+    const float cost = (float)((slots + wave - 1) / wave) * kLedTime[log_cs];
+    if (!found || cost < best) {
+      found = true;
+      best = cost;
+      *plan = p;
+    }
   }
-  return fits_smem ? kErrCluster : kErrLedSmem;
+  if (!found) return fits_smem ? kErrCluster : kErrLedSmem;
+  plans[key] = *plan;
+  return 0;
+}
+
+// A measurement aid behind each library's fpm_resident_clusters: how many
+// clusters of cs blocks of ``kernel`` the card holds at once for ``slots``
+// LEDs of Np n and bbox b (0 when none; kErrLedSmem when the buffers do not
+// fit at this cs).
+template <typename Kernel>
+int resident_clusters(Kernel kernel, int n, int b, int slots, int frames, int cs, int device,
+                      int* clusters) {
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  int limit = 0;
+  if (const int e = smem_limit(kernel, device, &limit)) return e;
+  LedPlan p;
+  return plan_at(kernel, n, b, slots, frames, cs, limit, &p, clusters);
 }
 
 // A patch start as the JAX package's crop (``lax.dynamic_slice``) takes it:
@@ -578,12 +665,12 @@ __device__ __forceinline__ int clamp_start(int s, int dim, int n) {
 // block's rows of the frame (shared or global memory). Leaves up[slab r]
 // in s.img (brows × b), max|P| over the whole bbox pupil in *pmax (the
 // object update's max|P|, fpmMain.cpp:404-419; every block gets the same
-// value), and returns this block's share of the data residual
-// Σ(amp − |img|)² when ``metrics`` (else 0). All threads of all blocks of
+// value), and, when ``metrics``, adds each segment of its image rows' share
+// of the data residual Σ(amp − |img|)² to s.rsum. All threads of all blocks of
 // the cluster must call; it holds two cluster barriers, and the peers may
 // read this block's s.z until the next one, which the caller places before
 // s.z is written again or the block exits.
-__device__ float led_forward(const float* o_re, const float* o_im, int ld, int y0, int x0,
+__device__ void led_forward(const float* o_re, const float* o_im, int ld, int y0, int x0,
                              const float* p_re, const float* p_im, const float* amp, int n,
                              int b, float eps, bool metrics, const LedSmem s, float* pmax) {
   cg::cluster_group cluster = cg::this_cluster();
@@ -626,19 +713,30 @@ __device__ float led_forward(const float* o_re, const float* o_im, int ld, int y
   cgemm(s.t, b, s.bi, n, s.img, n, s.rows, n, b);          // img_r = T_r·Bi
   __syncthreads();
   FPM_PHASE(kPhaseProduct2);
-  float resid = 0.f;
-  for (int e = threadIdx.x; e < s.rows * n; e += blockDim.x) {
-    const float2 v = s.img[e];
-    const float a = amp[e];
-    const float re = v.x + eps, im = v.y + eps;
-    const float scale = a / sqrtf(re * re + im * im);
-    if (metrics) {
-      const float d = a - sqrtf(v.x * v.x + v.y * v.y);
-      resid = fmaf(d, d, resid);
+  // One warp per 32-column segment of an image row, lane l on its column l:
+  // a segment's residual is the same sum whichever block and warp own it.
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+  const int segs = segments(n);
+  for (int t = warp; t < s.rows * segs; t += warps) {
+    const int r = t / segs, c = 32 * (t - r * segs) + lane;
+    float racc = 0.f;
+    if (c < n) {
+      const int e = r * n + c;
+      const float2 v = s.img[e];
+      const float a = amp[e];
+      const float re = v.x + eps, im = v.y + eps;
+      const float scale = a / sqrtf(re * re + im * im);
+      if (metrics) {
+        const float d = a - sqrtf(v.x * v.x + v.y * v.y);
+        racc = d * d;
+      }
+      s.img[e] = make_float2(v.x * scale, v.y * scale);
     }
-    s.img[e] = make_float2(v.x * scale, v.y * scale);
+    if (metrics) {
+      racc = warp_sum(racc);
+      if (lane == 0) s.rsum[t] += racc;
+    }
   }
-  if (metrics) resid = block_sum(resid, s.red);
   FPM_PHASE(kPhaseReplace);
   const float2* vrow = s.z;     // V[slab r, :]; with one block, V itself
   int ld_repc = n, ld_vrow = s.nrp;
@@ -701,7 +799,6 @@ __device__ float led_forward(const float* o_re, const float* o_im, int ld, int y
   cgemm(vrow, ld_vrow, s.bf, b, s.img, b, s.brows, b, n);      // up[slab r] = V[slab r,:]·Bf
   __syncthreads();
   FPM_PHASE(kPhaseProduct4);
-  return resid;
 }
 
 // Per-element increments of one LED on this block's slab of bbox rows, from
@@ -716,54 +813,78 @@ __device__ float led_forward(const float* o_re, const float* o_im, int ld, int y
 // to d_obj[l] (K1, K3; both may be shared or global memory) or, when d_obj
 // is null, straight into the window: ow += dO (K2; ow_re/ow_im are O's
 // planes, and every element of the window is read and written by one thread
-// of one block). Returns this block's Σ|dO|² when ``metrics``.
-__device__ float led_increments(const LedSmem s, const float* o_re, const float* o_im, int ld,
-                                int y0, int x0, int b, const float* p_re, const float* p_im,
-                                const float* __restrict__ sup, float pmax, float delta1,
-                                float delta2, bool metrics, float2* d_obj, float2* num,
-                                float* ow_re, float* ow_im) {
-  float upd = 0.f;
-  for (int l = threadIdx.x; l < s.brows * b; l += blockDim.x) {
-    const int e = s.brow0 * b + l;
-    const int i = e / b, j = e - i * b;
-    const float2 up = s.img[l];
-    const size_t g = (size_t)(y0 + i) * ld + (x0 + j);
-    const float2 oc = make_float2(ld_state(o_re + g), ld_state(o_im + g));
-    const float2 p = make_float2(ld_state(p_re + e), ld_state(p_im + e));
-    const float2 ocp = cmul(oc, p);
-    const float2 diff = make_float2(up.x - ocp.x, up.y - ocp.y);
+// of one block). When ``metrics``, adds each segment of its bbox rows'
+// Σ|dO|² to s.usum (one warp per 32-column segment, as led_forward's
+// residual).
+__device__ void led_increments(const LedSmem s, const float* o_re, const float* o_im, int ld,
+                               int y0, int x0, int b, const float* p_re, const float* p_im,
+                               const float* __restrict__ sup, float pmax, float delta1,
+                               float delta2, bool metrics, float2* d_obj, float2* num,
+                               float* ow_re, float* ow_im) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+  const int segs = segments(b);
+  for (int t = warp; t < s.brows * segs; t += warps) {
+    const int r = t / segs, j = 32 * (t - r * segs) + lane;
+    float uacc = 0.f;
+    if (j < b) {
+      const int l = r * b + j;
+      const int i = s.brow0 + r, e = i * b + j;
+      const float2 up = s.img[l];
+      const size_t g = (size_t)(y0 + i) * ld + (x0 + j);
+      const float2 oc = make_float2(ld_state(o_re + g), ld_state(o_im + g));
+      const float2 p = make_float2(ld_state(p_re + e), ld_state(p_im + e));
+      const float2 ocp = cmul(oc, p);
+      const float2 diff = make_float2(up.x - ocp.x, up.y - ocp.y);
 
-    const float pabs2 = p.x * p.x + p.y * p.y;
-    const float pabs = sqrtf(pabs2);
-    const float recip_o = 1.f / (pmax * (pabs2 + delta2));
-    const float2 w = make_float2(pabs * p.x * recip_o, -pabs * p.y * recip_o);
-    const float2 dob = cmul(diff, w);
+      const float pabs2 = p.x * p.x + p.y * p.y;
+      const float pabs = sqrtf(pabs2);
+      const float recip_o = 1.f / (pmax * (pabs2 + delta2));
+      const float2 w = make_float2(pabs * p.x * recip_o, -pabs * p.y * recip_o);
+      const float2 dob = cmul(diff, w);
 
-    const float oabs2 = oc.x * oc.x + oc.y * oc.y;
-    const float oabs = sqrtf(oabs2);
-    const float rp = sup[e] / (oabs2 + delta1);
-    const float2 v = make_float2(oabs * oc.x * rp, -oabs * oc.y * rp);
+      const float oabs2 = oc.x * oc.x + oc.y * oc.y;
+      const float oabs = sqrtf(oabs2);
+      const float rp = sup[e] / (oabs2 + delta1);
+      const float2 v = make_float2(oabs * oc.x * rp, -oabs * oc.y * rp);
 
-    if (d_obj) {
-      d_obj[l] = dob;
-    } else {
-      ow_re[g] = oc.x + dob.x;
-      ow_im[g] = oc.y + dob.y;
+      if (d_obj) {
+        d_obj[l] = dob;
+      } else {
+        ow_re[g] = oc.x + dob.x;
+        ow_im[g] = oc.y + dob.y;
+      }
+      num[l] = cmul(diff, v);
+      if (metrics) uacc = fmaf(dob.x, dob.x, dob.y * dob.y);
     }
-    num[l] = cmul(diff, v);
-    if (metrics) upd = fmaf(dob.x, dob.x, fmaf(dob.y, dob.y, upd));
+    if (metrics) {
+      uacc = warp_sum(uacc);
+      if (lane == 0) s.usum[t] += uacc;
+    }
   }
-  return metrics ? block_sum(upd, s.red) : 0.f;
 }
 
-// Σ_q of the peers' s.share[slot] in rank order. Called by one thread,
-// between two cluster barriers: after the peers wrote their slot, before
-// any of them exits.
-__device__ inline float cluster_share_sum(const LedSmem s, int slot) {
+// Stores this block's segment accumulators into the cluster's first block,
+// at their segments' places in the whole LED (s.sums: the n image rows,
+// then the b bbox rows). All threads of all blocks call it after a barrier
+// that follows the last addition to the accumulators; a cluster barrier
+// must follow before the first block reads s.sums (ordered_sum).
+__device__ inline void send_segment_sums(const LedSmem s, int n, int b) {
   cg::cluster_group cluster = cg::this_cluster();
+  float* const first = cluster.map_shared_rank(s.sums, 0);
+  const int sn = segments(n), sb = segments(b);
+  for (int e = threadIdx.x; e < s.rows * sn; e += blockDim.x)
+    first[s.row0 * sn + e] = s.rsum[e];
+  for (int e = threadIdx.x; e < s.brows * sb; e += blockDim.x)
+    first[n * sn + s.brow0 * sb + e] = s.usum[e];
+}
+
+// Σ v[0..count) in an order fixed by the index alone (lane l adds v[l],
+// v[l+32], ... in turn, then the warp's xor butterfly): one warp calls, and
+// every lane gets the sum.
+__device__ inline float ordered_sum(const float* v, int count) {
   float acc = 0.f;
-  for (int q = 0; q < s.cs; ++q) acc += cluster.map_shared_rank(s.share, q)[slot];
-  return acc;
+  for (int i = threadIdx.x & 31; i < count; i += 32) acc += v[i];
+  return warp_sum(acc);
 }
 
 }  // namespace fpm

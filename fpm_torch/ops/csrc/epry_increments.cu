@@ -16,9 +16,9 @@
 //                       ``metrics``
 //
 // Three launches on the caller's stream:
-//   chunk_forward  (epry_chunk.cuh, shared with K1) grid = C·cs, one cluster
-//               of cs blocks per LED into scratch; masked dummies exit at
-//               once.
+//   chunk_forward  (epry_chunk.cuh, shared with K1, one problem here)
+//               grid = C·cs, one cluster of cs blocks per LED into scratch;
+//               masked dummies exit at once.
 //   k3_gather   one thread per block element: WRITES d = the sum over the
 //               windows covering it, in LED order, or 0 (gather_increments):
 //               every element is written, so d needs no memset, and the sum
@@ -97,14 +97,16 @@ extern "C" int fpm_k3_increments(const float* o, const float* p, const float* su
   const DftMats m{static_cast<const float2*>(ai), static_cast<const float2*>(bi),
                   static_cast<const float2*>(af), static_cast<const float2*>(bf)};
   LedPlan plan;
-  if (const int e = plan_led(chunk_forward, n, b, c, 0, force_cs, device, &plan)) return e;
+  if (const int e = plan_led(chunk_forward, n, b, c, 0, false, force_cs, device, &plan))
+    return e;
   *cluster_size = plan.cs;
   const ClusterLaunch forward(c, plan, st);
   const size_t plane = (size_t)n_rows * n_cols;
   const int bb = b * b;
-  cudaLaunchKernelEx(&forward.cfg, chunk_forward, o, o + plane, n_rows, n_cols, p, p + bb, sup,
-                     amps, starts, valid, m, n, b, lo, eps, delta1, delta2, metrics,
-                     static_cast<float2*>(d_obj), static_cast<float2*>(num), parts, plan);
+  cudaLaunchKernelEx(&forward.cfg, chunk_forward, o, (size_t)0, n_rows, n_cols, p, (size_t)0,
+                     sup, amps, (size_t)0, starts, valid, c, m, n, b, lo, eps, delta1, delta2,
+                     metrics, static_cast<float2*>(d_obj), static_cast<float2*>(num), parts,
+                     plan);
   if ((err = count_launch(launches)) != cudaSuccess) return (int)err;
   k3_gather<<<(int)((plane + 255) / 256), 256, 0, st>>>(
       d_out, d_out + plane, n_rows, n_cols, starts, valid, c, n, b, lo,

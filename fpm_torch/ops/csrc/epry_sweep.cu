@@ -4,11 +4,19 @@
 // _sweep_kernel). Semantics of models.epry.sweep_sequential: LED k+1 starts
 // from the state LED k left, so the sweep is sequential by definition.
 //
-// Two launches on the caller's stream: k2_rowmax_init (one block per
-// spectrum row: the row maxima of |O|², the sweep-start cache), then
-// k2_sweep, ONE persistent cluster of cs blocks that walks the K LEDs in
-// schedule order. Per LED the cluster runs the forward pass on its row
-// slabs (epry_common.cuh); each block adds its slab of dO into the window
+// Problem axis: one launch solves P independent problems of one geometry
+// (RGB channels, the ROI tiles of a large field of view), each with its own
+// O, P, frames, row cache and metrics; support, starts and DFT matrices are
+// shared. Cluster q walks problem q's LEDs and nothing else: no barrier,
+// atomic or read crosses problems, so problem q's result is bitwise that of
+// problem q solved alone.
+//
+// Two launches on the caller's stream, whatever P: k2_rowmax_init (grid
+// (NL, P), one block per spectrum row and problem: the row maxima of |O|²,
+// the sweep-start cache), then k2_sweep, P persistent clusters of cs blocks,
+// cluster q walking problem q's K LEDs in schedule order. Per LED the
+// cluster runs the forward pass on its row slabs (epry_common.cuh); each
+// block adds its slab of dO into the window
 // (led_increments) and takes max|O| over the UPDATED spectrum:
 //   global_max = exact: each block re-reduces the window rows it just
 //     wrote into the row cache; after a cluster barrier every block
@@ -28,21 +36,27 @@
 // matrices, loaded into shared memory once per sweep; and the next LED's
 // frame slab, prefetched with cp.async into the second of two buffers
 // while this LED's products run (its start is read one LED ahead too).
-// The metric sums accumulate per block and are combined in rank order at
-// the end.
+// The metric sums are per-segment accumulators (epry_common.cuh), added in
+// a fixed order in the cluster's first block at the end of the sweep.
 //
 // Bound: FP32 operations of one LED's forward pass on cs SMs of the card's
-// 132 (cs = 8, the largest portable cluster) — the sweep's data dependence
-// allows one LED at a time — plus four cluster barriers per LED.
+// 132 — the sweep's data dependence allows one LED of a problem at a time —
+// plus four cluster barriers per LED. plan_led picks cs for the P clusters
+// (waves of resident clusters weighed by the time of an LED at each cs), so
+// P problems fill the card where one uses 8 of its 132 SMs; past one wave
+// the clusters wait for SMs.
 
 #include "epry_common.cuh"
 
 namespace fpm {
 
 __global__ void __launch_bounds__(256)
-k2_rowmax_init(const float* __restrict__ o_re, const float* __restrict__ o_im, int nl,
-               float* __restrict__ rowmax) {
+k2_rowmax_init(const float* __restrict__ o, int nl, float* __restrict__ rowmax) {
   __shared__ float red[32];
+  const size_t q = blockIdx.y, plane = (size_t)nl * nl;
+  const float* const o_re = o + q * 2 * plane;
+  const float* const o_im = o_re + plane;
+  rowmax += q * nl;
   const size_t base = (size_t)blockIdx.x * nl;
   float m = 0.f;
   for (int c = threadIdx.x; c < nl; c += blockDim.x)
@@ -81,12 +95,20 @@ __device__ float recip_abs_max(const float* rowmax, int nl, float* red) {
 }
 
 __global__ void __launch_bounds__(kThreads)
-k2_sweep(float* o_re, float* o_im, int nl, float* p_re, float* p_im,
-         const float* __restrict__ sup, const float* __restrict__ amps,
-         const int* __restrict__ starts, int k_leds, DftMats m, int n, int b, int lo, float eps,
-         float delta1, float delta2, int exact, int metrics, float* rowmax,
-         float* __restrict__ mets, LedPlan plan) {
+k2_sweep(float* o, int nl, float* p, const float* __restrict__ sup,
+         const float* __restrict__ amps, const int* __restrict__ starts, int k_leds, DftMats m,
+         int n, int b, int lo, float eps, float delta1, float delta2, int exact, int metrics,
+         float* rowmax, float* __restrict__ mets, LedPlan plan) {
   cg::cluster_group cluster = cg::this_cluster();
+  // This cluster's problem: its planes, frames, row cache and metrics.
+  const size_t q = blockIdx.x / plan.cs, plane = (size_t)nl * nl;
+  float* const o_re = o + q * 2 * plane;
+  float* const o_im = o_re + plane;
+  float* const p_re = p + q * 2 * b * b;
+  float* const p_im = p_re + b * b;
+  amps += q * k_leds * n * n;
+  rowmax += q * nl;
+  mets += 2 * q;
   extern __shared__ float4 smem_raw[];
   const LedSmem s = carve_smem(smem_raw, m, n, b, plan, (int)cluster.block_rank());
   const int frame_stride = frame_units(n, plan.nr);
@@ -99,7 +121,6 @@ k2_sweep(float* o_re, float* o_im, int nl, float* p_re, float* p_im,
   const bool buffered = plan.frames == 2;
   if (buffered) prefetch_frame(s.frame, slab0, slab_count);
   float recip = exact ? 0.f : recip_abs_max(rowmax, nl, s.red);
-  float resid_sum = 0.f, upd_sum = 0.f;
   int y_next = starts[0], x_next = starts[1];
   FPM_PHASE_START();
   for (int k = 0; k < k_leds; ++k) {
@@ -118,10 +139,9 @@ k2_sweep(float* o_re, float* o_im, int nl, float* p_re, float* p_im,
     }
     FPM_PHASE(kPhaseFrameWait);
     float pmax;
-    resid_sum += led_forward(o_re, o_im, nl, y0, x0, p_re, p_im, amp, n, b, eps, metrics != 0,
-                             s, &pmax);
-    upd_sum += led_increments(s, o_re, o_im, nl, y0, x0, b, p_re, p_im, sup, pmax, delta1,
-                              delta2, metrics != 0, nullptr, num, o_re, o_im);
+    led_forward(o_re, o_im, nl, y0, x0, p_re, p_im, amp, n, b, eps, metrics != 0, s, &pmax);
+    led_increments(s, o_re, o_im, nl, y0, x0, b, p_re, p_im, sup, pmax, delta1, delta2,
+                   metrics != 0, nullptr, num, o_re, o_im);
     FPM_PHASE_SYNC(kPhaseIncrements);
     if (exact) {
       __syncthreads();                          // this block wrote all of these rows' updates
@@ -153,27 +173,28 @@ k2_sweep(float* o_re, float* o_im, int nl, float* p_re, float* p_im,
     FPM_PHASE(kPhaseBarrier4);
   }
   if (!metrics) return;
-  if (threadIdx.x == 0) {
-    s.share[0] = resid_sum;
-    s.share[1] = upd_sum;
+  send_segment_sums(s, n, b);   // the last LED's barrier 4 made the sums final
+  cluster.sync();               // every segment's sum is in the first block
+  if (s.rank == 0 && threadIdx.x < 32) {
+    const float resid = ordered_sum(s.sums, n * segments(n));
+    const float upd = ordered_sum(s.sums + n * segments(n), b * segments(b));
+    if (threadIdx.x == 0) {
+      mets[0] += resid;
+      mets[1] += upd;
+    }
   }
-  cluster.sync();
-  if (s.rank == 0 && threadIdx.x == 0) {
-    mets[0] += cluster_share_sum(s, 0);
-    mets[1] += cluster_share_sum(s, 1);
-  }
-  cluster.sync();     // no block exits while the first still reads its share
 }
 
 }  // namespace fpm
 
-// One sequential sweep over ``k_leds`` LEDs.
-//   o      (2, nl, nl) f32 planes, updated in place
-//   p      (2, b, b)   f32 planes, centered bbox pupil, updated in place
-//   sup    (b, b)      f32 centered bbox support
-//   amps   (k_leds, n, n) f32, schedule order; starts (2·k_leds) int32
-//   ai/bi/af/bf        complex64 DFT matrices (epry_common.cuh)
-//   rowmax (nl) f32 scratch; mets (2) f32, accumulated into
+// One sequential sweep over ``k_leds`` LEDs for each of ``n_problems``
+// problems of one geometry.
+//   o      (P, 2, nl, nl) f32 planes, updated in place
+//   p      (P, 2, b, b)   f32 planes, centered bbox pupils, updated in place
+//   sup    (b, b)         f32 centered bbox support
+//   amps   (P, k_leds, n, n) f32, schedule order; starts (2·k_leds) int32
+//   ai/bi/af/bf           complex64 DFT matrices (epry_common.cuh)
+//   rowmax (P, nl) f32 scratch; mets (P, 2) f32, accumulated into
 //   force_cs           tests only: the cluster size to take (0 = choose)
 //   launches           host int, incremented at each accepted launch
 //   cluster_size       host int, set to the cluster size chosen
@@ -181,31 +202,38 @@ k2_sweep(float* o_re, float* o_im, int nl, float* p_re, float* p_im,
 // kErrCluster.
 extern "C" int fpm_k2_sweep(float* o, float* p, const float* sup, const float* amps,
                             const int* starts, const void* ai, const void* bi, const void* af,
-                            const void* bf, float* rowmax, float* mets, int k_leds, int n,
-                            int b, int lo, int nl, float eps, float delta1, float delta2,
+                            const void* bf, float* rowmax, float* mets, int n_problems,
+                            int k_leds, int n, int b, int lo, int nl, float eps, float delta1,
+                            float delta2,
                             int exact, int metrics, int device, void* stream, int force_cs,
                             int* launches, int* cluster_size) {
   using namespace fpm;
   const DeviceGuard guard(device);
   cudaError_t err = guard.err;
   if (err != cudaSuccess) return (int)err;
+  if (n_problems < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const DftMats m{static_cast<const float2*>(ai), static_cast<const float2*>(bi),
                   static_cast<const float2*>(af), static_cast<const float2*>(bf)};
   LedPlan plan;
-  if (const int e = plan_led(k2_sweep, n, b, 1, 2, force_cs, device, &plan)) return e;
+  if (const int e = plan_led(k2_sweep, n, b, n_problems, 2, true, force_cs, device, &plan))
+    return e;
   *cluster_size = plan.cs;
-  const size_t plane = (size_t)nl * nl;
-  const int bb = b * b;
-  k2_rowmax_init<<<nl, 256, 0, st>>>(o, o + plane, nl, rowmax);
+  k2_rowmax_init<<<dim3(nl, n_problems), 256, 0, st>>>(o, nl, rowmax);
   if ((err = count_launch(launches)) != cudaSuccess) return (int)err;
   if (k_leds < 1) return 0;
-  const ClusterLaunch sweep(1, plan, st);
-  cudaLaunchKernelEx(&sweep.cfg, k2_sweep, o, o + plane, nl, p, p + bb, sup, amps, starts,
-                     k_leds, m, n, b, lo, eps, delta1, delta2, exact, metrics, rowmax, mets,
-                     plan);
+  const ClusterLaunch sweep(n_problems, plan, st);
+  cudaLaunchKernelEx(&sweep.cfg, k2_sweep, o, nl, p, sup, amps, starts, k_leds, m, n, b, lo,
+                     eps, delta1, delta2, exact, metrics, rowmax, mets, plan);
   if ((err = count_launch(launches)) != cudaSuccess) return (int)err;
   return 0;
+}
+
+// How many clusters of cs blocks of K2 the card holds at once for
+// ``slots`` LEDs (epry_common.cuh resident_clusters; a measurement aid).
+extern "C" int fpm_resident_clusters(int n, int b, int slots, int cs, int device,
+                                     int* clusters) {
+  return fpm::resident_clusters(fpm::k2_sweep, n, b, slots, 2, cs, device, clusters);
 }
 
 #ifdef FPM_PROFILE

@@ -20,6 +20,15 @@ block of it), the pupil as (2, Np, Np) planes in the DC-at-corner frame, the
 support as (Np, Np) float32. K1 and K2 return ``(o_planes, p_planes, mets)``
 with ``mets`` the per-sweep (data-residual, update-norm) sums (zeros unless
 ``collect_metrics``); K3 returns ``(d_planes, v_planes, mets)``.
+
+K1 and K2 also take a leading **problem axis**: P independent problems of
+one geometry (RGB channels, the ROI tiles of a large field of view) as
+``o_planes`` (P, 2, NL, NL), ``p_planes`` (P, 2, Np, Np) and ``amps`` (P,
+...), with the support, starts and valid flags shared; they return (P, ...)
+planes and (P, 2) metrics. On the card that is ONE launch sequence for all
+P problems (K2: 2 launches per sweep, K1: 3 per chunk), and problem q's
+result is bitwise that of problem q solved alone, at every P and cluster
+size; the plain versions loop over the problems.
 Around the kernel, plain PyTorch rolls the pupil and support to the
 centered frame and crops them to the NA disk's bounding box, and undoes
 that afterwards (so the pupil, and K3's numerator, is exactly zero outside
@@ -44,6 +53,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -116,20 +126,22 @@ def _dft_mats(n: int, b: int, lo: int, device: torch.device) -> tuple[torch.Tens
 
 
 def _pupil_to_bbox(p_planes, support, n: int, b: int, lo: int):
-    """Pupil planes and support, corner frame → centered bbox (contiguous)."""
+    """Pupil planes (..., 2, n, n) and support, corner frame → centered bbox
+    (contiguous)."""
     half = n // 2
     sel = slice(lo, lo + b)
-    pc = torch.roll(p_planes, (half, half), dims=(1, 2))[:, sel, sel].contiguous()
+    pc = torch.roll(p_planes, (half, half), dims=(-2, -1))[..., sel, sel].contiguous()
     sc = torch.roll(support, (half, half), dims=(0, 1))[sel, sel].contiguous()
     return pc, sc
 
 
 def _pupil_from_bbox(pc, n: int, lo: int):
-    """Centered bbox pupil planes → full (2, n, n) corner-frame planes."""
+    """Centered bbox pupil planes (..., 2, b, b) → full (..., 2, n, n)
+    corner-frame planes."""
     b = pc.shape[-1]
-    full = pc.new_zeros((2, n, n))
-    full[:, lo:lo + b, lo:lo + b] = pc
-    return torch.roll(full, (-(n // 2), -(n // 2)), dims=(1, 2))
+    full = pc.new_zeros(tuple(pc.shape[:-2]) + (n, n))
+    full[..., lo:lo + b, lo:lo + b] = pc
+    return torch.roll(full, (-(n // 2), -(n // 2)), dims=(-2, -1))
 
 
 # ------------------------------------------------------------ plain versions
@@ -243,6 +255,16 @@ def _chunked_core_plain(o, pc, sc, amps, starts, valid, *, lo, eps, delta1, delt
     return _planes(obj), _planes(pup), mets
 
 
+def _per_problem(core):
+    """A single-problem plain core over a leading problem axis: the problems
+    one after another, the shared operands (support, starts, valid) given to
+    each."""
+    def run(o, pc, sc, amps, *shared, **kw):
+        outs = [core(o[q], pc[q], sc, amps[q], *shared, **kw) for q in range(o.shape[0])]
+        return tuple(torch.stack(parts) for parts in zip(*outs))
+    return run
+
+
 def _increments_core_plain(o, pc, sc, amps, starts, valid, *, lo, eps, delta1, delta2,
                            collect_metrics):
     n, b = amps.shape[-1], pc.shape[-1]
@@ -268,6 +290,18 @@ def _increments_core_plain(o, pc, sc, amps, starts, valid, *, lo, eps, delta1, d
 
 
 # ---------------------------------------------------------------- CUDA route
+
+# The launch counters may be added to from several threads (the ROI runner
+# drives one thread per card).
+_counter_lock = threading.Lock()
+
+
+def _record(wrapper, launched: ctypes.c_int, cluster: ctypes.c_int) -> None:
+    """Add an entry point's counted launches to ``wrapper.launches`` and
+    keep the cluster size it chose."""
+    with _counter_lock:
+        wrapper.launches += launched.value
+        wrapper.cluster_size = cluster.value
 
 
 def _check_cuda_operands(o, pc, sc, amps, starts, *, n_slots, valid=None, square=True):
@@ -299,59 +333,70 @@ def _check_cuda_operands(o, pc, sc, amps, starts, *, n_slots, valid=None, square
             f"starts {tuple(starts.shape)}")
 
 
+def _check_problem_axis(o, pc, amps, **check):
+    """The checks of :func:`_check_cuda_operands` on problem 0, and one
+    problem count on the three per-problem operands."""
+    if o.ndim != 4 or pc.ndim != 4 or amps.shape[0] != o.shape[0] or pc.shape[0] != o.shape[0]:
+        raise ValueError(f"the problem axis does not fit together: o {tuple(o.shape)}, "
+                         f"pupil {tuple(pc.shape)}, amps {tuple(amps.shape)}")
+    _check_cuda_operands(o[0], pc[0], check.pop("sc"), amps[0], check.pop("starts"), **check)
+
+
 def _sweep_cuda(o, pc, sc, amps, starts, *, lo, eps, delta1, delta2, global_max,
                 collect_metrics, lib=None):
-    """``lib``: another build of csrc/epry_sweep.cu than the one
+    """K2 on P problems: ``o`` (P, 2, NL, NL), ``pc`` (P, 2, b, b), ``amps``
+    (P, K, n, n). ``lib``: another build of csrc/epry_sweep.cu than the one
     ``build.library`` hands out (:func:`k2_phase_profile` passes its own)."""
-    n, b, nl, k = amps.shape[-1], pc.shape[-1], o.shape[-1], amps.shape[0]
-    _check_cuda_operands(o, pc, sc, amps, starts, n_slots=k)
+    n_prob, k, n = amps.shape[0], amps.shape[1], amps.shape[-1]
+    b, nl = pc.shape[-1], o.shape[-1]
+    _check_problem_axis(o, pc, amps, sc=sc, starts=starts, n_slots=k)
     lib = lib or build.library("epry_sweep")
     o, pc = o.contiguous().clone(), pc.contiguous().clone()
     sc, amps, starts = sc.contiguous(), amps.contiguous(), starts.contiguous()
     mats = _dft_mats(n, b, lo, o.device)
-    rowmax = torch.empty(nl, dtype=torch.float32, device=o.device)
-    mets = torch.zeros(2, dtype=torch.float32, device=o.device)
+    rowmax = torch.empty((n_prob, nl), dtype=torch.float32, device=o.device)
+    mets = torch.zeros((n_prob, 2), dtype=torch.float32, device=o.device)
     launched, cluster = ctypes.c_int(0), ctypes.c_int(0)
     err = lib.fpm_k2_sweep(
         o.data_ptr(), pc.data_ptr(), sc.data_ptr(), amps.data_ptr(), starts.data_ptr(),
         *(m.data_ptr() for m in mats), rowmax.data_ptr(), mets.data_ptr(),
-        k, n, b, lo, nl, eps, delta1, delta2,
+        n_prob, k, n, b, lo, nl, eps, delta1, delta2,
         int(global_max == "exact"), int(collect_metrics), o.device.index,
         torch.cuda.current_stream(o.device).cuda_stream,
         fused_epry_sweep.force_cluster_size, ctypes.byref(launched), ctypes.byref(cluster))
-    fused_epry_sweep.launches += launched.value
-    fused_epry_sweep.cluster_size = cluster.value
+    _record(fused_epry_sweep, launched, cluster)
     build.check(lib, err, "K2 fused_epry_sweep")
     return o, pc, mets
 
 
 def _chunked_cuda(o, pc, sc, amps, starts, valid, *, lo, eps, delta1, delta2,
                   pupil_step_scale, collect_metrics):
-    n_chunks, c, n = amps.shape[0], amps.shape[1], amps.shape[-1]
+    """K1 on P problems: ``o`` (P, 2, NL, NL), ``pc`` (P, 2, b, b), ``amps``
+    (P, n_chunks, C, n, n)."""
+    n_prob, n_chunks, c, n = amps.shape[0], amps.shape[1], amps.shape[2], amps.shape[-1]
     b, nl = pc.shape[-1], o.shape[-1]
-    _check_cuda_operands(o, pc, sc, amps, starts, n_slots=n_chunks * c, valid=valid)
+    _check_problem_axis(o, pc, amps, sc=sc, starts=starts, n_slots=n_chunks * c, valid=valid)
     lib = build.library("epry_chunked")
     o, pc = o.contiguous().clone(), pc.contiguous().clone()
     sc, amps = sc.contiguous(), amps.contiguous()
     starts, valid = starts.contiguous(), valid.contiguous()
     dev = o.device
     mats = _dft_mats(n, b, lo, dev)
-    d_obj = torch.empty((c, b, b, 2), dtype=torch.float32, device=dev)
-    num = torch.empty((c, b, b, 2), dtype=torch.float32, device=dev)
-    parts = torch.empty((c, 2), dtype=torch.float32, device=dev)
-    omax_bits = torch.zeros(n_chunks, dtype=torch.int32, device=dev)
-    mets = torch.zeros(2, dtype=torch.float32, device=dev)
+    d_obj = torch.empty((n_prob, c, b, b, 2), dtype=torch.float32, device=dev)
+    num = torch.empty((n_prob, c, b, b, 2), dtype=torch.float32, device=dev)
+    parts = torch.empty((n_prob, c, 2), dtype=torch.float32, device=dev)
+    omax_bits = torch.zeros((n_prob, n_chunks), dtype=torch.int32, device=dev)
+    mets = torch.zeros((n_prob, 2), dtype=torch.float32, device=dev)
     launched, cluster = ctypes.c_int(0), ctypes.c_int(0)
     err = lib.fpm_k1_sweep(
         o.data_ptr(), pc.data_ptr(), sc.data_ptr(), amps.data_ptr(), starts.data_ptr(),
         valid.data_ptr(), *(m.data_ptr() for m in mats), d_obj.data_ptr(),
         num.data_ptr(), parts.data_ptr(), omax_bits.data_ptr(), mets.data_ptr(),
-        n_chunks, c, n, b, lo, nl, eps, delta1, delta2, pupil_step_scale,
+        n_prob, n_chunks, c, n, b, lo, nl, eps, delta1, delta2, pupil_step_scale,
         int(collect_metrics), dev.index, torch.cuda.current_stream(dev).cuda_stream,
         fused_epry_chunked.force_cluster_size, ctypes.byref(launched),
         ctypes.byref(cluster))
-    fused_epry_chunked.launches += launched.value
-    fused_epry_chunked.cluster_size = cluster.value
+    _record(fused_epry_chunked, launched, cluster)
     build.check(lib, err, "K1 fused_epry_chunked")
     return o, pc, mets
 
@@ -379,8 +424,7 @@ def _increments_cuda(o, pc, sc, amps, starts, valid, *, lo, eps, delta1, delta2,
         dev.index, torch.cuda.current_stream(dev).cuda_stream,
         fused_chunk_increments.force_cluster_size, ctypes.byref(launched),
         ctypes.byref(cluster))
-    fused_chunk_increments.launches += launched.value
-    fused_chunk_increments.cluster_size = cluster.value
+    _record(fused_chunk_increments, launched, cluster)
     build.check(lib, err, "K3 fused_chunk_increments")
     return d_out, v_out, mets
 
@@ -398,7 +442,7 @@ def _route(o_planes, cuda_core, plain_core):
 
 def _check_patch_size(p_planes, support, amps, np_size):
     n = np_size
-    if (tuple(p_planes.shape) != (2, n, n) or tuple(support.shape) != (n, n)
+    if (tuple(p_planes.shape[-3:]) != (2, n, n) or tuple(support.shape) != (n, n)
             or tuple(amps.shape[-2:]) != (n, n)):
         raise ValueError(f"pupil {tuple(p_planes.shape)}, support {tuple(support.shape)} "
                          f"and amps {tuple(amps.shape)} must be {n}×{n} patches")
@@ -411,6 +455,17 @@ def _run(core, o_planes, p_planes, support, amps, *rest, np_size, pupil_radius, 
     pc, sc = _pupil_to_bbox(p_planes, support, np_size, b, lo)
     o, pc, mets = core(o_planes, pc, sc, amps, *rest, lo=lo, **core_kw)
     return o, _pupil_from_bbox(pc, np_size, lo), mets
+
+
+def _run_problems(core, o_planes, p_planes, support, amps, *rest, **kw):
+    """:func:`_run` for K1 and K2, whose cores take a leading problem axis:
+    a single problem ((2, NL, NL) planes) runs as P = 1 and comes back
+    without the axis."""
+    single = o_planes.ndim == 3
+    if single:
+        o_planes, p_planes, amps = o_planes[None], p_planes[None], amps[None]
+    o, p, mets = _run(core, o_planes, p_planes, support, amps, *rest, **kw)
+    return (o[0], p[0], mets[0]) if single else (o, p, mets)
 
 
 def _check_global_max(global_max):
@@ -426,13 +481,15 @@ def fused_epry_sweep(o_planes, p_planes, support, amps, starts_flat, *, np_size,
     ``amps`` (K, Np, Np) float32 in schedule order, ``starts_flat`` (2K,)
     int32 ``[y0, x0, y1, x1, ...]``. ``global_max='lazy'`` freezes max|O| at
     its sweep-start value. ``n_large`` is implied by ``o_planes`` and kept
-    for the JAX package's signature.
+    for the JAX package's signature. With a leading problem axis
+    (``o_planes`` (P, 2, NL, NL), ``p_planes`` (P, 2, Np, Np), ``amps`` (P,
+    K, Np, Np)) one launch sweeps all P problems.
     """
     _check_global_max(global_max)
-    core = _route(o_planes, _sweep_cuda, _sweep_core_plain)
-    return _run(core, o_planes, p_planes, support, amps, starts_flat, np_size=np_size,
-                pupil_radius=pupil_radius, eps=eps, delta1=delta1, delta2=delta2,
-                global_max=global_max, collect_metrics=collect_metrics)
+    core = _route(o_planes, _sweep_cuda, _per_problem(_sweep_core_plain))
+    return _run_problems(core, o_planes, p_planes, support, amps, starts_flat, np_size=np_size,
+                         pupil_radius=pupil_radius, eps=eps, delta1=delta1, delta2=delta2,
+                         global_max=global_max, collect_metrics=collect_metrics)
 
 
 def fused_epry_sweep_plain(o_planes, p_planes, support, amps, starts_flat, *, np_size,
@@ -440,9 +497,10 @@ def fused_epry_sweep_plain(o_planes, p_planes, support, amps, starts_flat, *, np
                            global_max="exact", collect_metrics=False):
     """The plain PyTorch version of :func:`fused_epry_sweep`, on any device."""
     _check_global_max(global_max)
-    return _run(_sweep_core_plain, o_planes, p_planes, support, amps, starts_flat,
-                np_size=np_size, pupil_radius=pupil_radius, eps=eps, delta1=delta1,
-                delta2=delta2, global_max=global_max, collect_metrics=collect_metrics)
+    return _run_problems(_per_problem(_sweep_core_plain), o_planes, p_planes, support, amps,
+                         starts_flat, np_size=np_size, pupil_radius=pupil_radius, eps=eps,
+                         delta1=delta1, delta2=delta2, global_max=global_max,
+                         collect_metrics=collect_metrics)
 
 
 def k2_phase_profile(o_planes, p_planes, support, amps, starts_flat, *, np_size, n_large,
@@ -458,12 +516,30 @@ def k2_phase_profile(o_planes, p_planes, support, amps, starts_flat, *, np_size,
     lib = build.profile_library("epry_sweep")
     cycles = (ctypes.c_longlong * lib.fpm_phase_count())()
     build.check(lib, lib.fpm_phase_read(cycles, 1), "K2 phase profile")     # counts to 0
-    out = _run(functools.partial(_sweep_cuda, lib=lib), o_planes, p_planes, support, amps,
+    out = _run_problems(functools.partial(_sweep_cuda, lib=lib), o_planes, p_planes, support, amps,
                starts_flat, np_size=np_size, pupil_radius=pupil_radius, eps=eps,
                delta1=delta1, delta2=delta2, global_max=global_max,
                collect_metrics=collect_metrics)
     build.check(lib, lib.fpm_phase_read(cycles, 1), "K2 phase profile")
     return out, {lib.fpm_phase_name(i).decode(): int(c) for i, c in enumerate(cycles)}
+
+
+def resident_clusters(wrapper, np_size: int, pupil_radius: int, slots: int, cs: int,
+                      device=None) -> int:
+    """A measurement aid: how many clusters of ``cs`` blocks of K2
+    (``wrapper`` = :func:`fused_epry_sweep`) or of K1's forward launch
+    (:func:`fused_epry_chunked`) a card holds at once for ``slots`` LEDs,
+    by CUDA's occupancy query (``fpm_resident_clusters``); the entry points
+    weigh their choice of cluster size with it. 0: none fits."""
+    stem = {fused_epry_sweep: "epry_sweep", fused_epry_chunked: "epry_chunked"}[wrapper]
+    lib = build.library(stem)
+    b, _ = bbox_extent(np_size, pupil_radius)
+    dev = torch.device(device or "cuda")
+    clusters = ctypes.c_int(0)
+    err = lib.fpm_resident_clusters(np_size, b, slots, cs, dev.index or 0,
+                                    ctypes.byref(clusters))
+    build.check(lib, err, f"{stem} resident clusters")
+    return clusters.value
 
 
 def fused_epry_chunked(o_planes, p_planes, support, amps, starts_flat, valid, *,
@@ -473,23 +549,26 @@ def fused_epry_chunked(o_planes, p_planes, support, amps, starts_flat, valid, *,
 
     ``amps`` (n_chunks, C, Np, Np) float32 in chunk-permuted schedule order,
     ``starts_flat`` (n_chunks·C·2,) int32, ``valid`` (n_chunks·C,) int32
-    (0 = padded dummy). ``n_large`` is implied by ``o_planes``.
+    (0 = padded dummy). ``n_large`` is implied by ``o_planes``. With a
+    leading problem axis (``o_planes`` (P, 2, NL, NL), ``p_planes`` (P, 2,
+    Np, Np), ``amps`` (P, n_chunks, C, Np, Np)) one launch per kernel and
+    chunk serves all P problems.
     """
-    core = _route(o_planes, _chunked_cuda, _chunked_core_plain)
-    return _run(core, o_planes, p_planes, support, amps, starts_flat, valid,
-                np_size=np_size, pupil_radius=pupil_radius, eps=eps, delta1=delta1,
-                delta2=delta2, pupil_step_scale=pupil_step_scale,
-                collect_metrics=collect_metrics)
+    core = _route(o_planes, _chunked_cuda, _per_problem(_chunked_core_plain))
+    return _run_problems(core, o_planes, p_planes, support, amps, starts_flat, valid,
+                         np_size=np_size, pupil_radius=pupil_radius, eps=eps, delta1=delta1,
+                         delta2=delta2, pupil_step_scale=pupil_step_scale,
+                         collect_metrics=collect_metrics)
 
 
 def fused_epry_chunked_plain(o_planes, p_planes, support, amps, starts_flat, valid, *,
                              np_size, n_large, delta1, delta2, eps, pupil_radius=0,
                              pupil_step_scale=1.0, collect_metrics=False):
     """The plain PyTorch version of :func:`fused_epry_chunked`, on any device."""
-    return _run(_chunked_core_plain, o_planes, p_planes, support, amps, starts_flat, valid,
-                np_size=np_size, pupil_radius=pupil_radius, eps=eps, delta1=delta1,
-                delta2=delta2, pupil_step_scale=pupil_step_scale,
-                collect_metrics=collect_metrics)
+    return _run_problems(_per_problem(_chunked_core_plain), o_planes, p_planes, support, amps,
+                         starts_flat, valid, np_size=np_size, pupil_radius=pupil_radius,
+                         eps=eps, delta1=delta1, delta2=delta2,
+                         pupil_step_scale=pupil_step_scale, collect_metrics=collect_metrics)
 
 
 def _check_block(o_planes, n_rows, n_cols):

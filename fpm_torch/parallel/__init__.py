@@ -1,11 +1,13 @@
 """Multi-rank reconstruction on an (led, tile) mesh: LED-batch sharding and
-spectrum-tile sharding with halo exchange (the port of ``fpm_tpu.parallel``,
-less ``multihost`` and ``roi_shard``). The mesh is single-controller: one
-process drives every rank, and ranks may share a device (``mesh.py``)."""
+spectrum-tile sharding with halo exchange; and the ROI ranks of the
+large-FOV mode (the port of ``fpm_tpu.parallel``, less ``multihost``). The
+meshes are single-controller: one process drives every rank, and ranks may
+share a device (``mesh.py``, ``roi_shard.py``)."""
 
 from .comm import counted_mismatches, led_shard_comm, project_weak_scaling, tile_shard_comm
 from .led_shard import prepare_led_sharded, reconstruct_led_sharded
 from .mesh import Mesh, make_mesh, mesh_shape_for
+from .roi_shard import RoiMesh, make_roi_mesh, reconstruct_large_fov_sharded
 from .tile_shard import (
     partition_leds_by_tile,
     prepare_tile_sharded,
@@ -25,4 +27,7 @@ __all__ = [
     "tile_shard_comm",
     "project_weak_scaling",
     "counted_mismatches",
+    "RoiMesh",
+    "make_roi_mesh",
+    "reconstruct_large_fov_sharded",
 ]

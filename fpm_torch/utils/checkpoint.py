@@ -2,7 +2,8 @@
 
 The same ``.npz`` layout and provenance fingerprint as
 ``fpm_tpu.utils.checkpoint``, so a checkpoint written by either package
-resumes in the other. (The large-FOV ``TileStore`` is not ported yet.)
+resumes in the other; the same holds for the large-FOV :class:`TileStore`'s
+``tile_NNNN.npz`` files.
 
 The reference has no checkpointing at all — a killed run loses everything and
 results only ever existed in GUI windows (SURVEY.md §5, fpmMain.cpp:495-497).
@@ -141,3 +142,74 @@ def latest_checkpoint(directory: str, prefix: str = "ckpt_") -> str | None:
         return None
     return os.path.join(directory, max(cands)[1])
 
+
+
+class TileStore:
+    """Per-tile result persistence for the large-FOV production mode.
+
+    The ``--fov-grid`` path solves an R×C grid of independent ROI tiles;
+    a TileStore writes each completed tile to ``<dir>/tile_<i>.npz``
+    (atomically, with the run's provenance fingerprint), and a ``--resume``
+    run loads completed tiles instead of re-solving them, refusing tiles
+    written under a different configuration (the contract of
+    :func:`load_checkpoint`). The layout, keys and fingerprint are those of
+    ``fpm_tpu.utils.checkpoint.TileStore``, so a tile written by either
+    package resumes under the other. Tiles are independent reconstructions,
+    so a resumed run's stitched result is bitwise that of an uninterrupted
+    one.
+
+    The store exists wherever tiles are solved, so every process reads the
+    same cached set and dispatches the same tiles; ``write=False`` (a process
+    that is not the one owning the output directory) makes :meth:`put` a
+    no-op.
+    """
+
+    def __init__(self, directory: str, meta: dict | None = None,
+                 resume: bool = False, strict: bool = True, write: bool = True):
+        self.directory = directory
+        self.meta = meta or {}
+        self.resume = resume
+        self.strict = strict
+        self.write = write
+        if write:
+            os.makedirs(directory, exist_ok=True)
+
+    def _path(self, i: int) -> str:
+        return os.path.join(self.directory, f"tile_{i:04d}.npz")
+
+    def get(self, i: int):
+        """Return the stored (obj_crop, obj_f_centered, pupil, metrics)
+        planes for tile ``i``, or None if absent / not resuming."""
+        path = self._path(i)
+        if not self.resume or not os.path.isfile(path):
+            return None
+        with np.load(path) as z:
+            saved = json.loads(bytes(z["fingerprint"]).decode() or "{}")
+            out = (z["obj_crop_p"], z["obj_f_p"], z["pupil_p"], z["metrics"])
+        diffs = _fingerprint_diffs(saved, self.meta)
+        if diffs:
+            msg = _mismatch_message(path, diffs)
+            if self.strict:
+                raise CheckpointMismatch(msg)
+            print(f"[fpm-torch] WARNING: {msg}; re-solving tile {i}")
+            return None
+        return out
+
+    def put(self, i: int, obj_crop_p, obj_f_p, pupil_p, metrics):
+        """Atomically persist tile ``i`` ((2,...) real/imag plane arrays)."""
+        if not self.write:
+            return
+        path = self._path(i)
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            np.savez(
+                f,
+                obj_crop_p=np.asarray(obj_crop_p),
+                obj_f_p=np.asarray(obj_f_p),
+                pupil_p=np.asarray(pupil_p),
+                metrics=np.asarray(metrics),
+                fingerprint=np.bytes_(
+                    json.dumps(self.meta, sort_keys=True).encode()
+                ),
+            )
+        os.replace(tmp, path)

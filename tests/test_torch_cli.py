@@ -1,7 +1,9 @@
 """The port's CLI end to end on the CPU against fpm_tpu's: simulate → run
-gives the same output file set and the same object (complex128, ≤ 1e-10);
-checkpoints carry over between the two CLIs, also on a mesh; ``--mesh`` and
-the config's ``tileGrid`` key run the sharded sweeps as fpm_tpu's CLI does;
+gives the same output file set and the same object (complex128, ≤ 1e-10),
+also with ``--fov-grid`` (whole frames, stitched tiles) and ``--color-mode
+rgb``; checkpoints and large-FOV tiles carry over between the two CLIs, also
+on a mesh; ``--mesh`` and the config's ``tileGrid`` key run the sharded
+sweeps as fpm_tpu's CLI does; ``--watchdog-timeout`` arms on every path;
 flags of unported paths are refused, never ignored."""
 
 import json
@@ -84,10 +86,8 @@ def test_checkpoint_resumes_across_packages(dataset, tmp_path, first, second):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--fov-grid", "2", "2"], ["--fov-overlap", "4"],
-    ["--color-mode", "rgb"], ["--debug"], ["--debug-led", "3"], ["--distributed"],
-    ["--watchdog-timeout", "5"], ["--no-native"], ["--dft-precision", "bf16x3"],
-    ["--mesh", "2", "1", "--distributed"],
+    ["--debug"], ["--debug-led", "3"], ["--distributed"], ["--no-native"],
+    ["--dft-precision", "bf16x3"], ["--mesh", "2", "1", "--distributed"],
 ])
 def test_unported_flags_are_refused(dataset, tmp_path, capsys, flags):
     rc = tcli.main(["run", dataset, "-o", str(tmp_path / "x"), "--platform", "cpu", *flags])
@@ -208,6 +208,164 @@ def test_mesh_refusals(dataset, tmp_path, capsys, flags, message):
                     "--mesh", "2", "1", *flags])
     assert rc == 1
     assert message in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags", [
+    ["--fov-grid", "2", "2", "--color-mode", "rgb"],
+    ["--mesh", "2", "1", "--color-mode", "rgb"],
+    ["--mesh", "2", "1", "--fov-grid", "2", "2"],
+])
+def test_refusals_say_what_fpm_tpus_say(dataset, tmp_path, capsys, flags):
+    """fpm_tpu/cli.py:309-317's three refusals, word for word."""
+    said = []
+    for cli, extra in ((tcli, ["--platform", "cpu"]), (jcli, ["--no-native"])):
+        assert cli.main(["run", dataset, "-o", str(tmp_path / "x"), *extra, *flags]) == 1
+        said.append(capsys.readouterr().err.strip().splitlines()[-1])
+    assert said[0] == said[1] and said[0].startswith("ERROR: ")
+
+
+# ------------------------------------------------------ large FOV and RGB
+
+
+@pytest.fixture(scope="module")
+def wide_dataset(tmp_path_factory):
+    """Whole 48-px camera frames of the Np=16 problem (``--frame-size``)."""
+    data = str(tmp_path_factory.mktemp("wide") / "data")
+    assert tcli.main(["simulate", data, "--np-size", "16", "--grid", "5", "--seed", "7",
+                      "--frame-size", "48"]) == 0
+    return os.path.join(data, "dataset.json")
+
+
+@pytest.fixture(scope="module")
+def rgb_dataset(tmp_path_factory):
+    """8-bit RGB frames holding three different simulated objects."""
+    from PIL import Image
+
+    root = tmp_path_factory.mktemp("rgbsim")
+    grays = []
+    for seed in (4, 5, 6):
+        d = str(root / f"g{seed}")
+        assert tcli.main(["simulate", d, "--np-size", "16", "--grid", "5",
+                          "--seed", str(seed)]) == 0
+        grays.append(d)
+    data = root / "rgb"
+    data.mkdir()
+    for f in sorted(os.listdir(grays[0])):
+        if f.endswith(".tif"):
+            planes = [np.asarray(Image.open(os.path.join(d, f))) for d in grays]
+            Image.fromarray(np.stack([(p // 257).astype(np.uint8) for p in planes],
+                                     axis=-1)).save(data / f)
+    doc = json.load(open(os.path.join(grays[0], "dataset.json")))
+    doc["datasetRoot"] = str(data) + os.sep
+    path = str(root / "rgb.json")
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    return path
+
+
+def _files(root):
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, fs in os.walk(root) for f in fs)
+
+
+def _events(out, name):
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        return [r for r in map(json.loads, f) if r["event"] == name]
+
+
+@pytest.mark.parametrize("extra", [[], ["--checkpoint-every", "1", "--mode", "batched",
+                                        "--chunk-size", "8"]])
+def test_fov_grid_run_matches_fpm_tpu(wide_dataset, tmp_path, extra):
+    """A 3×3 grid of Np=16 ROIs at overlap 4: the same files (with
+    ``--checkpoint-every``, the same tiles under tiles/), the same stitch, a
+    tile event per tile. (fpm_tpu runs its ROI-sharded path on the 8 CPU
+    devices of tests/conftest.py, the port tile after tile.)"""
+    common = ["-n", "3", "--dtype", "complex128", "--fov-grid", "3", "3", "--fov-overlap", "4",
+              *extra]
+    out_t, out_j = str(tmp_path / "t"), str(tmp_path / "j")
+    assert tcli.main(["run", wide_dataset, "-o", out_t, "--platform", "cpu", *common]) == 0
+    assert jcli.main(["run", wide_dataset, "-o", out_j, "--no-native", *common]) == 0
+    assert _files(out_t) == _files(out_j)
+    a, b = (np.load(os.path.join(d, "object_stitched.npy")) for d in (out_t, out_j))
+    assert a.shape == b.shape == (120, 120)
+    assert np.abs(a - b).max() / np.abs(b).max() <= 1e-10
+    assert sorted((e["row"], e["col"]) for e in _events(out_t, "tile")) == [
+        (r, c) for r in range(3) for c in range(3)]
+
+
+@pytest.mark.parametrize("first,second", [(jcli, tcli), (tcli, jcli)])
+def test_fov_tiles_resume_across_packages(wide_dataset, tmp_path, first, second):
+    """Tiles stored by one CLI are loaded, not solved, by the other's
+    ``--resume`` (the two fingerprints agree key for key)."""
+    common = ["-n", "2", "--dtype", "complex128", "--fov-grid", "2", "2", "--fov-overlap", "4",
+              "--checkpoint-every", "1", "--dft-precision", "highest"]
+    plat = {tcli: ["--platform", "cpu"], jcli: ["--no-native"]}
+    out = str(tmp_path / "o")
+    assert first.main(["run", wide_dataset, "-o", out, *common, *plat[first]]) == 0
+    stitched = np.load(os.path.join(out, "object_stitched.npy"))
+    before = len(_events(out, "tile"))
+    assert second.main(["run", wide_dataset, "-o", out, "--resume", *common,
+                        *plat[second]]) == 0
+    assert len(_events(out, "tile")) == before == 4
+    assert np.array_equal(np.load(os.path.join(out, "object_stitched.npy")), stitched)
+
+
+@pytest.mark.parametrize("mode", ["sequential", "batched"])
+def test_rgb_run_matches_fpm_tpu(rgb_dataset, tmp_path, mode):
+    common = ["-n", "3", "--dtype", "complex128", "--color-mode", "rgb", "--mode", mode,
+              "--chunk-size", "8"]
+    out_t, out_j = str(tmp_path / "t"), str(tmp_path / "j")
+    assert tcli.main(["run", rgb_dataset, "-o", out_t, "--platform", "cpu", *common]) == 0
+    assert jcli.main(["run", rgb_dataset, "-o", out_j, "--no-native", *common]) == 0
+    assert _files(out_t) == _files(out_j)
+    for ch in ("red", "green", "blue"):
+        for name in ("object.npy", "object_spectrum.npy", "pupil.npy"):
+            a, b = (np.load(os.path.join(d, ch, name)) for d in (out_t, out_j))
+            assert np.abs(a - b).max() / np.abs(b).max() <= 1e-10, (ch, name)
+    red, green = (np.load(os.path.join(out_t, c, "object.npy")) for c in ("red", "green"))
+    assert not np.array_equal(red, green)
+
+
+def test_rgb_checkpoint_resumes_across_packages(rgb_dataset, tmp_path):
+    """fpm_tpu's stacked (3, ...) sweep checkpoint resumes in the port."""
+    common = ["--dtype", "complex128", "--color-mode", "rgb", "--dft-precision", "highest"]
+    out, full = str(tmp_path / "split"), str(tmp_path / "full")
+    assert jcli.main(["run", rgb_dataset, "-o", out, "-n", "2", "--checkpoint-every", "1",
+                      "--no-native", *common]) == 0
+    assert tcli.main(["run", rgb_dataset, "-o", out, "-n", "3", "--resume", "--platform", "cpu",
+                      *common]) == 0
+    assert tcli.main(["run", rgb_dataset, "-o", full, "-n", "3", "--platform", "cpu",
+                      *common]) == 0
+    a, b = (np.load(os.path.join(d, "blue", "object_spectrum.npy")) for d in (out, full))
+    assert np.abs(a - b).max() / np.abs(b).max() <= 1e-10
+
+
+@pytest.mark.parametrize("path", ["single", "fov", "rgb"])
+def test_watchdog_timeout_is_armed_on_every_path(dataset, wide_dataset, rgb_dataset, tmp_path,
+                                                 path):
+    cfg, extra = {"single": (dataset, []),
+                  "fov": (wide_dataset, ["--fov-grid", "2", "2", "--fov-overlap", "4"]),
+                  "rgb": (rgb_dataset, ["--color-mode", "rgb"])}[path]
+    out = str(tmp_path / "w")
+    assert tcli.main(["run", cfg, "-o", out, "-n", "2", "--platform", "cpu",
+                      "--watchdog-timeout", "60", *extra]) == 0
+
+
+def test_watchdog_aborts_a_stalled_run(dataset, tmp_path):
+    """A run whose solve makes no progress within the timeout is aborted with
+    exit code 42 (its first chunk is watched too)."""
+    import subprocess
+    import sys
+
+    stall = ("import sys, time; from fpm_torch import cli; import fpm_torch.models.epry as e; "
+             "e.reconstruct = lambda *a, **k: time.sleep(30); "
+             "sys.exit(cli.main(sys.argv[1:]))")
+    proc = subprocess.run([sys.executable, "-c", stall, "run", dataset, "-o",
+                           str(tmp_path / "s"), "-n", "2", "--platform", "cpu",
+                           "--watchdog-timeout", "1"], capture_output=True, text=True,
+                          timeout=60, cwd=os.path.dirname(os.path.dirname(__file__)))
+    assert proc.returncode == 42
+    assert "WATCHDOG" in proc.stderr
 
 
 def test_mesh_without_a_gpu_is_an_error(dataset, tmp_path, capsys):

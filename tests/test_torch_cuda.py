@@ -1,7 +1,10 @@
-"""The CUDA kernels K1, K2 and K3 against their plain PyTorch versions, and
-a sharded sweep (K3) against the single-device one (K1), on the card. They
-skip without a CUDA device (one case needs two). This file imports neither
-JAX nor fpm_tpu, so it also runs where JAX is not installed:
+"""The CUDA kernels K1, K2 and K3 against their plain PyTorch versions, a
+sharded sweep (K3) against the single-device one (K1), K1 and K2 with a
+problem axis against solo launches (bitwise, at forced cluster sizes, with a
+NaN problem), and the --fov-grid and --color-mode rgb runs per tile and per
+channel against solo solves, on the card. They skip without a CUDA device
+(one case needs two). This file imports neither JAX nor fpm_tpu, so it also
+runs where JAX is not installed:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
@@ -13,6 +16,8 @@ capability 9.0); the cases with a forced cluster size hold the one-block
 path (1) and the distributed-shared-memory path (2, 4, 8) whatever size
 the entry points would choose.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -367,3 +372,186 @@ def test_kernels_refuse_an_np_whose_buffers_do_not_fit_a_block(cuda, kernel):
             kernels.fused_chunk_increments(o, p, sup, amps[0], starts, one, n_rows=nl,
                                            n_cols=nl, **common)
     assert [w.launches for w in wrappers] == before
+
+
+# ------------------------------------------------------------- problem axis
+
+
+def problem_stack(ds, dev, mode, n_prob, chunk=7):
+    """``n_prob`` problems of one geometry (the frames scaled and offset per
+    problem), each with its own init state, as the (P, ...) operands of one
+    problem-axis call."""
+    stacks = [ds.images * (1.0 + 0.05 * q) + q for q in range(n_prob)]
+    per = [operands(dataclasses.replace(ds, images=images), dev, mode, chunk)
+           for images in stacks]
+    planes = (torch.stack([p[0][0] for p in per]), torch.stack([p[0][1] for p in per]),
+              per[0][0][2])
+    rest = (torch.stack([p[1][0] for p in per]),) + per[0][1][1:]
+    return planes, rest, per[0][2], per
+
+
+@pytest.mark.parametrize("n_prob", [2, 3, 17])
+@pytest.mark.parametrize("cs", [1, 2, 8])
+@pytest.mark.parametrize("kernel,mode", [("K2", "sequential"), ("K2 lazy", "sequential"),
+                                         ("K1", "batched")])
+def test_problem_axis_is_bitwise_each_problem_alone(cuda, force_cluster, kernel, mode,
+                                                   n_prob, cs):
+    """Problem q of a P-problem launch at a forced cluster size equals
+    problem q solved alone by a single-problem launch at the size its entry
+    point chooses, bit for bit, metrics included: nothing depends on P or on
+    the cluster size. The launches per sweep do not grow with P."""
+    ds = synthetic_dataset(np_size=16, grid=5, seed=3)
+    planes, rest, common, per = problem_stack(ds, cuda, mode, n_prob)
+    fn = kernels.fused_epry_chunked if kernel == "K1" else kernels.fused_epry_sweep
+    kw = dict(global_max="lazy") if kernel == "K2 lazy" else {}
+    solo = [two_sweeps(fn, *p, **kw) for p in per]
+    force_cluster(fn, cs)
+    before = fn.launches
+    o, p, m = two_sweeps(fn, planes, rest, common, **kw)
+    torch.cuda.synchronize()
+    assert fn.cluster_size == cs
+    per_sweep = 2 if kernel != "K1" else 3 * rest[0].shape[1]
+    assert fn.launches == before + 2 * per_sweep
+    assert o.shape == planes[0].shape and p.shape == planes[1].shape and m.shape == (2, n_prob, 2)
+    for q, (so, sp, sm) in enumerate(solo):
+        assert torch.equal(o[q], so) and torch.equal(p[q], sp) and torch.equal(m[:, q], sm), q
+
+
+@pytest.mark.parametrize("kernel,mode", [("K2", "sequential"), ("K1", "batched")])
+def test_a_nan_problem_leaves_every_other_problem_unchanged(cuda, kernel, mode):
+    ds = synthetic_dataset(np_size=64, grid=5, seed=3)
+    planes, (amps, *shared), common, per = problem_stack(ds, cuda, mode, 4)
+    fn = kernels.fused_epry_chunked if kernel == "K1" else kernels.fused_epry_sweep
+    amps = amps.clone()
+    amps[1] = float("nan")
+    o, p, m = two_sweeps(fn, planes, (amps, *shared), common)
+    assert not torch.isfinite(o[1]).all()
+    for q in (0, 2, 3):
+        so, sp, sm = two_sweeps(fn, *per[q])
+        assert torch.equal(o[q], so) and torch.equal(p[q], sp) and torch.equal(m[:, q], sm)
+
+
+@pytest.mark.parametrize("kernel,mode", [("K2", "sequential"), ("K1", "batched")])
+def test_problem_axis_matches_the_plain_version(cuda, kernel, mode):
+    ds = synthetic_dataset(np_size=64, grid=5, seed=3)
+    planes, rest, common, _ = problem_stack(ds, cuda, mode, 3)
+    fn, plain = ((kernels.fused_epry_chunked, kernels.fused_epry_chunked_plain) if kernel == "K1"
+                 else (kernels.fused_epry_sweep, kernels.fused_epry_sweep_plain))
+    ko, kp, km = two_sweeps(fn, planes, rest, common)
+    po, pp, pm = two_sweeps(plain, planes, rest, common)
+    for q in range(3):
+        assert rel(ko[q], po[q]) < TOL_O and rel(kp[q], pp[q]) < TOL_P
+    np.testing.assert_allclose(km.cpu().numpy(), pm.cpu().numpy(), rtol=TOL_M)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(mode="batched", chunk_size=8)])
+def test_reconstruct_channels_is_bitwise_reconstruct(cuda, kw):
+    from fpm_torch.models.epry import reconstruct_channels
+
+    ds = synthetic_dataset(np_size=32, grid=5, seed=2, quantize=True)
+    chans = [ds.images, ds.images * 0.8 + 1.0, ds.images * 1.2]
+    before = kernels.fused_epry_sweep.launches + kernels.fused_epry_chunked.launches
+    got = reconstruct_channels(chans, ds.geom, ds.cfg, iterations=3, use_pallas=True, **kw)
+    launched = kernels.fused_epry_sweep.launches + kernels.fused_epry_chunked.launches - before
+    k = ds.geom.num_leds
+    n_chunks = -(-k // 8)
+    assert launched == 3 * (2 if not kw else 3 * n_chunks)
+    for images, res in zip(chans, got):
+        alone = epry.reconstruct(images, ds.geom, ds.cfg, iterations=3, use_pallas=True, **kw)
+        for key in ("obj_crop", "obj_f_centered", "pupil"):
+            assert np.array_equal(getattr(res, key), getattr(alone, key)), key
+        for key in ("data_residual", "update_norm"):
+            assert np.array_equal(res.metrics[key], alone.metrics[key]), key
+
+
+def write_rgb_dataset(tmp_path, np_size=16):
+    """A simulated dataset whose frames are 8-bit RGB TIFFs: three objects
+    (seeds 4, 5, 6) in the three planes."""
+    import json
+    import os
+
+    from PIL import Image
+
+    from fpm_torch import cli
+
+    planes = []
+    for seed in (4, 5, 6):
+        d = str(tmp_path / f"gray{seed}")
+        assert cli.main(["simulate", d, "--np-size", str(np_size), "--grid", "5",
+                         "--seed", str(seed)]) == 0
+        planes.append(d)
+    data = tmp_path / "rgb"
+    data.mkdir()
+    for f in sorted(os.listdir(planes[0])):
+        if f.endswith(".tif"):
+            g = [np.asarray(Image.open(os.path.join(d, f))) for d in planes]
+            g8 = [(np.clip(x, 0, 65535) / 257).astype(np.uint8) for x in g]
+            Image.fromarray(np.stack(g8, axis=-1)).save(data / f)
+    doc = json.load(open(os.path.join(planes[0], "dataset.json")))
+    doc["datasetRoot"] = str(data) + os.sep
+    path = str(tmp_path / "rgb.json")
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    return path
+
+
+@pytest.mark.parametrize("mode", ["sequential", "batched"])
+def test_cli_rgb_on_the_card_is_bitwise_each_channel_alone(cuda, tmp_path, mode):
+    import os
+
+    from fpm_torch import cli
+    from fpm_torch.config import load_config
+    from fpm_torch.data.loader import load_dataset_rgb
+
+    cfg_path = write_rgb_dataset(tmp_path)
+    out = str(tmp_path / "out")
+    assert cli.main(["run", cfg_path, "-n", "3", "-o", out, "--use-pallas", "--mode", mode,
+                     "--chunk-size", "8", "--color-mode", "rgb",
+                     "--watchdog-timeout", "60"]) == 0
+    assert os.path.exists(os.path.join(out, "object_rgb.png"))
+    cfg = load_config(cfg_path, iterations=3)
+    for name, ch in zip(("red", "green", "blue"), load_dataset_rgb(cfg)):
+        alone = epry.reconstruct(ch.images, ch.geom, cfg, iterations=3, use_pallas=True,
+                                 mode=mode, chunk_size=8)
+        assert np.array_equal(np.load(os.path.join(out, name, "object.npy")), alone.obj_crop)
+
+
+@pytest.mark.parametrize("mode", ["sequential", "batched"])
+def test_cli_fov_grid_on_the_card_is_bitwise_each_tile_alone(cuda, tmp_path, mode):
+    import os
+
+    from fpm_torch import cli
+    from fpm_torch.config import load_config
+    from fpm_torch.data.loader import load_dataset
+
+    data = str(tmp_path / "data")
+    assert cli.main(["simulate", data, "--np-size", "16", "--grid", "5",
+                     "--frame-size", "48"]) == 0
+    cfg_path = os.path.join(data, "dataset.json")
+    out = str(tmp_path / "out")
+    assert cli.main(["run", cfg_path, "-n", "3", "-o", out, "--use-pallas", "--mode", mode,
+                     "--chunk-size", "8", "--fov-grid", "2", "2", "--checkpoint-every", "1",
+                     "--watchdog-timeout", "60"]) == 0
+    assert np.load(os.path.join(out, "object_stitched.npy")).shape == (84, 84)
+    cfg = load_config(cfg_path, iterations=3)
+    full = load_dataset(cfg, full_frames=True)
+    for i, (y0, x0) in enumerate([(0, 0), (0, 12), (12, 0), (12, 12)]):
+        roi = full.images[:, y0:y0 + 16, x0:x0 + 16]
+        alone = epry.reconstruct(roi, full.geom, cfg, iterations=3, use_pallas=True, mode=mode,
+                                 chunk_size=8)
+        with np.load(os.path.join(out, "tiles", f"tile_{i:04d}.npz")) as z:
+            crop = z["obj_crop_p"][0] + 1j * z["obj_crop_p"][1]
+            assert np.array_equal(crop, alone.obj_crop), i
+            assert np.array_equal(z["metrics"][:, 0], alone.metrics["data_residual"]), i
+
+
+def test_amplitudes_on_the_card_are_numpys(cuda):
+    """The frames' square root is taken on the card in float64: correctly
+    rounded there as in NumPy, so the amplitudes are bitwise NumPy's."""
+    ds = synthetic_dataset(np_size=32, grid=5, seed=2, quantize=True)
+    for images in (ds.images.astype(np.uint16), ds.images * 1.37):
+        for dtype, real in ((torch.complex64, np.float32), (torch.complex128, np.float64)):
+            amps, starts = epry._sorted_device_inputs(images, ds.geom, dtype, cuda)
+            want = np.sqrt(np.asarray(images, np.float64))[ds.geom.schedule].astype(real)
+            assert np.array_equal(amps.cpu().numpy(), want)
+            assert np.array_equal(starts.cpu().numpy(), ds.geom.crop_start[ds.geom.schedule])

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from fpm_torch.data.simulate import synthetic_dataset as t_synthetic
 from fpm_torch.geometry import pupil_radius as t_pupil_radius
 from fpm_torch.models import epry as tepry
 from fpm_torch.ops import kernels as tk
@@ -243,3 +244,49 @@ def test_slabs_cover_every_row_once(cs, rows):
     assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
     assert all(0 <= r1 - r0 <= -(-rows // cs) for r0, r1 in bounds)
     assert sorted(r for r0, r1 in bounds for r in range(r0, r1)) == list(range(rows))
+
+
+# ---------------------------------------------- problem axis, plain versions
+# K1 and K2 with a leading problem axis: the plain versions run the problems
+# one after another, bitwise the single-problem calls (the CUDA kernels are
+# held to the same on the card, tests/test_torch_cuda.py).
+
+
+def _problem_operands(mode, n_prob=3):
+    ds = t_synthetic(np_size=16, grid=5, seed=3)
+    opts = tepry.EPRYOptions.from_config(ds.cfg, use_pallas=True, mode=mode, chunk_size=7)
+    sup = torch.as_tensor(tepry.pupil_support(ds.cfg, centered=False), dtype=torch.float32)
+    per = []
+    for q in range(n_prob):
+        amps, starts = tepry._sorted_device_inputs(ds.images * (1 + 0.1 * q), ds.geom,
+                                                   torch.complex64, "cpu")
+        o, p = tepry.init_traced(amps, sup, opts)
+        if mode == "batched":
+            amps, starts_it, mask = tepry._chunk_inputs(amps, starts, opts, torch.float32)
+            shared = (starts_it.reshape(-1), (mask > 0).reshape(-1).to(torch.int32))
+        else:
+            shared = (starts.reshape(-1),)
+        per.append((torch.stack([o.real, o.imag]), torch.stack([p.real, p.imag]), amps))
+    common = dict(np_size=16, n_large=ds.cfg.n_large, delta1=ds.cfg.delta1,
+                  delta2=ds.cfg.delta2, eps=ds.cfg.eps, pupil_radius=opts.pupil_radius,
+                  collect_metrics=True)
+    return per, sup, shared, common
+
+
+@pytest.mark.parametrize("mode", ["sequential", "batched"])
+def test_plain_problem_axis_is_bitwise_three_single_calls(mode):
+    per, sup, shared, common = _problem_operands(mode)
+    fn = tk.fused_epry_sweep if mode == "sequential" else tk.fused_epry_chunked
+    o_b, p_b, a_b = (torch.stack(x) for x in zip(*per))
+    o, p, m = fn(o_b, p_b, sup, a_b, *shared, **common)
+    assert o.shape[0] == p.shape[0] == m.shape[0] == 3
+    for q, (oq, pq, aq) in enumerate(per):
+        so, sp, sm = fn(oq, pq, sup, aq, *shared, **common)
+        assert torch.equal(o[q], so) and torch.equal(p[q], sp) and torch.equal(m[q], sm)
+
+
+def test_problem_axis_shapes_must_agree():
+    per, sup, shared, common = _problem_operands("sequential", 2)
+    o, p, a = (torch.stack(x) for x in zip(*per))
+    with pytest.raises(ValueError, match="problem axis"):
+        tk._check_problem_axis(o, p[:1], a, sc=sup, starts=shared[0], n_slots=a.shape[1])
