@@ -5,13 +5,19 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It needs one CUDA card, ``nvcc`` and ``nvidia-smi``; it never imports JAX or
-``fpm_tpu``. On the mono dome problem (``FPMConfig(max_illumination_na=0.45)``:
-Np=90, Nlarge=360, K=193 LEDs, NA-disk bbox 64 at offset 15; object made
-from ``--seed``) it runs, each phase printing one JSON line:
+It needs one CUDA card, ``nvcc``, ``cuobjdump`` and ``nvidia-smi``; it never
+imports JAX or ``fpm_tpu``. On the mono dome problem
+(``FPMConfig(max_illumination_na=0.45)``: Np=90, Nlarge=360, K=193 LEDs,
+NA-disk bbox 64 at offset 15; object made from ``--seed``) it runs, each
+phase printing one JSON line. Every kernel case runs at both precision
+tiers of the DFT products (``dft_precision``): ``bf16x3``, the default (a
+3-pass bf16 split on the tensor cores, ``fpm_tpu``'s default), and
+``highest`` (FP32), each against the plain version at the same tier.
 
 1. ``device``: the card's name and power limit (``nvidia-smi``), the torch
-   version, and the time to build the kernels from ``fpm_torch/ops/csrc``.
+   version, the time to build the kernels from ``fpm_torch/ops/csrc``, and
+   the HMMA (tensor-core) instructions in each kernel instantiation's SASS
+   (``cuobjdump``): more than 0 in every bf16x3 one, none in the highest ones.
 2. ``kernel_vs_plain``: K1 (chunk 32, strided) and K2 (exact and lazy max)
    against their plain PyTorch versions on the card, 2 sweeps from the same
    init state: rel-max |ΔO| ≤ 1e-5, rel-max |ΔP| ≤ 1e-4 (f32 against f32,
@@ -36,6 +42,12 @@ from ``--seed``) it runs, each phase printing one JSON line:
    and P−1 within the limits above of the plain version, and with problem
    1's frames set to NaN every other problem still bitwise equal to its
    solo launch; 2 launches per K2 sweep and 21 per K1 sweep, whatever P.
+   At bf16x3 K3's ``d`` is held within the tier's own distance from FP32
+   on the same call (see the note at ``TOL_O``). Then
+   the proof that the three passes run: K2 at bf16x3 within 5e-5 (object) /
+   5e-4 (pupil) of K2 at highest (tests/test_pallas.py's limits for the
+   tier), where the plain sweep with one hi·hi pass per product is more
+   than 1e-3 off.
 3. ``sharded_vs_single``: 2 sweeps on meshes (led, tile) = (4,1), (2,2) and
    (1,8) (tile height 45 < Np: a two-hop halo), all ranks on the one card,
    against 2 sweeps of K1 single-device at chunk 32 from the same init (the
@@ -49,7 +61,9 @@ from ``--seed``) it runs, each phase printing one JSON line:
    starts at 0 before each run and only that run's kernel (K1, K2, K3, K3)
    must move; the output file set must be complete, the amplitude RMSE
    against the true object below 0.05, and a mesh run's ``metrics.jsonl``
-   must record its mesh.
+   must record its mesh; the same three runs (batched, sequential, mesh
+   (4,1)) once more with ``--dft-precision highest``, and every run's
+   ``metrics.jsonl`` must record the tier it ran.
    ``large_fov``: the whole 568×568 frames as TIFFs with a ``dataset.json``
    at Np=90, then ``run ... -n 10 --use-pallas --fov-grid 8 8
    --checkpoint-every 1`` in sequential and batched mode: 64 ROI tiles at
@@ -70,10 +84,9 @@ from ``--seed``) it runs, each phase printing one JSON line:
    sweep for all three channels, ``red/``, ``green/``, ``blue/`` and
    ``object_rgb.png`` written, each channel bitwise that channel solved
    alone by ``reconstruct``, amplitude RMSE below 0.05 per channel.
-5. ``timing``: per-sweep milliseconds of each kernel (through its wrapper),
-   at the chosen cluster size and at forced sizes 1, 2, 4, 8, beside the
-   figures of the one-block-per-LED kernels it replaced (``previous``); of
-   its plain version on the card, and of the eager ``torch.fft`` route
+5. ``timing``: at each tier, per-sweep milliseconds of each kernel (through
+   its wrapper), at the chosen cluster size and at forced sizes 1, 2, 4, 8;
+   of its plain version on the card, and of the eager ``torch.fft`` route
    (``library_ms``); device milliseconds by kernel name (``torch.profiler``)
    and, for K2's one persistent launch, the share of each phase of an LED
    (``k2_phase_profile``, the kernel's cycle-counting build); the launches
@@ -84,8 +97,10 @@ from ``--seed``) it runs, each phase printing one JSON line:
    must read only its valid LEDs' windows, while it writes d whole). K3 is
    timed per call and per sweep's worth of calls (7) as rank (0,0) of mesh
    (4,1) makes them (8 LED slots per call on the 360×360 block). K1 and K2
-   with a problem axis at P = 1, 3, 16, 33, 66 and 132 at the cluster size
-   the entry point picks: ms per sweep and per problem-sweep, LED-frames/s.
+   with a problem axis at P = 1, 3, 16, 33, 66 and 132 (highest: P = 1
+   and 66) at the cluster size the entry point picks: ms per sweep and per
+   problem-sweep, LED-frames/s; ptxas's registers and spills of each
+   instantiation.
    ``sharded_sweep`` lines give
    the wall time of one sharded sweep per mesh shape, through the entry point
    (``reconstruct_*_sharded`` with 1 sweep less with 0 sweeps) and of the
@@ -93,7 +108,8 @@ from ``--seed``) it runs, each phase printing one JSON line:
    busy (``torch.profiler``): one-card times with all ranks sharing the
    card, not scaling results.
 
-Then the ``kernels`` line, the ``nvidia-smi`` line, and the result line.
+Then the ``kernels`` line (each kernel once per tier), the ``nvidia-smi``
+line, and the result line.
 Any failure raises and exits non-zero; without a CUDA device it exits 1
 before printing anything.
 """
@@ -104,14 +120,26 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 PEAK_FP32_FLOPS = 67e12      # H100 SXM, FP32 outside the tensor cores
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 TOL_O, TOL_P, TOL_METRICS = 1e-5, 1e-4, 1e-4
+# K3's d at bf16x3: d is a sum of object increments much smaller than the
+# terms they come from (up − Oc∘P), and the tier's split is not a smooth
+# function of its input (a last-bit change of a product's f32 result may move
+# lo by one bf16 step, 2^-17 of the value), so the kernel and the plain
+# version, whose f32 sums differ in order, part by more than at highest. The
+# kernel's d is held no farther from the plain bf16x3 d than the tier itself
+# lies from FP32 on the same call (plain bf16x3 against plain highest), and
+# never held tighter than TOL_O.
+TOL_TIER_O, TOL_TIER_P, ONE_PASS_MIN = 5e-5, 5e-4, 1e-3
+TIERS = ("bf16x3", "highest")     # the default first
 RMSE_LIMIT = 0.05
 STITCH_LIMIT = 0.3
 AXIS_P = (3, 16, 140)             # problem counts held against solo launches
@@ -163,6 +191,34 @@ def device_ms_by_kernel(fn) -> dict[str, float]:
             name = evt.key.split("(")[0][:60]
             out[name] = out.get(name, 0.0) + us / 1e3
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def rel(a, b) -> float:
+    """Max |a − b| relative to max |b|."""
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def hi_hi_only(a, b):
+    """The bf16x3 product with one pass, hi·hi: a measurement aid that
+    stands in for ``kernels.cmm_bf16x3`` to show what the other two passes
+    are worth."""
+    from fpm_torch.ops import kernels
+
+    return ((a if isinstance(a, tuple) else kernels._csplit(a))[0]
+            @ (b if isinstance(b, tuple) else kernels._csplit(b))[0])
+
+
+def instantiation_tier(name: str):
+    """0 or 1: the tier of a kernel instantiation named in SASS (demangled,
+    ``<(int)1>``, or mangled, ``ILi1E``); None for any other function."""
+    m = re.search(r"<(?:\(int\))?([01])>|ILi([01])E", name)
+    return None if m is None else int(m.group(1) or m.group(2))
+
+
+def short_name(name: str) -> str:
+    """``void fpm::k2_sweep<(int)1>(float *, ...)`` → ``fpm::k2_sweep<(int)1>``."""
+    name = name.removeprefix("void ")
+    return name.split(">(")[0] + ">" if ">(" in name else name.split("(")[0]
 
 
 def amplitude_rmse(obj, truth) -> float:
@@ -316,9 +372,23 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     libs = build.build_all()
     build_s = time.perf_counter() - t0
+    # Tensor-core instructions per function of each library's SASS: every
+    # bf16x3 instantiation holds its products (inlined), no highest one any.
+    hmma = {stem: {short_name(k): v for k, v in build.hmma_counts(stem).items()}
+            for stem in sorted(libs)}
     emit({"phase": "device", "gpu": smi, "torch": torch.__version__,
           "torch_cuda": torch.version.cuda, "kernel_build_s": build_s,
-          "libraries": sorted(p.name for p in libs.values())})
+          "libraries": sorted(p.name for p in libs.values()), "hmma_instructions": hmma})
+    for stem, counts in hmma.items():
+        by_tier = {}
+        for name, c in counts.items():
+            tier_id = instantiation_tier(name)
+            if tier_id is not None:
+                by_tier.setdefault(tier_id, []).append(c)
+        check(by_tier.get(1) and all(c > 0 for c in by_tier[1]),
+              f"{stem}: a bf16x3 instantiation holds no HMMA instruction: {counts}")
+        check(by_tier.get(0) and all(c == 0 for c in by_tier[0]),
+              f"{stem}: a highest instantiation holds HMMA instructions: {counts}")
 
     dev = torch.device("cuda")
     cfg = FPMConfig(max_illumination_na=0.45, iterations=10)
@@ -385,10 +455,12 @@ def main(argv=None) -> int:
           "problem_axis_problems": len(origins), "roi_step": ROI_STEP})
 
     # --------------------------------------------------- 2. kernel_vs_plain
-    # Each kernel at the cluster size its entry point chooses (forced = 0) and
-    # at forced sizes 1 (one block per LED) and 2 (the smallest cluster whose
-    # blocks read each other's shared memory), against one run of the plain
-    # version; then the chosen size once more from the same state: bitwise equal.
+    # Each kernel at each tier, at the cluster size its entry point chooses
+    # (forced = 0) and at forced sizes 1 (one block per LED) and 2 (the
+    # smallest cluster whose blocks read each other's shared memory), against
+    # one run of the plain version at the same tier; then the chosen size once
+    # more from the same state: bitwise equal. errs and chosen_cs are keyed by
+    # (case, tier).
     outside = torch.as_tensor(pupil_support(cfg), device=dev) == 0
     errs, chosen_cs = {}, {}
 
@@ -401,38 +473,61 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         return state, np.array(mets)
 
-    for name, (kern, plain, rest, extra) in cases.items():
-        (op_, pp_), mp = sweeps(plain, rest, extra)
-        for forced in (0, 1, 2):
-            kern.force_cluster_size = forced
+    for tier in TIERS:
+        for name, (kern, plain, rest, extra) in cases.items():
+            extra = dict(extra, dft_precision=tier)
+            (op_, pp_), mp = sweeps(plain, rest, extra)
+            for forced in (0, 1, 2):
+                kern.force_cluster_size = forced
+                (ok_, pk), mk = sweeps(kern, rest, extra)
+                kern.force_cluster_size = 0
+                rel_o, rel_p = rel(ok_, op_), rel(pk, pp_)
+                max_abs = max((ok_ - op_).abs().max().item(), (pk - pp_).abs().max().item())
+                rel_m = float(np.max(np.abs(mk - mp) / np.abs(mp)))
+                leak = pk[:, outside].abs().max().item()
+                errs[name, tier] = max(errs.get((name, tier), 0.0), max_abs)
+                if not forced:
+                    chosen_cs[name, tier] = kern.cluster_size
+                    first = (ok_, pk, mk)
+                emit({"phase": "kernel_vs_plain", "case": name, "dft_precision": tier,
+                      "forced_cluster_size": forced, "cluster_size": kern.cluster_size,
+                      "sweeps": 2, "rel_err_o": rel_o, "rel_err_p": rel_p,
+                      "max_abs_err": max_abs, "metrics_rel_err": rel_m,
+                      "pupil_outside_support": leak,
+                      "limits": {"rel_o": TOL_O, "rel_p": TOL_P, "metrics_rtol": TOL_METRICS}})
+                check(kern.cluster_size == (forced or chosen_cs[name, tier]),
+                      f"{name} {tier} ran at cluster size {kern.cluster_size}, forced {forced}")
+                check(rel_o <= TOL_O and rel_p <= TOL_P and rel_m <= TOL_METRICS
+                      and leak == 0.0,
+                      f"{name} {tier} (forced cluster size {forced}) disagrees with its plain "
+                      "version")
             (ok_, pk), mk = sweeps(kern, rest, extra)
-            kern.force_cluster_size = 0
-            rel_o = ((ok_ - op_).abs().max() / op_.abs().max()).item()
-            rel_p = ((pk - pp_).abs().max() / pp_.abs().max()).item()
-            max_abs = max((ok_ - op_).abs().max().item(), (pk - pp_).abs().max().item())
-            rel_m = float(np.max(np.abs(mk - mp) / np.abs(mp)))
-            leak = pk[:, outside].abs().max().item()
-            errs[name] = max(errs.get(name, 0.0), max_abs)
-            if not forced:
-                chosen_cs[name] = kern.cluster_size
-                first = (ok_, pk, mk)
-            emit({"phase": "kernel_vs_plain", "case": name, "forced_cluster_size": forced,
-                  "cluster_size": kern.cluster_size, "sweeps": 2, "rel_err_o": rel_o,
-                  "rel_err_p": rel_p, "max_abs_err": max_abs, "metrics_rel_err": rel_m,
-                  "pupil_outside_support": leak,
-                  "limits": {"rel_o": TOL_O, "rel_p": TOL_P, "metrics_rtol": TOL_METRICS}})
-            check(kern.cluster_size == (forced or chosen_cs[name]),
-                  f"{name} ran at cluster size {kern.cluster_size}, forced {forced}")
-            check(rel_o <= TOL_O and rel_p <= TOL_P and rel_m <= TOL_METRICS and leak == 0.0,
-                  f"{name} (forced cluster size {forced}) disagrees with its plain version")
-        (ok_, pk), mk = sweeps(kern, rest, extra)
-        same = (torch.equal(ok_, first[0]) and torch.equal(pk, first[1])
-                and np.array_equal(mk, first[2]))
-        emit({"phase": "kernel_vs_plain", "case": name + ", repeated",
-              "cluster_size": kern.cluster_size, "sweeps": 2, "bitwise_equal": same})
-        check(same, f"{name}: two runs from the same state differ")
-    check(chosen_cs["K1"] > 1 and chosen_cs["K2 exact"] > 1,
-          f"one LED does not run on a cluster of several blocks: {chosen_cs}")
+            same = (torch.equal(ok_, first[0]) and torch.equal(pk, first[1])
+                    and np.array_equal(mk, first[2]))
+            emit({"phase": "kernel_vs_plain", "case": name + ", repeated", "dft_precision": tier,
+                  "cluster_size": kern.cluster_size, "sweeps": 2, "bitwise_equal": same})
+            check(same, f"{name} {tier}: two runs from the same state differ")
+        check(chosen_cs["K1", tier] > 1 and chosen_cs["K2 exact", tier] > 1,
+              f"one LED does not run on a cluster of several blocks: {chosen_cs}")
+
+    # The three passes of bf16x3 all run: K2 at bf16x3 is within the tier's
+    # limits of K2 at highest, where a plain sweep whose products keep only
+    # hi·hi is far off.
+    k2_kern, k2_plain, k2_rest, k2_extra = cases["K2 exact"]
+    (bo, bp), _ = sweeps(k2_kern, k2_rest, dict(k2_extra, dft_precision="bf16x3"))
+    (ho, hp), _ = sweeps(k2_kern, k2_rest, dict(k2_extra, dft_precision="highest"))
+    with mock.patch.object(kernels, "cmm_bf16x3", hi_hi_only):
+        (oo, op1), _ = sweeps(k2_plain, k2_rest, dict(k2_extra, dft_precision="bf16x3"))
+    tier_err = {"rel_err_o": rel(bo, ho), "rel_err_p": rel(bp, hp)}
+    one_pass_err = {"rel_err_o": rel(oo, ho), "rel_err_p": rel(op1, hp)}
+    emit({"phase": "kernel_vs_plain", "case": "K2 bf16x3 against K2 highest", "sweeps": 2,
+          "bf16x3_kernel": tier_err, "one_pass_plain": one_pass_err,
+          "limits": {"rel_o": TOL_TIER_O, "rel_p": TOL_TIER_P, "one_pass_min": ONE_PASS_MIN}})
+    check(tier_err["rel_err_o"] <= TOL_TIER_O and tier_err["rel_err_p"] <= TOL_TIER_P,
+          f"K2 at bf16x3 is not within the tier's limits of highest: {tier_err}")
+    check(max(one_pass_err.values()) > ONE_PASS_MIN,
+          f"one hi·hi pass is as close to highest as three: {one_pass_err}")
+    del bo, bp, ho, hp, oo, op1
 
     # K3: one call per case. (d, v, mets) against the plain version; d exactly
     # 0 outside the valid windows; v exactly 0 outside the support.
@@ -465,40 +560,52 @@ def main(argv=None) -> int:
             amps[sel.clamp(min=0)] * live[:, None, None],
             starts_rel.to(torch.int32).reshape(-1).contiguous(), live.to(torch.int32))
     k3 = kernels.fused_chunk_increments
-    for name, (blk, pp, a_, st_, va_) in k3_cases.items():
-        kw = dict(k3_common, n_rows=blk.shape[1], n_cols=blk.shape[2])
-        pd, pv, pm = kernels.fused_chunk_increments_plain(blk, pp, sup_r, a_, st_, va_, **kw)
-        covered = torch.zeros(blk.shape[1:], dtype=torch.bool, device=dev)
-        for (y, x), ok in zip(st_.view(-1, 2).tolist(), va_.tolist()):
-            if ok:
-                covered[y + lo:y + lo + b, x + lo:x + lo + b] = True
-        for forced in (0, 1, 2):
-            k3.force_cluster_size = forced
-            kd, kv, km = k3(blk, pp, sup_r, a_, st_, va_, **kw)
-            k3.force_cluster_size = 0
-            torch.cuda.synchronize()
-            rel_d = ((kd - pd).abs().max() / pd.abs().max()).item()
-            rel_v = ((kv - pv).abs().max() / pv.abs().max()).item()
-            max_abs = max((kd - pd).abs().max().item(), (kv - pv).abs().max().item())
-            rel_m = ((km - pm).abs() / pm.abs()).max().item()
-            d_leak = kd[:, ~covered].abs().max().item()
-            v_leak = kv[:, outside].abs().max().item()
-            errs[name] = max(errs.get(name, 0.0), max_abs)
-            if not forced:
-                chosen_cs[name] = k3.cluster_size
-            emit({"phase": "kernel_vs_plain", "case": name, "forced_cluster_size": forced,
-                  "cluster_size": k3.cluster_size, "block": list(blk.shape[1:]),
-                  "slots": int(va_.numel()), "valid": int(va_.sum()), "rel_err_d": rel_d,
-                  "rel_err_v": rel_v, "max_abs_err": max_abs, "metrics_rel_err": rel_m,
-                  "d_outside_windows": d_leak, "v_outside_support": v_leak,
-                  "limits": {"rel_d": TOL_O, "rel_v": TOL_P, "metrics_rtol": TOL_METRICS}})
-            check(k3.cluster_size == (forced or chosen_cs[name]),
-                  f"{name} ran at cluster size {k3.cluster_size}, forced {forced}")
-            check(rel_d <= TOL_O and rel_v <= TOL_P and rel_m <= TOL_METRICS
-                  and d_leak == 0.0 and v_leak == 0.0 and kd.abs().max().item() > 0,
-                  f"{name} (forced cluster size {forced}) disagrees with its plain version")
-    check(chosen_cs["K3 full block, rank of mesh (4,1)"] > 1,
-          f"K3 at 8 slots does not run one LED on several blocks: {chosen_cs}")
+    for tier in TIERS:
+        for name, (blk, pp, a_, st_, va_) in k3_cases.items():
+            kw = dict(k3_common, n_rows=blk.shape[1], n_cols=blk.shape[2], dft_precision=tier)
+            pd, pv, pm = kernels.fused_chunk_increments_plain(blk, pp, sup_r, a_, st_, va_,
+                                                              **kw)
+            tier_d = 0.0      # the tier's distance from FP32 on this call's d
+            hd = None
+            if tier != "highest":
+                hd = kernels.fused_chunk_increments_plain(
+                    blk, pp, sup_r, a_, st_, va_, **dict(kw, dft_precision="highest"))[0]
+                tier_d = rel(pd, hd)
+            tol_d = max(TOL_O, tier_d)
+            covered = torch.zeros(blk.shape[1:], dtype=torch.bool, device=dev)
+            for (y, x), ok in zip(st_.view(-1, 2).tolist(), va_.tolist()):
+                if ok:
+                    covered[y + lo:y + lo + b, x + lo:x + lo + b] = True
+            for forced in (0, 1, 2):
+                k3.force_cluster_size = forced
+                kd, kv, km = k3(blk, pp, sup_r, a_, st_, va_, **kw)
+                k3.force_cluster_size = 0
+                torch.cuda.synchronize()
+                rel_d, rel_v = rel(kd, pd), rel(kv, pv)
+                max_abs = max((kd - pd).abs().max().item(), (kv - pv).abs().max().item())
+                rel_m = ((km - pm).abs() / pm.abs()).max().item()
+                d_leak = kd[:, ~covered].abs().max().item()
+                v_leak = kv[:, outside].abs().max().item()
+                errs[name, tier] = max(errs.get((name, tier), 0.0), max_abs)
+                if not forced:
+                    chosen_cs[name, tier] = k3.cluster_size
+                emit({"phase": "kernel_vs_plain", "case": name, "dft_precision": tier,
+                      "forced_cluster_size": forced, "cluster_size": k3.cluster_size,
+                      "block": list(blk.shape[1:]), "slots": int(va_.numel()),
+                      "valid": int(va_.sum()), "rel_err_d": rel_d, "rel_err_v": rel_v,
+                      "max_abs_err": max_abs, "metrics_rel_err": rel_m,
+                      "d_outside_windows": d_leak, "v_outside_support": v_leak,
+                      "plain_d_vs_plain_highest": tier_d,
+                      "kernel_d_vs_plain_highest": rel(kd, hd) if hd is not None else 0.0,
+                      "limits": {"rel_d": tol_d, "rel_v": TOL_P, "metrics_rtol": TOL_METRICS}})
+                check(k3.cluster_size == (forced or chosen_cs[name, tier]),
+                      f"{name} {tier} ran at cluster size {k3.cluster_size}, forced {forced}")
+                check(rel_d <= tol_d and rel_v <= TOL_P and rel_m <= TOL_METRICS
+                      and d_leak == 0.0 and v_leak == 0.0 and kd.abs().max().item() > 0,
+                      f"{name} {tier} (forced cluster size {forced}) disagrees with its plain "
+                      "version")
+        check(chosen_cs["K3 full block, rank of mesh (4,1)", tier] > 1,
+              f"K3 at 8 slots does not run one LED on several blocks: {chosen_cs}")
 
     # The problem axis: P problems in one launch against each problem's solo
     # launch (bitwise), problems 0 and P-1 against the plain version, and
@@ -513,53 +620,58 @@ def main(argv=None) -> int:
     def same(got, want) -> bool:
         return all(torch.equal(a, b) for a, b in zip(got, want))
 
-    for name, (kern, plain, frames_p, shared, extra) in axis_cases.items():
-        solo = [two_sweeps(kern, o_p[q], p_p[q], frames_p[q], shared, extra)
-                for q in range(max(AXIS_P))]
-        solo_cs = kern.cluster_size
-        plain_of = {}
-        for n_prob in AXIS_P:
-            kern.launches = 0
-            o, p, m = two_sweeps(kern, o_p[:n_prob], p_p[:n_prob], frames_p[:n_prob], shared,
-                                 extra)
-            torch.cuda.synchronize()
-            launched, cs = kern.launches, kern.cluster_size
-            bitwise = [same((o[q], p[q], m[:, q]), solo[q]) for q in range(n_prob)]
-            rel = {}
-            for q in (0, n_prob - 1):
-                if q not in plain_of:
-                    plain_of[q] = two_sweeps(plain, o_p[q], p_p[q], frames_p[q], shared, extra)
-                po, pp, pm = plain_of[q]
-                rel[q] = {"rel_err_o": ((o[q] - po).abs().max() / po.abs().max()).item(),
-                          "rel_err_p": ((p[q] - pp).abs().max() / pp.abs().max()).item(),
-                          "metrics_rel_err": ((m[:, q] - pm).abs() / pm.abs()).max().item(),
-                          "max_abs_err": max((o[q] - po).abs().max().item(),
-                                             (p[q] - pp).abs().max().item())}
-                errs[name] = max(errs[name], rel[q]["max_abs_err"])
-            poisoned = frames_p[:n_prob].clone()
-            poisoned[1] = float("nan")
-            no, np_, nm = two_sweeps(kern, o_p[:n_prob], p_p[:n_prob], poisoned, shared, extra)
-            torch.cuda.synchronize()
-            del poisoned
-            isolated = [same((no[q], np_[q], nm[:, q]), solo[q]) for q in range(n_prob) if q != 1]
-            per_sweep = 2 if name.startswith("K2") else 3 * amps_it.shape[0]
-            emit({"phase": "kernel_vs_plain", "case": f"{name}, problem axis", "problems": n_prob,
-                  "cluster_size": cs, "solo_cluster_size": solo_cs, "sweeps": 2,
-                  "launches": launched, "bitwise_equal_to_solo": sum(bitwise),
-                  "vs_plain": {str(q): v for q, v in rel.items()},
-                  "nan_problem_1_finite": bool(torch.isfinite(no[1]).all().item()),
-                  "others_bitwise_with_problem_1_nan": sum(isolated),
-                  "limits": {"rel_o": TOL_O, "rel_p": TOL_P, "metrics_rtol": TOL_METRICS}})
-            check(all(bitwise), f"{name}: {n_prob - sum(bitwise)} of {n_prob} problems differ "
-                                f"from their solo launch")
-            check(all(isolated) and not torch.isfinite(no[1]).all(),
-                  f"{name}: a NaN problem changed another problem of the launch")
-            check(launched == 2 * per_sweep,
-                  f"{name}: {launched} launches for 2 sweeps of {n_prob} problems")
-            check(all(v["rel_err_o"] <= TOL_O and v["rel_err_p"] <= TOL_P
-                      and v["metrics_rel_err"] <= TOL_METRICS for v in rel.values()),
-                  f"{name} with {n_prob} problems disagrees with its plain version")
-        del solo, plain_of
+    for tier in TIERS:
+        for name, (kern, plain, frames_p, shared, extra) in axis_cases.items():
+            extra = dict(extra, dft_precision=tier)
+            solo = [two_sweeps(kern, o_p[q], p_p[q], frames_p[q], shared, extra)
+                    for q in range(max(AXIS_P))]
+            solo_cs = kern.cluster_size
+            plain_of = {}
+            for n_prob in AXIS_P:
+                kern.launches = 0
+                o, p, m = two_sweeps(kern, o_p[:n_prob], p_p[:n_prob], frames_p[:n_prob], shared,
+                                     extra)
+                torch.cuda.synchronize()
+                launched, cs = kern.launches, kern.cluster_size
+                bitwise = [same((o[q], p[q], m[:, q]), solo[q]) for q in range(n_prob)]
+                vs_plain = {}
+                for q in (0, n_prob - 1):
+                    if q not in plain_of:
+                        plain_of[q] = two_sweeps(plain, o_p[q], p_p[q], frames_p[q], shared,
+                                                 extra)
+                    po, pp, pm = plain_of[q]
+                    vs_plain[q] = {"rel_err_o": rel(o[q], po), "rel_err_p": rel(p[q], pp),
+                                   "metrics_rel_err": ((m[:, q] - pm).abs() / pm.abs()).max().item(),
+                                   "max_abs_err": max((o[q] - po).abs().max().item(),
+                                                      (p[q] - pp).abs().max().item())}
+                    errs[name, tier] = max(errs[name, tier], vs_plain[q]["max_abs_err"])
+                poisoned = frames_p[:n_prob].clone()
+                poisoned[1] = float("nan")
+                no, np_, nm = two_sweeps(kern, o_p[:n_prob], p_p[:n_prob], poisoned, shared,
+                                         extra)
+                torch.cuda.synchronize()
+                del poisoned
+                isolated = [same((no[q], np_[q], nm[:, q]), solo[q])
+                            for q in range(n_prob) if q != 1]
+                per_sweep = 2 if name.startswith("K2") else 3 * amps_it.shape[0]
+                emit({"phase": "kernel_vs_plain", "case": f"{name}, problem axis",
+                      "dft_precision": tier, "problems": n_prob, "cluster_size": cs,
+                      "solo_cluster_size": solo_cs, "sweeps": 2, "launches": launched,
+                      "bitwise_equal_to_solo": sum(bitwise),
+                      "vs_plain": {str(q): v for q, v in vs_plain.items()},
+                      "nan_problem_1_finite": bool(torch.isfinite(no[1]).all().item()),
+                      "others_bitwise_with_problem_1_nan": sum(isolated),
+                      "limits": {"rel_o": TOL_O, "rel_p": TOL_P, "metrics_rtol": TOL_METRICS}})
+                check(all(bitwise), f"{name} {tier}: {n_prob - sum(bitwise)} of {n_prob} "
+                                    "problems differ from their solo launch")
+                check(all(isolated) and not torch.isfinite(no[1]).all(),
+                      f"{name} {tier}: a NaN problem changed another problem of the launch")
+                check(launched == 2 * per_sweep,
+                      f"{name} {tier}: {launched} launches for 2 sweeps of {n_prob} problems")
+                check(all(v["rel_err_o"] <= TOL_O and v["rel_err_p"] <= TOL_P
+                          and v["metrics_rel_err"] <= TOL_METRICS for v in vs_plain.values()),
+                      f"{name} {tier} with {n_prob} problems disagrees with its plain version")
+            del solo, plain_of
 
     # ------------------------------------------------- 3. sharded_vs_single
     mesh_shapes = ((4, 1), (2, 2), (1, 8))
@@ -604,21 +716,27 @@ def main(argv=None) -> int:
         cfg_path = write_dataset(os.path.join(tmp, "data"), cfg, geom, frames)
         wrappers = {"K1": kernels.fused_epry_chunked, "K2": kernels.fused_epry_sweep,
                     "K3": kernels.fused_chunk_increments}
-        runs = (
+        # (label, flags, kernel, the same solve in this process); the default
+        # tier (bf16x3) first, then the batched, sequential and (4,1) runs at
+        # --dft-precision highest.
+        runs = [
             ("batched", ["--mode", "batched"], "K1",
-             lambda: epry.reconstruct(frames, geom, cfg, iterations=10, use_pallas=True,
-                                      mode="batched", chunk_size=32)),
+             lambda tier: epry.reconstruct(frames, geom, cfg, iterations=10, use_pallas=True,
+                                           mode="batched", chunk_size=32, dft_precision=tier)),
             ("sequential", ["--mode", "sequential"], "K2",
-             lambda: epry.reconstruct(frames, geom, cfg, iterations=10, use_pallas=True,
-                                      mode="sequential")),
+             lambda tier: epry.reconstruct(frames, geom, cfg, iterations=10, use_pallas=True,
+                                           mode="sequential", dft_precision=tier)),
             ("mesh 4 1", ["--mesh", "4", "1"], "K3",
-             lambda: sharded_fn(1)(frames, geom, cfg, mesh=make_mesh(4, 1), iterations=10,
-                                   use_pallas=True, chunk_size=32)),
+             lambda tier: sharded_fn(1)(frames, geom, cfg, mesh=make_mesh(4, 1), iterations=10,
+                                        use_pallas=True, chunk_size=32, dft_precision=tier)),
             ("mesh 2 2", ["--mesh", "2", "2"], "K3",
-             lambda: sharded_fn(2)(frames, geom, cfg, mesh=make_mesh(2, 2), iterations=10,
-                                   use_pallas=True, chunk_size=32)),
-        )
+             lambda tier: sharded_fn(2)(frames, geom, cfg, mesh=make_mesh(2, 2), iterations=10,
+                                        use_pallas=True, chunk_size=32, dft_precision=tier)),
+        ]
+        runs += [(label + " highest", flags + ["--dft-precision", "highest"], key, again)
+                 for label, flags, key, again in runs[:3]]
         for label, flags, key, again in runs:
+            tier = "highest" if label.endswith("highest") else "bf16x3"
             out = os.path.join(tmp, "out_" + label.replace(" ", "_"))
             for w in wrappers.values():
                 w.launches = 0
@@ -644,19 +762,22 @@ def main(argv=None) -> int:
                 records = [json.loads(line) for line in f]
             phase_s = {r["name"]: r["seconds"] for r in records if r["event"] == "phase"}
             options = next(r for r in records if r["event"] == "solver_options")
-            want_mesh = [int(x) for x in flags[1:]] if flags[0] == "--mesh" else None
+            want_mesh = [int(x) for x in flags[1:3]] if flags[0] == "--mesh" else None
             check(options["mesh"] == want_mesh and (want_mesh is None
                                                     or options["mode"] == "batched"),
                   f"run {label} recorded mesh {options['mesh']}, mode {options['mode']}")
+            check(options["dft_precision"] == tier,
+                  f"run {label} recorded dft_precision {options['dft_precision']}")
             # The same solve again in this process, warm (cuFFT plans and
             # libraries loaded): what a second reconstruction pays.
             warm_s = []
             for _ in range(2):
                 t0 = time.perf_counter()
-                again()
+                again(tier)
                 torch.cuda.synchronize()
                 warm_s.append(time.perf_counter() - t0)
-            emit({"phase": "main_path", "run": label, "iterations": 10, "wall_s": wall,
+            emit({"phase": "main_path", "run": label, "dft_precision": tier,
+                  "iterations": 10, "wall_s": wall,
                   "phase_s": phase_s, "reconstruct_warm_s": warm_s[-1],
                   "launches": counts, "recorded_mesh": options["mesh"],
                   "amp_rmse": rmse, "rmse_limit": RMSE_LIMIT,
@@ -843,78 +964,82 @@ def main(argv=None) -> int:
 
     # ------------------------------------------------------------ 5. timing
     support_c = sup_r.to(torch.complex64)
-    library = {
-        "K1": lambda: epry.sweep_batched(o0, p0, amps_it, starts_it, support=support_c,
-                                         opts=opts_b, mask=mask),
-        "K2": lambda: epry.sweep_sequential(o0, p0, amps, starts, support=support_c,
-                                            opts=opts),
+    # The eager torch.fft route (the same function at either tier): the
+    # library yardstick of K1 and K2.
+    library_ms = {
+        "K1": cuda_ms(lambda: epry.sweep_batched(o0, p0, amps_it, starts_it, support=support_c,
+                                                 opts=opts_b, mask=mask), 2),
+        "K2": cuda_ms(lambda: epry.sweep_sequential(o0, p0, amps, starts, support=support_c,
+                                                    opts=opts), 2),
     }
-    # The same figures from the one-block-per-LED kernels this design
-    # replaced, copied from PERF.md (NVIDIA H100 80GB HBM3, 700.00 W): a
-    # record of another run, printed on the timing lines only and marked as
-    # not measured here; the ``kernels`` line holds none of them.
-    previous = {
-        "K1": {"ms_per_sweep": 1.148, "launches_per_sweep": 21, "cluster_size": 1,
-               "device_ms_by_kernel": {"chunk_forward": 0.841, "k1_pupil": 0.161,
-                                       "k1_apply": 0.060}},
-        "K2": {"ms_per_sweep": 24.60, "launches_per_sweep": 194, "cluster_size": 1,
-               "device_ms_by_kernel": {"k2_step": 24.31, "k2_rowmax_init": 0.002}},
-        "K3": {"ms_per_call": 0.232, "device_ms_per_call": 0.1415, "launches_per_call": 3,
-               "cluster_size": 1,
-               "device_ms_by_kernel": {"chunk_forward": 0.116, "k3_sums": 0.0065,
-                                       "k3_gather": 0.0040}},
-    }
-    for record in previous.values():
-        record["source"] = "PERF.md, the one-block-per-LED kernels: not measured in this run"
-    rows = []
-    for key, name, src, replaces in (
-            ("K1", "fused_epry_chunked", "fpm_torch/ops/csrc/epry_chunked.cu",
-             "fpm_tpu/ops/pallas_kernels.py:775"),
-            ("K2", "fused_epry_sweep", "fpm_torch/ops/csrc/epry_sweep.cu",
-             "fpm_tpu/ops/pallas_kernels.py:1131")):
-        kern, plain, rest, extra = cases["K1" if key == "K1" else "K2 exact"]
-        def sweep():
-            return kern(o_planes, p_planes, sup_r, *rest, **common, **extra)
+    emit({"phase": "timing", "ptxas": {
+        stem: {short_name(k): v for k, v in build.resources(stem).items()} for stem in sorted(libs)},
+        "gpu": smi})
+    # Each kernel's main-path run at each tier (main_path above).
+    main_run = {"K1": "batched", "K2": "sequential", "K3": "mesh 4 1"}
 
-        kern.launches = 0
-        sweep()
-        per_sweep, cs = kern.launches, kern.cluster_size
-        check(key != "K2" or per_sweep <= 2, f"K2 made {per_sweep} launches in one sweep")
-        ms = cuda_ms(sweep, 5)
-        by_kernel = device_ms_by_kernel(sweep)
-        by_cs, device_by_cs = {}, {}
-        for forced in (1, 2, 4, 8):
-            kern.force_cluster_size = forced
-            by_cs[str(forced)] = cuda_ms(sweep, 3)
-            device_by_cs[str(forced)] = sum(device_ms_by_kernel(sweep).values())
-            kern.force_cluster_size = 0
-        plain_ms = cuda_ms(lambda: plain(o_planes, p_planes, sup_r, *rest, **common, **extra), 2)
-        library_ms = cuda_ms(library[key], 2)
-        nbytes, flops = sweep_work(k_leds, n, b, nl, n_slots if key == "K1" else k_leds,
-                                   has_valid=key == "K1")
-        bound_ms, bound_by = bound(nbytes, flops)
-        err = errs["K1"] if key == "K1" else max(errs["K2 exact"], errs["K2 lazy"])
-        rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                     "launches": launches["batched" if key == "K1" else "sequential"],
-                     "launches_per_sweep": per_sweep, "cluster_size": cs,
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms})
-        emit({"phase": "timing", "kernel": name, "cluster_size": cs,
-              "blocks_per_forward_launch": cs * (amps_it.shape[1] if key == "K1" else 1),
-              "previous": previous[key], "ms_per_sweep": ms,
-              "ms_per_sweep_by_forced_cluster_size": by_cs,
-              "device_ms_per_sweep_by_forced_cluster_size": device_by_cs, "plain_ms": plain_ms,
-              "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-              "bytes": nbytes, "flops": flops, "launches_per_sweep": per_sweep,
-              "led_frames_per_s": k_leds / ms * 1e3, "device_ms_by_kernel": by_kernel,
-              "device_busy_share": sum(by_kernel.values()) / ms, "gpu": smi})
+    def main_launches(key, tier):
+        return launches[main_run[key] + (" highest" if tier == "highest" else "")]
+
+    rows = []
+    for tier in TIERS:
+        for key, name, src, replaces in (
+                ("K1", "fused_epry_chunked", "fpm_torch/ops/csrc/epry_chunked.cu",
+                 "fpm_tpu/ops/pallas_kernels.py:775"),
+                ("K2", "fused_epry_sweep", "fpm_torch/ops/csrc/epry_sweep.cu",
+                 "fpm_tpu/ops/pallas_kernels.py:1131")):
+            kern, plain, rest, extra = cases["K1" if key == "K1" else "K2 exact"]
+            extra = dict(extra, dft_precision=tier)
+
+            def sweep():
+                return kern(o_planes, p_planes, sup_r, *rest, **common, **extra)
+
+            kern.launches = 0
+            sweep()
+            per_sweep, cs = kern.launches, kern.cluster_size
+            check(key != "K2" or per_sweep <= 2, f"K2 made {per_sweep} launches in one sweep")
+            ms = cuda_ms(sweep, 5)
+            by_kernel = device_ms_by_kernel(sweep)
+            by_cs, device_by_cs = {}, {}
+            for forced in (1, 2, 4, 8):
+                kern.force_cluster_size = forced
+                by_cs[str(forced)] = cuda_ms(sweep, 3)
+                device_by_cs[str(forced)] = sum(device_ms_by_kernel(sweep).values())
+                kern.force_cluster_size = 0
+            plain_ms = cuda_ms(lambda: plain(o_planes, p_planes, sup_r, *rest, **common, **extra),
+                               2)
+            nbytes, flops = sweep_work(k_leds, n, b, nl, n_slots if key == "K1" else k_leds,
+                                       has_valid=key == "K1")
+            bound_ms, bound_by = bound(nbytes, flops)
+            err = (errs["K1", tier] if key == "K1"
+                   else max(errs["K2 exact", tier], errs["K2 lazy", tier]))
+            rows.append({"name": f"{name} [{tier}]", "dft_precision": tier, "route": "cuda",
+                         "source": src, "replaces": replaces,
+                         "launches": main_launches(key, tier),
+                         "launches_per_sweep": per_sweep, "cluster_size": cs,
+                         "max_abs_err": err, "ms": ms,
+                         "device_ms": sum(by_kernel.values()), "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": library_ms[key]})
+            emit({"phase": "timing", "kernel": name, "dft_precision": tier, "cluster_size": cs,
+                  "blocks_per_forward_launch": cs * (amps_it.shape[1] if key == "K1" else 1),
+                  "ms_per_sweep": ms, "ms_per_sweep_by_forced_cluster_size": by_cs,
+                  "device_ms_per_sweep_by_forced_cluster_size": device_by_cs,
+                  "plain_ms": plain_ms, "library_ms": library_ms[key], "bound_ms": bound_ms,
+                  "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+                  "launches_per_sweep": per_sweep, "led_frames_per_s": k_leds / ms * 1e3,
+                  "device_ms_by_kernel": by_kernel,
+                  "device_busy_share": sum(by_kernel.values()) / ms, "gpu": smi})
 
     # The problem axis: P problems per launch at the cluster size the entry
-    # point picks (the ROI problems of the wide frames).
-    for row, case in zip(rows, ("K1", "K2 exact")):
+    # point picks (the ROI problems of the wide frames); highest at P = 1, 66.
+    for row in rows:
+        tier = row["dft_precision"]
+        case = "K1" if row["name"].startswith("fused_epry_chunked") else "K2 exact"
         kern, _, frames_p, shared, extra = axis_cases[case]
+        extra = dict(extra, dft_precision=tier)
         by_p = {}
-        for n_prob in TIMING_P:
+        for n_prob in (TIMING_P if tier == "bf16x3" else (1, 66)):
             if n_prob == 1:
                 operands = (o_p[0], p_p[0], sup_r, frames_p[0])
             else:
@@ -937,8 +1062,8 @@ def main(argv=None) -> int:
                 kern.force_cluster_size = forced
                 forced_ms[str(forced)] = cuda_ms(sweep, 3)
                 kern.force_cluster_size = 0
-                resident[str(forced)] = kernels.resident_clusters(kern, n, opts.pupil_radius,
-                                                                  slots, forced)
+                resident[str(forced)] = kernels.resident_clusters(
+                    kern, n, opts.pupil_radius, slots, forced, dft_precision=tier)
             by_p[str(n_prob)] = {"cluster_size": cs, "launches_per_sweep": launched,
                                  "ms_per_sweep": ms, "ms_per_problem_sweep": ms / n_prob,
                                  "led_frames_per_s": n_prob * k_leds / ms * 1e3,
@@ -946,32 +1071,39 @@ def main(argv=None) -> int:
                                  "ms_per_sweep_by_forced_cluster_size": forced_ms,
                                  "resident_clusters_by_cluster_size": resident}
         row["problem_axis"] = by_p
-        row["launches_by_path"] = {k: v for k, v in path_launches.items()
-                                   if k.endswith("sequential" if case != "K1" else "batched")}
-        emit({"phase": "timing", "kernel": row["name"], "problem_axis": by_p,
-              "problems_from": f"Np={n} ROIs of the {WIDE}x{WIDE} frames", "gpu": smi})
+        if tier == "bf16x3":
+            row["launches_by_path"] = {k: v for k, v in path_launches.items()
+                                       if k.endswith("sequential" if case != "K1" else "batched")}
+        emit({"phase": "timing", "kernel": row["name"], "dft_precision": tier,
+              "problem_axis": by_p, "problems_from": f"Np={n} ROIs of the {WIDE}x{WIDE} frames",
+              "gpu": smi})
 
     # Where K2's time goes inside its one persistent launch, which the
     # profiler sees only whole: the profile build of the kernel counts the SM
     # cycles of each phase of an LED on the cluster's first block.
-    k2, (_, _, k2_rest, k2_extra) = kernels.fused_epry_sweep, cases["K2 exact"]
+    k2 = kernels.fused_epry_sweep
+    for tier in TIERS:
+        k2_extra = dict(cases["K2 exact"][3], dft_precision=tier)
 
-    def k2_profiled():
-        return kernels.k2_phase_profile(o_planes, p_planes, sup_r, *k2_rest, **common,
-                                        **k2_extra)
+        def k2_profiled():
+            return kernels.k2_phase_profile(o_planes, p_planes, sup_r, *k2_rest, **common,
+                                            **k2_extra)
 
-    k2_profiled()                                       # built and warm
-    (po, pp, _), cycles = k2_profiled()
-    ko, kp, _ = k2(o_planes, p_planes, sup_r, *k2_rest, **common, **k2_extra)
-    check(torch.equal(po, ko) and torch.equal(pp, kp),
-          "K2's profile build gives another result than the plain build")
-    check(all(c > 0 for c in cycles.values()), f"a phase of K2 counted no cycle: {cycles}")
-    total = sum(cycles.values())
-    emit({"phase": "timing", "kernel": "fused_epry_sweep", "k2_phase_profile": {
-        "cluster_size": k2.cluster_size, "leds": k_leds, "cycles_per_led": total / k_leds,
-        "share_by_phase": {name: c / total for name, c in cycles.items()},
-        "cycles_per_led_by_phase": {name: c / k_leds for name, c in cycles.items()}},
-        "gpu": smi})
+        k2_profiled()                                       # built and warm
+        (po, pp, _), cycles = k2_profiled()
+        ko, kp, _ = k2(o_planes, p_planes, sup_r, *k2_rest, **common, **k2_extra)
+        check(torch.equal(po, ko) and torch.equal(pp, kp),
+              f"K2's profile build gives another result than the plain build ({tier})")
+        check(all(c > 0 for c in cycles.values()),
+              f"a phase of K2 counted no cycle ({tier}): {cycles}")
+        total = sum(cycles.values())
+        emit({"phase": "timing", "kernel": "fused_epry_sweep", "dft_precision": tier,
+              "k2_phase_profile": {
+                  "cluster_size": k2.cluster_size, "leds": k_leds,
+                  "cycles_per_led": total / k_leds,
+                  "share_by_phase": {name: c / total for name, c in cycles.items()},
+                  "cycles_per_led_by_phase": {name: c / k_leds for name, c in cycles.items()}},
+              "gpu": smi})
 
     # K3 as rank (0,0) of mesh (4,1) calls it: its slice (8 slots) of each of
     # the sweep's 7 chunks, on the whole 360×360 spectrum, init state.
@@ -981,48 +1113,52 @@ def main(argv=None) -> int:
     r_amps, r_starts, r_mask = ag[0][0], stg[0][0].reshape(stg[0][0].shape[0], -1), mg[0][0]
     r_valid = (r_mask > 0).to(torch.int32)
     n_chunks, c_local = r_valid.shape
-    k3_kw = dict(k3_common, n_rows=nl, n_cols=nl)
-
-    def k3_call(fn, c):
-        return fn(o_planes, p_planes, sup_r, r_amps[c], r_starts[c], r_valid[c], **k3_kw)
-
-    def k3_sweep(fn):
-        for c in range(n_chunks):
-            k3_call(fn, c)
-
-    k3.launches = 0
-    k3_sweep(k3)
-    per_sweep, cs = k3.launches, k3.cluster_size
-    ms_call = cuda_ms(lambda: k3_call(k3, 0), 20)
-    ms_sweep = cuda_ms(lambda: k3_sweep(k3), 5)
-    by_kernel = device_ms_by_kernel(lambda: k3_call(k3, 0))
-    plain_ms = cuda_ms(lambda: k3_call(kernels.fused_chunk_increments_plain, 0), 3)
     eager41 = dataclasses.replace(opts41, use_pallas=False)
-    library_ms = cuda_ms(lambda: led_shard._chunk_increments(
+    k3_library_ms = cuda_ms(lambda: led_shard._chunk_increments(
         o0, p0, support_c, r_amps[0], stg[0][0][0], r_mask[0], opts=eager41), 3)
     n_valid = int(r_valid[0].sum())
     o_elems = window_union(stg[0][0][0].tolist(), r_valid[0].tolist(), n, b, lo, nl, nl)
     nbytes, flops = increments_work(n_valid, c_local, n, b, nl, nl, o_elems)
-    bound_ms, bound_by = bound(nbytes, flops)
-    rows.append({"name": "fused_chunk_increments", "route": "cuda",
-                 "source": "fpm_torch/ops/csrc/epry_increments.cu",
-                 "replaces": "fpm_tpu/ops/pallas_kernels.py:1006",
-                 "launches": launches["mesh 4 1"], "launches_per_sweep": per_sweep,
-                 "cluster_size": cs,
-                 "max_abs_err": max(v for k, v in errs.items() if k.startswith("K3")),
-                 "ms": ms_call, "device_ms": sum(by_kernel.values()), "plain_ms": plain_ms,
-                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms})
-    emit({"phase": "timing", "kernel": "fused_chunk_increments", "cluster_size": cs,
-          "blocks_per_forward_launch": cs * c_local, "previous": previous["K3"],
-          "device_ms_per_call": sum(by_kernel.values()),
-          "as": "rank (0,0) of mesh (4,1): 8 slots per call on the 360x360 block",
-          "ms_per_call": ms_call, "calls_per_sweep": n_chunks, "ms_per_sweep_of_calls": ms_sweep,
-          "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-          "bound_by": bound_by, "bytes": nbytes, "flops": flops, "valid_leds": n_valid,
-          "o_bytes_read": 8 * o_elems, "d_bytes_written": 8 * nl * nl,
-          "launches_per_sweep": per_sweep, "launches_main_path": {
-              k: v for k, v in launches.items() if k.startswith("mesh")},
-          "device_ms_by_kernel": by_kernel, "gpu": smi})
+    k3_bound_ms, k3_bound_by = bound(nbytes, flops)
+    for tier in TIERS:
+        k3_kw = dict(k3_common, n_rows=nl, n_cols=nl, dft_precision=tier)
+
+        def k3_call(fn, c):
+            return fn(o_planes, p_planes, sup_r, r_amps[c], r_starts[c], r_valid[c], **k3_kw)
+
+        def k3_sweep(fn):
+            for c in range(n_chunks):
+                k3_call(fn, c)
+
+        k3.launches = 0
+        k3_sweep(k3)
+        per_sweep, cs = k3.launches, k3.cluster_size
+        ms_call = cuda_ms(lambda: k3_call(k3, 0), 20)
+        ms_sweep = cuda_ms(lambda: k3_sweep(k3), 5)
+        by_kernel = device_ms_by_kernel(lambda: k3_call(k3, 0))
+        plain_ms = cuda_ms(lambda: k3_call(kernels.fused_chunk_increments_plain, 0), 3)
+        rows.append({"name": f"fused_chunk_increments [{tier}]", "dft_precision": tier,
+                     "route": "cuda", "source": "fpm_torch/ops/csrc/epry_increments.cu",
+                     "replaces": "fpm_tpu/ops/pallas_kernels.py:1006",
+                     "launches": main_launches("K3", tier), "launches_per_sweep": per_sweep,
+                     "cluster_size": cs,
+                     "max_abs_err": max(v for (k, t), v in errs.items()
+                                        if k.startswith("K3") and t == tier),
+                     "ms": ms_call, "device_ms": sum(by_kernel.values()), "plain_ms": plain_ms,
+                     "bound_ms": k3_bound_ms, "bound_by": k3_bound_by,
+                     "library_ms": k3_library_ms})
+        emit({"phase": "timing", "kernel": "fused_chunk_increments", "dft_precision": tier,
+              "cluster_size": cs, "blocks_per_forward_launch": cs * c_local,
+              "device_ms_per_call": sum(by_kernel.values()),
+              "as": "rank (0,0) of mesh (4,1): 8 slots per call on the 360x360 block",
+              "ms_per_call": ms_call, "calls_per_sweep": n_chunks,
+              "ms_per_sweep_of_calls": ms_sweep, "plain_ms": plain_ms,
+              "library_ms": k3_library_ms, "bound_ms": k3_bound_ms, "bound_by": k3_bound_by,
+              "bytes": nbytes, "flops": flops, "valid_leds": n_valid,
+              "o_bytes_read": 8 * o_elems, "d_bytes_written": 8 * nl * nl,
+              "launches_per_sweep": per_sweep, "launches_main_path": {
+                  k: v for k, v in launches.items() if k.startswith("mesh")},
+              "device_ms_by_kernel": by_kernel, "gpu": smi})
 
     # One sharded sweep per mesh shape, on the host's clock, synchronised: all
     # ranks share the one card, so these are not scaling results. Through the

@@ -21,9 +21,12 @@ share a card in ONE problem-axis launch per sweep (``parallel/roi_shard.py``),
 on the CPU tile after tile. ``--color-mode rgb`` decodes each file once and
 solves the three channels together (one launch per sweep on the GPU).
 ``--watchdog-timeout S`` aborts a run that makes no progress for S seconds
-(armed before the first chunk, after the kernels are built). Flags of paths
-not yet ported (multi-process ``--distributed``, debug dumps, the native
-decoder, the ``bf16x3`` tier) are accepted by the parser and refused with an
+(armed before the first chunk, after the kernels are built).
+``--dft-precision`` picks the kernels' DFT products: ``bf16x3`` (the default,
+as in ``fpm_tpu``: a 3-pass bf16 split on the tensor cores) or ``highest``
+(FP32); the eager route has no such products and ignores it, as ``fpm_tpu``
+does. Flags of paths not yet ported (multi-process ``--distributed``, debug
+dumps, the native decoder) are accepted by the parser and refused with an
 error naming them.
 """
 
@@ -83,9 +86,9 @@ def _add_run_parser(sub):
                         "batched, K2 sequential, K3 on a mesh); on --platform "
                         "cpu, through their plain PyTorch versions")
     p.add_argument("--dft-precision", choices=["bf16x3", "highest"],
-                   default="highest",
-                   help="kernels' DFT products: exact FP32 ('bf16x3', the "
-                        "3xTF32 tier, is not yet ported)")
+                   default="bf16x3",
+                   help="kernels' DFT products: 3-pass bf16 split on the tensor "
+                        "cores (~1e-6 rel err) or exact FP32")
     p.add_argument("--mesh", type=int, nargs=2, metavar=("LED", "TILE"),
                    default=None,
                    help="run on an LED x TILE mesh of ranks (batched sweep "
@@ -383,6 +386,13 @@ def _solve_in_chunks(args, cfg, watchdog, run_fp, initial_state, start_iter, run
     return result
 
 
+def _log_dft_precision(args) -> None:
+    """The kernel route's tier, said once per run (``fpm_tpu``'s line)."""
+    if args.use_pallas and args.dft_precision == "bf16x3":
+        print("[fpm-torch] kernel DFT precision: bf16x3 (~1e-6 rel err; "
+              "--dft-precision highest for exact f32)")
+
+
 def _solver_kwargs(args) -> dict:
     return dict(mode=args.mode, global_max=args.global_max, chunk_size=args.chunk_size,
                 chunk_assign=args.chunk_assign, use_pallas=args.use_pallas,
@@ -430,6 +440,7 @@ def _run_single(args, cfg, logger, device, watchdog) -> str:
                stale_consensus=bool(args.stale_consensus),
                mesh=list(mesh_req) if mesh_req else None, device=device)
     initial_state, start_iter = _resume_state(args, run_fp)
+    _log_dft_precision(args)
     solver_kwargs = {k: v for k, v in _solver_kwargs(args).items() if k != "mode"}
     if mesh_req:
         from .parallel import make_mesh, reconstruct_led_sharded, reconstruct_tile_sharded

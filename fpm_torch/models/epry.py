@@ -63,7 +63,8 @@ class EPRYOptions:
     chunk_assign: str = "strided"     # "strided" | "contiguous" chunk makeup
     collect_metrics: bool = True
     use_pallas: bool = False          # run the sweep through the port's kernels
-    dft_precision: str = "highest"    # kernels' DFT products: "highest" = FP32
+    dft_precision: str = "bf16x3"     # kernels' DFT products: "bf16x3" | "highest"
+    #                                   (read by the kernel route only)
     pupil_radius: int = 0             # NA-disk radius px: the kernels' bbox
     n_large: int = 0
     dtype: str = "complex64"          # solver complex dtype
@@ -79,12 +80,10 @@ class EPRYOptions:
             raise ValueError(f"mode must be 'sequential' or 'batched', got {self.mode!r}")
         if self.global_max not in ("exact", "lazy"):
             raise ValueError(f"global_max must be 'exact' or 'lazy', got {self.global_max!r}")
-        if self.dft_precision == "bf16x3":
+        if self.dft_precision not in ("bf16x3", "highest"):
             raise ValueError(
-                "dft_precision 'bf16x3' (3xTF32 on Hopper tensor cores): precision "
-                "tier not yet ported to fpm_torch; use 'highest'")
-        if self.dft_precision != "highest":
-            raise ValueError(f"dft_precision must be 'highest', got {self.dft_precision!r}")
+                f"dft_precision must be 'bf16x3' or 'highest', got {self.dft_precision!r}"
+            )
         if self.chunk_assign not in ("strided", "contiguous"):
             raise ValueError(
                 f"chunk_assign must be 'strided' or 'contiguous', got {self.chunk_assign!r}"
@@ -572,7 +571,7 @@ def _make_problems_sweep_fn(amps_b, starts, support_r, opts: EPRYOptions):
     with (P, 2) metrics."""
     common = dict(np_size=opts.np_size, n_large=opts.n_large, delta1=opts.delta1,
                   delta2=opts.delta2, eps=opts.eps, pupil_radius=opts.pupil_radius,
-                  collect_metrics=opts.collect_metrics)
+                  collect_metrics=opts.collect_metrics, dft_precision=opts.dft_precision)
     support = support_r.to(torch.float32)
     if opts.mode == "batched":
         chunked = [_chunk_inputs(a, starts, opts, support_r.dtype) for a in amps_b]

@@ -10,7 +10,10 @@ launched: this module imports on machines without ``nvcc`` or a GPU.
 
 ``profile_library(stem)`` builds a second variant with ``-DFPM_PROFILE``,
 whose K2 kernel counts SM cycles per phase of an LED (``csrc/epry_common.cuh``,
-``FPM_PHASES``); only measurements ask for it, no wrapper does.
+``FPM_PHASES``); only measurements ask for it, no wrapper does. So do
+``resources(stem)`` (ptxas's registers and spills of each compiled
+function) and ``hmma_counts(stem)`` (the tensor-core instructions in each
+function's SASS, from ``cuobjdump``).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -29,12 +33,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+def _tool(name: str) -> str:
+    for cand in (shutil.which(name), f"/usr/local/cuda/bin/{name}"):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit "
-                       "(nvcc on PATH or /usr/local/cuda/bin/nvcc)")
+    raise RuntimeError(f"{name} not found: the CUDA kernels need the CUDA toolkit "
+                       f"({name} on PATH or /usr/local/cuda/bin/{name})")
 
 
 PROFILE_FLAGS = ["-DFPM_PROFILE"]
@@ -62,7 +66,7 @@ def build_all(stems=None, profile: bool = False) -> dict[str, Path]:
     todo = [src for src in sources if not targets[src.stem].exists()]
     if todo:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        nvcc = _nvcc()
+        nvcc = _tool("nvcc")
         procs = []
         for src in todo:
             tmp = targets[src.stem].with_suffix(f".{os.getpid()}.tmp")
@@ -91,13 +95,13 @@ _IP = ctypes.POINTER(ctypes.c_int)
 # C signatures of the entry points (see the sources for the argument meaning).
 _SIGNATURES = {
     "epry_chunked": {"fpm_k1_sweep": [_P] * 15 + [_I] * 7 + [_F] * 4
-                     + [_I, _I, _P, _I, _IP, _IP],
-                     "fpm_resident_clusters": [_I] * 5 + [_IP]},
+                     + [_I, _I, _I, _P, _I, _IP, _IP],
+                     "fpm_resident_clusters": [_I] * 6 + [_IP]},
     "epry_sweep": {"fpm_k2_sweep": [_P] * 11 + [_I] * 6 + [_F] * 3
-                   + [_I, _I, _I, _P, _I, _IP, _IP],
-                   "fpm_resident_clusters": [_I] * 5 + [_IP]},
+                   + [_I, _I, _I, _I, _P, _I, _IP, _IP],
+                   "fpm_resident_clusters": [_I] * 6 + [_IP]},
     "epry_increments": {"fpm_k3_increments": [_P] * 16 + [_I] * 6 + [_F] * 3
-                        + [_I, _I, _P, _I, _IP, _IP]},
+                        + [_I, _I, _I, _P, _I, _IP, _IP]},
 }
 
 
@@ -138,3 +142,56 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.fpm_cuda_error_string(err).decode()
         raise RuntimeError(f"{what}: {msg} (error {err})")
+
+
+def _demangle(names: list[str]) -> dict[str, str]:
+    """{mangled: readable} through ``cu++filt`` (the names as they are if it
+    is missing or fails)."""
+    try:
+        out = subprocess.run([_tool("cu++filt"), *names], capture_output=True, text=True,
+                             check=True).stdout.splitlines()
+    except (RuntimeError, OSError, subprocess.CalledProcessError):
+        return {n: n for n in names}
+    return dict(zip(names, out)) if len(out) == len(names) else {n: n for n in names}
+
+
+def resources(stem: str) -> dict[str, dict[str, int]]:
+    """ptxas's report of the library built from ``csrc/<stem>.cu`` (built on
+    first use): {function: {registers, stack, spill_stores, spill_loads}}."""
+    log = build_all((stem,))[stem].with_suffix(".log").read_text()
+    report, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'|Function properties for (\w+)", line)
+        if m:
+            name = m.group(1) or m.group(2)
+            continue
+        if name is None:
+            continue
+        entry = report.setdefault(name, {})
+        for key, pat in (("registers", r"Used (\d+) registers"),
+                         ("stack", r"(\d+) bytes stack frame"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads")):
+            m = re.search(pat, line)
+            if m:
+                entry[key] = int(m.group(1))
+    names = _demangle(sorted(report))
+    return {names[k]: v for k, v in report.items() if v}
+
+
+def hmma_counts(stem: str) -> dict[str, int]:
+    """{function: HMMA instructions} in the SASS of the library built from
+    ``csrc/<stem>.cu`` (``cuobjdump -sass``): the tensor-core products of the
+    bf16x3 tier."""
+    sass = subprocess.run([_tool("cuobjdump"), "-sass", str(build_all((stem,))[stem])],
+                          capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name is not None and re.search(r"\bHMMA\b", line):
+            counts[name] += 1
+    names = _demangle(sorted(counts))
+    return {names[k]: v for k, v in counts.items()}

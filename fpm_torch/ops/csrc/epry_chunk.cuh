@@ -13,7 +13,8 @@ namespace fpm {
 
 // grid = P · C · cs in clusters of cs blocks, one cluster per problem and
 // LED of the chunk (cluster g = blockIdx.x / cs is LED j = g mod C of
-// problem q = g / C): the forward pass and the increments (epry_common.cuh)
+// problem q = g / C): the forward pass, its products at tier T (Tier), and
+// the increments (epry_common.cuh)
 // from problem q's chunk-start (O, P) into its scratch, each block writing
 // its slab of bbox rows:
 //   d_obj (P, C, b, b)  dO_j          num (P, C, b, b)  pupil numerator_j
@@ -28,6 +29,7 @@ namespace fpm {
 // before any cluster barrier: every block of its cluster sees the same
 // valid_j, so none waits for a peer that left, and its frame and start are
 // never read.
+template <int T>
 __global__ void __launch_bounds__(kThreads)
 chunk_forward(const float* o, size_t o_stride, int n_rows, int n_cols,
               const float* p, size_t p_stride,
@@ -51,11 +53,11 @@ chunk_forward(const float* o, size_t o_stride, int n_rows, int n_cols,
   const float* p_re = p + q * p_stride;
   const float* p_im = p_re + bb;
   extern __shared__ float4 smem_raw[];
-  const LedSmem s = carve_smem(smem_raw, m, n, b, plan, rank);
+  const LedSmem s = carve_smem(smem_raw, m, n, b, plan, rank, T == kBf16x3);
   const int y0 = clamp_start(starts[2 * j], n_rows, n) + lo;
   const int x0 = clamp_start(starts[2 * j + 1], n_cols, n) + lo;
   float pmax;
-  led_forward(o_re, o_im, n_cols, y0, x0, p_re, p_im,
+  led_forward<T>(o_re, o_im, n_cols, y0, x0, p_re, p_im,
               amps + q * a_stride + ((size_t)j * n + s.row0) * n, n, b, eps, metrics != 0, s,
               &pmax);
   const size_t slab = (size_t)g * bb + (size_t)s.brow0 * b;

@@ -100,34 +100,29 @@ k1_pupil(float* __restrict__ p, const int* __restrict__ valid, int c, int bb,
 //   sup    (b, b)         f32 centered bbox support
 //   amps   (P, n_chunks·c, n, n) f32, chunk-permuted schedule order
 //   starts (n_chunks·c·2) int32 patch starts (row, col); valid (n_chunks·c)
-//   ai/bi/af/bf           complex64 DFT matrices (epry_common.cuh)
+//   ai/bi/af/bf           the DFT matrices in the tier's layout (epry_common.cuh)
 //   d_obj, num            scratch, (P, c, b, b) complex64 each
 //   parts  (P, c, 2) f32 scratch; omax_bits (P, n_chunks) u32, zeroed by the caller
 //   mets   (P, 2) f32, accumulated into
+//   tier                  Tier of the products: 0 highest, 1 bf16x3
 //   force_cs              tests only: the cluster size to take (0 = choose)
 //   launches              host int, incremented at each accepted launch
 //   cluster_size          host int, set to the cluster size chosen
 // Returns a cudaError_t value (0 = every launch was accepted), kErrLedSmem or
 // kErrCluster.
-extern "C" int fpm_k1_sweep(float* o, float* p, const float* sup, const float* amps,
-                            const int* starts, const int* valid, const void* ai,
-                            const void* bi, const void* af, const void* bf, void* d_obj,
-                            void* num, float* parts, unsigned int* omax_bits, float* mets,
-                            int n_problems, int n_chunks, int c, int n, int b, int lo, int nl,
-                            float eps, float delta1, float delta2, float scale, int metrics,
-                            int device, void* stream, int force_cs, int* launches,
-                            int* cluster_size) {
+template <int T>
+static int k1_sweep_at(float* o, float* p, const float* sup, const float* amps,
+                       const int* starts, const int* valid, const fpm::DftMats& m, void* d_obj,
+                       void* num, float* parts, unsigned int* omax_bits, float* mets,
+                       int n_problems, int n_chunks, int c, int n, int b, int lo, int nl,
+                       float eps, float delta1, float delta2, float scale, int metrics,
+                       int device, cudaStream_t st, int force_cs, int* launches,
+                       int* cluster_size) {
   using namespace fpm;
-  const DeviceGuard guard(device);
-  cudaError_t err = guard.err;
-  if (err != cudaSuccess) return (int)err;
-  if (n_problems < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const DftMats m{static_cast<const float2*>(ai), static_cast<const float2*>(bi),
-                  static_cast<const float2*>(af), static_cast<const float2*>(bf)};
+  cudaError_t err;
   LedPlan plan;
   if (const int e =
-          plan_led(chunk_forward, n, b, n_problems * c, 0, false, force_cs, device, &plan))
+          plan_led(chunk_forward<T>, n, b, n_problems * c, 0, false, T, force_cs, device, &plan))
     return e;
   *cluster_size = plan.cs;
   const ClusterLaunch forward(n_problems * c, plan, st);
@@ -140,7 +135,7 @@ extern "C" int fpm_k1_sweep(float* o, float* p, const float* sup, const float* a
     const float* a_k = amps + (size_t)k * c * n * n;
     const int* s_k = starts + 2 * k * c;
     const int* v_k = valid + k * c;
-    cudaLaunchKernelEx(&forward.cfg, chunk_forward, (const float*)o, 2 * plane, nl, nl,
+    cudaLaunchKernelEx(&forward.cfg, chunk_forward<T>, (const float*)o, 2 * plane, nl, nl,
                        (const float*)p, (size_t)2 * bb, sup, a_k, a_stride, s_k, v_k, c, m, n,
                        b, lo, eps, delta1, delta2, metrics, static_cast<float2*>(d_obj),
                        static_cast<float2*>(num), parts, plan);
@@ -156,9 +151,39 @@ extern "C" int fpm_k1_sweep(float* o, float* p, const float* sup, const float* a
   return 0;
 }
 
-// How many clusters of cs blocks of K1's forward the card holds at once for
-// ``slots`` LEDs (epry_common.cuh resident_clusters; a measurement aid).
-extern "C" int fpm_resident_clusters(int n, int b, int slots, int cs, int device,
+extern "C" int fpm_k1_sweep(float* o, float* p, const float* sup, const float* amps,
+                            const int* starts, const int* valid, const void* ai,
+                            const void* bi, const void* af, const void* bf, void* d_obj,
+                            void* num, float* parts, unsigned int* omax_bits, float* mets,
+                            int n_problems, int n_chunks, int c, int n, int b, int lo, int nl,
+                            float eps, float delta1, float delta2, float scale, int metrics,
+                            int tier, int device, void* stream, int force_cs, int* launches,
+                            int* cluster_size) {
+  using namespace fpm;
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  if (n_problems < 1) return (int)cudaErrorInvalidValue;
+  const DftMats m{static_cast<const float2*>(ai), static_cast<const float2*>(bi),
+                  static_cast<const float2*>(af), static_cast<const float2*>(bf)};
+  const auto run = tier == kBf16x3   ? &k1_sweep_at<kBf16x3>
+                   : tier == kHighest ? &k1_sweep_at<kHighest>
+                                      : nullptr;
+  if (!run) return (int)cudaErrorInvalidValue;
+  return run(o, p, sup, amps, starts, valid, m, d_obj, num, parts, omax_bits, mets, n_problems,
+             n_chunks, c, n, b, lo, nl, eps, delta1, delta2, scale, metrics, device,
+             static_cast<cudaStream_t>(stream), force_cs, launches, cluster_size);
+}
+
+// How many clusters of cs blocks of K1's forward at ``tier`` the card holds
+// at once for ``slots`` LEDs (epry_common.cuh resident_clusters; a
+// measurement aid).
+extern "C" int fpm_resident_clusters(int n, int b, int slots, int cs, int tier, int device,
                                      int* clusters) {
-  return fpm::resident_clusters(fpm::chunk_forward, n, b, slots, 0, cs, device, clusters);
+  using namespace fpm;
+  if (tier == kBf16x3)
+    return resident_clusters(chunk_forward<kBf16x3>, n, b, slots, 0, cs, tier, device, clusters);
+  if (tier == kHighest)
+    return resident_clusters(chunk_forward<kHighest>, n, b, slots, 0, cs, tier, device,
+                             clusters);
+  return (int)cudaErrorInvalidValue;
 }

@@ -12,7 +12,21 @@
 // complex row-major float2: Ai (n×b), Bi (b×n), Af (b×n), Bf (n×b), so that
 //   image     = Ai · (Oc ∘ P) · Bi          (n×n, corner frame)
 //   spectrum  = Af · R · Bf                (b×b, centered bbox)
-// All products are FP32 FMAs (the "highest" precision tier).
+// Two precision tiers, a template parameter of every kernel (Tier):
+//   highest  FP32 FMAs on the CUDA cores (cgemm);
+//   bf16x3   the default, fpm_tpu's "bf16x3" (pallas_kernels.py _mm_fns):
+//            each operand split into bf16 parts, hi = RN(x), lo = RN(x − hi),
+//            real and imaginary parts apart, and the product formed as
+//            hi·hi + (hi·lo + lo·hi) on the tensor cores (cgemm_tc, warp-level
+//            mma.sync m16n8k16 bf16 with f32 accumulation), lo·lo dropped. A
+//            product of two bf16 values is exact in f32, so the tier computes
+//            fpm_tpu's function up to the f32 summation order. The static
+//            matrices come split from the host (kernels.py _kernel_mats: per
+//            row, per pair of contraction indices, the four bf16x2 words
+//            re hi, re lo, im hi, im lo, so one 16-byte load gives a fragment
+//            all four; Bi and Bf transposed, so that the contraction runs along
+//            the row for both operand sides); the dynamic operands (Z, T_r,
+//            the gathered rep, V) are split where a fragment is loaded.
 //
 // Bound. Per LED the four products are n·b·b + n·b·n + b·n·n + b·n·b
 // complex multiply-adds (1.77 M at Np=90, b=64), against a few hundred KB of
@@ -67,6 +81,21 @@
 // Z must fit one block whole: Np=200 (b≈136, 148 KB + its slabs) does not
 // fit beside them and is refused (plan_led).
 //
+// cgemm_tc gives a warp one 16×8 tile of the complex output over the WHOLE
+// contraction, in k order, 16 at a time (K padded with zeros to a multiple
+// of 16; rows and columns past M and N repeat a valid index and are not
+// stored), with the three passes in three accumulators added as
+// hh + (hl + lh) at the end: the same cut by outputs as cgemm, so results
+// stay independent of cs and P and repeat to the last bit; the six
+// independent products of a k-step go first and the next k-step's
+// fragments load while they run. Its layout of a static matrix takes the
+// bytes the FP32 one takes (two bf16 halves of each real value), so staging
+// does not change with the tier; Z and T_r get row strides padded against
+// shared-memory bank conflicts (z_ld, t_ld: under 2 KB more per block at
+// Np=90). At cs 8 only 8-12 of a block's 16 warps own a tile, and each
+// tile's k-steps run in order: the products are bound by latency there,
+// not by the tensor cores (PERF.md §5).
+//
 // This is the DFT-by-matmul design: the four products cost ~14 MFLOP per
 // LED at Np=90, where pruned FFTs (2·(n+b) length-n transforms) need ~1
 // MFLOP. So even at the FP32 peak it stays an order of magnitude above the
@@ -74,7 +103,9 @@
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <string.h>
 #include <stdint.h>
 
 #include <map>
@@ -155,11 +186,17 @@ constexpr int kMinTiles = 128;
 // Steps of the contraction whose loads are started together.
 constexpr int kUnroll = 4;
 
+// The precision tier of the four DFT products (the entry points' ``tier``).
+enum Tier { kHighest = 0, kBf16x3 = 1 };
+
+// The DFT matrices. kHighest: complex row-major, Ai (n, b), Bi (b, n), Af
+// (b, n), Bf (n, b). kBf16x3: the split layout (cgemm_tc) of Ai (n rows, K =
+// b), Biᵀ (n, b), Af (b, n) and Bfᵀ (b, n), addressed in 8-byte units.
 struct DftMats {
-  const float2* ai;  // (n, b)
-  const float2* bi;  // (b, n)
-  const float2* af;  // (b, n)
-  const float2* bf;  // (n, b)
+  const float2* ai;
+  const float2* bi;
+  const float2* af;
+  const float2* bf;
 };
 
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
@@ -293,6 +330,251 @@ __device__ __noinline__ void cgemm(const float2* A, int lda, const float2* B, in
     cgemm_pick<false, false>(A, lda, B, ldb, C, ldc, M, N, K);
 }
 
+// ------------------------------------------------------------ the bf16x3 tier
+
+// (hi, lo) of the pair (x0, x1) as two bf16x2 words, x0 in the low half:
+// hi = RN(x), lo = RN(x − hi), fpm_tpu's _bf16_split.
+__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  memcpy(&hi, &h, 4);
+  memcpy(&lo, &l, 4);
+}
+
+// One fragment of the split of a complex operand: re hi, re lo, im hi, im lo.
+template <int R>
+struct SplitFrag {
+  uint32_t rh[R], rl[R], ih[R], il[R];
+};
+
+// Fragment register r from one 16-byte word of the static layout.
+template <int R>
+__device__ __forceinline__ void set_static(SplitFrag<R>& f, int r, uint4 u) {
+  f.rh[r] = u.x;
+  f.rl[r] = u.y;
+  f.ih[r] = u.z;
+  f.il[r] = u.w;
+}
+
+// Fragment register r from two complex values, consecutive in k.
+template <int R>
+__device__ __forceinline__ void set_dynamic(SplitFrag<R>& f, int r, float2 v0, float2 v1) {
+  split2(v0.x, v1.x, f.rh[r], f.rl[r]);
+  split2(v0.y, v1.y, f.ih[r], f.il[r]);
+}
+
+// d += a · b: one m16n8k16 bf16 product with f32 accumulation.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void negate(uint32_t (&out)[4], const uint32_t (&in)[4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) out[r] = in[r] ^ 0x80008000u;   // both bf16 signs: exact
+}
+
+// The complex product of one k-step into the pass accumulators
+// acc[pass][re/im]: pass 0 hi·hi, 1 hi·lo, 2 lo·hi.
+__device__ __forceinline__ void cmma_step(float (&acc)[3][2][4], const SplitFrag<4>& a,
+                                          const SplitFrag<2>& b) {
+  uint32_t nih[4], nil[4];
+  negate(nih, a.ih);
+  negate(nil, a.il);
+  // Six independent products, then the six that add to them.
+  mma_bf16(acc[0][0], a.rh, b.rh);
+  mma_bf16(acc[0][1], a.rh, b.ih);
+  mma_bf16(acc[1][0], a.rh, b.rl);
+  mma_bf16(acc[1][1], a.rh, b.il);
+  mma_bf16(acc[2][0], a.rl, b.rh);
+  mma_bf16(acc[2][1], a.rl, b.ih);
+  mma_bf16(acc[0][0], nih, b.ih);
+  mma_bf16(acc[0][1], a.ih, b.rh);
+  mma_bf16(acc[1][0], nih, b.il);
+  mma_bf16(acc[1][1], a.ih, b.rl);
+  mma_bf16(acc[2][0], nil, b.ih);
+  mma_bf16(acc[2][1], a.il, b.rh);
+}
+
+// Loads of one k-step's fragments for the lane (g = lane / 4, t = lane % 4)
+// of a 16×8 tile: A rows ra0, ra1 (= m0 + g, m0 + g + 8, clamped), B
+// column cb (n0 + g, clamped), contraction indices k0 + 2t + {0, 1, 8, 9}.
+// GUARD (the last, ragged k-step): indices ≥ K give zeros. A static operand
+// is the split layout, ``ld`` 16-byte words per row (K padded to even with
+// a zero); a dynamic one complex f32, row-major with stride ``ld``.
+template <bool GUARD>
+__device__ __forceinline__ void load_static_a(SplitFrag<4>& f, const uint4* A, int ld, int ra0,
+                                              int ra1, int k0, int t, int K) {
+  const int p0 = (k0 >> 1) + t, p1 = p0 + 4;
+  const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+  const bool ok0 = !GUARD || 2 * p0 < K, ok1 = !GUARD || 2 * p1 < K;
+  set_static(f, 0, ok0 ? A[(size_t)ra0 * ld + p0] : z);
+  set_static(f, 1, ok0 ? A[(size_t)ra1 * ld + p0] : z);
+  set_static(f, 2, ok1 ? A[(size_t)ra0 * ld + p1] : z);
+  set_static(f, 3, ok1 ? A[(size_t)ra1 * ld + p1] : z);
+}
+
+template <bool GUARD>
+__device__ __forceinline__ void load_static_b(SplitFrag<2>& f, const uint4* B, int ld, int cb,
+                                              int k0, int t, int K) {
+  const int p0 = (k0 >> 1) + t, p1 = p0 + 4;
+  const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+  set_static(f, 0, (!GUARD || 2 * p0 < K) ? B[(size_t)cb * ld + p0] : z);
+  set_static(f, 1, (!GUARD || 2 * p1 < K) ? B[(size_t)cb * ld + p1] : z);
+}
+
+template <bool GUARD>
+__device__ __forceinline__ float2 ld_dyn(const float2* row, int k, int K) {
+  return (!GUARD || k < K) ? row[k] : make_float2(0.f, 0.f);
+}
+
+// VEC: the pair (k, k+1) of a row is one 16-byte load (even ld, 16-byte
+// aligned A); a pair past an odd K reads the row's padding and zeroes it.
+template <bool GUARD, bool VEC>
+__device__ __forceinline__ void load_dynamic_a(SplitFrag<4>& f, const float2* A, int ld, int ra0,
+                                               int ra1, int k0, int t, int K) {
+  const float2 z = make_float2(0.f, 0.f);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {   // register r: row ra0 / ra1, indices k, k + 1 (+ 8 for r ≥ 2)
+    const float2* row = A + (size_t)(r & 1 ? ra1 : ra0) * ld;
+    const int k = k0 + 2 * t + ((r >> 1) << 3);
+    float2 v0, v1;
+    if constexpr (VEC) {
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (!GUARD || k < K) v = *reinterpret_cast<const float4*>(row + k);
+      v0 = make_float2(v.x, v.y);
+      v1 = (!GUARD || k + 1 < K) ? make_float2(v.z, v.w) : z;
+    } else {
+      v0 = ld_dyn<GUARD>(row, k, K);
+      v1 = ld_dyn<GUARD>(row, k + 1, K);
+    }
+    set_dynamic(f, r, v0, v1);
+  }
+}
+
+template <bool GUARD>
+__device__ __forceinline__ void load_dynamic_b(SplitFrag<2>& f, const float2* B, int ld, int cb,
+                                               int k0, int t, int K) {
+  const int k = k0 + 2 * t;
+  const float2* col = B + cb;
+  const float2 z = make_float2(0.f, 0.f);
+  const float2 v0 = (!GUARD || k < K) ? col[(size_t)k * ld] : z;
+  const float2 v1 = (!GUARD || k + 1 < K) ? col[(size_t)(k + 1) * ld] : z;
+  const float2 v2 = (!GUARD || k + 8 < K) ? col[(size_t)(k + 8) * ld] : z;
+  const float2 v3 = (!GUARD || k + 9 < K) ? col[(size_t)(k + 9) * ld] : z;
+  set_dynamic(f, 0, v0, v1);
+  set_dynamic(f, 1, v2, v3);
+}
+
+// The fragments of one k-step of a tile: SA, A is the static operand (B
+// dynamic); else B is.
+template <bool SA, bool GUARD, bool VEC>
+__device__ __forceinline__ void tc_load(SplitFrag<4>& a, SplitFrag<2>& b, const void* A, int lda,
+                                        const void* B, int ldb, int ra0, int ra1, int cb, int k0,
+                                        int t, int K) {
+  if constexpr (SA) {
+    load_static_a<GUARD>(a, static_cast<const uint4*>(A), lda, ra0, ra1, k0, t, K);
+    load_dynamic_b<GUARD>(b, static_cast<const float2*>(B), ldb, cb, k0, t, K);
+  } else {
+    load_dynamic_a<GUARD, VEC>(a, static_cast<const float2*>(A), lda, ra0, ra1, k0, t, K);
+    load_static_b<GUARD>(b, static_cast<const uint4*>(B), ldb, cb, k0, t, K);
+  }
+}
+
+template <bool SA, bool GUARD, bool VEC>
+__device__ __forceinline__ void tc_step(float (&acc)[3][2][4], const void* A, int lda,
+                                        const void* B, int ldb, int ra0, int ra1, int cb, int k0,
+                                        int t, int K) {
+  SplitFrag<4> a;
+  SplitFrag<2> b;
+  tc_load<SA, GUARD, VEC>(a, b, A, lda, B, ldb, ra0, ra1, cb, k0, t, K);
+  cmma_step(acc, a, b);
+}
+
+// C (M×N complex, row stride ldc) = A (M×K) · B (K×N), the bf16x3 tier on
+// the tensor cores. SA: A is static, in the split layout (lda = its 16-byte
+// words per row, even_up(K) / 2), and B dynamic complex f32 (row-major,
+// ldb); else A is dynamic (lda) and B static and transposed: N rows of the
+// split layout (ldb words each). Warp w takes the 16×8 output tiles w, w +
+// warps, ...; each element is one tile's sum over k in order (header note).
+// VEC: a dynamic A is read a pair of values at a time (see load_dynamic_a).
+// All threads of the block call; no barrier inside; C aliases neither input.
+// Inlined: as a called function (like cgemm) it made k2_sweep save ~200
+// bytes of registers to the stack around each call, which cost every phase.
+template <bool SA, bool VEC>
+__device__ __forceinline__ void cgemm_tc_at(const void* A, int lda, const void* B, int ldb,
+                                            float2* C, int ldc, int M, int N, int K) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int mt = (M + 15) >> 4, nt = (N + 7) >> 3, ksteps = K >> 4;
+  for (int tile = warp; tile < mt * nt; tile += warps) {
+    const int m0 = (tile / nt) << 4, n0 = (tile % nt) << 3;
+    const int ra0 = min(m0 + g, M - 1), ra1 = min(m0 + g + 8, M - 1), cb = min(n0 + g, N - 1);
+    float acc[3][2][4];
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[p][c][r] = 0.f;
+    if (ksteps > 0) {   // the next k-step's fragments load while this one's products run
+      SplitFrag<4> a;
+      SplitFrag<2> b;
+      tc_load<SA, false, VEC>(a, b, A, lda, B, ldb, ra0, ra1, cb, 0, t, K);
+      for (int s = 1; s < ksteps; ++s) {
+        SplitFrag<4> a2;
+        SplitFrag<2> b2;
+        tc_load<SA, false, VEC>(a2, b2, A, lda, B, ldb, ra0, ra1, cb, s << 4, t, K);
+        cmma_step(acc, a, b);
+        a = a2;
+        b = b2;
+      }
+      cmma_step(acc, a, b);
+    }
+    if (K & 15) tc_step<SA, true, VEC>(acc, A, lda, B, ldb, ra0, ra1, cb, ksteps << 4, t, K);
+    // Accumulator r: row m0 + g (+ 8 for r ≥ 2), column n0 + 2t + (r & 1).
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = m0 + g + ((r >> 1) << 3), j = n0 + 2 * t + (r & 1);
+      if (i < M && j < N)
+        C[(size_t)i * ldc + j] = make_float2(acc[0][0][r] + (acc[1][0][r] + acc[2][0][r]),
+                                             acc[0][1][r] + (acc[1][1][r] + acc[2][1][r]));
+    }
+  }
+}
+
+template <bool SA>
+__device__ __forceinline__ void cgemm_tc(const void* A, int lda, const void* B, int ldb, float2* C,
+                                         int ldc, int M, int N, int K) {
+  if (!SA && (lda & 1) == 0 && (reinterpret_cast<uintptr_t>(A) & 15) == 0)
+    cgemm_tc_at<SA, true>(A, lda, B, ldb, C, ldc, M, N, K);
+  else
+    cgemm_tc_at<SA, false>(A, lda, B, ldb, C, ldc, M, N, K);
+}
+
+// The 16-byte words per row of a static matrix in the split layout whose
+// contraction has K indices.
+__host__ __device__ inline int split_ld(int K) { return (K + 1) >> 1; }
+
+// Row strides, in complex values, of the dynamic operands of the bf16x3
+// tier's first two products, padded so that their fragment loads meet no
+// shared-memory bank conflict: Z (m = b columns), read a column value at a
+// time by lane (g, t) at rows 2t apart (stride ≡ 2 mod 8: the four rows'
+// 32-byte pieces fall in four different quarters of the banks); T_r (m = b
+// columns), read a pair at a time, rows g, g + 1 in one quarter-warp
+// (stride ≡ 8 mod 16: the two rows' 64 bytes fall in the two halves).
+// The highest tier keeps m.
+__host__ __device__ inline int z_ld(int m, bool split) {
+  return split ? m + ((2 - m % 8) + 8) % 8 : m;
+}
+__host__ __device__ inline int t_ld(int m, bool split) {
+  return split ? m + ((8 - m % 16) + 16) % 16 : m;
+}
+
 // Block-wide sum / max; every thread of the block must call, every thread
 // gets the result. ``red`` is 32 floats of shared memory.
 __device__ float block_sum(float v, float* red) {
@@ -348,22 +630,34 @@ constexpr int kStageBi = 1, kStageBf = 2, kStageAi = 4, kStageAf = 8;
 __host__ __device__ inline int even_up(int x) { return (x + 1) & ~1; }
 __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 
-// float2 units of matrix ``bit``'s staged slice.
-__host__ __device__ inline int stage_units(int bit, int n, int b, int nr) {
-  return even_up(bit == kStageAi ? nr * b : n * b);
+// float2 units (8 bytes) of matrix ``bit``'s slice for ``rows`` rows of Ai:
+// the whole matrix, or Ai's rows; ``split``: the bf16x3 layout, whose rows
+// are padded to an even contraction (Ai and Biᵀ contract over b, Af and Bfᵀ
+// over n).
+__host__ __device__ inline int stage_count(int bit, int n, int b, int rows, bool split) {
+  if (!split) return bit == kStageAi ? rows * b : n * b;
+  if (bit == kStageAi) return rows * even_up(b);
+  return bit == kStageBi ? n * even_up(b) : b * even_up(n);
 }
 
-// float2 units of a block's four buffers:
-//   z    Z (b·b), then V[:, cols_r] (b rows of stride even_up(nr))
-//   t    T_r (nr·b), then the gathered V[slab r, :] (br·n)
+// float2 units of matrix ``bit``'s staged slice (16-byte granular).
+__host__ __device__ inline int stage_units(int bit, int n, int b, int nr, bool split) {
+  return even_up(stage_count(bit, n, b, nr, split));
+}
+
+// float2 units of a block's four buffers (``split``: the bf16x3 tier's
+// strides z_ld, t_ld):
+//   z    Z (b rows of stride z_ld(b)), then V[:, cols_r] (b rows of stride
+//        even_up(nr))
+//   t    T_r (nr rows of stride t_ld(b)), then the gathered V[slab r, :] (br·n)
 //   img  img_r, then rep_r (nr·n), then up[slab r] (br·b)
 //   repc the gathered rep[:, cols_r] (n rows of stride even_up(nr)); with
 //        cs = 1 there is nothing to gather and no such buffer
-__host__ __device__ inline int z_units(int b, int nr) {
-  return even_up(imax(b * b, b * even_up(nr)));
+__host__ __device__ inline int z_units(int b, int nr, bool split) {
+  return even_up(imax(b * z_ld(b, split), b * even_up(nr)));
 }
-__host__ __device__ inline int t_units(int n, int b, int nr, int br) {
-  return even_up(imax(nr * b, br * n));
+__host__ __device__ inline int t_units(int n, int b, int nr, int br, bool split) {
+  return even_up(imax(nr * t_ld(b, split), br * n));
 }
 __host__ __device__ inline int img_units(int n, int nr) { return even_up(nr * n); }
 // Floats of one frame buffer: a block's rows of a frame, 16-byte granular.
@@ -386,8 +680,8 @@ __host__ __device__ inline int sums_units(int n, int b) {
 // accumulators of the segments of the block's nr image rows and br bbox
 // rows, and room for the sums of all segments (read in the first block).
 __host__ __device__ inline size_t led_base_bytes(int n, int b, int cs, int nr, int br,
-                                                 int frames) {
-  return (size_t)(z_units(b, nr) + t_units(n, b, nr, br) + img_units(n, nr)
+                                                 int frames, bool split) {
+  return (size_t)(z_units(b, nr, split) + t_units(n, b, nr, br, split) + img_units(n, nr)
                   + repc_units(n, nr, cs)) * sizeof(float2)
          + (size_t)(frames * frame_units(n, nr) + 32 + nr * segments(n)
                     + br * segments(b) + sums_units(n, b)) * sizeof(float);
@@ -412,9 +706,10 @@ struct LedSmem {
 // barrier. Slab r of m rows cut
 // for cs blocks is [min(r·per, m), min((r+1)·per, m)) with per = ceil(m/cs)
 // (fpm_torch/ops/kernels.py slab_bounds states the same rule, and a test
-// holds that such slabs cover every row once).
+// holds that such slabs cover every row once). ``split``: the matrices are
+// in the bf16x3 layout.
 __device__ inline LedSmem carve_smem(void* base, const DftMats m, int n, int b,
-                                     const LedPlan plan, int rank) {
+                                     const LedPlan plan, int rank, bool split) {
   LedSmem s;
   s.rank = rank;
   s.cs = plan.cs;
@@ -427,37 +722,27 @@ __device__ inline LedSmem carve_smem(void* base, const DftMats m, int n, int b,
   s.brows = min(plan.br, b - s.brow0);
   float2* f = reinterpret_cast<float2*>(base);
   s.z = f;
-  f += z_units(b, plan.nr);
+  f += z_units(b, plan.nr, split);
   s.t = f;
-  f += t_units(n, b, plan.nr, plan.br);
+  f += t_units(n, b, plan.nr, plan.br, split);
   s.img = f;
   f += img_units(n, plan.nr);
   s.repc = plan.cs > 1 ? f : s.img;
   f += repc_units(n, plan.nr, plan.cs);
-  s.bi = m.bi;
-  s.bf = m.bf;
-  s.ai = m.ai + (size_t)s.row0 * b;
-  s.af = m.af;
-  if (plan.stage & kStageBi) {
-    for (int e = threadIdx.x; e < b * n; e += blockDim.x) f[e] = m.bi[e];
-    s.bi = f;
-    f += stage_units(kStageBi, n, b, plan.nr);
-  }
-  if (plan.stage & kStageBf) {
-    for (int e = threadIdx.x; e < n * b; e += blockDim.x) f[e] = m.bf[e];
-    s.bf = f;
-    f += stage_units(kStageBf, n, b, plan.nr);
-  }
-  if (plan.stage & kStageAi) {
-    for (int e = threadIdx.x; e < s.rows * b; e += blockDim.x) f[e] = s.ai[e];
-    s.ai = f;
-    f += stage_units(kStageAi, n, b, plan.nr);
-  }
-  if (plan.stage & kStageAf) {
-    for (int e = threadIdx.x; e < b * n; e += blockDim.x) f[e] = m.af[e];
-    s.af = f;
-    f += stage_units(kStageAf, n, b, plan.nr);
-  }
+  // Matrix ``bit`` from ``src``: copied to f and read there if the plan
+  // stages it, else read where it is.
+  auto stage = [&](const float2* src, int bit) -> const float2* {
+    if (!(plan.stage & bit)) return src;
+    const int count = stage_count(bit, n, b, s.rows, split);
+    for (int e = threadIdx.x; e < count; e += blockDim.x) f[e] = src[e];
+    const float2* staged = f;
+    f += stage_units(bit, n, b, plan.nr, split);
+    return staged;
+  };
+  s.bi = stage(m.bi, kStageBi);
+  s.bf = stage(m.bf, kStageBf);
+  s.ai = stage(m.ai + (size_t)s.row0 * (split ? even_up(b) : b), kStageAi);
+  s.af = stage(m.af, kStageAf);
   s.frame = reinterpret_cast<float*>(f);
   s.red = s.frame + plan.frames * frame_units(n, plan.nr);
   s.rsum = s.red + 32;
@@ -528,17 +813,17 @@ struct ClusterLaunch {
 // shared memory per block. Returns 0, kErrLedSmem (the buffers do not fit)
 // or a cudaError_t value of the occupancy query.
 template <typename Kernel>
-int plan_at(Kernel kernel, int n, int b, int slots, int frames, int cs, int limit,
+int plan_at(Kernel kernel, int n, int b, int slots, int frames, int cs, int limit, bool split,
             LedPlan* plan, int* clusters) {
   LedPlan p{cs, (n + cs - 1) / cs, (b + cs - 1) / cs, 0, frames, 0};
-  size_t bytes = led_base_bytes(n, b, cs, p.nr, p.br, frames);
+  size_t bytes = led_base_bytes(n, b, cs, p.nr, p.br, frames, split);
   if (bytes > (size_t)limit) {   // then without frame buffers: frames read in place
     p.frames = 0;
-    bytes = led_base_bytes(n, b, cs, p.nr, p.br, 0);
+    bytes = led_base_bytes(n, b, cs, p.nr, p.br, 0, split);
   }
   if (bytes > (size_t)limit) return kErrLedSmem;
   for (int bit = kStageBi; bit <= kStageAf; bit <<= 1) {
-    const size_t more = (size_t)stage_units(bit, n, b, p.nr) * sizeof(float2);
+    const size_t more = (size_t)stage_units(bit, n, b, p.nr, split) * sizeof(float2);
     if (bytes + more <= (size_t)limit) {
       bytes += more;
       p.stage |= bit;
@@ -565,9 +850,11 @@ int smem_limit(Kernel kernel, int device, int* limit) {
 }
 
 // The time of one LED on a cluster of cs = 1, 2, 4, 8 blocks relative to
-// cs = 1: K2's sweep at forced cluster sizes on an H100 (22.06, 12.36,
-// 7.34, 4.40 ms; PERF.md §5), the weight plan_led gives a wave at each cs.
-constexpr float kLedTime[4] = {1.f, 0.56f, 0.333f, 0.2f};
+// cs = 1, per tier: K2's sweep at forced cluster sizes on an H100, the
+// weight plan_led gives a wave at each cs (PERF.md §5). highest: 22.06,
+// 12.36, 7.34, 4.40 ms; bf16x3, whose products gain most where a block owns
+// most rows: 12.9, 8.58, 5.67, 4.21 ms.
+constexpr float kLedTime[2][4] = {{1.f, 0.56f, 0.333f, 0.2f}, {1.f, 0.665f, 0.44f, 0.326f}};
 
 // Chooses the cluster size for ``kernel`` running ``slots`` LEDs at once
 // (K2: one per problem; K1: the chunk's LEDs of every problem) and sets the
@@ -581,15 +868,16 @@ constexpr float kLedTime[4] = {1.f, 0.56f, 0.333f, 0.2f};
 // that finds no room waits a whole sweep. A wave of one-LED clusters (K1,
 // K3) is as many as the SMs take: one left without room starts as soon as
 // any finishes, and measured on an H100 K1's 32 clusters of 4 (30 resident)
-// beat 32 of 2 (all resident) 0.54 to 0.69 ms per sweep (PERF.md §5). ``force_cs``
+// beat 32 of 2 (all resident) 0.54 to 0.69 ms per sweep (PERF.md §5). ``tier``
+// (Tier) is the instantiation's: it sets the staged layout and the weights. ``force_cs``
 // (tests only; 0 = choose) takes that size or fails. Returns 0, a
 // cudaError_t value (an error of the occupancy query), kErrLedSmem (no cs
 // fits) or kErrCluster (the forced cs cannot run). A plan, once made, is
 // kept by (kernel, shapes, slots, device): an entry point called once per
 // chunk asks the card once.
 template <typename Kernel>
-int plan_led(Kernel kernel, int n, int b, int slots, int frames, bool persistent, int force_cs,
-             int device, LedPlan* plan) {
+int plan_led(Kernel kernel, int n, int b, int slots, int frames, bool persistent, int tier,
+             int force_cs, int device, LedPlan* plan) {
   if (force_cs != 0 && force_cs != 1 && force_cs != 2 && force_cs != 4 && force_cs != 8)
     return (int)cudaErrorInvalidValue;
   using Key = std::tuple<const void*, int, int, int, int, int, int>;
@@ -612,13 +900,13 @@ int plan_led(Kernel kernel, int n, int b, int slots, int frames, bool persistent
     if (force_cs && cs != force_cs) continue;
     LedPlan p;
     int clusters = 0;
-    const int e = plan_at(kernel, n, b, slots, frames, cs, limit, &p, &clusters);
+    const int e = plan_at(kernel, n, b, slots, frames, cs, limit, tier == kBf16x3, &p, &clusters);
     if (e == kErrLedSmem) continue;
     if (e) return e;
     fits_smem = true;
     if (clusters < 1) continue;
     const int wave = persistent ? clusters : imax(1, sms / cs);
-    const float cost = (float)((slots + wave - 1) / wave) * kLedTime[log_cs];
+    const float cost = (float)((slots + wave - 1) / wave) * kLedTime[tier][log_cs];
     if (!found || cost < best) {
       found = true;
       best = cost;
@@ -635,14 +923,14 @@ int plan_led(Kernel kernel, int n, int b, int slots, int frames, bool persistent
 // LEDs of Np n and bbox b (0 when none; kErrLedSmem when the buffers do not
 // fit at this cs).
 template <typename Kernel>
-int resident_clusters(Kernel kernel, int n, int b, int slots, int frames, int cs, int device,
-                      int* clusters) {
+int resident_clusters(Kernel kernel, int n, int b, int slots, int frames, int cs, int tier,
+                      int device, int* clusters) {
   const DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   int limit = 0;
   if (const int e = smem_limit(kernel, device, &limit)) return e;
   LedPlan p;
-  return plan_at(kernel, n, b, slots, frames, cs, limit, &p, clusters);
+  return plan_at(kernel, n, b, slots, frames, cs, limit, tier == kBf16x3, &p, clusters);
 }
 
 // A patch start as the JAX package's crop (``lax.dynamic_slice``) takes it:
@@ -669,18 +957,21 @@ __device__ __forceinline__ int clamp_start(int s, int dim, int n) {
 // of the data residual Σ(amp − |img|)² to s.rsum. All threads of all blocks of
 // the cluster must call; it holds two cluster barriers, and the peers may
 // read this block's s.z until the next one, which the caller places before
-// s.z is written again or the block exits.
+// s.z is written again or the block exits. T (Tier) picks the products.
+template <int T>
 __device__ void led_forward(const float* o_re, const float* o_im, int ld, int y0, int x0,
                              const float* p_re, const float* p_im, const float* amp, int n,
                              int b, float eps, bool metrics, const LedSmem s, float* pmax) {
   cg::cluster_group cluster = cg::this_cluster();
   const int bb = b * b;
+  const int ldz = z_ld(b, T == kBf16x3), ldt = t_ld(b, T == kBf16x3);
   float pm2 = 0.f;
   // Element e = i·b + j of the window, stepped by blockDim without a division.
   const int di = blockDim.x / b, dj = blockDim.x - di * b;
   int i = threadIdx.x / b, j = threadIdx.x - i * b;
   for (int e0 = threadIdx.x; e0 < bb; e0 += kBatch * blockDim.x) {
     float2 o[kBatch], p[kBatch];   // all loads of a batch in flight before the first use
+    int zi[kBatch];                // where the element lies in Z
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
       const int e = e0 + u * blockDim.x;
@@ -689,6 +980,7 @@ __device__ void led_forward(const float* o_re, const float* o_im, int ld, int y0
         o[u] = make_float2(ld_state(o_re + g), ld_state(o_im + g));
         p[u] = make_float2(ld_state(p_re + e), ld_state(p_im + e));
       }
+      zi[u] = i * ldz + j;
       i += di;
       j += dj;
       if (j >= b) {
@@ -701,16 +993,22 @@ __device__ void led_forward(const float* o_re, const float* o_im, int ld, int y0
       const int e = e0 + u * blockDim.x;
       if (e < bb) {
         pm2 = fmaxf(pm2, p[u].x * p[u].x + p[u].y * p[u].y);
-        s.z[e] = cmul(o[u], p[u]);
+        s.z[T == kBf16x3 ? zi[u] : e] = cmul(o[u], p[u]);
       }
     }
   }
   *pmax = sqrtf(block_max(pm2, s.red));   // ends with a block barrier: Z is written
   FPM_PHASE(kPhaseWindow);
-  cgemm(s.ai, b, s.z, b, s.t, b, s.rows, b, b);            // T_r = Ai[rows_r,:]·Z
+  if constexpr (T == kBf16x3)                              // T_r = Ai[rows_r,:]·Z
+    cgemm_tc<true>(s.ai, split_ld(b), s.z, ldz, s.t, ldt, s.rows, b, b);
+  else
+    cgemm(s.ai, b, s.z, b, s.t, b, s.rows, b, b);
   __syncthreads();
   FPM_PHASE(kPhaseProduct1);
-  cgemm(s.t, b, s.bi, n, s.img, n, s.rows, n, b);          // img_r = T_r·Bi
+  if constexpr (T == kBf16x3)                              // img_r = T_r·Bi
+    cgemm_tc<false>(s.t, ldt, s.bi, split_ld(b), s.img, n, s.rows, n, b);
+  else
+    cgemm(s.t, b, s.bi, n, s.img, n, s.rows, n, b);
   __syncthreads();
   FPM_PHASE(kPhaseProduct2);
   // One warp per 32-column segment of an image row, lane l on its column l:
@@ -767,9 +1065,13 @@ __device__ void led_forward(const float* o_re, const float* o_im, int ld, int y0
   }
   __syncthreads();
   FPM_PHASE(kPhaseGatherRep);
-  // V[:,cols_r] = Af·rep[:,cols_r]; an odd count of columns takes the pad
-  // column of repc along (never read afterwards) and keeps the float4 loads.
-  cgemm(s.af, n, s.repc, ld_repc, s.z, s.nrp, b, min(even_up(s.rows), s.nrp), n);
+  // V[:,cols_r] = Af·rep[:,cols_r]; on the CUDA cores an odd count of
+  // columns takes the pad column of repc along (never read afterwards) and
+  // keeps the float4 loads.
+  if constexpr (T == kBf16x3)
+    cgemm_tc<true>(s.af, split_ld(n), s.repc, ld_repc, s.z, s.nrp, b, s.rows, n);
+  else
+    cgemm(s.af, n, s.repc, ld_repc, s.z, s.nrp, b, min(even_up(s.rows), s.nrp), n);
   if (s.cs > 1) {
     FPM_PHASE_SYNC(kPhaseProduct3);
     cluster.sync();             // barrier 2: every V[:, cols_q] is written, every rep_q read
@@ -796,7 +1098,10 @@ __device__ void led_forward(const float* o_re, const float* o_im, int ld, int y0
   }
   __syncthreads();
   FPM_PHASE(kPhaseGatherV);
-  cgemm(vrow, ld_vrow, s.bf, b, s.img, b, s.brows, b, n);      // up[slab r] = V[slab r,:]·Bf
+  if constexpr (T == kBf16x3)                                  // up[slab r] = V[slab r,:]·Bf
+    cgemm_tc<false>(vrow, ld_vrow, s.bf, split_ld(n), s.img, b, s.brows, b, n);
+  else
+    cgemm(vrow, ld_vrow, s.bf, b, s.img, b, s.brows, b, n);
   __syncthreads();
   FPM_PHASE(kPhaseProduct4);
 }

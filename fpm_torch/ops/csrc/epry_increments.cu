@@ -73,37 +73,32 @@ k3_sums(float* __restrict__ v_re, float* __restrict__ v_im, const int* __restric
 //   sup    (b, b)      f32 centered bbox support
 //   amps   (c, n, n) f32; starts (2·c) int32 (row, col) relative to the block;
 //   valid  (c) int32, 0 = masked dummy
-//   ai/bi/af/bf        complex64 DFT matrices (epry_common.cuh)
+//   ai/bi/af/bf        the DFT matrices in the tier's layout (epry_common.cuh)
 //   d_obj, num         scratch, (c, b, b) complex64 each; parts (c, 2) f32 scratch
 //   d_out  (2, n_rows, n_cols) f32, v_out (2, b, b) f32, mets (2) f32: written whole
+//   tier               Tier of the products: 0 highest, 1 bf16x3
 //   force_cs           tests only: the cluster size to take (0 = choose)
 //   launches           host int, incremented at each accepted launch
 //   cluster_size       host int, set to the cluster size chosen
 // Returns a cudaError_t value (0 = every launch was accepted), kErrLedSmem or
 // kErrCluster.
-extern "C" int fpm_k3_increments(const float* o, const float* p, const float* sup,
-                                 const float* amps, const int* starts, const int* valid,
-                                 const void* ai, const void* bi, const void* af,
-                                 const void* bf, void* d_obj, void* num, float* parts,
-                                 float* d_out, float* v_out, float* mets, int c, int n, int b,
-                                 int lo, int n_rows, int n_cols, float eps, float delta1,
-                                 float delta2, int metrics, int device, void* stream,
-                                 int force_cs, int* launches, int* cluster_size) {
+template <int T>
+static int k3_increments_at(const float* o, const float* p, const float* sup, const float* amps,
+                            const int* starts, const int* valid, const fpm::DftMats& m,
+                            void* d_obj, void* num, float* parts, float* d_out, float* v_out,
+                            float* mets, int c, int n, int b, int lo, int n_rows, int n_cols,
+                            float eps, float delta1, float delta2, int metrics, int device,
+                            cudaStream_t st, int force_cs, int* launches, int* cluster_size) {
   using namespace fpm;
-  const DeviceGuard guard(device);
-  cudaError_t err = guard.err;
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const DftMats m{static_cast<const float2*>(ai), static_cast<const float2*>(bi),
-                  static_cast<const float2*>(af), static_cast<const float2*>(bf)};
+  cudaError_t err;
   LedPlan plan;
-  if (const int e = plan_led(chunk_forward, n, b, c, 0, false, force_cs, device, &plan))
+  if (const int e = plan_led(chunk_forward<T>, n, b, c, 0, false, T, force_cs, device, &plan))
     return e;
   *cluster_size = plan.cs;
   const ClusterLaunch forward(c, plan, st);
   const size_t plane = (size_t)n_rows * n_cols;
   const int bb = b * b;
-  cudaLaunchKernelEx(&forward.cfg, chunk_forward, o, (size_t)0, n_rows, n_cols, p, (size_t)0,
+  cudaLaunchKernelEx(&forward.cfg, chunk_forward<T>, o, (size_t)0, n_rows, n_cols, p, (size_t)0,
                      sup, amps, (size_t)0, starts, valid, c, m, n, b, lo, eps, delta1, delta2,
                      metrics, static_cast<float2*>(d_obj), static_cast<float2*>(num), parts,
                      plan);
@@ -116,4 +111,26 @@ extern "C" int fpm_k3_increments(const float* o, const float* p, const float* su
                                   static_cast<const float2*>(num), parts, mets, metrics);
   if ((err = count_launch(launches)) != cudaSuccess) return (int)err;
   return 0;
+}
+
+extern "C" int fpm_k3_increments(const float* o, const float* p, const float* sup,
+                                 const float* amps, const int* starts, const int* valid,
+                                 const void* ai, const void* bi, const void* af,
+                                 const void* bf, void* d_obj, void* num, float* parts,
+                                 float* d_out, float* v_out, float* mets, int c, int n, int b,
+                                 int lo, int n_rows, int n_cols, float eps, float delta1,
+                                 float delta2, int metrics, int tier, int device, void* stream,
+                                 int force_cs, int* launches, int* cluster_size) {
+  using namespace fpm;
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  const DftMats m{static_cast<const float2*>(ai), static_cast<const float2*>(bi),
+                  static_cast<const float2*>(af), static_cast<const float2*>(bf)};
+  const auto run = tier == kBf16x3   ? &k3_increments_at<kBf16x3>
+                   : tier == kHighest ? &k3_increments_at<kHighest>
+                                      : nullptr;
+  if (!run) return (int)cudaErrorInvalidValue;
+  return run(o, p, sup, amps, starts, valid, m, d_obj, num, parts, d_out, v_out, mets, c, n, b,
+             lo, n_rows, n_cols, eps, delta1, delta2, metrics, device,
+             static_cast<cudaStream_t>(stream), force_cs, launches, cluster_size);
 }

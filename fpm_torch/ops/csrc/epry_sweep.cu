@@ -94,6 +94,7 @@ __device__ float recip_abs_max(const float* rowmax, int nl, float* red) {
   return 1.f / sqrtf(block_max(m2, red));
 }
 
+template <int T>
 __global__ void __launch_bounds__(kThreads)
 k2_sweep(float* o, int nl, float* p, const float* __restrict__ sup,
          const float* __restrict__ amps, const int* __restrict__ starts, int k_leds, DftMats m,
@@ -110,7 +111,7 @@ k2_sweep(float* o, int nl, float* p, const float* __restrict__ sup,
   rowmax += q * nl;
   mets += 2 * q;
   extern __shared__ float4 smem_raw[];
-  const LedSmem s = carve_smem(smem_raw, m, n, b, plan, (int)cluster.block_rank());
+  const LedSmem s = carve_smem(smem_raw, m, n, b, plan, (int)cluster.block_rank(), T == kBf16x3);
   const int frame_stride = frame_units(n, plan.nr);
   const int slab_count = s.rows * n;           // this block's floats of a frame
   const float* slab0 = amps + (size_t)s.row0 * n;
@@ -139,7 +140,7 @@ k2_sweep(float* o, int nl, float* p, const float* __restrict__ sup,
     }
     FPM_PHASE(kPhaseFrameWait);
     float pmax;
-    led_forward(o_re, o_im, nl, y0, x0, p_re, p_im, amp, n, b, eps, metrics != 0, s, &pmax);
+    led_forward<T>(o_re, o_im, nl, y0, x0, p_re, p_im, amp, n, b, eps, metrics != 0, s, &pmax);
     led_increments(s, o_re, o_im, nl, y0, x0, b, p_re, p_im, sup, pmax, delta1, delta2,
                    metrics != 0, nullptr, num, o_re, o_im);
     FPM_PHASE_SYNC(kPhaseIncrements);
@@ -193,20 +194,42 @@ k2_sweep(float* o, int nl, float* p, const float* __restrict__ sup,
 //   p      (P, 2, b, b)   f32 planes, centered bbox pupils, updated in place
 //   sup    (b, b)         f32 centered bbox support
 //   amps   (P, k_leds, n, n) f32, schedule order; starts (2·k_leds) int32
-//   ai/bi/af/bf           complex64 DFT matrices (epry_common.cuh)
+//   ai/bi/af/bf           the DFT matrices in the tier's layout (epry_common.cuh)
 //   rowmax (P, nl) f32 scratch; mets (P, 2) f32, accumulated into
+//   tier               Tier of the products: 0 highest, 1 bf16x3
 //   force_cs           tests only: the cluster size to take (0 = choose)
 //   launches           host int, incremented at each accepted launch
 //   cluster_size       host int, set to the cluster size chosen
 // Returns a cudaError_t value (0 = every launch was accepted), kErrLedSmem or
 // kErrCluster.
+template <int T>
+static int k2_sweep_at(float* o, float* p, const float* sup, const float* amps, const int* starts,
+                       const fpm::DftMats& m, float* rowmax, float* mets, int n_problems,
+                       int k_leds, int n, int b, int lo, int nl, float eps, float delta1,
+                       float delta2, int exact, int metrics, int device, cudaStream_t st,
+                       int force_cs, int* launches, int* cluster_size) {
+  using namespace fpm;
+  LedPlan plan;
+  if (const int e = plan_led(k2_sweep<T>, n, b, n_problems, 2, true, T, force_cs, device, &plan))
+    return e;
+  *cluster_size = plan.cs;
+  k2_rowmax_init<<<dim3(nl, n_problems), 256, 0, st>>>(o, nl, rowmax);
+  cudaError_t err;
+  if ((err = count_launch(launches)) != cudaSuccess) return (int)err;
+  if (k_leds < 1) return 0;
+  const ClusterLaunch sweep(n_problems, plan, st);
+  cudaLaunchKernelEx(&sweep.cfg, k2_sweep<T>, o, nl, p, sup, amps, starts, k_leds, m, n, b, lo,
+                     eps, delta1, delta2, exact, metrics, rowmax, mets, plan);
+  if ((err = count_launch(launches)) != cudaSuccess) return (int)err;
+  return 0;
+}
+
 extern "C" int fpm_k2_sweep(float* o, float* p, const float* sup, const float* amps,
                             const int* starts, const void* ai, const void* bi, const void* af,
                             const void* bf, float* rowmax, float* mets, int n_problems,
                             int k_leds, int n, int b, int lo, int nl, float eps, float delta1,
-                            float delta2,
-                            int exact, int metrics, int device, void* stream, int force_cs,
-                            int* launches, int* cluster_size) {
+                            float delta2, int exact, int metrics, int tier, int device,
+                            void* stream, int force_cs, int* launches, int* cluster_size) {
   using namespace fpm;
   const DeviceGuard guard(device);
   cudaError_t err = guard.err;
@@ -215,25 +238,24 @@ extern "C" int fpm_k2_sweep(float* o, float* p, const float* sup, const float* a
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const DftMats m{static_cast<const float2*>(ai), static_cast<const float2*>(bi),
                   static_cast<const float2*>(af), static_cast<const float2*>(bf)};
-  LedPlan plan;
-  if (const int e = plan_led(k2_sweep, n, b, n_problems, 2, true, force_cs, device, &plan))
-    return e;
-  *cluster_size = plan.cs;
-  k2_rowmax_init<<<dim3(nl, n_problems), 256, 0, st>>>(o, nl, rowmax);
-  if ((err = count_launch(launches)) != cudaSuccess) return (int)err;
-  if (k_leds < 1) return 0;
-  const ClusterLaunch sweep(n_problems, plan, st);
-  cudaLaunchKernelEx(&sweep.cfg, k2_sweep, o, nl, p, sup, amps, starts, k_leds, m, n, b, lo,
-                     eps, delta1, delta2, exact, metrics, rowmax, mets, plan);
-  if ((err = count_launch(launches)) != cudaSuccess) return (int)err;
-  return 0;
+  const auto run = tier == kBf16x3   ? &k2_sweep_at<kBf16x3>
+                   : tier == kHighest ? &k2_sweep_at<kHighest>
+                                      : nullptr;
+  if (!run) return (int)cudaErrorInvalidValue;
+  return run(o, p, sup, amps, starts, m, rowmax, mets, n_problems, k_leds, n, b, lo, nl, eps,
+             delta1, delta2, exact, metrics, device, st, force_cs, launches, cluster_size);
 }
 
-// How many clusters of cs blocks of K2 the card holds at once for
-// ``slots`` LEDs (epry_common.cuh resident_clusters; a measurement aid).
-extern "C" int fpm_resident_clusters(int n, int b, int slots, int cs, int device,
+// How many clusters of cs blocks of K2 at ``tier`` the card holds at once
+// for ``slots`` LEDs (epry_common.cuh resident_clusters; a measurement aid).
+extern "C" int fpm_resident_clusters(int n, int b, int slots, int cs, int tier, int device,
                                      int* clusters) {
-  return fpm::resident_clusters(fpm::k2_sweep, n, b, slots, 2, cs, device, clusters);
+  using namespace fpm;
+  if (tier == kBf16x3)
+    return resident_clusters(k2_sweep<kBf16x3>, n, b, slots, 2, cs, tier, device, clusters);
+  if (tier == kHighest)
+    return resident_clusters(k2_sweep<kHighest>, n, b, slots, 2, cs, tier, device, clusters);
+  return (int)cudaErrorInvalidValue;
 }
 
 #ifdef FPM_PROFILE

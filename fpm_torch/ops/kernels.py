@@ -34,19 +34,26 @@ centered frame and crops them to the NA disk's bounding box, and undoes
 that afterwards (so the pupil, and K3's numerator, is exactly zero outside
 the box).
 
+Precision tiers (``dft_precision``, as in the JAX signatures): ``"bf16x3"``,
+the default, forms each DFT product from the bf16 (hi, lo) split of both
+operands as hi·hi + (hi·lo + lo·hi) in float32 (:func:`cmm_bf16x3`; on the
+card on the tensor cores); ``"highest"`` in full FP32. Any other value
+raises.
+
 Dispatch: a wrapper launches its CUDA kernel for CUDA tensors and runs its
 plain PyTorch version (``*_plain``, same function, same operands) for CPU
-tensors; nothing falls back. Each wrapper adds to ``<wrapper>.launches``
-the launches its C entry point counted, one per kernel launch accepted, and
-leaves in ``<wrapper>.cluster_size`` the cluster size that entry point
-chose. ``<wrapper>.force_cluster_size`` (tests only; 0 = let the entry point
+tensors; nothing falls back, and a tier runs as asked or raises. Each
+wrapper adds to ``<wrapper>.launches`` the launches its C entry point
+counted, one per kernel launch accepted, and leaves in
+``<wrapper>.cluster_size`` the cluster size that entry point chose. ``<wrapper>.force_cluster_size`` (tests only; 0 = let the entry point
 choose) makes it take 1, 2, 4 or 8 blocks per LED, or raise.
 
 What bounds the kernels on an H100, and what the design does about it: see
-``csrc/epry_common.cuh`` (FP32 operations of four small complex DFT
-products per LED; one LED runs on a thread-block cluster, each block
-holding a slab of the image plane's rows in its shared memory, so the
-kernels need a card of compute capability 9.0).
+``csrc/epry_common.cuh`` (the operations of four small complex DFT
+products per LED, FP32 FMAs or bf16 tensor-core products by tier; one LED
+runs on a thread-block cluster, each block holding a slab of the image
+plane's rows in its shared memory, so the kernels need a card of compute
+capability 9.0).
 """
 
 from __future__ import annotations
@@ -96,8 +103,46 @@ def bbox_extent(n: int, radius: int) -> tuple[int, int]:
     return min(b, n - lo), lo
 
 
+# The precision tiers and the C entry points' number for each (Tier in
+# csrc/epry_common.cuh).
+_TIERS = {"highest": 0, "bf16x3": 1}
+
+
+def _check_dft_precision(dft_precision):
+    if dft_precision not in _TIERS:
+        raise ValueError(
+            f"dft_precision must be 'bf16x3' or 'highest', got {dft_precision!r}")
+
+
+def bf16_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """float32 → (hi, lo) bfloat16 with hi = RN(x), lo = RN(x − hi), both
+    rounded to nearest even: ``fpm_tpu.ops.pallas_kernels._bf16_split``."""
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.to(x.dtype)).to(torch.bfloat16)
+
+
+def _csplit(z: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """complex64 → (hi, lo) complex64 whose parts are bf16 values: the real
+    and imaginary parts split apart (:func:`bf16_split`)."""
+    (rh, rl), (ih, il) = bf16_split(z.real), bf16_split(z.imag)
+    return (torch.complex(rh.to(torch.float32), ih.to(torch.float32)),
+            torch.complex(rl.to(torch.float32), il.to(torch.float32)))
+
+
+def cmm_bf16x3(a, b):
+    """A·B as the bf16x3 tier forms it (``fpm_tpu``'s ``_mm_fns("bf16x3")``):
+    each operand as its (hi, lo) split — a static DFT matrix comes split, as
+    a pair; a tensor is split here (:func:`_csplit`) — and hi·hi + (hi·lo +
+    lo·hi) summed in float32, lo·lo dropped. A product of two bf16 values is
+    exact in float32, so only the order of the sums differs from the JAX
+    package and from the tensor-core kernels."""
+    ah, al = a if isinstance(a, tuple) else _csplit(a)
+    bh, bl = b if isinstance(b, tuple) else _csplit(b)
+    return ah @ bh + (ah @ bl + al @ bh)
+
+
 @functools.lru_cache(maxsize=16)
-def _block_dft_mats(n: int, b: int, lo: int) -> tuple[np.ndarray, ...]:
+def _block_dft_mats(n: int, b: int, lo: int, dft_precision: str = "highest"):
     """The shift-folded, bbox-selected DFT matrices (Ai, Bi, Af, Bf).
 
     For even n the half-roll permutation S satisfies S = Sᵀ = S⁻¹, so
@@ -106,7 +151,10 @@ def _block_dft_mats(n: int, b: int, lo: int) -> tuple[np.ndarray, ...]:
     and with the bbox ``sel = lo:lo+b`` (the pupil is zero outside it)
       Ai = (F⁻¹S)[:, sel] (n, b)    Bi = (SF⁻¹)[sel, :] (b, n)
       Af = (SF)[sel, :]   (b, n)    Bf = (FS)[:, sel]   (n, b)
-    Built in float64, returned as contiguous complex64 arrays.
+    Built in float64, returned as contiguous complex64 arrays; for
+    ``'bf16x3'`` each as its (hi, lo) split (:func:`_csplit`), the numbers of
+    the ``[[Re, −Im], [Im, Re]]`` blocks of ``fpm_tpu``'s
+    ``_block_dft_mats(n, b, lo, "bf16x3")``.
     """
     h = n // 2
     fwd = _dft_matrix_np(n, False, "complex128")
@@ -117,12 +165,47 @@ def _block_dft_mats(n: int, b: int, lo: int) -> tuple[np.ndarray, ...]:
         np.roll(fwd, -h, axis=0)[lo:lo + b, :],
         np.roll(fwd, -h, axis=1)[:, lo:lo + b],
     )
-    return tuple(np.ascontiguousarray(m.astype(np.complex64)) for m in mats)
+    mats = tuple(np.ascontiguousarray(m.astype(np.complex64)) for m in mats)
+    if dft_precision == "highest":
+        return mats
+    return tuple(tuple(t.numpy() for t in _csplit(torch.from_numpy(m))) for m in mats)
 
 
 @functools.lru_cache(maxsize=16)
-def _dft_mats(n: int, b: int, lo: int, device: torch.device) -> tuple[torch.Tensor, ...]:
-    return tuple(torch.from_numpy(m).to(device) for m in _block_dft_mats(n, b, lo))
+def _dft_mats(n: int, b: int, lo: int, device: torch.device, dft_precision: str = "highest"):
+    """:func:`_block_dft_mats` as tensors on ``device`` (the plain versions')."""
+    mats = _block_dft_mats(n, b, lo, dft_precision)
+    if dft_precision == "highest":
+        return tuple(torch.from_numpy(m).to(device) for m in mats)
+    return tuple(tuple(torch.from_numpy(h).to(device) for h in pair) for pair in mats)
+
+
+def split_layout(m: np.ndarray) -> np.ndarray:
+    """The bf16x3 kernels' layout of a static complex matrix whose
+    contraction runs along its rows (``csrc/epry_common.cuh`` cgemm_tc):
+    (rows, ceil(K/2), 4) int32, for each row and pair (2i, 2i+1) of
+    contraction indices the bf16x2 words re hi, re lo, im hi, im lo, index 2i
+    in the low half; an odd K is padded with a zero."""
+    rows, k = m.shape
+    words = []
+    for part in (m.real, m.imag):
+        x = np.zeros((rows, k + (k & 1)), np.float32)
+        x[:, :k] = part
+        for half in bf16_split(torch.from_numpy(x)):
+            bits = half.view(torch.int16).numpy().view(np.uint16).astype(np.uint32)
+            words.append(bits[:, 0::2] | (bits[:, 1::2] << 16))
+    return np.ascontiguousarray(np.stack(words, axis=-1).view(np.int32))
+
+
+@functools.lru_cache(maxsize=16)
+def _kernel_mats(n: int, b: int, lo: int, device: torch.device, dft_precision: str):
+    """The DFT matrices as the C entry points take them: ``'highest'``
+    complex64 Ai, Bi, Af, Bf; ``'bf16x3'`` the :func:`split_layout` of Ai,
+    Biᵀ, Af, Bfᵀ (every contraction along the rows)."""
+    if dft_precision == "highest":
+        return _dft_mats(n, b, lo, device)
+    ai, bi, af, bf = _block_dft_mats(n, b, lo)
+    return tuple(torch.from_numpy(split_layout(m)).to(device) for m in (ai, bi.T, af, bf.T))
 
 
 def _pupil_to_bbox(p_planes, support, n: int, b: int, lo: int):
@@ -169,12 +252,13 @@ def _planes(z):
     return torch.stack([z.real, z.imag]).contiguous()
 
 
-def _forward(oc, p, amp, mats, eps):
+def _forward(oc, p, amp, mats, eps, dft_precision):
     """(img, up) of the LED(s) with window(s) ``oc`` — see led_forward."""
     ai, bi, af, bf = mats
-    img = ai @ (oc * p) @ bi
+    mm = cmm_bf16x3 if dft_precision == "bf16x3" else torch.matmul
+    img = mm(mm(ai, oc * p), bi)
     rep = img * (amp / torch.sqrt((img.real + eps) ** 2 + (img.imag + eps) ** 2))
-    return img, af @ rep @ bf
+    return img, mm(mm(af, rep), bf)
 
 
 def slab_bounds(n: int, cs: int) -> list[tuple[int, int]]:
@@ -208,15 +292,15 @@ def _sq_sum(z, dims):
 
 
 def _sweep_core_plain(o, pc, sc, amps, starts, *, lo, eps, delta1, delta2,
-                      global_max, collect_metrics):
+                      global_max, collect_metrics, dft_precision):
     n, b = amps.shape[-1], pc.shape[-1]
-    mats = _dft_mats(n, b, lo, o.device)
+    mats = _dft_mats(n, b, lo, o.device, dft_precision)
     obj, pup = _complex(o), _complex(pc)
     mets = torch.zeros(2, dtype=torch.float32, device=o.device)
     omax_lazy = _abs_max(obj)
     for k, win in enumerate(_windows(starts, n, o.shape, b, lo)):
         oc = obj[win].clone()
-        img, up = _forward(oc, pup, amps[k], mats, eps)
+        img, up = _forward(oc, pup, amps[k], mats, eps, dft_precision)
         diff = up - oc * pup
         d_obj = diff * _object_weight(pup, delta2)
         obj[win] += d_obj
@@ -228,10 +312,10 @@ def _sweep_core_plain(o, pc, sc, amps, starts, *, lo, eps, delta1, delta2,
 
 
 def _chunked_core_plain(o, pc, sc, amps, starts, valid, *, lo, eps, delta1, delta2,
-                        pupil_step_scale, collect_metrics):
+                        pupil_step_scale, collect_metrics, dft_precision):
     n_chunks, c, n = amps.shape[0], amps.shape[1], amps.shape[-1]
     b = pc.shape[-1]
-    mats = _dft_mats(n, b, lo, o.device)
+    mats = _dft_mats(n, b, lo, o.device, dft_precision)
     obj, pup = _complex(o), _complex(pc)
     mets = torch.zeros(2, dtype=torch.float32, device=o.device)
     windows = _windows(starts, n, o.shape, b, lo)
@@ -243,7 +327,7 @@ def _chunked_core_plain(o, pc, sc, amps, starts, valid, *, lo, eps, delta1, delt
         wins = [windows[k * c + j] for j in live]
         oc = torch.stack([obj[w] for w in wins])           # chunk-start crops
         amp = amps[k, live]
-        img, up = _forward(oc, pup, amp, mats, eps)
+        img, up = _forward(oc, pup, amp, mats, eps, dft_precision)
         diff = up - oc * pup
         d_obj = diff * _object_weight(pup, delta2)
         for w, d in zip(wins, d_obj):
@@ -266,7 +350,7 @@ def _per_problem(core):
 
 
 def _increments_core_plain(o, pc, sc, amps, starts, valid, *, lo, eps, delta1, delta2,
-                           collect_metrics):
+                           collect_metrics, dft_precision):
     n, b = amps.shape[-1], pc.shape[-1]
     obj, pup = _complex(o), _complex(pc)
     d = torch.zeros_like(obj)
@@ -278,7 +362,8 @@ def _increments_core_plain(o, pc, sc, amps, starts, valid, *, lo, eps, delta1, d
         wins = [windows[j] for j in live]
         oc = torch.stack([obj[w] for w in wins])
         amp = amps[live]
-        img, up = _forward(oc, pup, amp, _dft_mats(n, b, lo, o.device), eps)
+        img, up = _forward(oc, pup, amp, _dft_mats(n, b, lo, o.device, dft_precision), eps,
+                           dft_precision)
         diff = up - oc * pup
         d_obj = diff * _object_weight(pup, delta2)
         for w, dj in zip(wins, d_obj):
@@ -343,7 +428,7 @@ def _check_problem_axis(o, pc, amps, **check):
 
 
 def _sweep_cuda(o, pc, sc, amps, starts, *, lo, eps, delta1, delta2, global_max,
-                collect_metrics, lib=None):
+                collect_metrics, dft_precision, lib=None):
     """K2 on P problems: ``o`` (P, 2, NL, NL), ``pc`` (P, 2, b, b), ``amps``
     (P, K, n, n). ``lib``: another build of csrc/epry_sweep.cu than the one
     ``build.library`` hands out (:func:`k2_phase_profile` passes its own)."""
@@ -353,7 +438,7 @@ def _sweep_cuda(o, pc, sc, amps, starts, *, lo, eps, delta1, delta2, global_max,
     lib = lib or build.library("epry_sweep")
     o, pc = o.contiguous().clone(), pc.contiguous().clone()
     sc, amps, starts = sc.contiguous(), amps.contiguous(), starts.contiguous()
-    mats = _dft_mats(n, b, lo, o.device)
+    mats = _kernel_mats(n, b, lo, o.device, dft_precision)
     rowmax = torch.empty((n_prob, nl), dtype=torch.float32, device=o.device)
     mets = torch.zeros((n_prob, 2), dtype=torch.float32, device=o.device)
     launched, cluster = ctypes.c_int(0), ctypes.c_int(0)
@@ -361,7 +446,7 @@ def _sweep_cuda(o, pc, sc, amps, starts, *, lo, eps, delta1, delta2, global_max,
         o.data_ptr(), pc.data_ptr(), sc.data_ptr(), amps.data_ptr(), starts.data_ptr(),
         *(m.data_ptr() for m in mats), rowmax.data_ptr(), mets.data_ptr(),
         n_prob, k, n, b, lo, nl, eps, delta1, delta2,
-        int(global_max == "exact"), int(collect_metrics), o.device.index,
+        int(global_max == "exact"), int(collect_metrics), _TIERS[dft_precision], o.device.index,
         torch.cuda.current_stream(o.device).cuda_stream,
         fused_epry_sweep.force_cluster_size, ctypes.byref(launched), ctypes.byref(cluster))
     _record(fused_epry_sweep, launched, cluster)
@@ -370,7 +455,7 @@ def _sweep_cuda(o, pc, sc, amps, starts, *, lo, eps, delta1, delta2, global_max,
 
 
 def _chunked_cuda(o, pc, sc, amps, starts, valid, *, lo, eps, delta1, delta2,
-                  pupil_step_scale, collect_metrics):
+                  pupil_step_scale, collect_metrics, dft_precision):
     """K1 on P problems: ``o`` (P, 2, NL, NL), ``pc`` (P, 2, b, b), ``amps``
     (P, n_chunks, C, n, n)."""
     n_prob, n_chunks, c, n = amps.shape[0], amps.shape[1], amps.shape[2], amps.shape[-1]
@@ -381,7 +466,7 @@ def _chunked_cuda(o, pc, sc, amps, starts, valid, *, lo, eps, delta1, delta2,
     sc, amps = sc.contiguous(), amps.contiguous()
     starts, valid = starts.contiguous(), valid.contiguous()
     dev = o.device
-    mats = _dft_mats(n, b, lo, dev)
+    mats = _kernel_mats(n, b, lo, dev, dft_precision)
     d_obj = torch.empty((n_prob, c, b, b, 2), dtype=torch.float32, device=dev)
     num = torch.empty((n_prob, c, b, b, 2), dtype=torch.float32, device=dev)
     parts = torch.empty((n_prob, c, 2), dtype=torch.float32, device=dev)
@@ -393,8 +478,8 @@ def _chunked_cuda(o, pc, sc, amps, starts, valid, *, lo, eps, delta1, delta2,
         valid.data_ptr(), *(m.data_ptr() for m in mats), d_obj.data_ptr(),
         num.data_ptr(), parts.data_ptr(), omax_bits.data_ptr(), mets.data_ptr(),
         n_prob, n_chunks, c, n, b, lo, nl, eps, delta1, delta2, pupil_step_scale,
-        int(collect_metrics), dev.index, torch.cuda.current_stream(dev).cuda_stream,
-        fused_epry_chunked.force_cluster_size, ctypes.byref(launched),
+        int(collect_metrics), _TIERS[dft_precision], dev.index,
+        torch.cuda.current_stream(dev).cuda_stream, fused_epry_chunked.force_cluster_size, ctypes.byref(launched),
         ctypes.byref(cluster))
     _record(fused_epry_chunked, launched, cluster)
     build.check(lib, err, "K1 fused_epry_chunked")
@@ -402,14 +487,14 @@ def _chunked_cuda(o, pc, sc, amps, starts, valid, *, lo, eps, delta1, delta2,
 
 
 def _increments_cuda(o, pc, sc, amps, starts, valid, *, lo, eps, delta1, delta2,
-                     collect_metrics):
+                     collect_metrics, dft_precision):
     c, n, b = amps.shape[0], amps.shape[-1], pc.shape[-1]
     _check_cuda_operands(o, pc, sc, amps, starts, n_slots=c, valid=valid, square=False)
     lib = build.library("epry_increments")
     o, pc, sc, amps = o.contiguous(), pc.contiguous(), sc.contiguous(), amps.contiguous()
     starts, valid = starts.contiguous(), valid.contiguous()
     dev = o.device
-    mats = _dft_mats(n, b, lo, dev)
+    mats = _kernel_mats(n, b, lo, dev, dft_precision)
     d_obj = torch.empty((c, b, b, 2), dtype=torch.float32, device=dev)
     num = torch.empty((c, b, b, 2), dtype=torch.float32, device=dev)
     parts = torch.empty((c, 2), dtype=torch.float32, device=dev)
@@ -421,7 +506,7 @@ def _increments_cuda(o, pc, sc, amps, starts, valid, *, lo, eps, delta1, delta2,
         valid.data_ptr(), *(m.data_ptr() for m in mats), d_obj.data_ptr(), num.data_ptr(),
         parts.data_ptr(), d_out.data_ptr(), v_out.data_ptr(), mets.data_ptr(),
         c, n, b, lo, o.shape[1], o.shape[2], eps, delta1, delta2, int(collect_metrics),
-        dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        _TIERS[dft_precision], dev.index, torch.cuda.current_stream(dev).cuda_stream,
         fused_chunk_increments.force_cluster_size, ctypes.byref(launched),
         ctypes.byref(cluster))
     _record(fused_chunk_increments, launched, cluster)
@@ -475,7 +560,7 @@ def _check_global_max(global_max):
 
 def fused_epry_sweep(o_planes, p_planes, support, amps, starts_flat, *, np_size,
                      n_large, delta1, delta2, eps, pupil_radius=0, global_max="exact",
-                     collect_metrics=False):
+                     collect_metrics=False, dft_precision="bf16x3"):
     """K2: one sequential EPRY sweep (``models.epry.sweep_sequential``).
 
     ``amps`` (K, Np, Np) float32 in schedule order, ``starts_flat`` (2K,)
@@ -483,29 +568,33 @@ def fused_epry_sweep(o_planes, p_planes, support, amps, starts_flat, *, np_size,
     its sweep-start value. ``n_large`` is implied by ``o_planes`` and kept
     for the JAX package's signature. With a leading problem axis
     (``o_planes`` (P, 2, NL, NL), ``p_planes`` (P, 2, Np, Np), ``amps`` (P,
-    K, Np, Np)) one launch sweeps all P problems.
+    K, Np, Np)) one launch sweeps all P problems. ``dft_precision``: the
+    products' tier.
     """
     _check_global_max(global_max)
+    _check_dft_precision(dft_precision)
     core = _route(o_planes, _sweep_cuda, _per_problem(_sweep_core_plain))
     return _run_problems(core, o_planes, p_planes, support, amps, starts_flat, np_size=np_size,
                          pupil_radius=pupil_radius, eps=eps, delta1=delta1, delta2=delta2,
-                         global_max=global_max, collect_metrics=collect_metrics)
+                         global_max=global_max, collect_metrics=collect_metrics,
+                         dft_precision=dft_precision)
 
 
 def fused_epry_sweep_plain(o_planes, p_planes, support, amps, starts_flat, *, np_size,
                            n_large, delta1, delta2, eps, pupil_radius=0,
-                           global_max="exact", collect_metrics=False):
+                           global_max="exact", collect_metrics=False, dft_precision="bf16x3"):
     """The plain PyTorch version of :func:`fused_epry_sweep`, on any device."""
     _check_global_max(global_max)
+    _check_dft_precision(dft_precision)
     return _run_problems(_per_problem(_sweep_core_plain), o_planes, p_planes, support, amps,
                          starts_flat, np_size=np_size, pupil_radius=pupil_radius, eps=eps,
                          delta1=delta1, delta2=delta2, global_max=global_max,
-                         collect_metrics=collect_metrics)
+                         collect_metrics=collect_metrics, dft_precision=dft_precision)
 
 
 def k2_phase_profile(o_planes, p_planes, support, amps, starts_flat, *, np_size, n_large,
                      delta1, delta2, eps, pupil_radius=0, global_max="exact",
-                     collect_metrics=False):
+                     collect_metrics=False, dft_precision="bf16x3"):
     """A measurement aid: one :func:`fused_epry_sweep` on the card through
     the cycle-counting build of K2 (``build.profile_library``; the wrapper
     itself never loads it). Returns the sweep's ``(o_planes, p_planes,
@@ -513,38 +602,41 @@ def k2_phase_profile(o_planes, p_planes, support, amps, starts_flat, *, np_size,
     the cluster's first block spent in each phase of an LED, summed over the
     sweep, under the names the library gives its phases. Waits for the card."""
     _check_global_max(global_max)
+    _check_dft_precision(dft_precision)
     lib = build.profile_library("epry_sweep")
     cycles = (ctypes.c_longlong * lib.fpm_phase_count())()
     build.check(lib, lib.fpm_phase_read(cycles, 1), "K2 phase profile")     # counts to 0
     out = _run_problems(functools.partial(_sweep_cuda, lib=lib), o_planes, p_planes, support, amps,
                starts_flat, np_size=np_size, pupil_radius=pupil_radius, eps=eps,
                delta1=delta1, delta2=delta2, global_max=global_max,
-               collect_metrics=collect_metrics)
+               collect_metrics=collect_metrics, dft_precision=dft_precision)
     build.check(lib, lib.fpm_phase_read(cycles, 1), "K2 phase profile")
     return out, {lib.fpm_phase_name(i).decode(): int(c) for i, c in enumerate(cycles)}
 
 
 def resident_clusters(wrapper, np_size: int, pupil_radius: int, slots: int, cs: int,
-                      device=None) -> int:
+                      device=None, dft_precision="bf16x3") -> int:
     """A measurement aid: how many clusters of ``cs`` blocks of K2
     (``wrapper`` = :func:`fused_epry_sweep`) or of K1's forward launch
-    (:func:`fused_epry_chunked`) a card holds at once for ``slots`` LEDs,
-    by CUDA's occupancy query (``fpm_resident_clusters``); the entry points
-    weigh their choice of cluster size with it. 0: none fits."""
+    (:func:`fused_epry_chunked`) at ``dft_precision`` a card holds at once
+    for ``slots`` LEDs, by CUDA's occupancy query (``fpm_resident_clusters``);
+    the entry points weigh their choice of cluster size with it. 0: none
+    fits."""
+    _check_dft_precision(dft_precision)
     stem = {fused_epry_sweep: "epry_sweep", fused_epry_chunked: "epry_chunked"}[wrapper]
     lib = build.library(stem)
     b, _ = bbox_extent(np_size, pupil_radius)
     dev = torch.device(device or "cuda")
     clusters = ctypes.c_int(0)
-    err = lib.fpm_resident_clusters(np_size, b, slots, cs, dev.index or 0,
-                                    ctypes.byref(clusters))
+    err = lib.fpm_resident_clusters(np_size, b, slots, cs, _TIERS[dft_precision],
+                                    dev.index or 0, ctypes.byref(clusters))
     build.check(lib, err, f"{stem} resident clusters")
     return clusters.value
 
 
 def fused_epry_chunked(o_planes, p_planes, support, amps, starts_flat, valid, *,
                        np_size, n_large, delta1, delta2, eps, pupil_radius=0,
-                       pupil_step_scale=1.0, collect_metrics=False):
+                       pupil_step_scale=1.0, collect_metrics=False, dft_precision="bf16x3"):
     """K1: one chunked Gauss–Seidel-over-Jacobi sweep (``models.epry.sweep_batched``).
 
     ``amps`` (n_chunks, C, Np, Np) float32 in chunk-permuted schedule order,
@@ -552,23 +644,27 @@ def fused_epry_chunked(o_planes, p_planes, support, amps, starts_flat, valid, *,
     (0 = padded dummy). ``n_large`` is implied by ``o_planes``. With a
     leading problem axis (``o_planes`` (P, 2, NL, NL), ``p_planes`` (P, 2,
     Np, Np), ``amps`` (P, n_chunks, C, Np, Np)) one launch per kernel and
-    chunk serves all P problems.
+    chunk serves all P problems. ``dft_precision``: the products' tier.
     """
+    _check_dft_precision(dft_precision)
     core = _route(o_planes, _chunked_cuda, _per_problem(_chunked_core_plain))
     return _run_problems(core, o_planes, p_planes, support, amps, starts_flat, valid,
                          np_size=np_size, pupil_radius=pupil_radius, eps=eps, delta1=delta1,
                          delta2=delta2, pupil_step_scale=pupil_step_scale,
-                         collect_metrics=collect_metrics)
+                         collect_metrics=collect_metrics, dft_precision=dft_precision)
 
 
 def fused_epry_chunked_plain(o_planes, p_planes, support, amps, starts_flat, valid, *,
                              np_size, n_large, delta1, delta2, eps, pupil_radius=0,
-                             pupil_step_scale=1.0, collect_metrics=False):
+                             pupil_step_scale=1.0, collect_metrics=False,
+                             dft_precision="bf16x3"):
     """The plain PyTorch version of :func:`fused_epry_chunked`, on any device."""
+    _check_dft_precision(dft_precision)
     return _run_problems(_per_problem(_chunked_core_plain), o_planes, p_planes, support, amps,
                          starts_flat, valid, np_size=np_size, pupil_radius=pupil_radius,
                          eps=eps, delta1=delta1, delta2=delta2,
-                         pupil_step_scale=pupil_step_scale, collect_metrics=collect_metrics)
+                         pupil_step_scale=pupil_step_scale, collect_metrics=collect_metrics,
+                         dft_precision=dft_precision)
 
 
 def _check_block(o_planes, n_rows, n_cols):
@@ -579,7 +675,7 @@ def _check_block(o_planes, n_rows, n_cols):
 
 def fused_chunk_increments(o_planes, p_planes, support, amps, starts_flat, valid, *,
                            np_size, n_rows, n_cols, delta1, delta2, eps, pupil_radius=0,
-                           collect_metrics=True):
+                           collect_metrics=True, dft_precision="bf16x3"):
     """K3: one Jacobi chunk's local increments, nothing applied (the per-rank
     body of ``fpm_torch.parallel``'s sharded sweeps).
 
@@ -591,23 +687,25 @@ def fused_chunk_increments(o_planes, p_planes, support, amps, starts_flat, valid
     zeroed block of ``o_planes``' shape; the pupil numerator sum in the
     DC-at-corner frame WITHOUT the 1/max|O| factor (divide by the max of the
     spectrum after the consensus); the (residual, update-norm) partial sums
-    (zeros unless ``collect_metrics``).
+    (zeros unless ``collect_metrics``). ``dft_precision``: the products' tier.
     """
     _check_block(o_planes, n_rows, n_cols)
+    _check_dft_precision(dft_precision)
     core = _route(o_planes, _increments_cuda, _increments_core_plain)
     return _run(core, o_planes, p_planes, support, amps, starts_flat, valid,
                 np_size=np_size, pupil_radius=pupil_radius, eps=eps, delta1=delta1,
-                delta2=delta2, collect_metrics=collect_metrics)
+                delta2=delta2, collect_metrics=collect_metrics, dft_precision=dft_precision)
 
 
 def fused_chunk_increments_plain(o_planes, p_planes, support, amps, starts_flat, valid, *,
                                  np_size, n_rows, n_cols, delta1, delta2, eps,
-                                 pupil_radius=0, collect_metrics=True):
+                                 pupil_radius=0, collect_metrics=True, dft_precision="bf16x3"):
     """The plain PyTorch version of :func:`fused_chunk_increments`, on any device."""
     _check_block(o_planes, n_rows, n_cols)
+    _check_dft_precision(dft_precision)
     return _run(_increments_core_plain, o_planes, p_planes, support, amps, starts_flat,
                 valid, np_size=np_size, pupil_radius=pupil_radius, eps=eps, delta1=delta1,
-                delta2=delta2, collect_metrics=collect_metrics)
+                delta2=delta2, collect_metrics=collect_metrics, dft_precision=dft_precision)
 
 
 for _wrapper in (fused_epry_sweep, fused_epry_chunked, fused_chunk_increments):

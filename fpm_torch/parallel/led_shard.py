@@ -63,7 +63,8 @@ def _chunk_increments(block, pupil, support, amps, starts, mask, *, opts: EPRYOp
             (mask > 0).to(torch.int32),
             np_size=opts.np_size, n_rows=block.shape[0], n_cols=block.shape[1],
             delta1=opts.delta1, delta2=opts.delta2, eps=opts.eps,
-            pupil_radius=opts.pupil_radius, collect_metrics=opts.collect_metrics)
+            pupil_radius=opts.pupil_radius, collect_metrics=opts.collect_metrics,
+            dft_precision=opts.dft_precision)
 
     np_sz = opts.np_size
     m = mask[:, None, None]

@@ -4,7 +4,9 @@ also with ``--fov-grid`` (whole frames, stitched tiles) and ``--color-mode
 rgb``; checkpoints and large-FOV tiles carry over between the two CLIs, also
 on a mesh; ``--mesh`` and the config's ``tileGrid`` key run the sharded
 sweeps as fpm_tpu's CLI does; ``--watchdog-timeout`` arms on every path;
-flags of unported paths are refused, never ignored."""
+flags of unported paths are refused, never ignored; checkpoints written with
+default flags resume across the packages (both default to the bf16x3
+tier)."""
 
 import json
 import os
@@ -85,12 +87,41 @@ def test_checkpoint_resumes_across_packages(dataset, tmp_path, first, second):
     assert np.abs(a - b).max() / np.abs(b).max() <= 1e-10
 
 
+@pytest.mark.parametrize("first,second", [(jcli, tcli), (tcli, jcli)])
+def test_checkpoint_resumes_across_packages_with_default_flags(dataset, tmp_path, first,
+                                                               second):
+    """A checkpoint written with each CLI's default flags resumes under the
+    other's defaults (the fingerprint's dft_precision is bf16x3 in both), and
+    ends near an uninterrupted run of the resuming package (complex64)."""
+    out, full = str(tmp_path / "split"), str(tmp_path / "full")
+    assert first.main(["run", dataset, "-o", out, "-n", "2", "--checkpoint-every", "1",
+                       "--platform", "cpu"]) == 0
+    assert _checkpoint_fingerprint(os.path.join(out, "ckpt_1.npz"))["dft_precision"] == "bf16x3"
+    assert second.main(["run", dataset, "-o", out, "-n", "3", "--resume",
+                        "--platform", "cpu"]) == 0
+    assert second.main(["run", dataset, "-o", full, "-n", "3", "--platform", "cpu"]) == 0
+    a, b = (np.load(os.path.join(d, "object_spectrum.npy")) for d in (out, full))
+    assert np.abs(a - b).max() / np.abs(b).max() <= 1e-3
+
+
 @pytest.mark.parametrize("flags", [
     ["--debug"], ["--debug-led", "3"], ["--distributed"], ["--no-native"],
     ["--dft-precision", "bf16x3"], ["--mesh", "2", "1", "--distributed"],
 ])
 def test_unported_flags_are_refused(dataset, tmp_path, capsys, flags):
-    rc = tcli.main(["run", dataset, "-o", str(tmp_path / "x"), "--platform", "cpu", *flags])
+    """Every flag of a path not yet ported is refused. ``--dft-precision
+    bf16x3``, refused until the tier was ported, is now accepted on the
+    kernel route and recorded in the run's options and fingerprint."""
+    out = str(tmp_path / "x")
+    if flags[0] == "--dft-precision":
+        assert tcli.main(["run", dataset, "-o", out, "--platform", "cpu", "-n", "2",
+                          "--checkpoint-every", "1", "--use-pallas", *flags]) == 0
+        assert _solver_options(out)["dft_precision"] == "bf16x3"
+        fp = _checkpoint_fingerprint(os.path.join(out, "ckpt_1.npz"))
+        assert fp["dft_precision"] == "bf16x3" and fp["use_pallas"] is True
+        assert "kernel DFT precision: bf16x3" in capsys.readouterr().out
+        return
+    rc = tcli.main(["run", dataset, "-o", out, "--platform", "cpu", *flags])
     assert rc == 1
     assert "not yet ported" in capsys.readouterr().err
 

@@ -11,8 +11,11 @@ runs where JAX is not installed:
 (``--noconftest`` skips tests/conftest.py, which configures JAX.)
 Tolerances: rel-max 1e-5 on the object spectrum, 1e-4 on the pupil,
 metrics rtol 1e-4 — float32 against float32, differing only in summation
-order. The kernels run one LED on a thread-block cluster (compute
-capability 9.0); the cases with a forced cluster size hold the one-block
+order — at either precision tier of the DFT products (the ``tier``
+fixture: bf16x3 on the tensor cores, the default, and highest in FP32; the
+bf16x3 kernel against the bf16x3 plain version, which forms the same exact
+bf16 products; K3's d at bf16x3 as k3_d_limit says). The kernels run one
+LED on a thread-block cluster (compute capability 9.0); the cases with a forced cluster size hold the one-block
 path (1) and the distributed-shared-memory path (2, 4, 8) whatever size
 the entry points would choose.
 """
@@ -40,6 +43,12 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.fixture(params=["bf16x3", "highest"])
+def tier(request):
+    """The precision tier of the DFT products (``dft_precision``)."""
+    return request.param
+
+
 @pytest.fixture
 def force_cluster():
     """Sets a wrapper's test-only cluster size, and takes it back."""
@@ -58,8 +67,9 @@ def rel(a, b):
     return ((a - b).abs().max() / b.abs().max()).item()
 
 
-def operands(ds, dev, mode, chunk=0):
-    """Init-state planes and the sweep operands of one wrapper call."""
+def operands(ds, dev, mode, chunk=0, tier="bf16x3"):
+    """Init-state planes and the sweep operands of one wrapper call at the
+    precision ``tier``."""
     opts = epry.EPRYOptions.from_config(ds.cfg, use_pallas=True, mode=mode, chunk_size=chunk)
     amps, starts = epry._sorted_device_inputs(ds.images, ds.geom, torch.complex64, dev)
     sup = torch.as_tensor(pupil_support(ds.cfg), dtype=torch.float32, device=dev)
@@ -68,7 +78,7 @@ def operands(ds, dev, mode, chunk=0):
               torch.stack([p.real, p.imag]).contiguous(), sup)
     common = dict(np_size=ds.cfg.np_size, n_large=ds.cfg.n_large, delta1=ds.cfg.delta1,
                   delta2=ds.cfg.delta2, eps=ds.cfg.eps, pupil_radius=opts.pupil_radius,
-                  collect_metrics=True)
+                  collect_metrics=True, dft_precision=tier)
     if mode == "sequential":
         return planes, (amps, starts.reshape(-1)), common
     amps_it, starts_it, mask = epry._chunk_inputs(amps, starts, opts, torch.float32)
@@ -97,9 +107,9 @@ def assert_kernel_matches_plain(kernel, plain, planes, rest, common, **kw):
 
 @pytest.mark.parametrize("np_size,global_max", [(16, "exact"), (16, "lazy"), (64, "exact"),
                                                (100, "exact")])
-def test_k2_matches_plain(cuda, np_size, global_max):
+def test_k2_matches_plain(cuda, tier, np_size, global_max):
     ds = synthetic_dataset(np_size=np_size, grid=5, seed=3)
-    planes, rest, common = operands(ds, cuda, "sequential")
+    planes, rest, common = operands(ds, cuda, "sequential", tier=tier)
     before = kernels.fused_epry_sweep.launches
     kp = assert_kernel_matches_plain(kernels.fused_epry_sweep, kernels.fused_epry_sweep_plain,
                                      planes, rest, common, global_max=global_max)
@@ -110,9 +120,9 @@ def test_k2_matches_plain(cuda, np_size, global_max):
 
 
 @pytest.mark.parametrize("np_size,chunk", [(16, 7), (16, 0), (64, 6), (100, 8)])
-def test_k1_matches_plain(cuda, np_size, chunk):
+def test_k1_matches_plain(cuda, tier, np_size, chunk):
     ds = synthetic_dataset(np_size=np_size, grid=5, seed=3)
-    planes, rest, common = operands(ds, cuda, "batched", chunk)
+    planes, rest, common = operands(ds, cuda, "batched", chunk, tier)
     before = kernels.fused_epry_chunked.launches
     assert_kernel_matches_plain(kernels.fused_epry_chunked, kernels.fused_epry_chunked_plain,
                                 planes, rest, common)
@@ -122,9 +132,9 @@ def test_k1_matches_plain(cuda, np_size, chunk):
 
 @pytest.mark.parametrize("np_size", [16, 64, 90, 100])
 @pytest.mark.parametrize("cs", [1, 2, 4, 8])
-def test_k2_matches_plain_at_a_forced_cluster_size(cuda, force_cluster, np_size, cs):
+def test_k2_matches_plain_at_a_forced_cluster_size(cuda, tier, force_cluster, np_size, cs):
     ds = synthetic_dataset(np_size=np_size, grid=5, seed=3)
-    planes, rest, common = operands(ds, cuda, "sequential")
+    planes, rest, common = operands(ds, cuda, "sequential", tier=tier)
     force_cluster(kernels.fused_epry_sweep, cs)
     assert_kernel_matches_plain(kernels.fused_epry_sweep, kernels.fused_epry_sweep_plain,
                                 planes, rest, common)
@@ -133,9 +143,9 @@ def test_k2_matches_plain_at_a_forced_cluster_size(cuda, force_cluster, np_size,
 
 @pytest.mark.parametrize("np_size", [16, 64, 90, 100])
 @pytest.mark.parametrize("cs", [1, 2, 4, 8])
-def test_k1_matches_plain_at_a_forced_cluster_size(cuda, force_cluster, np_size, cs):
+def test_k1_matches_plain_at_a_forced_cluster_size(cuda, tier, force_cluster, np_size, cs):
     ds = synthetic_dataset(np_size=np_size, grid=5, seed=3)
-    planes, rest, common = operands(ds, cuda, "batched", 7)
+    planes, rest, common = operands(ds, cuda, "batched", 7, tier)
     force_cluster(kernels.fused_epry_chunked, cs)
     assert_kernel_matches_plain(kernels.fused_epry_chunked, kernels.fused_epry_chunked_plain,
                                 planes, rest, common)
@@ -143,12 +153,13 @@ def test_k1_matches_plain_at_a_forced_cluster_size(cuda, force_cluster, np_size,
 
 
 @pytest.mark.parametrize("kernel,mode,chunk", [("K2", "sequential", 0), ("K1", "batched", 7)])
-def test_a_repeated_sweep_is_bitwise_equal(cuda, kernel, mode, chunk):
+def test_a_repeated_sweep_is_bitwise_equal(cuda, tier, kernel, mode, chunk):
     """Every sum has one fixed order (each element of each product is one
-    thread's sum over the whole contraction in index order, whatever the
-    cluster size; the chunk's increments are added in LED order)."""
+    thread's, or one tensor-core tile's, sum over the whole contraction in
+    index order, whatever the cluster size; the chunk's increments are added
+    in LED order)."""
     ds = synthetic_dataset(np_size=64, grid=5, seed=3)
-    planes, rest, common = operands(ds, cuda, mode, chunk)
+    planes, rest, common = operands(ds, cuda, mode, chunk, tier)
     fn = kernels.fused_epry_sweep if kernel == "K2" else kernels.fused_epry_chunked
     first = two_sweeps(fn, planes, rest, common)
     again = two_sweeps(fn, planes, rest, common)
@@ -170,6 +181,58 @@ def test_k2_profile_build_counts_every_phase_and_changes_no_result(cuda):
         assert torch.equal(a, b)
     assert len(cycles) == 17 and all(c > 0 for c in cycles.values())
     assert list(cycles) == list(first) and sum(cycles.values()) < 2 * sum(first.values())
+
+
+def test_k2_profile_build_runs_the_bf16x3_tier_bitwise(cuda):
+    ds = synthetic_dataset(np_size=90, grid=5, seed=3)
+    (o, p, sup), rest, common = operands(ds, cuda, "sequential")
+    assert common["dft_precision"] == "bf16x3"
+    plain_build = kernels.fused_epry_sweep(o, p, sup, *rest, **common)
+    profiled, cycles = kernels.k2_phase_profile(o, p, sup, *rest, **common)
+    for a, b in zip(plain_build, profiled):
+        assert torch.equal(a, b)
+    assert all(c > 0 for c in cycles.values())
+
+
+@pytest.mark.parametrize("np_size", [16, 64, 90])
+def test_bf16x3_k2_is_near_highest_where_one_pass_is_not(cuda, np_size):
+    """The three passes all run: K2 at bf16x3 is within tests/test_pallas.py's
+    limits (5e-5 object, 5e-4 pupil) of K2 at highest, where a plain sweep
+    whose products keep only hi·hi is off by more than 1e-3."""
+    from unittest import mock
+
+    ds = synthetic_dataset(np_size=np_size, grid=5, seed=3)
+    planes, rest, common = operands(ds, cuda, "sequential")
+    bo, bp, _ = two_sweeps(kernels.fused_epry_sweep, planes, rest, common)
+    ho, hp, _ = two_sweeps(kernels.fused_epry_sweep, planes, rest,
+                           dict(common, dft_precision="highest"))
+    assert rel(bo, ho) < 5e-5 and rel(bp, hp) < 5e-4
+
+    def hi_hi(a, b):
+        return ((a if isinstance(a, tuple) else kernels._csplit(a))[0]
+                @ (b if isinstance(b, tuple) else kernels._csplit(b))[0])
+
+    with mock.patch.object(kernels, "cmm_bf16x3", hi_hi):
+        oo, op, _ = two_sweeps(kernels.fused_epry_sweep_plain, planes, rest, common)
+    assert max(rel(oo, ho), rel(op, hp)) > 1e-3
+
+
+@pytest.mark.parametrize("stem", ["epry_sweep", "epry_chunked", "epry_increments"])
+def test_bf16x3_instantiations_hold_tensor_core_products(cuda, stem):
+    """HMMA instructions in each library's SASS, all of them in the bf16x3
+    tier's code (the tensor-core product or the tier-1 instantiations), none
+    in the highest tier's kernels."""
+    import re
+
+    from fpm_torch.ops import build
+
+    counts = build.hmma_counts(stem)
+    assert sum(counts.values()) > 0, counts
+    for name, c in counts.items():        # cu++filt writes a tier as <(int)1>
+        if re.search(r"<(\(int\))?0>|ILi0E", name):
+            assert c == 0, name
+        elif c:
+            assert re.search(r"cgemm_tc|<(\(int\))?1>|ILi1E", name), name
 
 
 def test_a_cluster_size_that_is_no_power_of_two_up_to_8_is_refused(cuda, force_cluster):
@@ -218,12 +281,26 @@ def test_out_of_range_starts_are_clamped_like_the_plain_version(cuda):
         kernels.fused_epry_sweep(o, p, sup, amps[:-1], starts, **common)
 
 
-def k3_operands(ds, dev, block):
+def k3_d_limit(args, kw, pd):
+    """The limit on K3's d against the plain version's ``pd``: TOL_O, and at
+    bf16x3 no tighter than the tier's own distance from FP32 on this call
+    (plain bf16x3 d against plain highest d). d is a sum of increments much
+    smaller than the terms they come from, and the tier's split is not a
+    smooth function of its input (a last-bit change of a product's f32 result
+    may move lo by one bf16 step, 2^-17 of the value), so kernel and plain
+    version, whose f32 sums differ in order, part by more than at highest."""
+    if kw["dft_precision"] == "highest":
+        return TOL_O
+    hd = kernels.fused_chunk_increments_plain(*args, **dict(kw, dft_precision="highest"))[0]
+    return max(TOL_O, rel(pd, hd))
+
+
+def k3_operands(ds, dev, block, tier="bf16x3"):
     """One chunk on the init state. ``square``: the whole spectrum, chunk 0
     of the chunk-8 schedule (its padding slot masked); ``tile``: tile 1 of 3
     extended by its halo, that tile's chunk-0 workset (padded slots masked,
     starts relative to the block)."""
-    (o, p, sup), (amps, starts), common = operands(ds, dev, "sequential")
+    (o, p, sup), (amps, starts), common = operands(ds, dev, "sequential", tier=tier)
     n, nl, k = ds.cfg.np_size, ds.cfg.n_large, ds.geom.num_leds
     if block == "square":
         perm, _, n_chunks = epry.chunk_schedule(k, 8, "strided")
@@ -247,9 +324,9 @@ def k3_operands(ds, dev, block):
 @pytest.mark.parametrize("np_size", [16, 64, 100])
 @pytest.mark.parametrize("block", ["square", "tile"])
 @pytest.mark.parametrize("collect_metrics", [True, False])
-def test_k3_matches_plain(cuda, np_size, block, collect_metrics):
+def test_k3_matches_plain(cuda, tier, np_size, block, collect_metrics):
     ds = synthetic_dataset(np_size=np_size, grid=5, seed=3)
-    args, kw = k3_operands(ds, cuda, block)
+    args, kw = k3_operands(ds, cuda, block, tier)
     before = kernels.fused_chunk_increments.launches
     kd, kv, km = kernels.fused_chunk_increments(*args, collect_metrics=collect_metrics, **kw)
     torch.cuda.synchronize()
@@ -257,7 +334,7 @@ def test_k3_matches_plain(cuda, np_size, block, collect_metrics):
     pd, pv, pm = kernels.fused_chunk_increments_plain(*args, collect_metrics=collect_metrics,
                                                       **kw)
     assert kd.shape == args[0].shape and kv.shape == args[1].shape
-    assert rel(kd, pd) < TOL_O
+    assert rel(kd, pd) < k3_d_limit(args, dict(kw, collect_metrics=collect_metrics), pd)
     assert rel(kv, pv) < TOL_P
     if collect_metrics:
         np.testing.assert_allclose(km.cpu().numpy(), pm.cpu().numpy(), rtol=TOL_M)
@@ -277,16 +354,18 @@ def test_k3_matches_plain(cuda, np_size, block, collect_metrics):
 
 
 @pytest.mark.parametrize("cs", [1, 2, 8])
-def test_k3_masked_slots_are_never_read_at_a_forced_cluster_size(cuda, force_cluster, cs):
+def test_k3_masked_slots_are_never_read_at_a_forced_cluster_size(cuda, tier, force_cluster,
+                                                                 cs):
     """A masked slot's whole cluster leaves before its first barrier: with
     its frame and start poisoned the call neither hangs nor changes."""
     ds = synthetic_dataset(np_size=64, grid=5, seed=3)
-    (o, p, sup, amps, starts, valid), kw = k3_operands(ds, cuda, "tile")
+    (o, p, sup, amps, starts, valid), kw = k3_operands(ds, cuda, "tile", tier)
     force_cluster(kernels.fused_chunk_increments, cs)
     kd, kv, km = kernels.fused_chunk_increments(o, p, sup, amps, starts, valid, **kw)
     assert kernels.fused_chunk_increments.cluster_size == cs
     pd, pv, pm = kernels.fused_chunk_increments_plain(o, p, sup, amps, starts, valid, **kw)
-    assert rel(kd, pd) < TOL_O and rel(kv, pv) < TOL_P
+    limit = k3_d_limit((o, p, sup, amps, starts, valid), kw, pd)
+    assert rel(kd, pd) < limit and rel(kv, pv) < TOL_P
     np.testing.assert_allclose(km.cpu().numpy(), pm.cpu().numpy(), rtol=TOL_M)
     amps, starts = amps.clone(), starts.clone()
     amps[valid == 0] = float("nan")
@@ -347,7 +426,7 @@ def test_a_sweep_over_several_cards_keeps_the_current_device(cuda, led, tile):
 
 
 @pytest.mark.parametrize("kernel", ["K1", "K2", "K3"])
-def test_kernels_refuse_an_np_whose_buffers_do_not_fit_a_block(cuda, kernel):
+def test_kernels_refuse_an_np_whose_buffers_do_not_fit_a_block(cuda, tier, kernel):
     """One LED's b×b window lives whole in each block's shared memory beside
     its slabs: Np 90 (mono) and 100 (cellScope) fit, as the cases above
     show; Np 200 (dogStomach) fits at no cluster size and is refused before
@@ -357,7 +436,7 @@ def test_kernels_refuse_an_np_whose_buffers_do_not_fit_a_block(cuda, kernel):
     p, sup = torch.ones((2, n, n), device=cuda), torch.ones((n, n), device=cuda)
     amps = torch.ones((1, 1, n, n), device=cuda)
     starts = torch.zeros(2, dtype=torch.int32, device=cuda)
-    common = dict(np_size=n, n_large=nl, delta1=5.0, delta2=10.0, eps=1e-10)
+    common = dict(np_size=n, n_large=nl, delta1=5.0, delta2=10.0, eps=1e-10, dft_precision=tier)
     wrappers = (kernels.fused_epry_chunked, kernels.fused_epry_sweep,
                 kernels.fused_chunk_increments)
     before = [w.launches for w in wrappers]
@@ -377,12 +456,12 @@ def test_kernels_refuse_an_np_whose_buffers_do_not_fit_a_block(cuda, kernel):
 # ------------------------------------------------------------- problem axis
 
 
-def problem_stack(ds, dev, mode, n_prob, chunk=7):
+def problem_stack(ds, dev, mode, n_prob, chunk=7, tier="bf16x3"):
     """``n_prob`` problems of one geometry (the frames scaled and offset per
     problem), each with its own init state, as the (P, ...) operands of one
     problem-axis call."""
     stacks = [ds.images * (1.0 + 0.05 * q) + q for q in range(n_prob)]
-    per = [operands(dataclasses.replace(ds, images=images), dev, mode, chunk)
+    per = [operands(dataclasses.replace(ds, images=images), dev, mode, chunk, tier)
            for images in stacks]
     planes = (torch.stack([p[0][0] for p in per]), torch.stack([p[0][1] for p in per]),
               per[0][0][2])
@@ -394,14 +473,14 @@ def problem_stack(ds, dev, mode, n_prob, chunk=7):
 @pytest.mark.parametrize("cs", [1, 2, 8])
 @pytest.mark.parametrize("kernel,mode", [("K2", "sequential"), ("K2 lazy", "sequential"),
                                          ("K1", "batched")])
-def test_problem_axis_is_bitwise_each_problem_alone(cuda, force_cluster, kernel, mode,
+def test_problem_axis_is_bitwise_each_problem_alone(cuda, tier, force_cluster, kernel, mode,
                                                    n_prob, cs):
     """Problem q of a P-problem launch at a forced cluster size equals
     problem q solved alone by a single-problem launch at the size its entry
     point chooses, bit for bit, metrics included: nothing depends on P or on
     the cluster size. The launches per sweep do not grow with P."""
     ds = synthetic_dataset(np_size=16, grid=5, seed=3)
-    planes, rest, common, per = problem_stack(ds, cuda, mode, n_prob)
+    planes, rest, common, per = problem_stack(ds, cuda, mode, n_prob, tier=tier)
     fn = kernels.fused_epry_chunked if kernel == "K1" else kernels.fused_epry_sweep
     kw = dict(global_max="lazy") if kernel == "K2 lazy" else {}
     solo = [two_sweeps(fn, *p, **kw) for p in per]
@@ -418,9 +497,9 @@ def test_problem_axis_is_bitwise_each_problem_alone(cuda, force_cluster, kernel,
 
 
 @pytest.mark.parametrize("kernel,mode", [("K2", "sequential"), ("K1", "batched")])
-def test_a_nan_problem_leaves_every_other_problem_unchanged(cuda, kernel, mode):
+def test_a_nan_problem_leaves_every_other_problem_unchanged(cuda, tier, kernel, mode):
     ds = synthetic_dataset(np_size=64, grid=5, seed=3)
-    planes, (amps, *shared), common, per = problem_stack(ds, cuda, mode, 4)
+    planes, (amps, *shared), common, per = problem_stack(ds, cuda, mode, 4, tier=tier)
     fn = kernels.fused_epry_chunked if kernel == "K1" else kernels.fused_epry_sweep
     amps = amps.clone()
     amps[1] = float("nan")
@@ -432,9 +511,9 @@ def test_a_nan_problem_leaves_every_other_problem_unchanged(cuda, kernel, mode):
 
 
 @pytest.mark.parametrize("kernel,mode", [("K2", "sequential"), ("K1", "batched")])
-def test_problem_axis_matches_the_plain_version(cuda, kernel, mode):
+def test_problem_axis_matches_the_plain_version(cuda, tier, kernel, mode):
     ds = synthetic_dataset(np_size=64, grid=5, seed=3)
-    planes, rest, common, _ = problem_stack(ds, cuda, mode, 3)
+    planes, rest, common, _ = problem_stack(ds, cuda, mode, 3, tier=tier)
     fn, plain = ((kernels.fused_epry_chunked, kernels.fused_epry_chunked_plain) if kernel == "K1"
                  else (kernels.fused_epry_sweep, kernels.fused_epry_sweep_plain))
     ko, kp, km = two_sweeps(fn, planes, rest, common)

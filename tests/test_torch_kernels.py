@@ -34,7 +34,8 @@ def both(ds, iterations=2, **kw):
     ref = jreconstruct(ds.images, ds.geom, ds.cfg, iterations=iterations, dtype="complex64",
                        use_pallas=True, dft_precision="highest", **kw)
     got = tepry.reconstruct(ds.images, ds.geom, ds.cfg, iterations=iterations,
-                            dtype="complex64", use_pallas=True, device="cpu", **kw)
+                            dtype="complex64", use_pallas=True, dft_precision="highest",
+                            device="cpu", **kw)
     return ref, got
 
 
@@ -98,7 +99,8 @@ def test_wrappers_match_pallas_on_the_same_planes(mode):
         ref = jk.fused_epry_sweep(*(jnp.asarray(a) for a in (o_pl, p_pl, sup, *args)),
                                   interpret=True, dft_precision="highest", **common)
         got = tk.fused_epry_sweep(*(torch.tensor(np.asarray(a))
-                                    for a in (o_pl, p_pl, sup, *args)), **common)
+                                    for a in (o_pl, p_pl, sup, *args)),
+                                  dft_precision="highest", **common)
     else:
         k = amps.shape[0]
         perm, mask, n_chunks = tepry.chunk_schedule(k, 8, "strided")
@@ -111,7 +113,7 @@ def test_wrappers_match_pallas_on_the_same_planes(mode):
                                     pupil_step_scale=1.0, **common)
         got = tk.fused_epry_chunked(*(torch.tensor(np.asarray(x))
                                       for x in (o_pl, p_pl, sup, *args)),
-                                    pupil_step_scale=1.0, **common)
+                                    pupil_step_scale=1.0, dft_precision="highest", **common)
     (ro, rp, rm), (go, gp, gm) = (np.asarray(x) for x in ref), (x.numpy() for x in got)
     assert go.shape == ro.shape and gp.shape == rp.shape and go.dtype == np.float32
     assert rel(go, ro) < TOL_O
@@ -189,7 +191,8 @@ def test_k3_plain_matches_pallas(block, collect_metrics):
         collect_metrics=collect_metrics, **kw))
     for fn in (tk.fused_chunk_increments_plain, tk.fused_chunk_increments):   # CPU: both plain
         gd, gv, gm = (x.numpy() for x in fn(*(torch.tensor(a) for a in args),
-                                            collect_metrics=collect_metrics, **kw))
+                                            collect_metrics=collect_metrics,
+                                            dft_precision="highest", **kw))
         assert gd.shape == rd.shape and gv.shape == rv.shape and gd.dtype == np.float32
         assert rel(gd, rd) < 1e-5
         assert rel(gv, rv) < 1e-4

@@ -131,8 +131,9 @@ def test_kernel_route_matches_fpm_tpu_pallas(wide, kw):
     Pallas kernels in interpret mode, complex64, a 2×2 grid for 2 sweeps."""
     images, (tcfg, tgeom), (jcfg, jgeom) = wide
     common = dict(grid=(2, 2), overlap=4, iterations=2, dtype="complex64", use_pallas=True, **kw)
+    common["dft_precision"] = "highest"
     got = tl.reconstruct_large_fov(images, tgeom, tcfg, device="cpu", **common)
-    ref = jl.reconstruct_large_fov(images, jgeom, jcfg, dft_precision="highest", **common)
+    ref = jl.reconstruct_large_fov(images, jgeom, jcfg, **common)
     for a, b in zip(got.tiles, ref.tiles):
         assert rel(a.obj_f_centered, b.obj_f_centered, np.abs(b.obj_f_centered).max()) < TOL_O
         assert rel(a.pupil, b.pupil, np.abs(b.pupil).max()) < TOL_P

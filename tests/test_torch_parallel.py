@@ -130,9 +130,10 @@ def test_initial_state_of_either_package_continues(ds, led, tile):
 @needs_8
 @pytest.mark.parametrize("led,tile", [(8, 1), (2, 3)])
 def test_sharded_kernel_route_matches_fpm_tpu(ds, led, tile):
-    kw = dict(iterations=3, dtype="complex64", chunk_size=8, use_pallas=True)
+    kw = dict(iterations=3, dtype="complex64", chunk_size=8, use_pallas=True,
+              dft_precision="highest")
     got = t_sharded(ds, led, tile, **kw)
-    ref = j_sharded(ds, led, tile, dft_precision="highest", **kw)
+    ref = j_sharded(ds, led, tile, **kw)
     assert rel(got.obj_f_centered, ref.obj_f_centered) < 1e-5
     assert rel(got.pupil, ref.pupil) < 1e-4
     for key in ("data_residual", "update_norm"):

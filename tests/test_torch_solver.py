@@ -10,6 +10,7 @@ import torch
 
 from fpm_torch.models import epry as tepry
 from fpm_tpu.data.simulate import synthetic_dataset
+from fpm_tpu.models import epry as jepry
 from fpm_tpu.models.epry import _planes, reconstruct as jreconstruct
 from fpm_tpu.oracle import run_fpm_oracle
 
@@ -116,8 +117,16 @@ def test_effective_chunk_size():
 
 
 def test_options_refuse_unported_and_bad_values(ds):
-    with pytest.raises(ValueError, match="not yet ported"):
-        tepry.EPRYOptions.from_config(ds.cfg, dft_precision="bf16x3")
+    """Both of fpm_tpu's precision tiers are accepted, bf16x3 by default, and
+    any other value is refused with fpm_tpu's words."""
+    assert tepry.EPRYOptions.from_config(ds.cfg).dft_precision == "bf16x3"
+    for tier in ("bf16x3", "highest"):
+        assert tepry.EPRYOptions.from_config(ds.cfg, dft_precision=tier).dft_precision == tier
+    with pytest.raises(ValueError) as theirs:
+        jepry.EPRYOptions.from_config(ds.cfg, dft_precision="tf32")
+    with pytest.raises(ValueError) as ours:
+        tepry.EPRYOptions.from_config(ds.cfg, dft_precision="tf32")
+    assert str(ours.value) == str(theirs.value)
     with pytest.raises(ValueError):
         tepry.EPRYOptions.from_config(ds.cfg, mode="jacobi")
     with pytest.raises(ValueError):
