@@ -18,6 +18,9 @@ tiers of the DFT products (``dft_precision``): ``bf16x3``, the default (a
    version, the time to build the kernels from ``fpm_torch/ops/csrc``, and
    the HMMA (tensor-core) instructions in each kernel instantiation's SASS
    (``cuobjdump``): more than 0 in every bf16x3 one, none in the highest ones.
+   Then a ``digests`` line (``kernel_digests``): SHA-256 of K1, K2 and K3's
+   results at Np 90 and 100, both tiers and cluster sizes 1-8, for comparing
+   the kernels' bits between two checkouts on one card.
 2. ``kernel_vs_plain``: K1 (chunk 32, strided) and K2 (exact and lazy max)
    against their plain PyTorch versions on the card, 2 sweeps from the same
    init state: rel-max |ΔO| ≤ 1e-5, rel-max |ΔP| ≤ 1e-4 (f32 against f32,
@@ -78,6 +81,12 @@ tiers of the DFT products (``dft_precision``): ``bf16x3``, the default (a
    margin) below 0.3. Then half of ``out/tiles`` deleted and ``--resume``:
    the stitch bitwise that of the first run, ``tile`` events for the
    deleted tiles only.
+   ``ingest``: the TIFFs of ``main_path`` (90×90 crops) and of ``large_fov``
+   (568×568 whole frames) loaded through the native C++ decoder
+   (``fpm_torch.native``, built here with ``g++``) and through PIL: which
+   decoder ran, each path's seconds, the arrays bitwise equal; where the
+   machine has ``g++`` the native path must run, and every ``run`` must
+   record in ``metrics.jsonl`` that it decoded natively.
    ``rgb``: three objects (seeds ``seed``, ``seed+1``, ``seed+2``) in the
    planes of 8-bit RGB TIFFs of the mono dome frames, ``run ... -n 10
    --use-pallas --color-mode rgb`` in both modes: one launch sequence per
@@ -99,17 +108,35 @@ tiers of the DFT products (``dft_precision``): ``bf16x3``, the default (a
    (4,1) makes them (8 LED slots per call on the 360×360 block). K1 and K2
    with a problem axis at P = 1, 3, 16, 33, 66 and 132 (highest: P = 1
    and 66) at the cluster size the entry point picks: ms per sweep and per
-   problem-sweep, LED-frames/s; ptxas's registers and spills of each
-   instantiation.
+   problem-sweep, LED-frames/s (ptxas's registers and spills of each
+   instantiation are on the ``device`` line). K1 and K2 also give their
+   device time with Z cut by rows across the cluster (the entry points keep
+   Z whole in every block where it fits, as here).
    ``sharded_sweep`` lines give
    the wall time of one sharded sweep per mesh shape, through the entry point
    (``reconstruct_*_sharded`` with 1 sweep less with 0 sweeps) and of the
    sweep alone on prepared grids, and the share of the latter the card was
    busy (``torch.profiler``): one-card times with all ranks sharing the
    card, not scaling results.
+6. ``dogstomach``: the dogStomach optics of tests/test_torch_np200.py
+   (Np=200, NL=600, K=88 dome LEDs, bbox 112 at offset 48, object from
+   ``--seed``, 16-bit frames; nothing cut). K2 exact and lazy, K1 at chunk 16
+   (what the port runs, as fpm_tpu does) and 32, K3 on the full block and on
+   tile 0's halo block as a rank of mesh (2,2) gets it, and K2, K1 and K3
+   once more with the whole patch as the bbox (pupil_radius 0, b = n = 200,
+   Z cut by rows), each at both tiers against the plain version (K3's d at
+   ``k3_d_limit``, v at 1e-4, and the state they give the sweep, O + d and
+   P + v/max|O + d|, at 1e-5 / 1e-4), bitwise
+   repeated, at every forced cluster size (those that do not fit refused
+   before any launch), and with the other layout of Z; each plan printed.
+   Then ``run -n 10 --use-pallas --chunk-size 32`` in sequential and
+   batched mode and with ``--mesh 2 2`` at both tiers (launches of that
+   run's kernel only, every output file, amplitude RMSE below 0.05, the
+   batched run recording chunk 16), and timing as in 5 with K2's phase
+   profile.
 
-Then the ``kernels`` line (each kernel once per tier), the ``nvidia-smi``
-line, and the result line.
+Then the ``kernels`` line (each kernel once per tier, the Np=200 rows
+apart), the ``nvidia-smi`` line, and the result line.
 Any failure raises and exits non-zero; without a CUDA device it exits 1
 before printing anything.
 """
@@ -130,14 +157,16 @@ from unittest import mock
 PEAK_FP32_FLOPS = 67e12      # H100 SXM, FP32 outside the tensor cores
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 TOL_O, TOL_P, TOL_METRICS = 1e-5, 1e-4, 1e-4
-# K3's d at bf16x3: d is a sum of object increments much smaller than the
-# terms they come from (up − Oc∘P), and the tier's split is not a smooth
-# function of its input (a last-bit change of a product's f32 result may move
-# lo by one bf16 step, 2^-17 of the value), so the kernel and the plain
-# version, whose f32 sums differ in order, part by more than at highest. The
-# kernel's d is held no farther from the plain bf16x3 d than the tier itself
-# lies from FP32 on the same call (plain bf16x3 against plain highest), and
-# never held tighter than TOL_O.
+# K3's d is a sum of object increments much smaller than the terms they come
+# from (up − Oc∘P), and the tier's split is not a smooth function of its
+# input (a last-bit change of a product's f32 result may move lo by one bf16
+# step, 2^-17 of the value), so at bf16x3 the kernel's d is held no farther
+# from the plain bf16x3 d than the tier itself lies from FP32 on the same
+# call (plain bf16x3 against plain highest), and never tighter than TOL_O.
+# At the dogStomach patch (Np 200) two f32 summation orders of d part by more
+# than 1e-5 at either tier (the plain version on the card and on the CPU,
+# 5e-5-1.7e-4), so there the plain version on the CPU is a witness too
+# (k3_d_limit).
 TOL_TIER_O, TOL_TIER_P, ONE_PASS_MIN = 5e-5, 5e-4, 1e-3
 TIERS = ("bf16x3", "highest")     # the default first
 RMSE_LIMIT = 0.05
@@ -158,6 +187,15 @@ def emit(obj) -> None:
 def check(cond, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def k3_d_limit(plain_d, cpu_d, tier_d: float) -> float:
+    """The limit on K3's d against the plain version's ``plain_d`` on the
+    card: TOL_O, or how far two plain versions of d lie apart on the same
+    call, whichever is larger: the plain version on the CPU (``cpu_d``,
+    another f32 summation order) and, at bf16x3, the plain version at
+    highest (``tier_d``, the tier's own distance from FP32; 0 at highest)."""
+    return max(TOL_O, tier_d, rel(cpu_d, plain_d.cpu()))
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -324,6 +362,45 @@ def write_dataset(out_dir, cfg, geom, frames) -> str:
     return path
 
 
+def ingest_both(cfg, label: str, **kw):
+    """The stack of ``cfg`` loaded as ``run`` loads it (the native decoder
+    where it builds) and through PIL: one line with the decoder that ran,
+    each path's seconds (the first includes the decoder's build), and
+    whether the arrays are bitwise equal (checked). Where the machine has
+    ``g++``, the native decoder must be the one that ran. Returns (the
+    load, the decoder's name)."""
+    import shutil
+
+    import numpy as np
+
+    from fpm_torch import native
+    from fpm_torch.data.loader import load_dataset
+
+    t0 = time.perf_counter()
+    nat = load_dataset(cfg, **kw)
+    decoder = nat.decoder
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = load_dataset(cfg, **kw)
+    again_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pil = load_dataset(cfg, use_native=False, **kw)
+    pil_s = time.perf_counter() - t0
+    equal = all(np.array_equal(a.images, pil.images) and np.array_equal(a.bg_values,
+                                                                       pil.bg_values)
+                for a in (nat, again))
+    emit({"phase": "ingest", "frames": label, "shape": list(nat.images.shape),
+          "decoder": decoder, "fallback_files": nat.fallback_files,
+          "native_build_error": native.build_error(),
+          "ingest_s_first": native_s, "ingest_s": again_s, "ingest_s_pil": pil_s,
+          "bitwise_equal": equal})
+    check(equal, f"ingest of the {label}: the native and PIL arrays differ")
+    if shutil.which("g++"):
+        check(decoder == "native",
+              f"ingest of the {label}: the native decoder did not run ({native.build_error()})")
+    return nat, decoder
+
+
 def read_records(out_dir) -> list[dict]:
     with open(os.path.join(out_dir, "metrics.jsonl")) as f:
         return [json.loads(line) for line in f]
@@ -340,11 +417,464 @@ def stitched_error(stitched, truth, margin: int) -> float:
     return amplitude_rmse(stitched[sl], truth[:h, :w][sl])
 
 
+# The dogStomach problem: tests/test_tpu_hw.py:110-117's optics on the
+# built-in dome table, the reference's largest patch, which fpm_tpu runs on
+# its chip: Np=200, NL=600, K=88, pupil radius 52, bbox 112 at offset 48.
+DOG_OPTICS = dict(np_size=200, pixel_size=6.5, objective_mag=8.0, objective_na=0.2,
+                  max_illumination_na=0.30, wavelength=0.63)
+DOG_SHAPES = (200, 600, 88, 112, 48)      # (Np, NL, K, b, lo)
+DOG_CHUNK_REQUESTED, DOG_CHUNK_RUN = 32, 16   # fpm_tpu's ceiling at Np 200 (F3)
+FORCED_CS = (1, 2, 4, 8)
+
+
+def kernel_digests(dev) -> dict:
+    """SHA-256 of K1 (chunk 7), K2 (exact) and K3 (chunk 0 of the chunk-8
+    schedule on the whole spectrum) on ``synthetic_dataset(np_size, grid=5,
+    seed=3)`` at Np 90 and 100, both tiers and every forced cluster size: a
+    fingerprint of the kernels' bits that two checkouts run on one card
+    compare (import this module with the other checkout first on the path)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from fpm_torch.data.simulate import synthetic_dataset
+    from fpm_torch.geometry import pupil_support
+    from fpm_torch.models import epry
+    from fpm_torch.ops import kernels
+
+    cases, total = {}, hashlib.sha256()
+    for np_size in (90, 100):
+        ds = synthetic_dataset(np_size=np_size, grid=5, seed=3)
+        cfg = ds.cfg
+        opts = epry.EPRYOptions.from_config(cfg, use_pallas=True, mode="batched", chunk_size=7)
+        amps, starts = epry._sorted_device_inputs(ds.images, ds.geom, torch.complex64, dev)
+        sup = torch.as_tensor(pupil_support(cfg), dtype=torch.float32, device=dev)
+        o, p = epry.init_traced(amps, sup, opts)
+        o, p = (torch.stack([z.real, z.imag]).contiguous() for z in (o, p))
+        a_it, s_it, mask = epry._chunk_inputs(amps, starts, opts, torch.float32)
+        k = amps.shape[0]
+        perm, _, n_chunks = epry.chunk_schedule(k, 8, "strided")
+        sel = perm.reshape(n_chunks, 8)[0]
+        live = torch.as_tensor(sel < k, device=dev)
+        pick = torch.as_tensor(np.where(sel < k, sel, 0), device=dev)
+        calls_ = {
+            "K1": (kernels.fused_epry_chunked,
+                   (o, p, sup, a_it, s_it.reshape(-1), (mask > 0).reshape(-1).to(torch.int32)),
+                   dict(n_large=cfg.n_large, pupil_step_scale=1.0)),
+            "K2": (kernels.fused_epry_sweep, (o, p, sup, amps, starts.reshape(-1)),
+                   dict(n_large=cfg.n_large, global_max="exact")),
+            "K3": (kernels.fused_chunk_increments,
+                   (o, p, sup, amps[pick] * live[:, None, None],
+                    (starts[pick] * live[:, None].to(torch.int32)).reshape(-1).contiguous(),
+                    live.to(torch.int32)),
+                   dict(n_rows=cfg.n_large, n_cols=cfg.n_large)),
+        }
+        for tier in TIERS:
+            kw = dict(np_size=np_size, delta1=cfg.delta1, delta2=cfg.delta2, eps=cfg.eps,
+                      pupil_radius=opts.pupil_radius, collect_metrics=True, dft_precision=tier)
+            for name, (fn, args, extra) in calls_.items():
+                for cs in FORCED_CS:
+                    fn.force_cluster_size = cs
+                    try:
+                        out = fn(*args, **kw, **extra)
+                    finally:
+                        fn.force_cluster_size = 0
+                    h = hashlib.sha256()
+                    for t in out:
+                        h.update(t.detach().cpu().numpy().tobytes())
+                    total.update(h.digest())
+                    cases[f"{name} np {np_size} {tier} cs {cs}"] = h.hexdigest()[:16]
+    return {"phase": "digests", "cases": cases, "all": total.hexdigest()}
+
+
+def refusal(fn):
+    """Runs ``fn``; the entry point's refusal text if it refused the shape
+    before any launch (shared memory, or a cluster that cannot be resident),
+    else None."""
+    try:
+        fn()
+    except RuntimeError as e:
+        if "shared memory" in str(e) or "cannot be resident" in str(e):
+            return str(e)
+        raise
+    return None
+
+
+def calls(fn, args, kw, sweeps_n):
+    """``sweeps_n`` sweeps of K1 or K2 from the state in ``args`` (their
+    (o, p) and the per-sweep metrics stacked), or one call of K3
+    (``sweeps_n`` = 0); waits for the card."""
+    import torch
+
+    if sweeps_n == 0:
+        out = fn(*args, **kw)
+    else:
+        state, mets = args[:2], []
+        for _ in range(sweeps_n):
+            o, p, m = fn(*state, *args[2:], **kw)
+            state = (o, p)
+            mets.append(m)
+        out = (*state, torch.stack(mets))
+    torch.cuda.synchronize()
+    return out
+
+
+def dogstomach(seed: int, smi: str, dev) -> list:
+    """The dogStomach phases (module docstring, 6). Returns the Np 200 rows
+    of the ``kernels`` line."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from fpm_torch import cli
+    from fpm_torch.config import FPMConfig
+    from fpm_torch.data.simulate import make_test_object, simulate_images
+    from fpm_torch.geometry import compute_geometry, pupil_support
+    from fpm_torch.models import epry
+    from fpm_torch.ops import kernels
+    from fpm_torch.parallel import led_shard, tile_shard
+
+    t0 = time.perf_counter()
+    cfg = FPMConfig(**DOG_OPTICS, iterations=10)
+    geom = compute_geometry(cfg)
+    obj_true = make_test_object(cfg.n_large, seed=seed)
+    frames = simulate_images(obj_true, geom, cfg, quantize=True)
+    sim_s = time.perf_counter() - t0
+    k_leds, n, nl = geom.num_leds, cfg.np_size, cfg.n_large
+    opts = epry.EPRYOptions.from_config(cfg, use_pallas=True)
+    radius = opts.pupil_radius
+    b, lo = kernels.bbox_extent(n, radius)
+    check((n, nl, k_leds, b, lo) == DOG_SHAPES,
+          f"unexpected dogStomach shapes {(n, nl, k_leds, b, lo)}")
+    amps, starts = epry._sorted_device_inputs(frames, geom, torch.complex64, dev)
+    sup = torch.as_tensor(pupil_support(cfg), dtype=torch.float32, device=dev)
+    outside = sup == 0
+    o0, p0 = epry.init_traced(amps, sup, opts)
+    o_planes = torch.stack([o0.real, o0.imag]).contiguous()
+    p_planes = torch.stack([p0.real, p0.imag]).contiguous()
+    common = dict(np_size=n, n_large=nl, delta1=cfg.delta1, delta2=cfg.delta2, eps=cfg.eps,
+                  collect_metrics=True)
+    k3_common = {k: v for k, v in common.items() if k != "n_large"}
+    emit({"phase": "dogstomach", "step": "setup", "np": n, "n_large": nl, "leds": k_leds,
+          "bbox": b, "bbox_offset": lo, "pupil_radius": radius,
+          "frames": list(frames.shape), "sim_s": sim_s})
+
+    chunked = {}
+    for c in (DOG_CHUNK_RUN, DOG_CHUNK_REQUESTED):   # the kernel called directly at both
+        a_c, s_c, m_c = epry.chunk_permute(amps, starts, c, "strided", torch.float32)
+        chunked[c] = (a_c, s_c.reshape(-1), (m_c > 0).reshape(-1).to(torch.int32))
+    # K3 on the full block (chunk 0 of the chunk-16 schedule, init state) and
+    # on the halo-extended block of tile 0 of 2 as rank (0, 0) of mesh (2,2)
+    # gets it (chunk 16 over 2 LED ranks, the state after one K1 sweep). Every
+    # patch starts in rows 126-274, so tile 1's ranks get masked slots only.
+    o1, p1, _ = kernels.fused_epry_chunked(o_planes, p_planes, sup, *chunked[DOG_CHUNK_RUN],
+                                          **common, pupil_radius=radius, pupil_step_scale=1.0)
+    a16, s16, v16 = chunked[DOG_CHUNK_RUN]
+    k3_blocks = {"K3 full block": (o_planes, p_planes, a16[0], s16[:2 * DOG_CHUNK_RUN],
+                                   v16[:DOG_CHUNK_RUN])}
+    ring = torch.cat([o1, o1[:, :n]], dim=1)           # the halo wraps the ring
+    idx, tile_s = tile_shard.partition_leds_by_tile(geom, nl, 2, 2, n,
+                                                    chunk_size=DOG_CHUNK_RUN)
+    check(int((idx[:, :, 1] >= 0).sum()) == 0, "a dogStomach patch starts in tile 1")
+    for ti in (0,):
+        sel = torch.as_tensor(idx[0, 0, ti], device=dev)
+        live = sel >= 0
+        check(int(live.sum()) > 1, f"dogStomach tile {ti}'s workset has too few LEDs")
+        starts_rel = (starts[sel.clamp(min=0)] - torch.tensor(
+            [ti * tile_s, 0], dtype=torch.int32, device=dev)) * live[:, None]
+        k3_blocks[f"K3 tile block {ti}, rank of mesh (2,2)"] = (
+            ring[:, ti * tile_s:(ti + 1) * tile_s + n].contiguous(), p1,
+            amps[sel.clamp(min=0)] * live[:, None, None],
+            starts_rel.to(torch.int32).reshape(-1).contiguous(), live.to(torch.int32))
+    del o1, p1, ring
+
+    # (name, wrapper, plain version, operands, sweeps (0: one K3 call),
+    # options, LED slots of a launch); the full-bbox cases (pupil_radius 0:
+    # b = n = 200 at lo 0) after the dogStomach bbox.
+    def k3_case(name, blk, rad, tag=""):
+        return (name + tag, kernels.fused_chunk_increments, kernels.fused_chunk_increments_plain,
+                (blk[0], blk[1], sup, *blk[2:]), 0,
+                dict(k3_common, n_rows=blk[0].shape[1], n_cols=blk[0].shape[2],
+                     pupil_radius=rad), int(blk[4].numel()))
+
+    cases = []
+    for rad, tag in ((radius, ""), (0, ", full bbox")):
+        cases.append((f"K2 exact{tag}", kernels.fused_epry_sweep, kernels.fused_epry_sweep_plain,
+                      (o_planes, p_planes, sup, amps, starts.reshape(-1)), 2,
+                      dict(common, global_max="exact", pupil_radius=rad), 1))
+        if not tag:
+            cases.append(("K2 lazy", kernels.fused_epry_sweep, kernels.fused_epry_sweep_plain,
+                          (o_planes, p_planes, sup, amps, starts.reshape(-1)), 2,
+                          dict(common, global_max="lazy", pupil_radius=rad), 1))
+        for c in (DOG_CHUNK_RUN,) if tag else (DOG_CHUNK_RUN, DOG_CHUNK_REQUESTED):
+            cases.append((f"K1 chunk {c}{tag}", kernels.fused_epry_chunked,
+                          kernels.fused_epry_chunked_plain, (o_planes, p_planes, sup, *chunked[c]),
+                          2, dict(common, pupil_step_scale=1.0, pupil_radius=rad), c))
+        for name, blk in k3_blocks.items():
+            if not tag or name == "K3 full block":
+                cases.append(k3_case(name, blk, rad, tag))
+
+    # Each case at each tier: the kernel at the chosen plan against the plain
+    # version, once more (bitwise), and at every forced cluster size: bitwise
+    # the chosen plan's result where one block's buffers fit and a cluster can
+    # be resident (resident_clusters, the entry point's own reckoning),
+    # refused before any launch where not; at each forced size above 1 also
+    # with the other layout of Z (whole in every block, or cut by rows),
+    # bitwise or refused. K3's d is held at k3_d_limit (beside it the two
+    # witnesses: the plain version at the other tier and on the CPU), its v
+    # at TOL_P, and also what the sharded sweep makes of them, O + d and
+    # P + v / max|O + d|, against the same from the plain version (TOL_O /
+    # TOL_P, K1's limits).
+    def applied(args, out):
+        o = args[0] + out[0]
+        return o, args[1] + out[1] / (o[0] * o[0] + o[1] * o[1]).max().sqrt()
+
+    def forced_run(kern, args, kw, sweeps_n, cs, layout):
+        """(refusal text, result, plan) of one call at a forced plan."""
+        out = []
+        kern.force_cluster_size, kern.force_z_layout = cs, layout
+        try:
+            why = refusal(lambda: out.append(calls(kern, args, kw, sweeps_n)))
+        finally:
+            kern.force_cluster_size = kern.force_z_layout = 0
+        return why, (out[0] if out else None), dict(kern.plan)
+
+    errs, plans = {}, {}
+    for tier in TIERS:
+        for name, kern, plain, args, sweeps_n, kw, slots in cases:
+            kw = dict(kw, dft_precision=tier)
+            probe = kernels.fused_epry_sweep if kern is kernels.fused_epry_sweep \
+                else kernels.fused_epry_chunked        # K1 and K3 share chunk_forward
+            got = []
+            why = refusal(lambda: got.append(calls(kern, args, kw, sweeps_n)))
+            if why:
+                emit({"phase": "dogstomach", "case": name, "dft_precision": tier,
+                      "refused": why})
+                check(False, f"dogStomach {name} {tier} refused: {why}")
+                continue
+            got = got[0]
+            plans[name, tier] = dict(kern.plan)
+            want = calls(plain, args, kw, sweeps_n)
+            line, increments_ok = {}, True
+            if sweeps_n == 0:
+                other = "highest" if tier == "bf16x3" else "bf16x3"
+                wit_tier = plain(*args, **dict(kw, dft_precision=other))
+                wit_cpu = plain(*(t.cpu() for t in args), **kw)
+                for i, key in ((0, "d"), (1, "v")):
+                    line[f"rel_err_{key}"] = rel(got[i], want[i])
+                    line[f"plain_{key}_vs_plain_{other}"] = rel(want[i], wit_tier[i])
+                    line[f"plain_{key}_card_vs_cpu"] = rel(want[i].cpu(), wit_cpu[i])
+                    line[f"kernel_{key}_vs_plain_cpu"] = rel(got[i].cpu(), wit_cpu[i])
+                line["limit_d"] = k3_d_limit(
+                    want[0], wit_cpu[0],
+                    line["plain_d_vs_plain_highest"] if tier == "bf16x3" else 0.0)
+                increments_ok = (line["rel_err_d"] <= line["limit_d"]
+                                 and line["rel_err_v"] <= TOL_P)
+                b_c, lo_c = kernels.bbox_extent(n, kw["pupil_radius"])
+                covered = torch.zeros(args[0].shape[1:], dtype=torch.bool, device=dev)
+                for (y, x), ok in zip(args[4].view(-1, 2).tolist(), args[5].tolist()):
+                    if ok:
+                        covered[y + lo_c:y + lo_c + b_c, x + lo_c:x + lo_c + b_c] = True
+                line["d_outside_windows"] = got[0][:, ~covered].abs().max().item()
+                got_s, want_s = applied(args, got), applied(args, want)
+            else:
+                got_s, want_s = got[:2], want[:2]
+            rel_a, rel_b = rel(got_s[0], want_s[0]), rel(got_s[1], want_s[1])
+            mets_err = ((got[2] - want[2]).abs() / want[2].abs()).max().item()
+            max_abs = max((got[0] - want[0]).abs().max().item(),
+                          (got[1] - want[1]).abs().max().item())
+            leak = got[1][..., outside].abs().max().item()
+            errs[name, tier] = max_abs
+            repeat_equal = all(torch.equal(x, y)
+                               for x, y in zip(calls(kern, args, kw, sweeps_n), got))
+            forced = {}
+            for cs in FORCED_CS:
+                count = []
+                smem_why = refusal(lambda: count.append(kernels.resident_clusters(
+                    probe, n, kw["pupil_radius"], slots, cs, dft_precision=tier)))
+                resident = 0 if smem_why else count[0]
+                launched = kern.launches
+                why, out, plan = forced_run(kern, args, kw, sweeps_n, cs, 0)
+                if why:
+                    forced[str(cs)] = {"refused": why, "resident_clusters": resident}
+                    check(resident == 0 and kern.launches == launched,
+                          f"dogStomach {name} {tier}: cs {cs} refused though {resident} "
+                          "clusters fit, or a refused call launched")
+                    continue
+                same = all(torch.equal(x, y) for x, y in zip(out, got))
+                forced[str(cs)] = {"plan": plan, "resident_clusters": resident,
+                                   "bitwise_equal_to_chosen": same}
+                check(resident > 0 and same and plan["cs"] == cs,
+                      f"dogStomach {name} {tier} at forced cs {cs}: not bitwise the chosen "
+                      f"plan's result, or ran where {resident} clusters fit")
+                if cs > 1:   # the other layout of Z
+                    layout = 1 if plan["zcut"] else 2
+                    why, out, plan = forced_run(kern, args, kw, sweeps_n, cs, layout)
+                    same = why is None and all(torch.equal(x, y) for x, y in zip(out, got))
+                    forced[f"{cs}, Z {'cut' if layout == 2 else 'whole'}"] = (
+                        {"refused": why} if why else
+                        {"plan": plan, "bitwise_equal_to_chosen": same})
+                    check(why or same, f"dogStomach {name} {tier} at cs {cs} with the other "
+                          "layout of Z is not bitwise the chosen plan's result")
+            emit({"phase": "dogstomach", "case": name, "dft_precision": tier,
+                  "plan": plans[name, tier], "sweeps": sweeps_n, "slots": slots,
+                  ("rel_err_o_plus_d" if sweeps_n == 0 else "rel_err_o"): rel_a,
+                  ("rel_err_p_plus_v" if sweeps_n == 0 else "rel_err_p"): rel_b,
+                  "metrics_rel_err": mets_err, "max_abs_err": max_abs,
+                  "pupil_outside_support": leak, "repeat_bitwise_equal": repeat_equal,
+                  "forced": forced, **line,
+                  "limits": {"rel_o": TOL_O, "rel_p": TOL_P, "metrics_rtol": TOL_METRICS}})
+            check(rel_a <= TOL_O and rel_b <= TOL_P and mets_err <= TOL_METRICS
+                  and increments_ok and leak == 0.0
+                  and line.get("d_outside_windows", 0.0) == 0.0 and repeat_equal,
+                  f"dogStomach {name} {tier} disagrees with its plain version or its repeat")
+
+    # The CLI's three modes at both tiers: sequential (K2), batched with
+    # --chunk-size 32 asked (K1 at the chunk fpm_tpu runs, 16) and --mesh 2 2
+    # (K3), each with every counter at 0 before it and only its kernel moving.
+    wrappers = {"K1": kernels.fused_epry_chunked, "K2": kernels.fused_epry_sweep,
+                "K3": kernels.fused_chunk_increments}
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="fpm_chip_smoke_dog_") as tmp:
+        cfg_path = write_dataset(os.path.join(tmp, "data"), cfg, geom, frames)
+        runs = (("sequential", ["--mode", "sequential"], "K2"),
+                ("batched", ["--mode", "batched"], "K1"),
+                ("mesh 2 2", ["--mesh", "2", "2"], "K3"))
+        for tier in TIERS:
+            for label, flags, key in runs:
+                out = os.path.join(tmp, f"out_{label.replace(' ', '_')}_{tier}")
+                for w in wrappers.values():
+                    w.launches = 0
+                t0 = time.perf_counter()
+                rc = cli.main(["run", cfg_path, "-n", "10", "-o", out, "--use-pallas",
+                               "--chunk-size", str(DOG_CHUNK_REQUESTED), "--dft-precision",
+                               tier, *flags])
+                wall = time.perf_counter() - t0
+                counts = {k: w.launches for k, w in wrappers.items()}
+                launches[key, tier] = counts[key]
+                check(rc == 0, f"dogStomach run {label} {tier} exited {rc}")
+                missing = [f for f in OUTPUT_FILES if not os.path.exists(os.path.join(out, f))]
+                obj = np.load(os.path.join(out, "object.npy"))
+                rmse = amplitude_rmse(obj, obj_true)
+                records = read_records(out)
+                options = next(r for r in records if r["event"] == "solver_options")
+                run_decoder = next(r for r in records if r["event"] == "dataset")["decoder"]
+                emit({"phase": "dogstomach", "run": label, "dft_precision": tier,
+                      "iterations": 10, "wall_s": wall,
+                      "phase_s": {r["name"]: r["seconds"] for r in records
+                                  if r["event"] == "phase"},
+                      "launches": counts, "plan": dict(wrappers[key].plan),
+                      "recorded_chunk_size": options["chunk_size"],
+                      "recorded_mesh": options["mesh"], "decoder": run_decoder,
+                      "amp_rmse": rmse,
+                      "rmse_limit": RMSE_LIMIT})
+                check(not missing, f"dogStomach run {label} {tier} wrote no {missing}")
+                check(counts[key] > 0 and all(c == 0 for k, c in counts.items() if k != key),
+                      f"dogStomach run {label} {tier}: launches {counts}")
+                check(obj.shape == (nl, nl) and np.isfinite(obj).all(),
+                      f"dogStomach run {label} {tier}: object {obj.shape} not finite")
+                check(options["dft_precision"] == tier, f"dogStomach run {label} recorded "
+                      f"dft_precision {options['dft_precision']}")
+                check(label != "batched" or options["chunk_size"] == DOG_CHUNK_RUN,
+                      f"dogStomach batched run recorded chunk {options['chunk_size']}, "
+                      f"not fpm_tpu's {DOG_CHUNK_RUN}")
+                check(rmse < RMSE_LIMIT,
+                      f"dogStomach run {label} {tier}: amplitude RMSE {rmse} >= {RMSE_LIMIT}")
+
+    # Timing at each tier: through the wrapper (CUDA events), device ms by
+    # kernel (torch.profiler), the plain version, the eager torch.fft route
+    # (library_ms) and the bound; K2's phase profile at the chosen cs.
+    support_c = sup.to(torch.complex64)
+    eager = dataclasses.replace(opts, use_pallas=False)
+    m16 = epry.chunk_permute(amps, starts, DOG_CHUNK_RUN, "strided", torch.float32)
+    tile0 = k3_blocks["K3 tile block 0, rank of mesh (2,2)"]
+    library_ms = {
+        "K2": cuda_ms(lambda: epry.sweep_sequential(o0, p0, amps, starts, support=support_c,
+                                                    opts=eager), 1),
+        "K1": cuda_ms(lambda: epry.sweep_batched(o0, p0, m16[0], m16[1], support=support_c,
+                                                 opts=eager, mask=m16[2]), 1),
+        "K3": cuda_ms(lambda: led_shard._chunk_increments(
+            torch.complex(tile0[0][0], tile0[0][1]), torch.complex(tile0[1][0], tile0[1][1]),
+            support_c, tile0[2], tile0[3].view(-1, 2), tile0[4].to(torch.float32),
+            opts=eager), 3),
+    }
+    by_name = {c[0]: c for c in cases}
+    timed = (("K2", "K2 exact", "fused_epry_sweep", "epry_sweep.cu", ":1131"),
+             ("K1", f"K1 chunk {DOG_CHUNK_RUN}", "fused_epry_chunked", "epry_chunked.cu", ":775"),
+             ("K3", "K3 tile block 0, rank of mesh (2,2)", "fused_chunk_increments",
+              "epry_increments.cu", ":1006"))
+    n_valid = int(tile0[4].sum())
+    o_elems = window_union(tile0[3].view(-1, 2).tolist(), tile0[4].tolist(), n, b, lo,
+                           tile0[0].shape[1], tile0[0].shape[2])
+    rows = []
+    for tier in TIERS:
+        for key, case, name, src, line in timed:
+            _, kern, plain, args, sweeps_n, kw, slots = by_name[case]
+            kw = dict(kw, dft_precision=tier)
+
+            def once(fn=kern):
+                return fn(*args, **kw)
+
+            kern.launches = 0
+            once()
+            per_call, plan = kern.launches, dict(kern.plan)
+            ms = cuda_ms(once, 5 if key != "K2" else 3)
+            by_kernel = device_ms_by_kernel(once)
+            other = []                                  # the other layout of Z, if it fits
+            kern.force_z_layout = 2 - plan["zcut"]
+            try:
+                refusal(lambda: other.append(sum(device_ms_by_kernel(once).values())))
+            finally:
+                kern.force_z_layout = 0
+            device_other = other[0] if other else None
+            plain_ms = cuda_ms(lambda: once(plain), 1)
+            if key == "K3":
+                nbytes, flops = increments_work(n_valid, slots, n, b, tile0[0].shape[1],
+                                                tile0[0].shape[2], o_elems)
+            else:
+                nbytes, flops = sweep_work(k_leds, n, b, nl, k_leds if key == "K2"
+                                           else int(args[-1].numel()), has_valid=key == "K1")
+            bound_ms, bound_by = bound(nbytes, flops)
+            err = max(v for (c, t), v in errs.items() if c.startswith(key) and t == tier)
+            rows.append({"name": f"{name} [{tier}, Np 200]", "dft_precision": tier,
+                         "route": "cuda", "source": f"fpm_torch/ops/csrc/{src}",
+                         "replaces": f"fpm_tpu/ops/pallas_kernels.py{line}",
+                         "launches": launches[key, tier], "cluster_size": plan["cs"],
+                         "max_abs_err": err, "ms": ms, "device_ms": sum(by_kernel.values()),
+                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": library_ms[key]})
+            emit({"phase": "dogstomach", "step": "timing", "kernel": name, "dft_precision": tier,
+                  "as": case, "plan": plan, "launches_per_call": per_call,
+                  ("ms_per_call" if key == "K3" else "ms_per_sweep"): ms,
+                  "device_ms_by_kernel": by_kernel,
+                  f"device_ms_z_{'whole' if plan['zcut'] else 'cut_by_rows'}": device_other,
+                  "plain_ms": plain_ms, "library_ms": library_ms[key], "bound_ms": bound_ms,
+                  "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+                  "led_frames_per_s": None if key == "K3" else k_leds / ms * 1e3, "gpu": smi})
+        _, _, _, args, _, kw, _ = by_name["K2 exact"]
+        kw = dict(kw, dft_precision=tier)
+        kernels.k2_phase_profile(*args, **kw)              # built and warm
+        (po, pp, _), cycles = kernels.k2_phase_profile(*args, **kw)
+        ko, kp, _ = kernels.fused_epry_sweep(*args, **kw)
+        check(torch.equal(po, ko) and torch.equal(pp, kp),
+              f"dogStomach: K2's profile build gives another result ({tier})")
+        total = sum(cycles.values())
+        emit({"phase": "dogstomach", "step": "timing", "kernel": "fused_epry_sweep",
+              "dft_precision": tier, "k2_phase_profile": {
+                  "cluster_size": kernels.fused_epry_sweep.cluster_size, "leds": k_leds,
+                  "cycles_per_led": total / k_leds,
+                  "share_by_phase": {p: c / total for p, c in cycles.items()},
+                  "cycles_per_led_by_phase": {p: c / k_leds for p, c in cycles.items()}},
+              "gpu": smi})
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the test object")
     args = ap.parse_args(argv)
-
     import torch
 
     if not torch.cuda.is_available():
@@ -357,7 +887,7 @@ def main(argv=None) -> int:
 
     from fpm_torch import cli
     from fpm_torch.config import FPMConfig, load_config
-    from fpm_torch.data.loader import load_dataset, load_dataset_rgb
+    from fpm_torch.data.loader import load_dataset_rgb
     from fpm_torch.data.simulate import make_test_object, simulate_images
     from fpm_torch.geometry import compute_geometry, pupil_support
     from fpm_torch.models import epry
@@ -378,7 +908,9 @@ def main(argv=None) -> int:
             for stem in sorted(libs)}
     emit({"phase": "device", "gpu": smi, "torch": torch.__version__,
           "torch_cuda": torch.version.cuda, "kernel_build_s": build_s,
-          "libraries": sorted(p.name for p in libs.values()), "hmma_instructions": hmma})
+          "libraries": sorted(p.name for p in libs.values()), "hmma_instructions": hmma,
+          "ptxas": {stem: {short_name(k): v for k, v in build.resources(stem).items()}
+                    for stem in sorted(libs)}})
     for stem, counts in hmma.items():
         by_tier = {}
         for name, c in counts.items():
@@ -391,6 +923,7 @@ def main(argv=None) -> int:
               f"{stem}: a highest instantiation holds HMMA instructions: {counts}")
 
     dev = torch.device("cuda")
+    emit(kernel_digests(dev))
     cfg = FPMConfig(max_illumination_na=0.45, iterations=10)
     geom = compute_geometry(cfg)
     obj_true = make_test_object(cfg.n_large, seed=args.seed)
@@ -571,6 +1104,10 @@ def main(argv=None) -> int:
                 hd = kernels.fused_chunk_increments_plain(
                     blk, pp, sup_r, a_, st_, va_, **dict(kw, dft_precision="highest"))[0]
                 tier_d = rel(pd, hd)
+            # The same plain version on the CPU (another f32 summation order):
+            # how far two orders of one function lie apart on d.
+            cpu_d = kernels.fused_chunk_increments_plain(
+                *(t.cpu() for t in (blk, pp, sup_r, a_, st_, va_)), **kw)[0]
             tol_d = max(TOL_O, tier_d)
             covered = torch.zeros(blk.shape[1:], dtype=torch.bool, device=dev)
             for (y, x), ok in zip(st_.view(-1, 2).tolist(), va_.tolist()):
@@ -596,6 +1133,8 @@ def main(argv=None) -> int:
                       "max_abs_err": max_abs, "metrics_rel_err": rel_m,
                       "d_outside_windows": d_leak, "v_outside_support": v_leak,
                       "plain_d_vs_plain_highest": tier_d,
+                      "plain_d_cpu_vs_card": rel(cpu_d, pd.cpu()),
+                      "kernel_d_vs_plain_cpu": rel(kd.cpu(), cpu_d),
                       "kernel_d_vs_plain_highest": rel(kd, hd) if hd is not None else 0.0,
                       "limits": {"rel_d": tol_d, "rel_v": TOL_P, "metrics_rtol": TOL_METRICS}})
                 check(k3.cluster_size == (forced or chosen_cs[name, tier]),
@@ -714,6 +1253,7 @@ def main(argv=None) -> int:
     launches = {}
     with tempfile.TemporaryDirectory(prefix="fpm_chip_smoke_") as tmp:
         cfg_path = write_dataset(os.path.join(tmp, "data"), cfg, geom, frames)
+        decoder = ingest_both(load_config(cfg_path), f"{n}x{n} crops")[1]
         wrappers = {"K1": kernels.fused_epry_chunked, "K2": kernels.fused_epry_sweep,
                     "K3": kernels.fused_chunk_increments}
         # (label, flags, kernel, the same solve in this process); the default
@@ -762,6 +1302,8 @@ def main(argv=None) -> int:
                 records = [json.loads(line) for line in f]
             phase_s = {r["name"]: r["seconds"] for r in records if r["event"] == "phase"}
             options = next(r for r in records if r["event"] == "solver_options")
+            run_decoder = next(r for r in records if r["event"] == "dataset")["decoder"]
+            check(run_decoder == decoder, f"run {label} decoded with {run_decoder}, not {decoder}")
             want_mesh = [int(x) for x in flags[1:3]] if flags[0] == "--mesh" else None
             check(options["mesh"] == want_mesh and (want_mesh is None
                                                     or options["mode"] == "batched"),
@@ -780,7 +1322,7 @@ def main(argv=None) -> int:
                   "iterations": 10, "wall_s": wall,
                   "phase_s": phase_s, "reconstruct_warm_s": warm_s[-1],
                   "launches": counts, "recorded_mesh": options["mesh"],
-                  "amp_rmse": rmse, "rmse_limit": RMSE_LIMIT,
+                  "decoder": run_decoder, "amp_rmse": rmse, "rmse_limit": RMSE_LIMIT,
                   "data_residual_first_last": [resid[0], resid[-1]]})
             check(rmse < RMSE_LIMIT, f"run {label} amplitude RMSE {rmse} >= {RMSE_LIMIT}")
 
@@ -814,7 +1356,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="fpm_chip_smoke_wide_") as tmp:
         fov_path = write_dataset(os.path.join(tmp, "wide"), cfg, geom, wide_frames)
         cfg_fov = load_config(fov_path, iterations=10)
-        full = load_dataset(cfg_fov, full_frames=True)
+        full = ingest_both(cfg_fov, f"{WIDE}x{WIDE} whole frames", full_frames=True)[0]
         grid, overlap = 8, n // 4
         hr = cfg.res_improvement_factor * (n + (n - overlap) * (grid - 1))
         firsts = {}
@@ -972,9 +1514,6 @@ def main(argv=None) -> int:
         "K2": cuda_ms(lambda: epry.sweep_sequential(o0, p0, amps, starts, support=support_c,
                                                     opts=opts), 2),
     }
-    emit({"phase": "timing", "ptxas": {
-        stem: {short_name(k): v for k, v in build.resources(stem).items()} for stem in sorted(libs)},
-        "gpu": smi})
     # Each kernel's main-path run at each tier (main_path above).
     main_run = {"K1": "batched", "K2": "sequential", "K3": "mesh 4 1"}
 
@@ -1006,6 +1545,11 @@ def main(argv=None) -> int:
                 by_cs[str(forced)] = cuda_ms(sweep, 3)
                 device_by_cs[str(forced)] = sum(device_ms_by_kernel(sweep).values())
                 kern.force_cluster_size = 0
+            # Z cut by rows across the cluster (where whole Z fits, as here,
+            # the entry point keeps it whole): the device time of that layout.
+            kern.force_z_layout = 2
+            device_z_cut = sum(device_ms_by_kernel(sweep).values())
+            kern.force_z_layout = 0
             plain_ms = cuda_ms(lambda: plain(o_planes, p_planes, sup_r, *rest, **common, **extra),
                                2)
             nbytes, flops = sweep_work(k_leds, n, b, nl, n_slots if key == "K1" else k_leds,
@@ -1025,7 +1569,7 @@ def main(argv=None) -> int:
                   "blocks_per_forward_launch": cs * (amps_it.shape[1] if key == "K1" else 1),
                   "ms_per_sweep": ms, "ms_per_sweep_by_forced_cluster_size": by_cs,
                   "device_ms_per_sweep_by_forced_cluster_size": device_by_cs,
-                  "plain_ms": plain_ms, "library_ms": library_ms[key], "bound_ms": bound_ms,
+                  "device_ms_per_sweep_z_cut_by_rows": device_z_cut, "plain_ms": plain_ms, "library_ms": library_ms[key], "bound_ms": bound_ms,
                   "bound_by": bound_by, "bytes": nbytes, "flops": flops,
                   "launches_per_sweep": per_sweep, "led_frames_per_s": k_leds / ms * 1e3,
                   "device_ms_by_kernel": by_kernel,
@@ -1212,6 +1756,7 @@ def main(argv=None) -> int:
               "device_kernel_count_by_name": len(by_kernel),
               "device_ms_top_kernels": dict(list(by_kernel.items())[:6]), "gpu": smi})
 
+    rows += dogstomach(args.seed, smi, dev)
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,9 +25,11 @@ solves the three channels together (one launch per sweep on the GPU).
 ``--dft-precision`` picks the kernels' DFT products: ``bf16x3`` (the default,
 as in ``fpm_tpu``: a 3-pass bf16 split on the tensor cores) or ``highest``
 (FP32); the eager route has no such products and ignores it, as ``fpm_tpu``
-does. Flags of paths not yet ported (multi-process ``--distributed``, debug
-dumps, the native decoder) are accepted by the parser and refused with an
-error naming them.
+does. The frames are decoded by the native C++ decoder where it builds and
+the files are TIFF, else by PIL (``--no-native`` forces PIL; the arrays are
+the same). Flags of paths not yet ported (multi-process ``--distributed``,
+debug dumps) are accepted by the parser and refused with an error naming
+them.
 """
 
 from __future__ import annotations
@@ -69,7 +71,7 @@ def _add_run_parser(sub):
     p.add_argument("--debug", action="store_true", help="(not yet ported)")
     p.add_argument("--debug-led", type=int, default=None, metavar="K",
                    help="(not yet ported)")
-    p.add_argument("--no-native", action="store_true", help="(not yet ported)")
+    p.add_argument("--no-native", action="store_true", help="force the Python (PIL) loader")
     p.add_argument("--fov-grid", type=int, nargs=2, metavar=("R", "C"), default=None,
                    help="large field of view: reconstruct an R x C grid of "
                         "overlapping Np x Np ROIs of the whole frames and stitch "
@@ -115,7 +117,6 @@ def _refuse_unported(args) -> None:
         "--debug": args.debug,
         "--debug-led": args.debug_led is not None,
         "--distributed": args.distributed,
-        "--no-native": args.no_native,
     }
     for flag, given in unported.items():
         if given:
@@ -407,8 +408,9 @@ def _run_single(args, cfg, logger, device, watchdog) -> str:
     from .utils.profiling import phase
 
     with phase("ingest", logger):
-        dataset = load_dataset(cfg)
-    logger.log("dataset", leds=int(dataset.geom.num_leds))
+        dataset = load_dataset(cfg, use_native=False if args.no_native else None)
+    logger.log("dataset", leds=int(dataset.geom.num_leds), decoder=dataset.decoder,
+               fallback_files=dataset.fallback_files)
     print(f"[fpm-torch] loaded {dataset.geom.num_leds} LED frames "
           f"(Np={cfg.np_size}, Nlarge={cfg.n_large})")
 
@@ -489,7 +491,10 @@ def _run_large_fov(args, cfg, logger, device, watchdog) -> str:
     from .utils.profiling import phase
 
     with phase("ingest", logger):
-        dataset = load_dataset(cfg, full_frames=True)
+        dataset = load_dataset(cfg, use_native=False if args.no_native else None,
+                               full_frames=True)
+    logger.log("dataset", leds=int(dataset.geom.num_leds), decoder=dataset.decoder,
+               fallback_files=dataset.fallback_files)
     rows, cols = args.fov_grid
     eff_chunk = effective_chunk_size(cfg.np_size, args.chunk_size,
                                      int(dataset.geom.num_leds), bool(args.use_pallas),
@@ -558,8 +563,10 @@ def _run_rgb(args, cfg, logger, device, watchdog) -> str:
     # channels are preprocessed from that decode (bitwise three per-channel
     # loads), at the price of holding the three channel stacks at once.
     with phase("ingest[rgb]", logger):
-        channels = load_dataset_rgb(cfg)
+        channels = load_dataset_rgb(cfg, use_native=False if args.no_native else None)
     geom = channels[0].geom
+    logger.log("dataset", leds=int(geom.num_leds), decoder=channels[0].decoder,
+               fallback_files=channels[0].fallback_files)
     eff_chunk = effective_chunk_size(cfg.np_size, args.chunk_size, int(geom.num_leds),
                                      bool(args.use_pallas), args.mode)
     solver_kwargs = _solver_kwargs(args)

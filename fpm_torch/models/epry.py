@@ -302,25 +302,45 @@ def _from_planes(planes, like):
     return torch.complex(planes[0], planes[1]).to(like.dtype)
 
 
+# fpm_tpu's ceiling on the kernel route's chunk (fpm_tpu/ops/pallas_kernels.py
+# _CHUNK_ROWS_LIMIT and max_pallas_chunk: stacked chunk rows C·round_up(Np, 8)
+# at most 3328, a limit of its TPU compiler). The CUDA kernels have no such
+# limit; the port reproduces it so that the same command runs the same chunk,
+# and so the same trajectory and checkpoint fingerprint, in both packages.
+_FPM_TPU_CHUNK_ROWS_LIMIT = 3328
+
+
+def max_kernel_chunk(np_size: int) -> int:
+    """fpm_tpu's ``max_pallas_chunk``: the largest chunk of LEDs its fused
+    chunked kernel runs at patch size ``np_size`` (34 at Np 90, 16 at 200)."""
+    return max(1, _FPM_TPU_CHUNK_ROWS_LIMIT // (-(-np_size // 8) * 8))
+
+
 def effective_chunk_size(np_size: int, chunk_size: int, k: int,
                          use_pallas: bool, mode: str, n_led: int = 1) -> int:
     """The chunk size that will actually run (recorded in provenance), on
     every solver path: :func:`reconstruct`, the sharded sweeps of
     ``fpm_torch.parallel`` and the CLI's fingerprint all call it.
+    ``fpm_tpu.models.epry.effective_chunk_size``'s value in every case.
 
-    Sequential mode and the single-device eager batched route pass the
-    request through; the single-device kernel route runs ``min(chunk or K,
-    K)``. The LED-sharded sweep (``n_led`` > 1) rounds ``chunk or K`` UP to a
-    multiple of ``n_led`` so every rank gets an equal slice (padded with
-    masked dummies), on both routes. (The JAX package also clamps to a TPU
-    compiler ceiling; the CUDA kernels have none.)
+    Sequential mode and the eager batched route on one device pass the
+    request through. The kernel route clamps ``chunk or K`` to
+    :func:`max_kernel_chunk` · ``n_led`` (and, on one device, to K). The
+    LED-sharded sweep (``n_led`` > 1) then rounds it UP to a multiple of
+    ``n_led`` so every rank gets an equal slice (padded with masked
+    dummies), on both routes.
     """
     if mode != "batched":
         return chunk_size
     eff = chunk_size if chunk_size > 0 else k
-    if n_led == 1:
-        return min(eff, k) if use_pallas else chunk_size
-    return -(-eff // n_led) * n_led
+    if use_pallas:
+        cap = max_kernel_chunk(np_size) * n_led
+        eff = min(eff, cap, k) if n_led == 1 else min(eff, cap)
+    elif n_led == 1:
+        return chunk_size
+    if n_led > 1:
+        eff = -(-eff // n_led) * n_led
+    return eff
 
 
 def chunk_schedule(k: int, chunk_size: int, assign: str) -> tuple[np.ndarray, np.ndarray, int]:

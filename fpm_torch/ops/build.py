@@ -95,13 +95,13 @@ _IP = ctypes.POINTER(ctypes.c_int)
 # C signatures of the entry points (see the sources for the argument meaning).
 _SIGNATURES = {
     "epry_chunked": {"fpm_k1_sweep": [_P] * 15 + [_I] * 7 + [_F] * 4
-                     + [_I, _I, _I, _P, _I, _IP, _IP],
+                     + [_I, _I, _I, _P, _I, _I, _IP, _IP],
                      "fpm_resident_clusters": [_I] * 6 + [_IP]},
     "epry_sweep": {"fpm_k2_sweep": [_P] * 11 + [_I] * 6 + [_F] * 3
-                   + [_I, _I, _I, _I, _P, _I, _IP, _IP],
+                   + [_I, _I, _I, _I, _P, _I, _I, _IP, _IP],
                    "fpm_resident_clusters": [_I] * 6 + [_IP]},
     "epry_increments": {"fpm_k3_increments": [_P] * 16 + [_I] * 6 + [_F] * 3
-                        + [_I, _I, _I, _P, _I, _IP, _IP]},
+                        + [_I, _I, _I, _P, _I, _I, _IP, _IP]},
 }
 
 

@@ -28,16 +28,16 @@ namespace fpm {
 // writes another problem's data. A masked dummy (valid_j = 0) exits at once,
 // before any cluster barrier: every block of its cluster sees the same
 // valid_j, so none waits for a peer that left, and its frame and start are
-// never read.
-template <int T>
-__global__ void __launch_bounds__(kThreads)
-chunk_forward(const float* o, size_t o_stride, int n_rows, int n_cols,
-              const float* p, size_t p_stride,
-              const float* __restrict__ sup, const float* __restrict__ amps, size_t a_stride,
-              const int* __restrict__ starts, const int* __restrict__ valid, int c,
-              DftMats m, int n, int b, int lo, float eps, float delta1, float delta2,
-              int metrics, float2* __restrict__ d_obj, float2* __restrict__ num,
-              float* __restrict__ parts, LedPlan plan) {
+// never read. CUT: Z is cut by rows across the cluster (the plan's zcut;
+// chunk_forward_zcut), else whole in every block (chunk_forward).
+template <int T, bool CUT>
+__device__ __forceinline__ void chunk_forward_body(
+    const float* o, size_t o_stride, int n_rows, int n_cols, const float* p, size_t p_stride,
+    const float* __restrict__ sup, const float* __restrict__ amps, size_t a_stride,
+    const int* __restrict__ starts, const int* __restrict__ valid, int c, DftMats m, int n,
+    int b, int lo, float eps, float delta1, float delta2, int metrics,
+    float2* __restrict__ d_obj, float2* __restrict__ num, float* __restrict__ parts,
+    LedPlan plan) {
   cg::cluster_group cluster = cg::this_cluster();
   const int g = blockIdx.x / plan.cs;
   const int q = g / c, j = g - q * c;
@@ -53,11 +53,11 @@ chunk_forward(const float* o, size_t o_stride, int n_rows, int n_cols,
   const float* p_re = p + q * p_stride;
   const float* p_im = p_re + bb;
   extern __shared__ float4 smem_raw[];
-  const LedSmem s = carve_smem(smem_raw, m, n, b, plan, rank, T == kBf16x3);
+  const LedSmem s = carve_smem<CUT>(smem_raw, m, n, b, plan, rank, T == kBf16x3);
   const int y0 = clamp_start(starts[2 * j], n_rows, n) + lo;
   const int x0 = clamp_start(starts[2 * j + 1], n_cols, n) + lo;
   float pmax;
-  led_forward<T>(o_re, o_im, n_cols, y0, x0, p_re, p_im,
+  led_forward<T, CUT>(o_re, o_im, n_cols, y0, x0, p_re, p_im,
               amps + q * a_stride + ((size_t)j * n + s.row0) * n, n, b, eps, metrics != 0, s,
               &pmax);
   const size_t slab = (size_t)g * bb + (size_t)s.brow0 * b;
@@ -78,6 +78,34 @@ chunk_forward(const float* o, size_t o_stride, int n_rows, int n_cols,
       part[1] = upd;
     }
   }
+}
+
+template <int T>
+__global__ void __launch_bounds__(kThreads)
+chunk_forward(const float* o, size_t o_stride, int n_rows, int n_cols,
+              const float* p, size_t p_stride,
+              const float* __restrict__ sup, const float* __restrict__ amps, size_t a_stride,
+              const int* __restrict__ starts, const int* __restrict__ valid, int c,
+              DftMats m, int n, int b, int lo, float eps, float delta1, float delta2,
+              int metrics, float2* __restrict__ d_obj, float2* __restrict__ num,
+              float* __restrict__ parts, LedPlan plan) {
+  chunk_forward_body<T, false>(o, o_stride, n_rows, n_cols, p, p_stride, sup, amps, a_stride,
+                               starts, valid, c, m, n, b, lo, eps, delta1, delta2, metrics,
+                               d_obj, num, parts, plan);
+}
+
+template <int T>
+__global__ void __launch_bounds__(kThreads)
+chunk_forward_zcut(const float* o, size_t o_stride, int n_rows, int n_cols,
+                   const float* p, size_t p_stride,
+                   const float* __restrict__ sup, const float* __restrict__ amps, size_t a_stride,
+                   const int* __restrict__ starts, const int* __restrict__ valid, int c,
+                   DftMats m, int n, int b, int lo, float eps, float delta1, float delta2,
+                   int metrics, float2* __restrict__ d_obj, float2* __restrict__ num,
+                   float* __restrict__ parts, LedPlan plan) {
+  chunk_forward_body<T, true>(o, o_stride, n_rows, n_cols, p, p_stride, sup, amps, a_stride,
+                              starts, valid, c, m, n, b, lo, eps, delta1, delta2, metrics,
+                              d_obj, num, parts, plan);
 }
 
 // Σ_j valid_j·dO_j over the windows of the chunk that cover block element

@@ -106,8 +106,9 @@ k1_pupil(float* __restrict__ p, const int* __restrict__ valid, int c, int bb,
 //   mets   (P, 2) f32, accumulated into
 //   tier                  Tier of the products: 0 highest, 1 bf16x3
 //   force_cs              tests only: the cluster size to take (0 = choose)
+//   force_zcut            tests only: Z whole (1) or cut by rows (2) (0 = choose)
 //   launches              host int, incremented at each accepted launch
-//   cluster_size          host int, set to the cluster size chosen
+//   plan_out              host int[kPlanFields], set to the plan chosen (export_plan)
 // Returns a cudaError_t value (0 = every launch was accepted), kErrLedSmem or
 // kErrCluster.
 template <int T>
@@ -116,15 +117,16 @@ static int k1_sweep_at(float* o, float* p, const float* sup, const float* amps,
                        void* num, float* parts, unsigned int* omax_bits, float* mets,
                        int n_problems, int n_chunks, int c, int n, int b, int lo, int nl,
                        float eps, float delta1, float delta2, float scale, int metrics,
-                       int device, cudaStream_t st, int force_cs, int* launches,
-                       int* cluster_size) {
+                       int device, cudaStream_t st, int force_cs, int force_zcut,
+                       int* launches, int* plan_out) {
   using namespace fpm;
   cudaError_t err;
   LedPlan plan;
-  if (const int e =
-          plan_led(chunk_forward<T>, n, b, n_problems * c, 0, false, T, force_cs, device, &plan))
+  const KernelPair<decltype(&chunk_forward<T>)> kernel{chunk_forward<T>, chunk_forward_zcut<T>};
+  if (const int e = plan_led(kernel, n, b, n_problems * c, 0, false, T, force_cs, force_zcut,
+                             device, &plan))
     return e;
-  *cluster_size = plan.cs;
+  export_plan(plan, plan_out);
   const ClusterLaunch forward(n_problems * c, plan, st);
   const size_t plane = (size_t)nl * nl;
   const int bb = b * b;
@@ -135,7 +137,7 @@ static int k1_sweep_at(float* o, float* p, const float* sup, const float* amps,
     const float* a_k = amps + (size_t)k * c * n * n;
     const int* s_k = starts + 2 * k * c;
     const int* v_k = valid + k * c;
-    cudaLaunchKernelEx(&forward.cfg, chunk_forward<T>, (const float*)o, 2 * plane, nl, nl,
+    cudaLaunchKernelEx(&forward.cfg, kernel.of(plan), (const float*)o, 2 * plane, nl, nl,
                        (const float*)p, (size_t)2 * bb, sup, a_k, a_stride, s_k, v_k, c, m, n,
                        b, lo, eps, delta1, delta2, metrics, static_cast<float2*>(d_obj),
                        static_cast<float2*>(num), parts, plan);
@@ -157,8 +159,8 @@ extern "C" int fpm_k1_sweep(float* o, float* p, const float* sup, const float* a
                             void* num, float* parts, unsigned int* omax_bits, float* mets,
                             int n_problems, int n_chunks, int c, int n, int b, int lo, int nl,
                             float eps, float delta1, float delta2, float scale, int metrics,
-                            int tier, int device, void* stream, int force_cs, int* launches,
-                            int* cluster_size) {
+                            int tier, int device, void* stream, int force_cs, int force_zcut,
+                            int* launches, int* plan_out) {
   using namespace fpm;
   const DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
@@ -171,7 +173,7 @@ extern "C" int fpm_k1_sweep(float* o, float* p, const float* sup, const float* a
   if (!run) return (int)cudaErrorInvalidValue;
   return run(o, p, sup, amps, starts, valid, m, d_obj, num, parts, omax_bits, mets, n_problems,
              n_chunks, c, n, b, lo, nl, eps, delta1, delta2, scale, metrics, device,
-             static_cast<cudaStream_t>(stream), force_cs, launches, cluster_size);
+             static_cast<cudaStream_t>(stream), force_cs, force_zcut, launches, plan_out);
 }
 
 // How many clusters of cs blocks of K1's forward at ``tier`` the card holds
@@ -181,9 +183,12 @@ extern "C" int fpm_resident_clusters(int n, int b, int slots, int cs, int tier, 
                                      int* clusters) {
   using namespace fpm;
   if (tier == kBf16x3)
-    return resident_clusters(chunk_forward<kBf16x3>, n, b, slots, 0, cs, tier, device, clusters);
+    return resident_clusters(KernelPair<decltype(&chunk_forward<kBf16x3>)>{
+                                 chunk_forward<kBf16x3>, chunk_forward_zcut<kBf16x3>},
+                             n, b, slots, 0, cs, tier, device, clusters);
   if (tier == kHighest)
-    return resident_clusters(chunk_forward<kHighest>, n, b, slots, 0, cs, tier, device,
-                             clusters);
+    return resident_clusters(KernelPair<decltype(&chunk_forward<kHighest>)>{
+                                 chunk_forward<kHighest>, chunk_forward_zcut<kHighest>},
+                             n, b, slots, 0, cs, tier, device, clusters);
   return (int)cudaErrorInvalidValue;
 }

@@ -41,8 +41,8 @@
 // atomics. Block r owns slab r of the image plane's rows and of its
 // columns (at most nr = ceil(n/cs) each; the last slab may be short or
 // empty) and slab r of the bbox's rows (at most br = ceil(b/cs)). With
-// Z = Oc∘P (b×b, every block computes its own copy: cheaper than sharing
-// 32 KB):
+// Z = Oc∘P (b×b) whole in every block (each computes its own copy: cheaper
+// than sharing it):
 //   T_r    = Ai[rows_r, :] · Z          local
 //   img_r  = T_r · Bi                   local rows of the image; the amplitude
 //                                       replacement and the data residual
@@ -60,6 +60,20 @@
 // reaches, the DFT matrices its products read (Bi, Bf, Ai[rows_r,:], Af:
 // 144 KB at cs=8), so the contraction loops read both operands from shared
 // memory. cs=1 is the single-block layout: nothing is gathered.
+// Where Z whole does not fit a block (the whole 200×200 patch as the bbox),
+// Z is cut by the bbox rows too (a plan's zcut; the *_zcut kernels, built
+// from the same code with CUT): block r builds its br rows of Z and their
+// share of max|P| (a cluster max after an extra barrier 0: a max has no
+// order), and product 1 reads row k of Z from block k / br through DSMEM (a
+// table gives each row's cluster address, carve_smem). Every element of T_r
+// is still one tile's (or thread's) sum over k in order, so the results are
+// bitwise those of Z whole; V[:, cols_r] takes the place of the block's
+// rows of Z after barrier 1, when every peer is done with product 1. Where
+// Z whole fits, it is kept: on an H100 the cut made K2 slower (product 1
+// through DSMEM doubled; PERF.md §6). What then bounds Np is the image
+// plane's slabs: img_r, the gathered rep columns (nr·n values each) and
+// T_r; at Np=200 they keep cs = 4 out (80 KB each at nr = 50), and the
+// largest b = n that fits cs = 8 is 226 (bf16x3; plan_led refuses more).
 // The metric sums do not depend on cs either: one warp sums each 32-column
 // segment of an image row (and of a bbox row), lane l on column 32·seg + l,
 // the block that owns the row adds that into the segment's accumulator;
@@ -78,14 +92,13 @@
 // product 17 % whichever tile it took. The element-wise passes step their
 // 2-D indices without divisions and start a batch of loads before the
 // first use.
-// Z must fit one block whole: Np=200 (b≈136, 148 KB + its slabs) does not
-// fit beside them and is refused (plan_led).
 //
 // cgemm_tc gives a warp one 16×8 tile of the complex output over the WHOLE
 // contraction, in k order, 16 at a time (K padded with zeros to a multiple
 // of 16; rows and columns past M and N repeat a valid index and are not
 // stored), with the three passes in three accumulators added as
-// hh + (hl + lh) at the end: the same cut by outputs as cgemm, so results
+// hh + (hl + lh) at the end (in K3 each k-step's products reach them through
+// fresh accumulators, kstep): the same cut by outputs as cgemm, so results
 // stay independent of cs and P and repeat to the last bit; the six
 // independent products of a k-step go first and the next k-step's
 // fragments load while they run. Its layout of a static matrix takes the
@@ -129,6 +142,7 @@ namespace cg = cooperative_groups;
 #define FPM_PHASES(X)                              \
   X(FrameWait, "frame wait")                       \
   X(Window, "window, Z, max|P|")                   \
+  X(Barrier0, "cluster barrier 0")                 \
   X(Product1, "product 1: T = Ai·Z")               \
   X(Product2, "product 2: img = T·Bi")             \
   X(Replace, "replace, residual")                  \
@@ -250,15 +264,70 @@ struct Operand {
   }
 };
 
-// C (M×N, row stride ldc) = A (M×K, lda) · B (K×N, ldb), complex, one
-// TM × 2 register tile per thread (TM rows of one pair of columns), each
-// element one sum over k in order. Neighbouring threads read neighbouring
-// pairs of B. VEC: a pair of B is one float4 (N and ldb even, B 16-byte
+// A load from the shared memory of a block of the cluster: ``a`` is a
+// shared::cluster address (mapa). Volatile: it must not move above the
+// cluster barrier after which the peer's data is there.
+__device__ __forceinline__ float2 ld_cluster2(unsigned a) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];" : "=f"(v.x), "=f"(v.y) : "r"(a));
+  return v;
+}
+__device__ __forceinline__ float4 ld_cluster4(unsigned a) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(a));
+  return v;
+}
+
+// The shared::cluster address of ``p`` (this block's shared memory) in the
+// shared memory of cluster block ``rank``.
+__device__ __forceinline__ unsigned cluster_addr(const void* p, int rank) {
+  unsigned out;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;"
+      : "=r"(out) : "r"((unsigned)__cvta_generic_to_shared(p)), "r"(rank));
+  return out;
+}
+
+// A dynamic operand cut by row slabs across the cluster: row k starts at the
+// shared::cluster address row[k] (a table in this block's shared memory).
+struct ZRows {
+  const unsigned* row;
+};
+
+// The right-hand operand B of cgemm_tile: one matrix (row stride ldb, in
+// shared memory when SH) ...
+template <bool SH>
+struct DenseB {
+  using Op = Operand<SH>;
+  typename Op::Ptr base;
+  int ldb;
+  __device__ __forceinline__ typename Op::Ptr row(int k) const { return Op::at(base, k * ldb); }
+  __device__ __forceinline__ float2 ld2(typename Op::Ptr r, int j) const {
+    return Op::ld2(Op::at(r, j));
+  }
+  __device__ __forceinline__ float4 ld4(typename Op::Ptr r, int j) const {
+    return Op::ld4(Op::at(r, j));
+  }
+};
+
+// ... or a ZRows table, read from the peers' shared memory.
+struct ClusterB {
+  ZRows z;
+  __device__ __forceinline__ unsigned row(int k) const { return z.row[k]; }
+  __device__ __forceinline__ float2 ld2(unsigned r, int j) const { return ld_cluster2(r + 8u * j); }
+  __device__ __forceinline__ float4 ld4(unsigned r, int j) const { return ld_cluster4(r + 8u * j); }
+};
+
+// C (M×N, row stride ldc) = A (M×K, lda) · B (K×N), complex, one TM × 2
+// register tile per thread (TM rows of one pair of columns), each element
+// one sum over k in order. Neighbouring threads read neighbouring pairs of
+// B. A lies in shared memory when SH; B is a DenseB or a ClusterB. VEC: a
+// pair of B is one float4 (N and B's row stride even, its rows 16-byte
 // aligned). A ragged last row repeats a valid index and is computed but not
 // stored; so is the second column of an odd N's last pair.
-template <int TM, bool VEC, bool SH>
-__device__ __forceinline__ void cgemm_tile(const float2* A, int lda, const float2* B, int ldb,
-                                           float2* C, int ldc, int M, int N, int K) {
+template <int TM, bool VEC, bool SH, class BS>
+__device__ __forceinline__ void cgemm_tile(const float2* A, int lda, const BS B, float2* C,
+                                           int ldc, int M, int N, int K) {
   const int npairs = (N + 1) >> 1;
   const int tm = (M + TM - 1) / TM;
   for (int t = threadIdx.x; t < tm * npairs; t += blockDim.x) {
@@ -268,7 +337,6 @@ __device__ __forceinline__ void cgemm_tile(const float2* A, int lda, const float
     typename Op::Ptr a[TM];
 #pragma unroll
     for (int i = 0; i < TM; ++i) a[i] = Op::at(Op::base(A), min(i0 + i, M - 1) * lda);
-    const typename Op::Ptr bbase = Op::base(B);
     float2 c[TM][2];
 #pragma unroll
     for (int i = 0; i < TM; ++i) c[i][0] = c[i][1] = make_float2(0.f, 0.f);
@@ -277,14 +345,14 @@ __device__ __forceinline__ void cgemm_tile(const float2* A, int lda, const float
       float2 x[TM], y[2];
 #pragma unroll
       for (int i = 0; i < TM; ++i) x[i] = Op::ld2(Op::at(a[i], k));
-      const typename Op::Ptr brow = Op::at(bbase, k * ldb);
+      const auto brow = B.row(k);
       if (VEC) {
-        const float4 v = Op::ld4(Op::at(brow, j));
+        const float4 v = B.ld4(brow, j);
         y[0] = make_float2(v.x, v.y);
         y[1] = make_float2(v.z, v.w);
       } else {
-        y[0] = Op::ld2(Op::at(brow, j));
-        y[1] = Op::ld2(Op::at(brow, j1));
+        y[0] = B.ld2(brow, j);
+        y[1] = B.ld2(brow, j1);
       }
 #pragma unroll
       for (int i = 0; i < TM; ++i) {
@@ -302,16 +370,16 @@ __device__ __forceinline__ void cgemm_tile(const float2* A, int lda, const float
   }
 }
 
-template <bool VEC, bool SH>
-__device__ __forceinline__ void cgemm_pick(const float2* A, int lda, const float2* B, int ldb,
-                                           float2* C, int ldc, int M, int N, int K) {
+template <bool VEC, bool SH, class BS>
+__device__ __forceinline__ void cgemm_pick(const float2* A, int lda, const BS B, float2* C,
+                                           int ldc, int M, int N, int K) {
   const int npairs = (N + 1) >> 1;
   if (((M + 3) >> 2) * npairs >= kMinTiles)
-    cgemm_tile<4, VEC, SH>(A, lda, B, ldb, C, ldc, M, N, K);
+    cgemm_tile<4, VEC, SH>(A, lda, B, C, ldc, M, N, K);
   else if (((M + 1) >> 1) * npairs >= kMinTiles)
-    cgemm_tile<2, VEC, SH>(A, lda, B, ldb, C, ldc, M, N, K);
+    cgemm_tile<2, VEC, SH>(A, lda, B, C, ldc, M, N, K);
   else
-    cgemm_tile<1, VEC, SH>(A, lda, B, ldb, C, ldc, M, N, K);
+    cgemm_tile<1, VEC, SH>(A, lda, B, C, ldc, M, N, K);
 }
 
 // C = A · B as above; A and B may be in shared or global memory; C must
@@ -321,13 +389,31 @@ __device__ __noinline__ void cgemm(const float2* A, int lda, const float2* B, in
   const bool vec = ((N | ldb) & 1) == 0 && (reinterpret_cast<uintptr_t>(B) & 15) == 0;
   const bool sh = __isShared(A) && __isShared(B);   // both staged: ld.shared
   if (vec && sh)
-    cgemm_pick<true, true>(A, lda, B, ldb, C, ldc, M, N, K);
+    cgemm_pick<true, true>(A, lda, DenseB<true>{Operand<true>::base(B), ldb}, C, ldc, M, N, K);
   else if (vec)
-    cgemm_pick<true, false>(A, lda, B, ldb, C, ldc, M, N, K);
+    cgemm_pick<true, false>(A, lda, DenseB<false>{B, ldb}, C, ldc, M, N, K);
   else if (sh)
-    cgemm_pick<false, true>(A, lda, B, ldb, C, ldc, M, N, K);
+    cgemm_pick<false, true>(A, lda, DenseB<true>{Operand<true>::base(B), ldb}, C, ldc, M, N,
+                            K);
   else
-    cgemm_pick<false, false>(A, lda, B, ldb, C, ldc, M, N, K);
+    cgemm_pick<false, false>(A, lda, DenseB<false>{B, ldb}, C, ldc, M, N, K);
+}
+
+// C = A · B with B's rows in the peers' shared memory (ZRows ``z``; ``vec``:
+// B's row stride and N are even). A in shared or global memory.
+__device__ __noinline__ void cgemm_z(const float2* A, int lda, const ZRows z, bool vec,
+                                     float2* C, int ldc, int M, int N, int K) {
+  const ClusterB B{z};
+  const bool sh = __isShared(A);
+  vec = vec && (N & 1) == 0;
+  if (vec && sh)
+    cgemm_pick<true, true>(A, lda, B, C, ldc, M, N, K);
+  else if (vec)
+    cgemm_pick<true, false>(A, lda, B, C, ldc, M, N, K);
+  else if (sh)
+    cgemm_pick<false, true>(A, lda, B, C, ldc, M, N, K);
+  else
+    cgemm_pick<false, false>(A, lda, B, C, ldc, M, N, K);
 }
 
 // ------------------------------------------------------------ the bf16x3 tier
@@ -470,29 +556,80 @@ __device__ __forceinline__ void load_dynamic_b(SplitFrag<2>& f, const float2* B,
   set_dynamic(f, 1, v2, v3);
 }
 
+// The same from a dynamic B cut by row slabs across the cluster (ZRows).
+template <bool GUARD>
+__device__ __forceinline__ void load_dynamic_b(SplitFrag<2>& f, const ZRows B, int, int cb,
+                                               int k0, int t, int K) {
+  const int k = k0 + 2 * t;
+  const unsigned c = 8u * cb;
+  const float2 z = make_float2(0.f, 0.f);
+  const float2 v0 = (!GUARD || k < K) ? ld_cluster2(B.row[k] + c) : z;
+  const float2 v1 = (!GUARD || k + 1 < K) ? ld_cluster2(B.row[k + 1] + c) : z;
+  const float2 v2 = (!GUARD || k + 8 < K) ? ld_cluster2(B.row[k + 8] + c) : z;
+  const float2 v3 = (!GUARD || k + 9 < K) ? ld_cluster2(B.row[k + 9] + c) : z;
+  set_dynamic(f, 0, v0, v1);
+  set_dynamic(f, 1, v2, v3);
+}
+
+__device__ __forceinline__ const float2* dynamic_b(const void* B) {
+  return static_cast<const float2*>(B);
+}
+__device__ __forceinline__ ZRows dynamic_b(const ZRows B) { return B; }
+
 // The fragments of one k-step of a tile: SA, A is the static operand (B
-// dynamic); else B is.
-template <bool SA, bool GUARD, bool VEC>
+// dynamic: one matrix, or a ZRows table); else B is.
+template <bool SA, bool GUARD, bool VEC, class BT>
 __device__ __forceinline__ void tc_load(SplitFrag<4>& a, SplitFrag<2>& b, const void* A, int lda,
-                                        const void* B, int ldb, int ra0, int ra1, int cb, int k0,
+                                        const BT B, int ldb, int ra0, int ra1, int cb, int k0,
                                         int t, int K) {
   if constexpr (SA) {
     load_static_a<GUARD>(a, static_cast<const uint4*>(A), lda, ra0, ra1, k0, t, K);
-    load_dynamic_b<GUARD>(b, static_cast<const float2*>(B), ldb, cb, k0, t, K);
+    load_dynamic_b<GUARD>(b, dynamic_b(B), ldb, cb, k0, t, K);
   } else {
     load_dynamic_a<GUARD, VEC>(a, static_cast<const float2*>(A), lda, ra0, ra1, k0, t, K);
     load_static_b<GUARD>(b, static_cast<const uint4*>(B), ldb, cb, k0, t, K);
   }
 }
 
-template <bool SA, bool GUARD, bool VEC>
+// How a k-step's products join a tile's sums. mma.sync adds its 16 products
+// to the accumulator it is given with truncation, so a running sum fed
+// through it step after step drifts toward zero: over the 13 k-steps of a
+// contraction over Np = 200 that moved K3's d by up to 7.6e-4 of max|d| from
+// the plain version, where two plain FP32 versions (cuBLAS, MKL) lie 7e-5
+// apart (H100, dogStomach shape). With FPM_KSTEP_SUMS (epry_increments.cu,
+// K3, whose outputs are the increments themselves) each k-step's products go
+// into fresh accumulators, added to the running sums in IEEE f32: K3's d
+// then lies 1e-4 from plain there. K1 and K2 apply each increment to O at
+// once, where the drift is far below their limits (relative to max|O|); fed
+// straight through they spill less and run ~7 % faster (K2).
+#ifndef FPM_KSTEP_SUMS
+#define FPM_KSTEP_SUMS 0
+#endif
+
+__device__ __forceinline__ void kstep(float (&acc)[3][2][4], const SplitFrag<4>& a,
+                                      const SplitFrag<2>& b) {
+  if constexpr (FPM_KSTEP_SUMS) {
+    float s[3][2][4] = {};
+    cmma_step(s, a, b);
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[p][c][r] += s[p][c][r];
+  } else {
+    cmma_step(acc, a, b);
+  }
+}
+
+template <bool SA, bool GUARD, bool VEC, class BT>
 __device__ __forceinline__ void tc_step(float (&acc)[3][2][4], const void* A, int lda,
-                                        const void* B, int ldb, int ra0, int ra1, int cb, int k0,
+                                        const BT B, int ldb, int ra0, int ra1, int cb, int k0,
                                         int t, int K) {
   SplitFrag<4> a;
   SplitFrag<2> b;
   tc_load<SA, GUARD, VEC>(a, b, A, lda, B, ldb, ra0, ra1, cb, k0, t, K);
-  cmma_step(acc, a, b);
+  kstep(acc, a, b);
 }
 
 // C (M×N complex, row stride ldc) = A (M×K) · B (K×N), the bf16x3 tier on
@@ -502,11 +639,13 @@ __device__ __forceinline__ void tc_step(float (&acc)[3][2][4], const void* A, in
 // split layout (ldb words each). Warp w takes the 16×8 output tiles w, w +
 // warps, ...; each element is one tile's sum over k in order (header note).
 // VEC: a dynamic A is read a pair of values at a time (see load_dynamic_a).
+// BT: const void*, or ZRows for a dynamic B cut by row slabs across the
+// cluster (cgemm_tc_z).
 // All threads of the block call; no barrier inside; C aliases neither input.
 // Inlined: as a called function (like cgemm) it made k2_sweep save ~200
 // bytes of registers to the stack around each call, which cost every phase.
-template <bool SA, bool VEC>
-__device__ __forceinline__ void cgemm_tc_at(const void* A, int lda, const void* B, int ldb,
+template <bool SA, bool VEC, class BT>
+__device__ __forceinline__ void cgemm_tc_at(const void* A, int lda, const BT B, int ldb,
                                             float2* C, int ldc, int M, int N, int K) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -529,11 +668,11 @@ __device__ __forceinline__ void cgemm_tc_at(const void* A, int lda, const void* 
         SplitFrag<4> a2;
         SplitFrag<2> b2;
         tc_load<SA, false, VEC>(a2, b2, A, lda, B, ldb, ra0, ra1, cb, s << 4, t, K);
-        cmma_step(acc, a, b);
+        kstep(acc, a, b);
         a = a2;
         b = b2;
       }
-      cmma_step(acc, a, b);
+      kstep(acc, a, b);
     }
     if (K & 15) tc_step<SA, true, VEC>(acc, A, lda, B, ldb, ra0, ra1, cb, ksteps << 4, t, K);
     // Accumulator r: row m0 + g (+ 8 for r ≥ 2), column n0 + 2t + (r & 1).
@@ -554,6 +693,12 @@ __device__ __forceinline__ void cgemm_tc(const void* A, int lda, const void* B, 
     cgemm_tc_at<SA, true>(A, lda, B, ldb, C, ldc, M, N, K);
   else
     cgemm_tc_at<SA, false>(A, lda, B, ldb, C, ldc, M, N, K);
+}
+
+// C = A · B, A static, B dynamic and cut by row slabs across the cluster.
+__device__ __forceinline__ void cgemm_tc_z(const void* A, int lda, const ZRows B, float2* C,
+                                           int ldc, int M, int N, int K) {
+  cgemm_tc_at<true, false>(A, lda, B, 0, C, ldc, M, N, K);
 }
 
 // The 16-byte words per row of a static matrix in the split layout whose
@@ -623,9 +768,18 @@ struct LedPlan {
   int stage;   // bit i set: matrix i (kStage*) is staged in shared memory
   int frames;  // frame buffers of nr·n floats per block (K2: 2 if they fit, else 0)
   unsigned smem;  // dynamic shared memory per block, bytes
+  int zcut;    // 1: Z cut by rows across the cluster; 0: Z whole in every block
 };
 
 constexpr int kStageBi = 1, kStageBf = 2, kStageAi = 4, kStageAf = 8;
+
+// An entry point hands its plan back to the wrapper as kPlanFields ints, in
+// the order of LedPlan's fields (fpm_torch/ops/kernels.py PLAN_FIELDS).
+constexpr int kPlanFields = 7;
+inline void export_plan(const LedPlan& p, int* out) {
+  const int fields[kPlanFields] = {p.cs, p.nr, p.br, p.stage, p.frames, (int)p.smem, p.zcut};
+  memcpy(out, fields, sizeof(fields));
+}
 
 __host__ __device__ inline int even_up(int x) { return (x + 1) & ~1; }
 __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
@@ -647,14 +801,14 @@ __host__ __device__ inline int stage_units(int bit, int n, int b, int nr, bool s
 
 // float2 units of a block's four buffers (``split``: the bf16x3 tier's
 // strides z_ld, t_ld):
-//   z    Z (b rows of stride z_ld(b)), then V[:, cols_r] (b rows of stride
-//        even_up(nr))
+//   z    Z (b rows of stride z_ld(b); cut by rows: the block's slab of br
+//        rows), then V[:, cols_r] (b rows of stride even_up(nr))
 //   t    T_r (nr rows of stride t_ld(b)), then the gathered V[slab r, :] (br·n)
 //   img  img_r, then rep_r (nr·n), then up[slab r] (br·b)
 //   repc the gathered rep[:, cols_r] (n rows of stride even_up(nr)); with
 //        cs = 1 there is nothing to gather and no such buffer
-__host__ __device__ inline int z_units(int b, int nr, bool split) {
-  return even_up(imax(b * z_ld(b, split), b * even_up(nr)));
+__host__ __device__ inline int z_units(int b, int nr, int br, bool cut, bool split) {
+  return even_up(imax((cut ? br : b) * z_ld(b, split), b * even_up(nr)));
 }
 __host__ __device__ inline int t_units(int n, int b, int nr, int br, bool split) {
   return even_up(imax(nr * t_ld(b, split), br * n));
@@ -675,16 +829,21 @@ __host__ __device__ inline int sums_units(int n, int b) {
   return n * segments(n) + b * segments(b);
 }
 
+// 4-byte units of the cut of Z across a cluster: the table of Z's b row
+// addresses (ZRows) and this block's max|P|² over its rows, read by the peers.
+__host__ __device__ inline int zrows_units(int b, bool cut) { return cut ? b + 1 : 0; }
+
 // Bytes of a block's shared memory before any staged matrix: the four
 // buffers, the frame buffers, 32 floats for reductions, the metric
 // accumulators of the segments of the block's nr image rows and br bbox
-// rows, and room for the sums of all segments (read in the first block).
+// rows, room for the sums of all segments (read in the first block), and,
+// ``cut``, the cut of Z.
 __host__ __device__ inline size_t led_base_bytes(int n, int b, int cs, int nr, int br,
-                                                 int frames, bool split) {
-  return (size_t)(z_units(b, nr, split) + t_units(n, b, nr, br, split) + img_units(n, nr)
-                  + repc_units(n, nr, cs)) * sizeof(float2)
+                                                 int frames, bool cut, bool split) {
+  return (size_t)(z_units(b, nr, br, cut, split) + t_units(n, b, nr, br, split)
+                  + img_units(n, nr) + repc_units(n, nr, cs)) * sizeof(float2)
          + (size_t)(frames * frame_units(n, nr) + 32 + nr * segments(n)
-                    + br * segments(b) + sums_units(n, b)) * sizeof(float);
+                    + br * segments(b) + sums_units(n, b) + zrows_units(b, cut)) * sizeof(float);
 }
 
 // One block's view of its shared memory and of its slabs.
@@ -701,13 +860,22 @@ struct LedSmem {
   int brow0, brows;        // this block's bbox rows
 };
 
-// Carves the block's dynamic shared memory, zeroes the metric accumulators
-// and copies the staged slices of the DFT matrices into it. Ends with a block
-// barrier. Slab r of m rows cut
+// When Z is cut by rows across the cluster, the table of where each of its
+// b rows lies (a ZRows) follows the segment sums, then the block's max|P|²
+// over its rows (zrows_units).
+__device__ __forceinline__ unsigned* zcut_rows(const LedSmem& s, int n, int b) {
+  return reinterpret_cast<unsigned*>(s.sums + sums_units(n, b));
+}
+
+// Carves the block's dynamic shared memory, zeroes the metric accumulators,
+// writes the table of Z's rows (CUT, Z cut by rows: row k in block k / br,
+// at its row k mod br) and copies the staged slices of the DFT matrices into
+// it. Ends with a block barrier. Slab r of m rows cut
 // for cs blocks is [min(r·per, m), min((r+1)·per, m)) with per = ceil(m/cs)
 // (fpm_torch/ops/kernels.py slab_bounds states the same rule, and a test
 // holds that such slabs cover every row once). ``split``: the matrices are
 // in the bf16x3 layout.
+template <bool CUT>
 __device__ inline LedSmem carve_smem(void* base, const DftMats m, int n, int b,
                                      const LedPlan plan, int rank, bool split) {
   LedSmem s;
@@ -722,7 +890,7 @@ __device__ inline LedSmem carve_smem(void* base, const DftMats m, int n, int b,
   s.brows = min(plan.br, b - s.brow0);
   float2* f = reinterpret_cast<float2*>(base);
   s.z = f;
-  f += z_units(b, plan.nr, split);
+  f += z_units(b, plan.nr, plan.br, CUT, split);
   s.t = f;
   f += t_units(n, b, plan.nr, plan.br, split);
   s.img = f;
@@ -751,6 +919,14 @@ __device__ inline LedSmem carve_smem(void* base, const DftMats m, int n, int b,
   for (int e = threadIdx.x; e < plan.nr * segments(n) + plan.br * segments(b);
        e += blockDim.x)
     s.rsum[e] = 0.f;
+  if constexpr (CUT) {
+    unsigned* zrow = zcut_rows(s, n, b);
+    const int ldz = z_ld(b, split);
+    for (int k = threadIdx.x; k < b; k += blockDim.x) {
+      const int q = k / plan.br;
+      zrow[k] = cluster_addr(s.z, q) + 8u * (unsigned)((k - q * plan.br) * ldz);
+    }
+  }
   __syncthreads();
   return s;
 }
@@ -806,22 +982,40 @@ struct ClusterLaunch {
   ClusterLaunch& operator=(const ClusterLaunch&) = delete;
 };
 
-// The plan of ``slots`` LEDs on clusters of cs blocks (staging as many
-// matrix slices as fit beside the buffers, in the order Bi, Bf, Ai, Af; K2's
-// frame buffers only if they fit too) and in *clusters how many such
+// The plan of ``slots`` LEDs on clusters of cs blocks (Z whole in every
+// block where its buffers fit, else cut by rows across the cluster;
+// ``force_zcut`` (tests only) 1 takes Z whole, 2 cut, or fails; then K2's
+// frame buffers if they fit, then as many matrix slices as fit beside the
+// buffers, in the order Bi, Bf, Ai, Af) and in *clusters how many such
 // clusters the card holds at once (0: none). ``limit`` is the card's
 // shared memory per block. Returns 0, kErrLedSmem (the buffers do not fit)
 // or a cudaError_t value of the occupancy query.
+// The two builds of a kernel: Z whole in every block, and Z cut by rows
+// (the template argument CUT of carve_smem and led_forward).
 template <typename Kernel>
-int plan_at(Kernel kernel, int n, int b, int slots, int frames, int cs, int limit, bool split,
-            LedPlan* plan, int* clusters) {
-  LedPlan p{cs, (n + cs - 1) / cs, (b + cs - 1) / cs, 0, frames, 0};
-  size_t bytes = led_base_bytes(n, b, cs, p.nr, p.br, frames, split);
-  if (bytes > (size_t)limit) {   // then without frame buffers: frames read in place
-    p.frames = 0;
-    bytes = led_base_bytes(n, b, cs, p.nr, p.br, 0, split);
+struct KernelPair {
+  Kernel whole, cut;
+  Kernel of(const LedPlan& p) const { return p.zcut ? cut : whole; }
+};
+
+template <typename Kernel>
+int plan_at(KernelPair<Kernel> kernel, int n, int b, int slots, int frames, int cs, int limit,
+            bool split, int force_zcut, LedPlan* plan, int* clusters) {
+  LedPlan p{cs, (n + cs - 1) / cs, (b + cs - 1) / cs, 0, frames, 0, 0};
+  size_t bytes = 0;
+  bool fits = false;
+  for (int cut = 0; cut <= (cs > 1 ? 1 : 0) && !fits; ++cut) {
+    if (force_zcut && cut != force_zcut - 1) continue;
+    p.zcut = cut;
+    p.frames = frames;
+    bytes = led_base_bytes(n, b, cs, p.nr, p.br, frames, cut, split);
+    if (bytes > (size_t)limit) {   // then without frame buffers: frames read in place
+      p.frames = 0;
+      bytes = led_base_bytes(n, b, cs, p.nr, p.br, 0, cut, split);
+    }
+    fits = bytes <= (size_t)limit;
   }
-  if (bytes > (size_t)limit) return kErrLedSmem;
+  if (!fits) return kErrLedSmem;
   for (int bit = kStageBi; bit <= kStageAf; bit <<= 1) {
     const size_t more = (size_t)stage_units(bit, n, b, p.nr, split) * sizeof(float2);
     if (bytes + more <= (size_t)limit) {
@@ -832,20 +1026,22 @@ int plan_at(Kernel kernel, int n, int b, int slots, int frames, int cs, int limi
   p.smem = (unsigned)bytes;
   *plan = p;
   const ClusterLaunch launch(slots, p, nullptr);
-  const cudaError_t err = cudaOccupancyMaxActiveClusters(clusters, kernel, &launch.cfg);
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(clusters, kernel.of(p), &launch.cfg);
   if (err != cudaSuccess) cudaGetLastError();   // returned here, not left for the next launch
   return (int)err;
 }
 
-// The card's shared memory per block, set as ``kernel``'s limit: the most the
-// card allows, whatever a plan takes, so a kept plan of another size needs
-// no second call.
+// The card's shared memory per block, set as both builds' limit: the most
+// the card allows, whatever a plan takes, so a kept plan of another size
+// needs no second call.
 template <typename Kernel>
-int smem_limit(Kernel kernel, int device, int* limit) {
+int smem_limit(KernelPair<Kernel> kernel, int device, int* limit) {
   cudaError_t err =
       cudaDeviceGetAttribute(limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *limit);
+    err = cudaFuncSetAttribute(kernel.whole, cudaFuncAttributeMaxDynamicSharedMemorySize, *limit);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel.cut, cudaFuncAttributeMaxDynamicSharedMemorySize, *limit);
   return (int)err;
 }
 
@@ -870,20 +1066,23 @@ constexpr float kLedTime[2][4] = {{1.f, 0.56f, 0.333f, 0.2f}, {1.f, 0.665f, 0.44
 // any finishes, and measured on an H100 K1's 32 clusters of 4 (30 resident)
 // beat 32 of 2 (all resident) 0.54 to 0.69 ms per sweep (PERF.md §5). ``tier``
 // (Tier) is the instantiation's: it sets the staged layout and the weights. ``force_cs``
-// (tests only; 0 = choose) takes that size or fails. Returns 0, a
+// (tests only; 0 = choose) takes that size or fails; ``force_zcut`` (tests
+// only; plan_at) the layout of Z. Returns 0, a
 // cudaError_t value (an error of the occupancy query), kErrLedSmem (no cs
 // fits) or kErrCluster (the forced cs cannot run). A plan, once made, is
 // kept by (kernel, shapes, slots, device): an entry point called once per
 // chunk asks the card once.
 template <typename Kernel>
-int plan_led(Kernel kernel, int n, int b, int slots, int frames, bool persistent, int tier,
-             int force_cs, int device, LedPlan* plan) {
-  if (force_cs != 0 && force_cs != 1 && force_cs != 2 && force_cs != 4 && force_cs != 8)
+int plan_led(KernelPair<Kernel> kernel, int n, int b, int slots, int frames, bool persistent,
+             int tier, int force_cs, int force_zcut, int device, LedPlan* plan) {
+  if ((force_cs != 0 && force_cs != 1 && force_cs != 2 && force_cs != 4 && force_cs != 8)
+      || force_zcut < 0 || force_zcut > 2)
     return (int)cudaErrorInvalidValue;
-  using Key = std::tuple<const void*, int, int, int, int, int, int>;
+  using Key = std::tuple<const void*, int, int, int, int, int, int, int>;
   static std::map<Key, LedPlan> plans;
   static std::mutex plans_lock;
-  const Key key{reinterpret_cast<const void*>(kernel), n, b, slots, frames, force_cs, device};
+  const Key key{reinterpret_cast<const void*>(kernel.whole), n, b, slots, frames, force_cs,
+                force_zcut, device};
   const std::lock_guard<std::mutex> lock(plans_lock);
   const auto made = plans.find(key);
   if (made != plans.end()) {
@@ -900,7 +1099,8 @@ int plan_led(Kernel kernel, int n, int b, int slots, int frames, bool persistent
     if (force_cs && cs != force_cs) continue;
     LedPlan p;
     int clusters = 0;
-    const int e = plan_at(kernel, n, b, slots, frames, cs, limit, tier == kBf16x3, &p, &clusters);
+    const int e = plan_at(kernel, n, b, slots, frames, cs, limit, tier == kBf16x3, force_zcut, &p,
+                          &clusters);
     if (e == kErrLedSmem) continue;
     if (e) return e;
     fits_smem = true;
@@ -923,14 +1123,14 @@ int plan_led(Kernel kernel, int n, int b, int slots, int frames, bool persistent
 // LEDs of Np n and bbox b (0 when none; kErrLedSmem when the buffers do not
 // fit at this cs).
 template <typename Kernel>
-int resident_clusters(Kernel kernel, int n, int b, int slots, int frames, int cs, int tier,
-                      int device, int* clusters) {
+int resident_clusters(KernelPair<Kernel> kernel, int n, int b, int slots, int frames, int cs,
+                      int tier, int device, int* clusters) {
   const DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   int limit = 0;
   if (const int e = smem_limit(kernel, device, &limit)) return e;
   LedPlan p;
-  return plan_at(kernel, n, b, slots, frames, cs, limit, tier == kBf16x3, &p, clusters);
+  return plan_at(kernel, n, b, slots, frames, cs, limit, tier == kBf16x3, 0, &p, clusters);
 }
 
 // A patch start as the JAX package's crop (``lax.dynamic_slice``) takes it:
@@ -955,18 +1155,26 @@ __device__ __forceinline__ int clamp_start(int s, int dim, int n) {
 // object update's max|P|, fpmMain.cpp:404-419; every block gets the same
 // value), and, when ``metrics``, adds each segment of its image rows' share
 // of the data residual Σ(amp − |img|)² to s.rsum. All threads of all blocks of
-// the cluster must call; it holds two cluster barriers, and the peers may
-// read this block's s.z until the next one, which the caller places before
-// s.z is written again or the block exits. T (Tier) picks the products.
-template <int T>
+// the cluster must call; with cs > 1 it holds two cluster barriers (three
+// when Z is cut), and
+// the peers may read this block's s.z until the next one, which the caller
+// places before s.z is written again or the block exits. T (Tier) picks the
+// products; CUT: Z is cut by rows across the cluster (a plan's zcut, and
+// carve_smem's CUT).
+template <int T, bool CUT>
 __device__ void led_forward(const float* o_re, const float* o_im, int ld, int y0, int x0,
                              const float* p_re, const float* p_im, const float* amp, int n,
                              int b, float eps, bool metrics, const LedSmem s, float* pmax) {
   cg::cluster_group cluster = cg::this_cluster();
-  const int bb = b * b;
+  const int zr0 = CUT ? s.brow0 : 0;   // the first row of Z this block builds
+  const int bb = (CUT ? s.brows : b) * b;
   const int ldz = z_ld(b, T == kBf16x3), ldt = t_ld(b, T == kBf16x3);
+  p_re += zr0 * b;
+  p_im += zr0 * b;
+  y0 += zr0;
   float pm2 = 0.f;
-  // Element e = i·b + j of the window, stepped by blockDim without a division.
+  // Element e = i·b + j of the block's rows of the window, stepped by
+  // blockDim without a division.
   const int di = blockDim.x / b, dj = blockDim.x - di * b;
   int i = threadIdx.x / b, j = threadIdx.x - i * b;
   for (int e0 = threadIdx.x; e0 < bb; e0 += kBatch * blockDim.x) {
@@ -997,9 +1205,22 @@ __device__ void led_forward(const float* o_re, const float* o_im, int ld, int y0
       }
     }
   }
-  *pmax = sqrtf(block_max(pm2, s.red));   // ends with a block barrier: Z is written
+  pm2 = block_max(pm2, s.red);            // ends with a block barrier: Z is written
   FPM_PHASE(kPhaseWindow);
-  if constexpr (T == kBf16x3)                              // T_r = Ai[rows_r,:]·Z
+  if constexpr (CUT) {
+    float* const pm2_slot = reinterpret_cast<float*>(zcut_rows(s, n, b) + b);
+    if (threadIdx.x == 0) *pm2_slot = pm2;
+    cluster.sync();   // barrier 0: every block's rows of Z and its max|P|² are written
+    for (int q = 0; q < s.cs; ++q) pm2 = fmaxf(pm2, *cluster.map_shared_rank(pm2_slot, q));
+  }
+  *pmax = sqrtf(pm2);
+  FPM_PHASE(kPhaseBarrier0);
+  // T_r = Ai[rows_r,:]·Z; cut, row k of Z read from the block that built it
+  if constexpr (CUT && T == kBf16x3)
+    cgemm_tc_z(s.ai, split_ld(b), ZRows{zcut_rows(s, n, b)}, s.t, ldt, s.rows, b, b);
+  else if constexpr (CUT)
+    cgemm_z(s.ai, b, ZRows{zcut_rows(s, n, b)}, (ldz & 1) == 0, s.t, b, s.rows, b, b);
+  else if constexpr (T == kBf16x3)
     cgemm_tc<true>(s.ai, split_ld(b), s.z, ldz, s.t, ldt, s.rows, b, b);
   else
     cgemm(s.ai, b, s.z, b, s.t, b, s.rows, b, b);
@@ -1039,7 +1260,7 @@ __device__ void led_forward(const float* o_re, const float* o_im, int ld, int y0
   const float2* vrow = s.z;     // V[slab r, :]; with one block, V itself
   int ld_repc = n, ld_vrow = s.nrp;
   if (s.cs > 1) {
-    cluster.sync();             // barrier 1: every rep_q is written
+    cluster.sync();             // barrier 1: every rep_q is written, every slab of Z read
     FPM_PHASE(kPhaseBarrier1);
     // rep[:, cols_r]: row i from the block that owns it
     for (int e0 = threadIdx.x; e0 < n * s.rows; e0 += kBatch * blockDim.x) {
@@ -1198,8 +1419,9 @@ __device__ inline float ordered_sum(const float* v, int count) {
 // own copy, so each wrapper can name the error its launches returned.
 extern "C" const char* fpm_cuda_error_string(int err) {
   if (err == fpm::kErrLedSmem)
-    return "Np too large: one LED's b×b window and its slabs of the n×b half-transform "
-           "and the n×n image do not fit a block's shared memory at any cluster size";
+    return "Np too large: one LED's slabs of the n×n image plane (img and the gathered rep "
+           "columns), of the n×b half-transform T and of the b×b window Z do not fit a "
+           "block's shared memory at any cluster size";
   if (err == fpm::kErrCluster)
     return "a thread-block cluster of the size asked for cannot be resident on this card";
   return cudaGetErrorString(static_cast<cudaError_t>(err));

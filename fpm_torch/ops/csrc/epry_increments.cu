@@ -28,7 +28,10 @@
 // Bound: FP32 operations in chunk_forward (see epry_common.cuh) for the
 // rank's C_local LEDs on C_local·cs SMs (cs = 8 at 8 slots). k3_gather reads only the LEDs' scratch
 // but writes all of d, R·Ncols·8 bytes per call: most of the call's bytes.
+// At bf16x3 the products add each k-step's sums in IEEE f32 (FPM_KSTEP_SUMS,
+// epry_common.cuh): d and v are small differences of large terms.
 
+#define FPM_KSTEP_SUMS 1
 #include "epry_chunk.cuh"
 
 namespace fpm {
@@ -78,8 +81,9 @@ k3_sums(float* __restrict__ v_re, float* __restrict__ v_im, const int* __restric
 //   d_out  (2, n_rows, n_cols) f32, v_out (2, b, b) f32, mets (2) f32: written whole
 //   tier               Tier of the products: 0 highest, 1 bf16x3
 //   force_cs           tests only: the cluster size to take (0 = choose)
+//   force_zcut         tests only: Z whole (1) or cut by rows (2) (0 = choose)
 //   launches           host int, incremented at each accepted launch
-//   cluster_size       host int, set to the cluster size chosen
+//   plan_out           host int[kPlanFields], set to the plan chosen (export_plan)
 // Returns a cudaError_t value (0 = every launch was accepted), kErrLedSmem or
 // kErrCluster.
 template <int T>
@@ -88,17 +92,19 @@ static int k3_increments_at(const float* o, const float* p, const float* sup, co
                             void* d_obj, void* num, float* parts, float* d_out, float* v_out,
                             float* mets, int c, int n, int b, int lo, int n_rows, int n_cols,
                             float eps, float delta1, float delta2, int metrics, int device,
-                            cudaStream_t st, int force_cs, int* launches, int* cluster_size) {
+                            cudaStream_t st, int force_cs, int force_zcut, int* launches,
+                            int* plan_out) {
   using namespace fpm;
   cudaError_t err;
   LedPlan plan;
-  if (const int e = plan_led(chunk_forward<T>, n, b, c, 0, false, T, force_cs, device, &plan))
+  const KernelPair<decltype(&chunk_forward<T>)> kernel{chunk_forward<T>, chunk_forward_zcut<T>};
+  if (const int e = plan_led(kernel, n, b, c, 0, false, T, force_cs, force_zcut, device, &plan))
     return e;
-  *cluster_size = plan.cs;
+  export_plan(plan, plan_out);
   const ClusterLaunch forward(c, plan, st);
   const size_t plane = (size_t)n_rows * n_cols;
   const int bb = b * b;
-  cudaLaunchKernelEx(&forward.cfg, chunk_forward<T>, o, (size_t)0, n_rows, n_cols, p, (size_t)0,
+  cudaLaunchKernelEx(&forward.cfg, kernel.of(plan), o, (size_t)0, n_rows, n_cols, p, (size_t)0,
                      sup, amps, (size_t)0, starts, valid, c, m, n, b, lo, eps, delta1, delta2,
                      metrics, static_cast<float2*>(d_obj), static_cast<float2*>(num), parts,
                      plan);
@@ -120,7 +126,8 @@ extern "C" int fpm_k3_increments(const float* o, const float* p, const float* su
                                  float* d_out, float* v_out, float* mets, int c, int n, int b,
                                  int lo, int n_rows, int n_cols, float eps, float delta1,
                                  float delta2, int metrics, int tier, int device, void* stream,
-                                 int force_cs, int* launches, int* cluster_size) {
+                                 int force_cs, int force_zcut, int* launches,
+                                 int* plan_out) {
   using namespace fpm;
   const DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
@@ -132,5 +139,5 @@ extern "C" int fpm_k3_increments(const float* o, const float* p, const float* su
   if (!run) return (int)cudaErrorInvalidValue;
   return run(o, p, sup, amps, starts, valid, m, d_obj, num, parts, d_out, v_out, mets, c, n, b,
              lo, n_rows, n_cols, eps, delta1, delta2, metrics, device,
-             static_cast<cudaStream_t>(stream), force_cs, launches, cluster_size);
+             static_cast<cudaStream_t>(stream), force_cs, force_zcut, launches, plan_out);
 }

@@ -25,7 +25,7 @@
 //   global_max = lazy: the frozen sweep-start cache, reduced once.
 // Then each block steps its slab of P by num / max|O|, and a cluster
 // barrier ends the LED: with the forward pass's two, four cluster barriers
-// per LED in all.
+// per LED in all (five with Z cut by rows, k2_sweep_zcut).
 //
 // State between LEDs (O, P, the row cache) lives in device memory, written
 // by one block and read by its peers after the next cluster barrier, whose
@@ -94,12 +94,15 @@ __device__ float recip_abs_max(const float* rowmax, int nl, float* red) {
   return 1.f / sqrtf(block_max(m2, red));
 }
 
-template <int T>
-__global__ void __launch_bounds__(kThreads)
-k2_sweep(float* o, int nl, float* p, const float* __restrict__ sup,
-         const float* __restrict__ amps, const int* __restrict__ starts, int k_leds, DftMats m,
-         int n, int b, int lo, float eps, float delta1, float delta2, int exact, int metrics,
-         float* rowmax, float* __restrict__ mets, LedPlan plan) {
+// The sweep of one cluster (the header); CUT: Z is cut by rows across the
+// cluster (the plan's zcut; k2_sweep_zcut), else whole in every block
+// (k2_sweep).
+template <int T, bool CUT>
+__device__ __forceinline__ void k2_sweep_body(
+    float* o, int nl, float* p, const float* __restrict__ sup, const float* __restrict__ amps,
+    const int* __restrict__ starts, int k_leds, DftMats m, int n, int b, int lo, float eps,
+    float delta1, float delta2, int exact, int metrics, float* rowmax,
+    float* __restrict__ mets, LedPlan plan) {
   cg::cluster_group cluster = cg::this_cluster();
   // This cluster's problem: its planes, frames, row cache and metrics.
   const size_t q = blockIdx.x / plan.cs, plane = (size_t)nl * nl;
@@ -111,7 +114,8 @@ k2_sweep(float* o, int nl, float* p, const float* __restrict__ sup,
   rowmax += q * nl;
   mets += 2 * q;
   extern __shared__ float4 smem_raw[];
-  const LedSmem s = carve_smem(smem_raw, m, n, b, plan, (int)cluster.block_rank(), T == kBf16x3);
+  const LedSmem s =
+      carve_smem<CUT>(smem_raw, m, n, b, plan, (int)cluster.block_rank(), T == kBf16x3);
   const int frame_stride = frame_units(n, plan.nr);
   const int slab_count = s.rows * n;           // this block's floats of a frame
   const float* slab0 = amps + (size_t)s.row0 * n;
@@ -140,7 +144,8 @@ k2_sweep(float* o, int nl, float* p, const float* __restrict__ sup,
     }
     FPM_PHASE(kPhaseFrameWait);
     float pmax;
-    led_forward<T>(o_re, o_im, nl, y0, x0, p_re, p_im, amp, n, b, eps, metrics != 0, s, &pmax);
+    led_forward<T, CUT>(o_re, o_im, nl, y0, x0, p_re, p_im, amp, n, b, eps, metrics != 0, s,
+                        &pmax);
     led_increments(s, o_re, o_im, nl, y0, x0, b, p_re, p_im, sup, pmax, delta1, delta2,
                    metrics != 0, nullptr, num, o_re, o_im);
     FPM_PHASE_SYNC(kPhaseIncrements);
@@ -186,6 +191,26 @@ k2_sweep(float* o, int nl, float* p, const float* __restrict__ sup,
   }
 }
 
+template <int T>
+__global__ void __launch_bounds__(kThreads)
+k2_sweep(float* o, int nl, float* p, const float* __restrict__ sup,
+         const float* __restrict__ amps, const int* __restrict__ starts, int k_leds, DftMats m,
+         int n, int b, int lo, float eps, float delta1, float delta2, int exact, int metrics,
+         float* rowmax, float* __restrict__ mets, LedPlan plan) {
+  k2_sweep_body<T, false>(o, nl, p, sup, amps, starts, k_leds, m, n, b, lo, eps, delta1, delta2,
+                          exact, metrics, rowmax, mets, plan);
+}
+
+template <int T>
+__global__ void __launch_bounds__(kThreads)
+k2_sweep_zcut(float* o, int nl, float* p, const float* __restrict__ sup,
+              const float* __restrict__ amps, const int* __restrict__ starts, int k_leds,
+              DftMats m, int n, int b, int lo, float eps, float delta1, float delta2, int exact,
+              int metrics, float* rowmax, float* __restrict__ mets, LedPlan plan) {
+  k2_sweep_body<T, true>(o, nl, p, sup, amps, starts, k_leds, m, n, b, lo, eps, delta1, delta2,
+                         exact, metrics, rowmax, mets, plan);
+}
+
 }  // namespace fpm
 
 // One sequential sweep over ``k_leds`` LEDs for each of ``n_problems``
@@ -198,8 +223,9 @@ k2_sweep(float* o, int nl, float* p, const float* __restrict__ sup,
 //   rowmax (P, nl) f32 scratch; mets (P, 2) f32, accumulated into
 //   tier               Tier of the products: 0 highest, 1 bf16x3
 //   force_cs           tests only: the cluster size to take (0 = choose)
+//   force_zcut         tests only: Z whole (1) or cut by rows (2) (0 = choose)
 //   launches           host int, incremented at each accepted launch
-//   cluster_size       host int, set to the cluster size chosen
+//   plan_out           host int[kPlanFields], set to the plan chosen (export_plan)
 // Returns a cudaError_t value (0 = every launch was accepted), kErrLedSmem or
 // kErrCluster.
 template <int T>
@@ -207,19 +233,21 @@ static int k2_sweep_at(float* o, float* p, const float* sup, const float* amps, 
                        const fpm::DftMats& m, float* rowmax, float* mets, int n_problems,
                        int k_leds, int n, int b, int lo, int nl, float eps, float delta1,
                        float delta2, int exact, int metrics, int device, cudaStream_t st,
-                       int force_cs, int* launches, int* cluster_size) {
+                       int force_cs, int force_zcut, int* launches, int* plan_out) {
   using namespace fpm;
   LedPlan plan;
-  if (const int e = plan_led(k2_sweep<T>, n, b, n_problems, 2, true, T, force_cs, device, &plan))
+  const KernelPair<decltype(&k2_sweep<T>)> kernel{k2_sweep<T>, k2_sweep_zcut<T>};
+  if (const int e = plan_led(kernel, n, b, n_problems, 2, true, T, force_cs, force_zcut, device,
+                             &plan))
     return e;
-  *cluster_size = plan.cs;
+  export_plan(plan, plan_out);
   k2_rowmax_init<<<dim3(nl, n_problems), 256, 0, st>>>(o, nl, rowmax);
   cudaError_t err;
   if ((err = count_launch(launches)) != cudaSuccess) return (int)err;
   if (k_leds < 1) return 0;
   const ClusterLaunch sweep(n_problems, plan, st);
-  cudaLaunchKernelEx(&sweep.cfg, k2_sweep<T>, o, nl, p, sup, amps, starts, k_leds, m, n, b, lo,
-                     eps, delta1, delta2, exact, metrics, rowmax, mets, plan);
+  cudaLaunchKernelEx(&sweep.cfg, kernel.of(plan), o, nl, p, sup, amps, starts, k_leds, m, n, b,
+                     lo, eps, delta1, delta2, exact, metrics, rowmax, mets, plan);
   if ((err = count_launch(launches)) != cudaSuccess) return (int)err;
   return 0;
 }
@@ -229,7 +257,8 @@ extern "C" int fpm_k2_sweep(float* o, float* p, const float* sup, const float* a
                             const void* bf, float* rowmax, float* mets, int n_problems,
                             int k_leds, int n, int b, int lo, int nl, float eps, float delta1,
                             float delta2, int exact, int metrics, int tier, int device,
-                            void* stream, int force_cs, int* launches, int* cluster_size) {
+                            void* stream, int force_cs, int force_zcut, int* launches,
+                            int* plan_out) {
   using namespace fpm;
   const DeviceGuard guard(device);
   cudaError_t err = guard.err;
@@ -243,7 +272,7 @@ extern "C" int fpm_k2_sweep(float* o, float* p, const float* sup, const float* a
                                       : nullptr;
   if (!run) return (int)cudaErrorInvalidValue;
   return run(o, p, sup, amps, starts, m, rowmax, mets, n_problems, k_leds, n, b, lo, nl, eps,
-             delta1, delta2, exact, metrics, device, st, force_cs, launches, cluster_size);
+             delta1, delta2, exact, metrics, device, st, force_cs, force_zcut, launches, plan_out);
 }
 
 // How many clusters of cs blocks of K2 at ``tier`` the card holds at once
@@ -252,9 +281,13 @@ extern "C" int fpm_resident_clusters(int n, int b, int slots, int cs, int tier, 
                                      int* clusters) {
   using namespace fpm;
   if (tier == kBf16x3)
-    return resident_clusters(k2_sweep<kBf16x3>, n, b, slots, 2, cs, tier, device, clusters);
+    return resident_clusters(KernelPair<decltype(&k2_sweep<kBf16x3>)>{
+                                 k2_sweep<kBf16x3>, k2_sweep_zcut<kBf16x3>},
+                             n, b, slots, 2, cs, tier, device, clusters);
   if (tier == kHighest)
-    return resident_clusters(k2_sweep<kHighest>, n, b, slots, 2, cs, tier, device, clusters);
+    return resident_clusters(KernelPair<decltype(&k2_sweep<kHighest>)>{
+                                 k2_sweep<kHighest>, k2_sweep_zcut<kHighest>},
+                             n, b, slots, 2, cs, tier, device, clusters);
   return (int)cudaErrorInvalidValue;
 }
 

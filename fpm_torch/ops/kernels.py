@@ -44,9 +44,14 @@ Dispatch: a wrapper launches its CUDA kernel for CUDA tensors and runs its
 plain PyTorch version (``*_plain``, same function, same operands) for CPU
 tensors; nothing falls back, and a tier runs as asked or raises. Each
 wrapper adds to ``<wrapper>.launches`` the launches its C entry point
-counted, one per kernel launch accepted, and leaves in
-``<wrapper>.cluster_size`` the cluster size that entry point chose. ``<wrapper>.force_cluster_size`` (tests only; 0 = let the entry point
-choose) makes it take 1, 2, 4 or 8 blocks per LED, or raise.
+counted, one per kernel launch accepted, and leaves in ``<wrapper>.plan``
+the plan that entry point chose (:data:`PLAN_FIELDS`: cluster size, slabs,
+staged matrices, frame buffers, shared memory, the layout of Z) and in
+``<wrapper>.cluster_size`` its cluster size. ``<wrapper>.force_cluster_size``
+(tests only; 0 = let the entry point choose) makes it take 1, 2, 4 or 8
+blocks per LED, or raise; ``<wrapper>.force_z_layout`` (tests only; 0 =
+choose: Z whole in every block where that fits) takes Z whole (1) or cut by
+rows across the cluster (2), or raises.
 
 What bounds the kernels on an H100, and what the design does about it: see
 ``csrc/epry_common.cuh`` (the operations of four small complex DFT
@@ -381,12 +386,25 @@ def _increments_core_plain(o, pc, sc, amps, starts, valid, *, lo, eps, delta1, d
 _counter_lock = threading.Lock()
 
 
-def _record(wrapper, launched: ctypes.c_int, cluster: ctypes.c_int) -> None:
+# The fields of the plan an entry point hands back (LedPlan and export_plan
+# in csrc/epry_common.cuh): blocks per LED, image rows and bbox rows per
+# block, the staged DFT matrices (bits Bi 1, Bf 2, Ai 4, Af 8), K2's frame
+# buffers, the bytes of dynamic shared memory per block, and whether Z is
+# cut by rows across the cluster (1) or whole in every block (0).
+PLAN_FIELDS = ("cs", "nr", "br", "stage", "frames", "smem", "zcut")
+
+
+def _plan_out():
+    return (ctypes.c_int * len(PLAN_FIELDS))()
+
+
+def _record(wrapper, launched: ctypes.c_int, plan) -> None:
     """Add an entry point's counted launches to ``wrapper.launches`` and
-    keep the cluster size it chose."""
+    keep the plan it chose (``wrapper.plan``, and its cluster size)."""
     with _counter_lock:
         wrapper.launches += launched.value
-        wrapper.cluster_size = cluster.value
+        wrapper.plan = dict(zip(PLAN_FIELDS, plan))
+        wrapper.cluster_size = wrapper.plan["cs"]
 
 
 def _check_cuda_operands(o, pc, sc, amps, starts, *, n_slots, valid=None, square=True):
@@ -441,15 +459,16 @@ def _sweep_cuda(o, pc, sc, amps, starts, *, lo, eps, delta1, delta2, global_max,
     mats = _kernel_mats(n, b, lo, o.device, dft_precision)
     rowmax = torch.empty((n_prob, nl), dtype=torch.float32, device=o.device)
     mets = torch.zeros((n_prob, 2), dtype=torch.float32, device=o.device)
-    launched, cluster = ctypes.c_int(0), ctypes.c_int(0)
+    launched, plan = ctypes.c_int(0), _plan_out()
     err = lib.fpm_k2_sweep(
         o.data_ptr(), pc.data_ptr(), sc.data_ptr(), amps.data_ptr(), starts.data_ptr(),
         *(m.data_ptr() for m in mats), rowmax.data_ptr(), mets.data_ptr(),
         n_prob, k, n, b, lo, nl, eps, delta1, delta2,
         int(global_max == "exact"), int(collect_metrics), _TIERS[dft_precision], o.device.index,
         torch.cuda.current_stream(o.device).cuda_stream,
-        fused_epry_sweep.force_cluster_size, ctypes.byref(launched), ctypes.byref(cluster))
-    _record(fused_epry_sweep, launched, cluster)
+        fused_epry_sweep.force_cluster_size, fused_epry_sweep.force_z_layout,
+        ctypes.byref(launched), plan)
+    _record(fused_epry_sweep, launched, plan)
     build.check(lib, err, "K2 fused_epry_sweep")
     return o, pc, mets
 
@@ -472,16 +491,16 @@ def _chunked_cuda(o, pc, sc, amps, starts, valid, *, lo, eps, delta1, delta2,
     parts = torch.empty((n_prob, c, 2), dtype=torch.float32, device=dev)
     omax_bits = torch.zeros((n_prob, n_chunks), dtype=torch.int32, device=dev)
     mets = torch.zeros((n_prob, 2), dtype=torch.float32, device=dev)
-    launched, cluster = ctypes.c_int(0), ctypes.c_int(0)
+    launched, plan = ctypes.c_int(0), _plan_out()
     err = lib.fpm_k1_sweep(
         o.data_ptr(), pc.data_ptr(), sc.data_ptr(), amps.data_ptr(), starts.data_ptr(),
         valid.data_ptr(), *(m.data_ptr() for m in mats), d_obj.data_ptr(),
         num.data_ptr(), parts.data_ptr(), omax_bits.data_ptr(), mets.data_ptr(),
         n_prob, n_chunks, c, n, b, lo, nl, eps, delta1, delta2, pupil_step_scale,
         int(collect_metrics), _TIERS[dft_precision], dev.index,
-        torch.cuda.current_stream(dev).cuda_stream, fused_epry_chunked.force_cluster_size, ctypes.byref(launched),
-        ctypes.byref(cluster))
-    _record(fused_epry_chunked, launched, cluster)
+        torch.cuda.current_stream(dev).cuda_stream, fused_epry_chunked.force_cluster_size,
+        fused_epry_chunked.force_z_layout, ctypes.byref(launched), plan)
+    _record(fused_epry_chunked, launched, plan)
     build.check(lib, err, "K1 fused_epry_chunked")
     return o, pc, mets
 
@@ -500,16 +519,16 @@ def _increments_cuda(o, pc, sc, amps, starts, valid, *, lo, eps, delta1, delta2,
     parts = torch.empty((c, 2), dtype=torch.float32, device=dev)
     d_out, v_out = torch.empty_like(o), torch.empty_like(pc)
     mets = torch.empty(2, dtype=torch.float32, device=dev)
-    launched, cluster = ctypes.c_int(0), ctypes.c_int(0)
+    launched, plan = ctypes.c_int(0), _plan_out()
     err = lib.fpm_k3_increments(
         o.data_ptr(), pc.data_ptr(), sc.data_ptr(), amps.data_ptr(), starts.data_ptr(),
         valid.data_ptr(), *(m.data_ptr() for m in mats), d_obj.data_ptr(), num.data_ptr(),
         parts.data_ptr(), d_out.data_ptr(), v_out.data_ptr(), mets.data_ptr(),
         c, n, b, lo, o.shape[1], o.shape[2], eps, delta1, delta2, int(collect_metrics),
         _TIERS[dft_precision], dev.index, torch.cuda.current_stream(dev).cuda_stream,
-        fused_chunk_increments.force_cluster_size, ctypes.byref(launched),
-        ctypes.byref(cluster))
-    _record(fused_chunk_increments, launched, cluster)
+        fused_chunk_increments.force_cluster_size, fused_chunk_increments.force_z_layout,
+        ctypes.byref(launched), plan)
+    _record(fused_chunk_increments, launched, plan)
     build.check(lib, err, "K3 fused_chunk_increments")
     return d_out, v_out, mets
 
@@ -711,4 +730,6 @@ def fused_chunk_increments_plain(o_planes, p_planes, support, amps, starts_flat,
 for _wrapper in (fused_epry_sweep, fused_epry_chunked, fused_chunk_increments):
     _wrapper.launches = 0
     _wrapper.cluster_size = 0          # as chosen by the last launch
+    _wrapper.plan = {}                 # the whole plan of the last launch (PLAN_FIELDS)
     _wrapper.force_cluster_size = 0    # tests only
+    _wrapper.force_z_layout = 0        # tests only: 1 Z whole in every block, 2 cut by rows

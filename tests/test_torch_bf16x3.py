@@ -302,3 +302,36 @@ def test_the_eager_route_is_bitwise_the_same_under_either_tier(ds, kw):
     for key in ("obj_crop", "obj_f_centered", "pupil"):
         np.testing.assert_array_equal(getattr(a, key), getattr(b, key))
     np.testing.assert_array_equal(a.metrics["data_residual"], b.metrics["data_residual"])
+
+
+def test_k3_d_lies_within_1e_5_of_fpm_tpus_at_both_tiers(np_size=64, chunk=6):
+    """Fault F2 on the CPU: on one K3 call (chunk 1 of the strided schedule,
+    the state after one sweep) the port's plain d and fpm_tpu's interpret-mode
+    d, two float32 summation orders of one function, lie within 1e-5 of
+    each other at either tier (measured 3.5e-6 at bf16x3, 5.2e-6 at highest),
+    while the bf16x3 tier itself lies farther than that from highest on d
+    (1.9e-5): d's terms cancel, so its relative error is many times the
+    products'."""
+    ds = synthetic_dataset(np_size=np_size, grid=5, seed=5, aberrated_pupil=True)
+    o, p, sup = _state(ds)
+    order = ds.geom.schedule
+    k = len(order)
+    perm, _, n_chunks = tepry.chunk_schedule(k, chunk, "strided")
+    sel = perm.reshape(n_chunks, chunk)[1]
+    valid = (sel < k).astype(np.int32)
+    sel = np.where(sel < k, sel, 0)
+    amps = (np.sqrt(np.asarray(ds.images, np.float64))[order][sel]
+            * valid[:, None, None]).astype(np.float32)
+    starts = (ds.geom.crop_start[order][sel] * valid[:, None]).astype(np.int32)
+    args = (o, p, sup, amps, starts.reshape(-1), valid)
+    kw = {key: v for key, v in _common(ds.cfg).items() if key != "n_large"}
+    kw.update(n_rows=o.shape[1], n_cols=o.shape[2])
+    d = {}
+    for tier in ("bf16x3", "highest"):
+        d["port", tier] = tk.fused_chunk_increments(*_as_torch(args), dft_precision=tier,
+                                                    **kw)[0].numpy()
+        d["fpm_tpu", tier] = np.asarray(jk.fused_chunk_increments(
+            *_as_jax(args), interpret=True, dft_precision=tier, **kw)[0])
+        assert rel(d["port", tier], d["fpm_tpu", tier]) < 1e-5
+    for pkg in ("port", "fpm_tpu"):
+        assert rel(d[pkg, "bf16x3"], d[pkg, "highest"]) > 1e-5

@@ -110,9 +110,25 @@ def test_checkpoint_resumes_across_packages_with_default_flags(dataset, tmp_path
 ])
 def test_unported_flags_are_refused(dataset, tmp_path, capsys, flags):
     """Every flag of a path not yet ported is refused. ``--dft-precision
-    bf16x3``, refused until the tier was ported, is now accepted on the
-    kernel route and recorded in the run's options and fingerprint."""
+    bf16x3`` and ``--no-native``, refused until the tier and the native
+    decoder were ported, are now accepted: the tier is recorded in the run's
+    options and fingerprint, the decoder in its ``dataset`` record (Python
+    under ``--no-native``, native without it where the decoder builds),
+    with the same result."""
     out = str(tmp_path / "x")
+    if flags[0] == "--no-native":
+        from fpm_torch import native
+
+        runs = {}
+        for extra in ([], flags):
+            runs[bool(extra)] = str(tmp_path / f"x{len(extra)}")
+            assert tcli.main(["run", dataset, "-o", runs[bool(extra)], "--platform", "cpu",
+                              "-n", "2", *extra]) == 0
+        decoder = {k: _dataset_record(v)["decoder"] for k, v in runs.items()}
+        assert decoder == {True: "python", False: "native" if native.available() else "python"}
+        a, b = (np.load(os.path.join(d, "object.npy")) for d in runs.values())
+        np.testing.assert_array_equal(a, b)
+        return
     if flags[0] == "--dft-precision":
         assert tcli.main(["run", dataset, "-o", out, "--platform", "cpu", "-n", "2",
                           "--checkpoint-every", "1", "--use-pallas", *flags]) == 0
@@ -124,6 +140,11 @@ def test_unported_flags_are_refused(dataset, tmp_path, capsys, flags):
     rc = tcli.main(["run", dataset, "-o", out, "--platform", "cpu", *flags])
     assert rc == 1
     assert "not yet ported" in capsys.readouterr().err
+
+
+def _dataset_record(out):
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        return next(r for r in map(json.loads, f) if r["event"] == "dataset")
 
 
 def _solver_options(out):

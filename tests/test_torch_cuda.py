@@ -21,6 +21,7 @@ the entry points would choose.
 """
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -179,7 +180,7 @@ def test_k2_profile_build_counts_every_phase_and_changes_no_result(cuda):
     profiled, cycles = kernels.k2_phase_profile(o, p, sup, *rest, **common)
     for a, b in zip(plain_build, profiled):
         assert torch.equal(a, b)
-    assert len(cycles) == 17 and all(c > 0 for c in cycles.values())
+    assert len(cycles) == 18 and all(c > 0 for c in cycles.values())
     assert list(cycles) == list(first) and sum(cycles.values()) < 2 * sum(first.values())
 
 
@@ -281,18 +282,25 @@ def test_out_of_range_starts_are_clamped_like_the_plain_version(cuda):
         kernels.fused_epry_sweep(o, p, sup, amps[:-1], starts, **common)
 
 
-def k3_d_limit(args, kw, pd):
+def k3_d_limit(args, kw, pd, cpu_witness=False):
     """The limit on K3's d against the plain version's ``pd``: TOL_O, and at
     bf16x3 no tighter than the tier's own distance from FP32 on this call
     (plain bf16x3 d against plain highest d). d is a sum of increments much
     smaller than the terms they come from, and the tier's split is not a
     smooth function of its input (a last-bit change of a product's f32 result
     may move lo by one bf16 step, 2^-17 of the value), so kernel and plain
-    version, whose f32 sums differ in order, part by more than at highest."""
+    version, whose f32 sums differ in order, part by more than at highest.
+    ``cpu_witness`` (the dogStomach patch, where two f32 summation orders of
+    d part by more than 1e-5 at either tier): also no tighter than the plain
+    version on the CPU lies from ``pd`` (chip_smoke.py k3_d_limit)."""
+    limit = TOL_O
+    if cpu_witness:
+        cpu_d = kernels.fused_chunk_increments_plain(*(t.cpu() for t in args), **kw)[0]
+        limit = max(limit, rel(pd.cpu(), cpu_d))
     if kw["dft_precision"] == "highest":
-        return TOL_O
+        return limit
     hd = kernels.fused_chunk_increments_plain(*args, **dict(kw, dft_precision="highest"))[0]
-    return max(TOL_O, rel(pd, hd))
+    return max(limit, rel(pd, hd))
 
 
 def k3_operands(ds, dev, block, tier="bf16x3"):
@@ -427,11 +435,11 @@ def test_a_sweep_over_several_cards_keeps_the_current_device(cuda, led, tile):
 
 @pytest.mark.parametrize("kernel", ["K1", "K2", "K3"])
 def test_kernels_refuse_an_np_whose_buffers_do_not_fit_a_block(cuda, tier, kernel):
-    """One LED's b×b window lives whole in each block's shared memory beside
-    its slabs: Np 90 (mono) and 100 (cellScope) fit, as the cases above
-    show; Np 200 (dogStomach) fits at no cluster size and is refused before
-    any launch."""
-    n, nl = 200, 400
+    """A block holds its slabs of the image plane and of T = Ai·Z and its rows
+    of Z: Np 90, 100 and 200 fit (the cases above and below), and so does
+    the whole patch as the bbox up to b = n = 226; b = n = 240 fits at no
+    cluster size and is refused before any launch."""
+    n, nl = 240, 480
     o = torch.zeros((2, nl, nl), device=cuda)
     p, sup = torch.ones((2, n, n), device=cuda), torch.ones((n, n), device=cuda)
     amps = torch.ones((1, 1, n, n), device=cuda)
@@ -451,6 +459,114 @@ def test_kernels_refuse_an_np_whose_buffers_do_not_fit_a_block(cuda, tier, kerne
             kernels.fused_chunk_increments(o, p, sup, amps[0], starts, one, n_rows=nl,
                                            n_cols=nl, **common)
     assert [w.launches for w in wrappers] == before
+
+
+@pytest.fixture
+def force_layout():
+    """Sets a wrapper's test-only layout of Z (1 whole, 2 cut by rows), and
+    takes it back."""
+    touched = []
+
+    def force(wrapper, layout):
+        touched.append(wrapper)
+        wrapper.force_z_layout = layout
+
+    yield force
+    for wrapper in touched:
+        wrapper.force_z_layout = 0
+
+
+def kernel_call(kernel, ds, dev, tier, chunk=7, k3_block="tile"):
+    """(wrapper, plain version, operands, options) of one call of K1 (at
+    the chunk the kernel route runs for ``chunk``), K2 or K3 on ``ds``."""
+    if kernel == "K3":
+        args, kw = k3_operands(ds, dev, k3_block, tier)
+        return (kernels.fused_chunk_increments, kernels.fused_chunk_increments_plain, args,
+                dict(kw, collect_metrics=True))
+    mode = "sequential" if kernel == "K2" else "batched"
+    planes, rest, common = operands(ds, dev, mode, chunk, tier)
+    if kernel == "K2":
+        return kernels.fused_epry_sweep, kernels.fused_epry_sweep_plain, (*planes, *rest), common
+    return (kernels.fused_epry_chunked, kernels.fused_epry_chunked_plain, (*planes, *rest),
+            common)
+
+
+@pytest.mark.parametrize("np_size", [90, 100])
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3"])
+def test_z_cut_by_rows_is_bitwise_z_whole(cuda, tier, force_cluster, force_layout, np_size,
+                                          kernel):
+    """Both layouts of Z: whole in every block (what the entry points take
+    where it fits, as at Np 90 and 100) and cut by rows across the cluster
+    (product 1 reading each row from the block that built it). At every
+    cluster size either gives the result of cs 1, bit for bit."""
+    ds = synthetic_dataset(np_size=np_size, grid=5, seed=3)
+    fn, _, args, kw = kernel_call(kernel, ds, cuda, tier)
+    fn(*args, **kw)
+    assert fn.plan["zcut"] == 0
+    force_cluster(fn, 1)
+    first = fn(*args, **kw)
+    for cs in (2, 4, 8):
+        force_cluster(fn, cs)
+        for layout in (1, 2):
+            force_layout(fn, layout)
+            out = fn(*args, **kw)
+            assert fn.plan["cs"] == cs and fn.plan["zcut"] == layout - 1
+            assert all(torch.equal(a, b) for a, b in zip(out, first)), (cs, layout)
+
+
+@pytest.fixture(scope="module")
+def dog_stomach():
+    """The dogStomach problem (tests/test_torch_np200.py): Np 200, NL 600, K
+    88, bbox 112 at offset 48."""
+    from fpm_torch.config import FPMConfig
+    from fpm_torch.data.simulate import make_test_object, simulate_images
+    from fpm_torch.geometry import compute_geometry
+
+    cfg = FPMConfig(np_size=200, pixel_size=6.5, objective_mag=8.0, objective_na=0.2,
+                    max_illumination_na=0.30, wavelength=0.63)
+    geom = compute_geometry(cfg)
+    images = simulate_images(make_test_object(cfg.n_large, seed=0), geom, cfg, quantize=True)
+    return types.SimpleNamespace(cfg=cfg, geom=geom, images=images)
+
+
+@pytest.mark.parametrize("bbox", ["NA disk", "whole patch"])
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3"])
+def test_dogstomach_kernels_match_plain(cuda, tier, force_layout, dog_stomach, kernel, bbox):
+    """Np 200 at the dogStomach bbox (112: cs 8 with Z whole, the only size
+    that fits; the same bitwise with Z cut by rows) and with the whole
+    patch as the bbox (pupil_radius 0, b = n = 200: Z cut by rows), against
+    the plain versions; K1 at the chunk the kernel route runs (16), K3 on
+    chunk 0 of the chunk-8 schedule on the whole spectrum. K3's d is held
+    at k3_d_limit, its v at TOL_P, and what the sharded sweep makes of
+    them, O + d and P + v / max|O + d|, at TOL_O / TOL_P."""
+    ds = dog_stomach
+    fn, plain, args, kw = kernel_call(kernel, ds, cuda, tier, chunk=32, k3_block="square")
+    assert kernel != "K1" or args[3].shape[1] == 16
+    if bbox == "whole patch":
+        kw = dict(kw, pupil_radius=0)
+    b = kernels.bbox_extent(200, kw["pupil_radius"])[0]
+    assert b == (112 if bbox == "NA disk" else 200)
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.plan["cs"] == 8 and fn.plan["br"] == -(-b // 8)
+    assert fn.plan["zcut"] == (0 if b == 112 else 1)
+    want = plain(*args, **kw)
+    if kernel == "K3":
+        def applied(out):
+            o = args[0] + out[0]
+            return o, args[1] + out[1] / (o[0] * o[0] + o[1] * o[1]).max().sqrt()
+        got_s, want_s = applied(got), applied(want)
+        assert rel(got[0], want[0]) < k3_d_limit(args, kw, want[0], cpu_witness=True)
+        assert rel(got[1], want[1]) < TOL_P
+    else:
+        got_s, want_s = got, want
+    assert rel(got_s[0], want_s[0]) < TOL_O and rel(got_s[1], want_s[1]) < TOL_P
+    np.testing.assert_allclose(got[2].cpu().numpy(), want[2].cpu().numpy(), rtol=TOL_M)
+    assert all(torch.equal(a, b_) for a, b_ in zip(fn(*args, **kw), got))
+    if b == 112:
+        force_layout(fn, 2)
+        assert all(torch.equal(a, b_) for a, b_ in zip(fn(*args, **kw), got))
+        assert fn.plan["zcut"] == 1
 
 
 # ------------------------------------------------------------- problem axis

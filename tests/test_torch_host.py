@@ -23,12 +23,23 @@ from fpm_tpu.data import simulate as jsim
 from fpm_tpu.utils import checkpoint as jckpt
 
 
+# Fields the port's dataclasses add to fpm_tpu's: the loader records which
+# decoder ran and how many files fell back to PIL.
+PORT_ONLY_FIELDS = {"decoder", "fallback_files"}
+
+
 def assert_same(a, b):
-    """Equal dataclasses / arrays / scalars, field by field."""
+    """Equal dataclasses / arrays / scalars, field by field (the port's
+    ``a`` may add the fields in PORT_ONLY_FIELDS)."""
     if dataclasses.is_dataclass(a):
         assert type(a).__name__ == type(b).__name__
+        theirs = {f.name for f in dataclasses.fields(b)}
         for f in dataclasses.fields(a):
+            if f.name not in theirs:
+                assert f.name in PORT_ONLY_FIELDS
+                continue
             assert_same(getattr(a, f.name), getattr(b, f.name))
+        assert theirs <= {f.name for f in dataclasses.fields(a)}
     elif isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
         np.testing.assert_array_equal(a, b)
         assert np.asarray(a).dtype == np.asarray(b).dtype
@@ -111,9 +122,9 @@ def _write_stack(root, frames, led_numbers, **cfg_keys):
     return path
 
 
-def test_python_loader_matches_bitwise(tmp_path):
-    """dataset.json + TIFFs through both loaders' Python decode path:
-    ROI crop, darkfield division, clamped background, saturating subtract."""
+def _darkfield_stack(tmp_path):
+    """dataset.json + TIFFs of a stack with darkfield frames and a
+    background."""
     ds = tsim.synthetic_dataset(np_size=16, grid=5, seed=4, quantize=True,
                                 raw_frames=True, darkfield_exp_multiplier=2)
     rng = np.random.default_rng(0)
@@ -126,15 +137,32 @@ def test_python_loader_matches_bitwise(tmp_path):
         darkfieldExpMultiplier=2, pixelSize=1.0, objectiveMag=1.0, objectiveNA=0.15,
         maxIlluminationNA=0.33, ledCount=int(ds.cfg.led_count),
         holeCoordinates=ds.cfg.hole_coordinates.tolist())
-    lt = tloader.load_dataset(tconfig.load_config(path))
+    return path
+
+
+def test_python_loader_matches_bitwise(tmp_path):
+    """dataset.json + TIFFs through both loaders' Python decode path:
+    ROI crop, darkfield division, clamped background, saturating subtract."""
+    path = _darkfield_stack(tmp_path)
+    lt = tloader.load_dataset(tconfig.load_config(path), use_native=False)
     lj = jloader.load_dataset(jconfig.load_config(path), use_native=False)
     assert_same(lt, lj)
     assert lt.bg_values.max() > 0 and lt.images.dtype == np.uint16
 
 
 def test_loader_native_path_not_ported(tmp_path):
-    with pytest.raises(ValueError, match="not yet ported"):
-        tloader.load_dataset(tconfig.FPMConfig(dataset_root=str(tmp_path)), use_native=True)
+    """Refused until the native decoder was ported: ``use_native=True`` now
+    decodes through it, bitwise fpm_tpu's Python path (where it cannot be
+    built it raises, as fpm_tpu's loader does without its library)."""
+    from fpm_torch import native
+
+    path = _darkfield_stack(tmp_path)
+    if not native.available():
+        with pytest.raises(RuntimeError, match="native decoder"):
+            tloader.load_dataset(tconfig.load_config(path), use_native=True)
+        return
+    assert_same(tloader.load_dataset(tconfig.load_config(path), use_native=True),
+                jloader.load_dataset(jconfig.load_config(path), use_native=False))
 
 
 def test_checkpoint_fingerprint_and_layout_match(tmp_path):

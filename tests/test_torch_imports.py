@@ -36,6 +36,7 @@ def test_scan_sees_the_forbidden_forms():
     assert len(FILES) > 15
     for name in ("__init__", "mesh", "comm", "led_shard", "tile_shard"):
         assert f"fpm_torch/parallel/{name}.py" in FILES
+    assert "fpm_torch/native/__init__.py" in FILES
 
 
 def test_the_port_imports_and_builds_nothing():

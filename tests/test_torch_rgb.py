@@ -96,8 +96,19 @@ def test_full_frames_are_fpm_tpus(rgb_config, gray_config, which):
 
 
 def test_native_decoder_is_still_refused(gray_config):
-    with pytest.raises(ValueError, match="not yet ported"):
-        tload.load_dataset_rgb(t_load_config(gray_config), use_native=True)
+    """Refused until the native decoder was ported: the decode-once RGB load
+    now runs through it, each channel bitwise the Python path's."""
+    from fpm_torch import native
+
+    cfg = t_load_config(gray_config)
+    if not native.available():
+        with pytest.raises(RuntimeError, match="native decoder"):
+            tload.load_dataset_rgb(cfg, use_native=True)
+        return
+    for nat, pil in zip(tload.load_dataset_rgb(cfg, use_native=True),
+                        tload.load_dataset_rgb(cfg, use_native=False)):
+        np.testing.assert_array_equal(nat.images, pil.images)
+        np.testing.assert_array_equal(nat.bg_values, pil.bg_values)
 
 
 @pytest.fixture(scope="module")

@@ -109,7 +109,7 @@ def test_state_round_trip_as_planes():
 
 def test_effective_chunk_size():
     assert tepry.effective_chunk_size(90, 32, 193, True, "batched") == 32
-    assert tepry.effective_chunk_size(90, 0, 193, True, "batched") == 193
+    assert tepry.effective_chunk_size(90, 0, 193, True, "batched") == 34
     assert tepry.effective_chunk_size(16, 999, 25, True, "batched") == 25
     assert tepry.effective_chunk_size(16, 999, 25, False, "batched") == 999
     assert tepry.effective_chunk_size(16, 0, 25, False, "batched") == 0
