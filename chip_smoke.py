@@ -135,6 +135,34 @@ tiers of the DFT products (``dft_precision``): ``bf16x3``, the default (a
    batched run recording chunk 16), and timing as in 5 with K2's phase
    profile.
 
+7. ``oracle``: on the mono dome problem, 3 sweeps of K2 (sequential
+   ``reconstruct``, kernel route) at both tiers against the port's float64
+   NumPy oracle (``fpm_torch.oracle``, run on the card's machine): the
+   judge metric (``complex_field_rmse``) of ``obj_crop`` and the rel-max of
+   ``obj_f``, held to 1e-3 at highest (tests/test_torch_solver.py's bound
+   of complex64 against the oracle); K2's launches only.
+8. ``debug``: ``run --debug --debug-led 3 --use-pallas -n 3`` in sequential
+   (K2) and batched (K1) mode on the card: the files under ``debug/`` equal
+   those of the same command with ``--platform cpu``, ``object.npy`` within
+   rel-max 1e-6 of the command without ``--debug`` on the card (whether
+   bitwise is printed), only that mode's kernel launched; then
+   ``led_intermediates`` replayed on the card against the CPU from one
+   state, at positions 3 and the last: each of the six spectra within
+   1e-10 (complex128) and 1e-4 (complex64).
+9. ``distributed``: two processes started by this script (``FPM_*`` set,
+   a free port on localhost), both on the one card, so their mesh's
+   transport is gloo (checked from the mesh line): ``run --distributed
+   --use-pallas -n 3`` with ``--mesh 2 1`` and ``--mesh 1 2`` (every halo
+   crosses the processes), each once more with ``--comm-precision bf16
+   --stale-consensus``: ``object_spectrum.npy`` and ``pupil.npy`` bitwise
+   the one-process run of the same flags, K3 launched on both processes,
+   each process's counted collectives equal to the one-process mesh's and
+   to the model of ``parallel.comm``; ``--fov-grid 8 8 -n 10`` on the
+   568×568 frames: ``object_stitched.npy`` bitwise the one-process run;
+   process 1's output directory empty in every run; then ONE process over
+   nccl (``--distributed --mesh 1 1``), bitwise its single-controller run.
+   Wall seconds of every run.
+
 Then the ``kernels`` line (each kernel once per tier, the Np=200 rows
 apart), the ``nvidia-smi`` line, and the result line.
 Any failure raises and exits non-zero; without a CUDA device it exits 1
@@ -869,6 +897,288 @@ def dogstomach(seed: int, smi: str, dev) -> list:
                   "cycles_per_led_by_phase": {p: c / k_leds for p, c in cycles.items()}},
               "gpu": smi})
     return rows
+
+
+# ------------------------------------------------ oracle, debug, distributed
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ORACLE_LIMIT = 1e-3               # tests/test_torch_solver.py: complex64 against the oracle
+DEBUG_OBJECT_LIMIT = 1e-6
+INTERMEDIATES_LIMIT = {"complex128": 1e-10, "complex64": 1e-4}
+DEBUG_SWEEPS, DEBUG_LED, MESH_SWEEPS = 3, 3, 3
+LEVERS = ["--comm-precision", "bf16", "--stale-consensus"]
+
+
+def wrapper_counts() -> dict:
+    from fpm_torch.ops import kernels
+
+    return {"K1": kernels.fused_epry_chunked, "K2": kernels.fused_epry_sweep,
+            "K3": kernels.fused_chunk_increments}
+
+
+def cli_recording(argv) -> dict:
+    """``fpm_torch.cli.main(argv)`` with every launch counter at 0 before:
+    its exit code and wall seconds, the launches of each kernel, and every
+    mesh it built, described and with its counted collectives."""
+    from fpm_torch import cli
+    from fpm_torch.parallel import mesh as mesh_mod
+
+    meshes, init = [], mesh_mod.Mesh.__init__
+
+    def record(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        meshes.append(self)
+
+    wrappers = wrapper_counts()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(mesh_mod.Mesh, "__init__", record):
+        rc = cli.main(argv)
+    return {"rc": rc, "wall_s": time.perf_counter() - t0,
+            "launches": {k: w.launches for k, w in wrappers.items()},
+            "meshes": [m.describe() for m in meshes],
+            "counts": [{",".join(key): v for key, v in m.counts.items()} for m in meshes]}
+
+
+def cli_child(argv) -> int:
+    """One process of a multi-process run: :func:`cli_recording`, printed."""
+    rec = cli_recording(argv)
+    print("CHILD " + json.dumps(rec), flush=True)
+    return rec["rc"]
+
+
+def processes(argv_of, n: int, timeout: float = 600) -> list[dict]:
+    """``fpm_torch run`` as processes 0..n-1 of one run (``FPM_*`` set, a
+    free port on localhost), each through :func:`cli_child`; every process
+    is stopped before this returns. Returns their records."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    try:
+        for pid in range(n):
+            env = dict(os.environ, FPM_COORDINATOR=f"127.0.0.1:{port}",
+                       FPM_NUM_PROCESSES=str(n), FPM_PROCESS_ID=str(pid))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c",
+                 "import sys, chip_smoke; sys.exit(chip_smoke.cli_child(sys.argv[1:]))",
+                 *argv_of(pid)], cwd=HERE, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        outs = [p.communicate(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    records = []
+    for pid, (p, (out, err)) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"process {pid} exited {p.returncode}: {err[-3000:]}")
+        records.append(json.loads([ln for ln in out.splitlines()
+                                   if ln.startswith("CHILD ")][-1][len("CHILD "):]))
+    return records
+
+
+def oracle_phase(cfg, geom, frames, smi) -> None:
+    """K2 (sequential ``reconstruct``, kernel route) against the port's NumPy
+    oracle on the card's machine, 3 sweeps, at both tiers."""
+    import numpy as np
+
+    from fpm_torch.models import epry
+    from fpm_torch.oracle import run_fpm_oracle
+    from fpm_torch.utils.metrics import complex_field_rmse
+
+    t0 = time.perf_counter()
+    ora = run_fpm_oracle(frames, geom, cfg, iterations=3)
+    oracle_s = time.perf_counter() - t0
+    for tier in TIERS:
+        wrappers = wrapper_counts()
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        res = epry.reconstruct(frames, geom, cfg, iterations=3, use_pallas=True,
+                               dft_precision=tier)
+        solve_s = time.perf_counter() - t0
+        counts = {k: w.launches for k, w in wrappers.items()}
+        rel_f = float(np.abs(res.obj_f - ora.obj_f).max() / np.abs(ora.obj_f).max())
+        rmse = complex_field_rmse(res.obj_crop, ora.obj_crop)
+        emit({"phase": "oracle", "dft_precision": tier, "sweeps": 3, "leds": geom.num_leds,
+              "np": cfg.np_size, "obj_crop_complex_field_rmse": rmse,
+              "obj_f_rel_max": rel_f, "limit_obj_f_rel_max": ORACLE_LIMIT if tier == "highest"
+              else None, "launches": counts, "oracle_s_host": oracle_s,
+              "reconstruct_s": solve_s, "gpu": smi})
+        check(counts["K2"] == 6 and counts["K1"] == counts["K3"] == 0,
+              f"oracle phase {tier}: launches {counts}, not K2 only, 2 per sweep")
+        check(np.isfinite(rmse) and np.isfinite(rel_f), f"oracle phase {tier}: not finite")
+        if tier == "highest":
+            check(rel_f <= ORACLE_LIMIT,
+                  f"K2 at highest lies {rel_f} from the oracle (limit {ORACLE_LIMIT})")
+
+
+def debug_phase(cfg, geom, frames, smi, tmp) -> None:
+    """``run --debug --debug-led 3 -n 3 --use-pallas`` in both modes on the
+    card against the same command on the CPU (the files under ``debug/``)
+    and without ``--debug`` on the card (``object.npy``); then
+    ``led_intermediates`` on the card against the CPU from one state."""
+    import numpy as np
+    import torch
+
+    from fpm_torch.models import epry
+
+    mono = write_dataset(os.path.join(tmp, "debug_data"), cfg, geom, frames)
+    for mode, key in (("sequential", "K2"), ("batched", "K1")):
+        base = ["run", mono, "-n", str(DEBUG_SWEEPS), "--use-pallas", "--mode", mode]
+        dbg = ["--debug", "--debug-led", str(DEBUG_LED)]
+        dirs = {name: os.path.join(tmp, f"debug_{mode}_{name}")
+                for name in ("card", "cpu", "no_debug")}
+        recs = {"card": cli_recording([*base, "-o", dirs["card"], *dbg]),
+                "cpu": cli_recording([*base, "-o", dirs["cpu"], *dbg, "--platform", "cpu"]),
+                "no_debug": cli_recording([*base, "-o", dirs["no_debug"]])}
+        for name, rec in recs.items():
+            check(rec["rc"] == 0, f"debug {mode} {name} exited {rec['rc']}")
+        for name in ("card", "no_debug"):
+            launched = recs[name]["launches"]
+            check(launched[key] > 0 and all(c == 0 for k, c in launched.items() if k != key),
+                  f"debug {mode} {name}: launches {launched}, not {key} only")
+        check(all(c == 0 for c in recs["cpu"]["launches"].values()),
+              f"debug {mode} on the CPU launched kernels: {recs['cpu']['launches']}")
+        files = {name: sorted(os.listdir(os.path.join(dirs[name], "debug")))
+                 for name in ("card", "cpu")}
+        objs = {name: np.load(os.path.join(dirs[name], "object.npy"))
+                for name in ("card", "no_debug")}
+        rel_obj = float(np.abs(objs["card"] - objs["no_debug"]).max()
+                        / np.abs(objs["no_debug"]).max())
+        emit({"phase": "debug", "mode": mode, "kernel": key, "sweeps": DEBUG_SWEEPS,
+              "debug_led": DEBUG_LED, "debug_files": len(files["card"]),
+              "debug_files_equal_cpu": files["card"] == files["cpu"],
+              "object_rel_max_vs_no_debug": rel_obj,
+              "object_bitwise_no_debug": bool(np.array_equal(objs["card"], objs["no_debug"])),
+              "limit": DEBUG_OBJECT_LIMIT,
+              "wall_s": {name: rec["wall_s"] for name, rec in recs.items()},
+              "launches": {name: rec["launches"] for name, rec in recs.items()}, "gpu": smi})
+        check(files["card"] == files["cpu"],
+              f"debug {mode}: files on the card {files['card']} != on the CPU {files['cpu']}")
+        want = 2 * DEBUG_SWEEPS + 6 * DEBUG_SWEEPS
+        check(len([f for f in files["card"] if f.startswith("iter")]) == want,
+              f"debug {mode}: {len(files['card'])} files, want {want} iteration images")
+        check(rel_obj <= DEBUG_OBJECT_LIMIT,
+              f"debug {mode}: object {rel_obj} from the run without --debug")
+
+    state = epry.reconstruct(frames, geom, cfg, iterations=1, use_pallas=True)
+    state = (state.obj_f_centered, state.pupil)
+    errs = {}
+    for dtype, limit in INTERMEDIATES_LIMIT.items():
+        for k in (DEBUG_LED, geom.num_leds - 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            card = epry.led_intermediates(state, frames, geom, cfg, k, dtype=dtype,
+                                          device="cuda")
+            card_s = time.perf_counter() - t0
+            host = epry.led_intermediates(state, frames, geom, cfg, k, dtype=dtype,
+                                          device="cpu")
+            rel = {name: float(np.abs(card[name] - host[name]).max() / np.abs(host[name]).max())
+                   for name in host}
+            errs[f"{dtype} led {k}"] = {"rel_max": rel, "card_s": card_s}
+            check(max(rel.values()) <= limit,
+                  f"led_intermediates {dtype} at {k}: card against CPU {rel} (limit {limit})")
+    emit({"phase": "debug", "step": "led_intermediates card vs cpu",
+          "limits": INTERMEDIATES_LIMIT, "cases": errs, "gpu": smi})
+
+
+def comm_mismatches(counts: dict, nl: int, n: int, k: int, led: int, tile: int,
+                    bf16: bool) -> list[str]:
+    """A mesh run's counted collectives (``"op,axis"`` keys) against the
+    analytic model of ``parallel.comm`` after ``MESH_SWEEPS`` sweeps at chunk
+    32. With the bf16 wire only the reverse halo travels in bf16 (as in
+    fpm_tpu); the model at 4 bytes halves the forward halo too, so the
+    halo line is held to forward at 8 bytes plus reverse at 4."""
+    from fpm_torch.parallel import comm
+
+    counts = {tuple(key.split(",", 1)): v for key, v in counts.items()}
+    size = 4 if bf16 else 8
+    if tile == 1:
+        model = comm.led_shard_comm(nl, n, k, 32, led, size)
+        return comm.counted_mismatches(counts, model, sweeps=MESH_SWEEPS)
+    model = comm.tile_shard_comm(nl, n, k, led, tile, 32, size)
+    hops = -(-n // (nl // tile))
+    diffs = comm.counted_mismatches(counts, model, sweeps=MESH_SWEEPS, halo_hops=hops)
+    if bf16:
+        halo = model["collectives"][0]["payload_bytes"] * model["n_chunks_per_sweep"]
+        want = {"calls": 2 * hops * model["n_chunks_per_sweep"] * MESH_SWEEPS,
+                "payload_bytes": 3 * halo * MESH_SWEEPS}
+        diffs = [d for d in diffs if not d.startswith("ppermute over tile")]
+        if counts.get(("ppermute", "tile")) != want:
+            diffs.append(f"ppermute over tile: {counts.get(('ppermute', 'tile'))}, want {want}")
+    return diffs
+
+
+def distributed_phase(cfg, geom, frames, wide_frames, smi, tmp) -> None:
+    """Two processes on the one card over gloo against one process:
+    ``--mesh 2 1`` and ``--mesh 1 2`` (each once with the bf16 wire and the
+    stale consensus) and ``--fov-grid 8 8``; then one process over nccl."""
+    import numpy as np
+
+    mono = write_dataset(os.path.join(tmp, "dist_data"), cfg, geom, frames)
+    wide = write_dataset(os.path.join(tmp, "dist_wide"), cfg, geom, wide_frames)
+    n, nl, k = cfg.np_size, cfg.n_large, geom.num_leds
+
+    def compare(label, flags, n_proc, arrays, transport, key):
+        one_dir = os.path.join(tmp, f"one_{label}")
+        dirs = [os.path.join(tmp, f"p{pid}_{label}") for pid in range(n_proc)]
+        one = cli_recording(["run", *flags, "-o", one_dir])
+        check(one["rc"] == 0, f"{label}: one process exited {one['rc']}")
+        t0 = time.perf_counter()
+        recs = processes(lambda pid: ["run", *flags, "-o", dirs[pid], "--distributed"], n_proc)
+        launched_s = time.perf_counter() - t0
+        bitwise = {a: bool(np.array_equal(np.load(os.path.join(dirs[0], a)),
+                                          np.load(os.path.join(one_dir, a)))) for a in arrays}
+        others = {pid: sorted(os.listdir(dirs[pid])) for pid in range(1, n_proc)}
+        line = {"phase": "distributed", "run": label, "processes": n_proc,
+                "flags": flags[1:], "bitwise_one_process": bitwise,
+                "other_process_files": others,
+                "wall_s": {"processes": [r["wall_s"] for r in recs], "one": one["wall_s"],
+                           "processes_start_to_exit": launched_s},
+                "launches": {"processes": [r["launches"] for r in recs],
+                             "one": one["launches"]},
+                "mesh": recs[0]["meshes"], "gpu": smi}
+        for pid, rec in enumerate(recs):
+            check(rec["launches"][key] > 0 and all(
+                c == 0 for kk, c in rec["launches"].items() if kk != key),
+                f"{label}: process {pid} launched {rec['launches']}, not {key} only")
+        check(all(bitwise.values()), f"{label}: not bitwise the one-process run: {bitwise}")
+        check(all(not files for files in others.values()),
+              f"{label}: a process other than 0 wrote {others}")
+        if transport:
+            check(all(f"transport {transport}" in m for r in recs for m in r["meshes"]),
+                  f"{label}: transport is not {transport}: {recs[0]['meshes']}")
+        return line, one, recs
+
+    for led, tile in ((2, 1), (1, 2)):
+        for levers in (False, True):
+            label = f"mesh {led} {tile}" + (" bf16 stale" if levers else "")
+            flags = [mono, "-n", str(MESH_SWEEPS), "--use-pallas", "--mesh", str(led),
+                     str(tile), *(LEVERS if levers else [])]
+            line, one, recs = compare(label.replace(" ", "_"), flags, 2,
+                                      ("object_spectrum.npy", "pupil.npy"), "gloo", "K3")
+            diffs = {pid: comm_mismatches(r["counts"][0], nl, n, k, led, tile, levers)
+                     for pid, r in enumerate(recs)}
+            same = all(r["counts"] == one["counts"] for r in recs)
+            emit({**line, "counted_collectives": recs[0]["counts"][0],
+                  "counts_equal_one_process": same, "counted_vs_model": diffs})
+            check(same, f"{label}: counted collectives differ from the one-process mesh")
+            check(not any(diffs.values()), f"{label}: counted collectives vs model {diffs}")
+
+    flags = [wide, "-n", "10", "--use-pallas", "--fov-grid", "8", "8"]
+    line, _, recs = compare("fov_grid_8_8", flags, 2, ("object_stitched.npy",), None, "K2")
+    emit(line)
+
+    flags = [mono, "-n", str(MESH_SWEEPS), "--use-pallas", "--mesh", "1", "1"]
+    line, _, _ = compare("mesh_1_1_nccl", flags, 1, ("object_spectrum.npy", "pupil.npy"),
+                         "nccl", "K3")
+    emit(line)
+
 
 
 def main(argv=None) -> int:
@@ -1757,6 +2067,12 @@ def main(argv=None) -> int:
               "device_ms_top_kernels": dict(list(by_kernel.items())[:6]), "gpu": smi})
 
     rows += dogstomach(args.seed, smi, dev)
+
+    # ------------------------------------- 7-9. oracle, debug, distributed
+    oracle_phase(cfg, geom, frames, smi)
+    with tempfile.TemporaryDirectory(prefix="fpm_chip_smoke_dist_") as tmp:
+        debug_phase(cfg, geom, frames, smi, tmp)
+        distributed_phase(cfg, geom, frames, wide_frames, smi, tmp)
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

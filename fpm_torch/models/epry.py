@@ -294,6 +294,58 @@ def sweep_sequential(obj_f, pupil, amps, starts, *, support, opts: EPRYOptions):
     return carry[0], carry[1], torch.stack(per_led).sum(0)
 
 
+def led_intermediates(state, images, geom: LEDGeometry, cfg: FPMConfig, led_index: int,
+                      dtype="complex64", device="cuda") -> dict[str, np.ndarray]:
+    """The six working spectra of one LED update, for the debug dumps.
+
+    The reference's debug mode opens windows of the working spectra at six
+    points inside each LED update (fpmMain.cpp:366-375, 396-402, 421-425,
+    435-441, 449-455). This replays the sequential sweep from ``state`` (the
+    sweep-entry ``(obj_f_centered, pupil)``, complex arrays or (2, ...)
+    planes, of either package) up to schedule position ``led_index``
+    (0 = lowest NA) with the eager :func:`led_step`, on ``device``, and
+    returns that LED's
+
+      objf_crop   — sub-spectrum crop (fpmMain.cpp:358-362, shown :366-375)
+      objf_crop_p — crop × pupil (fpmMain.cpp:364)
+      obj_crop_p  — image-plane field (fpmMain.cpp:365, shown :396-402)
+      objf_up     — amplitude-replaced spectrum (fpmMain.cpp:389-394)
+      d_obj       — object-spectrum increment (fpmMain.cpp:404-419, :421-425)
+      pupil       — pupil after this LED's EPRY update (:449-455)
+
+    as complex NumPy arrays. The counterpart of
+    ``fpm_tpu.models.epry.led_intermediates``.
+    """
+    dev = resolve_device(device)
+    opts = EPRYOptions.from_config(cfg, dtype=_dtype_name(dtype), collect_metrics=False)
+    amps, starts = _sorted_device_inputs(images, geom, opts.cdtype, dev)
+    if not 0 <= led_index < amps.shape[0]:
+        raise ValueError(f"led_index {led_index} outside schedule [0, {amps.shape[0]})")
+    support = torch.as_tensor(pupil_support(cfg, centered=False), dtype=opts.rdtype,
+                              device=dev).to(opts.cdtype)
+    obj_f, pupil = state_from_numpy(*state, device=dev, dtype=opts.cdtype)
+    starts = _host_starts(starts)
+    omax0 = torch.max(torch.abs(obj_f))
+    carry = (obj_f.clone(), pupil, omax0)
+    for pos in range(led_index):
+        carry, _ = led_step(carry, (amps[pos], starts[pos]), support=support, opts=opts)
+    obj_f, pupil, _ = carry
+
+    amp, start = amps[led_index], starts[led_index]
+    objf_crop = fftshift2d(crop_patch(obj_f, start, opts.np_size))
+    objf_crop_p = objf_crop * pupil
+    obj_crop_p = ifft2(objf_crop_p)
+    objf_up = fft2(_amp_replace(obj_crop_p, amp, opts.eps))
+    diff = objf_up - objf_crop_p
+    d_obj = _object_delta(diff, pupil, opts.delta2)
+    paste_patch_add(obj_f, fftshift2d(d_obj), start)
+    omax = torch.max(torch.abs(obj_f)) if opts.global_max == "exact" else omax0
+    out = {"objf_crop": objf_crop, "objf_crop_p": objf_crop_p, "obj_crop_p": obj_crop_p,
+           "objf_up": objf_up, "d_obj": d_obj,
+           "pupil": pupil + _pupil_delta(diff, objf_crop, omax, support, opts.delta1)}
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
 def _to_planes(z):
     return torch.stack([z.real, z.imag]).to(torch.float32)
 

@@ -39,9 +39,12 @@ from .epry import ReconResult, reconstruct
 
 @dataclasses.dataclass
 class LargeFOVResult:
-    stitched: np.ndarray          # (H_hr, W_hr) complex high-res field
+    stitched: np.ndarray          # (H_hr, W_hr) complex high-res field; None on
+    #                               a process other than the coordinator of a
+    #                               distributed ROI run (parallel/roi_shard.py)
     tiles: list[ReconResult]
-    tile_origins: list[tuple[int, int]]  # high-res (row, col) of each tile
+    tile_origins: list[tuple[int, int]]  # high-res (row, col) of each tile (None
+    #                                      where ``stitched`` is)
 
 
 def _feather_weight(n: int, overlap: int) -> np.ndarray:

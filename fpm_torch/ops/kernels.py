@@ -257,12 +257,22 @@ def _planes(z):
     return torch.stack([z.real, z.imag]).contiguous()
 
 
+def _sqrt(x):
+    """The float32 square root rounded correctly, as CUDA's ``sqrtf`` and
+    NumPy's are: taken in float64 and rounded back. torch's float32 square
+    root on the CPU goes through MKL's vector library, which is not
+    correctly rounded (1 ulp off on ~1 % of values) and, on its first call
+    in a process, has been seen to return values ~1e-4 off on some of its
+    threads, so that one process's results differed from another's."""
+    return torch.sqrt(x.to(torch.float64)).to(x.dtype)
+
+
 def _forward(oc, p, amp, mats, eps, dft_precision):
     """(img, up) of the LED(s) with window(s) ``oc`` — see led_forward."""
     ai, bi, af, bf = mats
     mm = cmm_bf16x3 if dft_precision == "bf16x3" else torch.matmul
     img = mm(mm(ai, oc * p), bi)
-    rep = img * (amp / torch.sqrt((img.real + eps) ** 2 + (img.imag + eps) ** 2))
+    rep = img * (amp / _sqrt((img.real + eps) ** 2 + (img.imag + eps) ** 2))
     return img, mm(mm(af, rep), bf)
 
 
@@ -278,18 +288,18 @@ def slab_bounds(n: int, cs: int) -> list[tuple[int, int]]:
 def _object_weight(p, delta2):
     """|P|·conj(P) / (max|P| · (|P|² + delta2))."""
     pabs2 = p.real * p.real + p.imag * p.imag
-    pmax = torch.sqrt(pabs2.max())
-    return torch.sqrt(pabs2) * p.conj() / (pmax * (pabs2 + delta2))
+    pmax = _sqrt(pabs2.max())
+    return _sqrt(pabs2) * p.conj() / (pmax * (pabs2 + delta2))
 
 
 def _pupil_weight(oc, sup, delta1):
     """|Oc|·conj(Oc) · support / (|Oc|² + delta1) — the 1/max|O| comes later."""
     oabs2 = oc.real * oc.real + oc.imag * oc.imag
-    return torch.sqrt(oabs2) * oc.conj() * (sup / (oabs2 + delta1))
+    return _sqrt(oabs2) * oc.conj() * (sup / (oabs2 + delta1))
 
 
 def _abs_max(o):
-    return torch.sqrt((o.real * o.real + o.imag * o.imag).max())
+    return _sqrt((o.real * o.real + o.imag * o.imag).max())
 
 
 def _sq_sum(z, dims):

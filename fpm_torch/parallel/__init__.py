@@ -1,8 +1,9 @@
 """Multi-rank reconstruction on an (led, tile) mesh: LED-batch sharding and
 spectrum-tile sharding with halo exchange; and the ROI ranks of the
-large-FOV mode (the port of ``fpm_tpu.parallel``, less ``multihost``). The
-meshes are single-controller: one process drives every rank, and ranks may
-share a device (``mesh.py``, ``roi_shard.py``)."""
+large-FOV mode (the port of ``fpm_tpu.parallel``). One process drives every
+rank, or, under ``torch.distributed`` (``multihost.py``), each process its
+equal share of them; ranks may share a device (``mesh.py``,
+``roi_shard.py``)."""
 
 from .comm import counted_mismatches, led_shard_comm, project_weak_scaling, tile_shard_comm
 from .led_shard import prepare_led_sharded, reconstruct_led_sharded

@@ -10,8 +10,9 @@ complex128 parity runs on the CPU), and the ranks reconcile with one ``psum``
 per chunk for the object and one for the pupil consensus. Chunks are padded
 with masked dummy frames to a multiple of the ``led`` axis.
 
-The mesh is single-controller (``parallel.mesh``): this module's functions
-take *grids* of per-rank tensors and loop over the ranks.
+This module's functions take *grids* of per-rank tensors and loop over the
+ranks of this process (``parallel.mesh``; under ``torch.distributed`` every
+process runs the same program on its own ranks, ``parallel.multihost``).
 """
 
 from __future__ import annotations
@@ -158,16 +159,17 @@ def _sharded_sweep(mesh: Mesh, obj_f, pupil, support, amps, starts, mask, *,
         state["obj_f"], state["pupil"] = unzip(mesh.map(
             lambda o, p, dd, vv: _apply_consensus(o, p, dd, vv, opts=opts),
             state["obj_f"], state["pupil"], d, v), 2)
-        state["mets"] = state["mets"] + mets[0][0]
+        state["mets"] = state["mets"] + mesh.local(mets)
 
-    pipelined_chunks(amps[0][0].shape[0], increments, apply, opts.stale_consensus)
+    pipelined_chunks(mesh.local(amps).shape[0], increments, apply, opts.stale_consensus)
     return state["obj_f"], state["pupil"], state["mets"]
 
 
 def check_route(mesh: Mesh, opts: EPRYOptions) -> None:
     """On CUDA ranks the sweep runs only through the kernels, as
     ``models.epry.reconstruct`` requires."""
-    if not opts.use_pallas and any(d.type == "cuda" for row in mesh.devices for d in row):
+    if not opts.use_pallas and any(d is not None and d.type == "cuda"
+                                   for row in mesh.devices for d in row):
         raise ValueError(
             "on a CUDA device fpm_torch sweeps only through its CUDA kernels: "
             "pass use_pallas=True (CLI: --use-pallas)")
@@ -181,9 +183,9 @@ def sharded_options(cfg: FPMConfig, iterations, dtype, opt_overrides) -> EPRYOpt
 
 
 def initial_grids(mesh: Mesh, cfg: FPMConfig, amps_sorted, opts: EPRYOptions, initial_state):
-    """(obj_f, pupil, support) on the mesh's first device: the fresh init,
-    or ``initial_state`` (complex arrays or planes, of either package)."""
-    dev = mesh.devices[0][0]
+    """(obj_f, pupil, support) on this process's first device: the fresh
+    init, or ``initial_state`` (complex arrays or planes, of either package)."""
+    dev = mesh.home
     support_r = torch.as_tensor(pupil_support(cfg, centered=False), dtype=opts.rdtype,
                                 device=dev)
     if initial_state is not None:
@@ -267,4 +269,6 @@ def reconstruct_led_sharded(images, geom: LEDGeometry, cfg: FPMConfig,
         return _sharded_sweep(mesh, o, p, support, amps, starts, mask, opts=opts)
 
     obj_f, pupil, metrics = run_sweeps(sweep, obj_f, pupil, opts.iterations)
-    return result_from(obj_f[0][0], pupil[0][0], metrics)
+    # Every rank holds the whole spectrum, the same bits on every rank: each
+    # process returns the global result from its own first rank.
+    return result_from(mesh.local(obj_f), mesh.local(pupil), metrics)

@@ -1,0 +1,279 @@
+"""Multi-process execution on ``torch.distributed``: the port of
+``fpm_tpu.parallel.multihost``.
+
+The reference is strictly single-process. As in the JAX package, every
+process of a run starts the same command, calls :func:`initialize_from_env`
+once, and builds one global mesh (:func:`global_mesh`, or ``make_mesh`` with
+explicit axes) whose ranks the processes own in equal, contiguous shares
+(:func:`process_mesh`); the sharded sweeps of :mod:`fpm_torch.parallel` run
+unchanged, each process on its own ranks, and the mesh's collectives cross
+the process boundary (``parallel.mesh``).
+
+Transport. The process group :func:`initialize_from_env` opens is ``gloo``:
+it carries the set-up and the results. A mesh picks the transport of its
+collectives from its layout when it is created (:class:`ProcessTransport`):
+``nccl`` where every process's ranks sit on cards of their own, ``gloo``
+where the ranks are on the CPU or processes share a card (NCCL refuses two
+members of one group on one device). Over ``gloo`` the payloads travel as
+host copies; the computation stays on the ranks' devices.
+
+Tested without a cluster by the two-process harness of
+``tests/test_torch_multihost.py``.
+"""
+
+from __future__ import annotations
+
+import os
+import socket
+
+import torch
+
+_ENV = ("FPM_COORDINATOR", "FPM_NUM_PROCESSES", "FPM_PROCESS_ID")
+
+
+def initialize_from_env(
+    coordinator_address: str | None = None,
+    num_processes: int | None = None,
+    process_id: int | None = None,
+    require: bool = False,
+) -> bool:
+    """Initialize ``torch.distributed`` from args or environment.
+
+    Environment: ``FPM_COORDINATOR`` (host:port), ``FPM_NUM_PROCESSES``,
+    ``FPM_PROCESS_ID`` — or, with ``require=True`` (the CLI's
+    ``--distributed`` flag), the launcher's own (torchrun's ``RANK``,
+    ``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``; the counterpart of
+    JAX's auto-detection). Returns True when running distributed, False for
+    single-process. A run that ASKED for distributed execution but cannot
+    initialize it raises instead of silently running single-process (each
+    process would otherwise solve an independent duplicate run).
+    """
+    import torch.distributed as dist
+
+    coordinator_address = coordinator_address or os.environ.get("FPM_COORDINATOR")
+    if num_processes is None and "FPM_NUM_PROCESSES" in os.environ:
+        num_processes = int(os.environ["FPM_NUM_PROCESSES"])
+    if process_id is None and "FPM_PROCESS_ID" in os.environ:
+        process_id = int(os.environ["FPM_PROCESS_ID"])
+
+    if coordinator_address is None and num_processes is None:
+        if process_id is not None:
+            raise ValueError(
+                "FPM_PROCESS_ID is set but FPM_COORDINATOR/FPM_NUM_PROCESSES "
+                "are not — partial multi-host configuration"
+            )
+        if not require:
+            return False
+        launcher = _launcher_env()
+        if launcher is None:
+            raise ValueError(
+                "--distributed requested but no multi-host configuration "
+                "found: set FPM_COORDINATOR/FPM_NUM_PROCESSES/FPM_PROCESS_ID "
+                "or run under a supported launcher (auto-detect said: no "
+                "torchrun environment: RANK, WORLD_SIZE and MASTER_ADDR unset)"
+            )
+        coordinator_address, num_processes, process_id = launcher
+    if coordinator_address is None or num_processes is None or process_id is None:
+        raise ValueError(
+            f"{'/'.join(_ENV)} must all be set — partial multi-host configuration "
+            f"(coordinator {coordinator_address}, processes {num_processes}, "
+            f"process id {process_id})")
+    dist.init_process_group("gloo", init_method=f"tcp://{coordinator_address}",
+                            world_size=num_processes, rank=process_id)
+    return True
+
+
+def _launcher_env():
+    """``(address, world size, rank)`` from torchrun's environment, or None."""
+    env = os.environ
+    if not all(k in env for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR")):
+        return None
+    return (f"{env['MASTER_ADDR']}:{env.get('MASTER_PORT', '29500')}",
+            int(env["WORLD_SIZE"]), int(env["RANK"]))
+
+
+def _initialized() -> bool:
+    import torch.distributed as dist
+
+    return dist.is_available() and dist.is_initialized()
+
+
+def process_index() -> int:
+    """This process's index in a distributed run; 0 on a single process."""
+    import torch.distributed as dist
+
+    return dist.get_rank() if _initialized() else 0
+
+
+def is_coordinator() -> bool:
+    """True on process 0 of a distributed run, and on a single process."""
+    return process_index() == 0
+
+
+def shutdown() -> None:
+    """Destroy the process group, where one is open."""
+    import torch.distributed as dist
+
+    if _initialized():
+        dist.destroy_process_group()
+
+
+def all_processes(obj) -> list:
+    """``obj`` of every process, in process order (``[obj]`` on one)."""
+    import torch.distributed as dist
+
+    if not _initialized():
+        return [obj]
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def local_cards() -> list[torch.device]:
+    """The cards this process uses: the visible cards split in contiguous
+    shares between the processes of its host (by process order), or, where
+    a host has more processes than cards, one card shared round-robin."""
+    from ..models.epry import resolve_device
+
+    resolve_device("cuda")
+    n = torch.cuda.device_count()
+    hosts = all_processes(socket.gethostname())
+    me = process_index()
+    peers = [p for p, h in enumerate(hosts) if h == hosts[me]]
+    k, m = peers.index(me), len(peers)
+    if n >= m:
+        per = n // m
+        return [torch.device("cuda", i) for i in range(k * per, (k + 1) * per)]
+    return [torch.device("cuda", k % n)]
+
+
+def global_mesh(tile: int = 1, devices=None):
+    """Build the global ('led', 'tile') mesh over all processes' devices.
+
+    ``devices`` lists this process's devices (default: its cards,
+    :func:`local_cards`); the mesh has one rank per device of every process,
+    ``led = devices / tile``.
+    """
+    from .mesh import make_mesh
+
+    n = sum(all_processes(len(devices) if devices is not None else len(local_cards())))
+    if n % tile != 0:
+        raise ValueError(f"{n} global devices not divisible by tile={tile}")
+    return make_mesh(led=n // tile, tile=tile, devices=devices)
+
+
+def process_mesh(led: int | None, tile: int, devices=None):
+    """The ``led × tile`` mesh across the processes: process p owns ranks
+    ``[p·n, (p+1)·n)`` in grid order, ``n = led·tile / processes``, placed
+    round-robin over ``devices`` (default: :func:`local_cards`) or, with an
+    explicit list, on its first n entries."""
+    import torch.distributed as dist
+
+    from .mesh import Mesh
+
+    world, me = dist.get_world_size(), dist.get_rank()
+    mine = ([torch.device(d) for d in devices] if devices is not None else local_cards())
+    if led is None:
+        led = sum(all_processes(len(mine))) // tile if tile > 0 else 0
+    if led < 1 or tile < 1:
+        raise ValueError(f"mesh axes must be >= 1, got led={led} tile={tile}")
+    total = led * tile
+    if total % world:
+        raise ValueError(f"mesh led={led} x tile={tile} has {total} ranks, which "
+                         f"{world} processes cannot own in equal shares")
+    per = total // world
+    if devices is None:
+        ranks = [mine[i % len(mine)] for i in range(per)]
+    elif per > len(mine):
+        raise ValueError(f"mesh led={led} x tile={tile} needs {per} devices in each "
+                         f"of {world} processes; only {len(mine)} available")
+    else:
+        ranks = mine[:per]
+    flat = [None] * total
+    flat[me * per:(me + 1) * per] = ranks
+    return Mesh([flat[li * tile:(li + 1) * tile] for li in range(led)],
+                ProcessTransport(ranks))
+
+
+def _as_bytes(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().reshape(-1).view(torch.uint8)
+
+
+def _card(d: torch.device):
+    """A card's identity across processes (host, UUID); None off the card."""
+    if d.type != "cuda":
+        return None
+    return socket.gethostname(), str(torch.cuda.get_device_properties(d).uuid)
+
+
+class ProcessTransport:
+    """The collectives of a mesh between its processes, over a process group
+    of their own whose backend comes from the layout (module docstring).
+    Payloads travel as bytes, so every dtype crosses bitwise."""
+
+    def __init__(self, ranks):
+        import torch.distributed as dist
+
+        self.world, self.process = dist.get_world_size(), dist.get_rank()
+        layout = all_processes([_card(d) for d in ranks])
+        cards = [set(ids) for ids in layout]
+        if any(None in ids for ids in cards):
+            self.backend, self.reason = "gloo", "ranks on the CPU"
+        elif any(cards[p] & cards[q] for p in range(self.world) for q in range(p)):
+            self.backend, self.reason = "gloo", "processes share a card"
+        elif not dist.is_nccl_available():
+            self.backend, self.reason = "gloo", "this torch has no NCCL"
+        else:
+            self.backend, self.reason = "nccl", "every process's ranks on cards of their own"
+        self.device = ranks[0] if self.backend == "nccl" else torch.device("cpu")
+        if self.backend == "nccl":
+            torch.cuda.set_device(self.device)
+        self.group = dist.new_group(backend=self.backend)
+
+    def describe(self) -> str:
+        return (f"{self.world} process{'es' if self.world != 1 else ''}, "
+                f"transport {self.backend}: {self.reason}")
+
+    def _owner(self, mesh, rank) -> int:
+        return (rank[0] * mesh.shape["tile"] + rank[1]) // (mesh.size // self.world)
+
+    def all_gather(self, mesh, tensors: dict) -> dict:
+        """Every rank's tensor from each process's ``{rank: tensor}`` of its
+        local ranks (all of one shape and dtype)."""
+        import torch.distributed as dist
+
+        like = tensors[mesh.local_ranks[0]]
+        buf = torch.cat([_as_bytes(tensors[r]).to(self.device) for r in mesh.local_ranks])
+        parts = [torch.empty_like(buf) for _ in range(self.world)]
+        dist.all_gather(parts, buf, group=self.group)
+        every = [(li, ti) for li in range(mesh.shape["led"]) for ti in range(mesh.shape["tile"])]
+        per = len(mesh.local_ranks)
+        return {every[p * per + j]: chunk.view(like.dtype).reshape(like.shape)
+                for p, part in enumerate(parts) for j, chunk in enumerate(part.view(per, -1))}
+
+    def exchange(self, mesh, grid, pairs) -> dict:
+        """``{dst: grid value of src}`` for this process's ``dst`` ranks of
+        ``pairs`` ((src, dst), in the same order on every process): local
+        sources directly, others received point to point."""
+        import torch.distributed as dist
+
+        like = mesh.local(grid)
+        nbytes = like.numel() * like.element_size()
+        out, ops, recvs = {}, [], []
+        for src, dst in pairs:
+            ps, pd = self._owner(mesh, src), self._owner(mesh, dst)
+            if ps == pd == self.process:
+                out[dst] = grid[src[0]][src[1]]
+            elif ps == self.process:
+                ops.append(dist.P2POp(dist.isend, _as_bytes(grid[src[0]][src[1]]).to(self.device),
+                                      pd, self.group))
+            elif pd == self.process:
+                buf = torch.empty(nbytes, dtype=torch.uint8, device=self.device)
+                ops.append(dist.P2POp(dist.irecv, buf, ps, self.group))
+                recvs.append((dst, buf))
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+        for dst, buf in recvs:
+            out[dst] = buf.view(like.dtype).reshape(like.shape)
+        return out

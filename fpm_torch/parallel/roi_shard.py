@@ -16,6 +16,13 @@ H100 idle. Results do not depend on that number: each tile is bitwise the
 tile solved alone by ``reconstruct``; it moves only time, and the
 fault-tolerance granularity (a killed run loses at most the round in
 flight).
+
+Under ``torch.distributed`` (``parallel.multihost``) the rounds span the
+processes, as ``fpm_tpu``'s ROI mesh spans the global devices: each process
+solves a contiguous share of each round's tiles on its own cards (one
+launch per card), the solved tiles are gathered on every process, and the
+coordinator (process 0) stitches. Every process reads the tile store (so all
+agree on which tiles are left to solve); only the coordinator writes it.
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ import torch
 
 from ..config import FPMConfig
 from ..geometry import LEDGeometry
-from ..models.epry import frames_on, reconstruct_channels, resolve_device
+from ..models.epry import frames_on, reconstruct_channels
 from ..models.largefov import (
     LargeFOVResult,
     roi_origins,
@@ -48,22 +55,36 @@ MEMORY_SHARE = 0.5
 
 @dataclasses.dataclass(frozen=True)
 class RoiMesh:
-    """The ROI ranks: one device per rank, a device may hold many ranks
-    (those of one card solve their tiles of a round in one launch)."""
+    """The ROI ranks of this process: one device per rank, a device may hold
+    many ranks (those of one card solve their tiles of a round in one
+    launch). ``processes`` processes own as many ranks each, and a round
+    holds all of them (:attr:`size`)."""
 
     ranks: tuple[torch.device, ...]
+    processes: int = 1
+    process_index: int = 0
 
     @property
     def size(self) -> int:
-        return len(self.ranks)
+        return len(self.ranks) * self.processes
+
+    def share(self, tiles: list) -> list:
+        """This process's contiguous share of a round's ``tiles``."""
+        n = len(tiles)
+        return tiles[n * self.process_index // self.processes:
+                     n * (self.process_index + 1) // self.processes]
 
     def describe(self) -> str:
         per = {}
         for d in self.ranks:
             per[str(d)] = per.get(str(d), 0) + 1
-        return (f"{self.size} ROI ranks on {len(per)} device"
-                f"{'s' if len(per) != 1 else ''}: "
-                + ", ".join(f"{d} ×{n}" for d, n in per.items()))
+        where = (f"{len(self.ranks)} ROI ranks on {len(per)} device"
+                 f"{'s' if len(per) != 1 else ''}: "
+                 + ", ".join(f"{d} ×{n}" for d, n in per.items()))
+        if self.processes > 1:
+            where = (f"{self.size} ROI ranks over {self.processes} processes; "
+                     f"this process's {where}")
+        return where
 
 
 def tile_bytes(cfg: FPMConfig, num_leds: int) -> int:
@@ -93,17 +114,22 @@ def make_roi_mesh(devices=None, bytes_per_tile: int = 0) -> RoiMesh:
     may appear more than once. With ``devices=None`` every visible card
     gets :func:`roi_slots` ranks, placed round-robin over the cards (so a
     short last round spreads over all of them); without a CUDA device that
-    raises."""
+    raises. Under ``torch.distributed`` ``devices`` are this process's, its
+    cards by default (``multihost.local_cards``), and every process keeps as
+    many ranks as the one with the fewest."""
+    from .multihost import all_processes, local_cards, process_index
+
     if devices is not None:
-        ranks = tuple(torch.device(d) for d in devices)
+        ranks = [torch.device(d) for d in devices]
         if not ranks:
             raise ValueError("an ROI mesh needs at least one rank")
-        return RoiMesh(ranks)
-    resolve_device("cuda")
-    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    slots = [roi_slots(c, bytes_per_tile) for c in cards]
-    ranks = [c for s in range(max(slots)) for c, n in zip(cards, slots) if s < n]
-    return RoiMesh(tuple(ranks))
+    else:
+        cards = local_cards()
+        slots = [roi_slots(c, bytes_per_tile) for c in cards]
+        ranks = [c for s in range(max(slots)) for c, n in zip(cards, slots) if s < n]
+    counts = all_processes(len(ranks))
+    return RoiMesh(tuple(ranks[:min(counts)]), processes=len(counts),
+                   process_index=process_index())
 
 
 def reconstruct_large_fov_sharded(
@@ -123,16 +149,22 @@ def reconstruct_large_fov_sharded(
     ``models.largefov.reconstruct_large_fov`` (same tiling, same per-ROI
     solver, same stitch).
 
-    Tiles run in rounds of ``mesh.size``, tile ``lo + s`` of a round on rank
-    ``s``. The live tiles of a round that share a device are solved by ONE
+    Tiles run in rounds of ``mesh.size``. The live tiles of a round (those
+    not loaded from the store) are dealt in order over this process's share
+    (:meth:`RoiMesh.share`; all of them on one process), the s-th to rank
+    ``s``; those that share a device are solved by ONE
     :func:`~fpm_torch.models.epry.reconstruct_channels` call (on a card:
     one problem-axis launch sequence per sweep); the devices of a round run
-    at once. With a ``tile_store`` every round's tiles are persisted before
+    at once. Across processes the solved tiles are then gathered on every
+    process, and only the coordinator stitches (``stitched`` is None on the
+    others). With a ``tile_store`` every round's tiles are persisted before
     the next round starts, and stored tiles are loaded, not solved: a cached
     tile, or a padding slot of the last round, is not put into the launch at
     all. A killed run therefore loses at most the round in flight.
     ``mesh=None``: :func:`make_roi_mesh` over the visible cards.
     """
+    from .multihost import all_processes
+
     np_sz = cfg.np_size
     rif = cfg.res_improvement_factor
     if overlap is None:
@@ -158,27 +190,34 @@ def reconstruct_large_fov_sharded(
 
     tiles = [None] * t_real
     for lo in range(0, t_real, mesh.size):
-        groups: dict[torch.device, list[int]] = {}
+        live = []
         for i in range(lo, min(lo + mesh.size, t_real)):
             tiles[i] = tile_from_store(tile_store, i)
             if tiles[i] is None:
-                groups.setdefault(mesh.ranks[i - lo], []).append(i)
-        if not groups:
+                live.append(i)
+        if not live:
             continue
-        if len(groups) == 1:
-            solved = [solve(*next(iter(groups.items())))]
-        else:
+        groups: dict[torch.device, list[int]] = {}
+        for s, i in enumerate(mesh.share(live)):
+            groups.setdefault(mesh.ranks[s], []).append(i)
+        if len(groups) > 1:
             with ThreadPoolExecutor(len(groups)) as pool:
                 solved = list(pool.map(lambda kv: solve(*kv), groups.items()))
-        for idxs, results in zip(groups.values(), solved):
-            for i, res in zip(idxs, results):
-                tiles[i] = res
-        for i in sorted(i for idxs in groups.values() for i in idxs):
+        else:
+            solved = [solve(*kv) for kv in groups.items()]
+        mine = {i: res for idxs, results in zip(groups.values(), solved)
+                for i, res in zip(idxs, results)}
+        if mesh.processes > 1:
+            mine = {i: res for part in all_processes(mine) for i, res in part.items()}
+        for i in live:
+            tiles[i] = mine[i]
             tile_to_store(tile_store, i, tiles[i])
             if progress is not None:
                 progress(i // cols, i % cols, tiles[i])
-    stitched, origins = stitch_fields(
-        [t.obj_crop for t in tiles], grid,
-        hr_size=np_sz * rif, hr_stride=stride * rif, overlap_hr=overlap * rif,
-    )
+    stitched, origins = None, None
+    if mesh.process_index == 0:
+        stitched, origins = stitch_fields(
+            [t.obj_crop for t in tiles], grid,
+            hr_size=np_sz * rif, hr_stride=stride * rif, overlap_hr=overlap * rif,
+        )
     return LargeFOVResult(stitched=stitched, tiles=tiles, tile_origins=origins)

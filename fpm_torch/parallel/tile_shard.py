@@ -22,9 +22,8 @@ The spectrum is row-sharded over the ``tile`` axis of the mesh; per chunk:
    over both axes forms the pupil consensus.
 
 Chunk membership is that of ``models.epry.chunk_schedule``, so the sweep
-equals the single-device chunked sweep up to summation order. The mesh is
-single-controller (``parallel.mesh``): functions take grids of per-rank
-tensors.
+equals the single-device chunked sweep up to summation order. Functions take
+grids of per-rank tensors (``parallel.mesh``) and run this process's ranks.
 """
 
 from __future__ import annotations
@@ -189,9 +188,9 @@ def _tile_sweep(mesh: Mesh, obj_local, pupil, support, amps, starts_rel, mask, *
     def apply(inc):
         state["obj"], state["pupil"], mets = _tile_consensus_apply(
             mesh, state["obj"], state["pupil"], *inc, opts=opts, s=s)
-        state["mets"] = state["mets"] + mets[0][0]
+        state["mets"] = state["mets"] + mesh.local(mets)
 
-    pipelined_chunks(amps[0][0].shape[0], increments, apply, opts.stale_consensus)
+    pipelined_chunks(mesh.local(amps).shape[0], increments, apply, opts.stale_consensus)
     return state["obj"], state["pupil"], state["mets"]
 
 
@@ -239,10 +238,11 @@ def prepare_tile_sharded(images, geom: LEDGeometry, cfg: FPMConfig, mesh: Mesh,
 
 
 def _fetch(mesh: Mesh, obj_local) -> torch.Tensor:
-    """The full spectrum on the mesh's first device: the row tiles of the
-    first ``led`` group, gathered in tile order."""
-    dev = mesh.devices[0][0]
-    return torch.cat([t.to(dev) for t in obj_local[0]], dim=0)
+    """The full spectrum on this process's first device: the row tiles of
+    the first ``led`` group, gathered in tile order from whichever process
+    holds them, so that every process returns the same global result (as
+    ``fpm_tpu.parallel.tile_shard._fetch`` all-gathers its rows)."""
+    return torch.cat(mesh.gather(obj_local)[0], dim=0)
 
 
 def reconstruct_tile_sharded(images, geom: LEDGeometry, cfg: FPMConfig, mesh: Mesh,
@@ -261,4 +261,4 @@ def reconstruct_tile_sharded(images, geom: LEDGeometry, cfg: FPMConfig, mesh: Me
         return _tile_sweep(mesh, o, p, support, amps, starts_rel, mask, opts=opts, s=s)
 
     obj_local, pupil, metrics = run_sweeps(sweep, obj_local, pupil, opts.iterations)
-    return result_from(_fetch(mesh, obj_local), pupil[0][0], metrics)
+    return result_from(_fetch(mesh, obj_local), mesh.local(pupil), metrics)

@@ -3,13 +3,16 @@
 The reference computes no convergence metric at all — only wall-clock prints
 (fpmMain.cpp:477-480,487-489). The solver emits per-sweep data-fidelity
 residual and update norms; this module streams them, plus phase timings, to
-a JSONL file (the same records as ``fpm_tpu.utils.metrics``).
+a JSONL file (the same records as ``fpm_tpu.utils.metrics``), and
+computes the judge metric (complex-field RMSE) the same way.
 """
 
 from __future__ import annotations
 
 import json
 import time
+
+import numpy as np
 
 
 class MetricsLogger:
@@ -31,3 +34,22 @@ class MetricsLogger:
         if self._f:
             self._f.close()
 
+
+
+def complex_field_rmse(a, b, align_scale: bool = True) -> float:
+    """Scale-aligned complex RMSE between two fields, normalized by |b| RMS.
+
+    The judge metric (BASELINE.json): reconstruction parity is measured as
+    complex-field RMSE vs the reference implementation's output. A global
+    complex scale is optimal-least-squares aligned first (FPM reconstructions
+    are defined up to a constant complex factor). ``fpm_tpu.utils.metrics``'s
+    function, line for line: the same float on the same inputs.
+    """
+    a = np.asarray(a).ravel()
+    b = np.asarray(b).ravel()
+    if align_scale:
+        denom = np.vdot(a, a).real
+        s = (np.vdot(a, b) / denom) if denom > 0 else 1.0
+        a = a * s
+    rms_b = np.sqrt(np.mean(np.abs(b) ** 2))
+    return float(np.sqrt(np.mean(np.abs(a - b) ** 2)) / (rms_b + 1e-30))

@@ -1,0 +1,122 @@
+#!/usr/bin/env python3
+"""Multi-process runs of the PyTorch/CUDA port (``fpm_torch``) on several
+cards of one host, against one process.
+
+Run from the repository root on a machine with four cards:
+
+    python3 multicard_smoke.py          # four H100s: NCCL between processes
+    python3 multicard_smoke.py --cpu    # rehearsal on CPU ranks (gloo)
+
+On the mono dome problem of ``chip_smoke.py`` (Np=90, NL=360, K=193 LEDs),
+``fpm_torch run --distributed --use-pallas -n 3`` as 4 processes (a card
+each) with ``--mesh 2 2``, ``--mesh 4 1`` and ``--mesh 1 4`` (every halo
+crosses a process), as 2 processes (two cards each) with ``--mesh 2 2``, and
+with ``--comm-precision bf16 --stale-consensus`` on (2 processes, ``--mesh 2
+2``) and (4 processes, ``--mesh 1 4``); then ``--fov-grid 8 8 -n 10`` on the
+568×568 frames over 2 and 4 processes. Each run against the same command in
+one process (its mesh's ranks round-robin over the cards): the arrays
+bitwise equal, the counted collectives equal, the transport the layout
+calls for (nccl: every process on cards of its own), nothing written by a
+process other than 0. One JSON line per run with each process's wall
+seconds; any failure exits non-zero. It never imports JAX or ``fpm_tpu``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+import chip_smoke as cs
+
+MESH_CASES = ((4, ["--mesh", "2", "2"]), (4, ["--mesh", "4", "1"]), (4, ["--mesh", "1", "4"]),
+              (2, ["--mesh", "2", "2"]), (2, ["--mesh", "2", "2", *cs.LEVERS]),
+              (4, ["--mesh", "1", "4", *cs.LEVERS]))
+FOV_PROCESSES = (2, 4)
+
+
+def run_case(label, flags, n_proc, arrays, tmp, transport, gpu) -> dict:
+    """``run *flags`` in one process, then as ``n_proc`` processes; checked."""
+    import numpy as np
+
+    one_dir = os.path.join(tmp, "one")
+    dirs = [os.path.join(tmp, f"p{pid}") for pid in range(n_proc)]
+    one = cs.cli_recording(["run", *flags, "-o", one_dir])
+    cs.check(one["rc"] == 0, f"{label}: one process exited {one['rc']}")
+    t0 = time.perf_counter()
+    recs = cs.processes(lambda pid: ["run", *flags, "-o", dirs[pid], "--distributed"], n_proc)
+    start_to_exit = time.perf_counter() - t0
+    bitwise = {a: bool(np.array_equal(np.load(os.path.join(dirs[0], a)),
+                                      np.load(os.path.join(one_dir, a)))) for a in arrays}
+    others = {pid: sorted(os.listdir(dirs[pid])) for pid in range(1, n_proc)}
+    line = {"phase": "multicard", "run": label, "processes": n_proc, "bitwise_one_process": bitwise,
+            "other_process_files": others, "counts_equal_one_process":
+                all(r["counts"] == one["counts"] for r in recs),
+            "mesh_one_process": one["meshes"], "mesh": [r["meshes"] for r in recs],
+            "launches": [r["launches"] for r in recs],
+            "wall_s": {"processes": [r["wall_s"] for r in recs], "one": one["wall_s"],
+                       "processes_start_to_exit": start_to_exit}, "gpu": gpu}
+    cs.emit(line)
+    cs.check(all(bitwise.values()), f"{label}: not bitwise the one-process run: {bitwise}")
+    cs.check(not any(others.values()), f"{label}: a process other than 0 wrote {others}")
+    cs.check(line["counts_equal_one_process"], f"{label}: counted collectives differ")
+    if transport is not None:
+        cs.check(recs[0]["meshes"] and all(f"transport {transport}" in m
+                                           for r in recs for m in r["meshes"]),
+                 f"{label}: transport is not {transport}: {recs[0]['meshes']}")
+    for d in (one_dir, *dirs):
+        shutil.rmtree(d)
+    return line
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--cpu", action="store_true",
+                    help="rehearse on CPU ranks at Np 16 (gloo between the processes)")
+    args = ap.parse_args(argv)
+    import torch
+
+    from fpm_torch.config import FPMConfig
+    from fpm_torch.data.simulate import make_test_object, simulate_images
+    from fpm_torch.geometry import compute_geometry
+
+    if args.cpu:
+        cfg, wide_np, plat, gpu, transport = (FPMConfig(max_illumination_na=0.2, np_size=16),
+                                              100, ["--platform", "cpu"], "cpu", "gloo")
+    else:
+        if torch.cuda.device_count() < 4:
+            print("multicard_smoke: needs four CUDA cards", file=sys.stderr)
+            return 1
+        cfg, wide_np, plat, transport = FPMConfig(max_illumination_na=0.45), cs.WIDE, [], "nccl"
+        gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             check=True).stdout.strip().replace("\n", " | ")
+    geom = compute_geometry(cfg)
+    frames = simulate_images(make_test_object(cfg.n_large, seed=0), geom, cfg, quantize=True)
+    cfg_wide = dataclasses.replace(cfg, np_size=wide_np)
+    wide = simulate_images(make_test_object(cfg_wide.n_large, seed=0),
+                           compute_geometry(cfg_wide), cfg_wide, quantize=True)
+    with tempfile.TemporaryDirectory(prefix="fpm_multicard_") as tmp:
+        mono = cs.write_dataset(os.path.join(tmp, "mono"), cfg, geom, frames)
+        widep = cs.write_dataset(os.path.join(tmp, "wide"), cfg, geom, wide)
+        for n_proc, extra in MESH_CASES:
+            run_case(f"{n_proc} processes " + " ".join(extra),
+                     [mono, "-n", "3", "--use-pallas", *plat, *extra], n_proc,
+                     ("object_spectrum.npy", "pupil.npy"), tmp, transport, gpu)
+        for n_proc in FOV_PROCESSES:
+            run_case(f"{n_proc} processes --fov-grid 8 8",
+                     [widep, "-n", "10", "--use-pallas", *plat, "--fov-grid", "8", "8"], n_proc,
+                     ("object_stitched.npy",), tmp, None, gpu)
+    print(gpu, flush=True)
+    print(json.dumps({"ok": True, "gpu": gpu}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -4,9 +4,9 @@ also with ``--fov-grid`` (whole frames, stitched tiles) and ``--color-mode
 rgb``; checkpoints and large-FOV tiles carry over between the two CLIs, also
 on a mesh; ``--mesh`` and the config's ``tileGrid`` key run the sharded
 sweeps as fpm_tpu's CLI does; ``--watchdog-timeout`` arms on every path;
-flags of unported paths are refused, never ignored; checkpoints written with
-default flags resume across the packages (both default to the bf16x3
-tier)."""
+the flags once refused as not yet ported (``--debug``, ``--debug-led``,
+``--distributed``) do what fpm_tpu's do; checkpoints written with default
+flags resume across the packages (both default to the bf16x3 tier)."""
 
 import json
 import os
@@ -108,13 +108,16 @@ def test_checkpoint_resumes_across_packages_with_default_flags(dataset, tmp_path
     ["--debug"], ["--debug-led", "3"], ["--distributed"], ["--no-native"],
     ["--dft-precision", "bf16x3"], ["--mesh", "2", "1", "--distributed"],
 ])
-def test_unported_flags_are_refused(dataset, tmp_path, capsys, flags):
-    """Every flag of a path not yet ported is refused. ``--dft-precision
-    bf16x3`` and ``--no-native``, refused until the tier and the native
-    decoder were ported, are now accepted: the tier is recorded in the run's
-    options and fingerprint, the decoder in its ``dataset`` record (Python
-    under ``--no-native``, native without it where the decoder builds),
-    with the same result."""
+def test_formerly_refused_flags_do_what_fpm_tpus_do(dataset, tmp_path, capsys, flags):
+    """Every flag the port once refused as not yet ported now does what
+    fpm_tpu's CLI does with it. ``--debug`` writes the same debug images;
+    ``--debug-led 3`` without ``--debug`` writes none, as in fpm_tpu, and the
+    same outputs; ``--distributed`` without a multi-process environment (also
+    with ``--mesh``) exits 1 with fpm_tpu's message, up to what the launcher
+    auto-detection said. ``--dft-precision bf16x3`` and ``--no-native``: the
+    tier is recorded in the run's options and fingerprint, the decoder in its
+    ``dataset`` record (Python under ``--no-native``, native without it where
+    the decoder builds), with the same result."""
     out = str(tmp_path / "x")
     if flags[0] == "--no-native":
         from fpm_torch import native
@@ -137,9 +140,26 @@ def test_unported_flags_are_refused(dataset, tmp_path, capsys, flags):
         assert fp["dft_precision"] == "bf16x3" and fp["use_pallas"] is True
         assert "kernel DFT precision: bf16x3" in capsys.readouterr().out
         return
-    rc = tcli.main(["run", dataset, "-o", out, "--platform", "cpu", *flags])
-    assert rc == 1
-    assert "not yet ported" in capsys.readouterr().err
+    if "--distributed" in flags:
+        said = []
+        for cli, extra in ((tcli, ["--platform", "cpu"]), (jcli, ["--no-native"])):
+            assert cli.main(["run", dataset, "-o", out, *extra, *flags]) == 1
+            said.append(capsys.readouterr().err.strip().splitlines()[-1])
+        assert said[0].startswith("ERROR: --distributed requested but no multi-host")
+        assert said[0].split(" (auto-detect said:")[0] == said[1].split(" (auto-detect said:")[0]
+        return
+    common = ["-n", "2", "--dtype", "complex128", *flags]
+    out_t, out_j = str(tmp_path / "t"), str(tmp_path / "j")
+    assert tcli.main(["run", dataset, "-o", out_t, "--platform", "cpu", *common]) == 0
+    assert jcli.main(["run", dataset, "-o", out_j, "--no-native", *common]) == 0
+    assert _files(out_t) == _files(out_j)
+    debug = [f for f in _files(out_t) if f.startswith("debug")]
+    if flags == ["--debug"]:
+        assert {"debug/iter0001_objF_mag.png", "debug/iter0002_pupil_mag.png"} <= set(debug)
+    else:
+        assert debug == []
+    a, b = (np.load(os.path.join(d, "object.npy")) for d in (out_t, out_j))
+    assert np.abs(a - b).max() / np.abs(b).max() <= 1e-10
 
 
 def _dataset_record(out):

@@ -293,3 +293,17 @@ def test_problem_axis_shapes_must_agree():
     o, p, a = (torch.stack(x) for x in zip(*per))
     with pytest.raises(ValueError, match="problem axis"):
         tk._check_problem_axis(o, p[:1], a, sc=sup, starts=shared[0], n_slots=a.shape[1])
+
+
+def test_plain_square_root_is_correctly_rounded():
+    """The plain versions' float32 square root gives NumPy's (and CUDA's)
+    correctly rounded value on every element, call after call: the plain
+    versions once took torch's float32 square root on the CPU, which is not
+    correctly rounded here and whose first call in a process made a
+    two-process mesh differ from the one-process mesh (ROADMAP §3, F4)."""
+    x = (np.random.default_rng(0).random(4864) * 1e4 + 1).astype(np.float32)
+    want = np.sqrt(x)
+    for _ in range(3):
+        got = tk._sqrt(torch.from_numpy(x))
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), want)
