@@ -19,8 +19,11 @@ tiers of the DFT products (``dft_precision``): ``bf16x3``, the default (a
    the HMMA (tensor-core) instructions in each kernel instantiation's SASS
    (``cuobjdump``): more than 0 in every bf16x3 one, none in the highest ones.
    Then a ``digests`` line (``kernel_digests``): SHA-256 of K1, K2 and K3's
-   results at Np 90 and 100, both tiers and cluster sizes 1-8, for comparing
-   the kernels' bits between two checkouts on one card.
+   results at Np 90 and 100, both tiers and cluster sizes 1-8, and under
+   ``sharded`` of the spectrum and pupil after 2 sweeps of every sharded
+   case of phase 5 (``sharded_digests``, public entry points only), for
+   comparing two checkouts' bits on one card
+   (``scripts/compare_checkouts.py``).
 2. ``kernel_vs_plain``: K1 (chunk 32, strided) and K2 (exact and lazy max)
    against their plain PyTorch versions on the card, 2 sweeps from the same
    init state: rel-max |ΔO| ≤ 1e-5, rel-max |ΔP| ≤ 1e-4 (f32 against f32,
@@ -112,12 +115,21 @@ tiers of the DFT products (``dft_precision``): ``bf16x3``, the default (a
    instantiation are on the ``device`` line). K1 and K2 also give their
    device time with Z cut by rows across the cluster (the entry points keep
    Z whole in every block where it fits, as here).
-   ``sharded_sweep`` lines give
-   the wall time of one sharded sweep per mesh shape, through the entry point
-   (``reconstruct_*_sharded`` with 1 sweep less with 0 sweeps) and of the
-   sweep alone on prepared grids, and the share of the latter the card was
-   busy (``torch.profiler``): one-card times with all ranks sharing the
-   card, not scaling results.
+   ``sharded_sweep`` lines, one per case of ``SHARDED_CASES`` (mono (4,1),
+   (2,2), (1,8), dogStomach (2,2), mono (2,2) at highest and with the bf16
+   wire), fresh and with ``--stale-consensus``, all ranks sharing the card
+   (not scaling results): ms per sweep (each rank on its stream, the
+   collectives on the mesh's lanes, the host pacing) with the card's busy
+   share, ``overlap_ms`` (the time in which K3 and a reduction or copy on a
+   lane run at once, from the trace of a sweep enqueued behind a gate, so
+   that the card runs it unpaced: above 0 under the stale consensus,
+   exactly 0 on fresh; each trace sees every K3 launch the wrapper
+   counted), ``consensus_schedule_check`` on ``mesh.schedule`` (issued
+   before compute under the stale consensus only), no host synchronisation
+   inside a sweep (``set_sync_debug_mode("error")``), ms per sweep through
+   the entry point (``sharded_entry_timing``: a run of 10 sweeps less one
+   of 0), and bitwise: the ``digests`` line and 4 more runs, and the mesh
+   with its streams serialized (``serialize_streams``).
 6. ``dogstomach``: the dogStomach optics of tests/test_torch_np200.py
    (Np=200, NL=600, K=88 dome LEDs, bbox 112 at offset 48, object from
    ``--seed``, 16-bit frames; nothing cut). K2 exact and lazy, K1 at chunk 16
@@ -514,6 +526,308 @@ def kernel_digests(dev) -> dict:
                     total.update(h.digest())
                     cases[f"{name} np {np_size} {tier} cs {cs}"] = h.hexdigest()[:16]
     return {"phase": "digests", "cases": cases, "all": total.hexdigest()}
+
+
+# The sharded sweeps of the main path (``run --mesh L T --use-pallas``):
+# (problem, led, tile, options) at chunk 32 (16 at Np 200, fpm_tpu's
+# ceiling), each fresh and with the stale consensus, 2 sweeps.
+SHARDED_CASES = (("mono", 4, 1, {}), ("mono", 2, 2, {}), ("mono", 1, 8, {}),
+                 ("dogStomach", 2, 2, {}), ("mono", 2, 2, {"dft_precision": "highest"}),
+                 ("mono", 2, 2, {"comm_precision": "bf16"}))
+SHARDED_SWEEPS, SHARDED_REPEATS = 2, 5
+
+
+def sharded_problem(name: str, seed: int = 0):
+    """(cfg, geom, frames) of the mono dome or the dogStomach problem."""
+    from fpm_torch.config import FPMConfig
+    from fpm_torch.data.simulate import make_test_object, simulate_images
+    from fpm_torch.geometry import compute_geometry
+
+    cfg = (FPMConfig(max_illumination_na=0.45) if name == "mono"
+           else FPMConfig(**DOG_OPTICS))
+    geom = compute_geometry(cfg)
+    return cfg, geom, simulate_images(make_test_object(cfg.n_large, seed=seed), geom, cfg,
+                                      quantize=True)
+
+
+def sharded_label(name: str, led: int, tile: int, options: dict, stale: bool) -> str:
+    extra = "".join(f" {v}" for v in options.values())
+    return f"{name} mesh {led} {tile}{extra}{' stale' if stale else ''}"
+
+
+def sharded_run(problem, led: int, tile: int, options: dict, stale: bool,
+                iterations: int = SHARDED_SWEEPS, **mesh_kw):
+    """``iterations`` sweeps through the public entry point on
+    ``make_mesh(led, tile)``, all ranks on the first card."""
+    from fpm_torch.parallel import make_mesh, reconstruct_led_sharded, reconstruct_tile_sharded
+
+    cfg, geom, frames = problem
+    fn = reconstruct_led_sharded if tile == 1 else reconstruct_tile_sharded
+    return fn(frames, geom, cfg, mesh=make_mesh(led, tile, **mesh_kw),
+              iterations=iterations, use_pallas=True, chunk_size=32,
+              stale_consensus=stale, **options)
+
+
+def result_digest(res) -> str:
+    """SHA-256 of a result's spectrum and pupil."""
+    import hashlib
+
+    h = hashlib.sha256(res.obj_f_centered.tobytes())
+    h.update(res.pupil.tobytes())
+    return h.hexdigest()[:16]
+
+
+def sharded_digests(seed: int = 0) -> dict:
+    """SHA-256 of the spectrum and pupil after 2 sweeps of every
+    ``SHARDED_CASES`` case, fresh and stale: only public entry points, so
+    that two checkouts compare on one card (import this module with the
+    other checkout first on the path)."""
+    problems = {name: sharded_problem(name, seed) for name in dict.fromkeys(
+        c[0] for c in SHARDED_CASES)}
+    return {sharded_label(name, led, tile, options, stale):
+            result_digest(sharded_run(problems[name], led, tile, options, stale))
+            for name, led, tile, options in SHARDED_CASES for stale in (False, True)}
+
+
+ENTRY_SWEEPS = 10
+
+
+def sharded_entry_timing(seed: int = 0, busy: bool = False) -> dict:
+    """Per ``SHARDED_CASES`` case, fresh and stale, through the public entry
+    point only (so that it runs on either checkout, as
+    :func:`sharded_digests`): ms per sweep of a run of ``ENTRY_SWEEPS``
+    sweeps less a run of 0 (medians of 3; set-up, the result's gather and
+    transform are in both). With ``busy``, also the card's busy time per
+    sweep, the same difference of one traced run of each
+    (:func:`trace_overlap`), as a share of it."""
+    import torch
+
+    problems = {name: sharded_problem(name, seed) for name in dict.fromkeys(
+        c[0] for c in SHARDED_CASES)}
+    out = {}
+    for name, led, tile, options in SHARDED_CASES:
+        for stale in (False, True):
+            def run(it):
+                return sharded_run(problems[name], led, tile, options, stale, iterations=it)
+
+            ms = {}
+            for it in (0, ENTRY_SWEEPS):
+                walls = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    run(it)
+                    torch.cuda.synchronize()
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                ms[it] = median(walls)
+            per_sweep = (ms[ENTRY_SWEEPS] - ms[0]) / ENTRY_SWEEPS
+            row = {"ms_per_sweep": per_sweep, "ms_0_sweeps": ms[0],
+                   f"ms_{ENTRY_SWEEPS}_sweeps": ms[ENTRY_SWEEPS]}
+            if busy:
+                device = (trace_overlap(lambda: run(ENTRY_SWEEPS))["busy_ms"]
+                          - trace_overlap(lambda: run(0))["busy_ms"]) / ENTRY_SWEEPS
+                row.update(device_ms_per_sweep=device, busy_share=device / per_sweep)
+            out[sharded_label(name, led, tile, options, stale)] = row
+    return out
+
+
+def trace_overlap(fn, gate_ms: float = 0.0) -> dict:
+    """One call of ``fn`` under ``torch.profiler``, read from its trace: the
+    time in which a kernel of ``fpm_torch``'s library (K3) and a kernel or
+    copy on a stream that runs no K3 (the mesh's comm and halo lanes) run at
+    once (``overlap_ms``), the time in which K3 runs, in which the lanes
+    work, and in which anything runs (``busy_ms``), the span from the first
+    to the last of it, the K3 kernels seen, and the call's wall time to
+    the end of its work (traced: the profiler slows the host). With ``gate_ms`` a spin
+    kernel of that length on each card's current stream holds the cards
+    first, so that every stream of the mesh waits until the host has
+    enqueued the whole of ``fn`` and the card then runs it unpaced
+    (``gate_held``: no gate had ended when the host was done; the spin
+    kernels' own time is left out)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    gate_ends = []
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # The trace has been seen to miss the first kernels that run in it:
+        # short spin kernels, left out below, run first on every card.
+        for card in range(torch.cuda.device_count()):
+            with torch.cuda.device(card):
+                for _ in range(4):
+                    torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        for card in range(torch.cuda.device_count() if gate_ms else 0):
+            with torch.cuda.device(card):
+                torch.cuda._sleep(int(gate_ms * 2e6))     # ≥ gate_ms at ≤ 2 GHz
+                gate_ends.append(torch.cuda.Event())
+                gate_ends[-1].record()
+        t0 = time.perf_counter()
+        fn()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        held = bool(gate_ends) and not any(e.query() for e in gate_ends)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory(prefix="fpm_trace_") as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    every = [e for e in events if e.get("ph") == "X"
+             and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    work = [e for e in every if "spin_kernel" not in e["name"]]
+    k3 = [e for e in work if e["cat"] == "kernel" and "fpm::" in e["name"]]
+
+    def stream(e):
+        return e["args"].get("device"), e["args"].get("stream")
+
+    k3_streams = {stream(e) for e in k3}
+    lanes = [e for e in work if stream(e) not in k3_streams]
+
+    def union(evs):
+        spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in evs)
+        out = []
+        for a, b in spans:
+            if out and a <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], b)
+            else:
+                out.append([a, b])
+        return out
+
+    def length(spans):
+        return sum(b - a for a, b in spans)
+
+    def meet(xs, ys):
+        i = j = 0
+        total = 0.0
+        while i < len(xs) and j < len(ys):
+            lo, hi = max(xs[i][0], ys[j][0]), min(xs[i][1], ys[j][1])
+            total += max(0.0, hi - lo)
+            if xs[i][1] < ys[j][1]:
+                i += 1
+            else:
+                j += 1
+        return total
+
+    u_k3, u_lanes, u_work = union(k3), union(lanes), union(work)
+    return {"k3_ms": length(u_k3) / 1e3, "lane_ms": length(u_lanes) / 1e3,
+            "overlap_ms": meet(u_k3, u_lanes) / 1e3, "busy_ms": length(u_work) / 1e3,
+            "span_ms": (u_work[-1][1] - u_work[0][0]) / 1e3 if u_work else 0.0,
+            "k3_streams": len(k3_streams),
+            "k3_per_stream": sorted(sum(stream(e) == st for e in k3) for st in k3_streams),
+            "lane_streams": len({stream(e) for e in lanes}),
+            "kernels": len([e for e in work if e["cat"] == "kernel"]),
+            "k3_kernels": len(k3), "gate_held": held, "enqueue_ms": enqueue_ms,
+            "wall_ms": wall_ms}
+
+
+def gated_trace(fn, ms: float) -> dict:
+    """:func:`trace_overlap` of ``fn`` behind a gate of 10 times ``ms`` (its
+    untraced time), 4 times longer while the gate has not held (the
+    profiler slows the host's enqueue, by up to 15 times as seen)."""
+    gate = 10 * ms + 50
+    for _ in range(4):
+        traced = trace_overlap(fn, gate_ms=gate)
+        if traced["gate_held"]:
+            break
+        gate *= 4
+    return dict(traced, gate_ms=gate)
+
+
+def median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def sharded_sweep_phase(problems: dict, digests: dict, entry: dict, smi: str) -> None:
+    """The ``sharded_sweep`` lines: every ``SHARDED_CASES`` case, fresh and
+    stale, all ranks on the one card (not scaling results). On prepared
+    grids: ms per sweep on the host's clock, synchronised, median of 5, with
+    the card's busy share (the time in which a kernel runs in one traced
+    sweep over that median), and ``overlap_ms``, the time K3 and the lanes'
+    work run at once, from one sweep enqueued behind a gate so that the card
+    runs it unpaced (``trace_overlap``); ``consensus_schedule_check`` on the
+    schedule; one sweep under ``torch.cuda.set_sync_debug_mode("error")``.
+    Through the entry point: ``sharded_entry_timing``. Bitwise: the
+    ``digests`` line and ``SHARDED_REPEATS`` - 1 more runs, and the mesh
+    with its streams serialized (the test-only ``serialize_streams``)."""
+    import torch
+
+    from fpm_torch.ops import kernels
+    from fpm_torch.parallel import comm, led_shard, make_mesh, tile_shard
+
+    k3 = kernels.fused_chunk_increments
+
+    def wall_ms(fn):
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return median(walls), walls
+
+    def no_sync(fn):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        return True
+
+    for name, led, tile, options in SHARDED_CASES:
+        cfg, geom, frames = problem = problems[name]
+        for stale in (False, True):
+            label = sharded_label(name, led, tile, options, stale)
+            mesh = make_mesh(led, tile)
+            kw = dict(use_pallas=True, chunk_size=32, stale_consensus=stale, **options)
+            if tile == 1:
+                route, sopts = led_shard.prepare_led_sharded(frames, geom, cfg, mesh, **kw)
+
+                def sweep():
+                    return led_shard._sharded_sweep(mesh, route, opts=sopts)
+            else:
+                route, sopts, s = tile_shard.prepare_tile_sharded(frames, geom, cfg, mesh, **kw)
+
+                def sweep():
+                    return tile_shard._tile_sweep(mesh, route, opts=sopts, s=s)
+            k3.launches = 0
+            sweep()
+            torch.cuda.synchronize()
+            per_sweep = k3.launches
+            ms, walls = wall_ms(sweep)
+            verdict = comm.consensus_schedule_check(mesh.schedule)
+            paced = trace_overlap(sweep)
+            gated = gated_trace(sweep, ms)
+            unsynced = no_sync(sweep)
+            base = digests[label]
+            repeats = [result_digest(sharded_run(problem, led, tile, options, stale))
+                       for _ in range(SHARDED_REPEATS - 1)]
+            serialized = result_digest(sharded_run(problem, led, tile, options, stale,
+                                                   serialize_streams=True))
+            emit({"phase": "sharded_sweep", "case": label, "mesh": [led, tile],
+                  "problem": name, "stale_consensus": stale, "options": options,
+                  "ranks_share_one_card": True, "k3_launches_per_sweep": per_sweep,
+                  "wall_ms": ms, "wall_ms_all": walls,
+                  "busy_share": paced["busy_ms"] / ms,
+                  "overlap_ms": gated["overlap_ms"], "span_ms_unpaced": gated["span_ms"],
+                  "overlap_ms_host_paced": paced["overlap_ms"],
+                  "trace_unpaced": gated, "trace_host_paced": paced,
+                  "entry_point": entry[label],
+                  "consensus_schedule_check": verdict,
+                  "no_host_sync": unsynced, "digest": base,
+                  "repeats_bitwise": sum(r == base for r in repeats) + 1,
+                  "serialized_bitwise": serialized == base, "gpu": smi})
+            check(verdict["issued_before_compute"] is stale,
+                  f"{label}: issued before compute is not {stale}: {verdict}")
+            check(gated["gate_held"],
+                  f"{label}: the gate ended before the sweep was enqueued: {gated}")
+            check(per_sweep > 0 and paced["k3_kernels"] == gated["k3_kernels"] == per_sweep,
+                  f"{label}: K3 launched {per_sweep} times, traced {paced['k3_kernels']} "
+                  f"and {gated['k3_kernels']}")
+            check(gated["overlap_ms"] > 0 if stale else gated["overlap_ms"] == 0,
+                  f"{label}: K3 beside a collective for {gated['overlap_ms']} ms: {gated}")
+            check(all(r == base for r in repeats), f"{label}: repeats differ")
+            check(serialized == base, f"{label}: serialized streams change the result")
 
 
 def refusal(fn):
@@ -1233,7 +1547,9 @@ def main(argv=None) -> int:
               f"{stem}: a highest instantiation holds HMMA instructions: {counts}")
 
     dev = torch.device("cuda")
-    emit(kernel_digests(dev))
+    digests = kernel_digests(dev)
+    digests["sharded"] = sharded_digests(args.seed)
+    emit(digests)
     cfg = FPMConfig(max_illumination_na=0.45, iterations=10)
     geom = compute_geometry(cfg)
     obj_true = make_test_object(cfg.n_large, seed=args.seed)
@@ -1962,16 +2278,16 @@ def main(argv=None) -> int:
     # K3 as rank (0,0) of mesh (4,1) calls it: its slice (8 slots) of each of
     # the sweep's 7 chunks, on the whole 360×360 spectrum, init state.
     mesh41 = make_mesh(4, 1)
-    (og, pg, sg, ag, stg, mg), opts41 = led_shard.prepare_led_sharded(
+    route41, opts41 = led_shard.prepare_led_sharded(
         frames, geom, cfg, mesh41, use_pallas=True, chunk_size=32)
-    r_amps, r_starts, r_mask = ag[0][0], stg[0][0].reshape(stg[0][0].shape[0], -1), mg[0][0]
-    r_valid = (r_mask > 0).to(torch.int32)
+    _, r_amps, r_starts, r_valid, _ = (g[0][0] for g in route41.inputs)
+    pairs0 = r_starts[0].view(-1, 2)
     n_chunks, c_local = r_valid.shape
     eager41 = dataclasses.replace(opts41, use_pallas=False)
     k3_library_ms = cuda_ms(lambda: led_shard._chunk_increments(
-        o0, p0, support_c, r_amps[0], stg[0][0][0], r_mask[0], opts=eager41), 3)
+        o0, p0, support_c, r_amps[0], pairs0, r_valid[0].to(torch.float32), opts=eager41), 3)
     n_valid = int(r_valid[0].sum())
-    o_elems = window_union(stg[0][0][0].tolist(), r_valid[0].tolist(), n, b, lo, nl, nl)
+    o_elems = window_union(pairs0.tolist(), r_valid[0].tolist(), n, b, lo, nl, nl)
     nbytes, flops = increments_work(n_valid, c_local, n, b, nl, nl, o_elems)
     k3_bound_ms, k3_bound_by = bound(nbytes, flops)
     for tier in TIERS:
@@ -2014,57 +2330,9 @@ def main(argv=None) -> int:
                   k: v for k, v in launches.items() if k.startswith("mesh")},
               "device_ms_by_kernel": by_kernel, "gpu": smi})
 
-    # One sharded sweep per mesh shape, on the host's clock, synchronised: all
-    # ranks share the one card, so these are not scaling results. Through the
-    # entry point, a reconstruction of 1 sweep less one of 0 sweeps (set-up,
-    # the gather of the spectrum and the result are in both); and the sweep
-    # alone on prepared grids, which is what the profiler is put around.
-    def median(xs):
-        return sorted(xs)[len(xs) // 2]
-
-    def entry_ms(fn, mesh, sweeps):
-        walls = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            fn(frames, geom, cfg, mesh=mesh, iterations=sweeps, use_pallas=True, chunk_size=32)
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
-        return walls
-
-    for led, tile in mesh_shapes:
-        mesh = make_mesh(led, tile)
-        entry_0, entry_1 = (entry_ms(sharded_fn(tile), mesh, it) for it in (0, 1))
-        if tile == 1:
-            grids, sopts = led_shard.prepare_led_sharded(frames, geom, cfg, mesh,
-                                                         use_pallas=True, chunk_size=32)
-            def one_sweep():
-                return led_shard._sharded_sweep(mesh, *grids, opts=sopts)
-        else:
-            grids, sopts, s_rows = tile_shard.prepare_tile_sharded(
-                frames, geom, cfg, mesh, use_pallas=True, chunk_size=32)
-            def one_sweep():
-                return tile_shard._tile_sweep(mesh, *grids, opts=sopts, s=s_rows)
-        k3.launches = 0
-        one_sweep()
-        torch.cuda.synchronize()
-        sweep_launches = k3.launches
-        walls = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            one_sweep()
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
-        by_kernel = device_ms_by_kernel(one_sweep)
-        wall_ms = median(walls)
-        emit({"phase": "sharded_sweep", "mesh": [led, tile], "ranks_share_one_card": True,
-              "entry_point_ms_per_sweep": median(entry_1) - median(entry_0),
-              "entry_point_ms_1_sweep_all": entry_1, "entry_point_ms_0_sweeps_all": entry_0,
-              "sweep_alone_wall_ms": wall_ms, "sweep_alone_wall_ms_all": walls,
-              "k3_launches_per_sweep": sweep_launches,
-              "device_ms_total": sum(by_kernel.values()),
-              "device_busy_share": sum(by_kernel.values()) / wall_ms,
-              "device_kernel_count_by_name": len(by_kernel),
-              "device_ms_top_kernels": dict(list(by_kernel.items())[:6]), "gpu": smi})
+    sharded_sweep_phase({"mono": (cfg, geom, frames),
+                         "dogStomach": sharded_problem("dogStomach", args.seed)},
+                        digests["sharded"], sharded_entry_timing(args.seed), smi)
 
     rows += dogstomach(args.seed, smi, dev)
 

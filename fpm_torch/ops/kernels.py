@@ -12,7 +12,9 @@
   nothing applied, on any (R, Ncols) block of the spectrum (the per-rank body
   of the sharded sweeps, ``fpm_torch.parallel``). Replaces
   ``fpm_tpu/ops/pallas_kernels.py:fused_chunk_increments``; CUDA source
-  ``csrc/epry_increments.cu``.
+  ``csrc/epry_increments.cu``. The sharded sweeps call it through
+  :func:`chunk_increments_into`, on operands they keep in the kernel's form
+  for the whole run, on the stream they give.
 
 All take and return the JAX package's operands: the centered object
 spectrum as (2, NL, NL) float32 (re, im) planes (K3: any (2, R, Ncols)
@@ -517,30 +519,74 @@ def _chunked_cuda(o, pc, sc, amps, starts, valid, *, lo, eps, delta1, delta2,
 
 def _increments_cuda(o, pc, sc, amps, starts, valid, *, lo, eps, delta1, delta2,
                      collect_metrics, dft_precision):
-    c, n, b = amps.shape[0], amps.shape[-1], pc.shape[-1]
+    c, b = amps.shape[0], pc.shape[-1]
     _check_cuda_operands(o, pc, sc, amps, starts, n_slots=c, valid=valid, square=False)
-    lib = build.library("epry_increments")
     o, pc, sc, amps = o.contiguous(), pc.contiguous(), sc.contiguous(), amps.contiguous()
     starts, valid = starts.contiguous(), valid.contiguous()
-    dev = o.device
-    mats = _kernel_mats(n, b, lo, dev, dft_precision)
-    d_obj = torch.empty((c, b, b, 2), dtype=torch.float32, device=dev)
-    num = torch.empty((c, b, b, 2), dtype=torch.float32, device=dev)
-    parts = torch.empty((c, 2), dtype=torch.float32, device=dev)
-    d_out, v_out = torch.empty_like(o), torch.empty_like(pc)
-    mets = torch.empty(2, dtype=torch.float32, device=dev)
+    out = k3_outputs(o, pc)
+    _launch_k3(o, pc, sc, amps, starts, valid, out, k3_scratch(c, b, o.device), lo=lo,
+               eps=eps, delta1=delta1, delta2=delta2, collect_metrics=collect_metrics,
+               dft_precision=dft_precision, stream=torch.cuda.current_stream(o.device))
+    return out
+
+
+def _launch_k3(o, pc, sc, amps, starts, valid, out, scratch, *, lo, eps, delta1, delta2,
+               collect_metrics, dft_precision, stream):
+    """One launch sequence of K3 on ``stream`` into ``out`` = (d, v, mets),
+    with ``scratch`` = (d_obj, num, parts) (:func:`k3_scratch`); every
+    operand contiguous, on one card, in the kernel's form."""
+    c, n, b = amps.shape[0], amps.shape[-1], pc.shape[-1]
+    lib = build.library("epry_increments")
+    mats = _kernel_mats(n, b, lo, o.device, dft_precision)
     launched, plan = ctypes.c_int(0), _plan_out()
     err = lib.fpm_k3_increments(
         o.data_ptr(), pc.data_ptr(), sc.data_ptr(), amps.data_ptr(), starts.data_ptr(),
-        valid.data_ptr(), *(m.data_ptr() for m in mats), d_obj.data_ptr(), num.data_ptr(),
-        parts.data_ptr(), d_out.data_ptr(), v_out.data_ptr(), mets.data_ptr(),
-        c, n, b, lo, o.shape[1], o.shape[2], eps, delta1, delta2, int(collect_metrics),
-        _TIERS[dft_precision], dev.index, torch.cuda.current_stream(dev).cuda_stream,
-        fused_chunk_increments.force_cluster_size, fused_chunk_increments.force_z_layout,
-        ctypes.byref(launched), plan)
+        valid.data_ptr(), *(m.data_ptr() for m in mats), *(t.data_ptr() for t in scratch),
+        *(t.data_ptr() for t in out), c, n, b, lo, o.shape[1], o.shape[2], eps, delta1,
+        delta2, int(collect_metrics), _TIERS[dft_precision], o.device.index,
+        stream.cuda_stream, fused_chunk_increments.force_cluster_size,
+        fused_chunk_increments.force_z_layout, ctypes.byref(launched), plan)
     _record(fused_chunk_increments, launched, plan)
     build.check(lib, err, "K3 fused_chunk_increments")
-    return d_out, v_out, mets
+
+
+def k3_outputs(o, pc):
+    """Fresh (d, v, mets) buffers of K3 for the spectrum block ``o`` and
+    the bbox pupil ``pc`` (every element is written by the kernel)."""
+    return (torch.empty_like(o), torch.empty_like(pc),
+            torch.empty(2, dtype=torch.float32, device=o.device))
+
+
+def k3_scratch(c: int, b: int, device):
+    """K3's scratch for ``c`` slots at bbox ``b``: (d_obj, num, parts)."""
+    return (torch.empty((c, b, b, 2), dtype=torch.float32, device=device),
+            torch.empty((c, b, b, 2), dtype=torch.float32, device=device),
+            torch.empty((c, 2), dtype=torch.float32, device=device))
+
+
+def chunk_increments_into(o, pc, sc, amps, starts, valid, *, out, scratch, stream, lo,
+                          eps, delta1, delta2, collect_metrics, dft_precision):
+    """K3 on operands already in the kernel's form, the internal entry of
+    the sharded sweeps (``fpm_torch.parallel``), which keep them across the
+    sweep: ``o`` (2, R, C) float32 spectrum block, ``pc`` (2, b, b) and
+    ``sc`` (b, b) the pupil and support in the centered bbox at offset
+    ``lo``, ``amps`` (C, Np, Np) float32, ``starts`` (2C,) and ``valid``
+    (C,) int32, all contiguous; writes ``(d, v, mets)`` into ``out``
+    (:func:`k3_outputs`; ``v`` in the bbox) and returns it. On the card it
+    launches on ``stream`` with ``scratch`` (:func:`k3_scratch`) and checks
+    nothing (the caller checked the operands once); on the CPU the plain
+    version computes ``out``. :func:`fused_chunk_increments` is this entry
+    with the conversions around it."""
+    kw = dict(lo=lo, eps=eps, delta1=delta1, delta2=delta2,
+              collect_metrics=collect_metrics, dft_precision=dft_precision)
+    if o.is_cuda:
+        _launch_k3(o, pc, sc, amps, starts, valid, out, scratch, stream=stream, **kw)
+    elif o.device.type == "cpu":
+        for dst, src in zip(out, _increments_core_plain(o, pc, sc, amps, starts, valid, **kw)):
+            dst.copy_(src)
+    else:
+        raise ValueError(f"no kernel for device {o.device}")
+    return out
 
 
 # ------------------------------------------------------------------ wrappers

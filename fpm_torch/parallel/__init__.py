@@ -5,7 +5,13 @@ rank, or, under ``torch.distributed`` (``multihost.py``), each process its
 equal share of them; ranks may share a device (``mesh.py``,
 ``roi_shard.py``)."""
 
-from .comm import counted_mismatches, led_shard_comm, project_weak_scaling, tile_shard_comm
+from .comm import (
+    consensus_schedule_check,
+    counted_mismatches,
+    led_shard_comm,
+    project_weak_scaling,
+    tile_shard_comm,
+)
 from .led_shard import prepare_led_sharded, reconstruct_led_sharded
 from .mesh import Mesh, make_mesh, mesh_shape_for
 from .roi_shard import RoiMesh, make_roi_mesh, reconstruct_large_fov_sharded
@@ -28,6 +34,7 @@ __all__ = [
     "tile_shard_comm",
     "project_weak_scaling",
     "counted_mismatches",
+    "consensus_schedule_check",
     "RoiMesh",
     "make_roi_mesh",
     "reconstruct_large_fov_sharded",

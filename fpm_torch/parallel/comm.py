@@ -24,7 +24,10 @@ time and a per-device link bandwidth the caller supplies.
 The model is checked against what a run really issued by
 :func:`counted_mismatches`, which compares it with the calls and payload
 bytes the mesh counted (``Mesh.counts``) — the port's counterpart of the JAX
-package's inventory of the compiled program's collectives.
+package's inventory of the compiled program's collectives — and the order
+of the issued work by :func:`consensus_schedule_check`, which reads the
+steps a sweep enqueued (``Mesh.schedule``) where the JAX package reads the
+scheduled program.
 """
 
 from __future__ import annotations
@@ -205,3 +208,73 @@ def counted_mismatches(counts: dict, model: dict, sweeps: int = 1,
             f"model {want.get((op, axis))}"
             for op, axis in sorted(set(want) | set(got))
             if got.get((op, axis)) != want.get((op, axis))]
+
+
+# The steps of a sharded sweep (``Mesh.schedule``) that form a chunk's
+# consensus, and its compute (kernel K3, or the eager increments).
+CONSENSUS_OPS = ("psum object increments", "psum pupil increments")
+COMPUTE_OP = "increments"
+
+
+def _ancestors(schedule, roots) -> set[int]:
+    """Every step that the steps ``roots`` wait on, directly or through
+    others: the steps named in ``waits_on`` and, on a stream, every earlier
+    step of that stream."""
+    before: dict[int, list[int]] = {}
+    last: dict[str, int] = {}
+    for i, step in enumerate(schedule):
+        before[i] = list(step.waits_on) + ([last[step.stream]] if step.stream in last else [])
+        last[step.stream] = i
+    seen, todo = set(), list(roots)
+    while todo:
+        for j in before[todo.pop()]:
+            if j not in seen:
+                seen.add(j)
+                todo.append(j)
+    return seen
+
+
+def consensus_schedule_check(schedule) -> dict:
+    """Schedule-level evidence for the stale-consensus overlap claim: the
+    counterpart of ``fpm_tpu.parallel.comm.consensus_schedule_check``, which
+    reads the compiled program's chunk-loop body, on ``Mesh.schedule`` (the
+    steps one sweep enqueued, in order, each with its stream and the steps
+    it waits on).
+
+    For every pair of consecutive chunks c, c+1 the consensus of chunk c
+    (its object- and pupil-increment psums) must be *issued before* chunk
+    c+1's compute: enqueued before chunk c+1's first increments step, and
+    no increments step of chunk c+1 waits on it, through an event or the
+    order of a stream. Then on the card the two run at once. The fresh
+    sweep fails this, since chunk c+1 computes from chunk c's applied
+    consensus.
+
+    Returns ``{"body", "consensus_idx", "first_dft_idx", "consensus_bytes",
+    "issued_before_compute"}``: the chunks and ranks read, the schedule
+    index of chunk 0's first consensus step and of chunk 1's first
+    increments step, one rank's payload bytes of chunk 0's consensus, and
+    whether the claim holds on every pair. Raises ValueError where there is
+    no pair (a one-chunk sweep, which has no loop).
+    """
+    chunks = sorted({s.chunk for s in schedule if s.op == COMPUTE_OP})
+    cons = {c: [i for i, s in enumerate(schedule) if s.chunk == c and s.op in CONSENSUS_OPS]
+            for c in chunks}
+    comp = {c: [i for i, s in enumerate(schedule) if s.chunk == c and s.op == COMPUTE_OP]
+            for c in chunks}
+    if len(chunks) < 2 or not cons[chunks[0]]:
+        raise ValueError(
+            "no two chunks with a consensus and increments found — is this the "
+            "schedule of a multi-chunk sharded sweep?")
+    ok = True
+    for c, nxt in zip(chunks, chunks[1:]):
+        waited = _ancestors(schedule, comp[nxt])
+        ok = ok and max(cons[c]) < min(comp[nxt]) and not waited.intersection(cons[c])
+    ranks = sorted({s.rank for s in schedule if s.op == COMPUTE_OP})
+    return {
+        "body": f"{len(chunks)} chunks on {len(ranks)} ranks, "
+                f"streams {sorted({schedule[i].stream for c in chunks for i in comp[c]})}",
+        "consensus_idx": min(cons[chunks[0]]),
+        "first_dft_idx": min(comp[chunks[1]]),
+        "consensus_bytes": sum(schedule[i].nbytes for i in cons[chunks[0]]),
+        "issued_before_compute": ok,
+    }

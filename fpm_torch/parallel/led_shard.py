@@ -13,6 +13,12 @@ with masked dummy frames to a multiple of the ``led`` axis.
 This module's functions take *grids* of per-rank tensors and loop over the
 ranks of this process (``parallel.mesh``; under ``torch.distributed`` every
 process runs the same program on its own ranks, ``parallel.multihost``).
+On the card each rank's K3 and apply run on its own stream and the
+collectives on the mesh's comm lane, joined by events; with
+``stale_consensus`` chunk c's collectives run while chunk c+1's K3 runs
+(:func:`pipelined_chunks`). On the kernel route with complex64 state the
+state stays in K3's operands for the whole run (:class:`PlanesRoute`) and
+goes back to complex only for the result.
 """
 
 from __future__ import annotations
@@ -94,75 +100,247 @@ def _wire_dtype(opts: EPRYOptions):
     return torch.bfloat16 if opts.comm_precision == "bf16" else None
 
 
-def psum_metrics(mesh: Mesh, mets, axes):
-    """The two scalar metric psums of a chunk; a grid of (2,) tensors."""
-    resid = mesh.psum(mesh.map(lambda m: m[0], mets), axes)
-    upd = mesh.psum(mesh.map(lambda m: m[1], mets), axes)
-    return mesh.map(lambda r, u: torch.stack([r, u]), resid, upd)
-
-
-def _consensus_psum(mesh: Mesh, d, v, mets, *, opts: EPRYOptions):
-    """The per-chunk all-reduces over the LED axis, on grids.
-    ``comm_precision='bf16'`` halves the object-increment and
-    pupil-numerator payloads; the sums accumulate in f32."""
-    wire = _wire_dtype(opts)
-    return (mesh.psum(d, "led", wire_dtype=wire), mesh.psum(v, "led", wire_dtype=wire),
-            psum_metrics(mesh, mets, "led"))
-
-
 def _as_complex(x, like):
     """f32 planes of the kernel route → complex; complex passes through."""
     return x if x.is_complex() else _from_planes(x, like)
 
 
-def _apply_consensus(obj_f, pupil, d, v, *, opts: EPRYOptions):
-    """One rank: object add → global max|O| of the UPDATED spectrum → pupil add."""
-    obj_f = obj_f + _as_complex(d, obj_f)
-    omax = torch.max(torch.abs(obj_f))
-    return obj_f, pupil + opts.pupil_step_scale * _as_complex(v, pupil) / omax
+class ComplexRoute:
+    """A sharded run whose state is complex tensors: the eager route
+    (``torch.fft``; the complex128 parity runs on the CPU) and the kernel
+    route with complex128 state, which converts K3's operands on every
+    chunk (:func:`_chunk_increments`). Holds the per-rank grids: the state
+    (``obj``, ``pupil``, ``omax``: the last max|O|) and the inputs of every
+    chunk (``inputs``: support, amps, starts, mask)."""
+
+    planes = False
+
+    def __init__(self, opts: EPRYOptions, obj, pupil, support, amps, starts, mask):
+        self.opts, self.obj, self.pupil, self.frame = opts, obj, pupil, pupil
+        self.omax = [[None] * len(row) for row in obj]
+        self.inputs = (support, amps, starts, mask)
+
+    @property
+    def n_chunks(self) -> int:
+        return next(a.shape[0] for row in self.inputs[1] for a in row if a is not None)
+
+    def increments(self, block, pupil, support, amps, starts, mask, *, c):
+        return _chunk_increments(block, pupil, support, amps[c], starts[c], mask[c],
+                                 opts=self.opts)
+
+    def as_state(self, x, like):
+        return _as_complex(x, like)
+
+    @staticmethod
+    def abs_max(obj):
+        return torch.max(torch.abs(obj))
+
+    def pupil_step(self, pupil, v, omax):
+        return pupil + self.opts.pupil_step_scale * _as_complex(v, pupil) / omax
+
+    @staticmethod
+    def to_wire(x, wire):
+        return torch.stack([x.real, x.imag]).to(wire)
+
+    @staticmethod
+    def from_wire(b, like):
+        return torch.complex(b[0].float(), b[1].float()).to(like.dtype)
+
+    def complex_state(self, obj, pupil, omax, frame):
+        """The state of one rank as complex tensors (``obj``: its spectrum,
+        or the whole spectrum gathered from the tiles)."""
+        return obj, pupil
+
+    def final_state(self, mesh: Mesh, obj):
+        """:meth:`complex_state` of this process's first rank."""
+        li, ti = mesh.local_ranks[0]
+        return self.complex_state(obj, self.pupil[li][ti], self.omax[li][ti],
+                                  self.frame[li][ti])
 
 
-def pipelined_chunks(n_chunks: int, increments, apply, stale: bool):
-    """Run ``apply(increments(c))`` for every chunk in order. With ``stale``
-    (one-chunk-stale consensus) chunk c+1's increments are computed BEFORE
-    chunk c's are applied: one chunk of Gauss–Seidel freshness given up so
-    that a chunk's collectives do not depend on the next chunk's compute.
-    (The order of compute and apply is what this fixes; nothing overlaps on
-    streams yet.)"""
+class PlanesRoute(ComplexRoute):
+    """The kernel route with complex64 state, kept in K3's operands for the
+    whole run (built once by :meth:`of`): the spectrum (block) as (2, R, C)
+    float32 planes, the pupil as (2, b, b) planes of the centered NA bbox
+    at offset ``lo``, and as inputs the bbox support, float32 amps, int32
+    starts (n_chunks, 2C) and valid flags (n_chunks, C), and K3's scratch
+    per rank. K3 runs through ``kernels.chunk_increments_into``; nothing is
+    converted per chunk. The arithmetic is the complex route's on the same
+    values, so the bits are: an add of planes is the add of complex64
+    numbers; max|O| is ``torch.abs`` of the complex spectrum, as there
+    (vectorized complex ``abs`` and ``hypotf`` differ); the pupil step
+    divides the complex numerator by the real max as a complex division
+    (promoted: not the division of each plane); the pupil payload is padded
+    to the whole Np×Np patch, the psum's payload; outside the bbox the
+    pupil is the initial ``frame`` plus that division's zero
+    (:meth:`complex_state`)."""
+
+    planes = True
+
+    @classmethod
+    def of(cls, mesh: Mesh, opts: EPRYOptions, obj, pupil, support, amps, starts, mask,
+           block_rows: int):
+        n = opts.np_size
+        b, lo = kernels.bbox_extent(n, opts.pupil_radius)
+        frame = pupil
+
+        def rank(li, ti):
+            p_planes, sup = _to_planes(pupil[li][ti]), support[li][ti].real.to(torch.float32)
+            pc, sc = kernels._pupil_to_bbox(p_planes, sup, n, b, lo)
+            a = amps[li][ti].to(torch.float32).contiguous()
+            st = starts[li][ti].reshape(a.shape[0], -1).to(torch.int32).contiguous()
+            valid = (mask[li][ti] > 0).to(torch.int32).contiguous()
+            o = _to_planes(obj[li][ti]).contiguous()
+            scratch = None
+            if o.is_cuda:
+                kernels._check_cuda_operands(
+                    o.new_empty((2, block_rows, o.shape[-1])), pc, sc, a[0], st[0],
+                    n_slots=a.shape[1], valid=valid[0], square=False)
+                scratch = kernels.k3_scratch(a.shape[1], b, o.device)
+            return o, pc, sc, a, st, valid, scratch
+
+        o, pc, sc, a, st, valid, scratch = unzip(mesh.grid(rank), 7)
+        route = cls(opts, o, pc, sc, a, st, valid)
+        route.inputs += (scratch,)
+        route.frame, route.b, route.lo = frame, b, lo
+        return route
+
+    def increments(self, block, pc, sc, amps, starts, valid, scratch, *, c):
+        o = self.opts
+        d, v, mets = kernels.chunk_increments_into(
+            block, pc, sc, amps[c], starts[c], valid[c], out=kernels.k3_outputs(block, pc),
+            scratch=scratch, stream=torch.cuda.current_stream(block.device)
+            if block.is_cuda else None, lo=self.lo, eps=o.eps, delta1=o.delta1,
+            delta2=o.delta2, collect_metrics=o.collect_metrics, dft_precision=o.dft_precision)
+        far = o.np_size - self.lo - self.b
+        return d, torch.nn.functional.pad(v, (self.lo, far, self.lo, far)), mets
+
+    def as_state(self, x, like):
+        return x
+
+    @staticmethod
+    def abs_max(obj):
+        return torch.max(torch.abs(torch.complex(obj[0], obj[1])))
+
+    def _window(self, x):
+        return x[..., self.lo:self.lo + self.b, self.lo:self.lo + self.b]
+
+    def pupil_step(self, pc, v, omax):
+        vw = self._window(v)
+        step = torch.complex(pc[0], pc[1]) + self.opts.pupil_step_scale * torch.complex(
+            vw[0], vw[1]) / omax
+        return torch.stack([step.real, step.imag])
+
+    @staticmethod
+    def to_wire(x, wire):
+        return x.to(wire)
+
+    @staticmethod
+    def from_wire(b, like):
+        return b.float()
+
+    def complex_state(self, obj, pc, omax, frame):
+        """(spectrum, pupil) as complex64, the pupil in the DC-at-corner
+        frame: the initial ``frame`` (after a chunk plus the pupil step's
+        zero, ``0 / max|O|``, that the complex route adds outside the bbox)
+        with the bbox put back."""
+        half = self.opts.np_size // 2
+        if omax is not None:
+            frame = frame + self.opts.pupil_step_scale * torch.zeros_like(frame) / omax
+        centered = torch.roll(frame, (half, half), dims=(0, 1))
+        self._window(centered).copy_(torch.complex(pc[0], pc[1]))
+        return (torch.complex(obj[0], obj[1]),
+                torch.roll(centered, (-half, -half), dims=(0, 1)))
+
+
+def route_for(mesh: Mesh, opts: EPRYOptions, obj, pupil, support, amps, starts, mask,
+              block_rows: int) -> ComplexRoute:
+    """The route of a sharded run: the state kept in K3's operands on the
+    kernel route with complex64 state, complex tensors otherwise."""
+    if opts.use_pallas and opts.dtype == "complex64":
+        return PlanesRoute.of(mesh, opts, obj, pupil, support, amps, starts, mask, block_rows)
+    return ComplexRoute(opts, obj, pupil, support, amps, starts, mask)
+
+
+def issue_metrics(mesh: Mesh, mets, axes, c, after):
+    """The two scalar metric psums of chunk ``c`` (pending)."""
+    return tuple(mesh.psum(mesh.map(lambda m: m[i], mets), axes, chunk=c, after=after,
+                           what=what, wait=False)
+                 for i, what in enumerate(("residual", "update norm")))
+
+
+def add_metrics(mesh: Mesh, acc, pending, c):
+    """``acc`` + the chunk's metric sums, on this process's first rank."""
+    resid, upd = (p.result() for p in pending)
+    home = mesh.local_ranks[0]
+    with mesh.on_rank(c, home, "metrics", [p.step for p in pending]):
+        return acc + torch.stack([mesh.local(resid), mesh.local(upd)])
+
+
+def pipelined_chunks(n_chunks: int, increments, reduce, apply, stale: bool):
+    """The chunk loop of ``fpm_tpu``'s scan body, in the order its work is
+    enqueued. Fresh: ``increments(c)``, ``reduce(c, ·)`` (the consensus
+    collectives, started), ``apply(c, ·)``. With ``stale`` (one-chunk-stale
+    consensus) ``reduce(c)`` is enqueued first, then ``increments(c+1)``,
+    which reads the state after ``apply(c−1)`` only, then ``apply(c)``,
+    which waits on ``reduce(c)``: chunk c's collectives and chunk c+1's K3
+    depend on nothing of each other, so on the card they run at once
+    (``parallel.mesh``: ranks and collectives on streams of their own)."""
     if not stale:
         for c in range(n_chunks):
-            apply(increments(c))
+            apply(c, reduce(c, increments(c)))
         return
-    pending = increments(0)
-    for c in range(1, n_chunks):
-        nxt = increments(c)
-        apply(pending)
-        pending = nxt
-    apply(pending)
+    inc = increments(0)
+    for c in range(n_chunks):
+        red = reduce(c, inc)
+        if c + 1 < n_chunks:
+            inc = increments(c + 1)
+        apply(c, red)
 
 
-def _sharded_sweep(mesh: Mesh, obj_f, pupil, support, amps, starts, mask, *,
-                   opts: EPRYOptions):
-    """One full sweep over grids: chunks in order, each chunk's LEDs split
-    over the ``led`` axis. ``amps`` (n_chunks, C_local, Np, Np), ``starts``
-    (n_chunks, C_local, 2) and ``mask`` (n_chunks, C_local) are each rank's
-    slices. Returns the new grids and the sweep's (2,) metric sums."""
-    state = {"obj_f": obj_f, "pupil": pupil, "mets": 0}
+def _sharded_sweep(mesh: Mesh, route: ComplexRoute, *, opts: EPRYOptions):
+    """One full sweep: chunks in order, each chunk's LEDs split over the
+    ``led`` axis (each rank's inputs hold its slices). Updates ``route``'s
+    state grids and returns the sweep's (2,) metric sums."""
+    wire = _wire_dtype(opts)
+    acc = {"mets": 0}
+    mesh.begin_sweep(route.obj, route.pupil)
 
     def increments(c):
-        return unzip(mesh.map(
-            lambda o, p, s, a, st, m: _chunk_increments(o, p, s, a[c], st[c], m[c], opts=opts),
-            state["obj_f"], state["pupil"], support, amps, starts, mask), 3)
+        out, steps = mesh.each(c, "increments", lambda *a: route.increments(*a, c=c),
+                               route.obj, route.pupil, *route.inputs)
+        return (*unzip(out, 3), steps)
 
-    def apply(inc):
-        d, v, mets = _consensus_psum(mesh, *inc, opts=opts)
-        state["obj_f"], state["pupil"] = unzip(mesh.map(
-            lambda o, p, dd, vv: _apply_consensus(o, p, dd, vv, opts=opts),
-            state["obj_f"], state["pupil"], d, v), 2)
-        state["mets"] = state["mets"] + mesh.local(mets)
+    def reduce(c, inc):
+        d, v, mets, steps = inc
+        return (mesh.psum(d, "led", wire, chunk=c, after=steps, what="object increments",
+                          wait=False),
+                mesh.psum(v, "led", wire, chunk=c, after=steps, what="pupil increments",
+                          wait=False),
+                issue_metrics(mesh, mets, "led", c, steps))
 
-    pipelined_chunks(mesh.local(amps).shape[0], increments, apply, opts.stale_consensus)
-    return state["obj_f"], state["pupil"], state["mets"]
+    def apply(c, red):
+        pd, pv, pm = red
+        # The metric psums are completed and waited on too, so that chunk
+        # c+1's K3 (which reads this apply's state) runs beside no
+        # collective of chunk c in the fresh sweep.
+        d, v = pd.result(), pv.result()
+        for p in pm:
+            p.result()
+
+        def one(o, p, dd, vv):
+            o = o + route.as_state(dd, o)
+            m = route.abs_max(o)
+            return o, route.pupil_step(p, vv, m), m
+
+        out, _ = mesh.each(c, "apply", one, route.obj, route.pupil, d, v,
+                           waits=(pd.step, pv.step, *(p.step for p in pm)))
+        route.obj, route.pupil, route.omax = unzip(out, 3)
+        acc["mets"] = add_metrics(mesh, acc["mets"], pm, c)
+
+    pipelined_chunks(route.n_chunks, increments, reduce, apply, opts.stale_consensus)
+    mesh.end_sweep(route.obj, route.pupil, route.omax, tensors=[acc["mets"]])
+    return acc["mets"]
 
 
 def check_route(mesh: Mesh, opts: EPRYOptions) -> None:
@@ -204,7 +382,9 @@ def prepare_led_sharded(images, geom: LEDGeometry, cfg: FPMConfig, mesh: Mesh,
     rounded up to a multiple of the ``led`` axis
     (``effective_chunk_size(..., n_led)``, the function the CLI's fingerprint
     calls), and gives rank ``li`` the ``li``-th slice of every chunk.
-    Returns ``((obj_f, pupil, support, amps, starts, mask), opts)``, all grids.
+    Returns ``(route, opts)``: the run's :class:`ComplexRoute` or, on the
+    kernel route with complex64 state, :class:`PlanesRoute`, whose grids
+    hold each rank's state and inputs in the form its sweep takes them.
     """
     opts = sharded_options(cfg, iterations, dtype, opt_overrides)
     check_route(mesh, opts)
@@ -223,20 +403,19 @@ def prepare_led_sharded(images, geom: LEDGeometry, cfg: FPMConfig, mesh: Mesh,
         return mesh.grid(lambda li, ti: t[:, li * c_local:(li + 1) * c_local]
                          .contiguous().to(mesh.devices[li][ti]))
 
-    return (mesh.replicate(obj_f), mesh.replicate(pupil), mesh.replicate(support),
-            slice_of(amps_c), slice_of(starts_c), slice_of(mask_c)), opts
+    route = route_for(mesh, opts, mesh.replicate(obj_f), mesh.replicate(pupil),
+                      mesh.replicate(support), slice_of(amps_c), slice_of(starts_c),
+                      slice_of(mask_c), block_rows=cfg.n_large)
+    return route, opts
 
 
-def run_sweeps(sweep, obj_f, pupil, iterations: int):
-    """``iterations`` sweeps of ``sweep(obj_f, pupil) -> (obj_f, pupil, mets)``;
-    returns the final grids and the (iterations, 2) metrics array."""
-    per_sweep = []
-    for _ in range(iterations):
-        obj_f, pupil, mets = sweep(obj_f, pupil)
-        per_sweep.append(mets)
-    metrics = (torch.stack(per_sweep).cpu().numpy() if per_sweep
-               else np.zeros((0, 2), np.float64))
-    return obj_f, pupil, metrics
+def run_sweeps(sweep, iterations: int):
+    """``iterations`` sweeps of ``sweep() -> mets``; returns the
+    (iterations, 2) metrics array (the one synchronisation with the card,
+    after the last sweep)."""
+    per_sweep = [sweep() for _ in range(iterations)]
+    return (torch.stack(per_sweep).cpu().numpy() if per_sweep
+            else np.zeros((0, 2), np.float64))
 
 
 def result_from(obj_f: torch.Tensor, pupil: torch.Tensor, metrics) -> ReconResult:
@@ -261,14 +440,10 @@ def reconstruct_led_sharded(images, geom: LEDGeometry, cfg: FPMConfig,
     """
     if mesh is None:
         mesh = make_mesh(tile=1)
-    (obj_f, pupil, support, amps, starts, mask), opts = prepare_led_sharded(
-        images, geom, cfg, mesh, iterations=iterations, dtype=dtype,
-        initial_state=initial_state, **opt_overrides)
-
-    def sweep(o, p):
-        return _sharded_sweep(mesh, o, p, support, amps, starts, mask, opts=opts)
-
-    obj_f, pupil, metrics = run_sweeps(sweep, obj_f, pupil, opts.iterations)
+    route, opts = prepare_led_sharded(images, geom, cfg, mesh, iterations=iterations,
+                                      dtype=dtype, initial_state=initial_state,
+                                      **opt_overrides)
+    metrics = run_sweeps(lambda: _sharded_sweep(mesh, route, opts=opts), opts.iterations)
     # Every rank holds the whole spectrum, the same bits on every rank: each
     # process returns the global result from its own first rank.
-    return result_from(mesh.local(obj_f), mesh.local(pupil), metrics)
+    return result_from(*route.final_state(mesh, mesh.local(route.obj)), metrics)

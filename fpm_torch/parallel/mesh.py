@@ -32,15 +32,72 @@ in the same order, so the result is bitwise that of the one-process mesh.
 Each call is counted on the mesh (``mesh.counts``: calls and payload bytes,
 one rank's payload per call, keyed by ``(op, axis)``), the same counts on
 every process, to be held against the analytic model of ``parallel.comm``.
+
+Streams, events and the schedule. On CUDA every local rank computes on a
+stream of its own (two ranks that share a card do not share a stream), and
+the collectives run on two lanes, each a stream per card: ``comm`` for the
+reductions and the reverse halos, ``halo`` for the forward halos that feed
+the next chunk's compute. Work is enqueued in *steps*
+(:meth:`Mesh.on_rank`, the collectives): a step waits on the events that
+the steps named in its ``after``/``waits`` recorded, and records its own
+when its work is enqueued, so that a collective starts when its payloads
+are produced and a rank consumes a collective's results only after it.
+Every step is appended to :attr:`Mesh.schedule` as a :class:`Step` —
+``(chunk, rank, stream, op, waits_on, nbytes)`` — the counterpart of the
+scheduled program that ``fpm_tpu``'s ``consensus_schedule_check`` reads
+(``parallel.comm.consensus_schedule_check`` reads this one). On the CPU
+there are no streams and steps run as they are enqueued, but the same
+schedule, with the same stream labels, is recorded, so the order can be
+tested there. A tensor made on one stream and read on another is handed to
+the reader's stream with ``Tensor.record_stream``, so that the caching
+allocator does not give its memory to a later chunk while the reader may
+still use it.
 """
 
 from __future__ import annotations
+
+import contextlib
+from typing import NamedTuple
 
 import torch
 
 from ..models.epry import resolve_device
 
 AXES = ("led", "tile")
+LANES = ("comm", "halo")
+
+
+class Step(NamedTuple):
+    """One enqueued step of a sharded sweep: its ``chunk`` (None outside the
+    chunk loop), the ``rank`` ``(li, ti)`` whose stream it runs on (None for
+    a collective, which runs on a lane), the ``stream`` label (``"rank
+    li,ti"``, ``"comm"``, ``"halo"``, or ``"current"`` when the mesh
+    serializes), ``op``, the indices in the schedule of the steps whose
+    events it waits on (``waits_on``; a step also follows every earlier step
+    of its own stream), and the payload bytes of one rank (collectives)."""
+
+    chunk: int | None
+    rank: tuple[int, int] | None
+    stream: str
+    op: str
+    waits_on: tuple[int, ...]
+    nbytes: int = 0
+
+
+class Pending:
+    """A collective in flight (``wait=False``): :meth:`result` gives its
+    grid, completing the exchange between processes where a transport
+    defers it; :attr:`step` is its index in the schedule, which a consumer
+    waits on."""
+
+    def __init__(self, step: int, grid=None, finish=None):
+        self.step = step
+        self._grid, self._finish = grid, finish
+
+    def result(self):
+        if self._finish is not None:
+            self._grid, self._finish = self._finish(), None
+        return self._grid
 
 
 def mesh_shape_for(n_devices: int, n_large: int, np_size: int) -> tuple[int, int]:
@@ -59,6 +116,14 @@ def mesh_shape_for(n_devices: int, n_large: int, np_size: int) -> tuple[int, int
     return n_devices // tile, tile
 
 
+def _indexed(device: torch.device) -> torch.device:
+    """``cuda`` as the card it means now (``cuda:<current>``): a rank's
+    streams and its tensors then name one device."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def unzip(grid, n: int):
     """A grid of n-tuples as n grids (a rank of another process, ``None``,
     stays ``None`` in each)."""
@@ -70,16 +135,32 @@ class Mesh:
     """An ``led × tile`` grid of ranks; ``devices[li][ti]`` is a rank's
     device, ``None`` for a rank of another process. ``transport`` carries the
     collectives between processes (``parallel.multihost.ProcessTransport``);
-    ``None`` on one process."""
+    ``None`` on one process.
 
-    def __init__(self, devices, transport=None):
-        self.devices = [[None if d is None else torch.device(d) for d in row]
+    ``serialize_streams`` is for tests only: it puts every rank and both
+    lanes on each device's current stream, so that nothing overlaps (a run
+    with it is bitwise the run without it; only when the work runs
+    differs). Nothing on the main path sets it."""
+
+    def __init__(self, devices, transport=None, serialize_streams: bool = False):
+        self.devices = [[None if d is None else _indexed(torch.device(d)) for d in row]
                         for row in devices]
         self.shape = {"led": len(self.devices), "tile": len(self.devices[0])}
         self.transport = transport
         self.local_ranks = [(li, ti) for li, row in enumerate(self.devices)
                             for ti, d in enumerate(row) if d is not None]
         self.counts: dict[tuple[str, str], dict[str, int]] = {}
+        self.serialize_streams = serialize_streams
+        self.schedule: list[Step] = []
+        self._events: dict[int, list] = {}
+        cards = list(dict.fromkeys(self.devices[li][ti] for li, ti in self.local_ranks
+                                   if self.devices[li][ti].type == "cuda"))
+        streamed = bool(cards) and not serialize_streams
+        self._rank_streams = {r: torch.cuda.Stream(self.devices[r[0]][r[1]])
+                              for r in self.local_ranks if streamed
+                              and self.devices[r[0]][r[1]].type == "cuda"}
+        self._lane_streams = {lane: {d: torch.cuda.Stream(d) for d in cards} if streamed else {}
+                              for lane in LANES}
 
     @property
     def size(self) -> int:
@@ -134,6 +215,106 @@ class Mesh:
         return [[values[(li, ti)].to(self.home) for ti in range(self.shape["tile"])]
                 for li in range(self.shape["led"])]
 
+    # -------------------------------------------------- streams and steps
+
+    def streams(self) -> list:
+        """Every stream of this process's ranks and lanes (none on the CPU or
+        when the mesh serializes)."""
+        return [*self._rank_streams.values(),
+                *(s for lane in self._lane_streams.values() for s in lane.values())]
+
+    def _log(self, chunk, rank, stream: str, op: str, waits, nbytes: int = 0) -> int:
+        self.schedule.append(Step(chunk, rank, "current" if self.serialize_streams else stream,
+                                  op, tuple(waits), nbytes))
+        return len(self.schedule) - 1
+
+    def _wait(self, stream, waits) -> None:
+        for j in waits:
+            for event in self._events.get(j, ()):
+                stream.wait_event(event)
+
+    def _recorded(self, idx: int, streams) -> None:
+        events = []
+        for stream in streams:
+            event = torch.cuda.Event()
+            event.record(stream)
+            events.append(event)
+        self._events[idx] = events
+
+    @contextlib.contextmanager
+    def on_rank(self, chunk, rank, op: str, waits=()):
+        """A step of rank ``rank``: its work, enqueued in the body, runs on
+        the rank's stream after the events of the steps ``waits``. Yields
+        the step's index in the schedule."""
+        idx = self._log(chunk, rank, f"rank {rank[0]},{rank[1]}", op, waits)
+        stream = self._rank_streams.get(rank)
+        if stream is None:
+            yield idx
+            return
+        self._wait(stream, waits)
+        with torch.cuda.stream(stream):
+            yield idx
+        self._recorded(idx, [stream])
+
+    def each(self, chunk, op: str, fn, *grids, waits=()):
+        """``fn(*values of rank)`` over the local ranks, each as a step of
+        its own (:meth:`on_rank`); returns the grid and the steps' indices."""
+        out = self.grid(lambda li, ti: None)
+        steps = []
+        for li, ti in self.local_ranks:
+            with self.on_rank(chunk, (li, ti), op, waits) as idx:
+                out[li][ti] = fn(*(g[li][ti] for g in grids))
+            steps.append(idx)
+        return out, steps
+
+    @contextlib.contextmanager
+    def _on_lane(self, lane: str, idx: int, waits=()):
+        """Every local card's stream of ``lane`` made current (a copy between
+        two cards runs on, and is ordered on, both), after ``waits``."""
+        streams = list(self._lane_streams[lane].values())
+        with contextlib.ExitStack() as stack:
+            for stream in streams:
+                self._wait(stream, waits)
+                stack.enter_context(torch.cuda.stream(stream))
+            yield
+        if streams:
+            self._recorded(idx, streams)
+
+    def _hand_over(self, tensor, lane: str | None = None, rank=None) -> None:
+        """``tensor`` is read on ``lane`` (its card's stream of it) or on
+        ``rank``'s stream: keep its memory from the allocator until then."""
+        if tensor is None or not tensor.is_cuda:
+            return
+        stream = (self._lane_streams[lane].get(tensor.device) if lane is not None
+                  else self._rank_streams.get(rank))
+        if stream is not None:
+            tensor.record_stream(stream)
+
+    def begin_sweep(self, *grids) -> None:
+        """Start a sweep's schedule: the rank and lane streams wait on the
+        work enqueued on each card's current stream (the set-up that made
+        ``grids``), and each rank's tensors of ``grids`` are handed to its
+        stream."""
+        self.schedule, self._events = [], {}
+        for stream in self.streams():
+            stream.wait_stream(torch.cuda.current_stream(stream.device))
+        for grid in grids:
+            for li, ti in self.local_ranks:
+                self._hand_over(grid[li][ti], rank=(li, ti))
+
+    def end_sweep(self, *grids, tensors=()) -> None:
+        """End a sweep: each card's current stream waits on every rank and
+        lane stream, and takes over the tensors of ``grids`` and
+        ``tensors``."""
+        for stream in self.streams():
+            torch.cuda.current_stream(stream.device).wait_stream(stream)
+        if not self._rank_streams:
+            return
+        held = [grid[li][ti] for grid in grids for li, ti in self.local_ranks]
+        for t in (*held, *tensors):
+            if isinstance(t, torch.Tensor) and t.is_cuda:
+                t.record_stream(torch.cuda.current_stream(t.device))
+
     # ------------------------------------------------------- collectives
 
     def reset_counts(self) -> None:
@@ -156,43 +337,81 @@ class Mesh:
             return axes, [[(li, ti) for li in range(n_led)] for ti in range(n_tile)]
         return axes, [[(li, ti) for ti in range(n_tile)] for li in range(n_led)]
 
-    def _reduce(self, op: str, grid, axes, combine, wire_dtype=None):
+    def _collective(self, op: str, axes, payload, start, finish, *, lane, chunk=None,
+                    after=(), what="", wait=True):
+        """Count and log a collective, then ``start()`` it on ``lane`` after
+        the steps ``after``; ``finish(started)`` gives its grid, on the lane
+        too. On one process both run at once; a transport may defer
+        ``finish`` (``wait=False`` then returns a :class:`Pending` whose
+        ``result`` completes it)."""
+        self._count(op, axes, payload)
+        nbytes = payload.numel() * payload.element_size()
+        idx = self._log(chunk, None, lane, f"{op} {what}" if what else op, after, nbytes)
+        with self._on_lane(lane, idx, after):
+            started = start()
+            pending = (Pending(idx, grid=finish(started)) if self.transport is None
+                       else Pending(idx, finish=lambda: self._finish_on(lane, idx, finish,
+                                                                       started)))
+        return pending if not wait else pending.result()
+
+    def _finish_on(self, lane, idx, finish, started):
+        with self._on_lane(lane, idx):
+            return finish(started)
+
+    def _reduce(self, op: str, grid, axes, combine, wire_dtype=None, lane="comm", **step):
         axes, groups = self._groups(axes)
         full_dtype = self.local(grid).dtype
-        # The payloads on the wire; accumulated in full precision below.
-        wire = {(li, ti): grid[li][ti] if wire_dtype is None else grid[li][ti].to(wire_dtype)
-                for li, ti in self.local_ranks}
-        values = wire if self.transport is None else self.transport.all_gather(self, wire)
-        out = self.grid(lambda li, ti: None)
-        for group in groups:
-            mine = [r for r in group if r in wire]
-            if not mine:
-                continue
-            first = self.devices[group[0][0]][group[0][1]]
-            home = first if first is not None else self.home
-            acc = None
-            for r in group:
-                x = values[r].to(home).to(full_dtype)
-                acc = x if acc is None else combine(acc, x)
-            for li, ti in mine:
-                out[li][ti] = acc.to(self.devices[li][ti])
-        self._count(op, axes, wire[self.local_ranks[0]])
-        return out
 
-    def psum(self, grid, axes, wire_dtype=None):
+        def start():
+            for li, ti in self.local_ranks:
+                self._hand_over(grid[li][ti], lane=lane)
+            # The payloads on the wire; accumulated in full precision below.
+            wire = {(li, ti): grid[li][ti] if wire_dtype is None
+                    else grid[li][ti].to(wire_dtype) for li, ti in self.local_ranks}
+            return wire if self.transport is None else self.transport.start_all_gather(self, wire)
+
+        def finish(started):
+            values = started if self.transport is None else self.transport.finish(started)
+            out = self.grid(lambda li, ti: None)
+            for group in groups:
+                mine = [r for r in group if r in self.local_ranks]
+                if not mine:
+                    continue
+                first = self.devices[group[0][0]][group[0][1]]
+                home = first if first is not None else self.home
+                acc = None
+                for r in group:
+                    x = values[r].to(home).to(full_dtype)
+                    acc = x if acc is None else combine(acc, x)
+                for li, ti in mine:
+                    out[li][ti] = acc.to(self.devices[li][ti])
+                    self._hand_over(out[li][ti], rank=(li, ti))
+            return out
+
+        payload = self.local(grid)
+        if wire_dtype is not None:
+            payload = torch.empty(payload.shape, dtype=wire_dtype, device="meta")
+        return self._collective(op, axes, payload, start, finish, lane=lane, **step)
+
+    def psum(self, grid, axes, wire_dtype=None, **step):
         """All-reduce sum over ``axes`` (``"led"``, ``"tile"`` or both).
         ``wire_dtype`` casts each rank's payload (real tensors only) before it
-        travels; the sum is accumulated in the dtype the tensors came in."""
-        return self._reduce("psum", grid, axes, torch.add, wire_dtype)
+        travels; the sum is accumulated in the dtype the tensors came in.
+        ``step``: ``lane`` (``"comm"``), ``chunk``, ``after`` (the steps
+        that produced the payloads), ``what`` (the schedule's label) and
+        ``wait`` (False: return a :class:`Pending`)."""
+        return self._reduce("psum", grid, axes, torch.add, wire_dtype, **step)
 
-    def pmax(self, grid, axes):
-        """All-reduce max over ``axes``."""
-        return self._reduce("pmax", grid, axes, torch.maximum)
+    def pmax(self, grid, axes, **step):
+        """All-reduce max over ``axes``; ``step`` as for :meth:`psum`."""
+        return self._reduce("pmax", grid, axes, torch.maximum, **step)
 
-    def ppermute(self, grid, axis: str, perm):
+    def ppermute(self, grid, axis: str, perm, prepare=None, lane="comm", **step):
         """Point-to-point along ``axis``: position ``dst`` receives position
         ``src``'s value for each ``(src, dst)`` of ``perm``, which must be a
-        permutation of the axis. Between processes the value is sent."""
+        permutation of the axis. Between processes the value is sent.
+        ``prepare`` maps each payload before it travels (on the lane: a cast
+        to the wire dtype); ``step`` as for :meth:`psum`."""
         size = self.shape[axis]
         if sorted(s for s, _ in perm) != list(range(size)) or \
                 sorted(d for _, d in perm) != list(range(size)):
@@ -203,17 +422,36 @@ class Mesh:
         def src(li, ti):
             return (src_of[li], ti) if axis == "led" else (li, src_of[ti])
 
-        self._count("ppermute", (axis,), self.local(grid))
-        if self.transport is None:
-            return self.grid(lambda li, ti: grid[src(li, ti)[0]][src(li, ti)[1]]
-                             .to(self.devices[li][ti]))
-        pairs = [(src(li, ti), (li, ti)) for li in range(self.shape["led"])
-                 for ti in range(self.shape["tile"])]
-        received = self.transport.exchange(self, grid, pairs)
-        return self.grid(lambda li, ti: received[(li, ti)].to(self.devices[li][ti]))
+        def start():
+            sent = self.grid(lambda li, ti: None)
+            for li, ti in self.local_ranks:
+                self._hand_over(grid[li][ti], lane=lane)
+                sent[li][ti] = grid[li][ti] if prepare is None else prepare(grid[li][ti])
+            if self.transport is None:
+                return sent
+            pairs = [(src(li, ti), (li, ti)) for li in range(self.shape["led"])
+                     for ti in range(self.shape["tile"])]
+            return self.transport.start_exchange(self, sent, pairs)
+
+        def finish(started):
+            if self.transport is None:
+                out = self.grid(lambda li, ti: started[src(li, ti)[0]][src(li, ti)[1]]
+                                .to(self.devices[li][ti]))
+            else:
+                received = self.transport.finish(started)
+                out = self.grid(lambda li, ti: received[(li, ti)].to(self.devices[li][ti]))
+            for li, ti in self.local_ranks:
+                self._hand_over(out[li][ti], rank=(li, ti))
+            return out
+
+        payload = self.local(grid)
+        if prepare is not None:
+            payload = prepare(payload.to("meta"))
+        return self._collective("ppermute", (axis,), payload, start, finish, lane=lane, **step)
 
 
-def make_mesh(led: int | None = None, tile: int = 1, devices=None) -> Mesh:
+def make_mesh(led: int | None = None, tile: int = 1, devices=None,
+              serialize_streams: bool = False) -> Mesh:
     """Build an ``led × tile`` mesh of ranks.
 
     ``devices`` is a list of devices, one per rank, in which a device may
@@ -226,13 +464,14 @@ def make_mesh(led: int | None = None, tile: int = 1, devices=None) -> Mesh:
     Under ``torch.distributed`` the mesh spans the processes
     (``parallel.multihost.process_mesh``): each process owns ``led·tile /
     processes`` ranks, and ``devices`` lists this process's devices.
+    ``serialize_streams``: tests only (:class:`Mesh`).
     """
     import torch.distributed as dist
 
     if dist.is_available() and dist.is_initialized():
         from .multihost import process_mesh
 
-        return process_mesh(led, tile, devices)
+        return process_mesh(led, tile, devices, serialize_streams)
     round_robin = devices is None
     if round_robin:
         resolve_device("cuda")
@@ -249,4 +488,5 @@ def make_mesh(led: int | None = None, tile: int = 1, devices=None) -> Mesh:
     elif led * tile > n:
         raise ValueError(f"mesh led={led} x tile={tile} needs {led * tile} devices; "
                          f"only {n} available")
-    return Mesh([devices[li * tile:(li + 1) * tile] for li in range(led)])
+    return Mesh([devices[li * tile:(li + 1) * tile] for li in range(led)],
+                serialize_streams=serialize_streams)

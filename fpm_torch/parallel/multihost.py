@@ -15,7 +15,13 @@ collectives from its layout when it is created (:class:`ProcessTransport`):
 ``nccl`` where every process's ranks sit on cards of their own, ``gloo``
 where the ranks are on the CPU or processes share a card (NCCL refuses two
 members of one group on one device). Over ``gloo`` the payloads travel as
-host copies; the computation stays on the ranks' devices.
+host copies; the computation stays on the ranks' devices. A collective is
+begun when the sweep issues it and finished when its result is first
+needed (``parallel.mesh.Pending``): over NCCL its all-gathers and
+point-to-point sends are issued at once (``async_op``) and the consumer's
+stream waits on them, so that under the stale consensus they run while
+the card computes the next chunk's K3; over gloo the copies to the host
+and the exchange wait until then, after the next chunk's K3 is enqueued.
 
 Tested without a cluster by the two-process harness of
 ``tests/test_torch_multihost.py``.
@@ -162,11 +168,12 @@ def global_mesh(tile: int = 1, devices=None):
     return make_mesh(led=n // tile, tile=tile, devices=devices)
 
 
-def process_mesh(led: int | None, tile: int, devices=None):
+def process_mesh(led: int | None, tile: int, devices=None, serialize_streams: bool = False):
     """The ``led × tile`` mesh across the processes: process p owns ranks
     ``[p·n, (p+1)·n)`` in grid order, ``n = led·tile / processes``, placed
     round-robin over ``devices`` (default: :func:`local_cards`) or, with an
-    explicit list, on its first n entries."""
+    explicit list, on its first n entries. ``serialize_streams``: tests
+    only (``parallel.mesh.Mesh``)."""
     import torch.distributed as dist
 
     from .mesh import Mesh
@@ -192,7 +199,7 @@ def process_mesh(led: int | None, tile: int, devices=None):
     flat = [None] * total
     flat[me * per:(me + 1) * per] = ranks
     return Mesh([flat[li * tile:(li + 1) * tile] for li in range(led)],
-                ProcessTransport(ranks))
+                ProcessTransport(ranks), serialize_streams)
 
 
 def _as_bytes(t: torch.Tensor) -> torch.Tensor:
@@ -240,40 +247,84 @@ class ProcessTransport:
     def all_gather(self, mesh, tensors: dict) -> dict:
         """Every rank's tensor from each process's ``{rank: tensor}`` of its
         local ranks (all of one shape and dtype)."""
+        return self.finish(self.start_all_gather(mesh, tensors))
+
+    def start_all_gather(self, mesh, tensors: dict):
+        """:meth:`all_gather` begun: over NCCL the all-gather is issued
+        (``async_op``) on the caller's current stream and runs on while the
+        card computes; over gloo nothing moves until :meth:`finish`, which
+        then copies the payloads to the host and exchanges them."""
         import torch.distributed as dist
 
         like = tensors[mesh.local_ranks[0]]
-        buf = torch.cat([_as_bytes(tensors[r]).to(self.device) for r in mesh.local_ranks])
-        parts = [torch.empty_like(buf) for _ in range(self.world)]
-        dist.all_gather(parts, buf, group=self.group)
         every = [(li, ti) for li in range(mesh.shape["led"]) for ti in range(mesh.shape["tile"])]
         per = len(mesh.local_ranks)
-        return {every[p * per + j]: chunk.view(like.dtype).reshape(like.shape)
-                for p, part in enumerate(parts) for j, chunk in enumerate(part.view(per, -1))}
+
+        def unpack(parts):
+            return {every[p * per + j]: chunk.view(like.dtype).reshape(like.shape)
+                    for p, part in enumerate(parts) for j, chunk in enumerate(part.view(per, -1))}
+
+        def gathered():
+            buf = torch.cat([_as_bytes(tensors[r]).to(self.device) for r in mesh.local_ranks])
+            parts = [torch.empty_like(buf) for _ in range(self.world)]
+            work = dist.all_gather(parts, buf, group=self.group, async_op=True)
+            return work, parts
+
+        if self.backend == "nccl":
+            work, parts = gathered()
+            return lambda: (work.wait(), unpack(parts))[1]
+
+        def later():
+            work, parts = gathered()
+            work.wait()
+            return unpack(parts)
+        return later
 
     def exchange(self, mesh, grid, pairs) -> dict:
         """``{dst: grid value of src}`` for this process's ``dst`` ranks of
         ``pairs`` ((src, dst), in the same order on every process): local
         sources directly, others received point to point."""
+        return self.finish(self.start_exchange(mesh, grid, pairs))
+
+    def start_exchange(self, mesh, grid, pairs):
+        """:meth:`exchange` begun, as :meth:`start_all_gather` begins its
+        all-gather (NCCL: the sends and receives issued; gloo: deferred)."""
         import torch.distributed as dist
 
         like = mesh.local(grid)
         nbytes = like.numel() * like.element_size()
-        out, ops, recvs = {}, [], []
-        for src, dst in pairs:
-            ps, pd = self._owner(mesh, src), self._owner(mesh, dst)
-            if ps == pd == self.process:
-                out[dst] = grid[src[0]][src[1]]
-            elif ps == self.process:
-                ops.append(dist.P2POp(dist.isend, _as_bytes(grid[src[0]][src[1]]).to(self.device),
-                                      pd, self.group))
-            elif pd == self.process:
-                buf = torch.empty(nbytes, dtype=torch.uint8, device=self.device)
-                ops.append(dist.P2POp(dist.irecv, buf, ps, self.group))
-                recvs.append((dst, buf))
-        if ops:
-            for work in dist.batch_isend_irecv(ops):
-                work.wait()
-        for dst, buf in recvs:
-            out[dst] = buf.view(like.dtype).reshape(like.shape)
-        return out
+
+        def issued():
+            out, ops, recvs = {}, [], []
+            for src, dst in pairs:
+                ps, pd = self._owner(mesh, src), self._owner(mesh, dst)
+                if ps == pd == self.process:
+                    out[dst] = grid[src[0]][src[1]]
+                elif ps == self.process:
+                    ops.append(dist.P2POp(dist.isend,
+                                          _as_bytes(grid[src[0]][src[1]]).to(self.device),
+                                          pd, self.group))
+                elif pd == self.process:
+                    buf = torch.empty(nbytes, dtype=torch.uint8, device=self.device)
+                    ops.append(dist.P2POp(dist.irecv, buf, ps, self.group))
+                    recvs.append((dst, buf))
+            works = dist.batch_isend_irecv(ops) if ops else []
+
+            def done():
+                for work in works:
+                    work.wait()
+                for dst, buf in recvs:
+                    out[dst] = buf.view(like.dtype).reshape(like.shape)
+                return out
+            return done
+
+        if self.backend == "nccl":
+            return issued()
+        return lambda: issued()()
+
+    @staticmethod
+    def finish(started) -> dict:
+        """The values of a begun :meth:`start_all_gather` or
+        :meth:`start_exchange`; over NCCL the caller's current stream waits
+        for them (the host does not)."""
+        return started()

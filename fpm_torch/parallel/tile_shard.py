@@ -42,14 +42,15 @@ from ..models.epry import (
     effective_chunk_size,
 )
 from .led_shard import (
-    _as_complex,
-    _chunk_increments,
+    ComplexRoute,
     _wire_dtype,
+    add_metrics,
     check_route,
     initial_grids,
+    issue_metrics,
     pipelined_chunks,
-    psum_metrics,
     result_from,
+    route_for,
     run_sweeps,
     sharded_options,
 )
@@ -114,94 +115,107 @@ def _halo_hops(np_size: int, s: int):
             for j, lo in enumerate(range(0, np_size, s), start=1)]
 
 
-def _tile_chunk_increments(mesh: Mesh, obj_local, pupil, support, amps, starts_rel, mask,
-                           *, opts: EPRYOptions, s: int):
-    """Every rank's LOCAL increments for one tile-sharded chunk, on grids.
+def _tile_sweep(mesh: Mesh, route: ComplexRoute, *, opts: EPRYOptions, s: int):
+    """One sweep: chunks in order, each with its own halo exchange and
+    consensus round; ``opts.stale_consensus`` as in ``led_shard``. Updates
+    ``route``'s state grids (each rank's row tile) and returns the sweep's
+    (2,) metric sums.
 
-    Forward halo from the given state (the total bytes are independent of the
-    hop count: Np rows either way), then the per-LED increments on the
-    extended block. Returns grids ``(d_ext, v, mets)``: the halo-extended
-    object increment (f32 planes on the kernel route, complex on the eager
-    route), the pupil numerator WITHOUT the 1/max|O| factor, the metric
-    partials.
-    """
-    n_tile = mesh.shape["tile"]
-    parts = [obj_local]
-    for j, _, rows in _halo_hops(opts.np_size, s):
-        fwd = [((i + j) % n_tile, i) for i in range(n_tile)]
-        parts.append(mesh.ppermute(mesh.map(lambda o: o[:rows], obj_local), "tile", fwd))
-    ext = mesh.map(lambda *p: torch.cat(p, dim=0), *parts)      # (S+Np, Nlarge)
-    return unzip(mesh.map(
-        lambda e, p, sup, a, st, m: _chunk_increments(e, p, sup, a, st, m, opts=opts),
-        ext, pupil, support, amps, starts_rel, mask), 3)
-
-
-def _tile_consensus_apply(mesh: Mesh, obj_local, pupil, d_ext, v, mets, *,
-                          opts: EPRYOptions, s: int):
-    """Apply one chunk's consensus on the row-sharded spectrum, on grids.
-
-    Object psum over ``led`` → reverse halo (increments in halo rows belong
-    to the following tiles) → add → ``pmax`` over ``tile`` → pupil consensus.
-    ``comm_precision='bf16'`` (kernel route) halves the psum and reverse-halo
-    payloads; sums accumulate in f32.
+    Per chunk: the forward halo (on the mesh's halo lane, from the state
+    after the previous chunk's apply; the total bytes are independent of
+    the hop count: Np rows either way), then each rank's increments on its
+    extended (S+Np, Nlarge) block; the consensus: object psum over ``led``,
+    pupil psum over both axes and the metric psums, started (comm lane);
+    then the apply: reverse halo (increments in halo rows belong to the
+    following tiles) → add → ``pmax`` over ``tile`` of max|O| → pupil step.
+    ``comm_precision='bf16'`` (kernel route) halves the psum and
+    reverse-halo payloads; sums accumulate in f32.
     """
     n_tile = mesh.shape["tile"]
     wire = _wire_dtype(opts)
-    d_ext = mesh.psum(d_ext, "led", wire_dtype=wire)
-    d_ext = mesh.map(_as_complex, d_ext, obj_local)
-
-    # Reverse halo: hop j returns halo slab [lo, lo+rows) to tile i+j, where
-    # it lands on that tile's first rows (the mirror of the forward halo).
-    d_local = mesh.map(lambda d: d[:s], d_ext)
-    for j, lo, rows in _halo_hops(opts.np_size, s):
-        slab = mesh.map(lambda d: d[s + lo:s + lo + rows], d_ext)
-        bwd = [(i, (i + j) % n_tile) for i in range(n_tile)]
-        if wire is not None:
-            back = mesh.ppermute(
-                mesh.map(lambda x: torch.stack([x.real, x.imag]).to(wire), slab), "tile", bwd)
-            back = mesh.map(lambda b, o: torch.complex(b[0].float(), b[1].float()).to(o.dtype),
-                            back, obj_local)
-        else:
-            back = mesh.ppermute(slab, "tile", bwd)
-        d_local = mesh.map(lambda d, b: torch.cat([d[:rows] + b, d[rows:]], dim=0),
-                           d_local, back)
-    obj_local = mesh.map(torch.add, obj_local, d_local)
-
-    omax = mesh.pmax(mesh.map(lambda o: torch.max(torch.abs(o)), obj_local), "tile")
-    v = mesh.psum(v, ("led", "tile"), wire_dtype=wire)
-    pupil = mesh.map(lambda p, vv, m: p + opts.pupil_step_scale * _as_complex(vv, p) / m,
-                     pupil, v, omax)
-    return obj_local, pupil, psum_metrics(mesh, mets, ("led", "tile"))
-
-
-def _tile_sweep(mesh: Mesh, obj_local, pupil, support, amps, starts_rel, mask, *,
-                opts: EPRYOptions, s: int):
-    """One sweep over grids: chunks in order, each with its own halo exchange
-    and consensus round; ``opts.stale_consensus`` as in ``led_shard``."""
-    state = {"obj": obj_local, "pupil": pupil, "mets": 0}
+    hops = _halo_hops(opts.np_size, s)
+    state = {"steps": (), "mets": 0}
+    mesh.begin_sweep(route.obj, route.pupil)
 
     def increments(c):
-        pick = [mesh.map(lambda t: t[c], g) for g in (amps, starts_rel, mask)]
-        return _tile_chunk_increments(mesh, state["obj"], state["pupil"], support, *pick,
-                                      opts=opts, s=s)
+        parts, halo_steps = [route.obj], []
+        for j, _, rows in hops:
+            fwd = [((i + j) % n_tile, i) for i in range(n_tile)]
+            halo = mesh.ppermute(mesh.map(lambda o: o[..., :rows, :], route.obj), "tile", fwd,
+                                 lane="halo", chunk=c, after=state["steps"],
+                                 what="forward halo", wait=False)
+            parts.append(halo.result())
+            halo_steps.append(halo.step)
 
-    def apply(inc):
-        state["obj"], state["pupil"], mets = _tile_consensus_apply(
-            mesh, state["obj"], state["pupil"], *inc, opts=opts, s=s)
-        state["mets"] = state["mets"] + mesh.local(mets)
+        def one(*args):
+            ext = torch.cat(args[:len(parts)], dim=-2)          # (S+Np, Nlarge)
+            return route.increments(ext, *args[len(parts):], c=c)
 
-    pipelined_chunks(mesh.local(amps).shape[0], increments, apply, opts.stale_consensus)
-    return state["obj"], state["pupil"], state["mets"]
+        out, steps = mesh.each(c, "increments", one, *parts, route.pupil, *route.inputs,
+                               waits=halo_steps)
+        return (*unzip(out, 3), steps)
+
+    def reduce(c, inc):
+        d, v, mets, steps = inc
+        return (mesh.psum(d, "led", wire, chunk=c, after=steps, what="object increments",
+                          wait=False),
+                mesh.psum(v, ("led", "tile"), wire, chunk=c, after=steps,
+                          what="pupil increments", wait=False),
+                issue_metrics(mesh, mets, ("led", "tile"), c, steps))
+
+    def apply(c, red):
+        pd, pv, pm = red
+        d_ext, after = pd.result(), [pd.step]
+        if not route.planes:
+            d_ext, after = mesh.each(c, "object increments in", route.as_state, d_ext,
+                                     route.obj, waits=after)
+        # Reverse halo: hop j returns halo slab [lo, lo+rows) to tile i+j,
+        # where it lands on that tile's first rows (the mirror of the
+        # forward halo).
+        backs = []
+        for j, lo, rows in hops:
+            slab = mesh.map(lambda d: d[..., s + lo:s + lo + rows, :], d_ext)
+            bwd = [(i, (i + j) % n_tile) for i in range(n_tile)]
+            back = mesh.ppermute(slab, "tile", bwd, prepare=None if wire is None
+                                 else lambda x: route.to_wire(x, wire),
+                                 chunk=c, after=after, what="reverse halo", wait=False)
+            backs.append((rows, back.result()))
+            after = [*after, back.step]
+
+        def add(o, d, *back):
+            d_local = d[..., :s, :]
+            for (rows, _), b in zip(backs, back):
+                b = b if wire is None else route.from_wire(b, o)
+                d_local = torch.cat([d_local[..., :rows, :] + b, d_local[..., rows:, :]], dim=-2)
+            o = o + d_local
+            return o, route.abs_max(o)
+
+        out, obj_steps = mesh.each(c, "apply object", add, route.obj, d_ext,
+                                   *(b for _, b in backs), waits=after)
+        route.obj, local_max = unzip(out, 2)
+        state["steps"] = obj_steps
+        pmax = mesh.pmax(local_max, "tile", chunk=c, after=obj_steps, what="max|O|",
+                         wait=False)
+        omax, v = pmax.result(), pv.result()
+        for p in pm:                # as in led_shard: chunk c+1's K3 waits on them
+            p.result()
+        route.pupil, _ = mesh.each(c, "apply pupil", route.pupil_step, route.pupil, v, omax,
+                                   waits=(pmax.step, pv.step, *(p.step for p in pm)))
+        route.omax = omax
+        state["mets"] = add_metrics(mesh, state["mets"], pm, c)
+
+    pipelined_chunks(route.n_chunks, increments, reduce, apply, opts.stale_consensus)
+    mesh.end_sweep(route.obj, route.pupil, route.omax, tensors=[state["mets"]])
+    return state["mets"]
 
 
 def prepare_tile_sharded(images, geom: LEDGeometry, cfg: FPMConfig, mesh: Mesh,
                          iterations: int | None = None, dtype=None,
                          initial_state: tuple | None = None, **opt_overrides):
-    """Per-rank input grids, the options and the tile height of
-    :func:`reconstruct_tile_sharded`: ``((obj_local, pupil, support, amps,
-    starts_rel, mask), opts, s)``. Rank ``(li, ti)`` holds spectrum rows
-    ``[ti·s, (ti+1)·s)`` and, per chunk, its workset of the partition with
-    patch starts relative to row ``ti·s``."""
+    """The route (``led_shard.route_for``), the options and the tile height
+    of :func:`reconstruct_tile_sharded`: ``(route, opts, s)``. Rank ``(li,
+    ti)`` holds spectrum rows ``[ti·s, (ti+1)·s)`` and, per chunk, its
+    workset of the partition with patch starts relative to row ``ti·s``."""
     opts = sharded_options(cfg, iterations, dtype, opt_overrides)
     check_route(mesh, opts)
     n_led, n_tile = mesh.shape["led"], mesh.shape["tile"]
@@ -233,16 +247,18 @@ def prepare_tile_sharded(images, geom: LEDGeometry, cfg: FPMConfig, mesh: Mesh,
     amps_w, starts_w, mask_w = unzip(mesh.grid(workset), 3)
     obj_f, pupil, support = initial_grids(mesh, cfg, amps_pad[:k], opts, initial_state)
     obj_local = mesh.grid(lambda li, ti: obj_f[ti * s:(ti + 1) * s].to(mesh.devices[li][ti]))
-    return (obj_local, mesh.replicate(pupil), mesh.replicate(support),
-            amps_w, starts_w, mask_w), opts, s
+    route = route_for(mesh, opts, obj_local, mesh.replicate(pupil), mesh.replicate(support),
+                      amps_w, starts_w, mask_w, block_rows=s + cfg.np_size)
+    return route, opts, s
 
 
 def _fetch(mesh: Mesh, obj_local) -> torch.Tensor:
-    """The full spectrum on this process's first device: the row tiles of
-    the first ``led`` group, gathered in tile order from whichever process
-    holds them, so that every process returns the same global result (as
-    ``fpm_tpu.parallel.tile_shard._fetch`` all-gathers its rows)."""
-    return torch.cat(mesh.gather(obj_local)[0], dim=0)
+    """The full spectrum (or its planes) on this process's first device: the
+    row tiles of the first ``led`` group, gathered in tile order from
+    whichever process holds them, so that every process returns the same
+    global result (as ``fpm_tpu.parallel.tile_shard._fetch`` all-gathers its
+    rows)."""
+    return torch.cat(mesh.gather(obj_local)[0], dim=-2)
 
 
 def reconstruct_tile_sharded(images, geom: LEDGeometry, cfg: FPMConfig, mesh: Mesh,
@@ -253,12 +269,8 @@ def reconstruct_tile_sharded(images, geom: LEDGeometry, cfg: FPMConfig, mesh: Me
     axis; the ``led`` axis splits each tile's owned LEDs. ``initial_state`` is
     an optional ``(obj_f_centered, pupil)`` pair (complex arrays or planes,
     of either package) to resume from."""
-    (obj_local, pupil, support, amps, starts_rel, mask), opts, s = prepare_tile_sharded(
-        images, geom, cfg, mesh, iterations=iterations, dtype=dtype,
-        initial_state=initial_state, **opt_overrides)
-
-    def sweep(o, p):
-        return _tile_sweep(mesh, o, p, support, amps, starts_rel, mask, opts=opts, s=s)
-
-    obj_local, pupil, metrics = run_sweeps(sweep, obj_local, pupil, opts.iterations)
-    return result_from(_fetch(mesh, obj_local), mesh.local(pupil), metrics)
+    route, opts, s = prepare_tile_sharded(images, geom, cfg, mesh, iterations=iterations,
+                                          dtype=dtype, initial_state=initial_state,
+                                          **opt_overrides)
+    metrics = run_sweeps(lambda: _tile_sweep(mesh, route, opts=opts, s=s), opts.iterations)
+    return result_from(*route.final_state(mesh, _fetch(mesh, route.obj)), metrics)

@@ -12,8 +12,11 @@ On the mono dome problem of ``chip_smoke.py`` (Np=90, NL=360, K=193 LEDs),
 each) with ``--mesh 2 2``, ``--mesh 4 1`` and ``--mesh 1 4`` (every halo
 crosses a process), as 2 processes (two cards each) with ``--mesh 2 2``, and
 with ``--comm-precision bf16 --stale-consensus`` on (2 processes, ``--mesh 2
-2``) and (4 processes, ``--mesh 1 4``); then ``--fov-grid 8 8 -n 10`` on the
-568×568 frames over 2 and 4 processes. Each run against the same command in
+2``) and (4 processes, ``--mesh 1 4``), and with ``--stale-consensus`` (4
+processes, ``--mesh 4 1`` and ``--mesh 2 2``); then, in this process, the
+one-process meshes (4,1) and (2,2) over the four cards, fresh and stale:
+ms per sweep and ``overlap_ms`` (``one_process_sweeps``); then
+``--fov-grid 8 8 -n 10`` on the 568×568 frames over 2 and 4 processes. Each run against the same command in
 one process (its mesh's ranks round-robin over the cards): the arrays
 bitwise equal, the counted collectives equal, the transport the layout
 calls for (nccl: every process on cards of its own), nothing written by a
@@ -37,7 +40,10 @@ import chip_smoke as cs
 
 MESH_CASES = ((4, ["--mesh", "2", "2"]), (4, ["--mesh", "4", "1"]), (4, ["--mesh", "1", "4"]),
               (2, ["--mesh", "2", "2"]), (2, ["--mesh", "2", "2", *cs.LEVERS]),
-              (4, ["--mesh", "1", "4", *cs.LEVERS]))
+              (4, ["--mesh", "1", "4", *cs.LEVERS]),
+              (4, ["--mesh", "4", "1", "--stale-consensus"]),
+              (4, ["--mesh", "2", "2", "--stale-consensus"]))
+ONE_PROCESS_MESHES = ((4, 1), (2, 2))
 FOV_PROCESSES = (2, 4)
 
 
@@ -75,6 +81,63 @@ def run_case(label, flags, n_proc, arrays, tmp, transport, gpu) -> dict:
     return line
 
 
+def one_process_sweeps(problem, gpu) -> None:
+    """The one-process meshes over the four cards (a rank per card), fresh
+    and stale, chunk 32: ms per sweep (median of 5) and ``overlap_ms`` from a
+    gated trace (``chip_smoke.trace_overlap``: above 0 stale, 0 fresh, every
+    K3 launch seen), with ``consensus_schedule_check``. Their results are
+    those the ``run_case`` lines hold bitwise against the multi-process
+    runs."""
+    import torch
+
+    from fpm_torch.ops import kernels
+    from fpm_torch.parallel import comm, led_shard, make_mesh, tile_shard
+
+    cfg, geom, frames = problem
+    for led, tile in ONE_PROCESS_MESHES:
+        for stale in (False, True):
+            mesh = make_mesh(led, tile)
+            kw = dict(use_pallas=True, chunk_size=32, stale_consensus=stale)
+            if tile == 1:
+                route, opts = led_shard.prepare_led_sharded(frames, geom, cfg, mesh, **kw)
+
+                def sweep():
+                    return led_shard._sharded_sweep(mesh, route, opts=opts)
+            else:
+                route, opts, s = tile_shard.prepare_tile_sharded(frames, geom, cfg, mesh, **kw)
+
+                def sweep():
+                    return tile_shard._tile_sweep(mesh, route, opts=opts, s=s)
+            k3 = kernels.fused_chunk_increments
+            k3.launches = 0
+            sweep()
+            torch.cuda.synchronize()
+            per_sweep = k3.launches
+            walls = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                sweep()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            ms = cs.median(walls)
+            verdict = comm.consensus_schedule_check(mesh.schedule)
+            gated = cs.gated_trace(sweep, ms)
+            label = f"one process {led}x{tile}{' stale' if stale else ''}"
+            cs.emit({"phase": "multicard_one_process", "mesh": [led, tile],
+                     "stale_consensus": stale, "ranks": mesh.describe(),
+                     "k3_launches_per_sweep": per_sweep,
+                     "wall_ms_per_sweep": ms, "wall_ms_all": walls,
+                     "overlap_ms": gated["overlap_ms"], "trace_unpaced": gated,
+                     "consensus_schedule_check": verdict, "gpu": gpu})
+            cs.check(verdict["issued_before_compute"] is stale,
+                     f"{label}: issued before compute is not {stale}")
+            cs.check(gated["gate_held"], f"{label}: the gate ended before the sweep was enqueued")
+            cs.check(per_sweep > 0 and gated["k3_kernels"] == per_sweep,
+                     f"{label}: K3 launched {per_sweep} times, traced {gated['k3_kernels']}")
+            cs.check(gated["overlap_ms"] > 0 if stale else gated["overlap_ms"] == 0,
+                     f"{label}: K3 beside a collective for {gated['overlap_ms']} ms")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cpu", action="store_true",
@@ -109,6 +172,8 @@ def main(argv=None) -> int:
             run_case(f"{n_proc} processes " + " ".join(extra),
                      [mono, "-n", "3", "--use-pallas", *plat, *extra], n_proc,
                      ("object_spectrum.npy", "pupil.npy"), tmp, transport, gpu)
+        if not args.cpu:
+            one_process_sweeps((cfg, geom, frames), gpu)
         for n_proc in FOV_PROCESSES:
             run_case(f"{n_proc} processes --fov-grid 8 8",
                      [widep, "-n", "10", "--use-pallas", *plat, "--fov-grid", "8", "8"], n_proc,

@@ -750,3 +750,48 @@ def test_amplitudes_on_the_card_are_numpys(cuda):
             want = np.sqrt(np.asarray(images, np.float64))[ds.geom.schedule].astype(real)
             assert np.array_equal(amps.cpu().numpy(), want)
             assert np.array_equal(starts.cpu().numpy(), ds.geom.crop_start[ds.geom.schedule])
+
+
+@pytest.mark.parametrize("stale", [False, True], ids=["fresh", "stale"])
+@pytest.mark.parametrize("led,tile", [(4, 1), (2, 2), (1, 6)])
+def test_entry_sweeps_are_bitwise_the_prepared_and_serialized_ones(cuda, led, tile, stale):
+    """3 sweeps through the entry point against 3 sweeps on prepared grids
+    and against the mesh with its streams serialized: bitwise, the same
+    K3 launches and counted collectives, no host synchronisation inside a
+    sweep."""
+    from fpm_torch.parallel import comm, led_shard, tile_shard
+
+    ds = synthetic_dataset(np_size=16, grid=5, seed=5)
+    kw = dict(chunk_size=8, use_pallas=True, stale_consensus=stale)
+    fn = reconstruct_led_sharded if tile == 1 else reconstruct_tile_sharded
+    before = kernels.fused_chunk_increments.launches
+    entry_mesh = make_mesh(led, tile)
+    got = fn(ds.images, ds.geom, ds.cfg, mesh=entry_mesh, iterations=3, **kw)
+    assert kernels.fused_chunk_increments.launches == before + 3 * 3 * 3 * led * tile
+    serial = fn(ds.images, ds.geom, ds.cfg, mesh=make_mesh(led, tile, serialize_streams=True),
+                iterations=3, **kw)
+    mesh = make_mesh(led, tile)
+    if tile == 1:
+        route, opts = led_shard.prepare_led_sharded(ds.images, ds.geom, ds.cfg, mesh, **kw)
+
+        def sweep():
+            return led_shard._sharded_sweep(mesh, route, opts=opts)
+    else:
+        route, opts, s = tile_shard.prepare_tile_sharded(ds.images, ds.geom, ds.cfg, mesh, **kw)
+
+        def sweep():
+            return tile_shard._tile_sweep(mesh, route, opts=opts, s=s)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            sweep()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert comm.consensus_schedule_check(mesh.schedule)["issued_before_compute"] is stale
+    assert entry_mesh.counts == mesh.counts
+    whole = route.obj if tile == 1 else [[tile_shard._fetch(mesh, route.obj)]]
+    obj, pupil = route.final_state(mesh, whole[0][0])
+    for res in (got, serial):
+        np.testing.assert_array_equal(res.obj_f_centered, obj.cpu().numpy())
+        np.testing.assert_array_equal(res.pupil, pupil.cpu().numpy())
