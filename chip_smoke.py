@@ -15,9 +15,12 @@ tiers of the DFT products (``dft_precision``): ``bf16x3``, the default (a
 ``highest`` (FP32), each against the plain version at the same tier.
 
 1. ``device``: the card's name and power limit (``nvidia-smi``), the torch
-   version, the time to build the kernels from ``fpm_torch/ops/csrc``, and
-   the HMMA (tensor-core) instructions in each kernel instantiation's SASS
-   (``cuobjdump``): more than 0 in every bf16x3 one, none in the highest ones.
+   version, the time to build the kernels from ``fpm_torch/ops/csrc`` (the
+   main libraries and, in the same parallel ``nvcc`` runs, the ablation
+   builds of K1 and K2, ``build.build_with_ablations``), ptxas's registers
+   and spills of both, and the HMMA (tensor-core) instructions in each main
+   kernel instantiation's SASS (``cuobjdump``): more than 0 in every bf16x3
+   one, none in the highest ones.
    Then a ``digests`` line (``kernel_digests``): SHA-256 of K1, K2 and K3's
    results at Np 90 and 100, both tiers and cluster sizes 1-8, and under
    ``sharded`` of the spectrum and pupil after 2 sweeps of every sharded
@@ -124,7 +127,8 @@ tiers of the DFT products (``dft_precision``): ``bf16x3``, the default (a
    lane run at once, from the trace of a sweep enqueued behind a gate, so
    that the card runs it unpaced: above 0 under the stale consensus,
    exactly 0 on fresh; each trace sees every K3 launch the wrapper
-   counted), ``consensus_schedule_check`` on ``mesh.schedule`` (issued
+   counted, a trace that lost records taken again up to 3 times, its
+   ``attempts`` printed), ``consensus_schedule_check`` on ``mesh.schedule`` (issued
    before compute under the stale consensus only), no host synchronisation
    inside a sweep (``set_sync_debug_mode("error")``), ms per sweep through
    the entry point (``sharded_entry_timing``: a run of 10 sweeps less one
@@ -174,9 +178,22 @@ tiers of the DFT products (``dft_precision``): ``bf16x3``, the default (a
    process 1's output directory empty in every run; then ONE process over
    nccl (``--distributed --mesh 1 1``), bitwise its single-controller run.
    Wall seconds of every run.
+10. ``bench``: ``ablate=`` of K1 (chunk 32) and K2 on the mono problem,
+   every variant at both tiers, one sweep from the init state through the
+   ablation build against the plain version with the same ``ablate``
+   (omax-const from the state divided by max|O|, no-window-read with values
+   at the spectrum's corner), at ABLATE_TOL's limits; the launches of each
+   (K2 2, 1 without the row-max launch under omax-const; K1 21); and
+   ``ablate=""`` through the ablation build bitwise the kernel. Then
+   ``fpm_torch.bench`` through its entry point in this process: one JSON
+   line with every key of BENCH_KEYS, the card's name and power limit, and
+   the amplitude RMSE after 10 sweeps below 0.05 (printed, with the
+   secondary results of ``build/bench_secondary.json``); then the
+   ``--ablate`` rows of both kernels on a short ladder (BENCH_ABLATE_LADDER).
 
 Then the ``kernels`` line (each kernel once per tier, the Np=200 rows
-apart), the ``nvidia-smi`` line, and the result line.
+apart; the mono K1 and K2 rows name their ablation build), the
+``nvidia-smi`` line, and the result line.
 Any failure raises and exits non-zero; without a CUDA device it exits 1
 before printing anything.
 """
@@ -184,6 +201,8 @@ before printing anything.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import math
 import os
@@ -194,8 +213,6 @@ import tempfile
 import time
 from unittest import mock
 
-PEAK_FP32_FLOPS = 67e12      # H100 SXM, FP32 outside the tensor cores
-PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 TOL_O, TOL_P, TOL_METRICS = 1e-5, 1e-4, 1e-4
 # K3's d is a sum of object increments much smaller than the terms they come
 # from (up − Oc∘P), and the tier's split is not a smooth function of its
@@ -276,16 +293,6 @@ def rel(a, b) -> float:
     return ((a - b).abs().max() / b.abs().max()).item()
 
 
-def hi_hi_only(a, b):
-    """The bf16x3 product with one pass, hi·hi: a measurement aid that
-    stands in for ``kernels.cmm_bf16x3`` to show what the other two passes
-    are worth."""
-    from fpm_torch.ops import kernels
-
-    return ((a if isinstance(a, tuple) else kernels._csplit(a))[0]
-            @ (b if isinstance(b, tuple) else kernels._csplit(b))[0])
-
-
 def instantiation_tier(name: str):
     """0 or 1: the tier of a kernel instantiation named in SASS (demangled,
     ``<(int)1>``, or mangled, ``ILi1E``); None for any other function."""
@@ -297,85 +304,6 @@ def short_name(name: str) -> str:
     """``void fpm::k2_sweep<(int)1>(float *, ...)`` → ``fpm::k2_sweep<(int)1>``."""
     name = name.removeprefix("void ")
     return name.split(">(")[0] + ">" if ">(" in name else name.split("(")[0]
-
-
-def amplitude_rmse(obj, truth) -> float:
-    """Scale-aligned amplitude RMSE, normalized by the mean true amplitude."""
-    import numpy as np
-
-    a, t = np.abs(obj), np.abs(truth)
-    s = (t * a).sum() / (a * a).sum()
-    return float(np.sqrt(((a * s - t) ** 2).mean()) / t.mean())
-
-
-def fft_flops(n: int) -> float:
-    """Real FLOPs of one complex length-n FFT, the usual 5·n·log2(n)."""
-    return 5 * n * math.log2(n)
-
-
-# Element-wise FLOPs of one LED, as the kernels do them (epry_common.cuh):
-# per image-plane element, amplitude replace (eps on both channels) 9 and
-# data residual 7; per bbox element, Oc∘P 6, diff 2, object weight 11 and
-# dO 6, pupil weight 10 and numerator 6, O update 2, pupil step 4, |O|² of
-# the touched element for the max 3, update norm 4.
-FLOPS_PER_IMAGE_ELEM = 16
-FLOPS_PER_BBOX_ELEM = 54
-# K3 returns the increments and applies nothing: no O update (2), pupil step
-# (4) or |O|² for the max (3).
-FLOPS_PER_BBOX_ELEM_K3 = FLOPS_PER_BBOX_ELEM - 9
-
-
-def sweep_work(n_leds: int, n: int, b: int, nl: int, n_slots: int,
-               has_valid: bool) -> tuple[int, float]:
-    """(bytes, flops) one sweep needs at least: every input read once and
-    every output written once; per real LED the two 2-D transforms as pruned
-    FFTs (the b×b box zero-padded to n×n in, b×b kept out: 2·(n+b)
-    length-n FFTs) plus the element-wise work."""
-    flops = n_leds * (2 * (n + b) * fft_flops(n) + FLOPS_PER_IMAGE_ELEM * n * n
-                      + FLOPS_PER_BBOX_ELEM * b * b)
-    nbytes = (2 * 2 * nl * nl * 4            # O planes in and out
-              + 2 * 2 * n * n * 4 + n * n * 4  # pupil in and out, support
-              + n_leds * n * n * 4           # amplitude frames of real LEDs
-              + n_slots * (3 if has_valid else 2) * 4  # starts (and valid)
-              + 2 * 4)                       # metrics
-    return nbytes, flops
-
-
-def window_union(starts, valid, n: int, b: int, lo: int, n_rows: int, n_cols: int) -> int:
-    """Elements of an (n_rows, n_cols) block that lie in the b×b window of at
-    least one valid LED (patch starts clamped into the block, as the kernels
-    clamp them): all of the block that a K3 call has to read."""
-    import numpy as np
-
-    covered = np.zeros((n_rows, n_cols), dtype=bool)
-    for (y, x), ok in zip(starts, valid):
-        if ok:
-            y = min(max(int(y), 0), n_rows - n) + lo
-            x = min(max(int(x), 0), n_cols - n) + lo
-            covered[y:y + b, x:x + b] = True
-    return int(covered.sum())
-
-
-def increments_work(n_valid: int, n_slots: int, n: int, b: int, n_rows: int,
-                    n_cols: int, o_elems: int) -> tuple[int, float]:
-    """(bytes, flops) one K3 call needs at least: of the spectrum block only
-    the ``o_elems`` elements inside a valid LED's window are read (once,
-    where windows overlap); the increment block d is written once, whole, on
-    every call; the pupil, support and numerator v, the valid LEDs' frames;
-    per valid LED the transforms as pruned FFTs plus K3's element-wise work."""
-    flops = n_valid * (2 * (n + b) * fft_flops(n) + FLOPS_PER_IMAGE_ELEM * n * n
-                       + FLOPS_PER_BBOX_ELEM_K3 * b * b)
-    nbytes = (2 * o_elems * 4                  # O: the valid windows' union, in
-              + 2 * n_rows * n_cols * 4        # d: the whole block, out
-              + 2 * 2 * n * n * 4 + n * n * 4  # pupil in, v out, support
-              + n_valid * n * n * 4            # amplitude frames of valid LEDs
-              + n_slots * 3 * 4 + 2 * 4)       # starts, valid, metrics
-    return nbytes, flops
-
-
-def bound(nbytes: int, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP32_FLOPS * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def write_dataset(out_dir, cfg, geom, frames) -> str:
@@ -451,6 +379,8 @@ def stitched_error(stitched, truth, margin: int) -> float:
     normalized by the mean true amplitude, on the interior of the stitch
     less ``margin`` high-res pixels at each edge."""
     import numpy as np
+
+    from fpm_torch.bench import amplitude_rmse
 
     h, w = stitched.shape
     sl = np.s_[margin:h - margin, margin:w - margin]
@@ -732,6 +662,25 @@ def gated_trace(fn, ms: float) -> dict:
     return dict(traced, gate_ms=gate)
 
 
+TRACE_ATTEMPTS = 3
+
+
+def complete_trace(take, k3_launches: int) -> dict:
+    """``take()`` (a trace of one sweep) until the trace holds every K3
+    launch the wrapper counted, at most TRACE_ATTEMPTS times: the profiler
+    has been seen to lose the records of a few kernels on some streams of a
+    sweep (6 of 84 K3 launches and 13 other kernels on two of four rank
+    streams, once in the 48 traces of two runs on an H100; the wrapper's
+    count and the gated trace of the same sweep had all 84). The last
+    trace, with ``attempts``; the caller still checks that it saw every
+    launch."""
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        traced = take()
+        if traced["k3_kernels"] == k3_launches:
+            break
+    return dict(traced, attempts=attempt)
+
+
 def median(xs):
     return sorted(xs)[len(xs) // 2]
 
@@ -796,8 +745,8 @@ def sharded_sweep_phase(problems: dict, digests: dict, entry: dict, smi: str) ->
             per_sweep = k3.launches
             ms, walls = wall_ms(sweep)
             verdict = comm.consensus_schedule_check(mesh.schedule)
-            paced = trace_overlap(sweep)
-            gated = gated_trace(sweep, ms)
+            paced = complete_trace(lambda: trace_overlap(sweep), per_sweep)
+            gated = complete_trace(lambda: gated_trace(sweep, ms), per_sweep)
             unsynced = no_sync(sweep)
             base = digests[label]
             repeats = [result_digest(sharded_run(problem, led, tile, options, stale))
@@ -871,6 +820,8 @@ def dogstomach(seed: int, smi: str, dev) -> list:
     import torch
 
     from fpm_torch import cli
+    from fpm_torch.bench import (amplitude_rmse, bound, increments_work, sweep_work,
+                                 window_union)
     from fpm_torch.config import FPMConfig
     from fpm_torch.data.simulate import make_test_object, simulate_images
     from fpm_torch.geometry import compute_geometry, pupil_support
@@ -1215,6 +1166,125 @@ def dogstomach(seed: int, smi: str, dev) -> list:
 
 # ------------------------------------------------ oracle, debug, distributed
 
+# ``ablate=`` against the plain versions (phase 10): the kernels' limits,
+# TOL_O / TOL_P / TOL_METRICS, where a variant forms the products as the
+# kernel does or forms none (no-dft: within 4.3e-7 / 6.2e-7 of plain,
+# NVIDIA H100 80GB HBM3, 700.00 W, this phase's lines). dft-1pass keeps 8
+# bits of each operand of a product, so a last-bit difference between two
+# summation orders of an operand can flip its bf16 rounding and move a
+# product term by up to 2^-8 of it: up to 4.2e-5 / 5.0e-4 / 2.3e-5 (O / P /
+# metrics, the same lines), held to 1e-4 / 2^-9 / 1e-4.
+ABLATE_TOL = {"dft-1pass": (1e-4, 2.0 ** -9, 1e-4)}
+# The keys of fpm_torch.bench's line.
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "baseline_led_frames_per_s",
+              "seconds_per_iteration", "device_ms_per_sweep", "busy_share", "bound_ms",
+              "bound_by", "bound_share", "executed_tflops", "fft_stage_efficiency",
+              "amp_rmse_10", "num_leds", "np_size", "n_large", "mode", "device")
+BENCH_ABLATE_LADDER = (2, 12, 2)   # lo, hi sweeps, reps of phase 10's ablation rows
+
+
+def bench_phase(seed: int, smi: str, o_planes, p_planes, sup, cases, common) -> dict:
+    """10. ``ablate=`` and ``fpm_torch.bench`` (module docstring). Returns
+    per kernel ("K1", "K2") what the ``kernels`` line says of its ablation
+    build."""
+    import torch
+
+    from fpm_torch import bench
+    from fpm_torch.ops import build, kernels
+
+    t0 = time.perf_counter()
+    n = common["np_size"]
+    b, _ = kernels.bbox_extent(n, common["pupil_radius"])
+    scale = (o_planes[0] ** 2 + o_planes[1] ** 2).max().rsqrt()
+    # no-window-read reads the spectrum's corner, which is 0 in the init
+    # state: values there, so that the variant computes something.
+    noise = torch.randn((2, b, b), generator=torch.Generator().manual_seed(seed))
+    o_corner = o_planes.clone()
+    o_corner[:, :b, :b] += 0.01 * o_planes.abs().max() * noise.to(o_planes.device)
+    summary = {}
+    for key, case in (("K1", "K1"), ("K2", "K2 exact")):
+        kern, plain, rest, extra = cases[case]
+        names = kernels.CHUNKED_ABLATIONS if key == "K1" else kernels.SWEEP_ABLATIONS
+        worst = {}
+        for tier in TIERS:
+            for ablate in names:
+                o, args = o_planes, rest
+                if ablate == "omax-const":   # max|O| = 1 + k: a state of max|O| 1
+                    o, args = o_planes * scale, (rest[0] * scale, *rest[1:])
+                elif ablate == "no-window-read":
+                    o = o_corner
+                kw = dict(common, **extra, dft_precision=tier, ablate=ablate)
+                kern.launches = 0
+                go, gp, gm = kern(o, p_planes, sup, *args, **kw)
+                launched = kern.launches
+                po, pp, pm = plain(o, p_planes, sup, *args, **kw)
+                torch.cuda.synchronize()
+                tol_o, tol_p, tol_m = ABLATE_TOL.get(ablate, (TOL_O, TOL_P, TOL_METRICS))
+                rel_o, rel_p = rel(go, po), rel(gp, pp)
+                m_ok = bool(((gm - pm).abs() <= tol_m * pm.abs()).all())
+                worst[ablate or "(full)"] = max(worst.get(ablate or "(full)", 0.0),
+                                                (go - po).abs().max().item(),
+                                                (gp - pp).abs().max().item())
+                bitwise = None
+                if not ablate:
+                    kern.force_ablation_build = True
+                    try:
+                        ao, ap, am = kern(o, p_planes, sup, *args, **kw)
+                    finally:
+                        kern.force_ablation_build = False
+                    bitwise = bool(torch.equal(ao, go) and torch.equal(ap, gp)
+                                   and torch.equal(am, gm))
+                want = (2 - (ablate == "omax-const")) if key == "K2" else 21
+                emit({"phase": "bench", "step": "ablate_vs_plain", "kernel": key,
+                      "dft_precision": tier, "ablate": ablate or "(full)", "sweeps": 1,
+                      "rel_err_o": rel_o, "rel_err_p": rel_p,
+                      "metrics": [gm.tolist(), pm.tolist()], "limits": [tol_o, tol_p, tol_m],
+                      "launches": launched, "plan": dict(kern.plan),
+                      "ablation_build_bitwise_main": bitwise, "gpu": smi})
+                check(rel_o <= tol_o and rel_p <= tol_p and m_ok,
+                      f"{key} ablate={ablate!r} {tier} is off its plain version: "
+                      f"{rel_o}, {rel_p}, metrics {gm.tolist()} vs {pm.tolist()}")
+                check(launched == want, f"{key} ablate={ablate!r}: {launched} launches, not {want}")
+                check(bitwise is not False,
+                      f"{key}: ablate='' through the ablation build is not bitwise the kernel")
+        summary[key] = {"library": build.ablation_library(
+                            "epry_chunked" if key == "K1" else "epry_sweep")._name.rsplit("/", 1)[-1],
+                        "variants": list(names), "max_abs_err_by_variant": worst,
+                        "empty_bitwise_main": True}
+    checks_s = time.perf_counter() - t0
+
+    # fpm_torch.bench through its entry point, in this process: one line.
+    t1 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = bench.main(["--seed", str(seed)])
+    lines = out.getvalue().splitlines()
+    check(rc == 0 and len(lines) == 1, f"fpm_torch.bench exited {rc} with {len(lines)} lines")
+    line = json.loads(lines[0])
+    missing = [k for k in BENCH_KEYS if k not in line]
+    check(not missing, f"fpm_torch.bench's line lacks {missing}")
+    check(line["amp_rmse_10"] < RMSE_LIMIT and line["device"] == smi
+          and line["metric"] == "led_frames_per_s_per_gpu_per_iter"
+          and all(math.isfinite(line[k]) and line[k] > 0 for k in (
+              "value", "vs_baseline", "seconds_per_iteration", "device_ms_per_sweep",
+              "busy_share", "bound_ms", "bound_share", "executed_tflops")),
+          f"fpm_torch.bench's line is not well formed: {line}")
+    emit({"phase": "bench", "step": "headline", "line": line,
+          "secondary": json.loads(bench.SECONDARY_OUT.read_text()),
+          "seconds": time.perf_counter() - t1})
+    # The --ablate rows of both kernels, on a short ladder.
+    t2 = time.perf_counter()
+    cfg, geom, images, _ = bench.make_problem(seed)
+    for chunked in (False, True):
+        for row in bench.ablation_rows(cfg, geom, images, "cuda", chunked,
+                                       ladder_=BENCH_ABLATE_LADDER):
+            emit({"phase": "bench", "step": "ablate", "ladder": BENCH_ABLATE_LADDER, **row,
+                  "gpu": smi})
+    emit({"phase": "bench", "step": "seconds", "ablate_vs_plain_s": checks_s,
+          "bench_s": t2 - t1, "ablate_rows_s": time.perf_counter() - t2})
+    return summary
+
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 ORACLE_LIMIT = 1e-3               # tests/test_torch_solver.py: complex64 against the oracle
 DEBUG_OBJECT_LIMIT = 1e-6
@@ -1510,6 +1580,8 @@ def main(argv=None) -> int:
     import numpy as np
 
     from fpm_torch import cli
+    from fpm_torch.bench import (amplitude_rmse, bound, increments_work, sweep_work,
+                                 window_union)
     from fpm_torch.config import FPMConfig, load_config
     from fpm_torch.data.loader import load_dataset_rgb
     from fpm_torch.data.simulate import make_test_object, simulate_images
@@ -1524,7 +1596,7 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    libs = build.build_all()
+    libs, ablation_libs = build.build_with_ablations()
     build_s = time.perf_counter() - t0
     # Tensor-core instructions per function of each library's SASS: every
     # bf16x3 instantiation holds its products (inlined), no highest one any.
@@ -1532,9 +1604,14 @@ def main(argv=None) -> int:
             for stem in sorted(libs)}
     emit({"phase": "device", "gpu": smi, "torch": torch.__version__,
           "torch_cuda": torch.version.cuda, "kernel_build_s": build_s,
-          "libraries": sorted(p.name for p in libs.values()), "hmma_instructions": hmma,
+          "libraries": sorted(p.name for p in libs.values()),
+          "ablation_libraries": sorted(p.name for p in ablation_libs.values()),
+          "hmma_instructions": hmma,
           "ptxas": {stem: {short_name(k): v for k, v in build.resources(stem).items()}
-                    for stem in sorted(libs)}})
+                    for stem in sorted(libs)},
+          "ptxas_ablation": {stem: {short_name(k): v for k, v in
+                                    build.resources(stem, ablate=True).items()}
+                             for stem in sorted(ablation_libs)}})
     for stem, counts in hmma.items():
         by_tier = {}
         for name, c in counts.items():
@@ -1675,7 +1752,7 @@ def main(argv=None) -> int:
     k2_kern, k2_plain, k2_rest, k2_extra = cases["K2 exact"]
     (bo, bp), _ = sweeps(k2_kern, k2_rest, dict(k2_extra, dft_precision="bf16x3"))
     (ho, hp), _ = sweeps(k2_kern, k2_rest, dict(k2_extra, dft_precision="highest"))
-    with mock.patch.object(kernels, "cmm_bf16x3", hi_hi_only):
+    with mock.patch.object(kernels, "cmm_bf16x3", kernels.cmm_hi_hi):
         (oo, op1), _ = sweeps(k2_plain, k2_rest, dict(k2_extra, dft_precision="bf16x3"))
     tier_err = {"rel_err_o": rel(bo, ho), "rel_err_p": rel(bp, hp)}
     one_pass_err = {"rel_err_o": rel(oo, ho), "rel_err_p": rel(op1, hp)}
@@ -2341,6 +2418,13 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="fpm_chip_smoke_dist_") as tmp:
         debug_phase(cfg, geom, frames, smi, tmp)
         distributed_phase(cfg, geom, frames, wide_frames, smi, tmp)
+
+    # ------------------------------------------------------------ 10. bench
+    ablation = bench_phase(args.seed, smi, o_planes, p_planes, sup_r, cases, common)
+    for row in rows:   # the mono rows of K1 and K2: the shape phase 10 held the builds at
+        for key, name in (("K1", "fused_epry_chunked"), ("K2", "fused_epry_sweep")):
+            if row["name"] == f"{name} [{row['dft_precision']}]":
+                row["ablation_build"] = ablation[key]
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

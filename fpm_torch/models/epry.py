@@ -635,12 +635,12 @@ def _reconstruct_eager(images, state, geom: LEDGeometry, dev, opts: EPRYOptions,
     return _result(obj_f, pupil, per_sweep)
 
 
-def _make_problems_sweep_fn(amps_b, starts, support_r, opts: EPRYOptions):
-    """One sweep of P same-geometry problems through the kernels: ONE call
-    of K1 or K2 with a problem axis (``ops.kernels``; on the CPU their plain
-    versions). ``amps_b`` (P, K, Np, Np); returns ``sweep_once(o_planes,
-    p_planes) -> (o_planes, p_planes, mets)`` on (P, 2, ...) float32 planes,
-    with (P, 2) metrics."""
+def _problems_kernel_call(amps_b, starts, support_r, opts: EPRYOptions):
+    """The call that sweeps P same-geometry problems through the kernels:
+    ``(wrapper, operands, options)``, the sweep being ``wrapper(o_planes,
+    p_planes, *operands, **options)``, ONE call of K1 or K2 with a problem
+    axis (``ops.kernels``; on the CPU their plain versions). ``amps_b`` (P,
+    K, Np, Np)."""
     common = dict(np_size=opts.np_size, n_large=opts.n_large, delta1=opts.delta1,
                   delta2=opts.delta2, eps=opts.eps, pupil_radius=opts.pupil_radius,
                   collect_metrics=opts.collect_metrics, dft_precision=opts.dft_precision)
@@ -651,19 +651,22 @@ def _make_problems_sweep_fn(amps_b, starts, support_r, opts: EPRYOptions):
         starts_flat = chunked[0][1].reshape(-1).to(torch.int32)
         valid = (chunked[0][2] > 0).reshape(-1).to(torch.int32)
         del chunked
+        return (kernels.fused_epry_chunked, (support, amps_it, starts_flat, valid),
+                dict(common, pupil_step_scale=opts.pupil_step_scale))
+    return (kernels.fused_epry_sweep,
+            (support, amps_b.to(torch.float32), starts.reshape(-1).to(torch.int32)),
+            dict(common, global_max=opts.global_max))
 
-        def sweep_once(o, p):
-            return kernels.fused_epry_chunked(o, p, support, amps_it, starts_flat, valid,
-                                              pupil_step_scale=opts.pupil_step_scale,
-                                              **common)
-        return sweep_once
 
-    amps_f = amps_b.to(torch.float32)
-    starts_flat = starts.reshape(-1).to(torch.int32)
+def _make_problems_sweep_fn(amps_b, starts, support_r, opts: EPRYOptions):
+    """One sweep of P same-geometry problems through the kernels
+    (:func:`_problems_kernel_call`): ``sweep_once(o_planes, p_planes) ->
+    (o_planes, p_planes, mets)`` on (P, 2, ...) float32 planes, with (P, 2)
+    metrics."""
+    wrapper, operands, options = _problems_kernel_call(amps_b, starts, support_r, opts)
 
     def sweep_once(o, p):
-        return kernels.fused_epry_sweep(o, p, support, amps_f, starts_flat,
-                                        global_max=opts.global_max, **common)
+        return wrapper(o, p, *operands, **options)
     return sweep_once
 
 

@@ -10,7 +10,14 @@ launched: this module imports on machines without ``nvcc`` or a GPU.
 
 ``profile_library(stem)`` builds a second variant with ``-DFPM_PROFILE``,
 whose K2 kernel counts SM cycles per phase of an LED (``csrc/epry_common.cuh``,
-``FPM_PHASES``); only measurements ask for it, no wrapper does. So do
+``FPM_PHASES``); only measurements ask for it, no wrapper does.
+``ablation_library(stem)`` (K1 and K2) builds one with ``-DFPM_ABLATE``,
+which adds the kernels of ``ablate=`` (each stage that a variant turns off
+is a template argument of those kernels alone, ``Ablate`` in
+``csrc/epry_common.cuh``): the wrappers load it only for a non-empty
+``ablate``, so the libraries of the main path are built with the flags and
+code they had. ``build_with_ablations()`` starts every main and ablation
+build at once, one ``nvcc`` each. Only measurements ask for
 ``resources(stem)`` (ptxas's registers and spills of each compiled
 function) and ``hmma_counts(stem)`` (the tensor-core instructions in each
 function's SASS, from ``cuobjdump``).
@@ -42,6 +49,9 @@ def _tool(name: str) -> str:
 
 
 PROFILE_FLAGS = ["-DFPM_PROFILE"]
+ABLATE_FLAGS = ["-DFPM_ABLATE"]
+# The sources whose kernels take ``ablate=`` (K1, K2).
+ABLATION_STEMS = ("epry_chunked", "epry_sweep")
 
 
 def _lib_path(source: Path, flags: list[str]) -> Path:
@@ -52,39 +62,59 @@ def _lib_path(source: Path, flags: list[str]) -> Path:
     return BUILD_DIR / f"lib{source.stem}_{h.hexdigest()[:12]}.so"
 
 
-def build_all(stems=None, profile: bool = False) -> dict[str, Path]:
-    """Compile every source (or those named in ``stems``) whose library is
-    missing; returns {stem: path}.
+def _build(requests) -> list[dict[str, Path]]:
+    """Compile the missing libraries of several builds, given as (stems or
+    None for every source, extra flags), their ``nvcc`` runs all started
+    together; returns {stem: path} per build.
 
     ``nvcc``'s resource report (registers, shared memory, spills per kernel)
     is kept beside each library as ``<name>.log``. A failed build raises
     with the compiler's output.
     """
-    flags = NVCC_FLAGS + (PROFILE_FLAGS if profile else [])
-    sources = sorted(src for src in CSRC.glob("*.cu") if stems is None or src.stem in stems)
-    targets = {src.stem: _lib_path(src, flags) for src in sources}
-    todo = [src for src in sources if not targets[src.stem].exists()]
+    builds, todo = [], []
+    for stems, extra in requests:
+        flags = NVCC_FLAGS + extra
+        sources = sorted(src for src in CSRC.glob("*.cu") if stems is None or src.stem in stems)
+        targets = {src.stem: _lib_path(src, flags) for src in sources}
+        builds.append(targets)
+        todo += [(src, flags, targets[src.stem]) for src in sources
+                 if not targets[src.stem].exists()]
     if todo:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = _tool("nvcc")
         procs = []
-        for src in todo:
-            tmp = targets[src.stem].with_suffix(f".{os.getpid()}.tmp")
+        for src, flags, target in todo:
+            tmp = target.with_suffix(f".{os.getpid()}.tmp")
             cmd = [nvcc, *flags, "-o", str(tmp), str(src)]
-            procs.append((src, tmp, subprocess.Popen(
+            procs.append((src, tmp, target, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
         failures = []
-        for src, tmp, proc in procs:
+        for src, tmp, target, proc in procs:
             out, _ = proc.communicate()
             if proc.returncode != 0:
-                failures.append(f"{src.name}:\n{out}")
+                failures.append(f"{src.name} ({target.name}):\n{out}")
                 continue
-            targets[src.stem].with_suffix(".log").write_text(out)
-            os.replace(tmp, targets[src.stem])
+            target.with_suffix(".log").write_text(out)
+            os.replace(tmp, target)
         if failures:
             raise RuntimeError("nvcc failed to build the port's kernels:\n"
                                + "\n".join(failures))
-    return targets
+    return builds
+
+
+def build_all(stems=None, profile: bool = False, ablate: bool = False) -> dict[str, Path]:
+    """Compile every source (or those named in ``stems``) whose library is
+    missing, as the main build or, with ``profile`` or ``ablate``, that
+    variant; returns {stem: path}."""
+    extra = (PROFILE_FLAGS if profile else []) + (ABLATE_FLAGS if ablate else [])
+    return _build([(stems, extra)])[0]
+
+
+def build_with_ablations() -> tuple[dict[str, Path], dict[str, Path]]:
+    """The main libraries of every source and the ablation libraries of
+    ABLATION_STEMS, all compiled at once: ({stem: path}, {stem: path})."""
+    main, ablation = _build([(None, []), (ABLATION_STEMS, ABLATE_FLAGS)])
+    return main, ablation
 
 
 _P = ctypes.c_void_p
@@ -105,9 +135,18 @@ _SIGNATURES = {
 }
 
 
-def _load(path: Path, stem: str) -> ctypes.CDLL:
+# The ablation build's entry points: the main ones with ``ablate`` after ``tier``.
+_ABLATION_SIGNATURES = {
+    "epry_chunked": {"fpm_k1_sweep_ablate": [_P] * 15 + [_I] * 7 + [_F] * 4
+                     + [_I, _I, _I, _I, _P, _I, _I, _IP, _IP]},
+    "epry_sweep": {"fpm_k2_sweep_ablate": [_P] * 11 + [_I] * 6 + [_F] * 3
+                   + [_I, _I, _I, _I, _I, _P, _I, _I, _IP, _IP]},
+}
+
+
+def _load(path: Path, stem: str, signatures=None) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
-    for name, argtypes in _SIGNATURES[stem].items():
+    for name, argtypes in {**_SIGNATURES[stem], **(signatures or {})}.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -137,6 +176,16 @@ def profile_library(stem: str) -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def ablation_library(stem: str) -> ctypes.CDLL:
+    """The ablation build of ``csrc/<stem>.cu`` (K1 ``epry_chunked``, K2
+    ``epry_sweep``; built on first use, or by :func:`build_with_ablations`):
+    the main entry points plus ``fpm_k1_sweep_ablate`` / ``fpm_k2_sweep_ablate``."""
+    if stem not in ABLATION_STEMS:
+        raise ValueError(f"{stem} has no ablation build; {ABLATION_STEMS} have")
+    return _load(build_all((stem,), ablate=True)[stem], stem, _ABLATION_SIGNATURES[stem])
+
+
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     """Raise if an entry point refused its operands or a launch failed."""
     if err != 0:
@@ -155,10 +204,11 @@ def _demangle(names: list[str]) -> dict[str, str]:
     return dict(zip(names, out)) if len(out) == len(names) else {n: n for n in names}
 
 
-def resources(stem: str) -> dict[str, dict[str, int]]:
+def resources(stem: str, ablate: bool = False) -> dict[str, dict[str, int]]:
     """ptxas's report of the library built from ``csrc/<stem>.cu`` (built on
-    first use): {function: {registers, stack, spill_stores, spill_loads}}."""
-    log = build_all((stem,))[stem].with_suffix(".log").read_text()
+    first use; ``ablate``: its ablation build): {function: {registers,
+    stack, spill_stores, spill_loads}}."""
+    log = build_all((stem,), ablate=ablate)[stem].with_suffix(".log").read_text()
     report, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'|Function properties for (\w+)", line)

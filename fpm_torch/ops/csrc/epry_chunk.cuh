@@ -29,8 +29,9 @@ namespace fpm {
 // before any cluster barrier: every block of its cluster sees the same
 // valid_j, so none waits for a peer that left, and its frame and start are
 // never read. CUT: Z is cut by rows across the cluster (the plan's zcut;
-// chunk_forward_zcut), else whole in every block (chunk_forward).
-template <int T, bool CUT>
+// chunk_forward_zcut), else whole in every block (chunk_forward). A: the
+// ablation (Ablate, epry_common.cuh; kMain but in chunk_forward_ablate).
+template <int T, bool CUT, int A = kMain>
 __device__ __forceinline__ void chunk_forward_body(
     const float* o, size_t o_stride, int n_rows, int n_cols, const float* p, size_t p_stride,
     const float* __restrict__ sup, const float* __restrict__ amps, size_t a_stride,
@@ -57,12 +58,22 @@ __device__ __forceinline__ void chunk_forward_body(
   const int y0 = clamp_start(starts[2 * j], n_rows, n) + lo;
   const int x0 = clamp_start(starts[2 * j + 1], n_cols, n) + lo;
   float pmax;
-  led_forward<T, CUT>(o_re, o_im, n_cols, y0, x0, p_re, p_im,
-              amps + q * a_stride + ((size_t)j * n + s.row0) * n, n, b, eps, metrics != 0, s,
-              &pmax);
+  const float* const amp = amps + q * a_stride + ((size_t)j * n + s.row0) * n;
+  if constexpr (A == kMain) {
+    led_forward<T, CUT>(o_re, o_im, n_cols, y0, x0, p_re, p_im, amp, n, b, eps, metrics != 0, s,
+                        &pmax);
+  } else {
+    led_forward_at<T, CUT, A>(o_re, o_im, n_cols, y0, x0, p_re, p_im, amp, n, b, eps,
+                              metrics != 0, s, &pmax);
+  }
   const size_t slab = (size_t)g * bb + (size_t)s.brow0 * b;
-  led_increments(s, o_re, o_im, n_cols, y0, x0, b, p_re, p_im, sup, pmax, delta1, delta2,
-                 metrics != 0, d_obj + slab, num + slab, nullptr, nullptr);
+  if constexpr (A == kMain) {
+    led_increments(s, o_re, o_im, n_cols, y0, x0, b, p_re, p_im, sup, pmax, delta1, delta2,
+                   metrics != 0, d_obj + slab, num + slab, nullptr, nullptr);
+  } else {
+    led_increments_at<A>(s, o_re, o_im, n_cols, y0, x0, b, p_re, p_im, sup, pmax, delta1,
+                         delta2, metrics != 0, d_obj + slab, num + slab, nullptr, nullptr);
+  }
   cluster.sync();   // the peers have read this block's slab of V; the segment sums are final
   if (!metrics) {
     if (rank == 0 && threadIdx.x == 0) part[0] = part[1] = 0.f;

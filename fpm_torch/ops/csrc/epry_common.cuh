@@ -203,6 +203,30 @@ constexpr int kUnroll = 4;
 // The precision tier of the four DFT products (the entry points' ``tier``).
 enum Tier { kHighest = 0, kBf16x3 = 1 };
 
+// The stage a kernel of the ablation build turns off: fpm_tpu's ``ablate=``
+// (pallas_kernels.py:793, 1148), a measurement aid whose output is garbage
+// but for kFull; fpm_torch/ops/kernels.py _ABLATE_IDS gives the names. It is
+// a template argument, resolved at compile time wherever it is tested. The
+// main kernels are kMain and call the out-of-line led_forward and
+// led_increments as before; the ablation build (-DFPM_ABLATE,
+// fpm_torch/ops/build.py ablation_library) adds kernels for the others,
+// which inline led_forward_at and led_increments_at. kFull there turns
+// nothing off: the main arithmetic (bitwise the same results) through the
+// variants' code, their yardstick.
+//   kNoDft          no DFT products: Z zero-padded is the image, up the
+//                   replaced image's [0:b, 0:b] corner
+//   kNoWindowRead   every LED reads its window at O's corner [0:b, 0:b]; the
+//                   update still goes to its own window
+//   kNoWindowWrite  no object update
+//   kOmaxConst      max|O| = 1 + (K2: the LED's index, K1: the chunk's), no
+//                   max reduction
+//   kNoPupilAcc     (K1) no pupil numerator, no consensus: P stays
+//   kDft1Pass       each product one bf16 pass, hi·hi (bf16x3 layout only)
+enum Ablate {
+  kMain = -1, kFull = 0, kNoDft = 1, kNoWindowRead = 2, kNoWindowWrite = 3, kOmaxConst = 4,
+  kNoPupilAcc = 5, kDft1Pass = 6
+};
+
 // The DFT matrices. kHighest: complex row-major, Ai (n, b), Bi (b, n), Af
 // (b, n), Bf (n, b). kBf16x3: the split layout (cgemm_tc) of Ai (n rows, K =
 // b), Biᵀ (n, b), Af (b, n) and Bfᵀ (b, n), addressed in 8-byte units.
@@ -465,11 +489,20 @@ __device__ __forceinline__ void negate(uint32_t (&out)[4], const uint32_t (&in)[
 }
 
 // The complex product of one k-step into the pass accumulators
-// acc[pass][re/im]: pass 0 hi·hi, 1 hi·lo, 2 lo·hi.
+// acc[pass][re/im]: pass 0 hi·hi, 1 hi·lo, 2 lo·hi. PASSES = 1 (the
+// ablation kDft1Pass): pass 0 alone.
+template <int PASSES>
 __device__ __forceinline__ void cmma_step(float (&acc)[3][2][4], const SplitFrag<4>& a,
                                           const SplitFrag<2>& b) {
   uint32_t nih[4], nil[4];
   negate(nih, a.ih);
+  if constexpr (PASSES == 1) {
+    mma_bf16(acc[0][0], a.rh, b.rh);
+    mma_bf16(acc[0][1], a.rh, b.ih);
+    mma_bf16(acc[0][0], nih, b.ih);
+    mma_bf16(acc[0][1], a.ih, b.rh);
+    return;
+  }
   negate(nil, a.il);
   // Six independent products, then the six that add to them.
   mma_bf16(acc[0][0], a.rh, b.rh);
@@ -606,11 +639,12 @@ __device__ __forceinline__ void tc_load(SplitFrag<4>& a, SplitFrag<2>& b, const 
 #define FPM_KSTEP_SUMS 0
 #endif
 
+template <int PASSES>
 __device__ __forceinline__ void kstep(float (&acc)[3][2][4], const SplitFrag<4>& a,
                                       const SplitFrag<2>& b) {
   if constexpr (FPM_KSTEP_SUMS) {
     float s[3][2][4] = {};
-    cmma_step(s, a, b);
+    cmma_step<PASSES>(s, a, b);
 #pragma unroll
     for (int p = 0; p < 3; ++p)
 #pragma unroll
@@ -618,18 +652,18 @@ __device__ __forceinline__ void kstep(float (&acc)[3][2][4], const SplitFrag<4>&
 #pragma unroll
         for (int r = 0; r < 4; ++r) acc[p][c][r] += s[p][c][r];
   } else {
-    cmma_step(acc, a, b);
+    cmma_step<PASSES>(acc, a, b);
   }
 }
 
-template <bool SA, bool GUARD, bool VEC, class BT>
+template <bool SA, bool GUARD, bool VEC, int PASSES, class BT>
 __device__ __forceinline__ void tc_step(float (&acc)[3][2][4], const void* A, int lda,
                                         const BT B, int ldb, int ra0, int ra1, int cb, int k0,
                                         int t, int K) {
   SplitFrag<4> a;
   SplitFrag<2> b;
   tc_load<SA, GUARD, VEC>(a, b, A, lda, B, ldb, ra0, ra1, cb, k0, t, K);
-  kstep(acc, a, b);
+  kstep<PASSES>(acc, a, b);
 }
 
 // C (M×N complex, row stride ldc) = A (M×K) · B (K×N), the bf16x3 tier on
@@ -640,11 +674,11 @@ __device__ __forceinline__ void tc_step(float (&acc)[3][2][4], const void* A, in
 // warps, ...; each element is one tile's sum over k in order (header note).
 // VEC: a dynamic A is read a pair of values at a time (see load_dynamic_a).
 // BT: const void*, or ZRows for a dynamic B cut by row slabs across the
-// cluster (cgemm_tc_z).
+// cluster (cgemm_tc_z). PASSES: 3, or 1 (hi·hi alone: the ablation kDft1Pass).
 // All threads of the block call; no barrier inside; C aliases neither input.
 // Inlined: as a called function (like cgemm) it made k2_sweep save ~200
 // bytes of registers to the stack around each call, which cost every phase.
-template <bool SA, bool VEC, class BT>
+template <bool SA, bool VEC, int PASSES, class BT>
 __device__ __forceinline__ void cgemm_tc_at(const void* A, int lda, const BT B, int ldb,
                                             float2* C, int ldc, int M, int N, int K) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
@@ -668,13 +702,14 @@ __device__ __forceinline__ void cgemm_tc_at(const void* A, int lda, const BT B, 
         SplitFrag<4> a2;
         SplitFrag<2> b2;
         tc_load<SA, false, VEC>(a2, b2, A, lda, B, ldb, ra0, ra1, cb, s << 4, t, K);
-        kstep(acc, a, b);
+        kstep<PASSES>(acc, a, b);
         a = a2;
         b = b2;
       }
-      kstep(acc, a, b);
+      kstep<PASSES>(acc, a, b);
     }
-    if (K & 15) tc_step<SA, true, VEC>(acc, A, lda, B, ldb, ra0, ra1, cb, ksteps << 4, t, K);
+    if (K & 15)
+      tc_step<SA, true, VEC, PASSES>(acc, A, lda, B, ldb, ra0, ra1, cb, ksteps << 4, t, K);
     // Accumulator r: row m0 + g (+ 8 for r ≥ 2), column n0 + 2t + (r & 1).
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
@@ -686,19 +721,19 @@ __device__ __forceinline__ void cgemm_tc_at(const void* A, int lda, const BT B, 
   }
 }
 
-template <bool SA>
+template <bool SA, int PASSES = 3>
 __device__ __forceinline__ void cgemm_tc(const void* A, int lda, const void* B, int ldb, float2* C,
                                          int ldc, int M, int N, int K) {
   if (!SA && (lda & 1) == 0 && (reinterpret_cast<uintptr_t>(A) & 15) == 0)
-    cgemm_tc_at<SA, true>(A, lda, B, ldb, C, ldc, M, N, K);
+    cgemm_tc_at<SA, true, PASSES>(A, lda, B, ldb, C, ldc, M, N, K);
   else
-    cgemm_tc_at<SA, false>(A, lda, B, ldb, C, ldc, M, N, K);
+    cgemm_tc_at<SA, false, PASSES>(A, lda, B, ldb, C, ldc, M, N, K);
 }
 
 // C = A · B, A static, B dynamic and cut by row slabs across the cluster.
 __device__ __forceinline__ void cgemm_tc_z(const void* A, int lda, const ZRows B, float2* C,
                                            int ldc, int M, int N, int K) {
-  cgemm_tc_at<true, false>(A, lda, B, 0, C, ldc, M, N, K);
+  cgemm_tc_at<true, false, 3>(A, lda, B, 0, C, ldc, M, N, K);
 }
 
 // The 16-byte words per row of a static matrix in the split layout whose
@@ -1160,11 +1195,17 @@ __device__ __forceinline__ int clamp_start(int s, int dim, int n) {
 // the peers may read this block's s.z until the next one, which the caller
 // places before s.z is written again or the block exits. T (Tier) picks the
 // products; CUT: Z is cut by rows across the cluster (a plan's zcut, and
-// carve_smem's CUT).
-template <int T, bool CUT>
-__device__ void led_forward(const float* o_re, const float* o_im, int ld, int y0, int x0,
-                             const float* p_re, const float* p_im, const float* amp, int n,
-                             int b, float eps, bool metrics, const LedSmem s, float* pmax) {
+// carve_smem's CUT). led_forward_at<T, CUT, A> is the same with the stage of
+// ablation A turned off (Z whole only); the main kernels call led_forward.
+template <int T, bool CUT, int A>
+__device__ __forceinline__ void led_forward_at(const float* o_re, const float* o_im, int ld,
+                                               int y0, int x0, const float* p_re,
+                                               const float* p_im, const float* amp, int n, int b,
+                                               float eps, bool metrics, const LedSmem s,
+                                               float* pmax) {
+  static_assert(A == kMain || !CUT, "the ablation build keeps Z whole in every block");
+  static_assert(A != kDft1Pass || T == kBf16x3, "one pass is of the bf16x3 layout");
+  constexpr int kPasses = A == kDft1Pass ? 1 : 3;
   cg::cluster_group cluster = cg::this_cluster();
   const int zr0 = CUT ? s.brow0 : 0;   // the first row of Z this block builds
   const int bb = (CUT ? s.brows : b) * b;
@@ -1184,7 +1225,8 @@ __device__ void led_forward(const float* o_re, const float* o_im, int ld, int y0
     for (int u = 0; u < kBatch; ++u) {
       const int e = e0 + u * blockDim.x;
       if (e < bb) {
-        const size_t g = (size_t)(y0 + i) * ld + (x0 + j);
+        const size_t g = A == kNoWindowRead ? (size_t)i * ld + j
+                                            : (size_t)(y0 + i) * ld + (x0 + j);
         o[u] = make_float2(ld_state(o_re + g), ld_state(o_im + g));
         p[u] = make_float2(ld_state(p_re + e), ld_state(p_im + e));
       }
@@ -1215,21 +1257,28 @@ __device__ void led_forward(const float* o_re, const float* o_im, int ld, int y0
   }
   *pmax = sqrtf(pm2);
   FPM_PHASE(kPhaseBarrier0);
-  // T_r = Ai[rows_r,:]·Z; cut, row k of Z read from the block that built it
-  if constexpr (CUT && T == kBf16x3)
-    cgemm_tc_z(s.ai, split_ld(b), ZRows{zcut_rows(s, n, b)}, s.t, ldt, s.rows, b, b);
-  else if constexpr (CUT)
-    cgemm_z(s.ai, b, ZRows{zcut_rows(s, n, b)}, (ldz & 1) == 0, s.t, b, s.rows, b, b);
-  else if constexpr (T == kBf16x3)
-    cgemm_tc<true>(s.ai, split_ld(b), s.z, ldz, s.t, ldt, s.rows, b, b);
-  else
-    cgemm(s.ai, b, s.z, b, s.t, b, s.rows, b, b);
-  __syncthreads();
-  FPM_PHASE(kPhaseProduct1);
-  if constexpr (T == kBf16x3)                              // img_r = T_r·Bi
-    cgemm_tc<false>(s.t, ldt, s.bi, split_ld(b), s.img, n, s.rows, n, b);
-  else
-    cgemm(s.t, b, s.bi, n, s.img, n, s.rows, n, b);
+  if constexpr (A == kNoDft) {   // img_r = this block's rows of Z zero-padded to n×n
+    for (int e = threadIdx.x; e < s.rows * n; e += blockDim.x) {
+      const int r = e / n, c = e - r * n, i = s.row0 + r;
+      s.img[e] = i < b && c < b ? s.z[i * ldz + c] : make_float2(0.f, 0.f);
+    }
+  } else {
+    // T_r = Ai[rows_r,:]·Z; cut, row k of Z read from the block that built it
+    if constexpr (CUT && T == kBf16x3)
+      cgemm_tc_z(s.ai, split_ld(b), ZRows{zcut_rows(s, n, b)}, s.t, ldt, s.rows, b, b);
+    else if constexpr (CUT)
+      cgemm_z(s.ai, b, ZRows{zcut_rows(s, n, b)}, (ldz & 1) == 0, s.t, b, s.rows, b, b);
+    else if constexpr (T == kBf16x3)
+      cgemm_tc<true, kPasses>(s.ai, split_ld(b), s.z, ldz, s.t, ldt, s.rows, b, b);
+    else
+      cgemm(s.ai, b, s.z, b, s.t, b, s.rows, b, b);
+    __syncthreads();
+    FPM_PHASE(kPhaseProduct1);
+    if constexpr (T == kBf16x3)                              // img_r = T_r·Bi
+      cgemm_tc<false, kPasses>(s.t, ldt, s.bi, split_ld(b), s.img, n, s.rows, n, b);
+    else
+      cgemm(s.t, b, s.bi, n, s.img, n, s.rows, n, b);
+  }
   __syncthreads();
   FPM_PHASE(kPhaseProduct2);
   // One warp per 32-column segment of an image row, lane l on its column l:
@@ -1257,6 +1306,18 @@ __device__ void led_forward(const float* o_re, const float* o_im, int ld, int y0
     }
   }
   FPM_PHASE(kPhaseReplace);
+  if constexpr (A == kNoDft) {   // up[slab r] = rep[slab r rows, 0:b], via s.t
+    if (s.cs > 1) cluster.sync();   // every rep_q is written
+    for (int l = threadIdx.x; l < s.brows * b; l += blockDim.x) {
+      const int i = s.brow0 + l / b, j = l % b, q = i / s.nr;
+      s.t[l] = cluster.map_shared_rank(s.img, q)[(i - q * s.nr) * n + j];
+    }
+    if (s.cs > 1) cluster.sync();   // every peer has read this block's rep
+    __syncthreads();
+    for (int l = threadIdx.x; l < s.brows * b; l += blockDim.x) s.img[l] = s.t[l];
+    __syncthreads();
+    return;
+  }
   const float2* vrow = s.z;     // V[slab r, :]; with one block, V itself
   int ld_repc = n, ld_vrow = s.nrp;
   if (s.cs > 1) {
@@ -1290,7 +1351,7 @@ __device__ void led_forward(const float* o_re, const float* o_im, int ld, int y0
   // columns takes the pad column of repc along (never read afterwards) and
   // keeps the float4 loads.
   if constexpr (T == kBf16x3)
-    cgemm_tc<true>(s.af, split_ld(n), s.repc, ld_repc, s.z, s.nrp, b, s.rows, n);
+    cgemm_tc<true, kPasses>(s.af, split_ld(n), s.repc, ld_repc, s.z, s.nrp, b, s.rows, n);
   else
     cgemm(s.af, n, s.repc, ld_repc, s.z, s.nrp, b, min(even_up(s.rows), s.nrp), n);
   if (s.cs > 1) {
@@ -1320,11 +1381,19 @@ __device__ void led_forward(const float* o_re, const float* o_im, int ld, int y0
   __syncthreads();
   FPM_PHASE(kPhaseGatherV);
   if constexpr (T == kBf16x3)                                  // up[slab r] = V[slab r,:]·Bf
-    cgemm_tc<false>(vrow, ld_vrow, s.bf, split_ld(n), s.img, b, s.brows, b, n);
+    cgemm_tc<false, kPasses>(vrow, ld_vrow, s.bf, split_ld(n), s.img, b, s.brows, b, n);
   else
     cgemm(vrow, ld_vrow, s.bf, b, s.img, b, s.brows, b, n);
   __syncthreads();
   FPM_PHASE(kPhaseProduct4);
+}
+
+template <int T, bool CUT>
+__device__ void led_forward(const float* o_re, const float* o_im, int ld, int y0, int x0,
+                             const float* p_re, const float* p_im, const float* amp, int n,
+                             int b, float eps, bool metrics, const LedSmem s, float* pmax) {
+  led_forward_at<T, CUT, kMain>(o_re, o_im, ld, y0, x0, p_re, p_im, amp, n, b, eps, metrics, s,
+                                pmax);
 }
 
 // Per-element increments of one LED on this block's slab of bbox rows, from
@@ -1341,12 +1410,16 @@ __device__ void led_forward(const float* o_re, const float* o_im, int ld, int y0
 // planes, and every element of the window is read and written by one thread
 // of one block). When ``metrics``, adds each segment of its bbox rows'
 // Σ|dO|² to s.usum (one warp per 32-column segment, as led_forward's
-// residual).
-__device__ void led_increments(const LedSmem s, const float* o_re, const float* o_im, int ld,
-                               int y0, int x0, int b, const float* p_re, const float* p_im,
-                               const float* __restrict__ sup, float pmax, float delta1,
-                               float delta2, bool metrics, float2* d_obj, float2* num,
-                               float* ow_re, float* ow_im) {
+// residual). led_increments_at<A> is the same with the stage of ablation A
+// turned off; the main kernels call led_increments. Under kNoWindowRead oc
+// is read at O's corner and, in K2, a cluster barrier parts every read of
+// the corner from the window updates (dO waits in s.img), which may overlap it.
+template <int A>
+__device__ __forceinline__ void led_increments_at(
+    const LedSmem s, const float* o_re, const float* o_im, int ld, int y0, int x0, int b,
+    const float* p_re, const float* p_im, const float* __restrict__ sup, float pmax,
+    float delta1, float delta2, bool metrics, float2* d_obj, float2* num, float* ow_re,
+    float* ow_im) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
   const int segs = segments(b);
   for (int t = warp; t < s.brows * segs; t += warps) {
@@ -1357,7 +1430,8 @@ __device__ void led_increments(const LedSmem s, const float* o_re, const float* 
       const int i = s.brow0 + r, e = i * b + j;
       const float2 up = s.img[l];
       const size_t g = (size_t)(y0 + i) * ld + (x0 + j);
-      const float2 oc = make_float2(ld_state(o_re + g), ld_state(o_im + g));
+      const size_t gr = A == kNoWindowRead ? (size_t)i * ld + j : g;   // where oc is read
+      const float2 oc = make_float2(ld_state(o_re + gr), ld_state(o_im + gr));
       const float2 p = make_float2(ld_state(p_re + e), ld_state(p_im + e));
       const float2 ocp = cmul(oc, p);
       const float2 diff = make_float2(up.x - ocp.x, up.y - ocp.y);
@@ -1375,11 +1449,13 @@ __device__ void led_increments(const LedSmem s, const float* o_re, const float* 
 
       if (d_obj) {
         d_obj[l] = dob;
-      } else {
+      } else if constexpr (A == kNoWindowRead) {
+        s.img[l] = dob;
+      } else if constexpr (A != kNoWindowWrite) {
         ow_re[g] = oc.x + dob.x;
         ow_im[g] = oc.y + dob.y;
       }
-      num[l] = cmul(diff, v);
+      if constexpr (A != kNoPupilAcc) num[l] = cmul(diff, v);
       if (metrics) uacc = fmaf(dob.x, dob.x, dob.y * dob.y);
     }
     if (metrics) {
@@ -1387,6 +1463,24 @@ __device__ void led_increments(const LedSmem s, const float* o_re, const float* 
       if (lane == 0) s.usum[t] += uacc;
     }
   }
+  if constexpr (A == kNoWindowRead) {
+    if (d_obj) return;
+    cg::this_cluster().sync();   // every block has read the corner
+    for (int l = threadIdx.x; l < s.brows * b; l += blockDim.x) {
+      const size_t g = (size_t)(y0 + s.brow0 + l / b) * ld + (x0 + l % b);
+      ow_re[g] = ld_state(ow_re + g) + s.img[l].x;
+      ow_im[g] = ld_state(ow_im + g) + s.img[l].y;
+    }
+  }
+}
+
+__device__ void led_increments(const LedSmem s, const float* o_re, const float* o_im, int ld,
+                               int y0, int x0, int b, const float* p_re, const float* p_im,
+                               const float* __restrict__ sup, float pmax, float delta1,
+                               float delta2, bool metrics, float2* d_obj, float2* num,
+                               float* ow_re, float* ow_im) {
+  led_increments_at<kMain>(s, o_re, o_im, ld, y0, x0, b, p_re, p_im, sup, pmax, delta1, delta2,
+                           metrics, d_obj, num, ow_re, ow_im);
 }
 
 // Stores this block's segment accumulators into the cluster's first block,

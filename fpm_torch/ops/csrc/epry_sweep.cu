@@ -39,6 +39,10 @@
 // The metric sums are per-segment accumulators (epry_common.cuh), added in
 // a fixed order in the cluster's first block at the end of the sweep.
 //
+// The ablation build (-DFPM_ABLATE) adds k2_sweep_ablate<T, A>, the same
+// sweep with the stage of ablation A turned off (Ablate, epry_common.cuh;
+// kOmaxConst also drops the row-max launch), behind fpm_k2_sweep_ablate.
+//
 // Bound: FP32 operations of one LED's forward pass on cs SMs of the card's
 // 132 — the sweep's data dependence allows one LED of a problem at a time —
 // plus four cluster barriers per LED. plan_led picks cs for the P clusters
@@ -96,8 +100,8 @@ __device__ float recip_abs_max(const float* rowmax, int nl, float* red) {
 
 // The sweep of one cluster (the header); CUT: Z is cut by rows across the
 // cluster (the plan's zcut; k2_sweep_zcut), else whole in every block
-// (k2_sweep).
-template <int T, bool CUT>
+// (k2_sweep); A: the ablation (kMain but in k2_sweep_ablate).
+template <int T, bool CUT, int A = kMain>
 __device__ __forceinline__ void k2_sweep_body(
     float* o, int nl, float* p, const float* __restrict__ sup, const float* __restrict__ amps,
     const int* __restrict__ starts, int k_leds, DftMats m, int n, int b, int lo, float eps,
@@ -125,7 +129,7 @@ __device__ __forceinline__ void k2_sweep_body(
   // place from device memory.
   const bool buffered = plan.frames == 2;
   if (buffered) prefetch_frame(s.frame, slab0, slab_count);
-  float recip = exact ? 0.f : recip_abs_max(rowmax, nl, s.red);
+  float recip = exact || A == kOmaxConst ? 0.f : recip_abs_max(rowmax, nl, s.red);
   int y_next = starts[0], x_next = starts[1];
   FPM_PHASE_START();
   for (int k = 0; k < k_leds; ++k) {
@@ -144,12 +148,19 @@ __device__ __forceinline__ void k2_sweep_body(
     }
     FPM_PHASE(kPhaseFrameWait);
     float pmax;
-    led_forward<T, CUT>(o_re, o_im, nl, y0, x0, p_re, p_im, amp, n, b, eps, metrics != 0, s,
-                        &pmax);
-    led_increments(s, o_re, o_im, nl, y0, x0, b, p_re, p_im, sup, pmax, delta1, delta2,
-                   metrics != 0, nullptr, num, o_re, o_im);
+    if constexpr (A == kMain) {
+      led_forward<T, CUT>(o_re, o_im, nl, y0, x0, p_re, p_im, amp, n, b, eps, metrics != 0, s,
+                          &pmax);
+      led_increments(s, o_re, o_im, nl, y0, x0, b, p_re, p_im, sup, pmax, delta1, delta2,
+                     metrics != 0, nullptr, num, o_re, o_im);
+    } else {
+      led_forward_at<T, CUT, A>(o_re, o_im, nl, y0, x0, p_re, p_im, amp, n, b, eps,
+                                metrics != 0, s, &pmax);
+      led_increments_at<A>(s, o_re, o_im, nl, y0, x0, b, p_re, p_im, sup, pmax, delta1, delta2,
+                           metrics != 0, nullptr, num, o_re, o_im);
+    }
     FPM_PHASE_SYNC(kPhaseIncrements);
-    if (exact) {
+    if (exact && A != kOmaxConst) {
       __syncthreads();                          // this block wrote all of these rows' updates
       const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
       for (int i = warp; i < s.brows; i += blockDim.x >> 5) {
@@ -167,7 +178,10 @@ __device__ __forceinline__ void k2_sweep_body(
     FPM_PHASE_SYNC(kPhaseRowMax);
     cluster.sync();   // O and the row cache are updated; every slab of V has been read
     FPM_PHASE(kPhaseBarrier3);
-    if (exact) recip = recip_abs_max(rowmax, nl, s.red);
+    if constexpr (A == kOmaxConst)
+      recip = 1.f / (1.f + (float)k);
+    else if (exact)
+      recip = recip_abs_max(rowmax, nl, s.red);
     FPM_PHASE(kPhaseMaxReduce);
     for (int l = threadIdx.x; l < s.brows * b; l += blockDim.x) {
       const int e = s.brow0 * b + l;
@@ -211,6 +225,31 @@ k2_sweep_zcut(float* o, int nl, float* p, const float* __restrict__ sup,
                          exact, metrics, rowmax, mets, plan);
 }
 
+#ifdef FPM_ABLATE
+template <int T, int A>
+__global__ void __launch_bounds__(kThreads)
+k2_sweep_ablate(float* o, int nl, float* p, const float* __restrict__ sup,
+                const float* __restrict__ amps, const int* __restrict__ starts, int k_leds,
+                DftMats m, int n, int b, int lo, float eps, float delta1, float delta2,
+                int exact, int metrics, float* rowmax, float* __restrict__ mets, LedPlan plan) {
+  k2_sweep_body<T, false, A>(o, nl, p, sup, amps, starts, k_leds, m, n, b, lo, eps, delta1,
+                             delta2, exact, metrics, rowmax, mets, plan);
+}
+#endif
+
+// K2's kernels of ablation A: the main pair (Z whole, Z cut) for kMain, the
+// ablation build's kernel (Z whole only) for the others.
+template <int T, int A>
+KernelPair<decltype(&k2_sweep<T>)> k2_kernels() {
+  if constexpr (A == kMain) {
+    return {k2_sweep<T>, k2_sweep_zcut<T>};
+  } else {
+#ifdef FPM_ABLATE
+    return {k2_sweep_ablate<T, A>, k2_sweep_ablate<T, A>};
+#endif
+  }
+}
+
 }  // namespace fpm
 
 // One sequential sweep over ``k_leds`` LEDs for each of ``n_problems``
@@ -227,8 +266,9 @@ k2_sweep_zcut(float* o, int nl, float* p, const float* __restrict__ sup,
 //   launches           host int, incremented at each accepted launch
 //   plan_out           host int[kPlanFields], set to the plan chosen (export_plan)
 // Returns a cudaError_t value (0 = every launch was accepted), kErrLedSmem or
-// kErrCluster.
-template <int T>
+// kErrCluster. A: the ablation (kMain but behind fpm_k2_sweep_ablate, which
+// keeps Z whole and fails with kErrLedSmem where Z whole does not fit).
+template <int T, int A>
 static int k2_sweep_at(float* o, float* p, const float* sup, const float* amps, const int* starts,
                        const fpm::DftMats& m, float* rowmax, float* mets, int n_problems,
                        int k_leds, int n, int b, int lo, int nl, float eps, float delta1,
@@ -236,14 +276,17 @@ static int k2_sweep_at(float* o, float* p, const float* sup, const float* amps, 
                        int force_cs, int force_zcut, int* launches, int* plan_out) {
   using namespace fpm;
   LedPlan plan;
-  const KernelPair<decltype(&k2_sweep<T>)> kernel{k2_sweep<T>, k2_sweep_zcut<T>};
-  if (const int e = plan_led(kernel, n, b, n_problems, 2, true, T, force_cs, force_zcut, device,
-                             &plan))
+  const auto kernel = k2_kernels<T, A>();
+  if (A != kMain && force_zcut == 2) return (int)cudaErrorInvalidValue;
+  if (const int e = plan_led(kernel, n, b, n_problems, 2, true, T, force_cs,
+                             A == kMain ? force_zcut : 1, device, &plan))
     return e;
   export_plan(plan, plan_out);
-  k2_rowmax_init<<<dim3(nl, n_problems), 256, 0, st>>>(o, nl, rowmax);
   cudaError_t err;
-  if ((err = count_launch(launches)) != cudaSuccess) return (int)err;
+  if (A != kOmaxConst) {
+    k2_rowmax_init<<<dim3(nl, n_problems), 256, 0, st>>>(o, nl, rowmax);
+    if ((err = count_launch(launches)) != cudaSuccess) return (int)err;
+  }
   if (k_leds < 1) return 0;
   const ClusterLaunch sweep(n_problems, plan, st);
   cudaLaunchKernelEx(&sweep.cfg, kernel.of(plan), o, nl, p, sup, amps, starts, k_leds, m, n, b,
@@ -267,8 +310,8 @@ extern "C" int fpm_k2_sweep(float* o, float* p, const float* sup, const float* a
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const DftMats m{static_cast<const float2*>(ai), static_cast<const float2*>(bi),
                   static_cast<const float2*>(af), static_cast<const float2*>(bf)};
-  const auto run = tier == kBf16x3   ? &k2_sweep_at<kBf16x3>
-                   : tier == kHighest ? &k2_sweep_at<kHighest>
+  const auto run = tier == kBf16x3   ? &k2_sweep_at<kBf16x3, kMain>
+                   : tier == kHighest ? &k2_sweep_at<kHighest, kMain>
                                       : nullptr;
   if (!run) return (int)cudaErrorInvalidValue;
   return run(o, p, sup, amps, starts, m, rowmax, mets, n_problems, k_leds, n, b, lo, nl, eps,
@@ -290,6 +333,42 @@ extern "C" int fpm_resident_clusters(int n, int b, int slots, int cs, int tier, 
                              n, b, slots, 2, cs, tier, device, clusters);
   return (int)cudaErrorInvalidValue;
 }
+
+#ifdef FPM_ABLATE
+// fpm_k2_sweep with the stage of ``ablate`` (Ablate) turned off: the
+// arguments of fpm_k2_sweep with ``ablate`` after ``tier``. kNoPupilAcc is
+// K1's alone, kDft1Pass is of the bf16x3 tier alone (the highest tier's
+// matrices in bf16 are the bf16x3 layout's hi parts: the wrapper passes
+// those), and Z is never cut (force_zcut 2 is refused).
+extern "C" int fpm_k2_sweep_ablate(float* o, float* p, const float* sup, const float* amps,
+                                   const int* starts, const void* ai, const void* bi,
+                                   const void* af, const void* bf, float* rowmax, float* mets,
+                                   int n_problems, int k_leds, int n, int b, int lo, int nl,
+                                   float eps, float delta1, float delta2, int exact, int metrics,
+                                   int tier, int ablate, int device, void* stream, int force_cs,
+                                   int force_zcut, int* launches, int* plan_out) {
+  using namespace fpm;
+  using Run = decltype(&k2_sweep_at<kHighest, kMain>);
+  static const Run runs[2][7] = {
+      {&k2_sweep_at<kHighest, kFull>, &k2_sweep_at<kHighest, kNoDft>,
+       &k2_sweep_at<kHighest, kNoWindowRead>, &k2_sweep_at<kHighest, kNoWindowWrite>,
+       &k2_sweep_at<kHighest, kOmaxConst>, nullptr, nullptr},
+      {&k2_sweep_at<kBf16x3, kFull>, &k2_sweep_at<kBf16x3, kNoDft>,
+       &k2_sweep_at<kBf16x3, kNoWindowRead>, &k2_sweep_at<kBf16x3, kNoWindowWrite>,
+       &k2_sweep_at<kBf16x3, kOmaxConst>, nullptr, &k2_sweep_at<kBf16x3, kDft1Pass>}};
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  if (n_problems < 1 || (tier != kHighest && tier != kBf16x3) || ablate < 0 || ablate > 6
+      || !runs[tier][ablate])
+    return (int)cudaErrorInvalidValue;
+  const DftMats m{static_cast<const float2*>(ai), static_cast<const float2*>(bi),
+                  static_cast<const float2*>(af), static_cast<const float2*>(bf)};
+  return runs[tier][ablate](o, p, sup, amps, starts, m, rowmax, mets, n_problems, k_leds, n, b,
+                            lo, nl, eps, delta1, delta2, exact, metrics, device,
+                            static_cast<cudaStream_t>(stream), force_cs, force_zcut, launches,
+                            plan_out);
+}
+#endif
 
 #ifdef FPM_PROFILE
 extern "C" int fpm_phase_count() { return fpm::kPhases; }

@@ -42,6 +42,18 @@ operands as hi·hi + (hi·lo + lo·hi) in float32 (:func:`cmm_bf16x3`; on the
 card on the tensor cores); ``"highest"`` in full FP32. Any other value
 raises.
 
+Ablations (``ablate``, K1 and K2, as in the JAX signatures): a measurement
+aid that turns one stage of the kernel off so that a benchmark can time
+what the stage costs (``fpm_torch.bench --ablate``; ``benchmarks/ablate.py``
+in the JAX package). ``""``, the default and the only value the solver
+passes, is the kernel itself; any other name of :data:`SWEEP_ABLATIONS` or
+:data:`CHUNKED_ABLATIONS` gives a result that is garbage by design, the same
+garbage as ``fpm_tpu``'s: the plain versions compute its semantics, and on
+the card the ablated kernel comes from a separate build of the source
+(``build.ablation_library``), where the variant is a template argument, so
+that the main path's kernels are compiled as if no variant existed. Any
+other name raises.
+
 Dispatch: a wrapper launches its CUDA kernel for CUDA tensors and runs its
 plain PyTorch version (``*_plain``, same function, same operands) for CPU
 tensors; nothing falls back, and a tier runs as asked or raises. Each
@@ -115,6 +127,33 @@ def bbox_extent(n: int, radius: int) -> tuple[int, int]:
 _TIERS = {"highest": 0, "bf16x3": 1}
 
 
+# The stages an ablation turns off, and the C entry points' number for each
+# (Ablate in csrc/epry_common.cuh). K2 and K1 take the names of fpm_tpu's
+# fused_epry_sweep and fused_epry_chunked, in benchmarks/ablate.py's order:
+#   omax-const       max|O| is 1 + (the LED index in K2, the chunk index in
+#                    K1): no max reduction over the spectrum
+#   no-dft           no DFT products: the bbox patch Oc∘P, zero-padded to
+#                    the image plane, is the image; up is the replaced
+#                    image's [0:b, 0:b] corner
+#   no-window-read   every LED reads the window at the spectrum's corner
+#                    O[0:b, 0:b] in place of its own (the update still goes
+#                    to its window)
+#   no-window-write  no object update (the increments are still computed)
+#   no-pupil-acc     (K1) no pupil numerator and no consensus: P stays
+#   dft-1pass        each DFT product as one bf16 pass, hi·hi, at either tier
+_ABLATE_IDS = {"": 0, "no-dft": 1, "no-window-read": 2, "no-window-write": 3,
+               "omax-const": 4, "no-pupil-acc": 5, "dft-1pass": 6}
+SWEEP_ABLATIONS = ("", "omax-const", "no-dft", "no-window-read", "no-window-write",
+                   "dft-1pass")
+CHUNKED_ABLATIONS = ("", "no-dft", "no-window-read", "no-window-write", "omax-const",
+                     "no-pupil-acc", "dft-1pass")
+
+
+def _check_ablate(ablate, names, kernel):
+    if ablate not in names:
+        raise ValueError(f"{kernel} has no ablation {ablate!r}; it takes {names}")
+
+
 def _check_dft_precision(dft_precision):
     if dft_precision not in _TIERS:
         raise ValueError(
@@ -134,6 +173,14 @@ def _csplit(z: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     (rh, rl), (ih, il) = bf16_split(z.real), bf16_split(z.imag)
     return (torch.complex(rh.to(torch.float32), ih.to(torch.float32)),
             torch.complex(rl.to(torch.float32), il.to(torch.float32)))
+
+
+def cmm_hi_hi(a, b):
+    """A·B with one bf16 pass, hi·hi (``fpm_tpu``'s ``_mm_fns`` under
+    ``ablate="dft-1pass"``, at either tier: a float32 matrix cast to bf16 is
+    its hi part): operands as :func:`cmm_bf16x3` takes them."""
+    return (a if isinstance(a, tuple) else _csplit(a))[0] @ (b if isinstance(b, tuple)
+                                                             else _csplit(b))[0]
 
 
 def cmm_bf16x3(a, b):
@@ -269,13 +316,25 @@ def _sqrt(x):
     return torch.sqrt(x.to(torch.float64)).to(x.dtype)
 
 
-def _forward(oc, p, amp, mats, eps, dft_precision):
+def _forward(oc, p, amp, mats, eps, dft_precision, ablate=""):
     """(img, up) of the LED(s) with window(s) ``oc`` — see led_forward."""
     ai, bi, af, bf = mats
-    mm = cmm_bf16x3 if dft_precision == "bf16x3" else torch.matmul
-    img = mm(mm(ai, oc * p), bi)
+    mm = (cmm_hi_hi if ablate == "dft-1pass" else
+          cmm_bf16x3 if dft_precision == "bf16x3" else torch.matmul)
+    if ablate == "no-dft":
+        n, b = amp.shape[-1], oc.shape[-1]
+        img = torch.nn.functional.pad(oc * p, (0, n - b, 0, n - b))
+    else:
+        img = mm(mm(ai, oc * p), bi)
     rep = img * (amp / _sqrt((img.real + eps) ** 2 + (img.imag + eps) ** 2))
+    if ablate == "no-dft":
+        return img, rep[..., :b, :b]
     return img, mm(mm(af, rep), bf)
+
+
+def _omax_const(k: int, like):
+    """max|O| under ``ablate="omax-const"``: 1 + k in float32."""
+    return torch.full((), 1.0 + k, dtype=torch.float32, device=like.device)
 
 
 def slab_bounds(n: int, cs: int) -> list[tuple[int, int]]:
@@ -309,19 +368,23 @@ def _sq_sum(z, dims):
 
 
 def _sweep_core_plain(o, pc, sc, amps, starts, *, lo, eps, delta1, delta2,
-                      global_max, collect_metrics, dft_precision):
+                      global_max, collect_metrics, dft_precision, ablate=""):
     n, b = amps.shape[-1], pc.shape[-1]
     mats = _dft_mats(n, b, lo, o.device, dft_precision)
     obj, pup = _complex(o), _complex(pc)
     mets = torch.zeros(2, dtype=torch.float32, device=o.device)
     omax_lazy = _abs_max(obj)
     for k, win in enumerate(_windows(starts, n, o.shape, b, lo)):
-        oc = obj[win].clone()
-        img, up = _forward(oc, pup, amps[k], mats, eps, dft_precision)
+        oc = (obj[:b, :b] if ablate == "no-window-read" else obj[win]).clone()
+        img, up = _forward(oc, pup, amps[k], mats, eps, dft_precision, ablate)
         diff = up - oc * pup
         d_obj = diff * _object_weight(pup, delta2)
-        obj[win] += d_obj
-        omax = _abs_max(obj) if global_max == "exact" else omax_lazy
+        if ablate != "no-window-write":
+            obj[win] += d_obj
+        if ablate == "omax-const":
+            omax = _omax_const(k, obj)
+        else:
+            omax = _abs_max(obj) if global_max == "exact" else omax_lazy
         pup = pup + diff * _pupil_weight(oc, sc, delta1) * (1.0 / omax)
         if collect_metrics:
             mets += torch.stack([((amps[k] - img.abs()) ** 2).sum(), _sq_sum(d_obj, (0, 1))])
@@ -329,7 +392,7 @@ def _sweep_core_plain(o, pc, sc, amps, starts, *, lo, eps, delta1, delta2,
 
 
 def _chunked_core_plain(o, pc, sc, amps, starts, valid, *, lo, eps, delta1, delta2,
-                        pupil_step_scale, collect_metrics, dft_precision):
+                        pupil_step_scale, collect_metrics, dft_precision, ablate=""):
     n_chunks, c, n = amps.shape[0], amps.shape[1], amps.shape[-1]
     b = pc.shape[-1]
     mats = _dft_mats(n, b, lo, o.device, dft_precision)
@@ -342,15 +405,21 @@ def _chunked_core_plain(o, pc, sc, amps, starts, valid, *, lo, eps, delta1, delt
         if not live:
             continue
         wins = [windows[k * c + j] for j in live]
-        oc = torch.stack([obj[w] for w in wins])           # chunk-start crops
+        reads = [(slice(0, b),) * 2] * len(wins) if ablate == "no-window-read" else wins
+        oc = torch.stack([obj[w] for w in reads])          # chunk-start crops
         amp = amps[k, live]
-        img, up = _forward(oc, pup, amp, mats, eps, dft_precision)
+        img, up = _forward(oc, pup, amp, mats, eps, dft_precision, ablate)
         diff = up - oc * pup
         d_obj = diff * _object_weight(pup, delta2)
-        for w, d in zip(wins, d_obj):
-            obj[w] += d
-        num = diff * _pupil_weight(oc, sc, delta1)
-        pup = pup + pupil_step_scale * (num.sum(0) * (1.0 / _abs_max(obj)))
+        if ablate != "no-window-write":
+            for w, d in zip(wins, d_obj):
+                obj[w] += d
+        omax = _omax_const(k, obj) if ablate == "omax-const" else _abs_max(obj)
+        if ablate == "no-pupil-acc":     # no numerator; the data dependence kept, as fpm_tpu's
+            num_sum = torch.complex(0.0 * diff[0].real, torch.zeros_like(diff[0].real))
+        else:
+            num_sum = (diff * _pupil_weight(oc, sc, delta1)).sum(0)
+        pup = pup + pupil_step_scale * (num_sum * (1.0 / omax))
         if collect_metrics:
             mets += torch.stack([((amp - img.abs()) ** 2).sum(), _sq_sum(d_obj, (0, 1, 2))])
     return _planes(obj), _planes(pup), mets
@@ -457,27 +526,46 @@ def _check_problem_axis(o, pc, amps, **check):
     _check_cuda_operands(o[0], pc[0], check.pop("sc"), amps[0], check.pop("starts"), **check)
 
 
+def _ablation_entry(wrapper, stem, entry, ablate, dft_precision):
+    """(library, entry point, the arguments after the tier, tier) of one K1
+    or K2 launch: the main build's ``entry`` for the kernel itself;
+    the ablation build's ``entry + "_ablate"`` for a variant, or for ``""``
+    when the wrapper's test-only ``force_ablation_build`` asks for it.
+    dft-1pass runs the bf16x3 instantiation at either tier (a float32
+    matrix in bf16 is its bf16x3 hi part)."""
+    if not ablate and not wrapper.force_ablation_build:
+        lib = build.library(stem)
+        return lib, getattr(lib, entry), (), dft_precision
+    lib = build.ablation_library(stem)
+    tier = "bf16x3" if ablate == "dft-1pass" else dft_precision
+    return lib, getattr(lib, entry + "_ablate"), (_ABLATE_IDS[ablate],), tier
+
+
 def _sweep_cuda(o, pc, sc, amps, starts, *, lo, eps, delta1, delta2, global_max,
-                collect_metrics, dft_precision, lib=None):
+                collect_metrics, dft_precision, ablate="", lib=None):
     """K2 on P problems: ``o`` (P, 2, NL, NL), ``pc`` (P, 2, b, b), ``amps``
     (P, K, n, n). ``lib``: another build of csrc/epry_sweep.cu than the one
     ``build.library`` hands out (:func:`k2_phase_profile` passes its own)."""
     n_prob, k, n = amps.shape[0], amps.shape[1], amps.shape[-1]
     b, nl = pc.shape[-1], o.shape[-1]
     _check_problem_axis(o, pc, amps, sc=sc, starts=starts, n_slots=k)
-    lib = lib or build.library("epry_sweep")
+    if lib is None:
+        lib, entry, extra, dft_precision = _ablation_entry(
+            fused_epry_sweep, "epry_sweep", "fpm_k2_sweep", ablate, dft_precision)
+    else:
+        entry, extra = lib.fpm_k2_sweep, ()
     o, pc = o.contiguous().clone(), pc.contiguous().clone()
     sc, amps, starts = sc.contiguous(), amps.contiguous(), starts.contiguous()
     mats = _kernel_mats(n, b, lo, o.device, dft_precision)
     rowmax = torch.empty((n_prob, nl), dtype=torch.float32, device=o.device)
     mets = torch.zeros((n_prob, 2), dtype=torch.float32, device=o.device)
     launched, plan = ctypes.c_int(0), _plan_out()
-    err = lib.fpm_k2_sweep(
+    err = entry(
         o.data_ptr(), pc.data_ptr(), sc.data_ptr(), amps.data_ptr(), starts.data_ptr(),
         *(m.data_ptr() for m in mats), rowmax.data_ptr(), mets.data_ptr(),
         n_prob, k, n, b, lo, nl, eps, delta1, delta2,
-        int(global_max == "exact"), int(collect_metrics), _TIERS[dft_precision], o.device.index,
-        torch.cuda.current_stream(o.device).cuda_stream,
+        int(global_max == "exact"), int(collect_metrics), _TIERS[dft_precision], *extra,
+        o.device.index, torch.cuda.current_stream(o.device).cuda_stream,
         fused_epry_sweep.force_cluster_size, fused_epry_sweep.force_z_layout,
         ctypes.byref(launched), plan)
     _record(fused_epry_sweep, launched, plan)
@@ -486,13 +574,14 @@ def _sweep_cuda(o, pc, sc, amps, starts, *, lo, eps, delta1, delta2, global_max,
 
 
 def _chunked_cuda(o, pc, sc, amps, starts, valid, *, lo, eps, delta1, delta2,
-                  pupil_step_scale, collect_metrics, dft_precision):
+                  pupil_step_scale, collect_metrics, dft_precision, ablate=""):
     """K1 on P problems: ``o`` (P, 2, NL, NL), ``pc`` (P, 2, b, b), ``amps``
     (P, n_chunks, C, n, n)."""
     n_prob, n_chunks, c, n = amps.shape[0], amps.shape[1], amps.shape[2], amps.shape[-1]
     b, nl = pc.shape[-1], o.shape[-1]
     _check_problem_axis(o, pc, amps, sc=sc, starts=starts, n_slots=n_chunks * c, valid=valid)
-    lib = build.library("epry_chunked")
+    lib, entry, extra, dft_precision = _ablation_entry(
+        fused_epry_chunked, "epry_chunked", "fpm_k1_sweep", ablate, dft_precision)
     o, pc = o.contiguous().clone(), pc.contiguous().clone()
     sc, amps = sc.contiguous(), amps.contiguous()
     starts, valid = starts.contiguous(), valid.contiguous()
@@ -504,12 +593,12 @@ def _chunked_cuda(o, pc, sc, amps, starts, valid, *, lo, eps, delta1, delta2,
     omax_bits = torch.zeros((n_prob, n_chunks), dtype=torch.int32, device=dev)
     mets = torch.zeros((n_prob, 2), dtype=torch.float32, device=dev)
     launched, plan = ctypes.c_int(0), _plan_out()
-    err = lib.fpm_k1_sweep(
+    err = entry(
         o.data_ptr(), pc.data_ptr(), sc.data_ptr(), amps.data_ptr(), starts.data_ptr(),
         valid.data_ptr(), *(m.data_ptr() for m in mats), d_obj.data_ptr(),
         num.data_ptr(), parts.data_ptr(), omax_bits.data_ptr(), mets.data_ptr(),
         n_prob, n_chunks, c, n, b, lo, nl, eps, delta1, delta2, pupil_step_scale,
-        int(collect_metrics), _TIERS[dft_precision], dev.index,
+        int(collect_metrics), _TIERS[dft_precision], *extra, dev.index,
         torch.cuda.current_stream(dev).cuda_stream, fused_epry_chunked.force_cluster_size,
         fused_epry_chunked.force_z_layout, ctypes.byref(launched), plan)
     _record(fused_epry_chunked, launched, plan)
@@ -635,7 +724,7 @@ def _check_global_max(global_max):
 
 def fused_epry_sweep(o_planes, p_planes, support, amps, starts_flat, *, np_size,
                      n_large, delta1, delta2, eps, pupil_radius=0, global_max="exact",
-                     collect_metrics=False, dft_precision="bf16x3"):
+                     collect_metrics=False, dft_precision="bf16x3", ablate=""):
     """K2: one sequential EPRY sweep (``models.epry.sweep_sequential``).
 
     ``amps`` (K, Np, Np) float32 in schedule order, ``starts_flat`` (2K,)
@@ -644,27 +733,32 @@ def fused_epry_sweep(o_planes, p_planes, support, amps, starts_flat, *, np_size,
     for the JAX package's signature. With a leading problem axis
     (``o_planes`` (P, 2, NL, NL), ``p_planes`` (P, 2, Np, Np), ``amps`` (P,
     K, Np, Np)) one launch sweeps all P problems. ``dft_precision``: the
-    products' tier.
+    products' tier. ``ablate``: a name of :data:`SWEEP_ABLATIONS` (a
+    measurement aid; the output is garbage unless ``""``).
     """
     _check_global_max(global_max)
     _check_dft_precision(dft_precision)
+    _check_ablate(ablate, SWEEP_ABLATIONS, "K2 fused_epry_sweep")
     core = _route(o_planes, _sweep_cuda, _per_problem(_sweep_core_plain))
     return _run_problems(core, o_planes, p_planes, support, amps, starts_flat, np_size=np_size,
                          pupil_radius=pupil_radius, eps=eps, delta1=delta1, delta2=delta2,
                          global_max=global_max, collect_metrics=collect_metrics,
-                         dft_precision=dft_precision)
+                         dft_precision=dft_precision, ablate=ablate)
 
 
 def fused_epry_sweep_plain(o_planes, p_planes, support, amps, starts_flat, *, np_size,
                            n_large, delta1, delta2, eps, pupil_radius=0,
-                           global_max="exact", collect_metrics=False, dft_precision="bf16x3"):
+                           global_max="exact", collect_metrics=False, dft_precision="bf16x3",
+                           ablate=""):
     """The plain PyTorch version of :func:`fused_epry_sweep`, on any device."""
     _check_global_max(global_max)
     _check_dft_precision(dft_precision)
+    _check_ablate(ablate, SWEEP_ABLATIONS, "K2 fused_epry_sweep")
     return _run_problems(_per_problem(_sweep_core_plain), o_planes, p_planes, support, amps,
                          starts_flat, np_size=np_size, pupil_radius=pupil_radius, eps=eps,
                          delta1=delta1, delta2=delta2, global_max=global_max,
-                         collect_metrics=collect_metrics, dft_precision=dft_precision)
+                         collect_metrics=collect_metrics, dft_precision=dft_precision,
+                         ablate=ablate)
 
 
 def k2_phase_profile(o_planes, p_planes, support, amps, starts_flat, *, np_size, n_large,
@@ -711,7 +805,8 @@ def resident_clusters(wrapper, np_size: int, pupil_radius: int, slots: int, cs: 
 
 def fused_epry_chunked(o_planes, p_planes, support, amps, starts_flat, valid, *,
                        np_size, n_large, delta1, delta2, eps, pupil_radius=0,
-                       pupil_step_scale=1.0, collect_metrics=False, dft_precision="bf16x3"):
+                       pupil_step_scale=1.0, collect_metrics=False, dft_precision="bf16x3",
+                       ablate=""):
     """K1: one chunked Gauss–Seidel-over-Jacobi sweep (``models.epry.sweep_batched``).
 
     ``amps`` (n_chunks, C, Np, Np) float32 in chunk-permuted schedule order,
@@ -720,26 +815,31 @@ def fused_epry_chunked(o_planes, p_planes, support, amps, starts_flat, valid, *,
     leading problem axis (``o_planes`` (P, 2, NL, NL), ``p_planes`` (P, 2,
     Np, Np), ``amps`` (P, n_chunks, C, Np, Np)) one launch per kernel and
     chunk serves all P problems. ``dft_precision``: the products' tier.
+    ``ablate``: a name of :data:`CHUNKED_ABLATIONS` (a measurement aid; the
+    output is garbage unless ``""``).
     """
     _check_dft_precision(dft_precision)
+    _check_ablate(ablate, CHUNKED_ABLATIONS, "K1 fused_epry_chunked")
     core = _route(o_planes, _chunked_cuda, _per_problem(_chunked_core_plain))
     return _run_problems(core, o_planes, p_planes, support, amps, starts_flat, valid,
                          np_size=np_size, pupil_radius=pupil_radius, eps=eps, delta1=delta1,
                          delta2=delta2, pupil_step_scale=pupil_step_scale,
-                         collect_metrics=collect_metrics, dft_precision=dft_precision)
+                         collect_metrics=collect_metrics, dft_precision=dft_precision,
+                         ablate=ablate)
 
 
 def fused_epry_chunked_plain(o_planes, p_planes, support, amps, starts_flat, valid, *,
                              np_size, n_large, delta1, delta2, eps, pupil_radius=0,
                              pupil_step_scale=1.0, collect_metrics=False,
-                             dft_precision="bf16x3"):
+                             dft_precision="bf16x3", ablate=""):
     """The plain PyTorch version of :func:`fused_epry_chunked`, on any device."""
     _check_dft_precision(dft_precision)
+    _check_ablate(ablate, CHUNKED_ABLATIONS, "K1 fused_epry_chunked")
     return _run_problems(_per_problem(_chunked_core_plain), o_planes, p_planes, support, amps,
                          starts_flat, valid, np_size=np_size, pupil_radius=pupil_radius,
                          eps=eps, delta1=delta1, delta2=delta2,
                          pupil_step_scale=pupil_step_scale, collect_metrics=collect_metrics,
-                         dft_precision=dft_precision)
+                         dft_precision=dft_precision, ablate=ablate)
 
 
 def _check_block(o_planes, n_rows, n_cols):
@@ -789,3 +889,5 @@ for _wrapper in (fused_epry_sweep, fused_epry_chunked, fused_chunk_increments):
     _wrapper.plan = {}                 # the whole plan of the last launch (PLAN_FIELDS)
     _wrapper.force_cluster_size = 0    # tests only
     _wrapper.force_z_layout = 0        # tests only: 1 Z whole in every block, 2 cut by rows
+for _wrapper in (fused_epry_sweep, fused_epry_chunked):
+    _wrapper.force_ablation_build = False   # tests only: ablate="" through the ablation build

@@ -12,9 +12,11 @@ that checkout first on ``sys.path`` and this checkout's ``chip_smoke.py``
 loaded by path, so the same functions run on either package: the kernel
 digests (``kernel_digests``), the digests of the sharded sweeps
 (``sharded_digests``) and their timing through the entry point
-(``sharded_entry_timing``). One JSON line per run, then one line that says
-which digests are equal between the checkouts and gives each case's ms per
-sweep and busy share in each run. Needs one CUDA card; builds each
+(``sharded_entry_timing``); and of each checkout's main libraries, ptxas's
+registers, stack and spills per function (``build.resources``) and a digest
+of each function's SASS (``cuobjdump -sass``). One JSON line per run, then
+one line that says which digests, resources and SASS are equal between the
+checkouts and gives each case's ms per sweep and busy share in each run. Needs one CUDA card; builds each
 checkout's kernels in its own ``build/``. It never imports JAX or
 ``fpm_tpu``.
 """
@@ -36,11 +38,30 @@ sys.path.insert(0, root)
 spec = importlib.util.spec_from_file_location("smoke", smoke)
 cs = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(cs)
+import hashlib, re, subprocess
 import torch
 import fpm_torch
+from fpm_torch.ops import build
 assert fpm_torch.__file__.startswith(root), fpm_torch.__file__
+
+def sass(path):
+    text = subprocess.run([build._tool("cuobjdump"), "-sass", str(path)], capture_output=True,
+                          text=True, check=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = hashlib.sha256()
+        elif name is not None:
+            out[name].update(line.encode())
+    return {k: h.hexdigest()[:16] for k, h in out.items()}
+
+libs = build.build_all()
 print("RUN " + json.dumps({
     "kernels": cs.kernel_digests(torch.device("cuda"))["all"],
+    "resources": {stem: build.resources(stem) for stem in sorted(libs)},
+    "sass": {stem: sass(path) for stem, path in sorted(libs.items())},
     "sharded": cs.sharded_digests(), "timing": cs.sharded_entry_timing(busy=True)}), flush=True)
 """
 
@@ -70,6 +91,11 @@ def main(argv=None) -> int:
     cases = sorted(by["this"][0]["sharded"])
     print(json.dumps({
         "kernel_digests_equal": by["this"][0]["kernels"] == by["other"][0]["kernels"],
+        "resources_equal": {stem: by["this"][0]["resources"][stem]
+                            == by["other"][0]["resources"].get(stem)
+                            for stem in by["this"][0]["resources"]},
+        "sass_equal": {stem: by["this"][0]["sass"][stem] == by["other"][0]["sass"].get(stem)
+                       for stem in by["this"][0]["sass"]},
         "sharded_digests_equal": {c: by["this"][0]["sharded"][c] == by["other"][0]["sharded"][c]
                                   for c in cases},
         "repeat_digests_equal": all(a["sharded"] == b["sharded"] and a["kernels"] == b["kernels"]

@@ -169,6 +169,68 @@ def test_a_repeated_sweep_is_bitwise_equal(cuda, tier, kernel, mode, chunk):
         assert torch.equal(a, b)
 
 
+# ablate= on the card: each variant against the plain version with the same
+# ablate, one sweep, at the kernels' limits where the variant forms the
+# products as the kernel does or forms none; dft-1pass (8 bits of each
+# operand: a last-bit difference between two summation orders can flip a
+# bf16 rounding) at 1e-4 / 2^-9 / 1e-4 (chip_smoke.py ABLATE_TOL).
+ABLATE_TOL = {"dft-1pass": (1e-4, 2.0 ** -9, 1e-4)}
+
+
+@pytest.mark.parametrize("kernel,mode,chunk", [("K2", "sequential", 0), ("K1", "batched", 6)])
+def test_ablated_kernels_match_their_plain_versions(cuda, tier, kernel, mode, chunk):
+    """Np 64 (bbox 48 at offset 8). omax-const runs from the state divided by
+    max|O| (its max|O| is 1 + k), no-window-read with values at the
+    spectrum's corner (0 after the init); ``ablate=""`` through the ablation
+    build is bitwise the kernel."""
+    ds = synthetic_dataset(np_size=64, grid=5, seed=3)
+    (o, p, sup), rest, common = operands(ds, cuda, mode, chunk, tier)
+    fn, plain, names = ((kernels.fused_epry_sweep, kernels.fused_epry_sweep_plain,
+                         kernels.SWEEP_ABLATIONS) if kernel == "K2" else
+                        (kernels.fused_epry_chunked, kernels.fused_epry_chunked_plain,
+                         kernels.CHUNKED_ABLATIONS))
+    b, _ = kernels.bbox_extent(64, common["pupil_radius"])
+    corner = o.clone()
+    corner[:, :b, :b] += 0.01 * o.abs().max() * torch.randn(
+        (2, b, b), generator=torch.Generator().manual_seed(0)).to(cuda)
+    scale = (o[0] ** 2 + o[1] ** 2).max().rsqrt()
+    for ablate in names:
+        state, args = o, rest
+        if ablate == "omax-const":
+            state, args = o * scale, (rest[0] * scale, *rest[1:])
+        elif ablate == "no-window-read":
+            state = corner
+        got = fn(state, p, sup, *args, **common, ablate=ablate)
+        want = plain(state, p, sup, *args, **common, ablate=ablate)
+        tol_o, tol_p, tol_m = ABLATE_TOL.get(ablate, (TOL_O, TOL_P, TOL_M))
+        assert rel(got[0], want[0]) < tol_o, ablate
+        assert rel(got[1], want[1]) < tol_p, ablate
+        np.testing.assert_allclose(got[2].cpu().numpy(), want[2].cpu().numpy(), rtol=tol_m)
+        if not ablate:
+            fn.force_ablation_build = True
+            try:
+                again = fn(state, p, sup, *args, **common)
+            finally:
+                fn.force_ablation_build = False
+            for a, b_ in zip(got, again):
+                assert torch.equal(a, b_)
+
+
+def test_ablation_builds_leave_the_main_libraries_alone(cuda):
+    """The ablation kernels live in builds of their own (``-DFPM_ABLATE``):
+    the main libraries hold none, their flags are the main build's."""
+    from fpm_torch.ops import build
+
+    main, ablation = build.build_with_ablations()
+    assert set(ablation) == set(build.ABLATION_STEMS)
+    for stem in build.ABLATION_STEMS:
+        assert main[stem] != ablation[stem]
+        assert not any("ablate" in name for name in build.resources(stem))
+        assert any("ablate" in name for name in build.resources(stem, ablate=True))
+    with pytest.raises(ValueError, match="no ablation build"):
+        build.ablation_library("epry_increments")
+
+
 def test_k2_profile_build_counts_every_phase_and_changes_no_result(cuda):
     """The cycle-counting build of K2 (a measurement aid the wrapper never
     loads) computes the same sweep, bit for bit, and every phase of an LED

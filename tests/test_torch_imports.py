@@ -38,6 +38,7 @@ def test_scan_sees_the_forbidden_forms():
         assert f"fpm_torch/parallel/{name}.py" in FILES
     assert "fpm_torch/native/__init__.py" in FILES
     assert "fpm_torch/oracle.py" in FILES
+    assert "fpm_torch/bench.py" in FILES
 
 
 def test_the_port_imports_and_builds_nothing():
