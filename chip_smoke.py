@@ -149,7 +149,14 @@ tiers of the DFT products (``dft_precision``): ``bf16x3``, the default (a
    batched mode and with ``--mesh 2 2`` at both tiers (launches of that
    run's kernel only, every output file, amplitude RMSE below 0.05, the
    batched run recording chunk 16), and timing as in 5 with K2's phase
-   profile.
+   profile. Then ``ablate=`` where Z is cut by rows (``dog_ablations``):
+   every variant of K2 and of K1 (chunk 16) with the whole patch as the
+   bbox (b = n = 200), at both tiers (dft-1pass at bf16x3 alone), one sweep
+   from the init state against the plain version with the same ``ablate``
+   at ABLATE_TOL's limits, its plan's ``zcut`` 1 and its launches, and
+   ``ablate=""`` through the ablation build bitwise the main Z-cut kernel;
+   then each variant's ns per LED (K2) or per slot (K1) from a short ladder
+   of sweeps on CUDA events (DOG_ABLATE_LADDER, ``bench.ladder``).
 
 7. ``oracle``: on the mono dome problem, 3 sweeps of K2 (sequential
    ``reconstruct``, kernel route) at both tiers against the port's float64
@@ -183,8 +190,10 @@ tiers of the DFT products (``dft_precision``): ``bf16x3``, the default (a
    ablation build against the plain version with the same ``ablate``
    (omax-const from the state divided by max|O|, no-window-read with values
    at the spectrum's corner), at ABLATE_TOL's limits; the launches of each
-   (K2 2, 1 without the row-max launch under omax-const; K1 21); and
-   ``ablate=""`` through the ablation build bitwise the kernel. Then
+   (K2 2, 1 without the row-max launch under omax-const; K1 21);
+   ``ablate=""`` through the ablation build bitwise the kernel; and each
+   variant with Z cut by rows (``force_z_layout`` 2) bitwise the same
+   variant with Z whole, the plan this shape takes. Then
    ``fpm_torch.bench`` through its entry point in this process: one JSON
    line with every key of BENCH_KEYS, the card's name and power limit, and
    the amplitude RMSE after 10 sweeps below 0.05 (printed, with the
@@ -203,9 +212,16 @@ tiers of the DFT products (``dft_precision``): ``bf16x3``, the default (a
    top kernels; and the control, the cell's sweep loop with the one-pass
    product (``ablate`` dft-1pass), held to the same reference, comes out not
    correct.
+12. ``surface``: the public solver functions of ``fpm_torch.models`` on
+   the mono problem: ``init_state`` on the card within 1e-6 (rel-max) of
+   the state ``reconstruct`` starts from (0 sweeps), and ``sweep_pallas``
+   (K2) and ``sweep_batched_pallas`` (K1, chunk 32) at both tiers bitwise
+   the kernel wrapper each calls on the same planes, only that kernel
+   launched.
 
 Then the ``kernels`` line (each kernel once per tier, the Np=200 rows
-apart; the mono K1 and K2 rows name their ablation build), the
+apart; the mono K1 and K2 rows name their ablation build, the Np=200 ones
+their Z-cut ablation kernels with each variant's error and time), the
 ``nvidia-smi`` line, and the result line.
 Any failure raises and exits non-zero; without a CUDA device it exits 1
 before printing anything.
@@ -1174,7 +1190,147 @@ def dogstomach(seed: int, smi: str, dev) -> list:
                   "share_by_phase": {p: c / total for p, c in cycles.items()},
                   "cycles_per_led_by_phase": {p: c / k_leds for p, c in cycles.items()}},
               "gpu": smi})
+    zcut = dog_ablations(cfg, geom, frames, by_name, smi)
+    for row in rows:
+        for key, name in (("K1", "fused_epry_chunked"), ("K2", "fused_epry_sweep")):
+            if row["name"].startswith(name + " "):
+                row["ablation_build"] = zcut[key]
     return rows
+
+
+DOG_ABLATE_LADDER = (2, 6, 2)   # lo, hi sweeps, reps of the Np 200 b = n ablation rows
+
+
+def ablation_state(args, ablate, b, seed=0):
+    """The operands a variant of K1 or K2 runs from, ``args`` = (o, p, sup,
+    amps, ...): divided by max|O| with the frames for omax-const (its max|O|
+    is 1 + k), with values at the spectrum's corner for no-window-read (0 in
+    the init state), else ``args``."""
+    import torch
+
+    o = args[0]
+    if ablate == "omax-const":
+        scale = (o[0] ** 2 + o[1] ** 2).max().rsqrt()
+        return (o * scale, *args[1:3], args[3] * scale, *args[4:])
+    if ablate == "no-window-read":
+        noise = torch.randn((2, b, b), generator=torch.Generator().manual_seed(seed))
+        corner = o.clone()
+        corner[:, :b, :b] += 0.01 * o.abs().max() * noise.to(o.device)
+        return (corner, *args[1:])
+    return args
+
+
+def ablation_names(key: str, tier: str) -> list:
+    """The variants of K1 or K2 run at ``tier`` (dft-1pass at bf16x3 alone
+    where the Z-cut kernels are held)."""
+    from fpm_torch.ops import kernels
+
+    names = kernels.CHUNKED_ABLATIONS if key == "K1" else kernels.SWEEP_ABLATIONS
+    return [a for a in names if a != "dft-1pass" or tier == "bf16x3"]
+
+
+def dog_ablations(cfg, geom, frames, by_name: dict, smi: str) -> dict:
+    """``ablate=`` where Z is cut by rows (module docstring, 6): every
+    variant of K1 (chunk 16) and K2 at the dogStomach optics with the whole
+    patch as the bbox (b = n = 200), at both tiers (dft-1pass at bf16x3
+    alone): one sweep from the init state against the plain version with
+    the same ``ablate`` at ABLATE_TOL, the plan's zcut 1, its launches, and
+    ``ablate=""`` through the ablation build bitwise the main Z-cut kernel;
+    then ns per LED (K2) or per slot (K1) from a ladder of sweeps on CUDA
+    events (``bench.ladder``, as ``fpm_torch.bench --ablate`` takes its
+    rows) at the cluster size the kernel takes. Returns per kernel what the
+    Np 200 rows of the ``kernels`` line say of the Z-cut ablation kernels."""
+    import torch
+
+    from fpm_torch import bench
+    from fpm_torch.ops import build, kernels
+
+    t0 = time.perf_counter()
+    summary = {}
+    for key, case, mode in (("K2", "K2 exact, full bbox", "sequential"),
+                            ("K1", f"K1 chunk {DOG_CHUNK_RUN}, full bbox", "batched")):
+        _, kern, plain, args, _, kw, _ = by_name[case]
+        b = kernels.bbox_extent(cfg.np_size, kw["pupil_radius"])[0]
+        check(b == cfg.np_size, f"dogStomach {case}: bbox {b}, not the whole patch")
+        worst, ns_by = {}, {}
+        for tier in TIERS:
+            kw_t = dict(kw, dft_precision=tier)
+            main = kern(*args, **kw_t)                   # the main Z-cut kernel
+            check(kern.plan["zcut"] == 1, f"dogStomach {case} {tier}: Z not cut {kern.plan}")
+            solve = bench.solver(cfg, geom, frames, "cuda", pupil_radius=0, dft_precision=tier,
+                                 mode=mode, chunk_size=DOG_CHUNK_REQUESTED)
+            per_sweep = (2 if key == "K2" else
+                         3 * int(args[3].shape[0]))       # K1: three launches a chunk
+            for ablate in ablation_names(key, tier):
+                state = ablation_state(args, ablate, b)
+                kern.launches = 0
+                go, gp, gm = kern(*state, **kw_t, ablate=ablate)
+                launched, plan = kern.launches, dict(kern.plan)
+                po, pp, pm = plain(*state, **kw_t, ablate=ablate)
+                torch.cuda.synchronize()
+                tol_o, tol_p, tol_m = ABLATE_TOL.get(ablate, (TOL_O, TOL_P, TOL_METRICS))
+                rel_o, rel_p = rel(go, po), rel(gp, pp)
+                m_ok = bool(((gm - pm).abs() <= tol_m * pm.abs()).all())
+                label = ablate or "(full)"
+                worst[label] = max(worst.get(label, 0.0), (go - po).abs().max().item(),
+                                   (gp - pp).abs().max().item())
+                bitwise = None
+                if not ablate:
+                    kern.force_ablation_build = True
+                    try:
+                        ao, ap, am = kern(*state, **kw_t)
+                    finally:
+                        kern.force_ablation_build = False
+                    bitwise = bool(torch.equal(ao, main[0]) and torch.equal(ap, main[1])
+                                   and torch.equal(am, main[2]) and kern.plan["zcut"] == 1)
+                # Timing: the ablation build (for "" too), at the chosen cs.
+                sweep = solve.sweeps(ablate)
+                row = {}
+                try:
+                    if not ablate:
+                        sec, _ = bench.ladder(bench.cuda_clock(sweep, solve.state),
+                                              *DOG_ABLATE_LADDER)
+                        row["main_build_ns"] = sec * 1e9 / solve.n_slots
+                    kern.force_ablation_build = True
+                    sweep(solve.state)
+                    kern.force_cluster_size = kern.cluster_size
+                    sec, info = bench.ladder(bench.cuda_clock(sweep, solve.state),
+                                             *DOG_ABLATE_LADDER)
+                finally:
+                    kern.force_cluster_size = 0
+                    kern.force_ablation_build = False
+                ns = sec * 1e9 / solve.n_slots
+                ns_by.setdefault(tier, {})[label] = ns
+                unit = "ns_per_led" if key == "K2" else "ns_per_slot"
+                emit({"phase": "dogstomach", "step": "ablate_zcut", "kernel": key,
+                      "dft_precision": tier, "ablate": label, "bbox": b, "sweeps": 1,
+                      "rel_err_o": rel_o, "rel_err_p": rel_p,
+                      "metrics": [gm.tolist(), pm.tolist()], "limits": [tol_o, tol_p, tol_m],
+                      "launches": launched, "plan": plan,
+                      "ablation_build_bitwise_main_zcut": bitwise, unit: ns,
+                      "slots": solve.n_slots, "ladder": DOG_ABLATE_LADDER,
+                      "degenerate": info["degenerate"], **row, "gpu": smi})
+                check(plan["zcut"] == 1, f"dogStomach {key} ablate={ablate!r} {tier}: Z not "
+                      f"cut by rows: {plan}")
+                check(rel_o <= tol_o and rel_p <= tol_p and m_ok,
+                      f"dogStomach {key} ablate={ablate!r} {tier} (Z cut) is off its plain "
+                      f"version: {rel_o}, {rel_p}, metrics {gm.tolist()} vs {pm.tolist()}")
+                want = per_sweep - (ablate == "omax-const" and key == "K2")
+                check(launched == want,
+                      f"dogStomach {key} ablate={ablate!r}: {launched} launches, not {want}")
+                check(bitwise is not False, f"dogStomach {key}: ablate='' through the "
+                      "ablation build is not bitwise the main Z-cut kernel")
+        stem = "epry_chunked" if key == "K1" else "epry_sweep"
+        summary[key] = {
+            "library": build.ablation_library(stem)._name.rsplit("/", 1)[-1],
+            "kernel": "chunk_forward_ablate_zcut" if key == "K1" else "k2_sweep_ablate_zcut",
+            "as": f"{case}, Z cut by rows", "zcut": 1,
+            "variants": ablation_names(key, "bf16x3"), "max_abs_err_by_variant": worst,
+            ("ns_per_slot" if key == "K1" else "ns_per_led"): ns_by,
+            "empty_bitwise_main_zcut": True}
+    emit({"phase": "dogstomach", "step": "ablate_zcut_seconds",
+          "seconds": time.perf_counter() - t0})
+    return summary
 
 
 # ------------------------------------------------ oracle, debug, distributed
@@ -1208,12 +1364,6 @@ def bench_phase(seed: int, smi: str, o_planes, p_planes, sup, cases, common) -> 
     t0 = time.perf_counter()
     n = common["np_size"]
     b, _ = kernels.bbox_extent(n, common["pupil_radius"])
-    scale = (o_planes[0] ** 2 + o_planes[1] ** 2).max().rsqrt()
-    # no-window-read reads the spectrum's corner, which is 0 in the init
-    # state: values there, so that the variant computes something.
-    noise = torch.randn((2, b, b), generator=torch.Generator().manual_seed(seed))
-    o_corner = o_planes.clone()
-    o_corner[:, :b, :b] += 0.01 * o_planes.abs().max() * noise.to(o_planes.device)
     summary = {}
     for key, case in (("K1", "K1"), ("K2", "K2 exact")):
         kern, plain, rest, extra = cases[case]
@@ -1221,15 +1371,12 @@ def bench_phase(seed: int, smi: str, o_planes, p_planes, sup, cases, common) -> 
         worst = {}
         for tier in TIERS:
             for ablate in names:
-                o, args = o_planes, rest
-                if ablate == "omax-const":   # max|O| = 1 + k: a state of max|O| 1
-                    o, args = o_planes * scale, (rest[0] * scale, *rest[1:])
-                elif ablate == "no-window-read":
-                    o = o_corner
+                o, _, _, *args = ablation_state((o_planes, p_planes, sup, *rest), ablate, b,
+                                                seed)
                 kw = dict(common, **extra, dft_precision=tier, ablate=ablate)
                 kern.launches = 0
                 go, gp, gm = kern(o, p_planes, sup, *args, **kw)
-                launched = kern.launches
+                launched, plan = kern.launches, dict(kern.plan)
                 po, pp, pm = plain(o, p_planes, sup, *args, **kw)
                 torch.cuda.synchronize()
                 tol_o, tol_p, tol_m = ABLATE_TOL.get(ablate, (TOL_O, TOL_P, TOL_METRICS))
@@ -1247,12 +1394,23 @@ def bench_phase(seed: int, smi: str, o_planes, p_planes, sup, cases, common) -> 
                         kern.force_ablation_build = False
                     bitwise = bool(torch.equal(ao, go) and torch.equal(ap, gp)
                                    and torch.equal(am, gm))
+                # Z cut by rows (force_z_layout 2) where the plan keeps it whole.
+                kern.force_z_layout = 2
+                try:
+                    co, cp, cm = kern(o, p_planes, sup, *args, **kw)
+                    cut_plan = dict(kern.plan)
+                finally:
+                    kern.force_z_layout = 0
+                cut_bitwise = bool(plan["zcut"] == 0 and cut_plan["zcut"] == 1
+                                   and torch.equal(co, go) and torch.equal(cp, gp)
+                                   and torch.equal(cm, gm))
                 want = (2 - (ablate == "omax-const")) if key == "K2" else 21
                 emit({"phase": "bench", "step": "ablate_vs_plain", "kernel": key,
                       "dft_precision": tier, "ablate": ablate or "(full)", "sweeps": 1,
                       "rel_err_o": rel_o, "rel_err_p": rel_p,
                       "metrics": [gm.tolist(), pm.tolist()], "limits": [tol_o, tol_p, tol_m],
-                      "launches": launched, "plan": dict(kern.plan),
+                      "launches": launched, "plan": plan, "plan_z_cut": cut_plan,
+                      "z_cut_bitwise_z_whole": cut_bitwise,
                       "ablation_build_bitwise_main": bitwise, "gpu": smi})
                 check(rel_o <= tol_o and rel_p <= tol_p and m_ok,
                       f"{key} ablate={ablate!r} {tier} is off its plain version: "
@@ -1260,10 +1418,12 @@ def bench_phase(seed: int, smi: str, o_planes, p_planes, sup, cases, common) -> 
                 check(launched == want, f"{key} ablate={ablate!r}: {launched} launches, not {want}")
                 check(bitwise is not False,
                       f"{key}: ablate='' through the ablation build is not bitwise the kernel")
+                check(cut_bitwise, f"{key} ablate={ablate!r} {tier}: Z cut by rows is not "
+                      f"bitwise Z whole ({plan['zcut']} / {cut_plan['zcut']})")
         summary[key] = {"library": build.ablation_library(
                             "epry_chunked" if key == "K1" else "epry_sweep")._name.rsplit("/", 1)[-1],
                         "variants": list(names), "max_abs_err_by_variant": worst,
-                        "empty_bitwise_main": True}
+                        "empty_bitwise_main": True, "z_cut_bitwise_z_whole": True}
     checks_s = time.perf_counter() - t0
 
     # fpm_torch.bench through its entry point, in this process: one line.
@@ -1296,6 +1456,62 @@ def bench_phase(seed: int, smi: str, o_planes, p_planes, sup, cases, common) -> 
     emit({"phase": "bench", "step": "seconds", "ablate_vs_plain_s": checks_s,
           "bench_s": t2 - t1, "ablate_rows_s": time.perf_counter() - t2})
     return summary
+
+
+def surface_phase(cfg, geom, frames, smi: str) -> None:
+    """12. The public solver functions of ``fpm_torch.models`` on the card
+    (module docstring)."""
+    import torch
+
+    from fpm_torch.models import (EPRYOptions, init_state, reconstruct, sweep_batched_pallas,
+                                  sweep_pallas)
+    from fpm_torch.models.epry import _sorted_device_inputs, chunk_permute
+    from fpm_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    amps, starts = _sorted_device_inputs(frames, geom, torch.complex64, dev)
+    o, p, sup = init_state(cfg, geom, amps)
+    res = reconstruct(frames, geom, cfg, iterations=0, use_pallas=True)
+    init_err = max(rel(o.cpu(), torch.from_numpy(res.obj_f_centered)),
+                   rel(p.cpu(), torch.from_numpy(res.pupil)))
+    on_card = o.is_cuda and p.is_cuda and sup.is_cuda and sup.dtype == torch.complex64
+    emit({"phase": "surface", "function": "init_state", "rel_err_vs_reconstruct_init": init_err,
+          "limit": 1e-6, "on_card": on_card, "gpu": smi})
+    check(on_card and init_err <= 1e-6,
+          f"init_state is {init_err} off reconstruct's init, or not on the card")
+    planes = (torch.stack([o.real, o.imag]), torch.stack([p.real, p.imag]), sup.real)
+    wrappers = {"K1": kernels.fused_epry_chunked, "K2": kernels.fused_epry_sweep}
+    for tier in TIERS:
+        for fn, key, mode in ((sweep_pallas, "K2", "sequential"),
+                              (sweep_batched_pallas, "K1", "batched")):
+            opts = EPRYOptions.from_config(cfg, use_pallas=True, mode=mode, chunk_size=32,
+                                           dft_precision=tier)
+            kw = dict(np_size=cfg.np_size, n_large=cfg.n_large, delta1=cfg.delta1,
+                      delta2=cfg.delta2, eps=cfg.eps, pupil_radius=opts.pupil_radius,
+                      collect_metrics=opts.collect_metrics, dft_precision=tier)
+            for w in wrappers.values():
+                w.launches = 0
+            if key == "K2":
+                got = fn(o, p, amps, starts, support=sup, opts=opts)
+                counts = {k: w.launches for k, w in wrappers.items()}
+                want = kernels.fused_epry_sweep(*planes, amps, starts.reshape(-1),
+                                                global_max=opts.global_max, **kw)
+            else:
+                a, s_, m = chunk_permute(amps, starts, 32, "strided", torch.float32)
+                got = fn(o, p, a, s_, m, support=sup, opts=opts)
+                counts = {k: w.launches for k, w in wrappers.items()}
+                want = kernels.fused_epry_chunked(*planes, a, s_.reshape(-1),
+                                                  (m > 0).reshape(-1).to(torch.int32),
+                                                  pupil_step_scale=opts.pupil_step_scale, **kw)
+            torch.cuda.synchronize()
+            same = bool(torch.equal(got[0], torch.complex(want[0][0], want[0][1]))
+                        and torch.equal(got[1], torch.complex(want[1][0], want[1][1]))
+                        and torch.equal(got[2], want[2]))
+            emit({"phase": "surface", "function": fn.__name__, "dft_precision": tier,
+                  "launches": counts, "bitwise_equal_to_wrapper": same, "gpu": smi})
+            check(same, f"{fn.__name__} {tier} is not bitwise its kernel wrapper")
+            check(counts[key] > 0 and all(c == 0 for k, c in counts.items() if k != key),
+                  f"{fn.__name__} {tier}: launches {counts}")
 
 
 BENCH_CELL_LADDER = (2, 12, 2)     # lo, hi sweeps, reps of phase 11's cells
@@ -2471,6 +2687,9 @@ def main(argv=None) -> int:
 
     # -------------------------------------------------------- 11. benchmark
     benchmark_phase(smi)
+
+    # ---------------------------------------------------------- 12. surface
+    surface_phase(cfg, geom, frames, smi)
     for row in rows:   # the mono rows of K1 and K2: the shape phase 10 held the builds at
         for key, name in (("K1", "fused_epry_chunked"), ("K2", "fused_epry_sweep")):
             if row["name"] == f"{name} [{row['dft_precision']}]":

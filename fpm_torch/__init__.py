@@ -11,12 +11,13 @@ imports). Public entry points:
 * ``python -m fpm_torch run dataset.json -n ITERS --use-pallas`` — the CLI.
 """
 
-from .config import FPMConfig, load_config  # noqa: F401
+from .config import FPMConfig, default_dome_coordinates, load_config  # noqa: F401
 from .geometry import LEDGeometry, compute_geometry, pupil_support  # noqa: F401
 from .models import (  # noqa: F401
     EPRYOptions,
     ReconResult,
     reconstruct,
+    reconstruct_channels,
     state_from_numpy,
     state_to_numpy,
 )

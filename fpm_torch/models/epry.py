@@ -214,6 +214,24 @@ def init_traced(amps_sorted: torch.Tensor, support_r: torch.Tensor, opts: EPRYOp
     return obj_f, support.clone()
 
 
+def init_state(cfg: FPMConfig, geom: LEDGeometry, amps_sorted, dtype=torch.complex64,
+               device="cuda"):
+    """``(O centered spectrum, pupil, support)`` of a fresh solve on ``device``
+    (the card unless ``device="cpu"``), for driving sweeps by hand: the
+    options from ``cfg``, the pupil support, then :func:`init_traced` on
+    ``amps_sorted`` (the (K, Np, Np) amplitudes in schedule order, an array
+    or a tensor). The pupil is a tensor of its own; the support is complex,
+    in ``dtype``. The counterpart of ``fpm_tpu.models.epry.init_state``
+    (``geom`` is taken for its signature)."""
+    dev = resolve_device(device)
+    opts = EPRYOptions.from_config(cfg, dtype=_dtype_name(dtype))
+    support_r = torch.as_tensor(pupil_support(cfg, centered=False), dtype=opts.rdtype,
+                                device=dev)
+    amps = torch.as_tensor(amps_sorted).to(dev, opts.rdtype)
+    obj_f, pupil = init_traced(amps, support_r, opts)
+    return obj_f, pupil, support_r.to(opts.cdtype)
+
+
 # ------------------------------------------------------------------ LED step
 
 
@@ -292,6 +310,36 @@ def sweep_sequential(obj_f, pupil, amps, starts, *, support, opts: EPRYOptions):
         carry, out = led_step(carry, (amp, start), support=support, opts=opts)
         per_led.append(out)
     return carry[0], carry[1], torch.stack(per_led).sum(0)
+
+
+def _kernel_options(opts: EPRYOptions) -> dict:
+    """The options of ``opts`` that K1 and K2's wrappers share."""
+    return dict(np_size=opts.np_size, n_large=opts.n_large, delta1=opts.delta1,
+                delta2=opts.delta2, eps=opts.eps, pupil_radius=opts.pupil_radius,
+                collect_metrics=opts.collect_metrics, dft_precision=opts.dft_precision)
+
+
+def _kernel_operands(obj_f, pupil, support, starts):
+    """Complex state, support and patch starts as the wrappers take them:
+    float32 planes, the real support, flat int32 starts (which, like every
+    operand, must lie on the state's device: the wrappers raise if not)."""
+    starts = torch.as_tensor(starts).reshape(-1).to(torch.int32)
+    return (_to_planes(obj_f), _to_planes(pupil), support.real.to(torch.float32), starts)
+
+
+def sweep_pallas(obj_f, pupil, amps, starts, *, support, opts: EPRYOptions):
+    """One sequential sweep of a complex state through kernel K2 (CUDA,
+    ``ops.kernels.fused_epry_sweep``; on CPU tensors its plain version):
+    :func:`sweep_sequential`'s function at ``opts.global_max``, with the
+    products at ``opts.dft_precision`` and the pupil's bbox from
+    ``opts.pupil_radius``. Returns the state in the inputs' dtypes and the
+    sweep's (residual, update-norm) metrics (zeros unless
+    ``opts.collect_metrics``) in ``amps``' dtype. A shape the kernel refuses
+    raises its error. The counterpart of ``fpm_tpu.models.epry.sweep_pallas``."""
+    o, p, sup, starts = _kernel_operands(obj_f, pupil, support, starts)
+    o, p, mets = kernels.fused_epry_sweep(o, p, sup, amps.to(torch.float32), starts,
+                                          global_max=opts.global_max, **_kernel_options(opts))
+    return _from_planes(o, obj_f), _from_planes(p, pupil), mets.to(amps.dtype)
 
 
 def led_intermediates(state, images, geom: LEDGeometry, cfg: FPMConfig, led_index: int,
@@ -485,6 +533,23 @@ def sweep_batched(obj_f, pupil, amps, starts, *, support, opts: EPRYOptions, mas
         obj_f, pupil, met = jacobi_chunk(obj_f, pupil, a, s, m, support=support, opts=opts)
         mets.append(met)
     return obj_f, pupil, torch.stack(mets).sum(0)
+
+
+def sweep_batched_pallas(obj_f, pupil, amps_it, starts_it, mask, *, support,
+                         opts: EPRYOptions):
+    """One chunked sweep of a complex state through kernel K1 (CUDA,
+    ``ops.kernels.fused_epry_chunked``; on CPU tensors its plain version):
+    :func:`sweep_batched`'s function on the pre-chunked (n_chunks, C, ...)
+    ``amps_it``, ``starts_it`` and ``mask`` (:func:`chunk_permute`), with
+    ``opts.pupil_step_scale``, the products at ``opts.dft_precision`` and the
+    pupil's bbox from ``opts.pupil_radius``. Returns as :func:`sweep_pallas`.
+    The counterpart of ``fpm_tpu.models.epry.sweep_batched_pallas``."""
+    o, p, sup, starts = _kernel_operands(obj_f, pupil, support, starts_it)
+    valid = (torch.as_tensor(mask) > 0).reshape(-1).to(torch.int32)
+    o, p, mets = kernels.fused_epry_chunked(o, p, sup, amps_it.to(torch.float32), starts, valid,
+                                            pupil_step_scale=opts.pupil_step_scale,
+                                            **_kernel_options(opts))
+    return _from_planes(o, obj_f), _from_planes(p, pupil), mets.to(amps_it.dtype)
 
 
 # ----------------------------------------------------------------- top level

@@ -27,9 +27,10 @@
 //   k1_pupil    grid (⌈b²/256⌉, P), one thread per bbox element: the pupil
 //               consensus, summed in LED order; the first block of a problem
 //               also sums its metrics.
-// The ablation build (-DFPM_ABLATE) adds chunk_forward_ablate<T, A>,
-// k1_apply_ablate<A> and k1_pupil_ablate<A>: the sweep with the stage of
-// ablation A turned off (Ablate, epry_common.cuh), behind
+// The ablation build (-DFPM_ABLATE) adds chunk_forward_ablate<T, A> (and
+// chunk_forward_ablate_zcut<T, A>, Z cut by rows where plan_led cuts it for
+// the main kernels), k1_apply_ablate<A> and k1_pupil_ablate<A>: the sweep
+// with the stage of ablation A turned off (Ablate, epry_common.cuh), behind
 // fpm_k1_sweep_ablate. Each launch turns off what is its own: the forward
 // kNoDft, kNoWindowRead, kNoPupilAcc (no numerator) and kDft1Pass; the
 // apply kNoWindowWrite and kOmaxConst; the pupil kOmaxConst and kNoPupilAcc.
@@ -113,6 +114,20 @@ chunk_forward_ablate(const float* o, size_t o_stride, int n_rows, int n_cols,
                                   d_obj, num, parts, plan);
 }
 
+template <int T, int A>
+__global__ void __launch_bounds__(kThreads)
+chunk_forward_ablate_zcut(const float* o, size_t o_stride, int n_rows, int n_cols,
+                          const float* p, size_t p_stride, const float* __restrict__ sup,
+                          const float* __restrict__ amps, size_t a_stride,
+                          const int* __restrict__ starts, const int* __restrict__ valid, int c,
+                          DftMats m, int n, int b, int lo, float eps, float delta1, float delta2,
+                          int metrics, float2* __restrict__ d_obj, float2* __restrict__ num,
+                          float* __restrict__ parts, LedPlan plan) {
+  chunk_forward_body<T, true, A>(o, o_stride, n_rows, n_cols, p, p_stride, sup, amps, a_stride,
+                                 starts, valid, c, m, n, b, lo, eps, delta1, delta2, metrics,
+                                 d_obj, num, parts, plan);
+}
+
 // k1_apply without the object update (kNoWindowWrite: the max of O as it
 // is) or without the max (kOmaxConst).
 template <int A>
@@ -178,9 +193,9 @@ k1_pupil_ablate(float* __restrict__ p, const int* __restrict__ valid, int c, int
 }
 #endif
 
-// The forward kernels of ablation A: the main pair (Z whole, Z cut) for
-// kMain; the ablation build's (Z whole only) for the others, the full
-// forward where A is not the forward's to turn off.
+// The forward kernels of ablation A, (Z whole, Z cut): the main pair for
+// kMain; the ablation build's pair for the others, the full forward where A
+// is not the forward's to turn off.
 template <int T, int A>
 KernelPair<decltype(&chunk_forward<T>)> k1_forward() {
   if constexpr (A == kMain) {
@@ -188,7 +203,7 @@ KernelPair<decltype(&chunk_forward<T>)> k1_forward() {
   } else {
 #ifdef FPM_ABLATE
     constexpr int F = A == kNoWindowWrite || A == kOmaxConst ? kFull : A;
-    return {chunk_forward_ablate<T, F>, chunk_forward_ablate<T, F>};
+    return {chunk_forward_ablate<T, F>, chunk_forward_ablate_zcut<T, F>};
 #endif
   }
 }
@@ -212,8 +227,8 @@ KernelPair<decltype(&chunk_forward<T>)> k1_forward() {
 //   launches              host int, incremented at each accepted launch
 //   plan_out              host int[kPlanFields], set to the plan chosen (export_plan)
 // Returns a cudaError_t value (0 = every launch was accepted), kErrLedSmem or
-// kErrCluster. A: the ablation (kMain but behind fpm_k1_sweep_ablate, which
-// keeps Z whole and fails with kErrLedSmem where Z whole does not fit).
+// kErrCluster. A: the ablation (kMain but behind fpm_k1_sweep_ablate, whose
+// forward kernels take the plan, Z whole or cut, as the main ones do).
 template <int T, int A>
 static int k1_sweep_at(float* o, float* p, const float* sup, const float* amps,
                        const int* starts, const int* valid, const fpm::DftMats& m, void* d_obj,
@@ -226,9 +241,8 @@ static int k1_sweep_at(float* o, float* p, const float* sup, const float* amps,
   cudaError_t err;
   LedPlan plan;
   const auto kernel = k1_forward<T, A>();
-  if (A != kMain && force_zcut == 2) return (int)cudaErrorInvalidValue;
-  if (const int e = plan_led(kernel, n, b, n_problems * c, 0, false, T, force_cs,
-                             A == kMain ? force_zcut : 1, device, &plan))
+  if (const int e = plan_led(kernel, n, b, n_problems * c, 0, false, T, force_cs, force_zcut,
+                             device, &plan))
     return e;
   export_plan(plan, plan_out);
   const ClusterLaunch forward(n_problems * c, plan, st);
@@ -314,8 +328,8 @@ extern "C" int fpm_resident_clusters(int n, int b, int slots, int cs, int tier, 
 // fpm_k1_sweep with the stage of ``ablate`` (Ablate) turned off: the
 // arguments of fpm_k1_sweep with ``ablate`` after ``tier``. kDft1Pass is of
 // the bf16x3 tier alone (the highest tier's matrices in bf16 are the bf16x3
-// layout's hi parts: the wrapper passes those), and Z is never cut
-// (force_zcut 2 is refused).
+// layout's hi parts: the wrapper passes those); Z whole or cut by rows as
+// in fpm_k1_sweep (force_zcut too).
 extern "C" int fpm_k1_sweep_ablate(float* o, float* p, const float* sup, const float* amps,
                                    const int* starts, const int* valid, const void* ai,
                                    const void* bi, const void* af, const void* bf, void* d_obj,

@@ -210,7 +210,9 @@ enum Tier { kHighest = 0, kBf16x3 = 1 };
 // main kernels are kMain and call the out-of-line led_forward and
 // led_increments as before; the ablation build (-DFPM_ABLATE,
 // fpm_torch/ops/build.py ablation_library) adds kernels for the others,
-// which inline led_forward_at and led_increments_at. kFull there turns
+// which inline led_forward_at and led_increments_at, each in both layouts
+// of Z (whole in every block, and cut by rows: *_ablate_zcut), so that a
+// variant runs at every shape the main kernels take. kFull there turns
 // nothing off: the main arithmetic (bitwise the same results) through the
 // variants' code, their yardstick.
 //   kNoDft          no DFT products: Z zero-padded is the image, up the
@@ -730,10 +732,12 @@ __device__ __forceinline__ void cgemm_tc(const void* A, int lda, const void* B, 
     cgemm_tc_at<SA, false, PASSES>(A, lda, B, ldb, C, ldc, M, N, K);
 }
 
-// C = A · B, A static, B dynamic and cut by row slabs across the cluster.
+// C = A · B, A static, B dynamic and cut by row slabs across the cluster;
+// PASSES as cgemm_tc's.
+template <int PASSES = 3>
 __device__ __forceinline__ void cgemm_tc_z(const void* A, int lda, const ZRows B, float2* C,
                                            int ldc, int M, int N, int K) {
-  cgemm_tc_at<true, false, 3>(A, lda, B, 0, C, ldc, M, N, K);
+  cgemm_tc_at<true, false, PASSES>(A, lda, B, 0, C, ldc, M, N, K);
 }
 
 // The 16-byte words per row of a static matrix in the split layout whose
@@ -1196,14 +1200,15 @@ __device__ __forceinline__ int clamp_start(int s, int dim, int n) {
 // places before s.z is written again or the block exits. T (Tier) picks the
 // products; CUT: Z is cut by rows across the cluster (a plan's zcut, and
 // carve_smem's CUT). led_forward_at<T, CUT, A> is the same with the stage of
-// ablation A turned off (Z whole only); the main kernels call led_forward.
+// ablation A turned off, with Z whole or cut as the main kernels take it and
+// with the same bits either way (every branch of A reads Z where the block
+// that built it keeps it); the main kernels call led_forward.
 template <int T, bool CUT, int A>
 __device__ __forceinline__ void led_forward_at(const float* o_re, const float* o_im, int ld,
                                                int y0, int x0, const float* p_re,
                                                const float* p_im, const float* amp, int n, int b,
                                                float eps, bool metrics, const LedSmem s,
                                                float* pmax) {
-  static_assert(A == kMain || !CUT, "the ablation build keeps Z whole in every block");
   static_assert(A != kDft1Pass || T == kBf16x3, "one pass is of the bf16x3 layout");
   constexpr int kPasses = A == kDft1Pass ? 1 : 3;
   cg::cluster_group cluster = cg::this_cluster();
@@ -1225,7 +1230,7 @@ __device__ __forceinline__ void led_forward_at(const float* o_re, const float* o
     for (int u = 0; u < kBatch; ++u) {
       const int e = e0 + u * blockDim.x;
       if (e < bb) {
-        const size_t g = A == kNoWindowRead ? (size_t)i * ld + j
+        const size_t g = A == kNoWindowRead ? (size_t)(zr0 + i) * ld + j   // O[0:b, 0:b]
                                             : (size_t)(y0 + i) * ld + (x0 + j);
         o[u] = make_float2(ld_state(o_re + g), ld_state(o_im + g));
         p[u] = make_float2(ld_state(p_re + e), ld_state(p_im + e));
@@ -1260,12 +1265,20 @@ __device__ __forceinline__ void led_forward_at(const float* o_re, const float* o
   if constexpr (A == kNoDft) {   // img_r = this block's rows of Z zero-padded to n×n
     for (int e = threadIdx.x; e < s.rows * n; e += blockDim.x) {
       const int r = e / n, c = e - r * n, i = s.row0 + r;
-      s.img[e] = i < b && c < b ? s.z[i * ldz + c] : make_float2(0.f, 0.f);
+      float2 v = make_float2(0.f, 0.f);
+      if (i < b && c < b) {
+        if constexpr (CUT)   // row i from the block that built it (barrier 0 is behind)
+          v = ld_cluster2(zcut_rows(s, n, b)[i] + 8u * (unsigned)c);
+        else
+          v = s.z[i * ldz + c];
+      }
+      s.img[e] = v;
     }
   } else {
     // T_r = Ai[rows_r,:]·Z; cut, row k of Z read from the block that built it
     if constexpr (CUT && T == kBf16x3)
-      cgemm_tc_z(s.ai, split_ld(b), ZRows{zcut_rows(s, n, b)}, s.t, ldt, s.rows, b, b);
+      cgemm_tc_z<kPasses>(s.ai, split_ld(b), ZRows{zcut_rows(s, n, b)}, s.t, ldt, s.rows, b,
+                          b);
     else if constexpr (CUT)
       cgemm_z(s.ai, b, ZRows{zcut_rows(s, n, b)}, (ldz & 1) == 0, s.t, b, s.rows, b, b);
     else if constexpr (T == kBf16x3)

@@ -39,9 +39,11 @@
 // The metric sums are per-segment accumulators (epry_common.cuh), added in
 // a fixed order in the cluster's first block at the end of the sweep.
 //
-// The ablation build (-DFPM_ABLATE) adds k2_sweep_ablate<T, A>, the same
-// sweep with the stage of ablation A turned off (Ablate, epry_common.cuh;
-// kOmaxConst also drops the row-max launch), behind fpm_k2_sweep_ablate.
+// The ablation build (-DFPM_ABLATE) adds k2_sweep_ablate<T, A> and
+// k2_sweep_ablate_zcut<T, A>, the same sweep with the stage of ablation A
+// turned off (Ablate, epry_common.cuh; kOmaxConst also drops the row-max
+// launch), with Z whole or cut by rows as plan_led chooses for the main
+// kernels, behind fpm_k2_sweep_ablate.
 //
 // Bound: FP32 operations of one LED's forward pass on cs SMs of the card's
 // 132 — the sweep's data dependence allows one LED of a problem at a time —
@@ -235,17 +237,28 @@ k2_sweep_ablate(float* o, int nl, float* p, const float* __restrict__ sup,
   k2_sweep_body<T, false, A>(o, nl, p, sup, amps, starts, k_leds, m, n, b, lo, eps, delta1,
                              delta2, exact, metrics, rowmax, mets, plan);
 }
+
+template <int T, int A>
+__global__ void __launch_bounds__(kThreads)
+k2_sweep_ablate_zcut(float* o, int nl, float* p, const float* __restrict__ sup,
+                     const float* __restrict__ amps, const int* __restrict__ starts, int k_leds,
+                     DftMats m, int n, int b, int lo, float eps, float delta1, float delta2,
+                     int exact, int metrics, float* rowmax, float* __restrict__ mets,
+                     LedPlan plan) {
+  k2_sweep_body<T, true, A>(o, nl, p, sup, amps, starts, k_leds, m, n, b, lo, eps, delta1,
+                            delta2, exact, metrics, rowmax, mets, plan);
+}
 #endif
 
-// K2's kernels of ablation A: the main pair (Z whole, Z cut) for kMain, the
-// ablation build's kernel (Z whole only) for the others.
+// K2's kernels of ablation A, (Z whole, Z cut): the main pair for kMain, the
+// ablation build's pair for the others.
 template <int T, int A>
 KernelPair<decltype(&k2_sweep<T>)> k2_kernels() {
   if constexpr (A == kMain) {
     return {k2_sweep<T>, k2_sweep_zcut<T>};
   } else {
 #ifdef FPM_ABLATE
-    return {k2_sweep_ablate<T, A>, k2_sweep_ablate<T, A>};
+    return {k2_sweep_ablate<T, A>, k2_sweep_ablate_zcut<T, A>};
 #endif
   }
 }
@@ -266,8 +279,8 @@ KernelPair<decltype(&k2_sweep<T>)> k2_kernels() {
 //   launches           host int, incremented at each accepted launch
 //   plan_out           host int[kPlanFields], set to the plan chosen (export_plan)
 // Returns a cudaError_t value (0 = every launch was accepted), kErrLedSmem or
-// kErrCluster. A: the ablation (kMain but behind fpm_k2_sweep_ablate, which
-// keeps Z whole and fails with kErrLedSmem where Z whole does not fit).
+// kErrCluster. A: the ablation (kMain but behind fpm_k2_sweep_ablate, whose
+// kernels take the plan, Z whole or cut, as the main ones do).
 template <int T, int A>
 static int k2_sweep_at(float* o, float* p, const float* sup, const float* amps, const int* starts,
                        const fpm::DftMats& m, float* rowmax, float* mets, int n_problems,
@@ -277,9 +290,8 @@ static int k2_sweep_at(float* o, float* p, const float* sup, const float* amps, 
   using namespace fpm;
   LedPlan plan;
   const auto kernel = k2_kernels<T, A>();
-  if (A != kMain && force_zcut == 2) return (int)cudaErrorInvalidValue;
-  if (const int e = plan_led(kernel, n, b, n_problems, 2, true, T, force_cs,
-                             A == kMain ? force_zcut : 1, device, &plan))
+  if (const int e = plan_led(kernel, n, b, n_problems, 2, true, T, force_cs, force_zcut, device,
+                             &plan))
     return e;
   export_plan(plan, plan_out);
   cudaError_t err;
@@ -339,7 +351,7 @@ extern "C" int fpm_resident_clusters(int n, int b, int slots, int cs, int tier, 
 // arguments of fpm_k2_sweep with ``ablate`` after ``tier``. kNoPupilAcc is
 // K1's alone, kDft1Pass is of the bf16x3 tier alone (the highest tier's
 // matrices in bf16 are the bf16x3 layout's hi parts: the wrapper passes
-// those), and Z is never cut (force_zcut 2 is refused).
+// those); Z whole or cut by rows as in fpm_k2_sweep (force_zcut too).
 extern "C" int fpm_k2_sweep_ablate(float* o, float* p, const float* sup, const float* amps,
                                    const int* starts, const void* ai, const void* bi,
                                    const void* af, const void* bf, float* rowmax, float* mets,

@@ -51,8 +51,11 @@ passes, is the kernel itself; any other name of :data:`SWEEP_ABLATIONS` or
 garbage as ``fpm_tpu``'s: the plain versions compute its semantics, and on
 the card the ablated kernel comes from a separate build of the source
 (``build.ablation_library``), where the variant is a template argument, so
-that the main path's kernels are compiled as if no variant existed. Any
-other name raises.
+that the main path's kernels are compiled as if no variant existed. A
+variant runs at every shape the kernel takes: its entry point plans it as
+the kernel's own (Z whole in every block, or cut by rows where Z whole fits
+no block, as at b = n = 200) and takes ``force_z_layout`` as the kernel
+does, with the same result either way. Any other name raises.
 
 Dispatch: a wrapper launches its CUDA kernel for CUDA tensors and runs its
 plain PyTorch version (``*_plain``, same function, same operands) for CPU
@@ -532,7 +535,9 @@ def _ablation_entry(wrapper, stem, entry, ablate, dft_precision):
     the ablation build's ``entry + "_ablate"`` for a variant, or for ``""``
     when the wrapper's test-only ``force_ablation_build`` asks for it.
     dft-1pass runs the bf16x3 instantiation at either tier (a float32
-    matrix in bf16 is its bf16x3 hi part)."""
+    matrix in bf16 is its bf16x3 hi part). Either entry point takes the
+    wrapper's ``force_cluster_size`` and ``force_z_layout`` (the caller
+    passes them after the arguments returned here)."""
     if not ablate and not wrapper.force_ablation_build:
         lib = build.library(stem)
         return lib, getattr(lib, entry), (), dft_precision

@@ -130,6 +130,16 @@ def test_plain_ablation_matches_fpm_tpus(problem, kernel, ablate, tier):
                     and np.allclose(gp, fp, rtol=0, atol=1e-6 * np.abs(fp).max()))
 
 
+def test_np16_holds_every_variant_at_b_equal_n(problem):
+    """The cases above hold each variant of both kernels at b = n (Np 16:
+    the bbox is the whole patch, as at Np 200 with ``pupil_radius`` 0, where
+    the card's kernels cut Z by rows) and at b < n (Np 64)."""
+    _, _, common = problem
+    n = common["np_size"]
+    b, lo = tk.bbox_extent(n, common["pupil_radius"])
+    assert (b, lo) == (n, 0) if n == 16 else b < n
+
+
 @pytest.mark.parametrize("kernel,ablate", [("K2", "no-pupil-acc"), ("K2", "bogus"),
                                            ("K1", "bogus"), ("K1", "no_dft")])
 def test_a_name_outside_the_kernels_list_raises(problem, kernel, ablate):

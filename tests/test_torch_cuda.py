@@ -177,6 +177,27 @@ def test_a_repeated_sweep_is_bitwise_equal(cuda, tier, kernel, mode, chunk):
 ABLATE_TOL = {"dft-1pass": (1e-4, 2.0 ** -9, 1e-4)}
 
 
+def ablation_inputs(args, ablate, b):
+    """The state a variant runs from: divided by max|O| for omax-const (its
+    max|O| is 1 + k), with values at the spectrum's corner for
+    no-window-read (0 after the init), else ``args``."""
+    o = args[0]
+    if ablate == "omax-const":
+        scale = (o[0] ** 2 + o[1] ** 2).max().rsqrt()
+        return (o * scale, *args[1:3], args[3] * scale, *args[4:])
+    if ablate == "no-window-read":
+        corner = o.clone()
+        corner[:, :b, :b] += 0.01 * o.abs().max() * torch.randn(
+            (2, b, b), generator=torch.Generator().manual_seed(0)).to(o.device)
+        return (corner, *args[1:])
+    return args
+
+
+def ablation_names(kernel, tier):
+    names = kernels.SWEEP_ABLATIONS if kernel == "K2" else kernels.CHUNKED_ABLATIONS
+    return [a for a in names if a != "dft-1pass" or tier == "bf16x3"]
+
+
 @pytest.mark.parametrize("kernel,mode,chunk", [("K2", "sequential", 0), ("K1", "batched", 6)])
 def test_ablated_kernels_match_their_plain_versions(cuda, tier, kernel, mode, chunk):
     """Np 64 (bbox 48 at offset 8). omax-const runs from the state divided by
@@ -190,16 +211,8 @@ def test_ablated_kernels_match_their_plain_versions(cuda, tier, kernel, mode, ch
                         (kernels.fused_epry_chunked, kernels.fused_epry_chunked_plain,
                          kernels.CHUNKED_ABLATIONS))
     b, _ = kernels.bbox_extent(64, common["pupil_radius"])
-    corner = o.clone()
-    corner[:, :b, :b] += 0.01 * o.abs().max() * torch.randn(
-        (2, b, b), generator=torch.Generator().manual_seed(0)).to(cuda)
-    scale = (o[0] ** 2 + o[1] ** 2).max().rsqrt()
     for ablate in names:
-        state, args = o, rest
-        if ablate == "omax-const":
-            state, args = o * scale, (rest[0] * scale, *rest[1:])
-        elif ablate == "no-window-read":
-            state = corner
+        state, _, _, *args = ablation_inputs((o, p, sup, *rest), ablate, b)
         got = fn(state, p, sup, *args, **common, ablate=ablate)
         want = plain(state, p, sup, *args, **common, ablate=ablate)
         tol_o, tol_p, tol_m = ABLATE_TOL.get(ablate, (TOL_O, TOL_P, TOL_M))
@@ -629,6 +642,102 @@ def test_dogstomach_kernels_match_plain(cuda, tier, force_layout, dog_stomach, k
         force_layout(fn, 2)
         assert all(torch.equal(a, b_) for a, b_ in zip(fn(*args, **kw), got))
         assert fn.plan["zcut"] == 1
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+def test_ablated_kernels_cut_z_by_rows_at_b_equal_n(cuda, tier, dog_stomach, kernel):
+    """Np 200 with the whole patch as the bbox (pupil_radius 0, b = n =
+    200: Z cut by rows, where the ablation build once refused every
+    variant): each variant plans Z cut, lies within ABLATE_TOL of its plain
+    version after one sweep, and ``ablate=""`` through the ablation build is
+    bitwise the main Z-cut kernel. dft-1pass at bf16x3 alone, as chip_smoke.py
+    runs it."""
+    fn, plain, args, kw = kernel_call(kernel, dog_stomach, cuda, tier, chunk=32)
+    kw = dict(kw, pupil_radius=0)
+    main = fn(*args, **kw)
+    assert fn.plan["zcut"] == 1
+    for ablate in ablation_names(kernel, tier):
+        state = ablation_inputs(args, ablate, 200)
+        got = fn(*state, **kw, ablate=ablate)
+        assert fn.plan["zcut"] == 1, ablate
+        want = plain(*state, **kw, ablate=ablate)
+        tol_o, tol_p, tol_m = ABLATE_TOL.get(ablate, (TOL_O, TOL_P, TOL_M))
+        assert rel(got[0], want[0]) < tol_o, ablate
+        assert rel(got[1], want[1]) < tol_p, ablate
+        np.testing.assert_allclose(got[2].cpu().numpy(), want[2].cpu().numpy(), rtol=tol_m)
+    fn.force_ablation_build = True
+    try:
+        again = fn(*args, **kw)
+    finally:
+        fn.force_ablation_build = False
+    assert fn.plan["zcut"] == 1
+    assert all(torch.equal(a, b_) for a, b_ in zip(main, again))
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+def test_ablated_kernels_are_bitwise_with_z_cut_and_z_whole(cuda, tier, force_layout, kernel):
+    """At the mono shape (Np 90, where Z whole fits) each variant with Z cut
+    by rows (force_z_layout 2) is bitwise the same variant with Z whole (1)."""
+    ds = synthetic_dataset(np_size=90, grid=5, seed=3)
+    fn, _, args, kw = kernel_call(kernel, ds, cuda, tier)
+    b, _ = kernels.bbox_extent(90, kw["pupil_radius"])
+    for ablate in ablation_names(kernel, tier):
+        state = ablation_inputs(args, ablate, b)
+        out = {}
+        for layout in (1, 2):
+            force_layout(fn, layout)
+            out[layout] = fn(*state, **kw, ablate=ablate)
+            assert fn.plan["zcut"] == layout - 1, ablate
+        assert all(torch.equal(a, b_) for a, b_ in zip(out[1], out[2])), ablate
+
+
+def test_init_state_on_the_card_is_reconstructs_init(cuda):
+    """``init_state`` on the card within 1e-6 of the init that ``reconstruct``
+    starts from (0 sweeps), and of the same function on the CPU."""
+    ds = synthetic_dataset(np_size=90, grid=5, seed=3)
+    amps, _ = epry._sorted_device_inputs(ds.images, ds.geom, torch.complex64, cuda)
+    o, p, sup = epry.init_state(ds.cfg, ds.geom, amps)
+    assert o.is_cuda and p.is_cuda and sup.is_cuda and sup.dtype == torch.complex64
+    res = epry.reconstruct(ds.images, ds.geom, ds.cfg, iterations=0, use_pallas=True)
+    assert rel(o.cpu(), torch.from_numpy(res.obj_f_centered)) < 1e-6
+    assert rel(p.cpu(), torch.from_numpy(res.pupil)) < 1e-6
+    o_cpu, p_cpu, _ = epry.init_state(ds.cfg, ds.geom, amps.cpu(), device="cpu")
+    assert rel(o.cpu(), o_cpu) < 1e-6 and torch.equal(p.cpu(), p_cpu)
+
+
+@pytest.mark.parametrize("mode", ["sequential", "batched"])
+def test_kernel_sweeps_on_the_card_are_the_wrappers(cuda, tier, mode):
+    """``sweep_pallas`` (K2) and ``sweep_batched_pallas`` (K1) on the card:
+    bitwise the kernel wrapper they call on the same planes, and each
+    launches that kernel only."""
+    ds = synthetic_dataset(np_size=90, grid=5, seed=3)
+    opts = epry.EPRYOptions.from_config(ds.cfg, use_pallas=True, mode=mode, chunk_size=8,
+                                        dft_precision=tier)
+    amps, starts = epry._sorted_device_inputs(ds.images, ds.geom, torch.complex64, cuda)
+    o, p, sup = epry.init_state(ds.cfg, ds.geom, amps)
+    planes = (epry._to_planes(o), epry._to_planes(p), sup.real)
+    kw = dict(np_size=ds.cfg.np_size, n_large=ds.cfg.n_large, delta1=ds.cfg.delta1,
+              delta2=ds.cfg.delta2, eps=ds.cfg.eps, pupil_radius=opts.pupil_radius,
+              collect_metrics=opts.collect_metrics, dft_precision=tier)
+    wrappers = {"K1": kernels.fused_epry_chunked, "K2": kernels.fused_epry_sweep}
+    before = {k: w.launches for k, w in wrappers.items()}
+    if mode == "sequential":
+        key = "K2"
+        got = epry.sweep_pallas(o, p, amps, starts, support=sup, opts=opts)
+        want = kernels.fused_epry_sweep(*planes, amps, starts.reshape(-1),
+                                        global_max=opts.global_max, **kw)
+    else:
+        key = "K1"
+        a, s, m = epry.chunk_permute(amps, starts, 8, "strided", torch.float32)
+        got = epry.sweep_batched_pallas(o, p, a, s, m, support=sup, opts=opts)
+        want = kernels.fused_epry_chunked(*planes, a, s.reshape(-1),
+                                          (m > 0).reshape(-1).to(torch.int32),
+                                          pupil_step_scale=opts.pupil_step_scale, **kw)
+    moved = {k: w.launches - before[k] for k, w in wrappers.items()}
+    assert moved[key] > 0 and all(v == 0 for k, v in moved.items() if k != key)
+    assert torch.equal(got[0], torch.complex(want[0][0], want[0][1]))
+    assert torch.equal(got[1], torch.complex(want[1][0], want[1][1]))
+    assert torch.equal(got[2], want[2])
 
 
 # ------------------------------------------------------------- problem axis
