@@ -25,8 +25,9 @@
 //            row, per pair of contraction indices, the four bf16x2 words
 //            re hi, re lo, im hi, im lo, so one 16-byte load gives a fragment
 //            all four; Bi and Bf transposed, so that the contraction runs along
-//            the row for both operand sides); the dynamic operands (Z, T_r,
-//            the gathered rep, V) are split where a fragment is loaded.
+//            the row for both operand sides); K1 and K3 split the dynamic
+//            operands (Z, T_r, the gathered rep, V) where a fragment is
+//            loaded, K2 where they are written (below).
 //
 // Bound. Per LED the four products are n·b·b + n·b·n + b·n·n + b·n·b
 // complex multiply-adds (1.77 M at Np=90, b=64), against a few hundred KB of
@@ -73,7 +74,8 @@
 // through DSMEM doubled; PERF.md §6). What then bounds Np is the image
 // plane's slabs: img_r, the gathered rep columns (nr·n values each) and
 // T_r; at Np=200 they keep cs = 4 out (80 KB each at nr = 50), and the
-// largest b = n that fits cs = 8 is 226 (bf16x3; plan_led refuses more).
+// largest b = n that fits cs = 8 is 226 (bf16x3; plan_led refuses more; K2
+// at bf16x3, which gathers rep's columns where T_r was, 256).
 // The metric sums do not depend on cs either: one warp sums each 32-column
 // segment of an image row (and of a bbox row), lane l on column 32·seg + l,
 // the block that owns the row adds that into the segment's accumulator;
@@ -108,6 +110,22 @@
 // Np=90). At cs 8 only 8-12 of a block's 16 warps own a tile, and each
 // tile's k-steps run in order: the products are bound by latency there,
 // not by the tensor cores (PERF.md §5).
+//
+// K2 at bf16x3 (led_forward_split, tile_product) makes the same sums, bit
+// for bit, from operands laid out for the fragments: in the tile layout
+// (mma's A) or the row layout (mma's B), both split into bf16 parts and
+// padded with zeros to whole k-steps, so that a k-step is six 16-byte
+// loads, each a whole fragment register set, with no split, no guard and
+// no register moves before its 12 mma, where cgemm_tc's k-step spends
+// more instructions on those than on the mma. The static matrices come so
+// from the host (kernels.py tile_layout, row_layout); the passes that write
+// Z, T_r, the gathered rep and V split them once, there. Products 1, 2 and 4 run
+// transposed (cmma_step_t keeps each accumulator's products and their
+// order), which puts each skinny side of a slab on mma's 8-wide n and the
+// long side on its 16-wide m: product 4's 8 rows at Np 90, cs 8, half of
+// whose m16 rows were padding. Splitting a tile's contraction across the
+// warps that own none (fresh sums per half, added in a fixed order) was
+// tried on an H100 and made the products slower (PERF.md §6).
 //
 // This is the DFT-by-matmul design: the four products cost ~14 MFLOP per
 // LED at Np=90, where pruned FFTs (2·(n+b) length-n transforms) need ~1
@@ -626,6 +644,36 @@ __device__ __forceinline__ void tc_load(SplitFrag<4>& a, SplitFrag<2>& b, const 
   }
 }
 
+// cmma_step with the operands swapped: A holds cmma_step's B and B its A
+// (the product computed transposed). Each accumulator gets the same exact
+// products in the same order, so the sums are cmma_step's, bit for bit.
+template <int PASSES>
+__device__ __forceinline__ void cmma_step_t(float (&acc)[3][2][4], const SplitFrag<4>& a,
+                                            const SplitFrag<2>& b) {
+  uint32_t nih[4], nil[4];
+  negate(nih, a.ih);
+  if constexpr (PASSES == 1) {
+    mma_bf16(acc[0][0], a.rh, b.rh);
+    mma_bf16(acc[0][1], a.ih, b.rh);
+    mma_bf16(acc[0][0], nih, b.ih);
+    mma_bf16(acc[0][1], a.rh, b.ih);
+    return;
+  }
+  negate(nil, a.il);
+  mma_bf16(acc[0][0], a.rh, b.rh);
+  mma_bf16(acc[0][1], a.ih, b.rh);
+  mma_bf16(acc[1][0], a.rl, b.rh);
+  mma_bf16(acc[1][1], a.il, b.rh);
+  mma_bf16(acc[2][0], a.rh, b.rl);
+  mma_bf16(acc[2][1], a.ih, b.rl);
+  mma_bf16(acc[0][0], nih, b.ih);
+  mma_bf16(acc[0][1], a.rh, b.ih);
+  mma_bf16(acc[1][0], nil, b.ih);
+  mma_bf16(acc[1][1], a.rl, b.ih);
+  mma_bf16(acc[2][0], nih, b.il);
+  mma_bf16(acc[2][1], a.rh, b.il);
+}
+
 // How a k-step's products join a tile's sums. mma.sync adds its 16 products
 // to the accumulator it is given with truncation, so a running sum fed
 // through it step after step drifts toward zero: over the 13 k-steps of a
@@ -738,6 +786,186 @@ template <int PASSES = 3>
 __device__ __forceinline__ void cgemm_tc_z(const void* A, int lda, const ZRows B, float2* C,
                                            int ldc, int M, int N, int K) {
   cgemm_tc_at<true, false, PASSES>(A, lda, B, 0, C, ldc, M, N, K);
+}
+
+// ------------------------------------------- K2's products (led_forward_split)
+
+// The two layouts of K2's operands, both of 16-byte units, both padded with
+// zeros to whole k-steps (16 contraction indices) so that no load needs a
+// guard, and both such that one 16-byte load is a whole fragment register
+// set of one part (no register moves before the mma):
+//   tile (mma's A, m16 × k16 per k-step): unit ((mt·ks + s)·4 + part)·32 +
+//     lane holds, for lane (g, t) and part (re hi, re lo, im hi, im lo), the
+//     bf16x2 words of rows 16mt + g, + g + 8 at the index pairs 8s + t, then
+//     the same at 8s + t + 4: a warp's load is 512 contiguous bytes;
+//   row (mma's B, n8 × k16): row r at unit r·rs (rs = row_units(K), odd:
+//     a quarter-warp's loads meet no bank conflict), k-step s at 8s, then
+//     for t = 0..3 two units: re hi, re lo of the pairs t, t + 4, then
+//     im hi, im lo. A row's place depends on nothing but r, so a slab of a
+//     static matrix's rows (Ai[rows_r, :]) is read where it lies.
+// The host builds the static matrices so (fpm_torch/ops/kernels.py
+// tile_layout, row_layout); the passes that write a dynamic operand split it
+// into them (put_tile, put_row).
+__host__ __device__ inline int ksteps(int K) { return (K + 15) >> 4; }
+__host__ __device__ inline int row_units(int K) { return 8 * ksteps(K) + 1; }
+__host__ __device__ inline int tile_units(int M, int K) {
+  return ((M + 15) >> 4) * ksteps(K) * 128;
+}
+
+// An operand in the tile layout (``ks`` k-steps per m-tile) ...
+struct TileA {
+  const uint4* w;
+  int ks;
+  __device__ __forceinline__ uint4 quad(int mt, int s, int part, int lane) const {
+    return w[((mt * ks + s) * 4 + part) * 32 + lane];
+  }
+};
+
+// ... or Zᵀ cut across the cluster by k-steps: k-step s of m-tile 0 at the
+// shared::cluster address step[s], ``ks`` k-steps per m-tile in each block.
+struct TileCut {
+  const unsigned* step;
+  int ks;
+  __device__ __forceinline__ uint4 quad(int mt, int s, int part, int lane) const {
+    uint4 v;
+    asm volatile("ld.shared::cluster.v4.u32 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+                 : "r"(step[s] + 16u * (unsigned)((mt * ks * 4 + part) * 32 + lane)));
+    return v;
+  }
+};
+
+// An operand in the row layout (``rs`` units per row).
+struct RowB {
+  const uint4* w;
+  int rs;
+  __device__ __forceinline__ uint4 unit(int r, int s, int t, int im) const {
+    return w[r * rs + s * 8 + 2 * t + im];
+  }
+};
+
+// The split of the complex pair (v0, v1) at (row, index pair p) into an
+// operand in the tile layout (``ks`` k-steps per m-tile) or the row layout
+// (``rs`` units per row): four 32-bit stores.
+__device__ __forceinline__ void put_tile(uint32_t* w, int ks, int row, int p, float2 v0,
+                                         float2 v1) {
+  uint32_t rh, rl, ih, il;
+  split2(v0.x, v1.x, rh, rl);
+  split2(v0.y, v1.y, ih, il);
+  const int pp = p & 7, lane = ((row & 7) << 2) + (pp & 3);
+  const int at = ((((row >> 4) * ks + (p >> 3)) * 128 + lane) << 2) + ((row >> 3) & 1)
+                 + (pp >> 2) * 2;
+  w[at] = rh;
+  w[at + 128] = rl;
+  w[at + 256] = ih;
+  w[at + 384] = il;
+}
+__device__ __forceinline__ void put_row(uint32_t* w, int rs, int row, int p, float2 v0,
+                                        float2 v1) {
+  uint32_t rh, rl, ih, il;
+  split2(v0.x, v1.x, rh, rl);
+  split2(v0.y, v1.y, ih, il);
+  const int pp = p & 7;
+  const int at = ((row * rs + (p >> 3) * 8 + 2 * (pp & 3)) << 2) + (pp >> 2);
+  w[at] = rh;
+  w[at + 2] = rl;
+  w[at + 4] = ih;
+  w[at + 6] = il;
+}
+
+// The split of the complex values v[0..3] at the contraction indices 16s +
+// 2t, + 1, + 8, + 9 of ``row`` (the pairs t and t + 4 of k-step s; st =
+// 4s + t) into an operand in the row layout: its two 16-byte units there.
+__device__ __forceinline__ void put_row4(uint4* w, int rs, int row, int st,
+                                         const float2 (&v)[4]) {
+  uint4 re, im;
+  split2(v[0].x, v[1].x, re.x, re.z);
+  split2(v[2].x, v[3].x, re.y, re.w);
+  split2(v[0].y, v[1].y, im.x, im.z);
+  split2(v[2].y, v[3].y, im.y, im.w);
+  uint4* const u = w + row * rs + 8 * (st >> 2) + 2 * (st & 3);
+  u[0] = re;
+  u[1] = im;
+}
+
+// The slab of ``per`` rows that holds row k, from q0, the slab of a row
+// k0 ≤ k: no division.
+__device__ __forceinline__ int owner(int q0, int k, int per) {
+  while (k >= (q0 + 1) * per) ++q0;
+  return q0;
+}
+
+// The tile's sums over the ks k-steps in order, the passes added as
+// hh + (hl + lh): v[r] is accumulator r's element (row 16mt + g (+ 8 for
+// r ≥ 2), column cb − g + 2t + (r & 1)), B's row cb the lane's column. The
+// next step's fragments load while this one's products run.
+template <int PASSES, bool TR, class AS, class BS>
+__device__ __forceinline__ void tile_sums(float2 (&v)[4], const AS A, const BS B, int mt, int cb,
+                                          int ks, int lane) {
+  const int t = lane & 3;
+  float acc[3][2][4];
+#pragma unroll
+  for (int p = 0; p < 3; ++p)
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[p][c][r] = 0.f;
+  auto load = [&](SplitFrag<4>& a, SplitFrag<2>& b, int s) {
+    const uint4 rh = A.quad(mt, s, 0, lane), rl = A.quad(mt, s, 1, lane);
+    const uint4 ih = A.quad(mt, s, 2, lane), il = A.quad(mt, s, 3, lane);
+    const uint4 re = B.unit(cb, s, t, 0), im = B.unit(cb, s, t, 1);
+    a.rh[0] = rh.x; a.rh[1] = rh.y; a.rh[2] = rh.z; a.rh[3] = rh.w;
+    a.rl[0] = rl.x; a.rl[1] = rl.y; a.rl[2] = rl.z; a.rl[3] = rl.w;
+    a.ih[0] = ih.x; a.ih[1] = ih.y; a.ih[2] = ih.z; a.ih[3] = ih.w;
+    a.il[0] = il.x; a.il[1] = il.y; a.il[2] = il.z; a.il[3] = il.w;
+    b.rh[0] = re.x; b.rh[1] = re.y; b.rl[0] = re.z; b.rl[1] = re.w;
+    b.ih[0] = im.x; b.ih[1] = im.y; b.il[0] = im.z; b.il[1] = im.w;
+  };
+  auto step = [&](const SplitFrag<4>& a, const SplitFrag<2>& b) {
+    if constexpr (TR)
+      cmma_step_t<PASSES>(acc, a, b);
+    else
+      cmma_step<PASSES>(acc, a, b);
+  };
+  SplitFrag<4> a;
+  SplitFrag<2> b;
+  load(a, b, 0);
+  for (int s = 1; s < ks; ++s) {
+    SplitFrag<4> a2;
+    SplitFrag<2> b2;
+    load(a2, b2, s);
+    step(a, b);
+    a = a2;
+    b = b2;
+  }
+  step(a, b);
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    v[r] = make_float2(acc[0][0][r] + (acc[1][0][r] + acc[2][0][r]),
+                       acc[0][1][r] + (acc[1][1][r] + acc[2][1][r]));
+}
+
+// C (M×N) = A (M×K) · B (K×N), A in the tile layout and B in the row layout
+// (B's N rows, each a column of C), on the tensor cores: the bf16x3 tier
+// (PASSES 3) or its hi·hi pass alone (1: the ablation kDft1Pass). As in
+// cgemm_tc, a warp owns a 16×8 tile of C over the whole contraction in k
+// order, so every element is the same sum whatever the slab sizes (cs, P),
+// and the same sum as cgemm_tc's. Rows of A up to the m-tiles' end and of B
+// up to the n-tiles' end are read whatever they hold: their elements of C
+// are not stored. ``out.store(v, m0, n0, g, t, M, N)``, called by every lane
+// of the warp, stores the lane's four elements of the tile at (m0, n0). All
+// threads of the block call; no barrier inside; A and B alias no output.
+template <int PASSES, bool TR, class AS, class BS, class Out>
+__device__ __forceinline__ void tile_product(const AS A, const BS B, const Out out, int M, int N,
+                                             int K) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+  const int nt = (N + 7) >> 3, tiles = ((M + 15) >> 4) * nt;
+  for (int tile = warp; tile < tiles; tile += warps) {
+    const int mt = tile / nt, n0 = (tile - mt * nt) << 3;
+    float2 v[4];
+    tile_sums<PASSES, TR>(v, A, B, mt, n0 + (lane >> 2), ksteps(K), lane);
+    out.store(v, mt << 4, n0, lane >> 2, lane & 3, M, N);
+  }
 }
 
 // The 16-byte words per row of a static matrix in the split layout whose
@@ -868,21 +1096,61 @@ __host__ __device__ inline int sums_units(int n, int b) {
   return n * segments(n) + b * segments(b);
 }
 
+// K2 at bf16x3 (``split_ops``, led_forward_split) keeps the operands of its
+// four products in the tile and row layouts; its buffers, in float2 units
+// (with Z cut by rows, block r builds Zᵀ's zcut_steps(b, cs) k-steps):
+//   z    Zᵀ (tile layout), then V[:, cols_r] f32 (b rows of stride
+//        even_up(nr)) where cs > 1; in the ablation kNoDft Z f32 as z_units
+//        says
+//   t    T_r (row layout, rows8(nr) rows), then rep[:, cols_r]ᵀ (rows8(nr)
+//        rows) and V[slab r, :] (rows8(br) rows) where cs > 1, and the pupil
+//        numerator (br·b)
+//   img  img_r, then rep_r (nr·n), then up[slab r] (br·b); with cs = 1 V f32
+//        between them (no peer reads it), and rep[:, cols_r]ᵀ and V[slab r, :]
+//        over z and t, both free by then
+// and its staged matrices: Biᵀ, Af and Bfᵀ whole in the tile layout,
+// Ai[rows_r, :] in the row layout with the n-tiles' rows8(nr) rows.
+__host__ __device__ inline int rows8(int r) { return (r + 7) & ~7; }
+__host__ __device__ inline int zcut_steps(int b, int cs) { return (ksteps(b) + cs - 1) / cs; }
+__host__ __device__ inline int so_z_units(int b, int nr, int br, int cs, bool cut) {
+  const int zt = 2 * (cut ? ((b + 15) >> 4) * zcut_steps(b, cs) * 128 : tile_units(b, b));
+  return even_up(imax(imax(zt, cs > 1 ? b * even_up(nr) : 0), (cut ? br : b) * z_ld(b, true)));
+}
+__host__ __device__ inline int so_t_units(int n, int b, int nr, int br, int cs, bool cut) {
+  const int late = 2 * imax(rows8(nr), rows8(br)) * row_units(n);   // rep columns, V rows
+  const int t = even_up(imax(imax(2 * rows8(nr) * row_units(b), br * b), cs > 1 ? late : 0));
+  return cs > 1 ? t : imax(t, even_up(late - so_z_units(b, nr, br, cs, cut)));
+}
+__host__ __device__ inline int so_img_units(int n, int b, int nr, int cs) {
+  return even_up(imax(nr * n, cs > 1 ? 0 : b * even_up(nr)));
+}
+__host__ __device__ inline int so_stage_units(int bit, int n, int b, int nr) {
+  if (bit == kStageAi) return 2 * rows8(nr) * row_units(b);
+  return 2 * (bit == kStageBi ? tile_units(n, b) : tile_units(b, n));
+}
+
 // 4-byte units of the cut of Z across a cluster: the table of Z's b row
-// addresses (ZRows) and this block's max|P|² over its rows, read by the peers.
-__host__ __device__ inline int zrows_units(int b, bool cut) { return cut ? b + 1 : 0; }
+// addresses (ZRows) and this block's max|P|² over its rows, read by the peers;
+// ``split_ops``, then the table of the addresses of Zᵀ's ksteps(b) k-steps.
+__host__ __device__ inline int zrows_units(int b, bool cut, bool split_ops = false) {
+  return cut ? b + 1 + (split_ops ? ksteps(b) : 0) : 0;
+}
 
 // Bytes of a block's shared memory before any staged matrix: the four
-// buffers, the frame buffers, 32 floats for reductions, the metric
-// accumulators of the segments of the block's nr image rows and br bbox
-// rows, room for the sums of all segments (read in the first block), and,
-// ``cut``, the cut of Z.
+// buffers (``split_ops``: K2's three), the frame buffers, 32 floats for
+// reductions, the metric accumulators of the segments of the block's nr
+// image rows and br bbox rows, room for the sums of all segments (read in
+// the first block), and, ``cut``, the cut of Z.
 __host__ __device__ inline size_t led_base_bytes(int n, int b, int cs, int nr, int br,
-                                                 int frames, bool cut, bool split) {
-  return (size_t)(z_units(b, nr, br, cut, split) + t_units(n, b, nr, br, split)
-                  + img_units(n, nr) + repc_units(n, nr, cs)) * sizeof(float2)
-         + (size_t)(frames * frame_units(n, nr) + 32 + nr * segments(n)
-                    + br * segments(b) + sums_units(n, b) + zrows_units(b, cut)) * sizeof(float);
+                                                 int frames, bool cut, bool split,
+                                                 bool split_ops = false) {
+  const int buffers = split_ops ? so_z_units(b, nr, br, cs, cut) + so_t_units(n, b, nr, br, cs, cut)
+                                      + so_img_units(n, b, nr, cs)
+                                : z_units(b, nr, br, cut, split) + t_units(n, b, nr, br, split)
+                                      + img_units(n, nr) + repc_units(n, nr, cs);
+  return (size_t)buffers * sizeof(float2)
+         + (size_t)(frames * frame_units(n, nr) + 32 + nr * segments(n) + br * segments(b)
+                    + sums_units(n, b) + zrows_units(b, cut, split_ops)) * sizeof(float);
 }
 
 // One block's view of its shared memory and of its slabs.
@@ -914,7 +1182,7 @@ __device__ __forceinline__ unsigned* zcut_rows(const LedSmem& s, int n, int b) {
 // (fpm_torch/ops/kernels.py slab_bounds states the same rule, and a test
 // holds that such slabs cover every row once). ``split``: the matrices are
 // in the bf16x3 layout.
-template <bool CUT>
+template <bool CUT, bool SO = false>
 __device__ inline LedSmem carve_smem(void* base, const DftMats m, int n, int b,
                                      const LedPlan plan, int rank, bool split) {
   LedSmem s;
@@ -929,26 +1197,38 @@ __device__ inline LedSmem carve_smem(void* base, const DftMats m, int n, int b,
   s.brows = min(plan.br, b - s.brow0);
   float2* f = reinterpret_cast<float2*>(base);
   s.z = f;
-  f += z_units(b, plan.nr, plan.br, CUT, split);
-  s.t = f;
-  f += t_units(n, b, plan.nr, plan.br, split);
-  s.img = f;
-  f += img_units(n, plan.nr);
-  s.repc = plan.cs > 1 ? f : s.img;
-  f += repc_units(n, plan.nr, plan.cs);
+  if constexpr (SO) {
+    f += so_z_units(b, plan.nr, plan.br, plan.cs, CUT);
+    s.t = f;
+    f += so_t_units(n, b, plan.nr, plan.br, plan.cs, CUT);
+    s.img = f;
+    f += so_img_units(n, b, plan.nr, plan.cs);
+    s.repc = s.t;
+  } else {
+    f += z_units(b, plan.nr, plan.br, CUT, split);
+    s.t = f;
+    f += t_units(n, b, plan.nr, plan.br, split);
+    s.img = f;
+    f += img_units(n, plan.nr);
+    s.repc = plan.cs > 1 ? f : s.img;
+    f += repc_units(n, plan.nr, plan.cs);
+  }
   // Matrix ``bit`` from ``src``: copied to f and read there if the plan
-  // stages it, else read where it is.
+  // stages it, else read where it is. Of Ai only the rows the products read
+  // are copied (SO: rows8(s.rows), within the n + 8 rows the host gives),
+  // in room for the plan's nr.
   auto stage = [&](const float2* src, int bit) -> const float2* {
     if (!(plan.stage & bit)) return src;
-    const int count = stage_count(bit, n, b, s.rows, split);
+    const int count =
+        SO ? so_stage_units(bit, n, b, s.rows) : stage_count(bit, n, b, s.rows, split);
     for (int e = threadIdx.x; e < count; e += blockDim.x) f[e] = src[e];
     const float2* staged = f;
-    f += stage_units(bit, n, b, plan.nr, split);
+    f += SO ? so_stage_units(bit, n, b, plan.nr) : stage_units(bit, n, b, plan.nr, split);
     return staged;
   };
   s.bi = stage(m.bi, kStageBi);
   s.bf = stage(m.bf, kStageBf);
-  s.ai = stage(m.ai + (size_t)s.row0 * (split ? even_up(b) : b), kStageAi);
+  s.ai = stage(m.ai + (size_t)s.row0 * (SO ? 2 * row_units(b) : split ? even_up(b) : b), kStageAi);
   s.af = stage(m.af, kStageAf);
   s.frame = reinterpret_cast<float*>(f);
   s.red = s.frame + plan.frames * frame_units(n, plan.nr);
@@ -964,6 +1244,13 @@ __device__ inline LedSmem carve_smem(void* base, const DftMats m, int n, int b,
     for (int k = threadIdx.x; k < b; k += blockDim.x) {
       const int q = k / plan.br;
       zrow[k] = cluster_addr(s.z, q) + 8u * (unsigned)((k - q * plan.br) * ldz);
+    }
+    if constexpr (SO) {   // Zᵀ's k-step k of m-tile 0: block k / zs, its k-step k mod zs
+      const int zs = zcut_steps(b, plan.cs);
+      for (int k = threadIdx.x; k < ksteps(b); k += blockDim.x) {
+        const int q = k / zs;
+        zrow[b + 1 + k] = cluster_addr(s.z, q) + 2048u * (unsigned)(k - q * zs);
+      }
     }
   }
   __syncthreads();
@@ -1039,7 +1326,7 @@ struct KernelPair {
 
 template <typename Kernel>
 int plan_at(KernelPair<Kernel> kernel, int n, int b, int slots, int frames, int cs, int limit,
-            bool split, int force_zcut, LedPlan* plan, int* clusters) {
+            bool split, int force_zcut, LedPlan* plan, int* clusters, bool split_ops = false) {
   LedPlan p{cs, (n + cs - 1) / cs, (b + cs - 1) / cs, 0, frames, 0, 0};
   size_t bytes = 0;
   bool fits = false;
@@ -1047,16 +1334,17 @@ int plan_at(KernelPair<Kernel> kernel, int n, int b, int slots, int frames, int 
     if (force_zcut && cut != force_zcut - 1) continue;
     p.zcut = cut;
     p.frames = frames;
-    bytes = led_base_bytes(n, b, cs, p.nr, p.br, frames, cut, split);
+    bytes = led_base_bytes(n, b, cs, p.nr, p.br, frames, cut, split, split_ops);
     if (bytes > (size_t)limit) {   // then without frame buffers: frames read in place
       p.frames = 0;
-      bytes = led_base_bytes(n, b, cs, p.nr, p.br, 0, cut, split);
+      bytes = led_base_bytes(n, b, cs, p.nr, p.br, 0, cut, split, split_ops);
     }
     fits = bytes <= (size_t)limit;
   }
   if (!fits) return kErrLedSmem;
   for (int bit = kStageBi; bit <= kStageAf; bit <<= 1) {
-    const size_t more = (size_t)stage_units(bit, n, b, p.nr, split) * sizeof(float2);
+    const size_t more = (size_t)(split_ops ? so_stage_units(bit, n, b, p.nr)
+                                           : stage_units(bit, n, b, p.nr, split)) * sizeof(float2);
     if (bytes + more <= (size_t)limit) {
       bytes += more;
       p.stage |= bit;
@@ -1113,7 +1401,8 @@ constexpr float kLedTime[2][4] = {{1.f, 0.56f, 0.333f, 0.2f}, {1.f, 0.665f, 0.44
 // chunk asks the card once.
 template <typename Kernel>
 int plan_led(KernelPair<Kernel> kernel, int n, int b, int slots, int frames, bool persistent,
-             int tier, int force_cs, int force_zcut, int device, LedPlan* plan) {
+             int tier, int force_cs, int force_zcut, int device, LedPlan* plan,
+             bool split_ops = false) {
   if ((force_cs != 0 && force_cs != 1 && force_cs != 2 && force_cs != 4 && force_cs != 8)
       || force_zcut < 0 || force_zcut > 2)
     return (int)cudaErrorInvalidValue;
@@ -1139,7 +1428,7 @@ int plan_led(KernelPair<Kernel> kernel, int n, int b, int slots, int frames, boo
     LedPlan p;
     int clusters = 0;
     const int e = plan_at(kernel, n, b, slots, frames, cs, limit, tier == kBf16x3, force_zcut, &p,
-                          &clusters);
+                          &clusters, split_ops);
     if (e == kErrLedSmem) continue;
     if (e) return e;
     fits_smem = true;
@@ -1163,13 +1452,14 @@ int plan_led(KernelPair<Kernel> kernel, int n, int b, int slots, int frames, boo
 // fit at this cs).
 template <typename Kernel>
 int resident_clusters(KernelPair<Kernel> kernel, int n, int b, int slots, int frames, int cs,
-                      int tier, int device, int* clusters) {
+                      int tier, int device, int* clusters, bool split_ops = false) {
   const DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   int limit = 0;
   if (const int e = smem_limit(kernel, device, &limit)) return e;
   LedPlan p;
-  return plan_at(kernel, n, b, slots, frames, cs, limit, tier == kBf16x3, 0, &p, clusters);
+  return plan_at(kernel, n, b, slots, frames, cs, limit, tier == kBf16x3, 0, &p, clusters,
+                 split_ops);
 }
 
 // A patch start as the JAX package's crop (``lax.dynamic_slice``) takes it:
@@ -1180,6 +1470,36 @@ int resident_clusters(KernelPair<Kernel> kernel, int n, int b, int slots, int fr
 __device__ __forceinline__ int clamp_start(int s, int dim, int n) {
   if (s < 0) s += dim;
   return min(max(s, 0), dim - n);
+}
+
+// The amplitude replacement of this block's image rows in s.img, and their
+// share of the data residual Σ(amp − |img|)² into s.rsum when ``metrics``:
+// led_forward_at's pass (which keeps its own copy, so that K1's and K3's
+// compiled code stays as it was), for led_forward_split.
+__device__ __forceinline__ void replace_rows(const LedSmem s, const float* amp, int n, float eps,
+                                             bool metrics) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+  const int segs = segments(n);
+  for (int t = warp; t < s.rows * segs; t += warps) {
+    const int r = t / segs, c = 32 * (t - r * segs) + lane;
+    float racc = 0.f;
+    if (c < n) {
+      const int e = r * n + c;
+      const float2 v = s.img[e];
+      const float a = amp[e];
+      const float re = v.x + eps, im = v.y + eps;
+      const float scale = a / sqrtf(re * re + im * im);
+      if (metrics) {
+        const float d = a - sqrtf(v.x * v.x + v.y * v.y);
+        racc = d * d;
+      }
+      s.img[e] = make_float2(v.x * scale, v.y * scale);
+    }
+    if (metrics) {
+      racc = warp_sum(racc);
+      if (lane == 0) s.rsum[t] += racc;
+    }
+  }
 }
 
 // This block's share of the forward pass of one LED from the state (O, P):
@@ -1407,6 +1727,219 @@ __device__ void led_forward(const float* o_re, const float* o_im, int ld, int y0
                              int b, float eps, bool metrics, const LedSmem s, float* pmax) {
   led_forward_at<T, CUT, kMain>(o_re, o_im, ld, y0, x0, p_re, p_im, amp, n, b, eps, metrics, s,
                                 pmax);
+}
+
+// The outputs of tile_product: complex f32, row stride ``ld``; TR: the
+// product's rows are the output's columns (the product computed transposed) ...
+template <bool TR>
+struct OutF32 {
+  float2* c;
+  int ld;
+  __device__ __forceinline__ void store(const float2 (&v)[4], int m0, int n0, int g, int t,
+                                        int M, int N) const {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = m0 + g + ((r >> 1) << 3), j = n0 + 2 * t + (r & 1);
+      if (i < M && j < N) c[TR ? (size_t)j * ld + i : (size_t)i * ld + j] = v[r];
+    }
+  }
+};
+
+// ... or T_r = (the product)ᵀ in the row layout (``rs`` units per row: the
+// rows its N columns, the index pairs along its M rows): lane (g, t) holds
+// rows m0 + g, + 8 of columns n0 + 2t, + 1, and takes from lane g ^ 1 the
+// partners of one column's pairs (even g column n0 + 2t, odd g the next);
+// rows past M are the contraction's zero padding.
+struct OutTr {
+  uint32_t* w;
+  int rs;
+  __device__ __forceinline__ void store(const float2 (&v)[4], int m0, int n0, int g, int t,
+                                        int M, int N) const {
+    const int odd = g & 1;
+    const float2 s0 = odd ? v[0] : v[1], s1 = odd ? v[2] : v[3];
+    const float2 r0 = make_float2(__shfl_xor_sync(0xffffffffu, s0.x, 4),
+                                  __shfl_xor_sync(0xffffffffu, s0.y, 4));
+    const float2 r1 = make_float2(__shfl_xor_sync(0xffffffffu, s1.x, 4),
+                                  __shfl_xor_sync(0xffffffffu, s1.y, 4));
+    const int col = n0 + 2 * t + odd, j = m0 + g - odd;   // j: the pair's even row
+    if (col >= N) return;
+    const float2 z = make_float2(0.f, 0.f);
+    const float2 a0 = odd ? r0 : v[0], a1 = odd ? v[1] : r0;   // rows j, j + 1
+    const float2 b0 = odd ? r1 : v[2], b1 = odd ? v[3] : r1;   // rows j + 8, j + 9
+    put_row(w, rs, col, j >> 1, j < M ? a0 : z, j + 1 < M ? a1 : z);
+    put_row(w, rs, col, (j >> 1) + 4, j + 8 < M ? b0 : z, j + 9 < M ? b1 : z);
+  }
+};
+
+// K2's forward pass at bf16x3: led_forward_at's function and contract (the
+// same barriers; up[slab r] left in s.img), with every operand of the four
+// products in a layout whose loads are whole fragments (TileA, RowB; the
+// static matrices from the host, the dynamic ones split where they are
+// written) and each product a tile_product, every element the same sum as
+// in led_forward_at:
+//   window      Zᵀ (tile layout: rows j, index pairs along Z's rows; cut by
+//               rows: this block's zcut_steps k-steps of every row)
+//   product 1   T_rᵀ = Zᵀ·Ai[rows_r, :]ᵀ: the slab's rows on mma's 8-wide
+//               side; stored as T_r in the row layout (OutTr)
+//   product 2   img_rᵀ = Biᵀ·T_rᵀ
+//   rep gather  rep[:, cols_r]ᵀ (row layout), rep's rows from the block that
+//               owns each
+//   product 3   V[:, cols_r] = Af·rep[:, cols_r], f32 for the peers
+//   V gather    V[slab r, :] (row layout), V's columns from their owners
+//   product 4   up[slab r]ᵀ = Bfᵀ·V[slab r, :]ᵀ: the slab's br rows (8 at
+//               Np 90, cs 8) on the 8-wide side and Bf's b on the 16-wide
+// (so_z_units gives the buffers). A = kNoDft runs no product: it is
+// led_forward_at's, on f32 Z.
+template <bool CUT, int A>
+__device__ __forceinline__ void led_forward_split(const float* o_re, const float* o_im, int ld,
+                                                  int y0, int x0, const float* p_re,
+                                                  const float* p_im, const float* amp, int n,
+                                                  int b, float eps, bool metrics,
+                                                  const LedSmem s, float* pmax) {
+  if constexpr (A == kNoDft) {
+    led_forward_at<kBf16x3, CUT, kNoDft>(o_re, o_im, ld, y0, x0, p_re, p_im, amp, n, b, eps,
+                                         metrics, s, pmax);
+  } else {
+    constexpr int kPasses = A == kDft1Pass ? 1 : 3;
+    cg::cluster_group cluster = cg::this_cluster();
+    const int kb = ksteps(b), kn = ksteps(n);
+    const int zs = CUT ? zcut_steps(b, s.cs) : kb;   // k-steps of Zᵀ this block holds per m-tile
+    // Zᵀ's index pairs [q0, q1) of every row j < b: Z = O[y0 + i, x0 + j]·P[i, j]
+    const int q0 = CUT ? min(s.rank * zs, kb) * 8 : 0, q1 = CUT ? min(q0 + 8 * zs, 8 * kb) : 8 * kb;
+    const int count = (q1 - q0) * b;
+    uint32_t* const zw = reinterpret_cast<uint32_t*>(s.z);
+    float pm2 = 0.f;
+    // Element e = w·b + j (pair q0 + w of row j), stepped by blockDim without a division.
+    const int dw = blockDim.x / b, dj = blockDim.x - dw * b;
+    int w = threadIdx.x / b, j = threadIdx.x - w * b;
+    for (int e0 = threadIdx.x; e0 < count; e0 += kBatch * blockDim.x) {
+      float2 o[kBatch][2], p[kBatch][2];   // every load of a batch before the first use
+      int at[kBatch][2];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int i = 2 * (q0 + w) + hh;
+          o[u][hh] = p[u][hh] = make_float2(0.f, 0.f);
+          if (e0 + u * (int)blockDim.x < count && i < b) {
+            const size_t g = A == kNoWindowRead ? (size_t)i * ld + j                // O[0:b, 0:b]
+                                                : (size_t)(y0 + i) * ld + (x0 + j);
+            o[u][hh] = make_float2(ld_state(o_re + g), ld_state(o_im + g));
+            p[u][hh] = make_float2(ld_state(p_re + i * b + j), ld_state(p_im + i * b + j));
+          }
+        }
+        at[u][0] = j;
+        at[u][1] = w;
+        w += dw;
+        j += dj;
+        if (j >= b) {
+          j -= b;
+          ++w;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        if (e0 + u * (int)blockDim.x < count) {
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+            pm2 = fmaxf(pm2, p[u][hh].x * p[u][hh].x + p[u][hh].y * p[u][hh].y);
+          put_tile(zw, zs, at[u][0], at[u][1], cmul(o[u][0], p[u][0]), cmul(o[u][1], p[u][1]));
+        }
+      }
+    }
+    pm2 = block_max(pm2, s.red);            // ends with a block barrier: Zᵀ is written
+    FPM_PHASE(kPhaseWindow);
+    if constexpr (CUT) {
+      float* const pm2_slot = reinterpret_cast<float*>(zcut_rows(s, n, b) + b);
+      if (threadIdx.x == 0) *pm2_slot = pm2;
+      cluster.sync();   // barrier 0: every block's k-steps of Zᵀ and its max|P|² are written
+      for (int q = 0; q < s.cs; ++q) pm2 = fmaxf(pm2, *cluster.map_shared_rank(pm2_slot, q));
+    }
+    *pmax = sqrtf(pm2);
+    FPM_PHASE(kPhaseBarrier0);
+    // T_rᵀ = Zᵀ·Ai[rows_r, :]ᵀ (cut: k-step s of Zᵀ from the block that built it)
+    const RowB ai{reinterpret_cast<const uint4*>(s.ai), row_units(b)};
+    const OutTr tr{reinterpret_cast<uint32_t*>(s.t), row_units(b)};
+    if constexpr (CUT)
+      tile_product<kPasses, true>(TileCut{zcut_rows(s, n, b) + b + 1, zs}, ai, tr, b, s.rows, b);
+    else
+      tile_product<kPasses, true>(TileA{reinterpret_cast<const uint4*>(s.z), kb}, ai, tr, b,
+                                  s.rows, b);
+    __syncthreads();
+    FPM_PHASE(kPhaseProduct1);
+    // img_rᵀ = Biᵀ·T_rᵀ
+    tile_product<kPasses, true>(TileA{reinterpret_cast<const uint4*>(s.bi), kb},
+                                RowB{reinterpret_cast<const uint4*>(s.t), row_units(b)},
+                                OutF32<true>{s.img, n}, n, s.rows, b);
+    __syncthreads();
+    FPM_PHASE(kPhaseProduct2);
+    replace_rows(s, amp, n, eps, metrics);
+    FPM_PHASE(kPhaseReplace);
+    // Where the later operands go: with peers, V[:, cols_r] where Zᵀ was (the
+    // peers read it until the caller's next barrier) and rep's columns, then
+    // V's rows, where T_r was; alone, V in img and the rest over z and t.
+    const bool solo = s.cs == 1;
+    uint32_t* const cols = reinterpret_cast<uint32_t*>(solo ? s.z : s.t);
+    float2* const vcols = solo ? s.img : s.z;   // V[:, cols_r]
+    if (solo) {
+      __syncthreads();            // every row of rep is written
+    } else {
+      cluster.sync();             // barrier 1: every rep_q is written, every k-step of Zᵀ read
+      FPM_PHASE(kPhaseBarrier1);
+    }
+    // rep[:, cols_r]ᵀ: thread e = (s·4 + t)·rows + c writes the units of rep's
+    // rows 16s + 2t, + 1, + 8, + 9 at column c, each row from the block that
+    // owns it
+    const int rn = row_units(n), quads_n = 4 * kn;
+    uint4* const cw = reinterpret_cast<uint4*>(cols);
+    for (int e = threadIdx.x; e < s.rows * quads_n; e += blockDim.x) {
+      const int st = e / s.rows, c = e - st * s.rows;
+      const int i0 = 16 * (st >> 2) + 2 * (st & 3), q0 = i0 / s.nr;
+      float2 v[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = i0 + (r & 1) + ((r >> 1) << 3), q = owner(q0, i, s.nr);
+        v[r] = i < n ? cluster.map_shared_rank(s.img, q)[(i - q * s.nr) * n + s.row0 + c]
+                     : make_float2(0.f, 0.f);
+      }
+      put_row4(cw, rn, c, st, v);
+    }
+    __syncthreads();
+    FPM_PHASE(kPhaseGatherRep);
+    // V[:, cols_r] = Af·rep[:, cols_r]
+    tile_product<kPasses, false>(TileA{reinterpret_cast<const uint4*>(s.af), kn},
+                                 RowB{reinterpret_cast<const uint4*>(cols), rn},
+                                 OutF32<false>{vcols, s.nrp}, b, s.rows, n);
+    if (solo) {
+      __syncthreads();
+    } else {
+      FPM_PHASE_SYNC(kPhaseProduct3);
+      cluster.sync();             // barrier 2: every V[:, cols_q] is written, every rep_q read
+      FPM_PHASE(kPhaseBarrier2);
+    }
+    // V[slab r, :]: thread e = i·4kn + s·4 + t writes the units of V's columns
+    // 16s + 2t, + 1, + 8, + 9 at row i, each column from the block that owns it
+    for (int e = threadIdx.x; e < s.brows * quads_n; e += blockDim.x) {
+      const int i = e / quads_n, st = e - i * quads_n;
+      const int k0 = 16 * (st >> 2) + 2 * (st & 3), q0 = k0 / s.nr;
+      float2 v[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int k = k0 + (r & 1) + ((r >> 1) << 3), q = owner(q0, k, s.nr);
+        v[r] = k < n ? cluster.map_shared_rank(vcols, q)[(s.brow0 + i) * s.nrp + k - q * s.nr]
+                     : make_float2(0.f, 0.f);
+      }
+      put_row4(cw, rn, i, st, v);
+    }
+    __syncthreads();
+    FPM_PHASE(kPhaseGatherV);
+    // up[slab r]ᵀ = Bfᵀ·V[slab r, :]ᵀ
+    tile_product<kPasses, true>(TileA{reinterpret_cast<const uint4*>(s.bf), kn},
+                                RowB{reinterpret_cast<const uint4*>(cols), rn},
+                                OutF32<true>{s.img, b}, b, s.brows, n);
+    __syncthreads();
+    FPM_PHASE(kPhaseProduct4);
+  }
 }
 
 // Per-element increments of one LED on this block's slab of bbox rows, from

@@ -39,6 +39,15 @@
 // The metric sums are per-segment accumulators (epry_common.cuh), added in
 // a fixed order in the cluster's first block at the end of the sweep.
 //
+// The four DFT products: at highest the FP32 cgemm of led_forward; at
+// bf16x3 led_forward_split (epry_common.cuh), the tensor-core sums of
+// cgemm_tc, bit for bit, on operands that the host (the DFT matrices) and
+// the passes that write them (Z, T_r, the gathered rep and V) lay out once
+// in the tile and row layouts, whose 16-byte loads are whole mma fragments;
+// products 1, 2 and 4 transposed, the slabs' skinny sides on mma's 8-wide
+// n. Its buffers and staged matrices are carve_smem's split-operand layout
+// (so_z_units), which plan_led reckons for this kernel alone.
+//
 // The ablation build (-DFPM_ABLATE) adds k2_sweep_ablate<T, A> and
 // k2_sweep_ablate_zcut<T, A>, the same sweep with the stage of ablation A
 // turned off (Ablate, epry_common.cuh; kOmaxConst also drops the row-max
@@ -120,8 +129,8 @@ __device__ __forceinline__ void k2_sweep_body(
   rowmax += q * nl;
   mets += 2 * q;
   extern __shared__ float4 smem_raw[];
-  const LedSmem s =
-      carve_smem<CUT>(smem_raw, m, n, b, plan, (int)cluster.block_rank(), T == kBf16x3);
+  const LedSmem s = carve_smem<CUT, T == kBf16x3>(smem_raw, m, n, b, plan,
+                                                  (int)cluster.block_rank(), T == kBf16x3);
   const int frame_stride = frame_units(n, plan.nr);
   const int slab_count = s.rows * n;           // this block's floats of a frame
   const float* slab0 = amps + (size_t)s.row0 * n;
@@ -150,17 +159,21 @@ __device__ __forceinline__ void k2_sweep_body(
     }
     FPM_PHASE(kPhaseFrameWait);
     float pmax;
-    if constexpr (A == kMain) {
+    if constexpr (T == kBf16x3)
+      led_forward_split<CUT, A>(o_re, o_im, nl, y0, x0, p_re, p_im, amp, n, b, eps,
+                                metrics != 0, s, &pmax);
+    else if constexpr (A == kMain)
       led_forward<T, CUT>(o_re, o_im, nl, y0, x0, p_re, p_im, amp, n, b, eps, metrics != 0, s,
                           &pmax);
-      led_increments(s, o_re, o_im, nl, y0, x0, b, p_re, p_im, sup, pmax, delta1, delta2,
-                     metrics != 0, nullptr, num, o_re, o_im);
-    } else {
+    else
       led_forward_at<T, CUT, A>(o_re, o_im, nl, y0, x0, p_re, p_im, amp, n, b, eps,
                                 metrics != 0, s, &pmax);
+    if constexpr (A == kMain)
+      led_increments(s, o_re, o_im, nl, y0, x0, b, p_re, p_im, sup, pmax, delta1, delta2,
+                     metrics != 0, nullptr, num, o_re, o_im);
+    else
       led_increments_at<A>(s, o_re, o_im, nl, y0, x0, b, p_re, p_im, sup, pmax, delta1, delta2,
                            metrics != 0, nullptr, num, o_re, o_im);
-    }
     FPM_PHASE_SYNC(kPhaseIncrements);
     if (exact && A != kOmaxConst) {
       __syncthreads();                          // this block wrote all of these rows' updates
@@ -271,7 +284,9 @@ KernelPair<decltype(&k2_sweep<T>)> k2_kernels() {
 //   p      (P, 2, b, b)   f32 planes, centered bbox pupils, updated in place
 //   sup    (b, b)         f32 centered bbox support
 //   amps   (P, k_leds, n, n) f32, schedule order; starts (2·k_leds) int32
-//   ai/bi/af/bf           the DFT matrices in the tier's layout (epry_common.cuh)
+//   ai/bi/af/bf           the DFT matrices in the tier's layout (epry_common.cuh; at
+//                         bf16x3 K2's: Ai in the row layout, Biᵀ, Af, Bfᵀ in the tile
+//                         layout, kernels.py _k2_mats)
 //   rowmax (P, nl) f32 scratch; mets (P, 2) f32, accumulated into
 //   tier               Tier of the products: 0 highest, 1 bf16x3
 //   force_cs           tests only: the cluster size to take (0 = choose)
@@ -291,7 +306,7 @@ static int k2_sweep_at(float* o, float* p, const float* sup, const float* amps, 
   LedPlan plan;
   const auto kernel = k2_kernels<T, A>();
   if (const int e = plan_led(kernel, n, b, n_problems, 2, true, T, force_cs, force_zcut, device,
-                             &plan))
+                             &plan, T == kBf16x3))
     return e;
   export_plan(plan, plan_out);
   cudaError_t err;
@@ -338,7 +353,7 @@ extern "C" int fpm_resident_clusters(int n, int b, int slots, int cs, int tier, 
   if (tier == kBf16x3)
     return resident_clusters(KernelPair<decltype(&k2_sweep<kBf16x3>)>{
                                  k2_sweep<kBf16x3>, k2_sweep_zcut<kBf16x3>},
-                             n, b, slots, 2, cs, tier, device, clusters);
+                             n, b, slots, 2, cs, tier, device, clusters, true);
   if (tier == kHighest)
     return resident_clusters(KernelPair<decltype(&k2_sweep<kHighest>)>{
                                  k2_sweep<kHighest>, k2_sweep_zcut<kHighest>},

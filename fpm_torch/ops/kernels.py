@@ -237,6 +237,21 @@ def _dft_mats(n: int, b: int, lo: int, device: torch.device, dft_precision: str 
     return tuple(tuple(torch.from_numpy(h).to(device) for h in pair) for pair in mats)
 
 
+def _split_words(m: np.ndarray, rows: int, k_pad: int) -> np.ndarray:
+    """The bf16x2 words of a complex matrix's split, (4, rows, k_pad / 2)
+    uint32: re hi, re lo, im hi, im lo, index 2i in the low half; rows and
+    the contraction zero-padded to ``rows`` and ``k_pad``."""
+    r, k = m.shape
+    out = []
+    for part in (m.real, m.imag):
+        x = np.zeros((rows, k_pad), np.float32)
+        x[:r, :k] = part
+        for half in bf16_split(torch.from_numpy(x)):
+            bits = half.view(torch.int16).numpy().view(np.uint16).astype(np.uint32)
+            out.append(bits[:, 0::2] | (bits[:, 1::2] << 16))
+    return np.stack(out)
+
+
 def split_layout(m: np.ndarray) -> np.ndarray:
     """The bf16x3 kernels' layout of a static complex matrix whose
     contraction runs along its rows (``csrc/epry_common.cuh`` cgemm_tc):
@@ -244,21 +259,53 @@ def split_layout(m: np.ndarray) -> np.ndarray:
     contraction indices the bf16x2 words re hi, re lo, im hi, im lo, index 2i
     in the low half; an odd K is padded with a zero."""
     rows, k = m.shape
-    words = []
-    for part in (m.real, m.imag):
-        x = np.zeros((rows, k + (k & 1)), np.float32)
-        x[:, :k] = part
-        for half in bf16_split(torch.from_numpy(x)):
-            bits = half.view(torch.int16).numpy().view(np.uint16).astype(np.uint32)
-            words.append(bits[:, 0::2] | (bits[:, 1::2] << 16))
-    return np.ascontiguousarray(np.stack(words, axis=-1).view(np.int32))
+    return np.ascontiguousarray(_split_words(m, rows, k + (k & 1)).transpose(1, 2, 0)).view(
+        np.int32)
+
+
+def tile_layout(m: np.ndarray) -> np.ndarray:
+    """K2's tile layout of a complex matrix whose contraction runs along its
+    rows (``csrc/epry_common.cuh`` TileA: mma's A operand), int32: for each
+    16-row tile, 16-index k-step, part (re hi, re lo, im hi, im lo) and lane
+    (g, t), the words of rows g, g + 8 at the index pairs t, then t + 4; rows
+    and contraction zero-padded to multiples of 16."""
+    rows, k = m.shape
+    mt, ks = -(-rows // 16), -(-k // 16)
+    w = _split_words(m, 16 * mt, 16 * ks).reshape(4, mt, 2, 8, ks, 2, 4)
+    # (part, mt, row half, g, ks, pair half, t) -> (mt, ks, part, g, t, pair half, row half)
+    return np.ascontiguousarray(w.transpose(1, 4, 0, 3, 6, 5, 2)).reshape(-1).view(np.int32)
+
+
+def row_layout(m: np.ndarray, rows: int) -> np.ndarray:
+    """K2's row layout of a complex matrix whose contraction runs along its
+    rows (TileA's partner RowB: mma's B operand), int32, ``rows`` rows (zero
+    rows past the matrix's): per row and 16-index k-step, for t = 0..3 the
+    words re hi, re lo of the index pairs t, t + 4 (hi of both, then lo),
+    then im hi, im lo the same; each row then one 16-byte unit of zeros."""
+    ks = -(-m.shape[1] // 16)
+    w = _split_words(m, rows, 16 * ks).reshape(2, 2, rows, ks, 2, 4)
+    # (re/im, hi/lo, row, ks, pair half, t) -> (row, ks, t, re/im, hi/lo, pair half)
+    units = w.transpose(2, 3, 5, 0, 1, 4).reshape(rows, 32 * ks)
+    return np.ascontiguousarray(np.pad(units, ((0, 0), (0, 4)))).reshape(-1).view(np.int32)
+
+
+@functools.lru_cache(maxsize=16)
+def _k2_mats(n: int, b: int, lo: int, device: torch.device):
+    """K2's DFT matrices at bf16x3 (``csrc/epry_common.cuh`` led_forward_split):
+    Ai in the row layout with 8 zero rows past its n (a slab's n-tile reads
+    up to 7 rows past its own, and carve_smem stages those rows8(rows) rows
+    and no more), Biᵀ, Af and Bfᵀ in the tile layout."""
+    ai, bi, af, bf = _block_dft_mats(n, b, lo)
+    mats = (row_layout(ai, n + 8), tile_layout(bi.T), tile_layout(af), tile_layout(bf.T))
+    return tuple(torch.from_numpy(m).to(device) for m in mats)
 
 
 @functools.lru_cache(maxsize=16)
 def _kernel_mats(n: int, b: int, lo: int, device: torch.device, dft_precision: str):
     """The DFT matrices as the C entry points take them: ``'highest'``
     complex64 Ai, Bi, Af, Bf; ``'bf16x3'`` the :func:`split_layout` of Ai,
-    Biᵀ, Af, Bfᵀ (every contraction along the rows)."""
+    Biᵀ, Af, Bfᵀ (every contraction along the rows); K2 at bf16x3 takes
+    :func:`_k2_mats` instead."""
     if dft_precision == "highest":
         return _dft_mats(n, b, lo, device)
     ai, bi, af, bf = _block_dft_mats(n, b, lo)
@@ -561,7 +608,8 @@ def _sweep_cuda(o, pc, sc, amps, starts, *, lo, eps, delta1, delta2, global_max,
         entry, extra = lib.fpm_k2_sweep, ()
     o, pc = o.contiguous().clone(), pc.contiguous().clone()
     sc, amps, starts = sc.contiguous(), amps.contiguous(), starts.contiguous()
-    mats = _kernel_mats(n, b, lo, o.device, dft_precision)
+    mats = (_k2_mats(n, b, lo, o.device) if dft_precision == "bf16x3"
+            else _kernel_mats(n, b, lo, o.device, dft_precision))
     rowmax = torch.empty((n_prob, nl), dtype=torch.float32, device=o.device)
     mets = torch.zeros((n_prob, 2), dtype=torch.float32, device=o.device)
     launched, plan = ctypes.c_int(0), _plan_out()

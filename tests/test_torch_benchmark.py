@@ -323,3 +323,70 @@ def test_without_a_card_a_cell_exits_1(cell):
     out = _module("--cell", cell)
     assert out.returncode == 1 and out.stdout == ""
     assert "no CUDA device" in out.stderr
+
+
+def test_cell_spread_pairs_two_checkouts_and_counts_the_wins(tmp_path, capsys):
+    """scripts/cell_spread.py --read DIR --other: each side's runs of a cell
+    summed up apart, and the pairs this checkout won in each end-to-end
+    metric's direction (a tie for neither); a control that came out correct
+    fails the call."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("cell_spread", REPO / "scripts/cell_spread.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    cell = "mono-np90-sequential"
+    fps = {"this": [60.0, 61.0, 59.0], "other": [50.0, 61.0, 58.0]}
+    run_s = {"this": [0.09, 0.10, 0.11], "other": [0.10, 0.10, 0.10]}
+    for side in fps:
+        (tmp_path / side).mkdir()
+        for i in range(3):
+            line = {m: 1.0 for m in _named(cell)}
+            line.update(led_frames_per_s=fps[side][i], run_s=run_s[side][i], correct=True,
+                        device="card", checks={"spectrum_rel_max": 1e-6, "pupil_rel_max": 1e-5,
+                                               "sweep_loop": {"spectrum_rel_max": 2e-6,
+                                                              "pupil_rel_max": 2e-5}})
+            if side == "this":
+                line["control"] = {"correct": i == 2, "spectrum_rel_max": 4e-4,
+                                   "pupil_rel_max": 6e-3}
+            (tmp_path / side / f"{cell}.{i + 1}.out").write_text("log\n" + json.dumps(line))
+    rc = cs.main(["--read", str(tmp_path), "--other", "unused", "--cell", cell])
+    row = json.loads(capsys.readouterr().out.splitlines()[0])
+    assert rc == 1                                  # the third control came out correct
+    assert row["pairs"] == 3 and row["this_wins"] == {"led_frames_per_s": 2, "run_s": 1}
+    assert row["this"]["led_frames_per_s"]["median"] == 60.0
+    assert row["other"]["led_frames_per_s"]["median"] == 58.0
+    assert row["this"]["control_correct"] == [False, False, True]
+    assert row["this"]["rel_max"] == 2e-5 and "control_rel_max" not in row["other"]
+
+
+def test_chip_smoke_runs_a_cell_again_only_after_a_lost_run_marker(capsys):
+    """chip_smoke.py's benchmark phase: a cell whose device ladder's trace
+    lost a run marker (bench.ladder_runs refuses it) runs once more; a
+    second loss, and any other failure, is raised."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    lost = RuntimeError("5 of 6 run markers in the window, 175 device events after the last: "
+                        "the runs cannot be cut")
+
+    def fake(*outcomes):
+        calls = iter(outcomes)
+
+        def run_cell(*args, **kw):
+            out = next(calls)
+            if isinstance(out, Exception):
+                raise out
+            return out
+        return mock.Mock(REPO=REPO, run_cell=mock.Mock(side_effect=run_cell))
+
+    cell = tb.benchmark_cells()[CELLS[1]]
+    bench = fake(lost, ("line", "crumbs"))
+    assert smoke.run_bench_cell(bench, CELLS[1], cell, "card") == ("line", "crumbs")
+    assert bench.run_cell.call_count == 2
+    assert json.loads(capsys.readouterr().out)["run_again"] == str(lost)
+    for outcomes in ((lost, lost), (RuntimeError("a run of 12 sweeps holds 3 device events"),)):
+        bench = fake(*outcomes)
+        with pytest.raises(RuntimeError):
+            smoke.run_bench_cell(bench, CELLS[1], cell, "card")
+        assert bench.run_cell.call_count == len(outcomes)

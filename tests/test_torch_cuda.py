@@ -142,6 +142,137 @@ def test_k2_matches_plain_at_a_forced_cluster_size(cuda, tier, force_cluster, np
     assert kernels.fused_epry_sweep.cluster_size == cs
 
 
+@pytest.mark.parametrize("layout", [1, 2], ids=["Z whole", "Z cut"])
+@pytest.mark.parametrize("np_size", [90, 100, 200])
+def test_k2_products_on_split_operands_match_plain(cuda, tier, force_layout, request, np_size,
+                                                   layout):
+    """K2's four products on operands kept in the tile and row layouts
+    (bf16x3), at Np 90, 100 and 200 (the dogStomach problem) with Z whole in
+    every block and cut by rows across the cluster, against the plain
+    version within the limits of every K2 case."""
+    ds = (request.getfixturevalue("dog_stomach") if np_size == 200
+          else synthetic_dataset(np_size=np_size, grid=5, seed=3))
+    planes, rest, common = operands(ds, cuda, "sequential", tier=tier)
+    force_layout(kernels.fused_epry_sweep, layout)
+    assert_kernel_matches_plain(kernels.fused_epry_sweep, kernels.fused_epry_sweep_plain,
+                                planes, rest, common)
+    assert kernels.fused_epry_sweep.plan["zcut"] == layout - 1
+    assert kernels.fused_epry_sweep.plan["cs"] > 1
+
+
+def test_k2_ragged_contractions_are_bitwise_at_every_cluster_size(cuda, tier, force_cluster):
+    """Np 90 with a bbox of 56: products 1 and 2 contract over b = 56 and 3
+    and 4 over n = 90, neither a multiple of 16, so each contraction ends in
+    a ragged k-step, which K2's layouts pad with zeros. Within the plain
+    limits at cs 8, where each slab is skinny, and the same bits at cs 1,
+    where a block holds every row."""
+    ds = synthetic_dataset(np_size=90, grid=5, seed=3)
+    planes, rest, common = operands(ds, cuda, "sequential", tier=tier)
+    b = kernels.bbox_extent(90, common["pupil_radius"])[0]
+    assert b % 16 and 90 % 16
+    fn = kernels.fused_epry_sweep
+    force_cluster(fn, 8)
+    assert_kernel_matches_plain(fn, kernels.fused_epry_sweep_plain, planes, rest, common)
+    split = fn(*planes, *rest, **common)
+    force_cluster(fn, 1)
+    alone = fn(*planes, *rest, **common)
+    assert fn.plan["cs"] == 1
+    assert all(torch.equal(a, b_) for a, b_ in zip(split, alone))
+
+
+class AtMappingEnd:
+    """A copy of a CUDA tensor whose last byte is the last byte of its own
+    mapping (the CUDA driver's virtual memory calls): the addresses past it
+    are reserved and left unmapped, so a kernel that reads past the tensor
+    faults instead of reading a neighbour. ``data_ptr()`` as a tensor's."""
+
+    def __init__(self, t):
+        import ctypes
+        c = ctypes
+        self.cu = cu = c.CDLL("libcuda.so.1")
+
+        class Loc(c.Structure):
+            _fields_ = [("type", c.c_int), ("id", c.c_int)]
+
+        class Flags(c.Structure):
+            _fields_ = [("compression", c.c_ubyte), ("rdma", c.c_ubyte), ("usage", c.c_ushort),
+                        ("reserved", c.c_ubyte * 4)]
+
+        class Prop(c.Structure):
+            _fields_ = [("type", c.c_int), ("handle_types", c.c_int), ("location", Loc),
+                        ("win32", c.c_void_p), ("flags", Flags)]
+
+        class Access(c.Structure):
+            _fields_ = [("location", Loc), ("flags", c.c_int)]
+
+        def check(rc):
+            assert rc == 0, f"CUDA driver error {rc}"
+
+        here = Loc(1, t.device.index or 0)                    # CU_MEM_LOCATION_TYPE_DEVICE
+        prop = Prop(type=1, location=here)                     # CU_MEM_ALLOCATION_TYPE_PINNED
+        gran = c.c_size_t()
+        check(cu.cuMemGetAllocationGranularity(c.byref(gran), c.byref(prop), 0))
+        nbytes = t.numel() * t.element_size()
+        self.size = -(-nbytes // gran.value) * gran.value
+        self.handle, self.base = c.c_ulonglong(), c.c_ulonglong()
+        check(cu.cuMemCreate(c.byref(self.handle), c.c_size_t(self.size), c.byref(prop),
+                             c.c_ulonglong(0)))
+        check(cu.cuMemAddressReserve(c.byref(self.base), c.c_size_t(2 * self.size),
+                                     c.c_size_t(0), c.c_ulonglong(0), c.c_ulonglong(0)))
+        check(cu.cuMemMap(self.base, c.c_size_t(self.size), c.c_size_t(0), self.handle,
+                          c.c_ulonglong(0)))
+        check(cu.cuMemSetAccess(self.base, c.c_size_t(self.size),
+                                c.byref(Access(here, 3)), c.c_size_t(1)))  # read and write
+        self.ptr = self.base.value + self.size - nbytes
+        torch.cuda.synchronize()
+        check(cu.cuMemcpyDtoD_v2(c.c_ulonglong(self.ptr), c.c_ulonglong(t.data_ptr()),
+                                 c.c_size_t(nbytes)))
+        torch.cuda.synchronize()
+
+    def data_ptr(self):
+        return self.ptr
+
+    def free(self):
+        import ctypes as c
+        torch.cuda.synchronize()
+        self.cu.cuMemUnmap(self.base, c.c_size_t(self.size))
+        self.cu.cuMemAddressFree(self.base, c.c_size_t(2 * self.size))
+        self.cu.cuMemRelease(self.handle)
+
+
+@pytest.mark.parametrize("np_size", [90, 200])
+def test_k2_reads_no_row_of_ai_past_its_padding(cuda, force_cluster, monkeypatch, request,
+                                                np_size):
+    """Ai (the row layout, n + 8 rows) as the last bytes of its own mapping:
+    at cs 8 the last block's slab is short, and K2 reads, and at Np 90
+    stages, only the rows its products read. The same bits as Ai in the
+    caching allocator; a read past the padding would fault."""
+    ds = (request.getfixturevalue("dog_stomach") if np_size == 200
+          else synthetic_dataset(np_size=np_size, grid=5, seed=3))
+    planes, rest, common = operands(ds, cuda, "sequential")
+    fn = kernels.fused_epry_sweep
+    force_cluster(fn, 8)
+    want = fn(*planes, *rest, **common)
+    assert fn.plan["cs"] == 8 and bool(fn.plan["stage"] & 4) == (np_size == 90)  # Ai staged
+    real = kernels._k2_mats
+    ai_end = []
+
+    def at_end(n, b, lo, device):
+        m = real(n, b, lo, device)
+        ai_end.append(AtMappingEnd(m[0]))
+        return (ai_end[-1], *m[1:])
+
+    monkeypatch.setattr(kernels, "_k2_mats", at_end)
+    try:
+        got = fn(*planes, *rest, **common)
+        torch.cuda.synchronize()
+    finally:
+        for m in ai_end:
+            m.free()
+    assert len(ai_end) == 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 @pytest.mark.parametrize("np_size", [16, 64, 90, 100])
 @pytest.mark.parametrize("cs", [1, 2, 4, 8])
 def test_k1_matches_plain_at_a_forced_cluster_size(cuda, tier, force_cluster, np_size, cs):
@@ -512,9 +643,11 @@ def test_a_sweep_over_several_cards_keeps_the_current_device(cuda, led, tile):
 def test_kernels_refuse_an_np_whose_buffers_do_not_fit_a_block(cuda, tier, kernel):
     """A block holds its slabs of the image plane and of T = Ai·Z and its rows
     of Z: Np 90, 100 and 200 fit (the cases above and below), and so does
-    the whole patch as the bbox up to b = n = 226; b = n = 240 fits at no
-    cluster size and is refused before any launch."""
-    n, nl = 240, 480
+    the whole patch as the bbox up to b = n = 226 (K2 at bf16x3, whose
+    operands are kept in the tile and row layouts: 256); b = n = 240 (K2 at
+    bf16x3: 272) fits at no cluster size and is refused before any launch."""
+    n = 272 if (kernel, tier) == ("K2", "bf16x3") else 240
+    nl = 2 * n
     o = torch.zeros((2, nl, nl), device=cuda)
     p, sup = torch.ones((2, n, n), device=cuda), torch.ones((n, n), device=cuda)
     amps = torch.ones((1, 1, n, n), device=cuda)
