@@ -50,7 +50,7 @@ tiers of the DFT products (``dft_precision``): ``bf16x3``, the default (a
    34 px apart): every problem bitwise equal to its solo launch, problems 0
    and P−1 within the limits above of the plain version, and with problem
    1's frames set to NaN every other problem still bitwise equal to its
-   solo launch; 2 launches per K2 sweep and 21 per K1 sweep, whatever P.
+   solo launch; 2 launches per K2 sweep and 1 per K1 sweep, whatever P.
    At bf16x3 K3's ``d`` is held within the tier's own distance from FP32
    on the same call (see the note at ``TOL_O``). Then
    the proof that the three passes run: K2 at bf16x3 within 5e-5 (object) /
@@ -190,11 +190,13 @@ tiers of the DFT products (``dft_precision``): ``bf16x3``, the default (a
    ablation build against the plain version with the same ``ablate``
    (omax-const from the state divided by max|O|, no-window-read with values
    at the spectrum's corner), at ABLATE_TOL's limits; the launches of each
-   (K2 2, 1 without the row-max launch under omax-const; K1 21);
+   (K2 2, 1 without the row-max launch under omax-const; K1 1);
    ``ablate=""`` through the ablation build bitwise the kernel; and each
    variant with Z cut by rows (``force_z_layout`` 2) bitwise the same
-   variant with Z whole, the plan this shape takes. Then
-   ``fpm_torch.bench`` through its entry point in this process: one JSON
+   variant with Z whole, the plan this shape takes. Then what torch.profiler
+   records of the headline's sweep loop in this process
+   (``profiler_windows``, printed, no check), and ``fpm_torch.bench``
+   through its entry point in a process of its own: one JSON
    line with every key of BENCH_KEYS, the card's name and power limit, and
    the amplitude RMSE after 10 sweeps below 0.05 (printed, with the
    secondary results of ``build/bench_secondary.json``); then the
@@ -205,7 +207,7 @@ tiers of the DFT products (``dft_precision``): ``bf16x3``, the default (a
    timed runs: the cell's line carries every metric ``BENCHMARK.json``
    names for it, each finite and above 0, ``correct`` true (the amplitude
    RMSE and the spectrum and pupil against the float64 reference on the
-   CPU), the launches of the cell's kernel alone (K1 21 per sweep, K2 2),
+   CPU), the launches of the cell's kernel alone (K1 1 per sweep, K2 2),
    counted from 0 before each timed run, ``bound_share`` below 1, the card's
    name and power limit, a traced run whose trace holds every kernel it
    launched (``device_trace``); its breakdown has the cell's kernel among its
@@ -231,8 +233,6 @@ before printing anything.
 from __future__ import annotations
 
 import argparse
-import contextlib
-import io
 import json
 import math
 import os
@@ -302,17 +302,22 @@ def cuda_ms(fn, reps: int) -> float:
 
 def device_ms_by_kernel(fn) -> dict[str, float]:
     """Device milliseconds of one call, summed by kernel name, from
-    torch.profiler's CUDA activity (empty if the profiler saw no kernel)."""
+    torch.profiler's CUDA activity (empty if the profiler saw no kernel).
+    PROFILER_PAD short spin kernels, left out, run first in the window:
+    late in this process the profiler loses a window's first device records
+    (12 of them on an H100, ``profiler_windows``), and K1's sweep is one."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILER_PAD):
+            torch.cuda._sleep(1000)
         fn()
         torch.cuda.synchronize()
     out: dict[str, float] = {}
     for evt in prof.key_averages():
         us = getattr(evt, "device_time_total", 0) or 0
-        if us > 0:
+        if us > 0 and "spin_kernel" not in evt.key:
             name = evt.key.split("(")[0][:60]
             out[name] = out.get(name, 0.0) + us / 1e3
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
@@ -425,6 +430,7 @@ DOG_OPTICS = dict(np_size=200, pixel_size=6.5, objective_mag=8.0, objective_na=0
 DOG_SHAPES = (200, 600, 88, 112, 48)      # (Np, NL, K, b, lo)
 DOG_CHUNK_REQUESTED, DOG_CHUNK_RUN = 32, 16   # fpm_tpu's ceiling at Np 200 (F3)
 FORCED_CS = (1, 2, 4, 8)
+PROFILER_PAD = 64       # spin kernels that open a profiler window (device_ms_by_kernel)
 
 
 def kernel_digests(dev) -> dict:
@@ -969,7 +975,7 @@ def dogstomach(seed: int, smi: str, dev) -> list:
         for name, kern, plain, args, sweeps_n, kw, slots in cases:
             kw = dict(kw, dft_precision=tier)
             probe = kernels.fused_epry_sweep if kern is kernels.fused_epry_sweep \
-                else kernels.fused_epry_chunked        # K1 and K3 share chunk_forward
+                else kernels.fused_epry_chunked   # K1 and K3 share the reckoning and the LED
             got = []
             why = refusal(lambda: got.append(calls(kern, args, kw, sweeps_n)))
             if why:
@@ -1260,8 +1266,7 @@ def dog_ablations(cfg, geom, frames, by_name: dict, smi: str) -> dict:
             check(kern.plan["zcut"] == 1, f"dogStomach {case} {tier}: Z not cut {kern.plan}")
             solve = bench.solver(cfg, geom, frames, "cuda", pupil_radius=0, dft_precision=tier,
                                  mode=mode, chunk_size=DOG_CHUNK_REQUESTED)
-            per_sweep = (2 if key == "K2" else
-                         3 * int(args[3].shape[0]))       # K1: three launches a chunk
+            per_sweep = 2 if key == "K2" else 1       # K1: one launch a sweep
             for ablate in ablation_names(key, tier):
                 state = ablation_state(args, ablate, b)
                 kern.launches = 0
@@ -1324,7 +1329,7 @@ def dog_ablations(cfg, geom, frames, by_name: dict, smi: str) -> dict:
         stem = "epry_chunked" if key == "K1" else "epry_sweep"
         summary[key] = {
             "library": build.ablation_library(stem)._name.rsplit("/", 1)[-1],
-            "kernel": "chunk_forward_ablate_zcut" if key == "K1" else "k2_sweep_ablate_zcut",
+            "kernel": "k1_sweep_ablate_zcut" if key == "K1" else "k2_sweep_ablate_zcut",
             "as": f"{case}, Z cut by rows", "zcut": 1,
             "variants": ablation_names(key, "bf16x3"), "max_abs_err_by_variant": worst,
             ("ns_per_slot" if key == "K1" else "ns_per_led"): ns_by,
@@ -1405,7 +1410,7 @@ def bench_phase(seed: int, smi: str, o_planes, p_planes, sup, cases, common) -> 
                 cut_bitwise = bool(plan["zcut"] == 0 and cut_plan["zcut"] == 1
                                    and torch.equal(co, go) and torch.equal(cp, gp)
                                    and torch.equal(cm, gm))
-                want = (2 - (ablate == "omax-const")) if key == "K2" else 21
+                want = (2 - (ablate == "omax-const")) if key == "K2" else 1
                 emit({"phase": "bench", "step": "ablate_vs_plain", "kernel": key,
                       "dft_precision": tier, "ablate": ablate or "(full)", "sweeps": 1,
                       "rel_err_o": rel_o, "rel_err_p": rel_p,
@@ -1427,13 +1432,19 @@ def bench_phase(seed: int, smi: str, o_planes, p_planes, sup, cases, common) -> 
                         "empty_bitwise_main": True, "z_cut_bitwise_z_whole": True}
     checks_s = time.perf_counter() - t0
 
-    # fpm_torch.bench through its entry point, in this process: one line.
+    # fpm_torch.bench through its entry point, in a process of its own (as
+    # ``python -m fpm_torch.bench`` runs): one line. Its device time is one
+    # torch.profiler window of 5 sweeps (bench.profiled), 5 records of K1's
+    # one launch, which late in this long process are all lost with the
+    # window's first records (profiler_windows shows how many go here).
+    emit({"phase": "bench", "step": "profiler_windows", **profiler_windows(bench, seed),
+          "gpu": smi})
     t1 = time.perf_counter()
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        rc = bench.main(["--seed", str(seed)])
-    lines = out.getvalue().splitlines()
-    check(rc == 0 and len(lines) == 1, f"fpm_torch.bench exited {rc} with {len(lines)} lines")
+    run = subprocess.run([sys.executable, "-m", "fpm_torch.bench", "--seed", str(seed)],
+                         cwd=HERE, capture_output=True, text=True, timeout=900)
+    rc, lines = run.returncode, run.stdout.splitlines()
+    check(rc == 0 and len(lines) == 1, f"fpm_torch.bench exited {rc} with {len(lines)} lines: "
+          f"{run.stderr[-2000:]}")
     line = json.loads(lines[0])
     missing = [k for k in BENCH_KEYS if k not in line]
     check(not missing, f"fpm_torch.bench's line lacks {missing}")
@@ -1457,6 +1468,59 @@ def bench_phase(seed: int, smi: str, o_planes, p_planes, sup, cases, common) -> 
     emit({"phase": "bench", "step": "seconds", "ablate_vs_plain_s": checks_s,
           "bench_s": t2 - t1, "ablate_rows_s": time.perf_counter() - t2})
     return summary
+
+
+def profiler_windows(bench, seed: int) -> dict:
+    """What torch.profiler records here of the headline's sweep loop (K1,
+    one launch a sweep) in a window as ``bench.profiled`` opens it (5
+    sweeps after one, CUDA activity alone), bare and with PROFILER_PAD short
+    spin kernels before and after the sweeps: for each window K1's
+    launches, its records and device ms a sweep in ``key_averages`` (what
+    ``bench.profiled`` sums) and, in the exported trace, the records of K1
+    and of the spin kernels and the spin kernels before K1's first record.
+    Lost first records of a window show as spin kernels missing before K1;
+    records of K1 alone missing, as K1 absent between whole pads."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fpm_torch.ops import kernels
+
+    cfg, geom, images, _ = bench.make_problem(seed)
+    solve = bench.solver(cfg, geom, images, "cuda", **bench.headline_mode())
+    sweep, k1, sweeps = solve.sweeps(), kernels.fused_epry_chunked, 5
+    out = {}
+    for pad in (0, PROFILER_PAD):
+        sweep(solve.state)
+        torch.cuda.synchronize()
+        k1.launches = 0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(pad):
+                torch.cuda._sleep(1000)
+            s = solve.state
+            for _ in range(sweeps):
+                s = sweep(s)
+            for _ in range(pad):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        avg = [e for e in prof.key_averages() if "k1_sweep" in e.key]
+        with tempfile.TemporaryDirectory(prefix="fpm_trace_") as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                names = [e["name"] for e in sorted(
+                    (e for e in json.load(f)["traceEvents"]
+                     if e.get("ph") == "X" and e.get("cat") == "kernel"),
+                    key=lambda e: e["ts"])]
+        first = next((i for i, n in enumerate(names) if "k1_sweep" in n), len(names))
+        out[f"pad_{pad}"] = {
+            "sweeps": sweeps, "k1_launches": k1.launches,
+            "key_averages_k1_records": sum(e.count for e in avg),
+            "key_averages_k1_ms_per_sweep": sum(e.device_time_total for e in avg) / 1e3 / sweeps,
+            "trace_k1_records": sum("k1_sweep" in n for n in names),
+            "trace_spin_records": sum("spin_kernel" in n for n in names),
+            "trace_spin_before_k1": sum("spin_kernel" in n for n in names[:first]),
+            "trace_kernel_records": len(names)}
+    return out
 
 
 def surface_phase(cfg, geom, frames, smi: str) -> None:
@@ -1515,9 +1579,13 @@ def surface_phase(cfg, geom, frames, smi: str) -> None:
                   f"{fn.__name__} {tier}: launches {counts}")
 
 
-BENCH_CELL_LADDER = (2, 12, 2)     # lo, hi sweeps, reps of phase 11's cells
+# lo, hi sweeps, reps of phase 11's cells: the two warm runs hold 42 sweeps,
+# 42 records of K1's one launch, more than the first records a profiler
+# window may drop (up to 35 on an H100, bench.ladder_runs), which
+# bench.device_ladder allows in the warm runs alone.
+BENCH_CELL_LADDER = (6, 36, 2)
 BENCH_CELL_RUNS = 2
-CELL_KERNEL = {"batched": ("K1", 21, "chunk_forward"), "sequential": ("K2", 2, "k2_sweep")}
+CELL_KERNEL = {"batched": ("K1", 1, "k1_sweep"), "sequential": ("K2", 2, "k2_sweep")}
 
 
 def run_bench_cell(bench, name: str, cell: dict, smi: str):
@@ -2174,7 +2242,7 @@ def main(argv=None) -> int:
                 del poisoned
                 isolated = [same((no[q], np_[q], nm[:, q]), solo[q])
                             for q in range(n_prob) if q != 1]
-                per_sweep = 2 if name.startswith("K2") else 3 * amps_it.shape[0]
+                per_sweep = 2 if name.startswith("K2") else 1
                 emit({"phase": "kernel_vs_plain", "case": f"{name}, problem axis",
                       "dft_precision": tier, "problems": n_prob, "cluster_size": cs,
                       "solo_cluster_size": solo_cs, "sweeps": 2, "launches": launched,
@@ -2309,7 +2377,7 @@ def main(argv=None) -> int:
             check(rmse < RMSE_LIMIT, f"run {label} amplitude RMSE {rmse} >= {RMSE_LIMIT}")
 
     # --------------------------------------------------- 4b. large_fov, rgb
-    per_sweep_launches = {"K1": 3 * amps_it.shape[0], "K2": 2}
+    per_sweep_launches = {"K1": 1, "K2": 2}
     mode_kernel = {"sequential": "K2", "batched": "K1"}
     path_launches = {}
 
@@ -2517,8 +2585,9 @@ def main(argv=None) -> int:
 
             kern.launches = 0
             sweep()
-            per_sweep, cs = kern.launches, kern.cluster_size
+            per_sweep, cs, resident = kern.launches, kern.cluster_size, kern.plan["resident"]
             check(key != "K2" or per_sweep <= 2, f"K2 made {per_sweep} launches in one sweep")
+            check(key != "K1" or per_sweep == 1, f"K1 made {per_sweep} launches in one sweep")
             ms = cuda_ms(sweep, 5)
             by_kernel = device_ms_by_kernel(sweep)
             by_cs, device_by_cs = {}, {}
@@ -2548,7 +2617,7 @@ def main(argv=None) -> int:
                          "bound_ms": bound_ms, "bound_by": bound_by,
                          "library_ms": library_ms[key]})
             emit({"phase": "timing", "kernel": name, "dft_precision": tier, "cluster_size": cs,
-                  "blocks_per_forward_launch": cs * (amps_it.shape[1] if key == "K1" else 1),
+                  "grid_blocks": cs * (resident if key == "K1" else 1),
                   "ms_per_sweep": ms, "ms_per_sweep_by_forced_cluster_size": by_cs,
                   "device_ms_per_sweep_by_forced_cluster_size": device_by_cs,
                   "device_ms_per_sweep_z_cut_by_rows": device_z_cut, "plain_ms": plain_ms, "library_ms": library_ms[key], "bound_ms": bound_ms,

@@ -9,8 +9,9 @@ never loaded. Nothing is built or imported until a kernel is first
 launched: this module imports on machines without ``nvcc`` or a GPU.
 
 ``profile_library(stem)`` builds a second variant with ``-DFPM_PROFILE``,
-whose K2 kernel counts SM cycles per phase of an LED (``csrc/epry_common.cuh``,
-``FPM_PHASES``); only measurements ask for it, no wrapper does.
+whose kernel counts SM cycles per phase: K2's of an LED (``csrc/epry_common.cuh``,
+``FPM_PHASES``), K1's of a chunk (``csrc/epry_chunked.cu``, ``FPM_K1_PHASES``);
+only measurements ask for it, no wrapper does.
 ``ablation_library(stem)`` (K1 and K2) builds one with ``-DFPM_ABLATE``,
 which adds the kernels of ``ablate=`` (each stage that a variant turns off
 is a template argument of those kernels alone, ``Ablate`` in
@@ -124,7 +125,7 @@ _IP = ctypes.POINTER(ctypes.c_int)
 
 # C signatures of the entry points (see the sources for the argument meaning).
 _SIGNATURES = {
-    "epry_chunked": {"fpm_k1_sweep": [_P] * 15 + [_I] * 7 + [_F] * 4
+    "epry_chunked": {"fpm_k1_sweep": [_P] * 19 + [_I] * 7 + [_F] * 4
                      + [_I, _I, _I, _P, _I, _I, _IP, _IP],
                      "fpm_resident_clusters": [_I] * 6 + [_IP]},
     "epry_sweep": {"fpm_k2_sweep": [_P] * 11 + [_I] * 6 + [_F] * 3
@@ -137,7 +138,7 @@ _SIGNATURES = {
 
 # The ablation build's entry points: the main ones with ``ablate`` after ``tier``.
 _ABLATION_SIGNATURES = {
-    "epry_chunked": {"fpm_k1_sweep_ablate": [_P] * 15 + [_I] * 7 + [_F] * 4
+    "epry_chunked": {"fpm_k1_sweep_ablate": [_P] * 19 + [_I] * 7 + [_F] * 4
                      + [_I, _I, _I, _I, _P, _I, _I, _IP, _IP]},
     "epry_sweep": {"fpm_k2_sweep_ablate": [_P] * 11 + [_I] * 6 + [_F] * 3
                    + [_I, _I, _I, _I, _I, _P, _I, _I, _IP, _IP]},

@@ -17,17 +17,16 @@
 //   bf16x3   the default, fpm_tpu's "bf16x3" (pallas_kernels.py _mm_fns):
 //            each operand split into bf16 parts, hi = RN(x), lo = RN(x − hi),
 //            real and imaginary parts apart, and the product formed as
-//            hi·hi + (hi·lo + lo·hi) on the tensor cores (cgemm_tc, warp-level
-//            mma.sync m16n8k16 bf16 with f32 accumulation), lo·lo dropped. A
-//            product of two bf16 values is exact in f32, so the tier computes
-//            fpm_tpu's function up to the f32 summation order. The static
-//            matrices come split from the host (kernels.py _kernel_mats: per
-//            row, per pair of contraction indices, the four bf16x2 words
-//            re hi, re lo, im hi, im lo, so one 16-byte load gives a fragment
-//            all four; Bi and Bf transposed, so that the contraction runs along
-//            the row for both operand sides); K1 and K3 split the dynamic
-//            operands (Z, T_r, the gathered rep, V) where a fragment is
-//            loaded, K2 where they are written (below).
+//            hi·hi + (hi·lo + lo·hi) on the tensor cores (tile_product,
+//            warp-level mma.sync m16n8k16 bf16 with f32 accumulation), lo·lo
+//            dropped. A product of two bf16 values is exact in f32, so the
+//            tier computes fpm_tpu's function up to the f32 summation order.
+//            The static matrices come split from the host in the layouts of
+//            the products (kernels.py _kernel_mats: Ai in the row layout, Biᵀ,
+//            Af, Bfᵀ in the tile layout, so that the contraction runs along
+//            the rows for both operand sides); the passes that write the
+//            dynamic operands (Z, T_r, the gathered rep, V) split them once,
+//            there (led_forward_split, below).
 //
 // Bound. Per LED the four products are n·b·b + n·b·n + b·n·n + b·n·b
 // complex multiply-adds (1.77 M at Np=90, b=64), against a few hundred KB of
@@ -73,9 +72,10 @@
 // Z whole fits, it is kept: on an H100 the cut made K2 slower (product 1
 // through DSMEM doubled; PERF.md §6). What then bounds Np is the image
 // plane's slabs: img_r, the gathered rep columns (nr·n values each) and
-// T_r; at Np=200 they keep cs = 4 out (80 KB each at nr = 50), and the
-// largest b = n that fits cs = 8 is 226 (bf16x3; plan_led refuses more; K2
-// at bf16x3, which gathers rep's columns where T_r was, 256).
+// T_r: at the highest tier, at Np=200 they keep cs = 4 out (80 KB each at
+// nr = 50), and b = n fits cs = 8 up to at least 226 (plan_led refuses
+// more at 240); the bf16x3 layouts, which gather rep's columns where T_r
+// was, fit cs = 4 at Np=200 with Z cut by rows and b = n up to 256.
 // The metric sums do not depend on cs either: one warp sums each 32-column
 // segment of an image row (and of a bbox row), lane l on column 32·seg + l,
 // the block that owns the row adds that into the segment's accumulator;
@@ -95,37 +95,30 @@
 // 2-D indices without divisions and start a batch of loads before the
 // first use.
 //
-// cgemm_tc gives a warp one 16×8 tile of the complex output over the WHOLE
-// contraction, in k order, 16 at a time (K padded with zeros to a multiple
-// of 16; rows and columns past M and N repeat a valid index and are not
-// stored), with the three passes in three accumulators added as
-// hh + (hl + lh) at the end (in K3 each k-step's products reach them through
-// fresh accumulators, kstep): the same cut by outputs as cgemm, so results
-// stay independent of cs and P and repeat to the last bit; the six
-// independent products of a k-step go first and the next k-step's
-// fragments load while they run. Its layout of a static matrix takes the
-// bytes the FP32 one takes (two bf16 halves of each real value), so staging
-// does not change with the tier; Z and T_r get row strides padded against
-// shared-memory bank conflicts (z_ld, t_ld: under 2 KB more per block at
-// Np=90). At cs 8 only 8-12 of a block's 16 warps own a tile, and each
-// tile's k-steps run in order: the products are bound by latency there,
-// not by the tensor cores (PERF.md §5).
-//
-// K2 at bf16x3 (led_forward_split, tile_product) makes the same sums, bit
-// for bit, from operands laid out for the fragments: in the tile layout
+// tile_product gives a warp one 16×8 tile of the complex output over the
+// WHOLE contraction, in k order, 16 at a time (K padded with zeros to a
+// multiple of 16; rows and columns past M and N are read and not stored),
+// with the three passes in three accumulators added as hh + (hl + lh) at
+// the end (in K3 each k-step's products reach them through fresh
+// accumulators, kstep_sums): the same cut by outputs as cgemm, so results stay
+// independent of cs and P and repeat to the last bit; the six independent
+// products of a k-step go first and the next k-step's fragments load while
+// they run. Its operands are laid out for the fragments: in the tile layout
 // (mma's A) or the row layout (mma's B), both split into bf16 parts and
 // padded with zeros to whole k-steps, so that a k-step is six 16-byte
 // loads, each a whole fragment register set, with no split, no guard and
-// no register moves before its 12 mma, where cgemm_tc's k-step spends
-// more instructions on those than on the mma. The static matrices come so
-// from the host (kernels.py tile_layout, row_layout); the passes that write
-// Z, T_r, the gathered rep and V split them once, there. Products 1, 2 and 4 run
-// transposed (cmma_step_t keeps each accumulator's products and their
+// no register moves before its 12 mma. The static matrices come so from
+// the host (kernels.py tile_layout, row_layout); the passes that write Z,
+// T_r, the gathered rep and V split them once, there. Products 1, 2 and 4
+// run transposed (cmma_step_t keeps each accumulator's products and their
 // order), which puts each skinny side of a slab on mma's 8-wide n and the
 // long side on its 16-wide m: product 4's 8 rows at Np 90, cs 8, half of
-// whose m16 rows were padding. Splitting a tile's contraction across the
-// warps that own none (fresh sums per half, added in a fixed order) was
-// tried on an H100 and made the products slower (PERF.md §6).
+// whose m16 rows were padding. At cs 8 only some of a block's 16 warps own
+// a tile, and each tile's k-steps run in order: the products are bound by
+// latency there, not by the tensor cores (PERF.md §5). Splitting a tile's
+// contraction across the warps that own none (fresh sums per half, added
+// in a fixed order) was tried on an H100 and made the products slower
+// (PERF.md §6).
 //
 // This is the DFT-by-matmul design: the four products cost ~14 MFLOP per
 // LED at Np=90, where pruned FFTs (2·(n+b) length-n transforms) need ~1
@@ -248,8 +241,9 @@ enum Ablate {
 };
 
 // The DFT matrices. kHighest: complex row-major, Ai (n, b), Bi (b, n), Af
-// (b, n), Bf (n, b). kBf16x3: the split layout (cgemm_tc) of Ai (n rows, K =
-// b), Biᵀ (n, b), Af (b, n) and Bfᵀ (b, n), addressed in 8-byte units.
+// (b, n), Bf (n, b). kBf16x3: Ai in the row layout (n + 8 rows, K = b), Biᵀ
+// (n, b), Af (b, n) and Bfᵀ (b, n) in the tile layout (led_forward_split),
+// addressed in 8-byte units.
 struct DftMats {
   const float2* ai;
   const float2* bi;
@@ -268,11 +262,14 @@ __device__ __forceinline__ void cfma(float2& acc, float2 a, float2 b) {
   acc.y = fmaf(a.y, b.x, acc.y);
 }
 
-// A load of solver state (O, P, the row-max cache) from L2, the point of
-// coherence between SMs: K2's blocks read what their peers wrote before the
-// last cluster barrier, so these loads must go through neither L1 nor the
+// A load of solver state (O, P, the row-max cache, K1's scratch) from L2,
+// the point of coherence between SMs: K2's blocks read what their peers
+// wrote before the last cluster barrier, K1's what any block wrote before
+// the last grid barrier, so these loads must go through neither L1 nor the
 // non-coherent path.
 __device__ __forceinline__ float ld_state(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ float2 ld_state(const float2* p) { return __ldcg(p); }
+__device__ __forceinline__ unsigned ld_state(const unsigned* p) { return __ldcg(p); }
 
 // Loads of cgemm's operands. SH: the operand lies in shared memory and ``p``
 // is its 32-bit shared address (ld.shared); else ``p`` is a generic pointer.
@@ -478,22 +475,6 @@ struct SplitFrag {
   uint32_t rh[R], rl[R], ih[R], il[R];
 };
 
-// Fragment register r from one 16-byte word of the static layout.
-template <int R>
-__device__ __forceinline__ void set_static(SplitFrag<R>& f, int r, uint4 u) {
-  f.rh[r] = u.x;
-  f.rl[r] = u.y;
-  f.ih[r] = u.z;
-  f.il[r] = u.w;
-}
-
-// Fragment register r from two complex values, consecutive in k.
-template <int R>
-__device__ __forceinline__ void set_dynamic(SplitFrag<R>& f, int r, float2 v0, float2 v1) {
-  split2(v0.x, v1.x, f.rh[r], f.rl[r]);
-  split2(v0.y, v1.y, f.ih[r], f.il[r]);
-}
-
 // d += a · b: one m16n8k16 bf16 product with f32 accumulation.
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
@@ -537,111 +518,6 @@ __device__ __forceinline__ void cmma_step(float (&acc)[3][2][4], const SplitFrag
   mma_bf16(acc[1][1], a.ih, b.rl);
   mma_bf16(acc[2][0], nil, b.ih);
   mma_bf16(acc[2][1], a.il, b.rh);
-}
-
-// Loads of one k-step's fragments for the lane (g = lane / 4, t = lane % 4)
-// of a 16×8 tile: A rows ra0, ra1 (= m0 + g, m0 + g + 8, clamped), B
-// column cb (n0 + g, clamped), contraction indices k0 + 2t + {0, 1, 8, 9}.
-// GUARD (the last, ragged k-step): indices ≥ K give zeros. A static operand
-// is the split layout, ``ld`` 16-byte words per row (K padded to even with
-// a zero); a dynamic one complex f32, row-major with stride ``ld``.
-template <bool GUARD>
-__device__ __forceinline__ void load_static_a(SplitFrag<4>& f, const uint4* A, int ld, int ra0,
-                                              int ra1, int k0, int t, int K) {
-  const int p0 = (k0 >> 1) + t, p1 = p0 + 4;
-  const uint4 z = make_uint4(0u, 0u, 0u, 0u);
-  const bool ok0 = !GUARD || 2 * p0 < K, ok1 = !GUARD || 2 * p1 < K;
-  set_static(f, 0, ok0 ? A[(size_t)ra0 * ld + p0] : z);
-  set_static(f, 1, ok0 ? A[(size_t)ra1 * ld + p0] : z);
-  set_static(f, 2, ok1 ? A[(size_t)ra0 * ld + p1] : z);
-  set_static(f, 3, ok1 ? A[(size_t)ra1 * ld + p1] : z);
-}
-
-template <bool GUARD>
-__device__ __forceinline__ void load_static_b(SplitFrag<2>& f, const uint4* B, int ld, int cb,
-                                              int k0, int t, int K) {
-  const int p0 = (k0 >> 1) + t, p1 = p0 + 4;
-  const uint4 z = make_uint4(0u, 0u, 0u, 0u);
-  set_static(f, 0, (!GUARD || 2 * p0 < K) ? B[(size_t)cb * ld + p0] : z);
-  set_static(f, 1, (!GUARD || 2 * p1 < K) ? B[(size_t)cb * ld + p1] : z);
-}
-
-template <bool GUARD>
-__device__ __forceinline__ float2 ld_dyn(const float2* row, int k, int K) {
-  return (!GUARD || k < K) ? row[k] : make_float2(0.f, 0.f);
-}
-
-// VEC: the pair (k, k+1) of a row is one 16-byte load (even ld, 16-byte
-// aligned A); a pair past an odd K reads the row's padding and zeroes it.
-template <bool GUARD, bool VEC>
-__device__ __forceinline__ void load_dynamic_a(SplitFrag<4>& f, const float2* A, int ld, int ra0,
-                                               int ra1, int k0, int t, int K) {
-  const float2 z = make_float2(0.f, 0.f);
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {   // register r: row ra0 / ra1, indices k, k + 1 (+ 8 for r ≥ 2)
-    const float2* row = A + (size_t)(r & 1 ? ra1 : ra0) * ld;
-    const int k = k0 + 2 * t + ((r >> 1) << 3);
-    float2 v0, v1;
-    if constexpr (VEC) {
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (!GUARD || k < K) v = *reinterpret_cast<const float4*>(row + k);
-      v0 = make_float2(v.x, v.y);
-      v1 = (!GUARD || k + 1 < K) ? make_float2(v.z, v.w) : z;
-    } else {
-      v0 = ld_dyn<GUARD>(row, k, K);
-      v1 = ld_dyn<GUARD>(row, k + 1, K);
-    }
-    set_dynamic(f, r, v0, v1);
-  }
-}
-
-template <bool GUARD>
-__device__ __forceinline__ void load_dynamic_b(SplitFrag<2>& f, const float2* B, int ld, int cb,
-                                               int k0, int t, int K) {
-  const int k = k0 + 2 * t;
-  const float2* col = B + cb;
-  const float2 z = make_float2(0.f, 0.f);
-  const float2 v0 = (!GUARD || k < K) ? col[(size_t)k * ld] : z;
-  const float2 v1 = (!GUARD || k + 1 < K) ? col[(size_t)(k + 1) * ld] : z;
-  const float2 v2 = (!GUARD || k + 8 < K) ? col[(size_t)(k + 8) * ld] : z;
-  const float2 v3 = (!GUARD || k + 9 < K) ? col[(size_t)(k + 9) * ld] : z;
-  set_dynamic(f, 0, v0, v1);
-  set_dynamic(f, 1, v2, v3);
-}
-
-// The same from a dynamic B cut by row slabs across the cluster (ZRows).
-template <bool GUARD>
-__device__ __forceinline__ void load_dynamic_b(SplitFrag<2>& f, const ZRows B, int, int cb,
-                                               int k0, int t, int K) {
-  const int k = k0 + 2 * t;
-  const unsigned c = 8u * cb;
-  const float2 z = make_float2(0.f, 0.f);
-  const float2 v0 = (!GUARD || k < K) ? ld_cluster2(B.row[k] + c) : z;
-  const float2 v1 = (!GUARD || k + 1 < K) ? ld_cluster2(B.row[k + 1] + c) : z;
-  const float2 v2 = (!GUARD || k + 8 < K) ? ld_cluster2(B.row[k + 8] + c) : z;
-  const float2 v3 = (!GUARD || k + 9 < K) ? ld_cluster2(B.row[k + 9] + c) : z;
-  set_dynamic(f, 0, v0, v1);
-  set_dynamic(f, 1, v2, v3);
-}
-
-__device__ __forceinline__ const float2* dynamic_b(const void* B) {
-  return static_cast<const float2*>(B);
-}
-__device__ __forceinline__ ZRows dynamic_b(const ZRows B) { return B; }
-
-// The fragments of one k-step of a tile: SA, A is the static operand (B
-// dynamic: one matrix, or a ZRows table); else B is.
-template <bool SA, bool GUARD, bool VEC, class BT>
-__device__ __forceinline__ void tc_load(SplitFrag<4>& a, SplitFrag<2>& b, const void* A, int lda,
-                                        const BT B, int ldb, int ra0, int ra1, int cb, int k0,
-                                        int t, int K) {
-  if constexpr (SA) {
-    load_static_a<GUARD>(a, static_cast<const uint4*>(A), lda, ra0, ra1, k0, t, K);
-    load_dynamic_b<GUARD>(b, dynamic_b(B), ldb, cb, k0, t, K);
-  } else {
-    load_dynamic_a<GUARD, VEC>(a, static_cast<const float2*>(A), lda, ra0, ra1, k0, t, K);
-    load_static_b<GUARD>(b, static_cast<const uint4*>(B), ldb, cb, k0, t, K);
-  }
 }
 
 // cmma_step with the operands swapped: A holds cmma_step's B and B its A
@@ -689,108 +565,28 @@ __device__ __forceinline__ void cmma_step_t(float (&acc)[3][2][4], const SplitFr
 #define FPM_KSTEP_SUMS 0
 #endif
 
-template <int PASSES>
-__device__ __forceinline__ void kstep(float (&acc)[3][2][4], const SplitFrag<4>& a,
-                                      const SplitFrag<2>& b) {
-  if constexpr (FPM_KSTEP_SUMS) {
-    float s[3][2][4] = {};
+// One k-step's products into fresh accumulators, added to the running sums
+// in IEEE f32 (FPM_KSTEP_SUMS); TR: the product computed transposed
+// (cmma_step_t).
+template <int PASSES, bool TR>
+__device__ __forceinline__ void kstep_sums(float (&acc)[3][2][4], const SplitFrag<4>& a,
+                                           const SplitFrag<2>& b) {
+  float s[3][2][4] = {};
+  if constexpr (TR)
+    cmma_step_t<PASSES>(s, a, b);
+  else
     cmma_step<PASSES>(s, a, b);
 #pragma unroll
-    for (int p = 0; p < 3; ++p)
+  for (int p = 0; p < 3; ++p)
 #pragma unroll
-      for (int c = 0; c < 2; ++c)
+    for (int c = 0; c < 2; ++c)
 #pragma unroll
-        for (int r = 0; r < 4; ++r) acc[p][c][r] += s[p][c][r];
-  } else {
-    cmma_step<PASSES>(acc, a, b);
-  }
+      for (int r = 0; r < 4; ++r) acc[p][c][r] += s[p][c][r];
 }
 
-template <bool SA, bool GUARD, bool VEC, int PASSES, class BT>
-__device__ __forceinline__ void tc_step(float (&acc)[3][2][4], const void* A, int lda,
-                                        const BT B, int ldb, int ra0, int ra1, int cb, int k0,
-                                        int t, int K) {
-  SplitFrag<4> a;
-  SplitFrag<2> b;
-  tc_load<SA, GUARD, VEC>(a, b, A, lda, B, ldb, ra0, ra1, cb, k0, t, K);
-  kstep<PASSES>(acc, a, b);
-}
+// --------------------------------- the bf16x3 products (led_forward_split)
 
-// C (M×N complex, row stride ldc) = A (M×K) · B (K×N), the bf16x3 tier on
-// the tensor cores. SA: A is static, in the split layout (lda = its 16-byte
-// words per row, even_up(K) / 2), and B dynamic complex f32 (row-major,
-// ldb); else A is dynamic (lda) and B static and transposed: N rows of the
-// split layout (ldb words each). Warp w takes the 16×8 output tiles w, w +
-// warps, ...; each element is one tile's sum over k in order (header note).
-// VEC: a dynamic A is read a pair of values at a time (see load_dynamic_a).
-// BT: const void*, or ZRows for a dynamic B cut by row slabs across the
-// cluster (cgemm_tc_z). PASSES: 3, or 1 (hi·hi alone: the ablation kDft1Pass).
-// All threads of the block call; no barrier inside; C aliases neither input.
-// Inlined: as a called function (like cgemm) it made k2_sweep save ~200
-// bytes of registers to the stack around each call, which cost every phase.
-template <bool SA, bool VEC, int PASSES, class BT>
-__device__ __forceinline__ void cgemm_tc_at(const void* A, int lda, const BT B, int ldb,
-                                            float2* C, int ldc, int M, int N, int K) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int mt = (M + 15) >> 4, nt = (N + 7) >> 3, ksteps = K >> 4;
-  for (int tile = warp; tile < mt * nt; tile += warps) {
-    const int m0 = (tile / nt) << 4, n0 = (tile % nt) << 3;
-    const int ra0 = min(m0 + g, M - 1), ra1 = min(m0 + g + 8, M - 1), cb = min(n0 + g, N - 1);
-    float acc[3][2][4];
-#pragma unroll
-    for (int p = 0; p < 3; ++p)
-#pragma unroll
-      for (int c = 0; c < 2; ++c)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) acc[p][c][r] = 0.f;
-    if (ksteps > 0) {   // the next k-step's fragments load while this one's products run
-      SplitFrag<4> a;
-      SplitFrag<2> b;
-      tc_load<SA, false, VEC>(a, b, A, lda, B, ldb, ra0, ra1, cb, 0, t, K);
-      for (int s = 1; s < ksteps; ++s) {
-        SplitFrag<4> a2;
-        SplitFrag<2> b2;
-        tc_load<SA, false, VEC>(a2, b2, A, lda, B, ldb, ra0, ra1, cb, s << 4, t, K);
-        kstep<PASSES>(acc, a, b);
-        a = a2;
-        b = b2;
-      }
-      kstep<PASSES>(acc, a, b);
-    }
-    if (K & 15)
-      tc_step<SA, true, VEC, PASSES>(acc, A, lda, B, ldb, ra0, ra1, cb, ksteps << 4, t, K);
-    // Accumulator r: row m0 + g (+ 8 for r ≥ 2), column n0 + 2t + (r & 1).
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = m0 + g + ((r >> 1) << 3), j = n0 + 2 * t + (r & 1);
-      if (i < M && j < N)
-        C[(size_t)i * ldc + j] = make_float2(acc[0][0][r] + (acc[1][0][r] + acc[2][0][r]),
-                                             acc[0][1][r] + (acc[1][1][r] + acc[2][1][r]));
-    }
-  }
-}
-
-template <bool SA, int PASSES = 3>
-__device__ __forceinline__ void cgemm_tc(const void* A, int lda, const void* B, int ldb, float2* C,
-                                         int ldc, int M, int N, int K) {
-  if (!SA && (lda & 1) == 0 && (reinterpret_cast<uintptr_t>(A) & 15) == 0)
-    cgemm_tc_at<SA, true, PASSES>(A, lda, B, ldb, C, ldc, M, N, K);
-  else
-    cgemm_tc_at<SA, false, PASSES>(A, lda, B, ldb, C, ldc, M, N, K);
-}
-
-// C = A · B, A static, B dynamic and cut by row slabs across the cluster;
-// PASSES as cgemm_tc's.
-template <int PASSES = 3>
-__device__ __forceinline__ void cgemm_tc_z(const void* A, int lda, const ZRows B, float2* C,
-                                           int ldc, int M, int N, int K) {
-  cgemm_tc_at<true, false, PASSES>(A, lda, B, 0, C, ldc, M, N, K);
-}
-
-// ------------------------------------------- K2's products (led_forward_split)
-
-// The two layouts of K2's operands, both of 16-byte units, both padded with
+// The two layouts of the bf16x3 operands, both of 16-byte units, both padded with
 // zeros to whole k-steps (16 contraction indices) so that no load needs a
 // guard, and both such that one 16-byte load is a whole fragment register
 // set of one part (no register moves before the mma):
@@ -922,7 +718,9 @@ __device__ __forceinline__ void tile_sums(float2 (&v)[4], const AS A, const BS B
     b.ih[0] = im.x; b.ih[1] = im.y; b.il[0] = im.z; b.il[1] = im.w;
   };
   auto step = [&](const SplitFrag<4>& a, const SplitFrag<2>& b) {
-    if constexpr (TR)
+    if constexpr (FPM_KSTEP_SUMS)
+      kstep_sums<PASSES, TR>(acc, a, b);
+    else if constexpr (TR)
       cmma_step_t<PASSES>(acc, a, b);
     else
       cmma_step<PASSES>(acc, a, b);
@@ -947,14 +745,14 @@ __device__ __forceinline__ void tile_sums(float2 (&v)[4], const AS A, const BS B
 
 // C (M×N) = A (M×K) · B (K×N), A in the tile layout and B in the row layout
 // (B's N rows, each a column of C), on the tensor cores: the bf16x3 tier
-// (PASSES 3) or its hi·hi pass alone (1: the ablation kDft1Pass). As in
-// cgemm_tc, a warp owns a 16×8 tile of C over the whole contraction in k
-// order, so every element is the same sum whatever the slab sizes (cs, P),
-// and the same sum as cgemm_tc's. Rows of A up to the m-tiles' end and of B
-// up to the n-tiles' end are read whatever they hold: their elements of C
-// are not stored. ``out.store(v, m0, n0, g, t, M, N)``, called by every lane
-// of the warp, stores the lane's four elements of the tile at (m0, n0). All
-// threads of the block call; no barrier inside; A and B alias no output.
+// (PASSES 3) or its hi·hi pass alone (1: the ablation kDft1Pass). A warp
+// owns a 16×8 tile of C over the whole contraction in k order, so every
+// element is the same sum whatever the slab sizes (cs, P). Rows of A up to
+// the m-tiles' end and of B up to the n-tiles' end are read whatever they
+// hold: their elements of C are not stored. ``out.store(v, m0, n0, g, t, M,
+// N)``, called by every lane of the warp, stores the lane's four elements of
+// the tile at (m0, n0). All threads of the block call; no barrier inside; A
+// and B alias no output.
 template <int PASSES, bool TR, class AS, class BS, class Out>
 __device__ __forceinline__ void tile_product(const AS A, const BS B, const Out out, int M, int N,
                                              int K) {
@@ -968,23 +766,12 @@ __device__ __forceinline__ void tile_product(const AS A, const BS B, const Out o
   }
 }
 
-// The 16-byte words per row of a static matrix in the split layout whose
-// contraction has K indices.
-__host__ __device__ inline int split_ld(int K) { return (K + 1) >> 1; }
-
-// Row strides, in complex values, of the dynamic operands of the bf16x3
-// tier's first two products, padded so that their fragment loads meet no
-// shared-memory bank conflict: Z (m = b columns), read a column value at a
-// time by lane (g, t) at rows 2t apart (stride ≡ 2 mod 8: the four rows'
-// 32-byte pieces fall in four different quarters of the banks); T_r (m = b
-// columns), read a pair at a time, rows g, g + 1 in one quarter-warp
-// (stride ≡ 8 mod 16: the two rows' 64 bytes fall in the two halves).
-// The highest tier keeps m.
+// The row stride, in complex values, of Z as f32 (m = b columns): m at the
+// highest tier; at bf16x3, where only the ablation kNoDft keeps Z in f32,
+// padded to ≡ 2 mod 8 (the stride the split-operand reckoning, so_z_units,
+// leaves room for).
 __host__ __device__ inline int z_ld(int m, bool split) {
   return split ? m + ((2 - m % 8) + 8) % 8 : m;
-}
-__host__ __device__ inline int t_ld(int m, bool split) {
-  return split ? m + ((8 - m % 16) + 16) % 16 : m;
 }
 
 // Block-wide sum / max; every thread of the block must call, every thread
@@ -1036,49 +823,42 @@ struct LedPlan {
   int frames;  // frame buffers of nr·n floats per block (K2: 2 if they fit, else 0)
   unsigned smem;  // dynamic shared memory per block, bytes
   int zcut;    // 1: Z cut by rows across the cluster; 0: Z whole in every block
+  int resident;   // clusters of this plan the card holds at once (K1's grid)
 };
 
 constexpr int kStageBi = 1, kStageBf = 2, kStageAi = 4, kStageAf = 8;
 
 // An entry point hands its plan back to the wrapper as kPlanFields ints, in
 // the order of LedPlan's fields (fpm_torch/ops/kernels.py PLAN_FIELDS).
-constexpr int kPlanFields = 7;
+constexpr int kPlanFields = 8;
 inline void export_plan(const LedPlan& p, int* out) {
-  const int fields[kPlanFields] = {p.cs, p.nr, p.br, p.stage, p.frames, (int)p.smem, p.zcut};
+  const int fields[kPlanFields] = {p.cs,     p.nr,         p.br,   p.stage,
+                                   p.frames, (int)p.smem, p.zcut, p.resident};
   memcpy(out, fields, sizeof(fields));
 }
 
 __host__ __device__ inline int even_up(int x) { return (x + 1) & ~1; }
 __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 
-// float2 units (8 bytes) of matrix ``bit``'s slice for ``rows`` rows of Ai:
-// the whole matrix, or Ai's rows; ``split``: the bf16x3 layout, whose rows
-// are padded to an even contraction (Ai and Biᵀ contract over b, Af and Bfᵀ
-// over n).
-__host__ __device__ inline int stage_count(int bit, int n, int b, int rows, bool split) {
-  if (!split) return bit == kStageAi ? rows * b : n * b;
-  if (bit == kStageAi) return rows * even_up(b);
-  return bit == kStageBi ? n * even_up(b) : b * even_up(n);
-}
-
-// float2 units of matrix ``bit``'s staged slice (16-byte granular).
-__host__ __device__ inline int stage_units(int bit, int n, int b, int nr, bool split) {
-  return even_up(stage_count(bit, n, b, nr, split));
-}
-
-// float2 units of a block's four buffers (``split``: the bf16x3 tier's
-// strides z_ld, t_ld):
-//   z    Z (b rows of stride z_ld(b); cut by rows: the block's slab of br
-//        rows), then V[:, cols_r] (b rows of stride even_up(nr))
-//   t    T_r (nr rows of stride t_ld(b)), then the gathered V[slab r, :] (br·n)
+// The shared memory of one LED's block, reckoned per tier T (Tier): the
+// highest tier's operands are complex f32, row-major (cgemm); the bf16x3
+// tier's are in the tile and row layouts of the split-operand products
+// (led_forward_split). One reckoning serves all three kernels: carve_smem
+// lays a block out by it, plan_at sizes a plan by it.
+//
+// The highest tier's buffers, in float2 units:
+//   z    Z (b rows of stride b; cut by rows: the block's slab of br rows),
+//        then V[:, cols_r] (b rows of stride even_up(nr))
+//   t    T_r (nr rows of stride b), then the gathered V[slab r, :] (br·n)
 //   img  img_r, then rep_r (nr·n), then up[slab r] (br·b)
 //   repc the gathered rep[:, cols_r] (n rows of stride even_up(nr)); with
 //        cs = 1 there is nothing to gather and no such buffer
-__host__ __device__ inline int z_units(int b, int nr, int br, bool cut, bool split) {
-  return even_up(imax((cut ? br : b) * z_ld(b, split), b * even_up(nr)));
+// and its staged matrices complex row-major: Bi, Bf, Af whole, Ai[rows_r, :].
+__host__ __device__ inline int z_units(int b, int nr, int br, bool cut) {
+  return even_up(imax((cut ? br : b) * b, b * even_up(nr)));
 }
-__host__ __device__ inline int t_units(int n, int b, int nr, int br, bool split) {
-  return even_up(imax(nr * t_ld(b, split), br * n));
+__host__ __device__ inline int t_units(int n, int b, int nr, int br) {
+  return even_up(imax(nr * b, br * n));
 }
 __host__ __device__ inline int img_units(int n, int nr) { return even_up(nr * n); }
 // Floats of one frame buffer: a block's rows of a frame, 16-byte granular.
@@ -1096,15 +876,14 @@ __host__ __device__ inline int sums_units(int n, int b) {
   return n * segments(n) + b * segments(b);
 }
 
-// K2 at bf16x3 (``split_ops``, led_forward_split) keeps the operands of its
-// four products in the tile and row layouts; its buffers, in float2 units
-// (with Z cut by rows, block r builds Zᵀ's zcut_steps(b, cs) k-steps):
+// The bf16x3 tier's buffers, in float2 units (with Z cut by rows, block r
+// builds Zᵀ's zcut_steps(b, cs) k-steps):
 //   z    Zᵀ (tile layout), then V[:, cols_r] f32 (b rows of stride
-//        even_up(nr)) where cs > 1; in the ablation kNoDft Z f32 as z_units
-//        says
+//        even_up(nr)) where cs > 1; in the ablation kNoDft Z f32 (stride
+//        z_ld(b, true))
 //   t    T_r (row layout, rows8(nr) rows), then rep[:, cols_r]ᵀ (rows8(nr)
-//        rows) and V[slab r, :] (rows8(br) rows) where cs > 1, and the pupil
-//        numerator (br·b)
+//        rows) and V[slab r, :] (rows8(br) rows) where cs > 1, and K2's
+//        pupil numerator (br·b)
 //   img  img_r, then rep_r (nr·n), then up[slab r] (br·b); with cs = 1 V f32
 //        between them (no peer reads it), and rep[:, cols_r]ᵀ and V[slab r, :]
 //        over z and t, both free by then
@@ -1124,33 +903,57 @@ __host__ __device__ inline int so_t_units(int n, int b, int nr, int br, int cs, 
 __host__ __device__ inline int so_img_units(int n, int b, int nr, int cs) {
   return even_up(imax(nr * n, cs > 1 ? 0 : b * even_up(nr)));
 }
-__host__ __device__ inline int so_stage_units(int bit, int n, int b, int nr) {
-  if (bit == kStageAi) return 2 * rows8(nr) * row_units(b);
-  return 2 * (bit == kStageBi ? tile_units(n, b) : tile_units(b, n));
+
+// float2 units (8 bytes) of matrix ``bit``'s slice at tier T for ``rows``
+// rows of Ai: the whole matrix, or Ai's rows (bf16x3: the rows8(rows) rows
+// of the row layout, all within the n + 8 rows the host gives). Its stride
+// in Ai, per row, is ai_units<T>(b).
+template <int T>
+__host__ __device__ inline int stage_count(int bit, int n, int b, int rows) {
+  if constexpr (T == kBf16x3) {
+    if (bit == kStageAi) return 2 * rows8(rows) * row_units(b);
+    return 2 * (bit == kStageBi ? tile_units(n, b) : tile_units(b, n));
+  } else {
+    return bit == kStageAi ? rows * b : n * b;
+  }
+}
+template <int T>
+__host__ __device__ inline int ai_units(int b) {
+  return T == kBf16x3 ? 2 * row_units(b) : b;
+}
+
+// float2 units of matrix ``bit``'s staged slice for slabs of nr rows
+// (16-byte granular; the bf16x3 layouts are by construction).
+template <int T>
+__host__ __device__ inline int stage_units(int bit, int n, int b, int nr) {
+  return T == kBf16x3 ? stage_count<T>(bit, n, b, nr) : even_up(stage_count<T>(bit, n, b, nr));
 }
 
 // 4-byte units of the cut of Z across a cluster: the table of Z's b row
-// addresses (ZRows) and this block's max|P|² over its rows, read by the peers;
-// ``split_ops``, then the table of the addresses of Zᵀ's ksteps(b) k-steps.
-__host__ __device__ inline int zrows_units(int b, bool cut, bool split_ops = false) {
-  return cut ? b + 1 + (split_ops ? ksteps(b) : 0) : 0;
+// addresses (ZRows) and this block's max|P|² over its rows, read by the
+// peers; at bf16x3, then the table of the addresses of Zᵀ's ksteps(b)
+// k-steps.
+template <int T>
+__host__ __device__ inline int zrows_units(int b, bool cut) {
+  return cut ? b + 1 + (T == kBf16x3 ? ksteps(b) : 0) : 0;
 }
 
-// Bytes of a block's shared memory before any staged matrix: the four
-// buffers (``split_ops``: K2's three), the frame buffers, 32 floats for
-// reductions, the metric accumulators of the segments of the block's nr
-// image rows and br bbox rows, room for the sums of all segments (read in
-// the first block), and, ``cut``, the cut of Z.
+// Bytes of a block's shared memory at tier T before any staged matrix: the
+// buffers, the frame buffers, 32 floats for reductions, the metric
+// accumulators of the segments of the block's nr image rows and br bbox
+// rows, room for the sums of all segments (read in the first block), and,
+// ``cut``, the cut of Z.
+template <int T>
 __host__ __device__ inline size_t led_base_bytes(int n, int b, int cs, int nr, int br,
-                                                 int frames, bool cut, bool split,
-                                                 bool split_ops = false) {
-  const int buffers = split_ops ? so_z_units(b, nr, br, cs, cut) + so_t_units(n, b, nr, br, cs, cut)
-                                      + so_img_units(n, b, nr, cs)
-                                : z_units(b, nr, br, cut, split) + t_units(n, b, nr, br, split)
-                                      + img_units(n, nr) + repc_units(n, nr, cs);
+                                                 int frames, bool cut) {
+  const int buffers = T == kBf16x3 ? so_z_units(b, nr, br, cs, cut)
+                                         + so_t_units(n, b, nr, br, cs, cut)
+                                         + so_img_units(n, b, nr, cs)
+                                   : z_units(b, nr, br, cut) + t_units(n, b, nr, br)
+                                         + img_units(n, nr) + repc_units(n, nr, cs);
   return (size_t)buffers * sizeof(float2)
          + (size_t)(frames * frame_units(n, nr) + 32 + nr * segments(n) + br * segments(b)
-                    + sums_units(n, b) + zrows_units(b, cut, split_ops)) * sizeof(float);
+                    + sums_units(n, b) + zrows_units<T>(b, cut)) * sizeof(float);
 }
 
 // One block's view of its shared memory and of its slabs.
@@ -1174,17 +977,26 @@ __device__ __forceinline__ unsigned* zcut_rows(const LedSmem& s, int n, int b) {
   return reinterpret_cast<unsigned*>(s.sums + sums_units(n, b));
 }
 
-// Carves the block's dynamic shared memory, zeroes the metric accumulators,
+// Zeroes this block's metric accumulators (s.rsum, s.usum). The callers'
+// barriers order it before the first addition to them (led_forward's first
+// block barrier) and after the last read (send_segment_sums, then a cluster
+// barrier).
+__device__ __forceinline__ void zero_segment_sums(const LedSmem& s, int n, int b) {
+  for (int e = threadIdx.x; e < s.nr * segments(n) + s.br * segments(b); e += blockDim.x)
+    s.rsum[e] = 0.f;
+}
+
+// Carves the block's dynamic shared memory as the reckoning of tier T says
+// (the tier's buffer units, stage_count), zeroes the metric accumulators,
 // writes the table of Z's rows (CUT, Z cut by rows: row k in block k / br,
-// at its row k mod br) and copies the staged slices of the DFT matrices into
-// it. Ends with a block barrier. Slab r of m rows cut
-// for cs blocks is [min(r·per, m), min((r+1)·per, m)) with per = ceil(m/cs)
+// at its row k mod br; at bf16x3 also Zᵀ's k-steps) and copies the staged
+// slices of the DFT matrices into it. Ends with a block barrier. Slab r of m rows cut for cs
+// blocks is [min(r·per, m), min((r+1)·per, m)) with per = ceil(m/cs)
 // (fpm_torch/ops/kernels.py slab_bounds states the same rule, and a test
-// holds that such slabs cover every row once). ``split``: the matrices are
-// in the bf16x3 layout.
-template <bool CUT, bool SO = false>
+// holds that such slabs cover every row once).
+template <int T, bool CUT>
 __device__ inline LedSmem carve_smem(void* base, const DftMats m, int n, int b,
-                                     const LedPlan plan, int rank, bool split) {
+                                     const LedPlan plan, int rank) {
   LedSmem s;
   s.rank = rank;
   s.cs = plan.cs;
@@ -1197,7 +1009,7 @@ __device__ inline LedSmem carve_smem(void* base, const DftMats m, int n, int b,
   s.brows = min(plan.br, b - s.brow0);
   float2* f = reinterpret_cast<float2*>(base);
   s.z = f;
-  if constexpr (SO) {
+  if constexpr (T == kBf16x3) {   // rep's columns gathered into t
     f += so_z_units(b, plan.nr, plan.br, plan.cs, CUT);
     s.t = f;
     f += so_t_units(n, b, plan.nr, plan.br, plan.cs, CUT);
@@ -1205,9 +1017,9 @@ __device__ inline LedSmem carve_smem(void* base, const DftMats m, int n, int b,
     f += so_img_units(n, b, plan.nr, plan.cs);
     s.repc = s.t;
   } else {
-    f += z_units(b, plan.nr, plan.br, CUT, split);
+    f += z_units(b, plan.nr, plan.br, CUT);
     s.t = f;
-    f += t_units(n, b, plan.nr, plan.br, split);
+    f += t_units(n, b, plan.nr, plan.br);
     s.img = f;
     f += img_units(n, plan.nr);
     s.repc = plan.cs > 1 ? f : s.img;
@@ -1215,20 +1027,18 @@ __device__ inline LedSmem carve_smem(void* base, const DftMats m, int n, int b,
   }
   // Matrix ``bit`` from ``src``: copied to f and read there if the plan
   // stages it, else read where it is. Of Ai only the rows the products read
-  // are copied (SO: rows8(s.rows), within the n + 8 rows the host gives),
-  // in room for the plan's nr.
+  // are copied, in room for the plan's nr.
   auto stage = [&](const float2* src, int bit) -> const float2* {
     if (!(plan.stage & bit)) return src;
-    const int count =
-        SO ? so_stage_units(bit, n, b, s.rows) : stage_count(bit, n, b, s.rows, split);
+    const int count = stage_count<T>(bit, n, b, s.rows);
     for (int e = threadIdx.x; e < count; e += blockDim.x) f[e] = src[e];
     const float2* staged = f;
-    f += SO ? so_stage_units(bit, n, b, plan.nr) : stage_units(bit, n, b, plan.nr, split);
+    f += stage_units<T>(bit, n, b, plan.nr);
     return staged;
   };
   s.bi = stage(m.bi, kStageBi);
   s.bf = stage(m.bf, kStageBf);
-  s.ai = stage(m.ai + (size_t)s.row0 * (SO ? 2 * row_units(b) : split ? even_up(b) : b), kStageAi);
+  s.ai = stage(m.ai + (size_t)s.row0 * ai_units<T>(b), kStageAi);
   s.af = stage(m.af, kStageAf);
   s.frame = reinterpret_cast<float*>(f);
   s.red = s.frame + plan.frames * frame_units(n, plan.nr);
@@ -1240,12 +1050,12 @@ __device__ inline LedSmem carve_smem(void* base, const DftMats m, int n, int b,
     s.rsum[e] = 0.f;
   if constexpr (CUT) {
     unsigned* zrow = zcut_rows(s, n, b);
-    const int ldz = z_ld(b, split);
+    const int ldz = z_ld(b, T == kBf16x3);
     for (int k = threadIdx.x; k < b; k += blockDim.x) {
       const int q = k / plan.br;
       zrow[k] = cluster_addr(s.z, q) + 8u * (unsigned)((k - q * plan.br) * ldz);
     }
-    if constexpr (SO) {   // Zᵀ's k-step k of m-tile 0: block k / zs, its k-step k mod zs
+    if constexpr (T == kBf16x3) {   // Zᵀ's k-step k of m-tile 0: block k / zs, k-step k mod zs
       const int zs = zcut_steps(b, plan.cs);
       for (int k = threadIdx.x; k < ksteps(b); k += blockDim.x) {
         const int q = k / zs;
@@ -1288,12 +1098,16 @@ inline cudaError_t count_launch(int* launches) {
   return err;
 }
 
-// The launch configuration of ``slots`` clusters of plan.cs blocks.
+// The launch configuration of ``clusters`` clusters of plan.cs blocks;
+// ``cooperative``: every block resident at once, so that the kernel may
+// call cg::this_grid().sync() (the runtime refuses a grid past what the card
+// holds).
 struct ClusterLaunch {
   cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr[1];
-  ClusterLaunch(int slots, const LedPlan& plan, cudaStream_t stream) : cfg{} {
-    cfg.gridDim = dim3(slots * plan.cs);
+  cudaLaunchAttribute attr[2];
+  ClusterLaunch(int clusters, const LedPlan& plan, cudaStream_t stream, bool cooperative = false)
+      : cfg{} {
+    cfg.gridDim = dim3(clusters * plan.cs);
     cfg.blockDim = dim3(kThreads);
     cfg.dynamicSmemBytes = plan.smem;
     cfg.stream = stream;
@@ -1301,21 +1115,15 @@ struct ClusterLaunch {
     attr[0].val.clusterDim.x = plan.cs;
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
+    attr[1].id = cudaLaunchAttributeCooperative;
+    attr[1].val.cooperative = 1;
     cfg.attrs = attr;
-    cfg.numAttrs = 1;
+    cfg.numAttrs = cooperative ? 2 : 1;
   }
   ClusterLaunch(const ClusterLaunch&) = delete;
   ClusterLaunch& operator=(const ClusterLaunch&) = delete;
 };
 
-// The plan of ``slots`` LEDs on clusters of cs blocks (Z whole in every
-// block where its buffers fit, else cut by rows across the cluster;
-// ``force_zcut`` (tests only) 1 takes Z whole, 2 cut, or fails; then K2's
-// frame buffers if they fit, then as many matrix slices as fit beside the
-// buffers, in the order Bi, Bf, Ai, Af) and in *clusters how many such
-// clusters the card holds at once (0: none). ``limit`` is the card's
-// shared memory per block. Returns 0, kErrLedSmem (the buffers do not fit)
-// or a cudaError_t value of the occupancy query.
 // The two builds of a kernel: Z whole in every block, and Z cut by rows
 // (the template argument CUT of carve_smem and led_forward).
 template <typename Kernel>
@@ -1324,37 +1132,44 @@ struct KernelPair {
   Kernel of(const LedPlan& p) const { return p.zcut ? cut : whole; }
 };
 
-template <typename Kernel>
+// The plan at tier T (the reckoning above) of ``slots`` LEDs on clusters of
+// cs blocks: Z whole in every block where its buffers fit, else cut by rows
+// across the cluster (``force_zcut``, tests only: 1 takes Z whole, 2 cut, or
+// fails); then K2's frame buffers if they fit; then as many matrix slices
+// as fit beside the buffers, in the order Bi, Bf, Ai, Af; and in
+// plan->resident how many such clusters the card holds at once (0: none).
+// ``limit`` is the card's shared memory per block. Returns 0, kErrLedSmem
+// (the buffers do not fit) or a cudaError_t value of the occupancy query.
+template <int T, typename Kernel>
 int plan_at(KernelPair<Kernel> kernel, int n, int b, int slots, int frames, int cs, int limit,
-            bool split, int force_zcut, LedPlan* plan, int* clusters, bool split_ops = false) {
-  LedPlan p{cs, (n + cs - 1) / cs, (b + cs - 1) / cs, 0, frames, 0, 0};
+            int force_zcut, LedPlan* plan) {
+  LedPlan p{cs, (n + cs - 1) / cs, (b + cs - 1) / cs, 0, frames, 0, 0, 0};
   size_t bytes = 0;
   bool fits = false;
   for (int cut = 0; cut <= (cs > 1 ? 1 : 0) && !fits; ++cut) {
     if (force_zcut && cut != force_zcut - 1) continue;
     p.zcut = cut;
     p.frames = frames;
-    bytes = led_base_bytes(n, b, cs, p.nr, p.br, frames, cut, split, split_ops);
+    bytes = led_base_bytes<T>(n, b, cs, p.nr, p.br, frames, cut);
     if (bytes > (size_t)limit) {   // then without frame buffers: frames read in place
       p.frames = 0;
-      bytes = led_base_bytes(n, b, cs, p.nr, p.br, 0, cut, split, split_ops);
+      bytes = led_base_bytes<T>(n, b, cs, p.nr, p.br, 0, cut);
     }
     fits = bytes <= (size_t)limit;
   }
   if (!fits) return kErrLedSmem;
   for (int bit = kStageBi; bit <= kStageAf; bit <<= 1) {
-    const size_t more = (size_t)(split_ops ? so_stage_units(bit, n, b, p.nr)
-                                           : stage_units(bit, n, b, p.nr, split)) * sizeof(float2);
+    const size_t more = (size_t)stage_units<T>(bit, n, b, p.nr) * sizeof(float2);
     if (bytes + more <= (size_t)limit) {
       bytes += more;
       p.stage |= bit;
     }
   }
   p.smem = (unsigned)bytes;
-  *plan = p;
   const ClusterLaunch launch(slots, p, nullptr);
-  const cudaError_t err = cudaOccupancyMaxActiveClusters(clusters, kernel.of(p), &launch.cfg);
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(&p.resident, kernel.of(p), &launch.cfg);
   if (err != cudaSuccess) cudaGetLastError();   // returned here, not left for the next launch
+  *plan = p;
   return (int)err;
 }
 
@@ -1379,30 +1194,44 @@ int smem_limit(KernelPair<Kernel> kernel, int device, int* limit) {
 // most rows: 12.9, 8.58, 5.67, 4.21 ms.
 constexpr float kLedTime[2][4] = {{1.f, 0.56f, 0.333f, 0.2f}, {1.f, 0.665f, 0.44f, 0.326f}};
 
-// Chooses the cluster size for ``kernel`` running ``slots`` LEDs at once
-// (K2: one per problem; K1: the chunk's LEDs of every problem) and sets the
-// kernel's shared-memory attribute. Of the sizes 8, 4, 2, 1 at which a
-// block's buffers fit its shared memory and the card says a cluster can be
-// resident, it takes the one with the least estimated time: the waves the
-// slots need times kLedTime[cs]; a tie goes to the larger cs. A wave of a
-// ``persistent`` kernel (K2: a cluster walks its problem's whole sweep) is
-// as many clusters as the card holds at once (its own count: clusters must
-// sit inside one GPC, and an H100 holds 15 of 8 blocks, 30 of 4); a cluster
-// that finds no room waits a whole sweep. A wave of one-LED clusters (K1,
-// K3) is as many as the SMs take: one left without room starts as soon as
-// any finishes, and measured on an H100 K1's 32 clusters of 4 (30 resident)
-// beat 32 of 2 (all resident) 0.54 to 0.69 ms per sweep (PERF.md §5). ``tier``
-// (Tier) is the instantiation's: it sets the staged layout and the weights. ``force_cs``
-// (tests only; 0 = choose) takes that size or fails; ``force_zcut`` (tests
-// only; plan_at) the layout of Z. Returns 0, a
-// cudaError_t value (an error of the occupancy query), kErrLedSmem (no cs
-// fits) or kErrCluster (the forced cs cannot run). A plan, once made, is
-// kept by (kernel, shapes, slots, device): an entry point called once per
-// chunk asks the card once.
-template <typename Kernel>
-int plan_led(KernelPair<Kernel> kernel, int n, int b, int slots, int frames, bool persistent,
-             int tier, int force_cs, int force_zcut, int device, LedPlan* plan,
-             bool split_ops = false) {
+// How a launch's slots meet the card: the wave rule of plan_led, and the
+// waves a plan of ``resident`` clusters (``sms`` SMs) needs for ``slots``.
+//   kOneShot     K3: one cluster per slot, each running one LED; a cluster
+//                left without room starts as soon as any finishes, so a wave
+//                is as many as the SMs take, sms / cs
+//   kPersistent  K2: one cluster per problem walking its whole sweep; a wave
+//                is as many clusters as the card holds at once (its own
+//                count: clusters sit inside one GPC, and an H100 holds 15 of
+//                8 blocks, 30 of 4), and a cluster that finds no room waits
+//                for a whole sweep
+//   kGrid        K1: exactly the resident clusters walk the chunk's slots in
+//                a fixed order; the slots past a wave cost their share of one,
+//                not a whole one (on an H100, K1 at mono chunk 32 on 30
+//                clusters of 4 took 0.7 µs a chunk more than at chunk 30,
+//                where one wave holds them all: the forward of a full card
+//                is bound by its throughput, not by one LED; PERF.md §6)
+enum Waves { kOneShot, kPersistent, kGrid };
+inline float waves(Waves rule, int slots, int resident, int sms, int cs) {
+  if (rule == kGrid) return slots > resident ? (float)slots / resident : 1.f;
+  const int wave = rule == kPersistent ? resident : imax(1, sms / cs);
+  return (float)((slots + wave - 1) / wave);
+}
+
+// Chooses the cluster size at tier T for ``kernel`` running ``slots`` LEDs
+// (K2: one per problem; K1: the chunk's LEDs of every problem; K3: the
+// chunk's slots) and sets the kernel's shared-memory attribute. Of the
+// sizes 8, 4, 2, 1 at which a block's buffers fit its shared memory and the
+// card says a cluster can be resident, it takes the one with the least
+// estimated time: the waves the slots need by ``rule`` times
+// kLedTime[T][cs]; a tie goes to the larger cs. ``force_cs`` (tests only; 0
+// = choose) takes that size or fails; ``force_zcut`` (tests only; plan_at)
+// the layout of Z. Returns 0, a cudaError_t value (an error of the
+// occupancy query), kErrLedSmem (no cs fits) or kErrCluster (the forced cs
+// cannot run). A plan, once made, is kept by (kernel, shapes, slots,
+// device): the card is asked once.
+template <int T, typename Kernel>
+int plan_led(KernelPair<Kernel> kernel, int n, int b, int slots, int frames, Waves rule,
+             int force_cs, int force_zcut, int device, LedPlan* plan) {
   if ((force_cs != 0 && force_cs != 1 && force_cs != 2 && force_cs != 4 && force_cs != 8)
       || force_zcut < 0 || force_zcut > 2)
     return (int)cudaErrorInvalidValue;
@@ -1426,15 +1255,12 @@ int plan_led(KernelPair<Kernel> kernel, int n, int b, int slots, int frames, boo
   for (int cs = kMaxCluster, log_cs = 3; cs >= 1; cs >>= 1, --log_cs) {
     if (force_cs && cs != force_cs) continue;
     LedPlan p;
-    int clusters = 0;
-    const int e = plan_at(kernel, n, b, slots, frames, cs, limit, tier == kBf16x3, force_zcut, &p,
-                          &clusters, split_ops);
+    const int e = plan_at<T>(kernel, n, b, slots, frames, cs, limit, force_zcut, &p);
     if (e == kErrLedSmem) continue;
     if (e) return e;
     fits_smem = true;
-    if (clusters < 1) continue;
-    const int wave = persistent ? clusters : imax(1, sms / cs);
-    const float cost = (float)((slots + wave - 1) / wave) * kLedTime[tier][log_cs];
+    if (p.resident < 1) continue;
+    const float cost = waves(rule, slots, p.resident, sms, cs) * kLedTime[T][log_cs];
     if (!found || cost < best) {
       found = true;
       best = cost;
@@ -1447,19 +1273,20 @@ int plan_led(KernelPair<Kernel> kernel, int n, int b, int slots, int frames, boo
 }
 
 // A measurement aid behind each library's fpm_resident_clusters: how many
-// clusters of cs blocks of ``kernel`` the card holds at once for ``slots``
-// LEDs of Np n and bbox b (0 when none; kErrLedSmem when the buffers do not
-// fit at this cs).
-template <typename Kernel>
+// clusters of cs blocks of ``kernel`` at tier T the card holds at once for
+// ``slots`` LEDs of Np n and bbox b (0 when none; kErrLedSmem when the
+// buffers do not fit at this cs).
+template <int T, typename Kernel>
 int resident_clusters(KernelPair<Kernel> kernel, int n, int b, int slots, int frames, int cs,
-                      int tier, int device, int* clusters, bool split_ops = false) {
+                      int device, int* clusters) {
   const DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   int limit = 0;
   if (const int e = smem_limit(kernel, device, &limit)) return e;
   LedPlan p;
-  return plan_at(kernel, n, b, slots, frames, cs, limit, tier == kBf16x3, 0, &p, clusters,
-                 split_ops);
+  const int e = plan_at<T>(kernel, n, b, slots, frames, cs, limit, 0, &p);
+  *clusters = e ? 0 : p.resident;
+  return e;
 }
 
 // A patch start as the JAX package's crop (``lax.dynamic_slice``) takes it:
@@ -1474,8 +1301,10 @@ __device__ __forceinline__ int clamp_start(int s, int dim, int n) {
 
 // The amplitude replacement of this block's image rows in s.img, and their
 // share of the data residual Σ(amp − |img|)² into s.rsum when ``metrics``:
-// led_forward_at's pass (which keeps its own copy, so that K1's and K3's
-// compiled code stays as it was), for led_forward_split.
+// one warp per 32-column segment of an image row, lane l on its column l, so
+// a segment's residual is the same sum whichever block and warp own it. The
+// one replace pass of both forward passes (led_forward_at,
+// led_forward_split), inlined into each.
 __device__ __forceinline__ void replace_rows(const LedSmem s, const float* amp, int n, float eps,
                                              bool metrics) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
@@ -1522,19 +1351,20 @@ __device__ __forceinline__ void replace_rows(const LedSmem s, const float* amp, 
 // carve_smem's CUT). led_forward_at<T, CUT, A> is the same with the stage of
 // ablation A turned off, with Z whole or cut as the main kernels take it and
 // with the same bits either way (every branch of A reads Z where the block
-// that built it keeps it); the main kernels call led_forward.
+// that built it keeps it); the main kernels call led_forward. The products
+// here are the highest tier's (cgemm); at bf16x3 the kernels call
+// led_forward_split, which comes here for kNoDft alone (no product).
 template <int T, bool CUT, int A>
 __device__ __forceinline__ void led_forward_at(const float* o_re, const float* o_im, int ld,
                                                int y0, int x0, const float* p_re,
                                                const float* p_im, const float* amp, int n, int b,
                                                float eps, bool metrics, const LedSmem s,
                                                float* pmax) {
-  static_assert(A != kDft1Pass || T == kBf16x3, "one pass is of the bf16x3 layout");
-  constexpr int kPasses = A == kDft1Pass ? 1 : 3;
+  static_assert(T == kHighest || A == kNoDft, "bf16x3's products are led_forward_split's");
   cg::cluster_group cluster = cg::this_cluster();
   const int zr0 = CUT ? s.brow0 : 0;   // the first row of Z this block builds
   const int bb = (CUT ? s.brows : b) * b;
-  const int ldz = z_ld(b, T == kBf16x3), ldt = t_ld(b, T == kBf16x3);
+  const int ldz = z_ld(b, T == kBf16x3);
   p_re += zr0 * b;
   p_im += zr0 * b;
   y0 += zr0;
@@ -1596,48 +1426,17 @@ __device__ __forceinline__ void led_forward_at(const float* o_re, const float* o
     }
   } else {
     // T_r = Ai[rows_r,:]·Z; cut, row k of Z read from the block that built it
-    if constexpr (CUT && T == kBf16x3)
-      cgemm_tc_z<kPasses>(s.ai, split_ld(b), ZRows{zcut_rows(s, n, b)}, s.t, ldt, s.rows, b,
-                          b);
-    else if constexpr (CUT)
+    if constexpr (CUT)
       cgemm_z(s.ai, b, ZRows{zcut_rows(s, n, b)}, (ldz & 1) == 0, s.t, b, s.rows, b, b);
-    else if constexpr (T == kBf16x3)
-      cgemm_tc<true, kPasses>(s.ai, split_ld(b), s.z, ldz, s.t, ldt, s.rows, b, b);
     else
       cgemm(s.ai, b, s.z, b, s.t, b, s.rows, b, b);
     __syncthreads();
     FPM_PHASE(kPhaseProduct1);
-    if constexpr (T == kBf16x3)                              // img_r = T_r·Bi
-      cgemm_tc<false, kPasses>(s.t, ldt, s.bi, split_ld(b), s.img, n, s.rows, n, b);
-    else
-      cgemm(s.t, b, s.bi, n, s.img, n, s.rows, n, b);
+    cgemm(s.t, b, s.bi, n, s.img, n, s.rows, n, b);   // img_r = T_r·Bi
   }
   __syncthreads();
   FPM_PHASE(kPhaseProduct2);
-  // One warp per 32-column segment of an image row, lane l on its column l:
-  // a segment's residual is the same sum whichever block and warp own it.
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
-  const int segs = segments(n);
-  for (int t = warp; t < s.rows * segs; t += warps) {
-    const int r = t / segs, c = 32 * (t - r * segs) + lane;
-    float racc = 0.f;
-    if (c < n) {
-      const int e = r * n + c;
-      const float2 v = s.img[e];
-      const float a = amp[e];
-      const float re = v.x + eps, im = v.y + eps;
-      const float scale = a / sqrtf(re * re + im * im);
-      if (metrics) {
-        const float d = a - sqrtf(v.x * v.x + v.y * v.y);
-        racc = d * d;
-      }
-      s.img[e] = make_float2(v.x * scale, v.y * scale);
-    }
-    if (metrics) {
-      racc = warp_sum(racc);
-      if (lane == 0) s.rsum[t] += racc;
-    }
-  }
+  replace_rows(s, amp, n, eps, metrics);
   FPM_PHASE(kPhaseReplace);
   if constexpr (A == kNoDft) {   // up[slab r] = rep[slab r rows, 0:b], via s.t
     if (s.cs > 1) cluster.sync();   // every rep_q is written
@@ -1680,13 +1479,9 @@ __device__ __forceinline__ void led_forward_at(const float* o_re, const float* o
   }
   __syncthreads();
   FPM_PHASE(kPhaseGatherRep);
-  // V[:,cols_r] = Af·rep[:,cols_r]; on the CUDA cores an odd count of
-  // columns takes the pad column of repc along (never read afterwards) and
-  // keeps the float4 loads.
-  if constexpr (T == kBf16x3)
-    cgemm_tc<true, kPasses>(s.af, split_ld(n), s.repc, ld_repc, s.z, s.nrp, b, s.rows, n);
-  else
-    cgemm(s.af, n, s.repc, ld_repc, s.z, s.nrp, b, min(even_up(s.rows), s.nrp), n);
+  // V[:,cols_r] = Af·rep[:,cols_r]; an odd count of columns takes the pad
+  // column of repc along (never read afterwards) and keeps the float4 loads.
+  cgemm(s.af, n, s.repc, ld_repc, s.z, s.nrp, b, min(even_up(s.rows), s.nrp), n);
   if (s.cs > 1) {
     FPM_PHASE_SYNC(kPhaseProduct3);
     cluster.sync();             // barrier 2: every V[:, cols_q] is written, every rep_q read
@@ -1713,10 +1508,7 @@ __device__ __forceinline__ void led_forward_at(const float* o_re, const float* o
   }
   __syncthreads();
   FPM_PHASE(kPhaseGatherV);
-  if constexpr (T == kBf16x3)                                  // up[slab r] = V[slab r,:]·Bf
-    cgemm_tc<false, kPasses>(vrow, ld_vrow, s.bf, split_ld(n), s.img, b, s.brows, b, n);
-  else
-    cgemm(vrow, ld_vrow, s.bf, b, s.img, b, s.brows, b, n);
+  cgemm(vrow, ld_vrow, s.bf, b, s.img, b, s.brows, b, n);   // up[slab r] = V[slab r,:]·Bf
   __syncthreads();
   FPM_PHASE(kPhaseProduct4);
 }
@@ -1771,12 +1563,11 @@ struct OutTr {
   }
 };
 
-// K2's forward pass at bf16x3: led_forward_at's function and contract (the
-// same barriers; up[slab r] left in s.img), with every operand of the four
-// products in a layout whose loads are whole fragments (TileA, RowB; the
-// static matrices from the host, the dynamic ones split where they are
-// written) and each product a tile_product, every element the same sum as
-// in led_forward_at:
+// The forward pass at bf16x3 of all three kernels: led_forward_at's
+// function and contract (the same barriers; up[slab r] left in s.img), with
+// every operand of the four products in a layout whose loads are whole
+// fragments (TileA, RowB; the static matrices from the host, the dynamic
+// ones split where they are written) and each product a tile_product:
 //   window      Zᵀ (tile layout: rows j, index pairs along Z's rows; cut by
 //               rows: this block's zcut_steps k-steps of every row)
 //   product 1   T_rᵀ = Zᵀ·Ai[rows_r, :]ᵀ: the slab's rows on mma's 8-wide

@@ -16,9 +16,9 @@
 //                       ``metrics``
 //
 // Three launches on the caller's stream:
-//   chunk_forward  (epry_chunk.cuh, shared with K1, one problem here)
+//   chunk_forward  (epry_chunk.cuh; its LED, chunk_led, is K1's)
 //               grid = C·cs, one cluster of cs blocks per LED into scratch;
-//               masked dummies exit at once.
+//               masked dummies skip the LED.
 //   k3_gather   one thread per block element: WRITES d = the sum over the
 //               windows covering it, in LED order, or 0 (gather_increments):
 //               every element is written, so d needs no memset, and the sum
@@ -28,8 +28,9 @@
 // Bound: FP32 operations in chunk_forward (see epry_common.cuh) for the
 // rank's C_local LEDs on C_local·cs SMs (cs = 8 at 8 slots). k3_gather reads only the LEDs' scratch
 // but writes all of d, R·Ncols·8 bytes per call: most of the call's bytes.
-// At bf16x3 the products add each k-step's sums in IEEE f32 (FPM_KSTEP_SUMS,
-// epry_common.cuh): d and v are small differences of large terms.
+// At bf16x3 the products are K1's and K2's (led_forward_split), but add each
+// k-step's sums in IEEE f32 (FPM_KSTEP_SUMS, epry_common.cuh): d and v are
+// small differences of large terms.
 
 #define FPM_KSTEP_SUMS 1
 #include "epry_chunk.cuh"
@@ -98,16 +99,15 @@ static int k3_increments_at(const float* o, const float* p, const float* sup, co
   cudaError_t err;
   LedPlan plan;
   const KernelPair<decltype(&chunk_forward<T>)> kernel{chunk_forward<T>, chunk_forward_zcut<T>};
-  if (const int e = plan_led(kernel, n, b, c, 0, false, T, force_cs, force_zcut, device, &plan))
+  if (const int e = plan_led<T>(kernel, n, b, c, 0, kOneShot, force_cs, force_zcut, device, &plan))
     return e;
   export_plan(plan, plan_out);
   const ClusterLaunch forward(c, plan, st);
   const size_t plane = (size_t)n_rows * n_cols;
   const int bb = b * b;
-  cudaLaunchKernelEx(&forward.cfg, kernel.of(plan), o, (size_t)0, n_rows, n_cols, p, (size_t)0,
-                     sup, amps, (size_t)0, starts, valid, c, m, n, b, lo, eps, delta1, delta2,
-                     metrics, static_cast<float2*>(d_obj), static_cast<float2*>(num), parts,
-                     plan);
+  cudaLaunchKernelEx(&forward.cfg, kernel.of(plan), o, n_rows, n_cols, p, sup, amps, starts,
+                     valid, m, n, b, lo, eps, delta1, delta2, metrics,
+                     static_cast<float2*>(d_obj), static_cast<float2*>(num), parts, plan);
   if ((err = count_launch(launches)) != cudaSuccess) return (int)err;
   k3_gather<<<(int)((plane + 255) / 256), 256, 0, st>>>(
       d_out, d_out + plane, n_rows, n_cols, starts, valid, c, n, b, lo,

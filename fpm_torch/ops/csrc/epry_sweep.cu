@@ -45,8 +45,8 @@
 // the passes that write them (Z, T_r, the gathered rep and V) lay out once
 // in the tile and row layouts, whose 16-byte loads are whole mma fragments;
 // products 1, 2 and 4 transposed, the slabs' skinny sides on mma's 8-wide
-// n. Its buffers and staged matrices are carve_smem's split-operand layout
-// (so_z_units), which plan_led reckons for this kernel alone.
+// n. Its buffers and staged matrices are the bf16x3 tier's reckoning
+// (so_z_units, stage_count), which K1 and K3 share.
 //
 // The ablation build (-DFPM_ABLATE) adds k2_sweep_ablate<T, A> and
 // k2_sweep_ablate_zcut<T, A>, the same sweep with the stage of ablation A
@@ -129,8 +129,7 @@ __device__ __forceinline__ void k2_sweep_body(
   rowmax += q * nl;
   mets += 2 * q;
   extern __shared__ float4 smem_raw[];
-  const LedSmem s = carve_smem<CUT, T == kBf16x3>(smem_raw, m, n, b, plan,
-                                                  (int)cluster.block_rank(), T == kBf16x3);
+  const LedSmem s = carve_smem<T, CUT>(smem_raw, m, n, b, plan, (int)cluster.block_rank());
   const int frame_stride = frame_units(n, plan.nr);
   const int slab_count = s.rows * n;           // this block's floats of a frame
   const float* slab0 = amps + (size_t)s.row0 * n;
@@ -305,8 +304,8 @@ static int k2_sweep_at(float* o, float* p, const float* sup, const float* amps, 
   using namespace fpm;
   LedPlan plan;
   const auto kernel = k2_kernels<T, A>();
-  if (const int e = plan_led(kernel, n, b, n_problems, 2, true, T, force_cs, force_zcut, device,
-                             &plan, T == kBf16x3))
+  if (const int e = plan_led<T>(kernel, n, b, n_problems, 2, kPersistent, force_cs, force_zcut,
+                                device, &plan))
     return e;
   export_plan(plan, plan_out);
   cudaError_t err;
@@ -351,13 +350,11 @@ extern "C" int fpm_resident_clusters(int n, int b, int slots, int cs, int tier, 
                                      int* clusters) {
   using namespace fpm;
   if (tier == kBf16x3)
-    return resident_clusters(KernelPair<decltype(&k2_sweep<kBf16x3>)>{
-                                 k2_sweep<kBf16x3>, k2_sweep_zcut<kBf16x3>},
-                             n, b, slots, 2, cs, tier, device, clusters, true);
+    return resident_clusters<kBf16x3>(k2_kernels<kBf16x3, kMain>(), n, b, slots, 2, cs, device,
+                                      clusters);
   if (tier == kHighest)
-    return resident_clusters(KernelPair<decltype(&k2_sweep<kHighest>)>{
-                                 k2_sweep<kHighest>, k2_sweep_zcut<kHighest>},
-                             n, b, slots, 2, cs, tier, device, clusters);
+    return resident_clusters<kHighest>(k2_kernels<kHighest, kMain>(), n, b, slots, 2, cs, device,
+                                       clusters);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -28,13 +28,14 @@ one geometry (RGB channels, the ROI tiles of a large field of view) as
 ``o_planes`` (P, 2, NL, NL), ``p_planes`` (P, 2, Np, Np) and ``amps`` (P,
 ...), with the support, starts and valid flags shared; they return (P, ...)
 planes and (P, 2) metrics. On the card that is ONE launch sequence for all
-P problems (K2: 2 launches per sweep, K1: 3 per chunk), and problem q's
+P problems (K2: 2 launches per sweep, K1: 1), and problem q's
 result is bitwise that of problem q solved alone, at every P and cluster
 size; the plain versions loop over the problems.
 Around the kernel, plain PyTorch rolls the pupil and support to the
 centered frame and crops them to the NA disk's bounding box, and undoes
 that afterwards (so the pupil, and K3's numerator, is exactly zero outside
-the box).
+the box); K1's kernel makes the pupil's roll and crop and their undoing
+itself, and copies O, so that its sweep is one launch on the card.
 
 Precision tiers (``dft_precision``, as in the JAX signatures): ``"bf16x3"``,
 the default, forms each DFT product from the bf16 (hi, lo) split of both
@@ -253,11 +254,12 @@ def _split_words(m: np.ndarray, rows: int, k_pad: int) -> np.ndarray:
 
 
 def split_layout(m: np.ndarray) -> np.ndarray:
-    """The bf16x3 kernels' layout of a static complex matrix whose
-    contraction runs along its rows (``csrc/epry_common.cuh`` cgemm_tc):
-    (rows, ceil(K/2), 4) int32, for each row and pair (2i, 2i+1) of
-    contraction indices the bf16x2 words re hi, re lo, im hi, im lo, index 2i
-    in the low half; an odd K is padded with a zero."""
+    """The bf16x3 split of a static complex matrix whose contraction runs
+    along its rows, row by row: (rows, ceil(K/2), 4) int32, for each row and
+    pair (2i, 2i+1) of contraction indices the bf16x2 words re hi, re lo, im
+    hi, im lo, index 2i in the low half; an odd K is padded with a zero.
+    :func:`tile_layout` and :func:`row_layout` lay the same words out for
+    the kernels' products."""
     rows, k = m.shape
     return np.ascontiguousarray(_split_words(m, rows, k + (k & 1)).transpose(1, 2, 0)).view(
         np.int32)
@@ -291,25 +293,22 @@ def row_layout(m: np.ndarray, rows: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=16)
 def _k2_mats(n: int, b: int, lo: int, device: torch.device):
-    """K2's DFT matrices at bf16x3 (``csrc/epry_common.cuh`` led_forward_split):
-    Ai in the row layout with 8 zero rows past its n (a slab's n-tile reads
-    up to 7 rows past its own, and carve_smem stages those rows8(rows) rows
-    and no more), Biᵀ, Af and Bfᵀ in the tile layout."""
+    """The DFT matrices at bf16x3 of all three kernels, first made for K2
+    (``csrc/epry_common.cuh`` led_forward_split): Ai in the row layout with
+    8 zero rows past its n (a slab's n-tile reads up to 7 rows past its own,
+    and carve_smem stages those rows8(rows) rows and no more), Biᵀ, Af and
+    Bfᵀ in the tile layout."""
     ai, bi, af, bf = _block_dft_mats(n, b, lo)
     mats = (row_layout(ai, n + 8), tile_layout(bi.T), tile_layout(af), tile_layout(bf.T))
     return tuple(torch.from_numpy(m).to(device) for m in mats)
 
 
-@functools.lru_cache(maxsize=16)
 def _kernel_mats(n: int, b: int, lo: int, device: torch.device, dft_precision: str):
     """The DFT matrices as the C entry points take them: ``'highest'``
-    complex64 Ai, Bi, Af, Bf; ``'bf16x3'`` the :func:`split_layout` of Ai,
-    Biᵀ, Af, Bfᵀ (every contraction along the rows); K2 at bf16x3 takes
-    :func:`_k2_mats` instead."""
+    complex64 Ai, Bi, Af, Bf; ``'bf16x3'`` :func:`_k2_mats` (both cached)."""
     if dft_precision == "highest":
         return _dft_mats(n, b, lo, device)
-    ai, bi, af, bf = _block_dft_mats(n, b, lo)
-    return tuple(torch.from_numpy(split_layout(m)).to(device) for m in (ai, bi.T, af, bf.T))
+    return _k2_mats(n, b, lo, device)
 
 
 def _pupil_to_bbox(p_planes, support, n: int, b: int, lo: int):
@@ -520,9 +519,11 @@ _counter_lock = threading.Lock()
 # The fields of the plan an entry point hands back (LedPlan and export_plan
 # in csrc/epry_common.cuh): blocks per LED, image rows and bbox rows per
 # block, the staged DFT matrices (bits Bi 1, Bf 2, Ai 4, Af 8), K2's frame
-# buffers, the bytes of dynamic shared memory per block, and whether Z is
-# cut by rows across the cluster (1) or whole in every block (0).
-PLAN_FIELDS = ("cs", "nr", "br", "stage", "frames", "smem", "zcut")
+# buffers, the bytes of dynamic shared memory per block, whether Z is cut by
+# rows across the cluster (1) or whole in every block (0), and how many
+# clusters of the plan the card holds at once (K1's one launch takes exactly
+# that many).
+PLAN_FIELDS = ("cs", "nr", "br", "stage", "frames", "smem", "zcut", "resident")
 
 
 def _plan_out():
@@ -538,13 +539,21 @@ def _record(wrapper, launched: ctypes.c_int, plan) -> None:
         wrapper.cluster_size = wrapper.plan["cs"]
 
 
-def _check_cuda_operands(o, pc, sc, amps, starts, *, n_slots, valid=None, square=True):
+def _dense(t):
+    """``t`` itself where it is contiguous, else a contiguous copy."""
+    return t if t.is_contiguous() else t.contiguous()
+
+
+def _check_cuda_operands(o, pc, sc, amps, starts, *, n_slots, valid=None, square=True,
+                         corner=False):
     """Raise on anything the kernels do not take: device, dtype and shapes
-    (``square``: the spectrum is the whole NL×NL one, not a block of it).
-    (Patch starts need no check: the kernels clamp them. An Np too large for
-    a block's shared memory at every cluster size is refused by the kernels'
-    entry points.)"""
-    dev, n, b = o.device, amps.shape[-1], pc.shape[-1]
+    (``square``: the spectrum is the whole NL×NL one, not a block of it;
+    ``corner``: the pupil and support are n×n corner-frame planes, not the
+    bbox). (Patch starts need no check: the kernels clamp them. An Np too
+    large for a block's shared memory at every cluster size is refused by
+    the kernels' entry points.)"""
+    dev, n = o.device, amps.shape[-1]
+    b = n if corner else pc.shape[-1]
     operands = [("o_planes", o, torch.float32), ("pupil", pc, torch.float32),
                 ("support", sc, torch.float32), ("amps", amps, torch.float32),
                 ("starts", starts, torch.int32)]
@@ -608,8 +617,7 @@ def _sweep_cuda(o, pc, sc, amps, starts, *, lo, eps, delta1, delta2, global_max,
         entry, extra = lib.fpm_k2_sweep, ()
     o, pc = o.contiguous().clone(), pc.contiguous().clone()
     sc, amps, starts = sc.contiguous(), amps.contiguous(), starts.contiguous()
-    mats = (_k2_mats(n, b, lo, o.device) if dft_precision == "bf16x3"
-            else _kernel_mats(n, b, lo, o.device, dft_precision))
+    mats = _kernel_mats(n, b, lo, o.device, dft_precision)
     rowmax = torch.empty((n_prob, nl), dtype=torch.float32, device=o.device)
     mets = torch.zeros((n_prob, 2), dtype=torch.float32, device=o.device)
     launched, plan = ctypes.c_int(0), _plan_out()
@@ -626,37 +634,57 @@ def _sweep_cuda(o, pc, sc, amps, starts, *, lo, eps, delta1, delta2, global_max,
     return o, pc, mets
 
 
-def _chunked_cuda(o, pc, sc, amps, starts, valid, *, lo, eps, delta1, delta2,
-                  pupil_step_scale, collect_metrics, dft_precision, ablate=""):
-    """K1 on P problems: ``o`` (P, 2, NL, NL), ``pc`` (P, 2, b, b), ``amps``
-    (P, n_chunks, C, n, n)."""
+def _chunked_cuda(o, p, sup, amps, starts, valid, *, b, lo, eps, delta1, delta2,
+                  pupil_step_scale, collect_metrics, dft_precision, ablate="", lib=None):
+    """K1 on P problems: ``o`` (P, 2, NL, NL), the pupils ``p`` (P, 2, n, n)
+    and the support ``sup`` (n, n) in the corner frame (the kernel crops
+    them to the b × b bbox at ``lo`` and the pupils back, as
+    :func:`_pupil_to_bbox` and :func:`_pupil_from_bbox` do), ``amps`` (P,
+    n_chunks, C, n, n); returns new (o, p, mets). ``lib``: another build of
+    csrc/epry_chunked.cu than the one ``build.library`` hands out
+    (:func:`k1_phase_profile` passes its own)."""
     n_prob, n_chunks, c, n = amps.shape[0], amps.shape[1], amps.shape[2], amps.shape[-1]
-    b, nl = pc.shape[-1], o.shape[-1]
-    _check_problem_axis(o, pc, amps, sc=sc, starts=starts, n_slots=n_chunks * c, valid=valid)
-    lib, entry, extra, dft_precision = _ablation_entry(
-        fused_epry_chunked, "epry_chunked", "fpm_k1_sweep", ablate, dft_precision)
-    o, pc = o.contiguous().clone(), pc.contiguous().clone()
-    sc, amps = sc.contiguous(), amps.contiguous()
-    starts, valid = starts.contiguous(), valid.contiguous()
+    nl = o.shape[-1]
+    _check_problem_axis(o, p, amps, sc=sup, starts=starts, n_slots=n_chunks * c, valid=valid,
+                        corner=True)
+    if lib is None:
+        lib, entry, extra, dft_precision = _ablation_entry(
+            fused_epry_chunked, "epry_chunked", "fpm_k1_sweep", ablate, dft_precision)
+    else:
+        entry, extra = lib.fpm_k1_sweep, ()
+    # The host's work per sweep paces the card where it outlasts the kernel's
+    # one launch (PERF.md §5): the kernel copies O, crops the pupils and the
+    # support, uncrops the pupils and zeroes its max slots and the metrics
+    # itself, so a sweep is that one launch on the card and four allocations
+    # here; the scratch is one buffer: the pupils' bboxes (P, 2, b, b) and
+    # the support's (b, b) f32, d_obj and num (P, C, b, b) complex64 each,
+    # parts (P, C, 2) f32 and the max slots (P, n_chunks) u32.
+    o, p, sup, amps, starts, valid = (_dense(t) for t in (o, p, sup, amps, starts, valid))
     dev = o.device
     mats = _kernel_mats(n, b, lo, dev, dft_precision)
-    d_obj = torch.empty((n_prob, c, b, b, 2), dtype=torch.float32, device=dev)
-    num = torch.empty((n_prob, c, b, b, 2), dtype=torch.float32, device=dev)
-    parts = torch.empty((n_prob, c, 2), dtype=torch.float32, device=dev)
-    omax_bits = torch.zeros((n_prob, n_chunks), dtype=torch.int32, device=dev)
-    mets = torch.zeros((n_prob, 2), dtype=torch.float32, device=dev)
+    o_out, p_out = torch.empty_like(o), torch.empty_like(p)
+    slots, fl = n_prob * c, 4
+    scratch = torch.empty((2 * n_prob + 1) * b * b + 4 * slots * b * b + 2 * slots
+                          + n_prob * n_chunks, dtype=torch.float32, device=dev)
+    p_bbox = scratch.data_ptr()
+    sup_bbox = p_bbox + 2 * n_prob * b * b * fl
+    d_obj = sup_bbox + b * b * fl
+    num = d_obj + 2 * slots * b * b * fl
+    parts = num + 2 * slots * b * b * fl
+    omax_bits = parts + 2 * slots * fl
+    mets = torch.empty((n_prob, 2), dtype=torch.float32, device=dev)
     launched, plan = ctypes.c_int(0), _plan_out()
     err = entry(
-        o.data_ptr(), pc.data_ptr(), sc.data_ptr(), amps.data_ptr(), starts.data_ptr(),
-        valid.data_ptr(), *(m.data_ptr() for m in mats), d_obj.data_ptr(),
-        num.data_ptr(), parts.data_ptr(), omax_bits.data_ptr(), mets.data_ptr(),
-        n_prob, n_chunks, c, n, b, lo, nl, eps, delta1, delta2, pupil_step_scale,
-        int(collect_metrics), _TIERS[dft_precision], *extra, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream, fused_epry_chunked.force_cluster_size,
-        fused_epry_chunked.force_z_layout, ctypes.byref(launched), plan)
+        o.data_ptr(), o_out.data_ptr(), p.data_ptr(), p_out.data_ptr(), p_bbox, sup.data_ptr(),
+        sup_bbox, amps.data_ptr(), starts.data_ptr(), valid.data_ptr(),
+        *(m.data_ptr() for m in mats), d_obj, num, parts, omax_bits, mets.data_ptr(), n_prob,
+        n_chunks, c, n, b, lo, nl, eps, delta1, delta2, pupil_step_scale, int(collect_metrics),
+        _TIERS[dft_precision], *extra, dev.index, torch._C._cuda_getCurrentRawStream(dev.index),
+        fused_epry_chunked.force_cluster_size, fused_epry_chunked.force_z_layout,
+        ctypes.byref(launched), plan)
     _record(fused_epry_chunked, launched, plan)
     build.check(lib, err, "K1 fused_epry_chunked")
-    return o, pc, mets
+    return o_out, p_out, mets
 
 
 def _increments_cuda(o, pc, sc, amps, starts, valid, *, lo, eps, delta1, delta2,
@@ -750,10 +778,15 @@ def _check_patch_size(p_planes, support, amps, np_size):
                          f"and amps {tuple(amps.shape)} must be {n}×{n} patches")
 
 
-def _run(core, o_planes, p_planes, support, amps, *rest, np_size, pupil_radius, **core_kw):
-    """Pupil and support to the centered bbox, the core, and back."""
+def _run(core, o_planes, p_planes, support, amps, *rest, np_size, pupil_radius, corner=False,
+         **core_kw):
+    """Pupil and support to the centered bbox, the core, and back
+    (``corner``: the core takes the pupil and support in the corner frame,
+    with the bbox ``b``, and returns the pupil so, as K1's kernel does)."""
     _check_patch_size(p_planes, support, amps, np_size)
     b, lo = bbox_extent(np_size, pupil_radius)
+    if corner:
+        return core(o_planes, p_planes, support, amps, *rest, b=b, lo=lo, **core_kw)
     pc, sc = _pupil_to_bbox(p_planes, support, np_size, b, lo)
     o, pc, mets = core(o_planes, pc, sc, amps, *rest, lo=lo, **core_kw)
     return o, _pupil_from_bbox(pc, np_size, lo), mets
@@ -836,14 +869,36 @@ def k2_phase_profile(o_planes, p_planes, support, amps, starts_flat, *, np_size,
     return out, {lib.fpm_phase_name(i).decode(): int(c) for i, c in enumerate(cycles)}
 
 
+def k1_phase_profile(o_planes, p_planes, support, amps, starts_flat, valid, *, np_size,
+                     n_large, delta1, delta2, eps, pupil_radius=0, pupil_step_scale=1.0,
+                     collect_metrics=False, dft_precision="bf16x3"):
+    """A measurement aid: one :func:`fused_epry_chunked` on the card through
+    the cycle-counting build of K1 (``build.profile_library``; the wrapper
+    itself never loads it). Returns the sweep's ``(o_planes, p_planes,
+    mets)``, bitwise those of the wrapper, and ``{phase: SM cycles}`` that
+    the grid's first block spent in each phase of a chunk, summed over the
+    sweep. Waits for the card."""
+    _check_dft_precision(dft_precision)
+    lib = build.profile_library("epry_chunked")
+    cycles = (ctypes.c_longlong * lib.fpm_phase_count())()
+    build.check(lib, lib.fpm_phase_read(cycles, 1), "K1 phase profile")     # counts to 0
+    out = _run_problems(functools.partial(_chunked_cuda, lib=lib), o_planes, p_planes, support,
+                        amps, starts_flat, valid, np_size=np_size, pupil_radius=pupil_radius,
+                        eps=eps, delta1=delta1, delta2=delta2, pupil_step_scale=pupil_step_scale,
+                        collect_metrics=collect_metrics, dft_precision=dft_precision,
+                        corner=True)
+    build.check(lib, lib.fpm_phase_read(cycles, 1), "K1 phase profile")
+    return out, {lib.fpm_phase_name(i).decode(): int(c) for i, c in enumerate(cycles)}
+
+
 def resident_clusters(wrapper, np_size: int, pupil_radius: int, slots: int, cs: int,
                       device=None, dft_precision="bf16x3") -> int:
     """A measurement aid: how many clusters of ``cs`` blocks of K2
-    (``wrapper`` = :func:`fused_epry_sweep`) or of K1's forward launch
+    (``wrapper`` = :func:`fused_epry_sweep`) or of K1's sweep
     (:func:`fused_epry_chunked`) at ``dft_precision`` a card holds at once
     for ``slots`` LEDs, by CUDA's occupancy query (``fpm_resident_clusters``);
-    the entry points weigh their choice of cluster size with it. 0: none
-    fits."""
+    the entry points weigh their choice of cluster size with it, and K1's
+    one launch takes exactly that many clusters. 0: none fits."""
     _check_dft_precision(dft_precision)
     stem = {fused_epry_sweep: "epry_sweep", fused_epry_chunked: "epry_chunked"}[wrapper]
     lib = build.library(stem)
@@ -866,8 +921,8 @@ def fused_epry_chunked(o_planes, p_planes, support, amps, starts_flat, valid, *,
     ``starts_flat`` (n_chunks·C·2,) int32, ``valid`` (n_chunks·C,) int32
     (0 = padded dummy). ``n_large`` is implied by ``o_planes``. With a
     leading problem axis (``o_planes`` (P, 2, NL, NL), ``p_planes`` (P, 2,
-    Np, Np), ``amps`` (P, n_chunks, C, Np, Np)) one launch per kernel and
-    chunk serves all P problems. ``dft_precision``: the products' tier.
+    Np, Np), ``amps`` (P, n_chunks, C, Np, Np)) the sweep's one launch
+    serves all P problems. ``dft_precision``: the products' tier.
     ``ablate``: a name of :data:`CHUNKED_ABLATIONS` (a measurement aid; the
     output is garbage unless ``""``).
     """
@@ -878,7 +933,7 @@ def fused_epry_chunked(o_planes, p_planes, support, amps, starts_flat, valid, *,
                          np_size=np_size, pupil_radius=pupil_radius, eps=eps, delta1=delta1,
                          delta2=delta2, pupil_step_scale=pupil_step_scale,
                          collect_metrics=collect_metrics, dft_precision=dft_precision,
-                         ablate=ablate)
+                         ablate=ablate, corner=core is _chunked_cuda)
 
 
 def fused_epry_chunked_plain(o_planes, p_planes, support, amps, starts_flat, valid, *,

@@ -15,8 +15,8 @@ digests (``kernel_digests``), the digests of the sharded sweeps
 (``sharded_entry_timing``); and of each checkout's main libraries, ptxas's
 registers, stack and spills per function (``build.resources``) and a digest
 of each function's SASS (``cuobjdump -sass``). One JSON line per run, then
-one line that says which digests, resources and SASS are equal between the
-checkouts and gives each case's ms per sweep and busy share in each run. Needs one CUDA card; builds each
+one line that says which digests (and which kernel cases differ), resources
+and SASS are equal between the checkouts and gives each case's ms per sweep and busy share in each run. Needs one CUDA card; builds each
 checkout's kernels in its own ``build/``. It never imports JAX or
 ``fpm_tpu``.
 """
@@ -58,8 +58,9 @@ def sass(path):
     return {k: h.hexdigest()[:16] for k, h in out.items()}
 
 libs = build.build_all()
+digests = cs.kernel_digests(torch.device("cuda"))
 print("RUN " + json.dumps({
-    "kernels": cs.kernel_digests(torch.device("cuda"))["all"],
+    "kernels": digests["all"], "kernel_cases": digests["cases"],
     "resources": {stem: build.resources(stem) for stem in sorted(libs)},
     "sass": {stem: sass(path) for stem, path in sorted(libs.items())},
     "sharded": cs.sharded_digests(), "timing": cs.sharded_entry_timing(busy=True)}), flush=True)
@@ -91,6 +92,9 @@ def main(argv=None) -> int:
     cases = sorted(by["this"][0]["sharded"])
     print(json.dumps({
         "kernel_digests_equal": by["this"][0]["kernels"] == by["other"][0]["kernels"],
+        "kernel_cases_differing": sorted(
+            c for c, d in by["this"][0]["kernel_cases"].items()
+            if d != by["other"][0]["kernel_cases"].get(c)),
         "resources_equal": {stem: by["this"][0]["resources"][stem]
                             == by["other"][0]["resources"].get(stem)
                             for stem in by["this"][0]["resources"]},

@@ -1,0 +1,330 @@
+#!/usr/bin/env python3
+"""K1's or K2's time on the card, stage by stage, in one or two checkouts.
+
+Run from the root of this checkout, on a machine with one CUDA card:
+
+    python3 scripts/kernel_profile.py [--kernel K2] [--other DIR] [--out FILE]
+    python3 scripts/kernel_profile.py --kernel K1 [--shapes mono dog]
+        [--cs 0 1 2 4 8] [--tiers bf16x3 highest] [--chunks 15 30]
+        [--z-layout 0] [--other DIR] [--out FILE]
+
+Each checkout runs in a process of its own, with that checkout first on
+``sys.path`` (this script's ``--child`` mode); with ``--other`` the runs go
+other, this, this, other (one card, in turns). One JSON line per run, then,
+with ``--other``, one line that gives each number of both checkouts side by
+side. Digests, ptxas resources and SASS of two checkouts:
+``scripts/compare_checkouts.py``. Never imports JAX or ``fpm_tpu``.
+
+``--kernel K2``: the sequential cell's problem
+(``benchmarks_torch/mono_dome_np90.json``: Np 90, bbox 64, 193 LEDs, frames
+simulated from seed 0):
+
+- ``k2_phase_profile``: one sweep through K2's cycle-counting build
+  (``kernels.k2_phase_profile``), SM cycles per LED of each phase and their
+  sum, at each tier, after one sweep to warm;
+- ``ms_per_sweep``: the sweep loop as ``reconstruct`` runs it
+  (``bench.solver``) on the sequential cell's ladder (5/55 sweeps, 5
+  repetitions, CUDA events), at each tier; and ``ms_per_problem_sweep`` of
+  the same loop with P = 16, 66 and 132 problems in one launch (the
+  ``--fov-grid`` ROI runner's problem axis), bf16x3, on a ladder of 2/6
+  sweeps.
+
+``--kernel K1``: for each shape, K1's sweep loop as the batched cell runs it
+(``bench.solver``, one problem, chunk strided): ``mono`` is the cell's
+configuration (Np 90, chunk 32), ``dog`` the dogStomach optics
+(``bench.DOG_OPTICS``, Np 200, chunk 16, the chunk the kernel route runs
+there; ``--chunks`` takes other chunk sizes instead). For each tier, chunk
+size and cluster size of ``--cs`` (0: the one the entry point chooses;
+else forced through ``force_cluster_size``), with Z whole or cut by rows as
+``--z-layout`` says (``force_z_layout``: 0 the entry point's choice, 1
+whole, 2 cut), one row:
+
+- ``ms_per_sweep``: a short ladder on CUDA events (``bench.ladder``);
+- ``device_ms_per_sweep``: the card's kernel time in a torch.profiler window
+  of WINDOW sweeps after WARM to warm, with ``by_kernel`` (launches and mean
+  µs of each kernel name), ``gaps_us`` (the median idle µs between one
+  kernel's end and the next one's start, by the pair of names) and
+  ``sweep_span_us`` (the median µs from a sweep's first kernel start to its
+  last kernel end);
+- ``host_enqueue_us_per_sweep``: the host's time to enqueue one sweep while
+  the card is held busy by a spin kernel, so that no launch waits for it
+  (the wrapper's host work: what paces the card when it is longer than the
+  kernels' time), the median and the least of ENQUEUE sweeps;
+- ``launches_per_sweep`` (the wrapper's count) and the plan chosen;
+- ``phase_us_per_chunk``: the µs a chunk of the grid's first block in each
+  phase of the sweep (``kernels.k1_phase_profile``, K1's cycle-counting
+  build, at the card's SM clock of ``nvidia-smi``), where the kernel has
+  one launch a sweep.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WARM, WINDOW, ENQUEUE = 10, 20, 20
+K1_LADDER = (5, 45, 3)
+CHUNKS = {"mono": 32, "dog": 16}
+
+
+def mono_problem(root: str):
+    from fpm_torch import bench
+    from fpm_torch.data.simulate import make_test_object, simulate_images
+    from fpm_torch.geometry import compute_geometry
+
+    cfg, _ = bench.cell_config(os.path.join(root, "benchmarks_torch", "mono_dome_np90.json"))
+    geom = compute_geometry(cfg)
+    frames = simulate_images(make_test_object(cfg.n_large, seed=0), geom, cfg, quantize=True)
+    return cfg, geom, frames
+
+
+def k2_run(root: str, args) -> dict:
+    from fpm_torch import bench
+    from fpm_torch.ops import kernels
+
+    cfg, geom, frames = mono_problem(root)
+    k_leds = len(geom.schedule)
+    out = {"leds": k_leds, "k2_phase_profile": {}, "ms_per_sweep": {}}
+    for tier in ("bf16x3", "highest"):
+        solve = bench.solver(cfg, geom, frames, "cuda", mode="sequential", dft_precision=tier)
+        ops = (*solve.state, *solve.operands)
+        kernels.k2_phase_profile(*ops, **solve.options)                 # built and warm
+        _, cycles = kernels.k2_phase_profile(*ops, **solve.options)
+        per_led = {name: c / k_leds for name, c in cycles.items()}
+        out["k2_phase_profile"][tier] = {"cycles_per_led": sum(per_led.values()),
+                                         "cluster_size": kernels.fused_epry_sweep.cluster_size,
+                                         "by_phase": per_led}
+        sweep = solve.sweeps()
+        out["ms_per_sweep"][tier] = bench.ladder(bench.cuda_clock(sweep, solve.state), 5, 55,
+                                                 5, log=lambda m: None)[0] * 1e3
+    out["ms_per_problem_sweep"], out["cluster_size_by_problems"] = {}, {}
+    for p in (16, 66, 132):
+        solve = bench.solver(cfg, geom, frames, "cuda", problems=p, mode="sequential",
+                             dft_precision="bf16x3")
+        ms = bench.ladder(bench.cuda_clock(solve.sweeps(), solve.state), 2, 6, 2,
+                          log=lambda m: None)[0] * 1e3
+        out["ms_per_problem_sweep"][str(p)] = ms / p
+        out["cluster_size_by_problems"][str(p)] = kernels.fused_epry_sweep.cluster_size
+    return out
+
+
+def k1_window(sweep, state, path: str) -> dict:
+    """The device events of WINDOW sweeps in one profiler window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fpm_torch import bench
+
+    s = state
+    for _ in range(WARM):
+        s = sweep(s)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        s = state
+        for _ in range(WINDOW):
+            s = sweep(s)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    os.unlink(path)
+    work = sorted((e["ts"], e["dur"], bench.trace_name(e["name"])) for e in events
+                  if e.get("ph") == "X" and e.get("cat") in bench.DEVICE_CATS)
+    fpm = [e for e in work if e[2].startswith("fpm::")]
+    by_name: dict[str, list] = {}
+    for _, d, name in fpm:
+        by_name.setdefault(name, []).append(d)
+    gaps: dict[str, list] = {}
+    for a, b in zip(fpm, fpm[1:]):
+        gaps.setdefault(f"{a[2]} -> {b[2]}", []).append(b[0] - (a[0] + a[1]))
+    per = len(fpm) // WINDOW
+    spans = [fpm[i * per + per - 1][0] + fpm[i * per + per - 1][1] - fpm[i * per][0]
+             for i in range(WINDOW)] if per else []
+    return {"device_ms_per_sweep": sum(d for _, d, _ in fpm) / 1e3 / WINDOW,
+            "other_device_ms_per_sweep": sum(d for _, d, n in work
+                                             if not n.startswith("fpm::")) / 1e3 / WINDOW,
+            "kernels_per_sweep": len(fpm) / WINDOW,
+            "by_kernel": {k: {"launches": len(v), "mean_us": statistics.mean(v)}
+                          for k, v in by_name.items()},
+            "gaps_us": {k: {"n": len(v), "median": statistics.median(v)}
+                        for k, v in gaps.items()},
+            "sweep_span_us": statistics.median(spans) if spans else None}
+
+
+def k1_host_enqueue_us(sweep, state) -> dict:
+    """µs of host time to enqueue each of ENQUEUE sweeps behind a spin
+    kernel: their median and least."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)      # ~0.1 s of the card's clock: longer than the enqueue
+    times, s = [], state
+    for _ in range(ENQUEUE):
+        t0 = time.perf_counter()
+        s = sweep(s)
+        times.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return {"median": statistics.median(times), "min": min(times)}
+
+
+def sm_mhz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True).stdout
+    return float(out.split()[0])
+
+
+def k1_phases(solve, n_chunks: int) -> dict:
+    """µs a chunk in each phase of K1's sweep (the first block's view), from
+    three profiled sweeps after one, at the SM clock read after them."""
+    from fpm_torch.ops import kernels
+
+    kernels.k1_phase_profile(*solve.state, *solve.operands, **solve.options)
+    total: dict[str, int] = {}
+    for _ in range(3):
+        _, cycles = kernels.k1_phase_profile(*solve.state, *solve.operands, **solve.options)
+        for name, c in cycles.items():
+            total[name] = total.get(name, 0) + c
+    mhz = sm_mhz()
+    return {"sm_mhz": mhz, **{name: c / 3 / n_chunks / mhz for name, c in total.items()}}
+
+
+def k1_run(root: str, args) -> dict:
+    import torch
+
+    from fpm_torch import bench
+    from fpm_torch.ops import kernels
+
+    k1 = kernels.fused_epry_chunked
+    rows = []
+    for shape in args.shapes:
+        cfg, geom, frames = (mono_problem(root) if shape == "mono"
+                             else bench.make_problem(0, **bench.DOG_OPTICS)[:3])
+        for tier in args.tiers:
+            for chunk in args.chunks or [CHUNKS[shape]]:
+                solve = bench.solver(cfg, geom, frames, "cuda", dft_precision=tier,
+                                     mode="batched", chunk_size=chunk, chunk_assign="strided")
+                sweep = solve.sweeps()
+                k1.force_z_layout = args.z_layout
+                for cs in args.cs:
+                    k1.force_cluster_size = cs
+                    row = {"shape": shape, "tier": tier, "chunk": chunk, "forced_cs": cs,
+                           "forced_z_layout": args.z_layout}
+                    try:
+                        k1.launches = 0
+                        sweep(solve.state)
+                        torch.cuda.synchronize()
+                    except RuntimeError as e:   # the forced plan does not fit: refused
+                        rows.append(dict(row, refused=str(e)))
+                        continue
+                    row.update(plan=dict(k1.plan), launches_per_sweep=k1.launches,
+                               n_slots=solve.n_slots)
+                    row["ms_per_sweep"] = bench.ladder(bench.cuda_clock(sweep, solve.state),
+                                                       *K1_LADDER, log=lambda m: None)[0] * 1e3
+                    row.update(k1_window(sweep, solve.state,
+                                         os.path.join(root, "build", "k1_window.trace.json")))
+                    row["host_enqueue_us_per_sweep"] = k1_host_enqueue_us(sweep, solve.state)
+                    if row["launches_per_sweep"] == 1:
+                        row["phase_us_per_chunk"] = k1_phases(solve, solve.n_slots // chunk)
+                    rows.append(row)
+                k1.force_cluster_size = k1.force_z_layout = 0
+    return {"rows": rows}
+
+
+def child(root: str, args) -> int:
+    """One checkout's run, in this process: printed as ``RUN <json>``."""
+    sys.path.insert(0, root)
+    import fpm_torch
+
+    assert fpm_torch.__file__.startswith(root), fpm_torch.__file__
+    os.makedirs(os.path.join(root, "build"), exist_ok=True)
+    res = k1_run(root, args) if args.kernel == "K1" else k2_run(root, args)
+    print("RUN " + json.dumps(res), flush=True)
+    return 0
+
+
+def run(root: str, argv: list[str]) -> dict:
+    root = os.path.abspath(root)
+    out = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", root, *argv],
+                         cwd=root, capture_output=True, text=True, timeout=1800)
+    if out.returncode:
+        raise RuntimeError(f"{root} exited {out.returncode}: {out.stderr[-3000:]}")
+    return json.loads([ln for ln in out.stdout.splitlines() if ln.startswith("RUN ")][-1][4:])
+
+
+def side_by_side(kernel: str, runs: list) -> dict:
+    """Each number of both checkouts' runs, {"other": [...], "this": [...]}."""
+    by = {name: [r for n, r in runs if n == name] for name in ("other", "this")}
+
+    def side(get):
+        return {name: [get(r) for r in rs] for name, rs in by.items()}
+
+    if kernel == "K2":
+        phases = list(by["this"][0]["k2_phase_profile"]["bf16x3"]["by_phase"])
+        return {
+            "ms_per_sweep": {t: side(lambda r, t=t: r["ms_per_sweep"][t])
+                             for t in ("bf16x3", "highest")},
+            "ms_per_problem_sweep": {p: side(lambda r, p=p: r["ms_per_problem_sweep"][p])
+                                     for p in ("16", "66", "132")},
+            "cycles_per_led": {t: side(lambda r, t=t: r["k2_phase_profile"][t]["cycles_per_led"])
+                               for t in ("bf16x3", "highest")},
+            "bf16x3_by_phase": {ph: side(lambda r, ph=ph: r["k2_phase_profile"]["bf16x3"]
+                                         ["by_phase"].get(ph)) for ph in phases}}
+    rows = []
+    for i, row in enumerate(by["this"][0]["rows"]):
+        head = {k: row[k] for k in ("shape", "tier", "chunk", "forced_cs")}
+        rows.append(dict(head, **{key: side(lambda r, key=key: r["rows"][i].get(key))
+                                  for key in ("ms_per_sweep", "device_ms_per_sweep")},
+                         by_kernel=side(lambda r: {k: v["mean_us"] for k, v in
+                                                   r["rows"][i].get("by_kernel", {}).items()})))
+    return {"rows": rows}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel", default="K2", choices=("K1", "K2"))
+    ap.add_argument("--other", help="the root of another checkout, run in turns with this one")
+    ap.add_argument("--out", help="also write the lines to this file")
+    ap.add_argument("--shapes", nargs="+", default=["mono"], choices=sorted(CHUNKS))
+    ap.add_argument("--cs", nargs="+", type=int, default=[0])
+    ap.add_argument("--tiers", nargs="+", default=["bf16x3"], choices=("bf16x3", "highest"))
+    ap.add_argument("--chunks", nargs="+", type=int, default=None)
+    ap.add_argument("--z-layout", type=int, default=0, choices=(0, 1, 2))
+    ap.add_argument("--child", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.child:
+        return child(args.child, args)
+    own = ["--kernel", args.kernel, "--shapes", *args.shapes, "--cs", *map(str, args.cs),
+           "--tiers", *args.tiers, "--z-layout", str(args.z_layout)]
+    if args.chunks:
+        own += ["--chunks", *map(str, args.chunks)]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    order = ([("other", args.other), ("this", HERE), ("this", HERE), ("other", args.other)]
+             if args.other else [("this", HERE)])
+    lines, runs = [], []
+    for name, root in order:
+        res = run(root, own)
+        lines.append(json.dumps({"checkout": name, "root": root, "kernel": args.kernel, **res,
+                                 "gpu": smi}))
+        print(lines[-1], flush=True)
+        runs.append((name, res))
+    if args.other:
+        lines.append(json.dumps({**side_by_side(args.kernel, runs),
+                                 "order": [n for n, _ in order], "gpu": smi}))
+        print(lines[-1], flush=True)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            f.write("\n".join(lines) + "\n")
+    print(smi)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
