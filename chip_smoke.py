@@ -16,11 +16,13 @@ tiers of the DFT products (``dft_precision``): ``bf16x3``, the default (a
 
 1. ``device``: the card's name and power limit (``nvidia-smi``), the torch
    version, the time to build the kernels from ``fpm_torch/ops/csrc`` (the
-   main libraries and, in the same parallel ``nvcc`` runs, the ablation
-   builds of K1 and K2, ``build.build_with_ablations``), ptxas's registers
-   and spills of both, and the HMMA (tensor-core) instructions in each main
-   kernel instantiation's SASS (``cuobjdump``): more than 0 in every bf16x3
-   one, none in the highest ones.
+   main libraries, one ``nvcc`` each in parallel; the ablation builds of K1
+   and K2 start after them and compile in the background until phase 6,
+   whose ``ablation_build`` line gives the wait and their ptxas report,
+   ``build.start_ablation_builds``), ptxas's registers and spills, and the
+   HMMA (tensor-core) instructions in each main kernel instantiation's SASS
+   (``cuobjdump``): more than 0 in every bf16x3 one, none in the highest
+   ones nor in the consensus kernels.
    Then a ``digests`` line (``kernel_digests``): SHA-256 of K1, K2 and K3's
    results at Np 90 and 100, both tiers and cluster sizes 1-8, and under
    ``sharded`` of the spectrum and pupil after 2 sweeps of every sharded
@@ -67,8 +69,8 @@ tiers of the DFT products (``dft_precision``): ``bf16x3``, the default (a
    ``python -m fpm_torch run ... -n 10 --use-pallas --chunk-size 32``
    (through ``fpm_torch.cli.main``) in ``batched`` and ``sequential`` mode
    and with ``--mesh 4 1`` and ``--mesh 2 2``; every kernel's launch counter
-   starts at 0 before each run and only that run's kernel (K1, K2, K3, K3)
-   must move; the output file set must be complete, the amplitude RMSE
+   starts at 0 before each run and only that run's kernels (K1, K2, and K3
+   with the consensus kernels of its mesh's axis, ``ran_only``) must move; the output file set must be complete, the amplitude RMSE
    against the true object below 0.05, and a mesh run's ``metrics.jsonl``
    must record its mesh; the same three runs (batched, sequential, mesh
    (4,1)) once more with ``--dft-precision highest``, and every run's
@@ -121,8 +123,11 @@ tiers of the DFT products (``dft_precision``): ``bf16x3``, the default (a
    ``sharded_sweep`` lines, one per case of ``SHARDED_CASES`` (mono (4,1),
    (2,2), (1,8), dogStomach (2,2), mono (2,2) at highest and with the bf16
    wire), fresh and with ``--stale-consensus``, all ranks sharing the card
-   (not scaling results): ms per sweep (each rank on its stream, the
-   collectives on the mesh's lanes, the host pacing) with the card's busy
+   (not scaling results): the kernels a sweep and a chunk in the trace of a
+   sweep, checked to be no more than the chunks' K3 calls and consensus
+   launches (the wrappers' counts) and, on the tile axis, each rank's halo
+   copy a chunk; the host's enqueue ms a sweep; ms per sweep (each rank on
+   its stream, the consensus on the mesh's comm lane) with the card's busy
    share, ``overlap_ms`` (the time in which K3 and a reduction or copy on a
    lane run at once, from the trace of a sweep enqueued behind a gate, so
    that the card runs it unpaced: above 0 under the stale consensus,
@@ -222,8 +227,14 @@ tiers of the DFT products (``dft_precision``): ``bf16x3``, the default (a
    the kernel wrapper each calls on the same planes, only that kernel
    launched.
 
-Then the ``kernels`` line (each kernel once per tier, the Np=200 rows
-apart; the mono K1 and K2 rows name their ablation build, the Np=200 ones
+Phase 5 also holds the consensus kernels (``consensus_rows``):
+``consensus_led`` on the payloads of mono mesh (4,1)'s chunk 0,
+``consensus_tile_object`` and ``consensus_tile_pupil`` on (2,2)'s, each
+bitwise its plain version, with its ms, its plain version's (the eager op
+chain the sweeps ran before) and its bound in bytes.
+
+Then the ``kernels`` line (each kernel once per tier, the consensus kernels
+once, the Np=200 rows apart; the mono K1 and K2 rows name their ablation build, the Np=200 ones
 their Z-cut ablation kernels with each variant's error and time), the
 ``nvidia-smi`` line, and the result line.
 Any failure raises and exits non-zero; without a CUDA device it exits 1
@@ -267,7 +278,14 @@ OUTPUT_FILES = ("object.npy", "object_spectrum.npy", "pupil.npy", "object_amp.pn
                 "manifest.json", "metrics.jsonl")
 
 
+_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also says when it was printed
+    (``elapsed_s``, seconds since this module was loaded)."""
+    if "phase" in obj:
+        obj = dict(obj, elapsed_s=time.perf_counter() - _START)
     print(json.dumps(obj), flush=True)
 
 
@@ -503,6 +521,31 @@ SHARDED_CASES = (("mono", 4, 1, {}), ("mono", 2, 2, {}), ("mono", 1, 8, {}),
 SHARDED_SWEEPS, SHARDED_REPEATS = 2, 5
 
 
+CONSENSUS_KEYS = ("consensus_led", "consensus_tile_object", "consensus_tile_pupil")
+
+
+def path_wrappers() -> dict:
+    """Every kernel wrapper by key: K1, K2, K3 and the sharded sweeps'
+    consensus kernels (``kernels.consensus_*``)."""
+    from fpm_torch.ops import kernels
+
+    return {"K1": kernels.fused_epry_chunked, "K2": kernels.fused_epry_sweep,
+            "K3": kernels.fused_chunk_increments,
+            **{key: getattr(kernels, key) for key in CONSENSUS_KEYS}}
+
+
+def ran_only(counts: dict, key: str, tile: int = 1) -> bool:
+    """Whether a run launched ``key``'s kernels and no other: K1 or K2
+    alone; K3 with the consensus kernels of its mesh's axis (``tile`` 1:
+    the LED axis's one, else the tile axis's two), each at least once."""
+    own = {key}
+    if key == "K3":
+        own |= ({"consensus_led"} if tile == 1
+                else {"consensus_tile_object", "consensus_tile_pupil"})
+    return (all(counts[k] > 0 for k in own)
+            and all(c == 0 for k, c in counts.items() if k not in own))
+
+
 def sharded_problem(name: str, seed: int = 0):
     """(cfg, geom, frames) of the mono dome or the dogStomach problem."""
     from fpm_torch.config import FPMConfig
@@ -596,11 +639,57 @@ def sharded_entry_timing(seed: int = 0, busy: bool = False) -> dict:
     return out
 
 
+def k3_call_timing(seed: int = 0) -> dict:
+    """K3 through its public wrapper as rank (0,0) of mesh (4,1) calls it on
+    chunk 0 (8 slots, the whole 360×360 mono spectrum, the init state), per
+    tier: the host's enqueue µs a call and ms a call on CUDA events (20 calls
+    each, after a warm-up), and the device ms a call (torch.profiler). Only
+    public entry points, so that it runs on either checkout
+    (``scripts/compare_checkouts.py``)."""
+    import torch
+
+    from fpm_torch.geometry import pupil_support
+    from fpm_torch.models import epry
+    from fpm_torch.ops import kernels
+    from fpm_torch.parallel import led_shard, make_mesh
+
+    cfg, geom, frames = sharded_problem("mono", seed)
+    dev = torch.device("cuda")
+    opts = epry.EPRYOptions.from_config(cfg, use_pallas=True)
+    amps, _ = epry._sorted_device_inputs(frames, geom, torch.complex64, dev)
+    sup = torch.as_tensor(pupil_support(cfg), dtype=torch.float32, device=dev)
+    o0, p0 = epry.init_traced(amps, sup, opts)
+    o, p = (torch.stack([z.real, z.imag]).contiguous() for z in (o0, p0))
+    route, _ = led_shard.prepare_led_sharded(frames, geom, cfg, make_mesh(4, 1),
+                                             use_pallas=True, chunk_size=32)
+    _, r_amps, r_starts, r_valid, _ = (g[0][0] for g in route.inputs)
+    out = {}
+    for tier in TIERS:
+        def call():
+            return kernels.fused_chunk_increments(
+                o, p, sup, r_amps[0], r_starts[0], r_valid[0], np_size=cfg.np_size,
+                n_rows=cfg.n_large, n_cols=cfg.n_large, delta1=cfg.delta1, delta2=cfg.delta2,
+                eps=cfg.eps, pupil_radius=opts.pupil_radius, collect_metrics=True,
+                dft_precision=tier)
+
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            call()
+        host_us = (time.perf_counter() - t0) / 20 * 1e6
+        torch.cuda.synchronize()
+        out[tier] = {"ms_per_call": cuda_ms(call, 20), "host_us_per_call": host_us,
+                     "device_ms_per_call": sum(device_ms_by_kernel(call).values())}
+    return out
+
+
 def trace_overlap(fn, gate_ms: float = 0.0) -> dict:
     """One call of ``fn`` under ``torch.profiler``, read from its trace: the
-    time in which a kernel of ``fpm_torch``'s library (K3) and a kernel or
-    copy on a stream that runs no K3 (the mesh's comm and halo lanes) run at
-    once (``overlap_ms``), the time in which K3 runs, in which the lanes
+    time in which a K3 kernel (``fpm_torch``'s kernels but the consensus
+    ones) and a kernel or copy on a stream that runs no K3 (the mesh's comm
+    and halo lanes: the consensus kernels, the halos) run at once
+    (``overlap_ms``), the time in which K3 runs, in which the lanes
     work, and in which anything runs (``busy_ms``), the span from the first
     to the last of it, the K3 kernels seen, and the call's wall time to
     the end of its work (traced: the profiler slows the host). With ``gate_ms`` a spin
@@ -640,7 +729,8 @@ def trace_overlap(fn, gate_ms: float = 0.0) -> dict:
     every = [e for e in events if e.get("ph") == "X"
              and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     work = [e for e in every if "spin_kernel" not in e["name"]]
-    k3 = [e for e in work if e["cat"] == "kernel" and "fpm::" in e["name"]]
+    k3 = [e for e in work if e["cat"] == "kernel" and "fpm::" in e["name"]
+          and "consensus" not in e["name"]]
 
     def stream(e):
         return e["args"].get("device"), e["args"].get("stream")
@@ -739,15 +829,17 @@ def sharded_sweep_phase(problems: dict, digests: dict, entry: dict, smi: str) ->
     from fpm_torch.parallel import comm, led_shard, make_mesh, tile_shard
 
     k3 = kernels.fused_chunk_increments
+    consensus = [getattr(kernels, key) for key in CONSENSUS_KEYS]
 
     def wall_ms(fn):
-        walls = []
+        walls, enqueues = [], []
         for _ in range(5):
             t0 = time.perf_counter()
             fn()
+            enqueues.append((time.perf_counter() - t0) * 1e3)
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
-        return median(walls), walls
+        return median(walls), walls, enqueues
 
     def no_sync(fn):
         torch.cuda.synchronize()
@@ -775,11 +867,19 @@ def sharded_sweep_phase(problems: dict, digests: dict, entry: dict, smi: str) ->
 
                 def sweep():
                     return tile_shard._tile_sweep(mesh, route, opts=sopts, s=s)
-            k3.launches = 0
+            for w in (k3, *consensus):
+                w.launches = 0
             sweep()
             torch.cuda.synchronize()
             per_sweep = k3.launches
-            ms, walls = wall_ms(sweep)
+            consensus_per_sweep = {w.__name__: w.launches for w in consensus}
+            # The kernels a sweep may launch: each chunk's K3 calls and
+            # consensus launches, and on the tile axis each rank's halo copy
+            # (the torch.cat of its extended block).
+            n_chunks = route.n_chunks
+            kernel_bound = (per_sweep + sum(consensus_per_sweep.values())
+                            + (n_chunks * led * tile if tile > 1 else 0))
+            ms, walls, enqueues = wall_ms(sweep)
             verdict = comm.consensus_schedule_check(mesh.schedule)
             paced = complete_trace(lambda: trace_overlap(sweep), per_sweep)
             gated = complete_trace(lambda: gated_trace(sweep, ms), per_sweep)
@@ -792,6 +892,11 @@ def sharded_sweep_phase(problems: dict, digests: dict, entry: dict, smi: str) ->
             emit({"phase": "sharded_sweep", "case": label, "mesh": [led, tile],
                   "problem": name, "stale_consensus": stale, "options": options,
                   "ranks_share_one_card": True, "k3_launches_per_sweep": per_sweep,
+                  "consensus_launches_per_sweep": consensus_per_sweep, "chunks": n_chunks,
+                  "kernels_per_sweep": gated["kernels"],
+                  "kernels_per_chunk": gated["kernels"] / n_chunks,
+                  "kernels_per_sweep_bound": kernel_bound,
+                  "enqueue_ms": median(enqueues), "enqueue_ms_all": enqueues,
                   "wall_ms": ms, "wall_ms_all": walls,
                   "busy_share": paced["busy_ms"] / ms,
                   "overlap_ms": gated["overlap_ms"], "span_ms_unpaced": gated["span_ms"],
@@ -809,10 +914,125 @@ def sharded_sweep_phase(problems: dict, digests: dict, entry: dict, smi: str) ->
             check(per_sweep > 0 and paced["k3_kernels"] == gated["k3_kernels"] == per_sweep,
                   f"{label}: K3 launched {per_sweep} times, traced {paced['k3_kernels']} "
                   f"and {gated['k3_kernels']}")
+            check(ran_only({"K1": 0, "K2": 0, "K3": per_sweep, **consensus_per_sweep}, "K3",
+                           tile),
+                  f"{label}: consensus launches {consensus_per_sweep}")
+            check(0 < gated["kernels"] <= kernel_bound and paced["kernels"] <= kernel_bound,
+                  f"{label}: {gated['kernels']} and {paced['kernels']} kernels traced in a "
+                  f"sweep, more than {kernel_bound}: K3 {per_sweep}, consensus "
+                  f"{consensus_per_sweep}, {n_chunks} chunks")
             check(gated["overlap_ms"] > 0 if stale else gated["overlap_ms"] == 0,
                   f"{label}: K3 beside a collective for {gated['overlap_ms']} ms: {gated}")
             check(all(r == base for r in repeats), f"{label}: repeats differ")
             check(serialized == base, f"{label}: serialized streams change the result")
+
+
+CONSENSUS_REPLACES = {
+    "consensus_led": "fpm_tpu/parallel/led_shard.py:112-141 (_consensus_psum, "
+                     "_apply_consensus: XLA's fused ops, no Pallas kernel)",
+    "consensus_tile_object": "fpm_tpu/parallel/tile_shard.py:200-242 (_tile_consensus_apply "
+                             "to the local max: XLA's fused ops, no Pallas kernel)",
+    "consensus_tile_pupil": "fpm_tpu/parallel/tile_shard.py:243-254 (_tile_consensus_apply "
+                            "from the pmax: XLA's fused ops, no Pallas kernel)",
+}
+
+
+def consensus_rows(problem, path_counts: dict, smi: str) -> list:
+    """The consensus kernels as the main path's meshes call them, on chunk
+    0's payloads of every rank (each rank's K3 on the init state) and the
+    card's state: ``consensus_led`` on mono mesh (4,1),
+    ``consensus_tile_object`` and ``consensus_tile_pupil`` on (2,2). Each
+    against its plain version on the same inputs (max |Δ| over every output;
+    the kernels are bitwise, so 0), ms a call on CUDA events, the plain
+    version's ms (the eager op chain the sweeps ran before), and the bound:
+    the bytes a call must move (each payload read once, the state read and
+    written once) at the H100's 3.35 TB/s, or its element-wise operations at
+    67 TFLOP/s FP32, the larger. A ``kernels`` row each, launches from the
+    main path's ``--mesh 4 1`` and ``--mesh 2 2`` runs."""
+    import torch
+
+    from fpm_torch.bench import bound
+    from fpm_torch.ops import kernels
+    from fpm_torch.parallel import led_shard, make_mesh, tile_shard
+
+    cfg, geom, frames = problem
+    kw = dict(use_pallas=True, chunk_size=32)
+
+    def err(got, want):
+        return max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want)
+                   if a is not None)
+
+    def row(name, fn, plain, nbytes, flops, run, lines):
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        ms, plain_ms = cuda_ms(fn, 20), cuda_ms(plain, 5)
+        bound_ms, bound_by = bound(nbytes, flops)
+        line = {"name": name, "route": "cuda", "source": "fpm_torch/ops/csrc/epry_consensus.cu",
+                "replaces": CONSENSUS_REPLACES[name],
+                "launches": path_counts[run][name], "max_abs_err": err(got, want),
+                "bitwise": all(a is None or torch.equal(a, b) for a, b in zip(got, want)),
+                "ms": ms, "device_ms": sum(device_ms_by_kernel(fn).values()),
+                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None}
+        emit({"phase": "timing", "kernel": name, "as": lines, "bytes": nbytes, "flops": flops,
+              **{k: v for k, v in line.items() if k != "name"}, "gpu": smi})
+        check(line["bitwise"], f"{name}: not bitwise its plain version ({line['max_abs_err']})")
+        return line
+
+    rows = []
+    mesh = make_mesh(4, 1)
+    route, _ = led_shard.prepare_led_sharded(frames, geom, cfg, mesh, **kw)
+    out = mesh.map(lambda *a: route.increments(*a, c=0), route.obj, route.pupil, *route.inputs)
+    ranks = [(li, 0) for li in range(4)]
+    d, v, m = ([out[li][ti][i] for li, ti in ranks] for i in range(3))
+    args = (route.obj[0][0], route.pupil[0][0], d, v, [x[0] for x in m], [x[1] for x in m], None)
+    bb, state = v[0].numel(), route.obj[0][0].numel()
+    rows.append(row(
+        "consensus_led",
+        lambda: kernels.consensus_led(*args, scratch=route.scratch.get(mesh.home)),
+        lambda: kernels.consensus_led_plain(*args), 4 * (len(d) + 2) * state
+        + 4 * (len(v) + 2) * bb, (len(d) + 8) * state + 24 * bb,
+        "mesh 4 1", "mono mesh (4,1), chunk 0, the card's one launch for its 4 ranks"))
+
+    mesh = make_mesh(2, 2)
+    route, _, s = tile_shard.prepare_tile_sharded(frames, geom, cfg, mesh, **kw)
+    hops = tile_shard._halo_hops(cfg.np_size, s)
+    tiles = [route.obj[0][ti] for ti in range(2)]
+    ext = {ti: torch.cat([tiles[ti], *(tiles[(ti + j) % 2][..., :rows, :] for j, _, rows in hops)],
+                         dim=-2) for ti in range(2)}
+    out = {(li, ti): route.increments(ext[ti], route.pupil[li][ti],
+                                      *(g[li][ti] for g in route.inputs), c=0)
+           for li in range(2) for ti in range(2)}
+    blocks = [(tiles[ti], [out[(li, ti)][0] for li in range(2)],
+               [[out[(li, (ti - j) % 2)][0] for li in range(2)] for j, _, _ in hops])
+              for ti in range(2)]
+    scratch = route.scratch.get(mesh.home)
+
+    def obj_kernel():
+        return [t for pair in kernels.consensus_tile_object(blocks, s=s, hops=hops,
+                                                            scratch=scratch) for t in pair]
+
+    def obj_plain():
+        return [t for blk in blocks
+                for t in kernels.consensus_tile_object_plain(*blk, s=s, hops=hops)]
+
+    # Each rank's payload is read once over the two tiles (its own rows by
+    # its tile, its halo rows by the next), each tile read and written once.
+    state = tiles[0].numel()
+    rows.append(row(
+        "consensus_tile_object", obj_kernel, obj_plain,
+        2 * (4 * 2 * ext[0].numel() + 8 * state), 2 * (2 + 1 + 8) * state,
+        "mesh 2 2", "mono mesh (2,2), chunk 0, the card's one launch for its 2 tiles"))
+    maxima = obj_kernel()[1::2]
+    every = list(out)
+    pupil_args = (route.pupil[0][0], [out[r][1] for r in every], maxima,
+                  [out[r][2][0] for r in every], [out[r][2][1] for r in every], None)
+    bb = pupil_args[0].numel()
+    rows.append(row(
+        "consensus_tile_pupil", lambda: kernels.consensus_tile_pupil(*pupil_args),
+        lambda: kernels.consensus_tile_pupil_plain(*pupil_args), 4 * (len(every) + 2) * bb,
+        (len(every) + 24) * bb, "mesh 2 2", "mono mesh (2,2), chunk 0, after the pmax"))
+    return rows
 
 
 def refusal(fn):
@@ -1063,8 +1283,7 @@ def dogstomach(seed: int, smi: str, dev) -> list:
     # The CLI's three modes at both tiers: sequential (K2), batched with
     # --chunk-size 32 asked (K1 at the chunk fpm_tpu runs, 16) and --mesh 2 2
     # (K3), each with every counter at 0 before it and only its kernel moving.
-    wrappers = {"K1": kernels.fused_epry_chunked, "K2": kernels.fused_epry_sweep,
-                "K3": kernels.fused_chunk_increments}
+    wrappers = path_wrappers()
     launches = {}
     with tempfile.TemporaryDirectory(prefix="fpm_chip_smoke_dog_") as tmp:
         cfg_path = write_dataset(os.path.join(tmp, "data"), cfg, geom, frames)
@@ -1100,7 +1319,7 @@ def dogstomach(seed: int, smi: str, dev) -> list:
                       "amp_rmse": rmse,
                       "rmse_limit": RMSE_LIMIT})
                 check(not missing, f"dogStomach run {label} {tier} wrote no {missing}")
-                check(counts[key] > 0 and all(c == 0 for k, c in counts.items() if k != key),
+                check(ran_only(counts, key, 2 if key == "K3" else 1),
                       f"dogStomach run {label} {tier}: launches {counts}")
                 check(obj.shape == (nl, nl) and np.isfinite(obj).all(),
                       f"dogStomach run {label} {tier}: object {obj.shape} not finite")
@@ -1650,7 +1869,7 @@ def cli_recording(argv) -> dict:
     """``fpm_torch.cli.main(argv)`` with every launch counter at 0 before:
     its exit code and wall seconds, the launches of each kernel, and every
     mesh it built, described and with its counted collectives."""
-    from fpm_torch import bench, cli
+    from fpm_torch import cli
     from fpm_torch.parallel import mesh as mesh_mod
 
     meshes, init = [], mesh_mod.Mesh.__init__
@@ -1659,7 +1878,7 @@ def cli_recording(argv) -> dict:
         init(self, *args, **kwargs)
         meshes.append(self)
 
-    wrappers = bench.wrappers()
+    wrappers = path_wrappers()
     for w in wrappers.values():
         w.launches = 0
     t0 = time.perf_counter()
@@ -1874,10 +2093,10 @@ def distributed_phase(cfg, geom, frames, wide_frames, smi, tmp) -> None:
                 "launches": {"processes": [r["launches"] for r in recs],
                              "one": one["launches"]},
                 "mesh": recs[0]["meshes"], "gpu": smi}
+        mesh_tile = int(flags[flags.index("--mesh") + 2]) if "--mesh" in flags else 1
         for pid, rec in enumerate(recs):
-            check(rec["launches"][key] > 0 and all(
-                c == 0 for kk, c in rec["launches"].items() if kk != key),
-                f"{label}: process {pid} launched {rec['launches']}, not {key} only")
+            check(ran_only(rec["launches"], key, mesh_tile),
+                  f"{label}: process {pid} launched {rec['launches']}, not {key}'s only")
         check(all(bitwise.values()), f"{label}: not bitwise the one-process run: {bitwise}")
         check(all(not files for files in others.values()),
               f"{label}: a process other than 0 wrote {others}")
@@ -1943,8 +2162,11 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    libs, ablation_libs = build.build_with_ablations()
+    libs = build.build_all()
     build_s = time.perf_counter() - t0
+    # K1's and K2's ablation builds compile while phases 1-5 run; phase 6,
+    # their first user, waits for them (``ablation_build`` line).
+    ablation_builds = build.start_ablation_builds()
     # Tensor-core instructions per function of each library's SASS: every
     # bf16x3 instantiation holds its products (inlined), no highest one any.
     hmma = {stem: {short_name(k): v for k, v in build.hmma_counts(stem).items()}
@@ -1952,14 +2174,13 @@ def main(argv=None) -> int:
     emit({"phase": "device", "gpu": smi, "torch": torch.__version__,
           "torch_cuda": torch.version.cuda, "kernel_build_s": build_s,
           "libraries": sorted(p.name for p in libs.values()),
-          "ablation_libraries": sorted(p.name for p in ablation_libs.values()),
           "hmma_instructions": hmma,
           "ptxas": {stem: {short_name(k): v for k, v in build.resources(stem).items()}
-                    for stem in sorted(libs)},
-          "ptxas_ablation": {stem: {short_name(k): v for k, v in
-                                    build.resources(stem, ablate=True).items()}
-                             for stem in sorted(ablation_libs)}})
+                    for stem in sorted(libs)}})
     for stem, counts in hmma.items():
+        if stem == "epry_consensus":   # no products, no tiers
+            check(not any(counts.values()), f"{stem} holds HMMA instructions: {counts}")
+            continue
         by_tier = {}
         for name, c in counts.items():
             tier_id = instantiation_tier(name)
@@ -2300,12 +2521,11 @@ def main(argv=None) -> int:
         check(not diffs, f"mesh {(led, tile)}: counted collectives differ from the model: {diffs}")
 
     # --------------------------------------------------------- 4. main_path
-    launches = {}
+    launches, path_counts = {}, {}
     with tempfile.TemporaryDirectory(prefix="fpm_chip_smoke_") as tmp:
         cfg_path = write_dataset(os.path.join(tmp, "data"), cfg, geom, frames)
         decoder = ingest_both(load_config(cfg_path), f"{n}x{n} crops")[1]
-        wrappers = {"K1": kernels.fused_epry_chunked, "K2": kernels.fused_epry_sweep,
-                    "K3": kernels.fused_chunk_increments}
+        wrappers = path_wrappers()
         # (label, flags, kernel, the same solve in this process); the default
         # tier (bf16x3) first, then the batched, sequential and (4,1) runs at
         # --dft-precision highest.
@@ -2336,10 +2556,10 @@ def main(argv=None) -> int:
             wall = time.perf_counter() - t0
             counts = {k: w.launches for k, w in wrappers.items()}
             launches[label] = counts[key]
+            path_counts[label] = counts
             check(rc == 0, f"fpm_torch run {label} exited {rc}")
-            check(counts[key] > 0, f"run {label} launched no {key} kernel")
-            check(all(c == 0 for k, c in counts.items() if k != key),
-                  f"run {label} launched other kernels than {key}: {counts}")
+            check(ran_only(counts, key, int(flags[2]) if flags[0] == "--mesh" else 1),
+                  f"run {label} launched other kernels than {key}'s: {counts}")
             missing = [f for f in OUTPUT_FILES if not os.path.exists(os.path.join(out, f))]
             check(not missing, f"run {label} wrote no {missing}")
             obj = np.load(os.path.join(out, "object.npy"))
@@ -2761,10 +2981,19 @@ def main(argv=None) -> int:
                   k: v for k, v in launches.items() if k.startswith("mesh")},
               "device_ms_by_kernel": by_kernel, "gpu": smi})
 
+    rows += consensus_rows((cfg, geom, frames), path_counts, smi)
+
     sharded_sweep_phase({"mono": (cfg, geom, frames),
                          "dogStomach": sharded_problem("dogStomach", args.seed)},
                         digests["sharded"], sharded_entry_timing(args.seed), smi)
 
+    t0 = time.perf_counter()
+    ablation_libs = ablation_builds()
+    emit({"phase": "ablation_build", "wait_s": time.perf_counter() - t0,
+          "ablation_libraries": sorted(p.name for p in ablation_libs.values()),
+          "ptxas_ablation": {stem: {short_name(k): v for k, v in
+                                    build.resources(stem, ablate=True).items()}
+                             for stem in sorted(ablation_libs)}})
     rows += dogstomach(args.seed, smi, dev)
 
     # ------------------------------------- 7-9. oracle, debug, distributed
@@ -2783,7 +3012,7 @@ def main(argv=None) -> int:
     surface_phase(cfg, geom, frames, smi)
     for row in rows:   # the mono rows of K1 and K2: the shape phase 10 held the builds at
         for key, name in (("K1", "fused_epry_chunked"), ("K2", "fused_epry_sweep")):
-            if row["name"] == f"{name} [{row['dft_precision']}]":
+            if row["name"] == f"{name} [{row.get('dft_precision')}]":
                 row["ablation_build"] = ablation[key]
     emit({"kernels": rows})
     print(smi, flush=True)

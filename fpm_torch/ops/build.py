@@ -18,7 +18,8 @@ is a template argument of those kernels alone, ``Ablate`` in
 ``csrc/epry_common.cuh``): the wrappers load it only for a non-empty
 ``ablate``, so the libraries of the main path are built with the flags and
 code they had. ``build_with_ablations()`` starts every main and ablation
-build at once, one ``nvcc`` each. Only measurements ask for
+build at once, one ``nvcc`` each; ``start_ablation_builds()`` starts the
+ablation builds and returns the wait for them. Only measurements ask for
 ``resources(stem)`` (ptxas's registers and spills of each compiled
 function) and ``hmma_counts(stem)`` (the tensor-core instructions in each
 function's SASS, from ``cuobjdump``).
@@ -49,6 +50,18 @@ def _tool(name: str) -> str:
                        f"({name} on PATH or /usr/local/cuda/bin/{name})")
 
 
+# Flags of one source alone: the consensus kernels (csrc/epry_consensus.cu)
+# compute with c10::complex<float> from torch's own headers, whose members
+# are constexpr host functions that device code may call.
+def _source_flags(stem: str) -> list[str]:
+    if stem != "epry_consensus":
+        return []
+    import torch
+
+    return ["-I", str(Path(torch.__file__).resolve().parent / "include"),
+            "--expt-relaxed-constexpr"]
+
+
 PROFILE_FLAGS = ["-DFPM_PROFILE"]
 ABLATE_FLAGS = ["-DFPM_ABLATE"]
 # The sources whose kernels take ``ablate=`` (K1, K2).
@@ -63,43 +76,53 @@ def _lib_path(source: Path, flags: list[str]) -> Path:
     return BUILD_DIR / f"lib{source.stem}_{h.hexdigest()[:12]}.so"
 
 
-def _build(requests) -> list[dict[str, Path]]:
-    """Compile the missing libraries of several builds, given as (stems or
-    None for every source, extra flags), their ``nvcc`` runs all started
-    together; returns {stem: path} per build.
-
-    ``nvcc``'s resource report (registers, shared memory, spills per kernel)
-    is kept beside each library as ``<name>.log``. A failed build raises
-    with the compiler's output.
-    """
+def _start(requests):
+    """Start the ``nvcc`` runs of the missing libraries of several builds,
+    given as (stems or None for every source, extra flags), all at once;
+    returns ({stem: path} per build, the runs in flight for :func:`_finish`)."""
     builds, todo = [], []
     for stems, extra in requests:
-        flags = NVCC_FLAGS + extra
         sources = sorted(src for src in CSRC.glob("*.cu") if stems is None or src.stem in stems)
-        targets = {src.stem: _lib_path(src, flags) for src in sources}
+        flags = {src.stem: NVCC_FLAGS + extra + _source_flags(src.stem) for src in sources}
+        targets = {src.stem: _lib_path(src, flags[src.stem]) for src in sources}
         builds.append(targets)
-        todo += [(src, flags, targets[src.stem]) for src in sources
+        todo += [(src, flags[src.stem], targets[src.stem]) for src in sources
                  if not targets[src.stem].exists()]
+    procs = []
     if todo:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = _tool("nvcc")
-        procs = []
         for src, flags, target in todo:
-            tmp = target.with_suffix(f".{os.getpid()}.tmp")
+            tmp = target.with_suffix(f".{os.getpid()}.{len(procs)}.tmp")
             cmd = [nvcc, *flags, "-o", str(tmp), str(src)]
             procs.append((src, tmp, target, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-        failures = []
-        for src, tmp, target, proc in procs:
-            out, _ = proc.communicate()
-            if proc.returncode != 0:
-                failures.append(f"{src.name} ({target.name}):\n{out}")
-                continue
-            target.with_suffix(".log").write_text(out)
-            os.replace(tmp, target)
-        if failures:
-            raise RuntimeError("nvcc failed to build the port's kernels:\n"
-                               + "\n".join(failures))
+    return builds, procs
+
+
+def _finish(procs) -> None:
+    """Wait for :func:`_start`'s runs; each library moves into place with
+    ``nvcc``'s resource report (registers, shared memory, spills per
+    kernel) beside it as ``<name>.log``. A failed build raises with the
+    compiler's output."""
+    failures = []
+    for src, tmp, target, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"{src.name} ({target.name}):\n{out}")
+            continue
+        target.with_suffix(".log").write_text(out)
+        os.replace(tmp, target)
+    if failures:
+        raise RuntimeError("nvcc failed to build the port's kernels:\n" + "\n".join(failures))
+
+
+def _build(requests) -> list[dict[str, Path]]:
+    """Compile the missing libraries of several builds (:func:`_start`), their
+    ``nvcc`` runs all started together, and wait; returns {stem: path} per
+    build."""
+    builds, procs = _start(requests)
+    _finish(procs)
     return builds
 
 
@@ -109,6 +132,18 @@ def build_all(stems=None, profile: bool = False, ablate: bool = False) -> dict[s
     variant; returns {stem: path}."""
     extra = (PROFILE_FLAGS if profile else []) + (ABLATE_FLAGS if ablate else [])
     return _build([(stems, extra)])[0]
+
+
+def start_ablation_builds():
+    """The ablation libraries of ABLATION_STEMS, their ``nvcc`` runs started
+    and not waited for: returns a function that waits for them and returns
+    {stem: path}. Nothing may load an ablation library before it returns."""
+    builds, procs = _start([(ABLATION_STEMS, ABLATE_FLAGS)])
+
+    def wait() -> dict[str, Path]:
+        _finish(procs)
+        return builds[0]
+    return wait
 
 
 def build_with_ablations() -> tuple[dict[str, Path], dict[str, Path]]:
@@ -121,6 +156,7 @@ def build_with_ablations() -> tuple[dict[str, Path], dict[str, Path]]:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_uint
 _IP = ctypes.POINTER(ctypes.c_int)
 
 # C signatures of the entry points (see the sources for the argument meaning).
@@ -133,6 +169,13 @@ _SIGNATURES = {
                    "fpm_resident_clusters": [_I] * 6 + [_IP]},
     "epry_increments": {"fpm_k3_increments": [_P] * 16 + [_I] * 6 + [_F] * 3
                         + [_I, _I, _I, _P, _I, _I, _IP, _IP]},
+    "epry_consensus": {
+        "fpm_consensus_led": [_P, _P, _I, _I, _P, _U, _P, _P, _I, _P, _U, _P, _P, _I, _P, _P,
+                              _P, _F, _I, _I, _P, _P, _P, _I, _I, _P, _IP],
+        "fpm_consensus_tile_object": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                      _P, _P, _I, _P, _P, _I, _I, _P, _IP],
+        "fpm_consensus_tile_pupil": [_P, _P, _I, _P, _U, _P, _P, _I, _P, _I, _P, _P, _P, _F,
+                                     _I, _I, _I, _P, _IP]},
 }
 
 

@@ -1,7 +1,7 @@
 // Device code shared by the two chunk kernels (epry_chunked.cu, K1, which
 // applies a chunk's increments; epry_increments.cu, K3, which returns them):
-// one LED of a chunk on a cluster (chunk_led), K3's forward launch
-// (chunk_forward) and the deterministic sums over a chunk's LEDs.
+// one LED of a chunk on a cluster (chunk_led) and the deterministic sums
+// over a chunk's LEDs.
 //
 // The spectrum block is R rows × Ncols columns (row stride Ncols): the whole
 // NL×NL spectrum for K1, any block of it for K3. A patch start is clamped so
@@ -87,48 +87,6 @@ __device__ __forceinline__ void chunk_led(
       part[1] = upd;
     }
   }
-}
-
-// K3's forward launch: grid = C · cs in clusters of cs blocks, cluster g =
-// blockIdx.x / cs running slot g (one problem: o_stride, p_stride and
-// a_stride 0) with chunk_led. CUT: Z cut by rows across the cluster (the
-// plan's zcut; chunk_forward_zcut), else whole in every block.
-template <int T, bool CUT>
-__device__ __forceinline__ void chunk_forward_body(
-    const float* o, int n_rows, int n_cols, const float* p, const float* __restrict__ sup,
-    const float* __restrict__ amps, const int* __restrict__ starts,
-    const int* __restrict__ valid, DftMats m, int n, int b, int lo, float eps, float delta1,
-    float delta2, int metrics, float2* d_obj, float2* num, float* parts, LedPlan plan) {
-  extern __shared__ float4 smem_raw[];
-  const LedSmem s =
-      carve_smem<T, CUT>(smem_raw, m, n, b, plan, (int)cg::this_cluster().block_rank());
-  const int g = blockIdx.x / plan.cs;
-  chunk_led<T, CUT, kMain>(s, g, 0, g, o, 0, n_rows, n_cols, p, 0, sup, amps, 0, starts, valid,
-                           n, b, lo, eps, delta1, delta2, metrics, d_obj, num, parts);
-}
-
-template <int T>
-__global__ void __launch_bounds__(kThreads)
-chunk_forward(const float* o, int n_rows, int n_cols, const float* p,
-              const float* __restrict__ sup, const float* __restrict__ amps,
-              const int* __restrict__ starts, const int* __restrict__ valid, DftMats m, int n,
-              int b, int lo, float eps, float delta1, float delta2, int metrics,
-              float2* __restrict__ d_obj, float2* __restrict__ num, float* __restrict__ parts,
-              LedPlan plan) {
-  chunk_forward_body<T, false>(o, n_rows, n_cols, p, sup, amps, starts, valid, m, n, b, lo, eps,
-                               delta1, delta2, metrics, d_obj, num, parts, plan);
-}
-
-template <int T>
-__global__ void __launch_bounds__(kThreads)
-chunk_forward_zcut(const float* o, int n_rows, int n_cols, const float* p,
-                   const float* __restrict__ sup, const float* __restrict__ amps,
-                   const int* __restrict__ starts, const int* __restrict__ valid, DftMats m,
-                   int n, int b, int lo, float eps, float delta1, float delta2, int metrics,
-                   float2* __restrict__ d_obj, float2* __restrict__ num,
-                   float* __restrict__ parts, LedPlan plan) {
-  chunk_forward_body<T, true>(o, n_rows, n_cols, p, sup, amps, starts, valid, m, n, b, lo, eps,
-                              delta1, delta2, metrics, d_obj, num, parts, plan);
 }
 
 // Σ_j valid_j·dO_j over the windows of the chunk that cover block element

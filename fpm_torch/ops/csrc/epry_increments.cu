@@ -15,19 +15,29 @@
 //   mets (2)            (Σ valid·(A − |img|)², Σ valid·|dO|²), zeros unless
 //                       ``metrics``
 //
-// Three launches on the caller's stream:
-//   chunk_forward  (epry_chunk.cuh; its LED, chunk_led, is K1's)
-//               grid = C·cs, one cluster of cs blocks per LED into scratch;
-//               masked dummies skip the LED.
-//   k3_gather   one thread per block element: WRITES d = the sum over the
-//               windows covering it, in LED order, or 0 (gather_increments):
-//               every element is written, so d needs no memset, and the sum
-//               is deterministic with no atomics.
-//   k3_sums     one thread per bbox element: v, summed in LED order; the
-//               first block also sums mets.
-// Bound: FP32 operations in chunk_forward (see epry_common.cuh) for the
-// rank's C_local LEDs on C_local·cs SMs (cs = 8 at 8 slots). k3_gather reads only the LEDs' scratch
-// but writes all of d, R·Ncols·8 bytes per call: most of the call's bytes.
+// One cooperative launch on the caller's stream, k3_chunk: G clusters of
+// cs blocks, G = min(C, the clusters of the plan the card holds at once),
+// launched cooperatively beside the cluster dimension (as K1's sweep,
+// epry_chunked.cu: every block resident at once, or the runtime refuses the
+// grid), in two phases with a grid barrier (cg::this_grid().sync()) between:
+//   1. forward  cluster g takes slots g, g + G, ... of the chunk (chunk_led,
+//               epry_chunk.cuh; its LED is K1's): the forward pass and the
+//               increments into scratch; masked dummies skip the LED.
+//   2. sums     the grid's threads stride over the block's elements: each
+//               WRITES d = the sum over the windows covering it, in LED
+//               order, or 0 (gather_increments): every element is written,
+//               so d needs no memset, and the sum is deterministic with no
+//               atomics; then over the bbox elements: v, summed in LED
+//               order; the grid's first thread sums mets.
+// These are the sums and orders of the three launches a call made before
+// (the forward, a gather launch, a sums launch), so the results are bitwise
+// theirs. The scratch that crosses the barrier is read from L2 (ld_state).
+// G stays at most C so that the ranks' calls on their streams still share
+// the card (a cooperative grid waits until all of its blocks fit).
+// Bound: FP32 operations in the forward (see epry_common.cuh) for the
+// rank's C_local LEDs on C_local·cs SMs (cs = 8 at 8 slots). The sums phase
+// reads only the LEDs' scratch but writes all of d, R·Ncols·8 bytes per
+// call: most of the call's bytes.
 // At bf16x3 the products are K1's and K2's (led_forward_split), but add each
 // k-step's sums in IEEE f32 (FPM_KSTEP_SUMS, epry_common.cuh): d and v are
 // small differences of large terms.
@@ -37,36 +47,67 @@
 
 namespace fpm {
 
-__global__ void __launch_bounds__(256)
-k3_gather(float* __restrict__ d_re, float* __restrict__ d_im, int n_rows, int n_cols,
-          const int* __restrict__ starts, const int* __restrict__ valid, int c, int n, int b,
-          int lo, const float2* __restrict__ d_obj) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n_rows * n_cols) return;
-  const int r = idx / n_cols, col = idx - r * n_cols;
-  bool touched;
-  const float2 d = gather_increments(r, col, n_rows, n_cols, starts, valid, c, n, b, lo,
-                                     d_obj, &touched);
-  d_re[idx] = d.x;
-  d_im[idx] = d.y;
+// The call of the header on this block; CUT: Z cut by rows across the
+// cluster (the plan's zcut; k3_chunk_zcut), else whole in every block.
+template <int T, bool CUT>
+__device__ __forceinline__ void k3_chunk_body(
+    const float* o, int n_rows, int n_cols, const float* p, const float* __restrict__ sup,
+    const float* __restrict__ amps, const int* __restrict__ starts,
+    const int* __restrict__ valid, int c, DftMats m, int n, int b, int lo, float eps,
+    float delta1, float delta2, int metrics, float2* d_obj, float2* num, float* parts,
+    float* d_out, float* v_out, float* mets, LedPlan plan) {
+  extern __shared__ float4 smem_raw[];
+  const LedSmem s =
+      carve_smem<T, CUT>(smem_raw, m, n, b, plan, (int)cg::this_cluster().block_rank());
+  const int clusters = gridDim.x / plan.cs;
+  for (int g = blockIdx.x / plan.cs; g < c; g += clusters)   // 1. forward
+    chunk_led<T, CUT, kMain>(s, g, 0, g, o, 0, n_rows, n_cols, p, 0, sup, amps, 0, starts,
+                             valid, n, b, lo, eps, delta1, delta2, metrics, d_obj, num, parts);
+  cg::this_grid().sync();   // every slot's increments are in scratch
+  const int threads = gridDim.x * blockDim.x, tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int plane = n_rows * n_cols, bb = b * b;
+  for (int idx = tid; idx < plane; idx += threads) {   // 2. sums
+    const int r = idx / n_cols, col = idx - r * n_cols;
+    bool touched;
+    const float2 d =
+        gather_increments(r, col, n_rows, n_cols, starts, valid, c, n, b, lo, d_obj, &touched);
+    d_out[idx] = d.x;
+    d_out[plane + idx] = d.y;
+  }
+  for (int e = tid; e < bb; e += threads) {
+    const float2 v = sum_valid(num, bb, e, valid, c);
+    v_out[e] = v.x;
+    v_out[bb + e] = v.y;
+  }
+  if (tid == 0) {
+    float2 mt = make_float2(0.f, 0.f);
+    if (metrics) mt = sum_valid(reinterpret_cast<const float2*>(parts), 1, 0, valid, c);
+    mets[0] = mt.x;
+    mets[1] = mt.y;
+  }
 }
 
-__global__ void __launch_bounds__(256)
-k3_sums(float* __restrict__ v_re, float* __restrict__ v_im, const int* __restrict__ valid,
-        int c, int bb, const float2* __restrict__ num, const float* __restrict__ parts,
-        float* __restrict__ mets, int metrics) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e < bb) {
-    const float2 v = sum_valid(num, bb, e, valid, c);
-    v_re[e] = v.x;
-    v_im[e] = v.y;
-  }
-  if (e == 0) {
-    float2 m = make_float2(0.f, 0.f);
-    if (metrics) m = sum_valid(reinterpret_cast<const float2*>(parts), 1, 0, valid, c);
-    mets[0] = m.x;
-    mets[1] = m.y;
-  }
+template <int T>
+__global__ void __launch_bounds__(kThreads)
+k3_chunk(const float* o, int n_rows, int n_cols, const float* p, const float* __restrict__ sup,
+         const float* __restrict__ amps, const int* __restrict__ starts,
+         const int* __restrict__ valid, int c, DftMats m, int n, int b, int lo, float eps,
+         float delta1, float delta2, int metrics, float2* d_obj, float2* num, float* parts,
+         float* d_out, float* v_out, float* mets, LedPlan plan) {
+  k3_chunk_body<T, false>(o, n_rows, n_cols, p, sup, amps, starts, valid, c, m, n, b, lo, eps,
+                          delta1, delta2, metrics, d_obj, num, parts, d_out, v_out, mets, plan);
+}
+
+template <int T>
+__global__ void __launch_bounds__(kThreads)
+k3_chunk_zcut(const float* o, int n_rows, int n_cols, const float* p,
+              const float* __restrict__ sup, const float* __restrict__ amps,
+              const int* __restrict__ starts, const int* __restrict__ valid, int c, DftMats m,
+              int n, int b, int lo, float eps, float delta1, float delta2, int metrics,
+              float2* d_obj, float2* num, float* parts, float* d_out, float* v_out, float* mets,
+              LedPlan plan) {
+  k3_chunk_body<T, true>(o, n_rows, n_cols, p, sup, amps, starts, valid, c, m, n, b, lo, eps,
+                         delta1, delta2, metrics, d_obj, num, parts, d_out, v_out, mets, plan);
 }
 
 }  // namespace fpm
@@ -83,9 +124,10 @@ k3_sums(float* __restrict__ v_re, float* __restrict__ v_im, const int* __restric
 //   tier               Tier of the products: 0 highest, 1 bf16x3
 //   force_cs           tests only: the cluster size to take (0 = choose)
 //   force_zcut         tests only: Z whole (1) or cut by rows (2) (0 = choose)
-//   launches           host int, incremented at each accepted launch
+//   launches           host int, incremented at the accepted launch
 //   plan_out           host int[kPlanFields], set to the plan chosen (export_plan)
-// Returns a cudaError_t value (0 = every launch was accepted), kErrLedSmem or
+// Returns a cudaError_t value (0 = the launch was accepted; the runtime's
+// refusal of the cooperative grid is returned as it is), kErrLedSmem or
 // kErrCluster.
 template <int T>
 static int k3_increments_at(const float* o, const float* p, const float* sup, const float* amps,
@@ -96,27 +138,18 @@ static int k3_increments_at(const float* o, const float* p, const float* sup, co
                             cudaStream_t st, int force_cs, int force_zcut, int* launches,
                             int* plan_out) {
   using namespace fpm;
-  cudaError_t err;
   LedPlan plan;
-  const KernelPair<decltype(&chunk_forward<T>)> kernel{chunk_forward<T>, chunk_forward_zcut<T>};
+  const KernelPair<decltype(&k3_chunk<T>)> kernel{k3_chunk<T>, k3_chunk_zcut<T>};
   if (const int e = plan_led<T>(kernel, n, b, c, 0, kOneShot, force_cs, force_zcut, device, &plan))
     return e;
   export_plan(plan, plan_out);
-  const ClusterLaunch forward(c, plan, st);
-  const size_t plane = (size_t)n_rows * n_cols;
-  const int bb = b * b;
-  cudaLaunchKernelEx(&forward.cfg, kernel.of(plan), o, n_rows, n_cols, p, sup, amps, starts,
-                     valid, m, n, b, lo, eps, delta1, delta2, metrics,
-                     static_cast<float2*>(d_obj), static_cast<float2*>(num), parts, plan);
-  if ((err = count_launch(launches)) != cudaSuccess) return (int)err;
-  k3_gather<<<(int)((plane + 255) / 256), 256, 0, st>>>(
-      d_out, d_out + plane, n_rows, n_cols, starts, valid, c, n, b, lo,
-      static_cast<const float2*>(d_obj));
-  if ((err = count_launch(launches)) != cudaSuccess) return (int)err;
-  k3_sums<<<(bb + 255) / 256, 256, 0, st>>>(v_out, v_out + bb, valid, c, bb,
-                                  static_cast<const float2*>(num), parts, mets, metrics);
-  if ((err = count_launch(launches)) != cudaSuccess) return (int)err;
-  return 0;
+  if (plan.resident < 1) return kErrCluster;
+  const ClusterLaunch chunk(imax(1, plan.resident < c ? plan.resident : c), plan, st,
+                            /*cooperative=*/true);
+  cudaLaunchKernelEx(&chunk.cfg, kernel.of(plan), o, n_rows, n_cols, p, sup, amps, starts, valid,
+                     c, m, n, b, lo, eps, delta1, delta2, metrics, static_cast<float2*>(d_obj),
+                     static_cast<float2*>(num), parts, d_out, v_out, mets, plan);
+  return (int)count_launch(launches);
 }
 
 extern "C" int fpm_k3_increments(const float* o, const float* p, const float* sup,

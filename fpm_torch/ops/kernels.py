@@ -1,4 +1,5 @@
-"""The fused EPRY kernels K1, K2 and K3, each beside its plain version.
+"""The fused EPRY kernels K1, K2 and K3 and the consensus kernels of the
+sharded sweeps, each beside its plain version.
 
 * K1 :func:`fused_epry_chunked` — one chunked Gauss–Seidel-over-Jacobi
   sweep (the ``--mode batched`` path). Replaces
@@ -15,8 +16,14 @@
   ``csrc/epry_increments.cu``. The sharded sweeps call it through
   :func:`chunk_increments_into`, on operands they keep in the kernel's form
   for the whole run, on the stream they give.
+* The consensus of a sharded sweep's chunk, :func:`consensus_led`,
+  :func:`consensus_tile_object` and :func:`consensus_tile_pupil` (one
+  launch each per card and chunk; CUDA source ``csrc/epry_consensus.cu``).
+  They replace no Pallas kernel: ``fpm_tpu`` leaves these collectives and
+  element-wise ops to XLA inside its one program of a mesh run. They count
+  their ``launches`` like the others and take no plan (section below).
 
-All take and return the JAX package's operands: the centered object
+K1-K3 take and return the JAX package's operands: the centered object
 spectrum as (2, NL, NL) float32 (re, im) planes (K3: any (2, R, Ncols)
 block of it), the pupil as (2, Np, Np) planes in the DC-at-corner frame, the
 support as (Np, Np) float32. K1 and K2 return ``(o_planes, p_planes, mets)``
@@ -696,15 +703,16 @@ def _increments_cuda(o, pc, sc, amps, starts, valid, *, lo, eps, delta1, delta2,
     out = k3_outputs(o, pc)
     _launch_k3(o, pc, sc, amps, starts, valid, out, k3_scratch(c, b, o.device), lo=lo,
                eps=eps, delta1=delta1, delta2=delta2, collect_metrics=collect_metrics,
-               dft_precision=dft_precision, stream=torch.cuda.current_stream(o.device))
+               dft_precision=dft_precision, stream=_current_stream(o.device))
     return out
 
 
 def _launch_k3(o, pc, sc, amps, starts, valid, out, scratch, *, lo, eps, delta1, delta2,
                collect_metrics, dft_precision, stream):
-    """One launch sequence of K3 on ``stream`` into ``out`` = (d, v, mets),
-    with ``scratch`` = (d_obj, num, parts) (:func:`k3_scratch`); every
-    operand contiguous, on one card, in the kernel's form."""
+    """One launch of K3 on ``stream`` (a raw CUDA stream handle) into
+    ``out`` = (d, v, mets), with ``scratch`` = (d_obj, num, parts)
+    (:func:`k3_scratch`); every operand contiguous, on one card, in the
+    kernel's form."""
     c, n, b = amps.shape[0], amps.shape[-1], pc.shape[-1]
     lib = build.library("epry_increments")
     mats = _kernel_mats(n, b, lo, o.device, dft_precision)
@@ -714,17 +722,26 @@ def _launch_k3(o, pc, sc, amps, starts, valid, out, scratch, *, lo, eps, delta1,
         valid.data_ptr(), *(m.data_ptr() for m in mats), *(t.data_ptr() for t in scratch),
         *(t.data_ptr() for t in out), c, n, b, lo, o.shape[1], o.shape[2], eps, delta1,
         delta2, int(collect_metrics), _TIERS[dft_precision], o.device.index,
-        stream.cuda_stream, fused_chunk_increments.force_cluster_size,
+        stream, fused_chunk_increments.force_cluster_size,
         fused_chunk_increments.force_z_layout, ctypes.byref(launched), plan)
     _record(fused_chunk_increments, launched, plan)
     build.check(lib, err, "K3 fused_chunk_increments")
 
 
+def _current_stream(device) -> int:
+    """The raw handle of ``device``'s current CUDA stream."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def _empty(device, *shapes):
+    """Fresh float32 tensors of ``shapes`` on ``device``."""
+    return tuple(torch.empty(shape, dtype=torch.float32, device=device) for shape in shapes)
+
+
 def k3_outputs(o, pc):
     """Fresh (d, v, mets) buffers of K3 for the spectrum block ``o`` and
     the bbox pupil ``pc`` (every element is written by the kernel)."""
-    return (torch.empty_like(o), torch.empty_like(pc),
-            torch.empty(2, dtype=torch.float32, device=o.device))
+    return _empty(o.device, o.shape, pc.shape, (2,))
 
 
 def k3_scratch(c: int, b: int, device):
@@ -743,7 +760,8 @@ def chunk_increments_into(o, pc, sc, amps, starts, valid, *, out, scratch, strea
     ``lo``, ``amps`` (C, Np, Np) float32, ``starts`` (2C,) and ``valid``
     (C,) int32, all contiguous; writes ``(d, v, mets)`` into ``out``
     (:func:`k3_outputs`; ``v`` in the bbox) and returns it. On the card it
-    launches on ``stream`` with ``scratch`` (:func:`k3_scratch`) and checks
+    launches on ``stream`` (a raw CUDA stream handle) with ``scratch``
+    (:func:`k3_scratch`) and checks
     nothing (the caller checked the operands once); on the CPU the plain
     version computes ``out``. :func:`fused_chunk_increments` is this entry
     with the conversions around it."""
@@ -991,6 +1009,310 @@ def fused_chunk_increments_plain(o_planes, p_planes, support, amps, starts_flat,
                 delta2=delta2, collect_metrics=collect_metrics, dft_precision=dft_precision)
 
 
+# ---------------------------------------------------------------- consensus
+#
+# The consensus of one chunk of the sharded sweeps (``fpm_torch.parallel``)
+# on one card, after each rank's K3: the payloads of the ranks' increments
+# added in rank order, applied to the state the card's ranks share, max|O|,
+# the pupil step and the metric sums. fpm_tpu runs these as XLA's fused
+# collectives and element-wise ops in its one program of a mesh run
+# (``fpm_tpu/parallel/led_shard.py:112-141``, ``tile_shard.py:200-254``);
+# no Pallas kernel. CUDA source ``csrc/epry_consensus.cu``: the LED axis in
+# one launch (:func:`consensus_led`), the tile axis in two around the pmax
+# over its tiles (:func:`consensus_tile_object`, :func:`consensus_tile_pupil`).
+# Their plain versions are the eager op chain the sharded sweeps ran before,
+# op for op (the kernels make its bits): the CPU path and the complex route
+# take them. The state is (2, R, NL) float32 planes of the spectrum (block)
+# and (2, b, b) planes of the bbox pupil, or, on the complex route, complex
+# tensors (the pupil n×n); a payload is float32 planes, bf16 planes (it came
+# on the bf16 wire) or complex; ``wire`` (``torch.bfloat16`` or None) rounds
+# each payload to the wire's dtype before it is added, as the sender's cast
+# did.
+
+
+def _psum_plain(xs, wire=None):
+    """The payloads ``xs`` added in rank order, as ``Mesh.psum`` adds them:
+    each cast to ``wire`` (if given) and back to the payloads' dtype (f32 for
+    payloads that came as bf16)."""
+    full = torch.float32 if xs[0].dtype == torch.bfloat16 else xs[0].dtype
+    acc = None
+    for x in xs:
+        x = (x if wire is None else x.to(wire)).to(full)
+        acc = x if acc is None else torch.add(acc, x)
+    return acc
+
+
+def _as_state(x, like):
+    """A sum of planes payloads in the form of the state ``like``."""
+    return x if x.is_complex() or not like.is_complex() else (
+        torch.complex(x[0], x[1]).to(like.dtype))
+
+
+def _state_abs_max(o):
+    """max|O| of a state: complex, or (2, ...) planes."""
+    return torch.max(torch.abs(o if o.is_complex() else torch.complex(o[0], o[1])))
+
+
+def _wire_trip(b, like, wire):
+    """A reverse-halo slab sent on the ``wire`` dtype and received in the
+    form of the state ``like``."""
+    if not like.is_complex():
+        return b.to(wire).float()
+    w = torch.stack([b.real, b.imag]).to(wire)
+    return torch.complex(w[0].float(), w[1].float()).to(like.dtype)
+
+
+def _pupil_step_plain(pc, v, omax, scale):
+    if pc.is_complex():
+        return pc + scale * _as_state(v, pc) / omax
+    step = torch.complex(pc[0], pc[1]) + scale * torch.complex(v[0], v[1]) / omax
+    return torch.stack([step.real, step.imag])
+
+
+def consensus_tile_object_plain(o, ds, halos=(), *, s, hops=(), wire=None):
+    """The plain version of one row tile of :func:`consensus_tile_object`:
+    ``o`` the tile's state (s rows), ``ds`` its led group's payloads of the
+    halo-extended block (S+Np rows) in rank order, ``halos`` for each hop
+    ``(j, lo, rows)`` of ``hops`` tile i−j's group's payloads. Returns
+    ``(o', max|o'|)``: o + the tile's rows of the psum, the reverse halo
+    added to its first rows hop by hop (tile i−j's psum of rows [s+lo,
+    s+lo+rows), on the wire and back). With s the block's rows and no hops
+    it is the LED axis's object step."""
+    d = _as_state(_psum_plain(ds, wire), o)
+    d_local = d[..., :s, :]
+    for (_, lo, rows), src in zip(hops, halos):
+        b = _as_state(_psum_plain([x[..., s + lo:s + lo + rows, :] for x in src], wire), o)
+        if wire is not None:
+            b = _wire_trip(b, o, wire)
+        d_local = torch.cat([d_local[..., :rows, :] + b, d_local[..., rows:, :]], dim=-2)
+    o = o + d_local
+    return o, _state_abs_max(o)
+
+
+def consensus_tile_pupil_plain(pc, vs, maxima, resid=(), upd=(), acc=None, *, wire=None,
+                               scale=1.0, metrics=True):
+    """The plain version of :func:`consensus_tile_pupil`: max|O| the max of
+    ``maxima`` in order (the pmax), the pupil step with the psum of ``vs``,
+    and with ``metrics`` the sweep's sums ``acc`` (None on the first chunk)
+    plus the psums of ``resid`` and ``upd``. Returns ``(pc', max|O|, acc')``
+    (``acc'`` None without ``metrics``)."""
+    omax = maxima[0]
+    for m in maxima[1:]:
+        omax = torch.maximum(omax, m)
+    pc = _pupil_step_plain(pc, _psum_plain(vs, wire), omax, scale)
+    if metrics:
+        acc = (0 if acc is None else acc) + torch.stack([_psum_plain(resid), _psum_plain(upd)])
+    return pc, omax, acc if metrics else None
+
+
+def consensus_led_plain(o, pc, ds, vs, resid=(), upd=(), acc=None, *, wire=None, scale=1.0,
+                        metrics=True):
+    """The plain version of :func:`consensus_led`: returns ``(o', pc',
+    max|o'|, acc')``."""
+    o, omax = consensus_tile_object_plain(o, ds, s=o.shape[-2], wire=wire)
+    pc, omax, acc = consensus_tile_pupil_plain(pc, vs, [omax], resid, upd, acc, wire=wire,
+                                               scale=scale, metrics=metrics)
+    return o, pc, omax, acc
+
+
+# Tile groups and ranks per group an entry point of csrc/epry_consensus.cu
+# takes (kMaxTiles, kMaxRanks there).
+CONSENSUS_MAX_TILES, CONSENSUS_MAX_RANKS = 8, 32
+
+
+class ConsensusScratch:
+    """The scratch of one card's consensus launches, made once a run: the
+    tickets (zero between launches; each launch leaves them zero), the
+    blocks' maxima and the LED kernel's pupil sums (bbox ``b``)."""
+
+    def __init__(self, device, b: int):
+        device = torch.device(device)
+        self.max_blocks = 2 * torch.cuda.get_device_properties(device).multi_processor_count
+        self.ticket = torch.zeros(CONSENSUS_MAX_TILES, dtype=torch.int32, device=device)
+        self.block_max = torch.empty(CONSENSUS_MAX_TILES * self.max_blocks,
+                                     dtype=torch.float32, device=device)
+        self.vsum = torch.empty((2, b, b), dtype=torch.float32, device=device)
+
+
+def _pointers(ts):
+    return (ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))
+
+
+def _ints(xs):
+    return (ctypes.c_int * max(1, len(xs)))(*xs)
+
+
+def _payload_list(ts, like, dev, what):
+    """Pointers and bf16 bits of one reduction's payloads, checked against
+    the state ``like``'s shape: f32 or bf16, contiguous, on ``dev``."""
+    if not 1 <= len(ts) <= CONSENSUS_MAX_RANKS:
+        raise ValueError(f"{what}: {len(ts)} payloads; the kernel takes 1 to "
+                         f"{CONSENSUS_MAX_RANKS}")
+    for t in ts:
+        if (t.device != dev or t.dtype not in (torch.float32, torch.bfloat16)
+                or not t.is_contiguous() or (like is not None and t.shape != like)):
+            raise ValueError(f"{what}: a payload {t.dtype} {tuple(t.shape)} on {t.device}; "
+                             f"the kernel takes contiguous f32 or bf16 {like} on {dev}")
+    return _pointers(ts), sum(1 << r for r, t in enumerate(ts) if t.dtype == torch.bfloat16)
+
+
+def _check_state(dev, *ts):
+    for t in ts:
+        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"consensus state {t.dtype} {tuple(t.shape)} on {t.device}: "
+                             f"the kernels take contiguous float32 planes on {dev}")
+
+
+def _count(wrapper, launched: ctypes.c_int) -> None:
+    with _counter_lock:
+        wrapper.launches += launched.value
+
+
+def _metric_lists(resid, upd, dev, metrics):
+    if not metrics:
+        return None, None
+    return (_payload_list(resid, torch.Size([]), dev, "residual")[0],
+            _payload_list(upd, torch.Size([]), dev, "update norm")[0])
+
+
+def _consensus_led_cuda(o, pc, ds, vs, resid, upd, acc, *, wire, scale, metrics, scratch):
+    dev = o.device
+    _check_state(dev, o, pc, *(() if acc is None else (acc,)))
+    d, d_bf16 = _payload_list(ds, o.shape, dev, "object increments")
+    v, v_bf16 = _payload_list(vs, pc.shape, dev, "pupil increments")
+    r, u = _metric_lists(resid, upd, dev, metrics)
+    o_out, pc_out, omax, acc_out = _empty(dev, o.shape, pc.shape, (), (2,))
+    acc_out = acc_out if metrics else None
+    lib = build.library("epry_consensus")
+    launched = ctypes.c_int(0)
+    err = lib.fpm_consensus_led(
+        o.data_ptr(), o_out.data_ptr(), o.shape[1], o.shape[2], d, d_bf16, pc.data_ptr(),
+        pc_out.data_ptr(), pc.shape[-1], v, v_bf16, r, u, len(ds),
+        None if acc is None else acc.data_ptr(), None if acc_out is None else acc_out.data_ptr(),
+        omax.data_ptr(), scale, int(wire is not None), int(metrics), scratch.vsum.data_ptr(),
+        scratch.block_max.data_ptr(), scratch.ticket.data_ptr(), scratch.max_blocks, dev.index,
+        _current_stream(dev), ctypes.byref(launched))
+    _count(consensus_led, launched)
+    build.check(lib, err, "consensus_led")
+    return o_out, pc_out, omax, acc_out
+
+
+def _consensus_tile_object_cuda(blocks, *, s, hops, wire, scratch):
+    dev = blocks[0][0].device
+    groups, own, halo = [], [], []
+
+    def group(ts):
+        key = tuple(t.data_ptr() for t in ts)
+        for g, (k, _) in enumerate(groups):
+            if k == key:
+                return g
+        groups.append((key, ts))
+        return len(groups) - 1
+
+    for o, ds, halos in blocks:
+        _check_state(dev, o)
+        own.append(group(ds))
+        halo += [group(src) for src in halos]
+    if len(blocks) > CONSENSUS_MAX_TILES or len(groups) > CONSENSUS_MAX_TILES:
+        raise ValueError(f"consensus_tile_object: {len(blocks)} tiles reading {len(groups)} "
+                         f"groups; the kernel takes at most {CONSENSUS_MAX_TILES} of each")
+    count = len(groups[0][1])
+    if any(len(ts) != count for _, ts in groups):
+        raise ValueError("consensus_tile_object: groups of different sizes")
+    like = groups[0][1][0].shape
+    lists = [_payload_list(ts, like, dev, "object increments") for _, ts in groups]
+    views = _empty(dev, *(shape for o, _, _ in blocks for shape in (o.shape, ())))
+    outs = list(zip(views[0::2], views[1::2]))
+    lib = build.library("epry_consensus")
+    launched = ctypes.c_int(0)
+    err = lib.fpm_consensus_tile_object(
+        _pointers([t for _, ts in groups for t in ts]),
+        (ctypes.c_uint * len(lists))(*(bits for _, bits in lists)), len(groups), count,
+        _pointers([o for o, _, _ in blocks]), _pointers([o for o, _ in outs]),
+        _pointers([m for _, m in outs]), _ints(own), _ints(halo), len(blocks), s, like[-1],
+        like[-2], len(hops), _ints([lo for _, lo, _ in hops]),
+        _ints([rows for _, _, rows in hops]), int(wire is not None),
+        scratch.block_max.data_ptr(), scratch.ticket.data_ptr(), scratch.max_blocks, dev.index,
+        _current_stream(dev), ctypes.byref(launched))
+    _count(consensus_tile_object, launched)
+    build.check(lib, err, "consensus_tile_object")
+    return outs
+
+
+def _consensus_tile_pupil_cuda(pc, vs, maxima, resid, upd, acc, *, wire, scale, metrics):
+    dev = pc.device
+    _check_state(dev, pc, *(() if acc is None else (acc,)))
+    v, v_bf16 = _payload_list(vs, pc.shape, dev, "pupil increments")
+    r, u = _metric_lists(resid, upd, dev, metrics)
+    m, _ = _payload_list(maxima, torch.Size([]), dev, "max|O|")
+    pc_out, omax, acc_out = _empty(dev, pc.shape, (), (2,))
+    acc_out = acc_out if metrics else None
+    lib = build.library("epry_consensus")
+    launched = ctypes.c_int(0)
+    err = lib.fpm_consensus_tile_pupil(
+        pc.data_ptr(), pc_out.data_ptr(), pc.shape[-1], v, v_bf16, r, u, len(vs), m,
+        len(maxima), None if acc is None else acc.data_ptr(),
+        None if acc_out is None else acc_out.data_ptr(), omax.data_ptr(), scale,
+        int(wire is not None), int(metrics), dev.index,
+        _current_stream(dev), ctypes.byref(launched))
+    _count(consensus_tile_pupil, launched)
+    build.check(lib, err, "consensus_tile_pupil")
+    return pc_out, omax, acc_out
+
+
+def consensus_led(o, pc, ds, vs, resid=(), upd=(), acc=None, *, wire=None, scale=1.0,
+                  metrics=True, scratch=None):
+    """The LED axis's consensus of one chunk on one card: ``o`` (2, R, NL)
+    and ``pc`` (2, b, b) float32 planes, the state the card's ranks share;
+    ``ds``, ``vs`` the group's object and pupil payloads in rank order;
+    ``resid``, ``upd`` its metric payloads (one value each) and ``acc`` the
+    sweep's (2,) metric sums so far (None on the first chunk; ``metrics``
+    False: not this card's to keep). Returns new ``(o', pc', max|o'|,
+    acc')``. On the card one launch on the current stream, with
+    ``scratch`` (:class:`ConsensusScratch`); on the CPU
+    :func:`consensus_led_plain`."""
+    if o.is_cuda:
+        return _consensus_led_cuda(o, pc, ds, vs, resid, upd, acc, wire=wire, scale=scale,
+                                   metrics=metrics, scratch=scratch)
+    if o.device.type == "cpu":
+        return consensus_led_plain(o, pc, ds, vs, resid, upd, acc, wire=wire, scale=scale,
+                                   metrics=metrics)
+    raise ValueError(f"no kernel for device {o.device}")
+
+
+def consensus_tile_object(blocks, *, s, hops=(), wire=None, scratch=None):
+    """The tile axis's object step of one chunk on one card, for each row
+    tile the card holds: ``blocks`` a list of ``(o, ds, halos)`` as
+    :func:`consensus_tile_object_plain` takes them (float32 planes, the
+    payloads f32 or bf16). Returns ``[(o', max|o'|)]``. On the card one
+    launch for all the tiles, on the current stream; on the CPU the plain
+    version, tile by tile."""
+    if blocks[0][0].is_cuda:
+        return _consensus_tile_object_cuda(blocks, s=s, hops=hops, wire=wire, scratch=scratch)
+    if blocks[0][0].device.type == "cpu":
+        return [consensus_tile_object_plain(o, ds, halos, s=s, hops=hops, wire=wire)
+                for o, ds, halos in blocks]
+    raise ValueError(f"no kernel for device {blocks[0][0].device}")
+
+
+def consensus_tile_pupil(pc, vs, maxima, resid=(), upd=(), acc=None, *, wire=None,
+                         scale=1.0, metrics=True):
+    """The tile axis's pupil step of one chunk on one card: ``maxima`` the
+    tiles' max|O| in tile order (what the pmax gathered), the rest as
+    :func:`consensus_led`'s. Returns ``(pc', max|O|, acc')``. On the card
+    one launch on the current stream; on the CPU
+    :func:`consensus_tile_pupil_plain`."""
+    if pc.is_cuda:
+        return _consensus_tile_pupil_cuda(pc, vs, maxima, resid, upd, acc, wire=wire,
+                                          scale=scale, metrics=metrics)
+    if pc.device.type == "cpu":
+        return consensus_tile_pupil_plain(pc, vs, maxima, resid, upd, acc, wire=wire,
+                                          scale=scale, metrics=metrics)
+    raise ValueError(f"no kernel for device {pc.device}")
+
+
+for _wrapper in (consensus_led, consensus_tile_object, consensus_tile_pupil):
+    _wrapper.launches = 0
 for _wrapper in (fused_epry_sweep, fused_epry_chunked, fused_chunk_increments):
     _wrapper.launches = 0
     _wrapper.cluster_size = 0          # as chosen by the last launch

@@ -13,9 +13,13 @@ with masked dummy frames to a multiple of the ``led`` axis.
 This module's functions take *grids* of per-rank tensors and loop over the
 ranks of this process (``parallel.mesh``; under ``torch.distributed`` every
 process runs the same program on its own ranks, ``parallel.multihost``).
-On the card each rank's K3 and apply run on its own stream and the
-collectives on the mesh's comm lane, joined by events; with
-``stale_consensus`` chunk c's collectives run while chunk c+1's K3 runs
+A chunk is each rank's K3 on its own stream, then one consensus step per
+card on the mesh's comm lane, after their events: the collectives gather
+the payloads (``Mesh.collect``; between cards and processes they travel,
+on one card nothing moves) and one launch reduces them in rank order and
+applies them to the state the card's ranks share (``ops.kernels.
+consensus_led``; its plain version on the CPU and on the complex route).
+With ``stale_consensus`` chunk c's consensus runs while chunk c+1's K3 runs
 (:func:`pipelined_chunks`). On the kernel route with complex64 state the
 state stays in K3's operands for the whole run (:class:`PlanesRoute`) and
 goes back to complex only for the result.
@@ -35,7 +39,6 @@ from ..models.epry import (
     ReconResult,
     _amp_replace,
     _dtype_name,
-    _from_planes,
     _host_starts,
     _object_delta,
     _pupil_delta,
@@ -100,25 +103,23 @@ def _wire_dtype(opts: EPRYOptions):
     return torch.bfloat16 if opts.comm_precision == "bf16" else None
 
 
-def _as_complex(x, like):
-    """f32 planes of the kernel route → complex; complex passes through."""
-    return x if x.is_complex() else _from_planes(x, like)
-
-
 class ComplexRoute:
     """A sharded run whose state is complex tensors: the eager route
     (``torch.fft``; the complex128 parity runs on the CPU) and the kernel
     route with complex128 state, which converts K3's operands on every
     chunk (:func:`_chunk_increments`). Holds the per-rank grids: the state
-    (``obj``, ``pupil``, ``omax``: the last max|O|) and the inputs of every
-    chunk (``inputs``: support, amps, starts, mask)."""
+    (``obj``, ``pupil``, ``omax``: the last max|O|; after a chunk the ranks
+    of one card hold one tensor of each, their tile's) and the inputs of
+    every chunk (``inputs``: support, amps, starts, mask). Its consensus is
+    the plain version of the kernels' (``ops.kernels.consensus_*_plain``)."""
 
-    planes = False
+    pupil_payload = None      # the pupil psum's payload as counted: the payload itself
 
     def __init__(self, opts: EPRYOptions, obj, pupil, support, amps, starts, mask):
         self.opts, self.obj, self.pupil, self.frame = opts, obj, pupil, pupil
         self.omax = [[None] * len(row) for row in obj]
         self.inputs = (support, amps, starts, mask)
+        self.wire = _wire_dtype(opts)
 
     @property
     def n_chunks(self) -> int:
@@ -128,23 +129,17 @@ class ComplexRoute:
         return _chunk_increments(block, pupil, support, amps[c], starts[c], mask[c],
                                  opts=self.opts)
 
-    def as_state(self, x, like):
-        return _as_complex(x, like)
+    def consensus_led(self, card, *args, **kw):
+        return kernels.consensus_led_plain(*args, wire=self.wire,
+                                           scale=self.opts.pupil_step_scale, **kw)
 
-    @staticmethod
-    def abs_max(obj):
-        return torch.max(torch.abs(obj))
+    def consensus_tile_object(self, card, blocks, **kw):
+        return [kernels.consensus_tile_object_plain(o, ds, halos, wire=self.wire, **kw)
+                for o, ds, halos in blocks]
 
-    def pupil_step(self, pupil, v, omax):
-        return pupil + self.opts.pupil_step_scale * _as_complex(v, pupil) / omax
-
-    @staticmethod
-    def to_wire(x, wire):
-        return torch.stack([x.real, x.imag]).to(wire)
-
-    @staticmethod
-    def from_wire(b, like):
-        return torch.complex(b[0].float(), b[1].float()).to(like.dtype)
+    def consensus_tile_pupil(self, card, *args, **kw):
+        return kernels.consensus_tile_pupil_plain(*args, wire=self.wire,
+                                                  scale=self.opts.pupil_step_scale, **kw)
 
     def complex_state(self, obj, pupil, omax, frame):
         """The state of one rank as complex tensors (``obj``: its spectrum,
@@ -164,18 +159,16 @@ class PlanesRoute(ComplexRoute):
     float32 planes, the pupil as (2, b, b) planes of the centered NA bbox
     at offset ``lo``, and as inputs the bbox support, float32 amps, int32
     starts (n_chunks, 2C) and valid flags (n_chunks, C), and K3's scratch
-    per rank. K3 runs through ``kernels.chunk_increments_into``; nothing is
+    per rank. K3 runs through ``kernels.chunk_increments_into``, the
+    consensus through ``kernels.consensus_*`` (the kernels on the card, with
+    one :class:`~fpm_torch.ops.kernels.ConsensusScratch` a card); nothing is
     converted per chunk. The arithmetic is the complex route's on the same
-    values, so the bits are: an add of planes is the add of complex64
-    numbers; max|O| is ``torch.abs`` of the complex spectrum, as there
-    (vectorized complex ``abs`` and ``hypotf`` differ); the pupil step
-    divides the complex numerator by the real max as a complex division
-    (promoted: not the division of each plane); the pupil payload is padded
-    to the whole Np×Np patch, the psum's payload; outside the bbox the
-    pupil is the initial ``frame`` plus that division's zero
-    (:meth:`complex_state`)."""
-
-    planes = True
+    values, so the bits are (the plain versions: an add of planes is the add
+    of complex64 numbers; max|O| is ``torch.abs`` of the complex spectrum;
+    the pupil step divides the complex numerator by the real max as a
+    complex division). The pupil payload is the bbox, counted as the whole
+    Np×Np patch (fpm_tpu's psum payload); outside the bbox the pupil is the
+    initial ``frame`` plus that division's zero (:meth:`complex_state`)."""
 
     @classmethod
     def of(cls, mesh: Mesh, opts: EPRYOptions, obj, pupil, support, amps, starts, mask,
@@ -203,41 +196,33 @@ class PlanesRoute(ComplexRoute):
         route = cls(opts, o, pc, sc, a, st, valid)
         route.inputs += (scratch,)
         route.frame, route.b, route.lo = frame, b, lo
+        route.pupil_payload = torch.empty((2, n, n), dtype=torch.float32, device="meta")
+        route.scratch = {card: kernels.ConsensusScratch(card, b)
+                         for card, _ in mesh.cards() if card.type == "cuda"}
         return route
 
     def increments(self, block, pc, sc, amps, starts, valid, scratch, *, c):
         o = self.opts
-        d, v, mets = kernels.chunk_increments_into(
+        return kernels.chunk_increments_into(
             block, pc, sc, amps[c], starts[c], valid[c], out=kernels.k3_outputs(block, pc),
-            scratch=scratch, stream=torch.cuda.current_stream(block.device)
+            scratch=scratch, stream=kernels._current_stream(block.device)
             if block.is_cuda else None, lo=self.lo, eps=o.eps, delta1=o.delta1,
             delta2=o.delta2, collect_metrics=o.collect_metrics, dft_precision=o.dft_precision)
-        far = o.np_size - self.lo - self.b
-        return d, torch.nn.functional.pad(v, (self.lo, far, self.lo, far)), mets
 
-    def as_state(self, x, like):
-        return x
+    def consensus_led(self, card, *args, **kw):
+        return kernels.consensus_led(*args, wire=self.wire, scale=self.opts.pupil_step_scale,
+                                     scratch=self.scratch.get(card), **kw)
 
-    @staticmethod
-    def abs_max(obj):
-        return torch.max(torch.abs(torch.complex(obj[0], obj[1])))
+    def consensus_tile_object(self, card, blocks, **kw):
+        return kernels.consensus_tile_object(blocks, wire=self.wire,
+                                             scratch=self.scratch.get(card), **kw)
+
+    def consensus_tile_pupil(self, card, *args, **kw):
+        return kernels.consensus_tile_pupil(*args, wire=self.wire,
+                                            scale=self.opts.pupil_step_scale, **kw)
 
     def _window(self, x):
         return x[..., self.lo:self.lo + self.b, self.lo:self.lo + self.b]
-
-    def pupil_step(self, pc, v, omax):
-        vw = self._window(v)
-        step = torch.complex(pc[0], pc[1]) + self.opts.pupil_step_scale * torch.complex(
-            vw[0], vw[1]) / omax
-        return torch.stack([step.real, step.imag])
-
-    @staticmethod
-    def to_wire(x, wire):
-        return x.to(wire)
-
-    @staticmethod
-    def from_wire(b, like):
-        return b.float()
 
     def complex_state(self, obj, pc, omax, frame):
         """(spectrum, pupil) as complex64, the pupil in the DC-at-corner
@@ -263,18 +248,18 @@ def route_for(mesh: Mesh, opts: EPRYOptions, obj, pupil, support, amps, starts, 
 
 
 def issue_metrics(mesh: Mesh, mets, axes, c, after):
-    """The two scalar metric psums of chunk ``c`` (pending)."""
-    return tuple(mesh.psum(mesh.map(lambda m: m[i], mets), axes, chunk=c, after=after,
-                           what=what, wait=False)
+    """The two scalar metric psums of chunk ``c``, gathered for the
+    consensus (pending)."""
+    return tuple(mesh.collect(mesh.map(lambda m: m[i], mets), axes, chunk=c, after=after,
+                              what=what)
                  for i, what in enumerate(("residual", "update norm")))
 
 
-def add_metrics(mesh: Mesh, acc, pending, c):
-    """``acc`` + the chunk's metric sums, on this process's first rank."""
-    resid, upd = (p.result() for p in pending)
-    home = mesh.local_ranks[0]
-    with mesh.on_rank(c, home, "metrics", [p.step for p in pending]):
-        return acc + torch.stack([mesh.local(resid), mesh.local(upd)])
+def set_state(mesh: Mesh, grid, ranks, value) -> None:
+    """``value``, made on a card's comm lane, as the state of ``ranks``."""
+    mesh.share(value, ranks)
+    for li, ti in ranks:
+        grid[li][ti] = value
 
 
 def pipelined_chunks(n_chunks: int, increments, reduce, apply, stale: bool):
@@ -283,9 +268,10 @@ def pipelined_chunks(n_chunks: int, increments, reduce, apply, stale: bool):
     collectives, started), ``apply(c, ·)``. With ``stale`` (one-chunk-stale
     consensus) ``reduce(c)`` is enqueued first, then ``increments(c+1)``,
     which reads the state after ``apply(c−1)`` only, then ``apply(c)``,
-    which waits on ``reduce(c)``: chunk c's collectives and chunk c+1's K3
-    depend on nothing of each other, so on the card they run at once
-    (``parallel.mesh``: ranks and collectives on streams of their own)."""
+    which waits on ``reduce(c)``: chunk c's collectives and consensus and
+    chunk c+1's K3 depend on nothing of each other, so on the card they run
+    at once (``parallel.mesh``: ranks and the comm lane on streams of their
+    own)."""
     if not stale:
         for c in range(n_chunks):
             apply(c, reduce(c, increments(c)))
@@ -301,46 +287,46 @@ def pipelined_chunks(n_chunks: int, increments, reduce, apply, stale: bool):
 def _sharded_sweep(mesh: Mesh, route: ComplexRoute, *, opts: EPRYOptions):
     """One full sweep: chunks in order, each chunk's LEDs split over the
     ``led`` axis (each rank's inputs hold its slices). Updates ``route``'s
-    state grids and returns the sweep's (2,) metric sums."""
+    state grids and returns the sweep's (2,) metric sums. A chunk's K3
+    waits on the consensus step that made the state it reads."""
     wire = _wire_dtype(opts)
-    acc = {"mets": 0}
+    group = [(li, 0) for li in range(mesh.shape["led"])]
+    state = {"steps": (), "mets": None}
     mesh.begin_sweep(route.obj, route.pupil)
 
     def increments(c):
         out, steps = mesh.each(c, "increments", lambda *a: route.increments(*a, c=c),
-                               route.obj, route.pupil, *route.inputs)
+                               route.obj, route.pupil, *route.inputs, waits=state["steps"])
         return (*unzip(out, 3), steps)
 
     def reduce(c, inc):
         d, v, mets, steps = inc
-        return (mesh.psum(d, "led", wire, chunk=c, after=steps, what="object increments",
-                          wait=False),
-                mesh.psum(v, "led", wire, chunk=c, after=steps, what="pupil increments",
-                          wait=False),
-                issue_metrics(mesh, mets, "led", c, steps))
+        return (mesh.collect(d, "led", wire, chunk=c, after=steps, what="object increments"),
+                mesh.collect(v, "led", wire, count_like=route.pupil_payload, chunk=c,
+                             after=steps, what="pupil increments"),
+                *issue_metrics(mesh, mets, "led", c, steps))
 
     def apply(c, red):
-        pd, pv, pm = red
-        # The metric psums are completed and waited on too, so that chunk
-        # c+1's K3 (which reads this apply's state) runs beside no
-        # collective of chunk c in the fresh sweep.
-        d, v = pd.result(), pv.result()
-        for p in pm:
-            p.result()
-
-        def one(o, p, dd, vv):
-            o = o + route.as_state(dd, o)
-            m = route.abs_max(o)
-            return o, route.pupil_step(p, vv, m), m
-
-        out, _ = mesh.each(c, "apply", one, route.obj, route.pupil, d, v,
-                           waits=(pd.step, pv.step, *(p.step for p in pm)))
-        route.obj, route.pupil, route.omax = unzip(out, 3)
-        acc["mets"] = add_metrics(mesh, acc["mets"], pm, c)
+        got = [p.result() for p in red]
+        steps = []
+        for card, ranks in mesh.cards():
+            home = card == mesh.home
+            with mesh.on_card(c, card, "consensus", [p.step for p in red]) as idx:
+                first = ranks[0]
+                o, p, m, acc = route.consensus_led(
+                    card, route.obj[first[0]][first[1]], route.pupil[first[0]][first[1]],
+                    *([g[card][r] for r in group] for g in got),
+                    state["mets"] if home else None, metrics=home)
+                for grid, value in ((route.obj, o), (route.pupil, p), (route.omax, m)):
+                    set_state(mesh, grid, ranks, value)
+                if home:
+                    state["mets"] = acc
+            steps.append(idx)
+        state["steps"] = steps
 
     pipelined_chunks(route.n_chunks, increments, reduce, apply, opts.stale_consensus)
-    mesh.end_sweep(route.obj, route.pupil, route.omax, tensors=[acc["mets"]])
-    return acc["mets"]
+    mesh.end_sweep(route.obj, route.pupil, route.omax, tensors=[state["mets"]])
+    return state["mets"]
 
 
 def check_route(mesh: Mesh, opts: EPRYOptions) -> None:

@@ -124,6 +124,25 @@ def _indexed(device: torch.device) -> torch.device:
     return device
 
 
+@contextlib.contextmanager
+def _current(stream):
+    """``stream`` as its card's current stream for the body; after it the
+    current device and that card's current stream are what they were: what
+    ``torch.cuda.stream`` does, through the calls it makes, without its own
+    device checks, whose host time the sweeps would pay at every step of
+    every chunk (``scripts/host_profile.py``)."""
+    device = torch._C._cuda_getDevice()
+    prev = torch._C._cuda_getCurrentStream(stream.device_index)
+    torch._C._cuda_setStream(stream_id=stream.stream_id, device_index=stream.device_index,
+                             device_type=stream.device_type)
+    try:
+        yield
+    finally:
+        torch._C._cuda_setStream(stream_id=prev[0], device_index=prev[1], device_type=prev[2])
+        if device != stream.device_index:
+            torch._C._cuda_setDevice(device)
+
+
 def unzip(grid, n: int):
     """A grid of n-tuples as n grids (a rank of another process, ``None``,
     stays ``None`` in each)."""
@@ -153,8 +172,15 @@ class Mesh:
         self.serialize_streams = serialize_streams
         self.schedule: list[Step] = []
         self._events: dict[int, list] = {}
-        cards = list(dict.fromkeys(self.devices[li][ti] for li, ti in self.local_ranks
-                                   if self.devices[li][ti].type == "cuda"))
+        self._received: dict = {}      # collect's buffers for payloads from another device
+        self._pool: list = []          # events, reused sweep after sweep (_recorded)
+        self._used = 0
+        self._needed: dict = {}        # collect's default needs by axes
+        by_card: dict = {}
+        for li, ti in self.local_ranks:
+            by_card.setdefault(self.devices[li][ti], []).append((li, ti))
+        self._cards = list(by_card.items())
+        cards = [d for d in by_card if d.type == "cuda"]
         streamed = bool(cards) and not serialize_streams
         self._rank_streams = {r: torch.cuda.Stream(self.devices[r[0]][r[1]])
                               for r in self.local_ranks if streamed
@@ -229,14 +255,20 @@ class Mesh:
         return len(self.schedule) - 1
 
     def _wait(self, stream, waits) -> None:
-        for j in waits:
-            for event in self._events.get(j, ()):
-                stream.wait_event(event)
+        # A step may name several steps that share events (a collect that
+        # moved nothing holds the events of the steps that made its payloads).
+        for event in {id(e): e for j in waits for e in self._events.get(j, ())}.values():
+            stream.wait_event(event)
 
     def _recorded(self, idx: int, streams) -> None:
+        # Events are reused from sweep to sweep (begin_sweep starts the pool
+        # over): every wait on an event's earlier record was enqueued before.
         events = []
         for stream in streams:
-            event = torch.cuda.Event()
+            if self._used == len(self._pool):
+                self._pool.append(torch.cuda.Event())
+            event = self._pool[self._used]
+            self._used += 1
             event.record(stream)
             events.append(event)
         self._events[idx] = events
@@ -252,7 +284,7 @@ class Mesh:
             yield idx
             return
         self._wait(stream, waits)
-        with torch.cuda.stream(stream):
+        with _current(stream):
             yield idx
         self._recorded(idx, [stream])
 
@@ -275,7 +307,7 @@ class Mesh:
         with contextlib.ExitStack() as stack:
             for stream in streams:
                 self._wait(stream, waits)
-                stack.enter_context(torch.cuda.stream(stream))
+                stack.enter_context(_current(stream))
             yield
         if streams:
             self._recorded(idx, streams)
@@ -290,12 +322,38 @@ class Mesh:
         if stream is not None:
             tensor.record_stream(stream)
 
+    def cards(self):
+        """This process's devices, each with its local ranks in rank order,
+        in the order of their first rank."""
+        return self._cards
+
+    @contextlib.contextmanager
+    def on_card(self, chunk, card, op: str, waits=()):
+        """A step of ``card`` on its comm lane (a chunk's consensus): its
+        work, enqueued in the body, runs on the card's comm stream after the
+        events of the steps ``waits``. Yields the step's index."""
+        idx = self._log(chunk, None, "comm", op, waits)
+        stream = self._lane_streams["comm"].get(card)
+        if stream is None:
+            yield idx
+            return
+        self._wait(stream, waits)
+        with _current(stream):
+            yield idx
+        self._recorded(idx, [stream])
+
+    def share(self, tensor, ranks) -> None:
+        """``tensor``, made on a lane, is read on the streams of ``ranks``:
+        keep its memory from the allocator until they are done with it."""
+        for rank in ranks:
+            self._hand_over(tensor, rank=rank)
+
     def begin_sweep(self, *grids) -> None:
         """Start a sweep's schedule: the rank and lane streams wait on the
         work enqueued on each card's current stream (the set-up that made
         ``grids``), and each rank's tensors of ``grids`` are handed to its
         stream."""
-        self.schedule, self._events = [], {}
+        self.schedule, self._events, self._used = [], {}, 0
         for stream in self.streams():
             stream.wait_stream(torch.cuda.current_stream(stream.device))
         for grid in grids:
@@ -336,6 +394,15 @@ class Mesh:
         if axes == ("led",):
             return axes, [[(li, ti) for li in range(n_led)] for ti in range(n_tile)]
         return axes, [[(li, ti) for ti in range(n_tile)] for li in range(n_led)]
+
+    def _needs(self, axes):
+        """For each card of this process, every rank of the groups over
+        ``axes`` that hold one of its ranks (made once per axes)."""
+        if axes not in self._needed:
+            _, groups = self._groups(axes)
+            self._needed[axes] = {card: [r for g in groups if set(g) & set(ranks) for r in g]
+                                  for card, ranks in self.cards()}
+        return self._needed[axes]
 
     def _collective(self, op: str, axes, payload, start, finish, *, lane, chunk=None,
                     after=(), what="", wait=True):
@@ -393,6 +460,83 @@ class Mesh:
             payload = torch.empty(payload.shape, dtype=wire_dtype, device="meta")
         return self._collective(op, axes, payload, start, finish, lane=lane, **step)
 
+    def collect(self, grid, axes, wire_dtype=None, *, op="psum", count_like=None, needs=None,
+                lane="comm", **step):
+        """A reduction over ``axes`` whose payloads are gathered and not
+        combined: the consumer (a consensus kernel, or its plain version)
+        adds them in rank order, as :meth:`psum` would. Counted and logged as
+        ``op`` with the payload bytes of ``count_like`` (default: one rank's
+        payload), in ``wire_dtype`` if given. Returns a :class:`Pending`
+        whose result is ``{card: {rank: payload on card}}`` for each card of
+        this process and the ranks of ``needs[card]`` (default: every rank
+        of the groups over ``axes`` that hold one of the card's ranks). A
+        payload on its own card stays as it is (f32: the consumer rounds it
+        to the wire's dtype); one from another card is cast to
+        ``wire_dtype`` and copied; between processes the transport's
+        all-gather carries every payload, cast. A copy lands in a buffer
+        of this mesh, made at the first chunk and reused: the next copy into
+        it is enqueued on the same lane after this chunk's consumer.
+        ``step`` as for :meth:`psum`, ``wait`` False by default."""
+        if needs is None:
+            needs = self._needs(axes)
+        axes, _ = self._groups(axes)
+        cards = self.cards()
+
+        def cast(x):
+            return x if wire_dtype is None else x.to(wire_dtype)
+
+        def start():
+            mine = {}
+            for li, ti in self.local_ranks:
+                self._hand_over(grid[li][ti], lane=lane)
+                mine[(li, ti)] = grid[li][ti]
+            if self.transport is None:
+                return mine
+            return self.transport.start_all_gather(self, {r: cast(x) for r, x in mine.items()})
+
+        def arrive(r, x, card):
+            if x.device == card:
+                return x
+            x = cast(x)
+            key = (step.get("what"), r, card, x.shape, x.dtype)
+            if key not in self._received:
+                self._received[key] = torch.empty(x.shape, dtype=x.dtype, device=card)
+            return self._received[key].copy_(x, non_blocking=True)
+
+        def finish(started):
+            values = started if self.transport is None else self.transport.finish(started)
+            return {card: {r: arrive(r, values[r], card) for r in needs[card]}
+                    for card, _ in cards}
+
+        payload = self.local(grid) if count_like is None else count_like
+        if wire_dtype is not None:
+            payload = torch.empty(payload.shape, dtype=wire_dtype, device="meta")
+        if self.transport is None and all(grid[r[0]][r[1]].device == card
+                                          for card, ranks in needs.items() for r in ranks):
+            idx = self._unmoved(op, axes, payload, lane, step.get("chunk"),
+                                step.get("after", ()), step.get("what", ""))
+            return Pending(idx, grid=finish(start()))
+        step.setdefault("wait", False)
+        return self._collective(op, axes, payload, start, finish, lane=lane, **step)
+
+    def carried(self, op: str, axes, payload_like, lane="comm", chunk=None, after=(),
+                what="") -> int:
+        """A collective of fpm_tpu's program whose payloads another
+        collective of this mesh carried (:meth:`collect`'s ``needs``):
+        counted with ``payload_like``'s bytes and logged as a step after
+        ``after``; nothing moves. Returns the step's index."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        return self._unmoved(op, axes, payload_like, lane, chunk, after, what)
+
+    def _unmoved(self, op, axes, payload, lane, chunk, after, what) -> int:
+        """Count and log a collective whose step moves nothing and enqueues
+        no work: a step that waits on it waits on the steps ``after``."""
+        self._count(op, axes, payload)
+        idx = self._log(chunk, None, lane, f"{op} {what}" if what else op, after,
+                        payload.numel() * payload.element_size())
+        self._events[idx] = [e for j in after for e in self._events.get(j, ())]
+        return idx
+
     def psum(self, grid, axes, wire_dtype=None, **step):
         """All-reduce sum over ``axes`` (``"led"``, ``"tile"`` or both).
         ``wire_dtype`` casts each rank's payload (real tensors only) before it
@@ -447,6 +591,13 @@ class Mesh:
         payload = self.local(grid)
         if prepare is not None:
             payload = prepare(payload.to("meta"))
+        if prepare is None and self.transport is None and all(
+                self.devices[li][ti] == self.devices[src(li, ti)[0]][src(li, ti)[1]]
+                for li, ti in self.local_ranks):
+            idx = self._unmoved("ppermute", (axis,), payload, lane, step.get("chunk"),
+                                step.get("after", ()), step.get("what", ""))
+            pending = Pending(idx, grid=finish(start()))
+            return pending if not step.get("wait", True) else pending.result()
         return self._collective("ppermute", (axis,), payload, start, finish, lane=lane, **step)
 
 

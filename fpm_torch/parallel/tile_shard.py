@@ -19,7 +19,11 @@ The spectrum is row-sharded over the ``tile`` axis of the mesh; per chunk:
 4. **Collectives** — ``psum`` over ``led`` reconciles the object increments,
    ``pmax`` over ``tile`` gives the global ``max|O|`` (the reference's
    ``cv::minMaxLoc`` over the full spectrum, fpmMain.cpp:467), and ``psum``
-   over both axes forms the pupil consensus.
+   over both axes forms the pupil consensus. The collectives gather the
+   payloads and each card's consensus kernels (``ops.kernels.
+   consensus_tile_object`` and ``consensus_tile_pupil``, around the pmax)
+   reduce and apply them; their plain versions on the CPU and on the complex
+   route.
 
 Chunk membership is that of ``models.epry.chunk_schedule``, so the sweep
 equals the single-device chunked sweep up to summation order. Functions take
@@ -44,7 +48,6 @@ from ..models.epry import (
 from .led_shard import (
     ComplexRoute,
     _wire_dtype,
-    add_metrics,
     check_route,
     initial_grids,
     issue_metrics,
@@ -52,6 +55,7 @@ from .led_shard import (
     result_from,
     route_for,
     run_sweeps,
+    set_state,
     sharded_options,
 )
 from .mesh import Mesh, unzip
@@ -115,6 +119,16 @@ def _halo_hops(np_size: int, s: int):
             for j, lo in enumerate(range(0, np_size, s), start=1)]
 
 
+def _slab_like(route: ComplexRoute, like, rows: int, wire):
+    """A reverse-halo slab as fpm_tpu's ppermute carries it (for the
+    counts): ``rows`` rows of the state ``like``, on the wire as (2, rows,
+    NL) planes of its dtype."""
+    x = like.to("meta")[..., :rows, :]
+    if wire is None:
+        return x
+    return torch.empty((2, *x.shape[-2:]), dtype=wire, device="meta")
+
+
 def _tile_sweep(mesh: Mesh, route: ComplexRoute, *, opts: EPRYOptions, s: int):
     """One sweep: chunks in order, each with its own halo exchange and
     consensus round; ``opts.stale_consensus`` as in ``led_shard``. Updates
@@ -122,19 +136,30 @@ def _tile_sweep(mesh: Mesh, route: ComplexRoute, *, opts: EPRYOptions, s: int):
     (2,) metric sums.
 
     Per chunk: the forward halo (on the mesh's halo lane, from the state
-    after the previous chunk's apply; the total bytes are independent of
-    the hop count: Np rows either way), then each rank's increments on its
-    extended (S+Np, Nlarge) block; the consensus: object psum over ``led``,
-    pupil psum over both axes and the metric psums, started (comm lane);
-    then the apply: reverse halo (increments in halo rows belong to the
-    following tiles) → add → ``pmax`` over ``tile`` of max|O| → pupil step.
-    ``comm_precision='bf16'`` (kernel route) halves the psum and
-    reverse-halo payloads; sums accumulate in f32.
+    after the previous chunk's object step; the total bytes are independent
+    of the hop count: Np rows either way), then each rank's increments on
+    its extended (S+Np, Nlarge) block; the collectives gather the payloads:
+    object increments over ``led`` (with the groups of the tiles whose halo
+    rows each card reads), pupil increments and metrics over both axes; then
+    on each card one object step for the tiles it holds (``ops.kernels.
+    consensus_tile_object``: psum over ``led``, the reverse halo — the
+    increments in tile i−j's halo rows belong to tile i's first rows —,
+    the add, the local max|O|), the ``pmax`` of max|O| over ``tile``, and
+    one pupil step (``consensus_tile_pupil``). The reverse halo's slabs
+    travel with the object increments; its ``ppermute`` is counted and
+    logged as fpm_tpu's. ``comm_precision='bf16'`` (kernel route) halves the
+    psum and reverse-halo payloads; sums accumulate in f32.
     """
-    n_tile = mesh.shape["tile"]
+    n_led, n_tile = mesh.shape["led"], mesh.shape["tile"]
     wire = _wire_dtype(opts)
     hops = _halo_hops(opts.np_size, s)
-    state = {"steps": (), "mets": 0}
+    every = [(li, ti) for li in range(n_led) for ti in range(n_tile)]
+    state = {"object": (), "pupil": (), "mets": None}
+    cards = mesh.cards()
+    tiles = {card: sorted({ti for _, ti in ranks}) for card, ranks in cards}
+    # The led groups each card reads: its tiles' and, for each hop j, tile i−j's.
+    needs = {card: [(li, (ti - j) % n_tile) for ti in tiles[card] for j in range(len(hops) + 1)
+                    for li in range(n_led)] for card, _ in cards}
     mesh.begin_sweep(route.obj, route.pupil)
 
     def increments(c):
@@ -142,7 +167,7 @@ def _tile_sweep(mesh: Mesh, route: ComplexRoute, *, opts: EPRYOptions, s: int):
         for j, _, rows in hops:
             fwd = [((i + j) % n_tile, i) for i in range(n_tile)]
             halo = mesh.ppermute(mesh.map(lambda o: o[..., :rows, :], route.obj), "tile", fwd,
-                                 lane="halo", chunk=c, after=state["steps"],
+                                 lane="halo", chunk=c, after=state["object"],
                                  what="forward halo", wait=False)
             parts.append(halo.result())
             halo_steps.append(halo.step)
@@ -152,57 +177,59 @@ def _tile_sweep(mesh: Mesh, route: ComplexRoute, *, opts: EPRYOptions, s: int):
             return route.increments(ext, *args[len(parts):], c=c)
 
         out, steps = mesh.each(c, "increments", one, *parts, route.pupil, *route.inputs,
-                               waits=halo_steps)
+                               waits=[*halo_steps, *state["pupil"]])
         return (*unzip(out, 3), steps)
 
     def reduce(c, inc):
         d, v, mets, steps = inc
-        return (mesh.psum(d, "led", wire, chunk=c, after=steps, what="object increments",
-                          wait=False),
-                mesh.psum(v, ("led", "tile"), wire, chunk=c, after=steps,
-                          what="pupil increments", wait=False),
-                issue_metrics(mesh, mets, ("led", "tile"), c, steps))
+        return (mesh.collect(d, "led", wire, needs=needs, chunk=c, after=steps,
+                             what="object increments"),
+                mesh.collect(v, ("led", "tile"), wire, count_like=route.pupil_payload,
+                             chunk=c, after=steps, what="pupil increments"),
+                *issue_metrics(mesh, mets, ("led", "tile"), c, steps))
 
     def apply(c, red):
-        pd, pv, pm = red
-        d_ext, after = pd.result(), [pd.step]
-        if not route.planes:
-            d_ext, after = mesh.each(c, "object increments in", route.as_state, d_ext,
-                                     route.obj, waits=after)
-        # Reverse halo: hop j returns halo slab [lo, lo+rows) to tile i+j,
-        # where it lands on that tile's first rows (the mirror of the
-        # forward halo).
-        backs = []
-        for j, lo, rows in hops:
-            slab = mesh.map(lambda d: d[..., s + lo:s + lo + rows, :], d_ext)
-            bwd = [(i, (i + j) % n_tile) for i in range(n_tile)]
-            back = mesh.ppermute(slab, "tile", bwd, prepare=None if wire is None
-                                 else lambda x: route.to_wire(x, wire),
-                                 chunk=c, after=after, what="reverse halo", wait=False)
-            backs.append((rows, back.result()))
-            after = [*after, back.step]
-
-        def add(o, d, *back):
-            d_local = d[..., :s, :]
-            for (rows, _), b in zip(backs, back):
-                b = b if wire is None else route.from_wire(b, o)
-                d_local = torch.cat([d_local[..., :rows, :] + b, d_local[..., rows:, :]], dim=-2)
-            o = o + d_local
-            return o, route.abs_max(o)
-
-        out, obj_steps = mesh.each(c, "apply object", add, route.obj, d_ext,
-                                   *(b for _, b in backs), waits=after)
-        route.obj, local_max = unzip(out, 2)
-        state["steps"] = obj_steps
-        pmax = mesh.pmax(local_max, "tile", chunk=c, after=obj_steps, what="max|O|",
-                         wait=False)
-        omax, v = pmax.result(), pv.result()
-        for p in pm:                # as in led_shard: chunk c+1's K3 waits on them
-            p.result()
-        route.pupil, _ = mesh.each(c, "apply pupil", route.pupil_step, route.pupil, v, omax,
-                                   waits=(pmax.step, pv.step, *(p.step for p in pm)))
-        route.omax = omax
-        state["mets"] = add_metrics(mesh, state["mets"], pm, c)
+        pd, pv, *pm = red
+        d = pd.result()
+        like = mesh.local(route.obj)
+        after = [pd.step] + [mesh.carried("ppermute", "tile", _slab_like(route, like, rows, wire),
+                                          chunk=c, after=[pd.step], what="reverse halo")
+                             for _, _, rows in hops]
+        local_max, obj_steps = mesh.grid(lambda li, ti: None), []
+        for card, ranks in cards:
+            with mesh.on_card(c, card, "consensus object", after) as idx:
+                held = [[r for r in ranks if r[1] == ti] for ti in tiles[card]]
+                blocks = [(route.obj[own[0][0]][own[0][1]],
+                           [d[card][(li, ti)] for li in range(n_led)],
+                           [[d[card][(li, (ti - j) % n_tile)] for li in range(n_led)]
+                            for j, _, _ in hops])
+                          for ti, own in zip(tiles[card], held)]
+                outs = route.consensus_tile_object(card, blocks, s=s, hops=hops)
+                for own, (o, m) in zip(held, outs):
+                    set_state(mesh, route.obj, own, o)
+                    set_state(mesh, local_max, own, m)
+            obj_steps.append(idx)
+        state["object"] = obj_steps
+        pmax = mesh.collect(local_max, "tile", op="pmax", chunk=c, after=obj_steps,
+                            what="max|O|")
+        maxima, v, mets = pmax.result(), pv.result(), [p.result() for p in pm]
+        pupil_steps = []
+        for card, ranks in cards:
+            home = card == mesh.home
+            li0, ti0 = ranks[0]
+            with mesh.on_card(c, card, "consensus pupil",
+                              [pmax.step, pv.step, *(p.step for p in pm)]) as idx:
+                p, omax, acc = route.consensus_tile_pupil(
+                    card, route.pupil[li0][ti0], [v[card][r] for r in every],
+                    [maxima[card][(li0, ti)] for ti in range(n_tile)],
+                    *([m[card][r] for r in every] for m in mets),
+                    state["mets"] if home else None, metrics=home)
+                set_state(mesh, route.pupil, ranks, p)
+                set_state(mesh, route.omax, ranks, omax)
+                if home:
+                    state["mets"] = acc
+            pupil_steps.append(idx)
+        state["pupil"] = pupil_steps
 
     pipelined_chunks(route.n_chunks, increments, reduce, apply, opts.stale_consensus)
     mesh.end_sweep(route.obj, route.pupil, route.omax, tensors=[state["mets"]])

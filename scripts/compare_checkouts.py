@@ -11,8 +11,9 @@ Each of four runs (other, this, this, other) is a process of its own with
 that checkout first on ``sys.path`` and this checkout's ``chip_smoke.py``
 loaded by path, so the same functions run on either package: the kernel
 digests (``kernel_digests``), the digests of the sharded sweeps
-(``sharded_digests``) and their timing through the entry point
-(``sharded_entry_timing``); and of each checkout's main libraries, ptxas's
+(``sharded_digests``), their timing through the entry point
+(``sharded_entry_timing``) and K3's time a call through its wrapper
+(``k3_call_timing``); and of each checkout's main libraries, ptxas's
 registers, stack and spills per function (``build.resources``) and a digest
 of each function's SASS (``cuobjdump -sass``). One JSON line per run, then
 one line that says which digests (and which kernel cases differ), resources
@@ -63,7 +64,8 @@ print("RUN " + json.dumps({
     "kernels": digests["all"], "kernel_cases": digests["cases"],
     "resources": {stem: build.resources(stem) for stem in sorted(libs)},
     "sass": {stem: sass(path) for stem, path in sorted(libs.items())},
-    "sharded": cs.sharded_digests(), "timing": cs.sharded_entry_timing(busy=True)}), flush=True)
+    "sharded": cs.sharded_digests(), "timing": cs.sharded_entry_timing(busy=True),
+    "k3": cs.k3_call_timing()}), flush=True)
 """
 
 
@@ -108,6 +110,8 @@ def main(argv=None) -> int:
                              for name, rs in by.items()} for c in cases},
         "busy_share": {c: {name: [r["timing"][c]["busy_share"] for r in rs]
                            for name, rs in by.items()} for c in cases},
+        "k3_per_call": {tier: {name: [r["k3"][tier] for r in rs] for name, rs in by.items()}
+                        for tier in by["this"][0]["k3"]},
         "order": [n for n, _ in order], "gpu": smi}), flush=True)
     print(smi)
     return 0
