@@ -123,22 +123,30 @@ tiers of the DFT products (``dft_precision``): ``bf16x3``, the default (a
    ``sharded_sweep`` lines, one per case of ``SHARDED_CASES`` (mono (4,1),
    (2,2), (1,8), dogStomach (2,2), mono (2,2) at highest and with the bf16
    wire), fresh and with ``--stale-consensus``, all ranks sharing the card
-   (not scaling results): the kernels a sweep and a chunk in the trace of a
-   sweep, checked to be no more than the chunks' K3 calls and consensus
-   launches (the wrappers' counts) and, on the tile axis, each rank's halo
-   copy a chunk; the host's enqueue ms a sweep; ms per sweep (each rank on
-   its stream, the consensus on the mesh's comm lane) with the card's busy
-   share, ``overlap_ms`` (the time in which K3 and a reduction or copy on a
-   lane run at once, from the trace of a sweep enqueued behind a gate, so
-   that the card runs it unpaced: above 0 under the stale consensus,
-   exactly 0 on fresh; each trace sees every K3 launch the wrapper
-   counted, a trace that lost records taken again up to 3 times, its
-   ``attempts`` printed), ``consensus_schedule_check`` on ``mesh.schedule`` (issued
-   before compute under the stale consensus only), no host synchronisation
-   inside a sweep (``set_sync_debug_mode("error")``), ms per sweep through
-   the entry point (``sharded_entry_timing``: a run of 10 sweeps less one
-   of 0), and bitwise: the ``digests`` line and 4 more runs, and the mesh
-   with its streams serialized (``serialize_streams``).
+   (not scaling results). Every rank of such a mesh is a CUDA rank of this
+   process, so the run replays one sweep captured into a CUDA graph
+   (``fpm_torch.parallel.graph``; ``graph`` true, checked): on the prepared
+   grids a ``SweepGraph`` (``capture_ms``: its warm-up sweep, the capture
+   and the instantiation) whose replays are timed: the kernels a sweep and
+   a chunk in the trace of a replay, checked to be no more than the
+   captured sweep's K3 and consensus launches (counted once per replay)
+   and, on the tile axis, each rank's halo copy a chunk; the host's
+   enqueue ms a replay (checked under 1 ms: the host no longer paces the
+   sweep); ms per sweep with the card's busy share, ``overlap_ms`` (the
+   time in which K3 and a consensus kernel or a copy run at once, from the
+   trace of a replay enqueued behind a gate: above 0 under the stale
+   consensus, exactly 0 on fresh; each trace sees every K3 launch the
+   captured sweep holds, a trace that lost records taken again up to 3
+   times, its ``attempts`` printed), ``consensus_schedule_check`` on the
+   captured schedule (issued before compute under the stale consensus
+   only), no host synchronisation in a replay
+   (``set_sync_debug_mode("error")``), ms per sweep through the entry point
+   (``sharded_entry_timing``: a run's 10 replays to the synchronisation
+   after the last, the capture apart) and the whole call's ms at 1, 3 and
+   10 sweeps, capture included, beside the host loop's, and bitwise: the ``digests`` line,
+   the host-walked route of the same run (``force_host_loop``, run only for
+   its digest), 4 more runs, and the mesh with its streams serialized
+   (``serialize_streams``).
 6. ``dogstomach``: the dogStomach optics of tests/test_torch_np200.py
    (Np=200, NL=600, K=88 dome LEDs, bbox 112 at offset 48, object from
    ``--seed``, 16-bit frames; nothing cut). K2 exact and lazy, K1 at chunk 16
@@ -565,16 +573,29 @@ def sharded_label(name: str, led: int, tile: int, options: dict, stale: bool) ->
 
 
 def sharded_run(problem, led: int, tile: int, options: dict, stale: bool,
-                iterations: int = SHARDED_SWEEPS, **mesh_kw):
-    """``iterations`` sweeps through the public entry point on
-    ``make_mesh(led, tile)``, all ranks on the first card."""
+                iterations: int = SHARDED_SWEEPS, mesh=None, **mesh_kw):
+    """``iterations`` sweeps through the public entry point on ``mesh``
+    (default ``make_mesh(led, tile)``, all ranks on the first card)."""
     from fpm_torch.parallel import make_mesh, reconstruct_led_sharded, reconstruct_tile_sharded
 
     cfg, geom, frames = problem
     fn = reconstruct_led_sharded if tile == 1 else reconstruct_tile_sharded
-    return fn(frames, geom, cfg, mesh=make_mesh(led, tile, **mesh_kw),
+    return fn(frames, geom, cfg, mesh=mesh or make_mesh(led, tile, **mesh_kw),
               iterations=iterations, use_pallas=True, chunk_size=32,
               stale_consensus=stale, **options)
+
+
+def host_walked_run(problem, led: int, tile: int, options: dict, stale: bool):
+    """:func:`sharded_run` with the chunk loop walked from Python on the
+    card (the test-only ``force_host_loop``): the route the graph is held
+    to."""
+    from fpm_torch.parallel import graph
+
+    graph.run_sweeps.force_host_loop = True
+    try:
+        return sharded_run(problem, led, tile, options, stale)
+    finally:
+        graph.run_sweeps.force_host_loop = False
 
 
 def result_digest(res) -> str:
@@ -599,18 +620,35 @@ def sharded_digests(seed: int = 0) -> dict:
 
 
 ENTRY_SWEEPS = 10
+ENTRY_CALLS = (1, 3, ENTRY_SWEEPS)      # sweeps a call: the iteration counts timed whole
 
 
 def sharded_entry_timing(seed: int = 0, busy: bool = False) -> dict:
     """Per ``SHARDED_CASES`` case, fresh and stale, through the public entry
     point only (so that it runs on either checkout, as
-    :func:`sharded_digests`): ms per sweep of a run of ``ENTRY_SWEEPS``
-    sweeps less a run of 0 (medians of 3; set-up, the result's gather and
-    transform are in both). With ``busy``, also the card's busy time per
-    sweep, the same difference of one traced run of each
-    (:func:`trace_overlap`), as a share of it."""
+    :func:`sharded_digests`): the whole call's ms (medians of 3; set-up,
+    capture, sweeps, the result's gather and transform) at 0 sweeps and at
+    each of ``ENTRY_CALLS`` (``call_ms``), on the route the mesh picks and,
+    where the checkout has the test-only ``force_host_loop``, on the host
+    loop too (``host_loop_call_ms``), with the fewest sweeps of those timed
+    at which the route's call is the quicker (``quicker_from_sweeps``, None
+    if at none). ``ms_per_sweep_difference``: the call at ``ENTRY_SWEEPS``
+    less the call at 0, over ``ENTRY_SWEEPS`` (capture included); where the
+    run replays a captured sweep, ``ms_per_sweep`` from the replays
+    themselves (the result's ``replay["replays_ms"]``, to the
+    synchronisation after the last, over ``ENTRY_SWEEPS``; median of 3)
+    with the capture apart (``capture_ms``: the warm-up sweep, the capture
+    and the instantiation) and the host's enqueue ms of a replay; else
+    ``ms_per_sweep`` is the difference. With ``busy``, also the card's busy
+    time per sweep, the same difference of one traced run of each
+    (:func:`trace_overlap`; the warm-up sweep counted as a sweep), as a
+    share of ``ms_per_sweep``."""
     import torch
 
+    from fpm_torch import parallel
+
+    force = getattr(getattr(getattr(parallel, "graph", None), "run_sweeps", None),
+                    "force_host_loop", None)
     problems = {name: sharded_problem(name, seed) for name in dict.fromkeys(
         c[0] for c in SHARDED_CASES)}
     out = {}
@@ -619,21 +657,44 @@ def sharded_entry_timing(seed: int = 0, busy: bool = False) -> dict:
             def run(it):
                 return sharded_run(problems[name], led, tile, options, stale, iterations=it)
 
-            ms = {}
-            for it in (0, ENTRY_SWEEPS):
-                walls = []
-                for _ in range(3):
-                    t0 = time.perf_counter()
-                    run(it)
-                    torch.cuda.synchronize()
-                    walls.append((time.perf_counter() - t0) * 1e3)
-                ms[it] = median(walls)
-            per_sweep = (ms[ENTRY_SWEEPS] - ms[0]) / ENTRY_SWEEPS
-            row = {"ms_per_sweep": per_sweep, "ms_0_sweeps": ms[0],
-                   f"ms_{ENTRY_SWEEPS}_sweeps": ms[ENTRY_SWEEPS]}
+            def calls(host_loop):
+                ms, replays = {}, []
+                for it in (0, *ENTRY_CALLS):
+                    walls = []
+                    for _ in range(3):
+                        if host_loop:
+                            parallel.graph.run_sweeps.force_host_loop = True
+                        try:
+                            t0 = time.perf_counter()
+                            res = run(it)
+                            torch.cuda.synchronize()
+                            walls.append((time.perf_counter() - t0) * 1e3)
+                        finally:
+                            if host_loop:
+                                parallel.graph.run_sweeps.force_host_loop = False
+                        if it == ENTRY_SWEEPS and getattr(res, "replay", None):
+                            replays.append(res.replay)
+                    ms[it] = median(walls)
+                return ms, replays
+
+            ms, replays = calls(False)
+            host = calls(True)[0] if force is not None else None
+            difference = (ms[ENTRY_SWEEPS] - ms[0]) / ENTRY_SWEEPS
+            per_sweep = (median([r["replays_ms"] for r in replays]) / ENTRY_SWEEPS if replays
+                         else difference)
+            row = {"ms_per_sweep": per_sweep, "ms_per_sweep_difference": difference,
+                   "call_ms": ms, "host_loop_call_ms": host,
+                   "quicker_from_sweeps": next((it for it in ENTRY_CALLS if ms[it] < host[it]),
+                                               None) if host else None,
+                   "graph": bool(replays),
+                   "capture_ms": median([r["capture_ms"] for r in replays]) if replays else None,
+                   "replay_enqueue_ms": (median([t for r in replays for t in r["enqueue_ms"]])
+                                         if replays else None)}
             if busy:
-                device = (trace_overlap(lambda: run(ENTRY_SWEEPS))["busy_ms"]
-                          - trace_overlap(lambda: run(0))["busy_ms"]) / ENTRY_SWEEPS
+                warmups = 1 if replays else 0
+                device = ((trace_overlap(lambda: run(ENTRY_SWEEPS))["busy_ms"]
+                           - trace_overlap(lambda: run(0))["busy_ms"])
+                          / (ENTRY_SWEEPS + warmups))
                 row.update(device_ms_per_sweep=device, busy_share=device / per_sweep)
             out[sharded_label(name, led, tile, options, stale)] = row
     return out
@@ -684,30 +745,119 @@ def k3_call_timing(seed: int = 0) -> dict:
     return out
 
 
-def trace_overlap(fn, gate_ms: float = 0.0) -> dict:
+def union(evs):
+    """The trace records ``evs`` as sorted disjoint [start, end] spans (µs)."""
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in evs)
+    out = []
+    for a, b in spans:
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def length(spans):
+    return sum(b - a for a, b in spans)
+
+
+def meet(xs, ys):
+    """The time two lists of sorted disjoint spans share."""
+    i = j = 0
+    total = 0.0
+    while i < len(xs) and j < len(ys):
+        lo, hi = max(xs[i][0], ys[j][0]), min(xs[i][1], ys[j][1])
+        total += max(0.0, hi - lo)
+        if xs[i][1] < ys[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def chunk_stages(k3, consensus, chunks: int):
+    """A sweep's trace records of K3 and of the consensus kernels cut into
+    its ``chunks`` chunks, each card's records apart and in the order they
+    ran there, and read on each card's own clock only (the trace's clocks
+    of two cards have been seen up to 0.3 ms apart). On a card, chunk c's
+    reduction runs from the end of its last K3 of chunk c to the end of its
+    last consensus kernel of chunk c: the payloads travel, then the
+    consensus runs. ``next_k3_in_reduction_ms``: the time a card's K3 of
+    chunk c+1 runs inside that card's reduction of chunk c, over the chunks
+    and cards (0 where the consensus is fresh, since every K3 of chunk c+1
+    waits on every card's consensus of chunk c; where a card holds several
+    ranks a stale K3 of chunk c+1 may start before another rank's of chunk
+    c, and the cut is only near); the part of it beside a consensus kernel
+    of chunk c (``next_k3_beside_consensus_ms``); medians over the cards'
+    chunks in ms: the payloads' travel (``travel_ms``: the last K3 to the
+    first consensus kernel), the consensus (first to last consensus kernel)
+    and how long after the last K3 of chunk c the first of chunk c+1 starts
+    (``next_k3_start_ms``). None where a card's records do not split
+    evenly into the chunks."""
+    cards: dict = {}
+    for i, evs in enumerate((k3, consensus)):
+        for e in evs:
+            cards.setdefault(e["args"].get("device", -1), ([], []))[i].append(e)
+    inside = beside = 0.0
+    travel, held, nxt_start = [], [], []
+    for mine, theirs in cards.values():
+        if not mine or not theirs or len(mine) % chunks or len(theirs) % chunks:
+            return None
+        mine, theirs = (sorted(evs, key=lambda e: e["ts"]) for evs in (mine, theirs))
+        pk, pc = len(mine) // chunks, len(theirs) // chunks
+        for c in range(chunks):
+            ks, cons = mine[c * pk:(c + 1) * pk], theirs[c * pc:(c + 1) * pc]
+            k3_end = max(e["ts"] + e["dur"] for e in ks)
+            first = min(e["ts"] for e in cons)
+            last = max(e["ts"] + e["dur"] for e in cons)
+            travel.append((first - k3_end) / 1e3)
+            held.append((last - first) / 1e3)
+            if c + 1 < chunks:
+                following = union(mine[(c + 1) * pk:(c + 2) * pk])
+                inside += meet(following, [[k3_end, last]])
+                beside += meet(following, union(cons))
+                nxt_start.append((following[0][0] - k3_end) / 1e3)
+    return {"next_k3_in_reduction_ms": inside / 1e3, "next_k3_beside_consensus_ms": beside / 1e3,
+            "travel_ms": median(travel), "consensus_ms": median(held),
+            "next_k3_start_ms": median(nxt_start) if nxt_start else None}
+
+
+def trace_overlap(fn, gate_ms: float = 0.0, chunks: int = 0, records: bool = False) -> dict:
     """One call of ``fn`` under ``torch.profiler``, read from its trace: the
     time in which a K3 kernel (``fpm_torch``'s kernels but the consensus
-    ones) and a kernel or copy on a stream that runs no K3 (the mesh's comm
-    and halo lanes: the consensus kernels, the halos) run at once
-    (``overlap_ms``), the time in which K3 runs, in which the lanes
-    work, and in which anything runs (``busy_ms``), the span from the first
-    to the last of it, the K3 kernels seen, and the call's wall time to
-    the end of its work (traced: the profiler slows the host). With ``gate_ms`` a spin
+    ones) and the lanes' work (a consensus kernel, a copy, or anything on a
+    stream that runs no K3: the mesh's comm and halo lanes) run at once
+    (``overlap_ms``; with a consensus kernel alone ``consensus_overlap_ms``,
+    which leaves out the copies of a chunk's payloads between cards while
+    another card's K3 of the same chunk runs), the time in which K3 runs,
+    in which the lanes work, and in which anything runs (``busy_ms``), the
+    span from the first to the last of it, the K3 kernels seen, the other
+    kernels by name (not
+    ``fpm_torch``'s), and the call's wall time to the end of its work
+    (traced: the profiler slows the host). With ``gate_ms`` a spin
     kernel of that length on each card's current stream holds the cards
     first, so that every stream of the mesh waits until the host has
     enqueued the whole of ``fn`` and the card then runs it unpaced
     (``gate_held``: no gate had ended when the host was done; the spin
-    kernels' own time is left out)."""
+    kernels' own time is left out). With ``chunks`` (a sweep's chunk
+    count) also :func:`chunk_stages` of the trace (``stages``); with
+    ``records`` every record of the work as [card, kind, start µs from the
+    first, µs] (``records``; kind ``k3``, ``consensus``, ``copy`` or
+    ``other``)."""
+    from collections import Counter
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     gate_ends = []
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        # The trace has been seen to miss the first kernels that run in it:
-        # short spin kernels, left out below, run first on every card.
+        # The trace has been seen to miss the first kernels that run in it
+        # (31 of a replayed sweep's 56 K3 kernels behind 4 spin kernels,
+        # late in a long process): PROFILER_PAD spin kernels, left out
+        # below, run first on every card.
         for card in range(torch.cuda.device_count()):
             with torch.cuda.device(card):
-                for _ in range(4):
+                for _ in range(PROFILER_PAD):
                     torch.cuda._sleep(1000)
         torch.cuda.synchronize()
         for card in range(torch.cuda.device_count() if gate_ms else 0):
@@ -735,53 +885,46 @@ def trace_overlap(fn, gate_ms: float = 0.0) -> dict:
     def stream(e):
         return e["args"].get("device"), e["args"].get("stream")
 
+    # The lanes' work: what runs on a stream that runs no K3, and by name
+    # the consensus kernels and the copies, since a replayed graph's
+    # kernels may all be traced on the stream it was launched on.
     k3_streams = {stream(e) for e in k3}
-    lanes = [e for e in work if stream(e) not in k3_streams]
-
-    def union(evs):
-        spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in evs)
-        out = []
-        for a, b in spans:
-            if out and a <= out[-1][1]:
-                out[-1][1] = max(out[-1][1], b)
-            else:
-                out.append([a, b])
-        return out
-
-    def length(spans):
-        return sum(b - a for a, b in spans)
-
-    def meet(xs, ys):
-        i = j = 0
-        total = 0.0
-        while i < len(xs) and j < len(ys):
-            lo, hi = max(xs[i][0], ys[j][0]), min(xs[i][1], ys[j][1])
-            total += max(0.0, hi - lo)
-            if xs[i][1] < ys[j][1]:
-                i += 1
-            else:
-                j += 1
-        return total
+    lanes = [e for e in work if stream(e) not in k3_streams or e["cat"] != "kernel"
+             or "consensus" in e["name"]]
 
     u_k3, u_lanes, u_work = union(k3), union(lanes), union(work)
-    return {"k3_ms": length(u_k3) / 1e3, "lane_ms": length(u_lanes) / 1e3,
-            "overlap_ms": meet(u_k3, u_lanes) / 1e3, "busy_ms": length(u_work) / 1e3,
+    consensus = [e for e in work if "consensus" in e["name"]]
+    u_consensus = union(consensus)
+    stages = {"stages": chunk_stages(k3, consensus, chunks)} if chunks else {}
+    if records and work:
+        t0 = min(e["ts"] for e in work)
+        k3_ids = {id(e) for e in k3}
+        stages["records"] = sorted(
+            [e["args"].get("device", -1), "k3" if id(e) in k3_ids else "consensus"
+             if "consensus" in e["name"] else "copy" if e["cat"] != "kernel" else "other",
+             e["ts"] - t0, e["dur"]] for e in work)
+    return {**stages, "k3_ms": length(u_k3) / 1e3, "lane_ms": length(u_lanes) / 1e3,
+            "overlap_ms": meet(u_k3, u_lanes) / 1e3,
+            "consensus_overlap_ms": meet(u_k3, u_consensus) / 1e3,
+            "busy_ms": length(u_work) / 1e3,
             "span_ms": (u_work[-1][1] - u_work[0][0]) / 1e3 if u_work else 0.0,
             "k3_streams": len(k3_streams),
             "k3_per_stream": sorted(sum(stream(e) == st for e in k3) for st in k3_streams),
             "lane_streams": len({stream(e) for e in lanes}),
             "kernels": len([e for e in work if e["cat"] == "kernel"]),
+            "other_kernels": dict(Counter(e["name"][:60] for e in work if e["cat"] == "kernel"
+                                          and "fpm::" not in e["name"])),
             "k3_kernels": len(k3), "gate_held": held, "enqueue_ms": enqueue_ms,
             "wall_ms": wall_ms}
 
 
-def gated_trace(fn, ms: float) -> dict:
+def gated_trace(fn, ms: float, **kw) -> dict:
     """:func:`trace_overlap` of ``fn`` behind a gate of 10 times ``ms`` (its
     untraced time), 4 times longer while the gate has not held (the
     profiler slows the host's enqueue, by up to 15 times as seen)."""
     gate = 10 * ms + 50
     for _ in range(4):
-        traced = trace_overlap(fn, gate_ms=gate)
+        traced = trace_overlap(fn, gate_ms=gate, **kw)
         if traced["gate_held"]:
             break
         gate *= 4
@@ -813,23 +956,23 @@ def median(xs):
 
 def sharded_sweep_phase(problems: dict, digests: dict, entry: dict, smi: str) -> None:
     """The ``sharded_sweep`` lines: every ``SHARDED_CASES`` case, fresh and
-    stale, all ranks on the one card (not scaling results). On prepared
-    grids: ms per sweep on the host's clock, synchronised, median of 5, with
-    the card's busy share (the time in which a kernel runs in one traced
-    sweep over that median), and ``overlap_ms``, the time K3 and the lanes'
-    work run at once, from one sweep enqueued behind a gate so that the card
-    runs it unpaced (``trace_overlap``); ``consensus_schedule_check`` on the
-    schedule; one sweep under ``torch.cuda.set_sync_debug_mode("error")``.
-    Through the entry point: ``sharded_entry_timing``. Bitwise: the
-    ``digests`` line and ``SHARDED_REPEATS`` - 1 more runs, and the mesh
-    with its streams serialized (the test-only ``serialize_streams``)."""
+    stale, all ranks on the one card (not scaling results), so the graph
+    route by the rule of ``fpm_torch.parallel.graph``. On prepared grids a
+    ``SweepGraph`` (its ``capture_ms``) whose replays are timed: ms per
+    sweep on the host's clock, synchronised, median of 5, with the host's
+    enqueue ms of each replay and the card's busy share (the time in which
+    a kernel runs in one traced replay over that median), and
+    ``overlap_ms``, the time K3 and the consensus kernels run at once, from
+    one replay enqueued behind a gate (``trace_overlap``);
+    ``consensus_schedule_check`` on the captured schedule; one replay under
+    ``torch.cuda.set_sync_debug_mode("error")``. Through the entry point:
+    ``sharded_entry_timing``. Bitwise: the ``digests`` line, the host-walked
+    route (:func:`host_walked_run`), ``SHARDED_REPEATS`` - 1 more runs, and
+    the mesh with its streams serialized (the test-only
+    ``serialize_streams``)."""
     import torch
 
-    from fpm_torch.ops import kernels
-    from fpm_torch.parallel import comm, led_shard, make_mesh, tile_shard
-
-    k3 = kernels.fused_chunk_increments
-    consensus = [getattr(kernels, key) for key in CONSENSUS_KEYS]
+    from fpm_torch.parallel import comm, graph, led_shard, make_mesh, tile_shard
 
     def wall_ms(fn):
         walls, enqueues = [], []
@@ -860,19 +1003,19 @@ def sharded_sweep_phase(problems: dict, digests: dict, entry: dict, smi: str) ->
             if tile == 1:
                 route, sopts = led_shard.prepare_led_sharded(frames, geom, cfg, mesh, **kw)
 
-                def sweep():
-                    return led_shard._sharded_sweep(mesh, route, opts=sopts)
+                def body(bufs):
+                    return led_shard._sharded_sweep(mesh, route, opts=sopts, bufs=bufs)
             else:
                 route, sopts, s = tile_shard.prepare_tile_sharded(frames, geom, cfg, mesh, **kw)
 
-                def sweep():
-                    return tile_shard._tile_sweep(mesh, route, opts=sopts, s=s)
-            for w in (k3, *consensus):
-                w.launches = 0
-            sweep()
-            torch.cuda.synchronize()
-            per_sweep = k3.launches
-            consensus_per_sweep = {w.__name__: w.launches for w in consensus}
+                def body(bufs):
+                    return tile_shard._tile_sweep(mesh, route, opts=sopts, s=s, bufs=bufs)
+            check(graph.replays(mesh), f"{label}: the mesh's route is not the graph's")
+            captured = graph.SweepGraph(mesh, route, body)
+            sweep = captured.replay
+            # The captured sweep's launches, counted once per replay.
+            per_sweep = captured.launches["fused_chunk_increments"]
+            consensus_per_sweep = {key: captured.launches[key] for key in CONSENSUS_KEYS}
             # The kernels a sweep may launch: each chunk's K3 calls and
             # consensus launches, and on the tile axis each rank's halo copy
             # (the torch.cat of its extended block).
@@ -882,16 +1025,22 @@ def sharded_sweep_phase(problems: dict, digests: dict, entry: dict, smi: str) ->
             ms, walls, enqueues = wall_ms(sweep)
             verdict = comm.consensus_schedule_check(mesh.schedule)
             paced = complete_trace(lambda: trace_overlap(sweep), per_sweep)
-            gated = complete_trace(lambda: gated_trace(sweep, ms), per_sweep)
+            gated = complete_trace(lambda: gated_trace(sweep, ms, chunks=n_chunks), per_sweep)
             unsynced = no_sync(sweep)
             base = digests[label]
+            entry_res = sharded_run(problem, led, tile, options, stale)
+            entry_digest, entry_graph = result_digest(entry_res), entry_res.replay
+            host_digest = result_digest(host_walked_run(problem, led, tile, options, stale))
             repeats = [result_digest(sharded_run(problem, led, tile, options, stale))
-                       for _ in range(SHARDED_REPEATS - 1)]
+                       for _ in range(SHARDED_REPEATS - 2)]
             serialized = result_digest(sharded_run(problem, led, tile, options, stale,
                                                    serialize_streams=True))
             emit({"phase": "sharded_sweep", "case": label, "mesh": [led, tile],
                   "problem": name, "stale_consensus": stale, "options": options,
-                  "ranks_share_one_card": True, "k3_launches_per_sweep": per_sweep,
+                  "ranks_share_one_card": True, "graph": entry_graph is not None,
+                  "capture_ms": captured.capture_ms,
+                  "entry_capture_ms": entry_graph and entry_graph["capture_ms"],
+                  "k3_launches_per_sweep": per_sweep,
                   "consensus_launches_per_sweep": consensus_per_sweep, "chunks": n_chunks,
                   "kernels_per_sweep": gated["kernels"],
                   "kernels_per_chunk": gated["kernels"] / n_chunks,
@@ -905,17 +1054,26 @@ def sharded_sweep_phase(problems: dict, digests: dict, entry: dict, smi: str) ->
                   "entry_point": entry[label],
                   "consensus_schedule_check": verdict,
                   "no_host_sync": unsynced, "digest": base,
-                  "repeats_bitwise": sum(r == base for r in repeats) + 1,
+                  "graph_digest": entry_digest, "host_walked_digest": host_digest,
+                  "repeats_bitwise": sum(r == base for r in (entry_digest, *repeats)) + 1,
                   "serialized_bitwise": serialized == base, "gpu": smi})
+            check(entry_graph is not None and entry[label]["graph"],
+                  f"{label}: the entry point walked the host loop on one card")
+            check(entry_digest == base == host_digest,
+                  f"{label}: graph route {entry_digest}, digests line {base}, host-walked "
+                  f"route {host_digest}")
+            check(max(enqueues) < 1.0,
+                  f"{label}: a replay took {max(enqueues)} ms of the host to enqueue")
             check(verdict["issued_before_compute"] is stale,
                   f"{label}: issued before compute is not {stale}: {verdict}")
             check(gated["gate_held"],
                   f"{label}: the gate ended before the sweep was enqueued: {gated}")
             check(per_sweep > 0 and paced["k3_kernels"] == gated["k3_kernels"] == per_sweep,
-                  f"{label}: K3 launched {per_sweep} times, traced {paced['k3_kernels']} "
+                  f"{label}: K3 captured {per_sweep} times, traced {paced['k3_kernels']} "
                   f"and {gated['k3_kernels']}")
-            check(ran_only({"K1": 0, "K2": 0, "K3": per_sweep, **consensus_per_sweep}, "K3",
-                           tile),
+            check(ran_only({"K1": captured.launches["fused_epry_chunked"],
+                            "K2": captured.launches["fused_epry_sweep"], "K3": per_sweep,
+                            **consensus_per_sweep}, "K3", tile),
                   f"{label}: consensus launches {consensus_per_sweep}")
             check(0 < gated["kernels"] <= kernel_bound and paced["kernels"] <= kernel_bound,
                   f"{label}: {gated['kernels']} and {paced['kernels']} kernels traced in a "

@@ -133,6 +133,9 @@ class ReconResult:
     obj_f_centered: np.ndarray # high-res spectrum, centered frame
     pupil: np.ndarray          # recovered pupil, DC-at-corner frame
     metrics: dict[str, np.ndarray]
+    # A sharded run that replayed one captured sweep: the graph's figures
+    # (parallel.graph.run_sweeps); None for every other run.
+    replay: dict | None = None
 
     @property
     def obj_f(self) -> np.ndarray:

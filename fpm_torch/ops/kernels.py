@@ -76,7 +76,10 @@ staged matrices, frame buffers, shared memory, the layout of Z) and in
 (tests only; 0 = let the entry point choose) makes it take 1, 2, 4 or 8
 blocks per LED, or raise; ``<wrapper>.force_z_layout`` (tests only; 0 =
 choose: Z whole in every block where that fits) takes Z whole (1) or cut by
-rows across the cluster (2), or raises.
+rows across the cluster (2), or raises. A launch captured into a CUDA graph
+is counted where the capture's owner says (``fpm_torch.parallel.graph``: once
+per replay): :func:`launch_counts` and :func:`add_launches` read and move
+every wrapper's count.
 
 What bounds the kernels on an H100, and what the design does about it: see
 ``csrc/epry_common.cuh`` (the operations of four small complex DFT
@@ -1163,6 +1166,24 @@ def _check_state(dev, *ts):
                              f"the kernels take contiguous float32 planes on {dev}")
 
 
+def _check_out(dev, *pairs):
+    """Caller-owned outputs ``(tensor, shape)``: contiguous float32 of that
+    shape on ``dev`` (None: not written)."""
+    for t, shape in pairs:
+        if t is not None and (t.device != dev or t.dtype != torch.float32
+                              or not t.is_contiguous() or t.shape != torch.Size(shape)):
+            raise ValueError(f"consensus output {t.dtype} {tuple(t.shape)} on {t.device}: "
+                             f"the kernels write contiguous float32 {tuple(shape)} on {dev}")
+
+
+def _copied(out, got):
+    """The plain version's results ``got`` copied into the caller's
+    ``out`` (None entries stay None), or ``got`` where ``out`` is None."""
+    if out is None:
+        return got
+    return tuple(None if g is None else o.copy_(g) for o, g in zip(out, got))
+
+
 def _count(wrapper, launched: ctypes.c_int) -> None:
     with _counter_lock:
         wrapper.launches += launched.value
@@ -1175,13 +1196,15 @@ def _metric_lists(resid, upd, dev, metrics):
             _payload_list(upd, torch.Size([]), dev, "update norm")[0])
 
 
-def _consensus_led_cuda(o, pc, ds, vs, resid, upd, acc, *, wire, scale, metrics, scratch):
+def _consensus_led_cuda(o, pc, ds, vs, resid, upd, acc, *, wire, scale, metrics, scratch, out):
     dev = o.device
     _check_state(dev, o, pc, *(() if acc is None else (acc,)))
     d, d_bf16 = _payload_list(ds, o.shape, dev, "object increments")
     v, v_bf16 = _payload_list(vs, pc.shape, dev, "pupil increments")
     r, u = _metric_lists(resid, upd, dev, metrics)
-    o_out, pc_out, omax, acc_out = _empty(dev, o.shape, pc.shape, (), (2,))
+    o_out, pc_out, omax, acc_out = out or _empty(dev, o.shape, pc.shape, (), (2,))
+    _check_out(dev, (o_out, o.shape), (pc_out, pc.shape), (omax, ()),
+               (acc_out if metrics else None, (2,)))
     acc_out = acc_out if metrics else None
     lib = build.library("epry_consensus")
     launched = ctypes.c_int(0)
@@ -1197,7 +1220,7 @@ def _consensus_led_cuda(o, pc, ds, vs, resid, upd, acc, *, wire, scale, metrics,
     return o_out, pc_out, omax, acc_out
 
 
-def _consensus_tile_object_cuda(blocks, *, s, hops, wire, scratch):
+def _consensus_tile_object_cuda(blocks, *, s, hops, wire, scratch, out):
     dev = blocks[0][0].device
     groups, own, halo = [], [], []
 
@@ -1221,8 +1244,12 @@ def _consensus_tile_object_cuda(blocks, *, s, hops, wire, scratch):
         raise ValueError("consensus_tile_object: groups of different sizes")
     like = groups[0][1][0].shape
     lists = [_payload_list(ts, like, dev, "object increments") for _, ts in groups]
-    views = _empty(dev, *(shape for o, _, _ in blocks for shape in (o.shape, ())))
-    outs = list(zip(views[0::2], views[1::2]))
+    if out is None:
+        views = _empty(dev, *(shape for o, _, _ in blocks for shape in (o.shape, ())))
+        out = list(zip(views[0::2], views[1::2]))
+    outs = list(out)
+    _check_out(dev, *((t, shape) for (o, _, _), pair in zip(blocks, outs)
+                      for t, shape in zip(pair, (o.shape, ()))))
     lib = build.library("epry_consensus")
     launched = ctypes.c_int(0)
     err = lib.fpm_consensus_tile_object(
@@ -1239,13 +1266,14 @@ def _consensus_tile_object_cuda(blocks, *, s, hops, wire, scratch):
     return outs
 
 
-def _consensus_tile_pupil_cuda(pc, vs, maxima, resid, upd, acc, *, wire, scale, metrics):
+def _consensus_tile_pupil_cuda(pc, vs, maxima, resid, upd, acc, *, wire, scale, metrics, out):
     dev = pc.device
     _check_state(dev, pc, *(() if acc is None else (acc,)))
     v, v_bf16 = _payload_list(vs, pc.shape, dev, "pupil increments")
     r, u = _metric_lists(resid, upd, dev, metrics)
     m, _ = _payload_list(maxima, torch.Size([]), dev, "max|O|")
-    pc_out, omax, acc_out = _empty(dev, pc.shape, (), (2,))
+    pc_out, omax, acc_out = out or _empty(dev, pc.shape, (), (2,))
+    _check_out(dev, (pc_out, pc.shape), (omax, ()), (acc_out if metrics else None, (2,)))
     acc_out = acc_out if metrics else None
     lib = build.library("epry_consensus")
     launched = ctypes.c_int(0)
@@ -1261,57 +1289,81 @@ def _consensus_tile_pupil_cuda(pc, vs, maxima, resid, upd, acc, *, wire, scale, 
 
 
 def consensus_led(o, pc, ds, vs, resid=(), upd=(), acc=None, *, wire=None, scale=1.0,
-                  metrics=True, scratch=None):
+                  metrics=True, scratch=None, out=None):
     """The LED axis's consensus of one chunk on one card: ``o`` (2, R, NL)
     and ``pc`` (2, b, b) float32 planes, the state the card's ranks share;
     ``ds``, ``vs`` the group's object and pupil payloads in rank order;
     ``resid``, ``upd`` its metric payloads (one value each) and ``acc`` the
     sweep's (2,) metric sums so far (None on the first chunk; ``metrics``
-    False: not this card's to keep). Returns new ``(o', pc', max|o'|,
-    acc')``. On the card one launch on the current stream, with
-    ``scratch`` (:class:`ConsensusScratch`); on the CPU
-    :func:`consensus_led_plain`."""
+    False: not this card's to keep). Returns ``(o', pc', max|o'|, acc')``:
+    new tensors, or ``out``, the caller's four (``acc'`` None without
+    ``metrics``), which must not be ``o``, ``pc`` or ``acc``. On the card one
+    launch on the current stream, with ``scratch`` (:class:`ConsensusScratch`);
+    on the CPU :func:`consensus_led_plain`."""
     if o.is_cuda:
         return _consensus_led_cuda(o, pc, ds, vs, resid, upd, acc, wire=wire, scale=scale,
-                                   metrics=metrics, scratch=scratch)
+                                   metrics=metrics, scratch=scratch, out=out)
     if o.device.type == "cpu":
-        return consensus_led_plain(o, pc, ds, vs, resid, upd, acc, wire=wire, scale=scale,
-                                   metrics=metrics)
+        return _copied(out, consensus_led_plain(o, pc, ds, vs, resid, upd, acc, wire=wire,
+                                                scale=scale, metrics=metrics))
     raise ValueError(f"no kernel for device {o.device}")
 
 
-def consensus_tile_object(blocks, *, s, hops=(), wire=None, scratch=None):
+def consensus_tile_object(blocks, *, s, hops=(), wire=None, scratch=None, out=None):
     """The tile axis's object step of one chunk on one card, for each row
     tile the card holds: ``blocks`` a list of ``(o, ds, halos)`` as
     :func:`consensus_tile_object_plain` takes them (float32 planes, the
-    payloads f32 or bf16). Returns ``[(o', max|o'|)]``. On the card one
-    launch for all the tiles, on the current stream; on the CPU the plain
-    version, tile by tile."""
+    payloads f32 or bf16). Returns ``[(o', max|o'|)]``: new tensors, or
+    ``out``, the caller's pair for each tile. On the card one launch for all
+    the tiles, on the current stream; on the CPU the plain version, tile by
+    tile."""
     if blocks[0][0].is_cuda:
-        return _consensus_tile_object_cuda(blocks, s=s, hops=hops, wire=wire, scratch=scratch)
+        return _consensus_tile_object_cuda(blocks, s=s, hops=hops, wire=wire, scratch=scratch,
+                                           out=out)
     if blocks[0][0].device.type == "cpu":
-        return [consensus_tile_object_plain(o, ds, halos, s=s, hops=hops, wire=wire)
-                for o, ds, halos in blocks]
+        got = [consensus_tile_object_plain(o, ds, halos, s=s, hops=hops, wire=wire)
+               for o, ds, halos in blocks]
+        return got if out is None else [_copied(o, g) for o, g in zip(out, got)]
     raise ValueError(f"no kernel for device {blocks[0][0].device}")
 
 
 def consensus_tile_pupil(pc, vs, maxima, resid=(), upd=(), acc=None, *, wire=None,
-                         scale=1.0, metrics=True):
+                         scale=1.0, metrics=True, out=None):
     """The tile axis's pupil step of one chunk on one card: ``maxima`` the
     tiles' max|O| in tile order (what the pmax gathered), the rest as
-    :func:`consensus_led`'s. Returns ``(pc', max|O|, acc')``. On the card
-    one launch on the current stream; on the CPU
+    :func:`consensus_led`'s. Returns ``(pc', max|O|, acc')``, or ``out``. On
+    the card one launch on the current stream; on the CPU
     :func:`consensus_tile_pupil_plain`."""
     if pc.is_cuda:
         return _consensus_tile_pupil_cuda(pc, vs, maxima, resid, upd, acc, wire=wire,
-                                          scale=scale, metrics=metrics)
+                                          scale=scale, metrics=metrics, out=out)
     if pc.device.type == "cpu":
-        return consensus_tile_pupil_plain(pc, vs, maxima, resid, upd, acc, wire=wire,
-                                          scale=scale, metrics=metrics)
+        return _copied(out, consensus_tile_pupil_plain(pc, vs, maxima, resid, upd, acc,
+                                                       wire=wire, scale=scale, metrics=metrics))
     raise ValueError(f"no kernel for device {pc.device}")
 
 
-for _wrapper in (consensus_led, consensus_tile_object, consensus_tile_pupil):
+# Every wrapper that counts its launches.
+COUNTED = (fused_epry_sweep, fused_epry_chunked, fused_chunk_increments, consensus_led,
+           consensus_tile_object, consensus_tile_pupil)
+
+
+def launch_counts() -> dict[str, int]:
+    """Every wrapper's ``launches`` by its name."""
+    with _counter_lock:
+        return {w.__name__: w.launches for w in COUNTED}
+
+
+def add_launches(counts: dict[str, int], times: int = 1) -> None:
+    """Add ``times`` × ``counts`` (by wrapper name) to the wrappers'
+    ``launches``: a captured sweep's launches once per replay, or (times -1)
+    the capture's own, which launched nothing."""
+    with _counter_lock:
+        for w in COUNTED:
+            w.launches += times * counts.get(w.__name__, 0)
+
+
+for _wrapper in COUNTED:
     _wrapper.launches = 0
 for _wrapper in (fused_epry_sweep, fused_epry_chunked, fused_chunk_increments):
     _wrapper.launches = 0

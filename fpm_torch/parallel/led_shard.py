@@ -23,13 +23,19 @@ With ``stale_consensus`` chunk c's consensus runs while chunk c+1's K3 runs
 (:func:`pipelined_chunks`). On the kernel route with complex64 state the
 state stays in K3's operands for the whole run (:class:`PlanesRoute`) and
 goes back to complex only for the result.
+
+The sweep is a body over buffers: with none (the host loop: the CPU, several
+processes) every chunk makes fresh tensors; over ``parallel.graph``'s
+:class:`~fpm_torch.parallel.graph.SweepBuffers` it writes only into tensors
+made at its first call (:func:`sweep_outputs`, :func:`next_slot`), and
+``parallel.graph`` captures it once into a CUDA graph where every rank is a
+CUDA rank of this process.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
 from ..config import FPMConfig
@@ -51,6 +57,7 @@ from ..models.epry import (
     state_to_numpy,
 )
 from ..ops import crop_patch, fft2, fftshift2d, ifft2, ifftshift2d, kernels, paste_patch_add
+from .graph import run_sweeps
 from .mesh import Mesh, make_mesh, unzip
 
 
@@ -125,21 +132,36 @@ class ComplexRoute:
     def n_chunks(self) -> int:
         return next(a.shape[0] for row in self.inputs[1] for a in row if a is not None)
 
-    def increments(self, block, pupil, support, amps, starts, mask, *, c):
-        return _chunk_increments(block, pupil, support, amps[c], starts[c], mask[c],
-                                 opts=self.opts)
+    def increments(self, block, pupil, support, amps, starts, mask, *, c, out=None):
+        return kernels._copied(out, _chunk_increments(block, pupil, support, amps[c], starts[c],
+                                                      mask[c], opts=self.opts))
 
-    def consensus_led(self, card, *args, **kw):
-        return kernels.consensus_led_plain(*args, wire=self.wire,
-                                           scale=self.opts.pupil_step_scale, **kw)
+    def increments_out(self, block, pupil):
+        """Buffers of :meth:`increments`' (d, v, mets) for ``block``: K3's
+        planes on the kernel route, else complex like the state."""
+        if not self.opts.use_pallas:
+            return (torch.empty_like(block), torch.empty_like(pupil),
+                    block.new_empty(2, dtype=self.opts.rdtype))
+        n = self.opts.np_size
+        return kernels._empty(block.device, (2, *block.shape), (2, n, n), (2,))
 
-    def consensus_tile_object(self, card, blocks, **kw):
-        return [kernels.consensus_tile_object_plain(o, ds, halos, wire=self.wire, **kw)
-                for o, ds, halos in blocks]
+    @property
+    def metrics_dtype(self):
+        """The dtype of the metric payloads and of the sweep's sums."""
+        return torch.float32 if self.opts.use_pallas else self.opts.rdtype
 
-    def consensus_tile_pupil(self, card, *args, **kw):
-        return kernels.consensus_tile_pupil_plain(*args, wire=self.wire,
-                                                  scale=self.opts.pupil_step_scale, **kw)
+    def consensus_led(self, card, *args, out=None, **kw):
+        return kernels._copied(out, kernels.consensus_led_plain(
+            *args, wire=self.wire, scale=self.opts.pupil_step_scale, **kw))
+
+    def consensus_tile_object(self, card, blocks, out=None, **kw):
+        got = [kernels.consensus_tile_object_plain(o, ds, halos, wire=self.wire, **kw)
+               for o, ds, halos in blocks]
+        return got if out is None else [kernels._copied(o, g) for o, g in zip(out, got)]
+
+    def consensus_tile_pupil(self, card, *args, out=None, **kw):
+        return kernels._copied(out, kernels.consensus_tile_pupil_plain(
+            *args, wire=self.wire, scale=self.opts.pupil_step_scale, **kw))
 
     def complex_state(self, obj, pupil, omax, frame):
         """The state of one rank as complex tensors (``obj``: its spectrum,
@@ -201,13 +223,16 @@ class PlanesRoute(ComplexRoute):
                          for card, _ in mesh.cards() if card.type == "cuda"}
         return route
 
-    def increments(self, block, pc, sc, amps, starts, valid, scratch, *, c):
+    def increments(self, block, pc, sc, amps, starts, valid, scratch, *, c, out=None):
         o = self.opts
         return kernels.chunk_increments_into(
-            block, pc, sc, amps[c], starts[c], valid[c], out=kernels.k3_outputs(block, pc),
+            block, pc, sc, amps[c], starts[c], valid[c], out=out or self.increments_out(block, pc),
             scratch=scratch, stream=kernels._current_stream(block.device)
             if block.is_cuda else None, lo=self.lo, eps=o.eps, delta1=o.delta1,
             delta2=o.delta2, collect_metrics=o.collect_metrics, dft_precision=o.dft_precision)
+
+    def increments_out(self, block, pc):
+        return kernels.k3_outputs(block, pc)
 
     def consensus_led(self, card, *args, **kw):
         return kernels.consensus_led(*args, wire=self.wire, scale=self.opts.pupil_step_scale,
@@ -262,6 +287,80 @@ def set_state(mesh: Mesh, grid, ranks, value) -> None:
         grid[li][ti] = value
 
 
+def sweep_outputs(mesh: Mesh, bufs, key, make):
+    """The grid of each local rank's buffers under ``(*key, rank)``, made
+    by ``make(li, ti)``, or of None without ``bufs`` (fresh tensors)."""
+    if bufs is None:
+        return mesh.grid(lambda li, ti: None)
+    return mesh.grid(lambda li, ti: bufs.get((*key, (li, ti)), lambda: make(li, ti)))
+
+
+# A sweep over buffers made once keeps three slots of each state (spectrum
+# rows of a tile, pupil) on every card: slot 0 holds the state the sweep
+# starts from and ends in, and chunk c's consensus writes slot
+# :func:`state_slot` (c): never the slot the previous chunk wrote, which
+# under the stale consensus chunk c+1's K3 reads meanwhile. Each chunk's
+# K3 outputs, max|O| and metric sums have a set for each chunk parity, for
+# the same reason.
+
+
+def state_slot(c: int, n_chunks: int) -> int:
+    """The slot chunk ``c``'s consensus writes: the last chunk slot 0,
+    the chunks before it 1, 0, 1, ... back to chunk 0, which writes slot 2
+    where that would be slot 0, the one it reads (an odd chunk count); a
+    sweep of one chunk writes slot 1 and is copied back
+    (:func:`back_to_start`)."""
+    slot = (n_chunks - 1 - c) % 2
+    if c == 0 and slot == 0:
+        return 2 if n_chunks > 1 else 1
+    return slot
+
+
+def start_state(mesh: Mesh, route, bufs) -> None:
+    """Over ``bufs``: every rank reads its card's slot 0 of its tile's
+    spectrum rows and of the pupil (at the first call the state of the
+    card's first rank of the tile; the ranks' states are equal)."""
+    if bufs is None:
+        return
+    for card, ranks in mesh.cards():
+        for li, ti in ranks:
+            first = next(r for r in ranks if r[1] == ti)
+            route.obj[li][ti] = bufs.get(("obj", card, ti, 0),
+                                         lambda f=first: route.obj[f[0]][f[1]])
+            route.pupil[li][ti] = bufs.get(("pupil", card, 0),
+                                           lambda f=ranks[0]: route.pupil[f[0]][f[1]])
+
+
+def next_slot(bufs, key, c: int, n_chunks: int, like):
+    """Over ``bufs``: the slot of the state under ``key`` (made like
+    ``like``) that chunk ``c`` of ``n_chunks`` writes (:func:`state_slot`)."""
+    return bufs.get((*key, state_slot(c, n_chunks)), lambda: torch.empty_like(like))
+
+
+def parity_buffer(bufs, key, c: int, shape, dtype, device):
+    """Over ``bufs``: the buffer under ``key`` of chunk ``c``'s parity."""
+    return bufs.get((*key, c % 2), lambda: torch.empty(shape, dtype=dtype, device=device))
+
+
+def back_to_start(mesh: Mesh, route, bufs, n_chunks: int) -> None:
+    """Over ``bufs``, after a sweep of one chunk: each card's state copied
+    from slot 1 back into slot 0 on its comm lane (after its consensus),
+    and the ranks pointed at it."""
+    if bufs is None or n_chunks > 1:
+        return
+    for card, ranks in mesh.cards():
+        with mesh.on_card(None, card, "state back to slot 0"):
+            for grid, key in ((route.obj, lambda ti: ("obj", card, ti)),
+                              (route.pupil, lambda ti: ("pupil", card))):
+                copied = set()
+                for li, ti in ranks:
+                    start = bufs.get((*key(ti), 0), None)
+                    if id(start) not in copied:
+                        start.copy_(grid[li][ti])
+                        copied.add(id(start))
+                    grid[li][ti] = start
+
+
 def pipelined_chunks(n_chunks: int, increments, reduce, apply, stale: bool):
     """The chunk loop of ``fpm_tpu``'s scan body, in the order its work is
     enqueued. Fresh: ``increments(c)``, ``reduce(c, ·)`` (the consensus
@@ -284,19 +383,24 @@ def pipelined_chunks(n_chunks: int, increments, reduce, apply, stale: bool):
         apply(c, red)
 
 
-def _sharded_sweep(mesh: Mesh, route: ComplexRoute, *, opts: EPRYOptions):
+def _sharded_sweep(mesh: Mesh, route: ComplexRoute, *, opts: EPRYOptions, bufs=None):
     """One full sweep: chunks in order, each chunk's LEDs split over the
     ``led`` axis (each rank's inputs hold its slices). Updates ``route``'s
     state grids and returns the sweep's (2,) metric sums. A chunk's K3
-    waits on the consensus step that made the state it reads."""
+    waits on the consensus step that made the state it reads. ``bufs``
+    (``parallel.graph.SweepBuffers``): write only into its buffers."""
     wire = _wire_dtype(opts)
     group = [(li, 0) for li in range(mesh.shape["led"])]
     state = {"steps": (), "mets": None}
-    mesh.begin_sweep(route.obj, route.pupil)
+    start_state(mesh, route, bufs)
+    mesh.begin_sweep(route.obj, route.pupil, bufs=bufs)
 
     def increments(c):
-        out, steps = mesh.each(c, "increments", lambda *a: route.increments(*a, c=c),
-                               route.obj, route.pupil, *route.inputs, waits=state["steps"])
+        outs = sweep_outputs(mesh, bufs, ("increments", c % 2), lambda li, ti: route.increments_out(
+            route.obj[li][ti], route.pupil[li][ti]))
+        out, steps = mesh.each(c, "increments", lambda *a: route.increments(*a[:-1], c=c,
+                                                                          out=a[-1]),
+                               route.obj, route.pupil, *route.inputs, outs, waits=state["steps"])
         return (*unzip(out, 3), steps)
 
     def reduce(c, inc):
@@ -313,10 +417,16 @@ def _sharded_sweep(mesh: Mesh, route: ComplexRoute, *, opts: EPRYOptions):
             home = card == mesh.home
             with mesh.on_card(c, card, "consensus", [p.step for p in red]) as idx:
                 first = ranks[0]
+                o_in, p_in = route.obj[first[0]][first[1]], route.pupil[first[0]][first[1]]
                 o, p, m, acc = route.consensus_led(
-                    card, route.obj[first[0]][first[1]], route.pupil[first[0]][first[1]],
-                    *([g[card][r] for r in group] for g in got),
-                    state["mets"] if home else None, metrics=home)
+                    card, o_in, p_in, *([g[card][r] for r in group] for g in got),
+                    state["mets"] if home else None, metrics=home,
+                    out=None if bufs is None else (
+                        next_slot(bufs, ("obj", card, 0), c, route.n_chunks, o_in),
+                        next_slot(bufs, ("pupil", card), c, route.n_chunks, p_in),
+                        parity_buffer(bufs, ("omax", card), c, (), route.opts.rdtype, card),
+                        parity_buffer(bufs, ("metrics", card), c, (2,), route.metrics_dtype,
+                                      card) if home else None))
                 for grid, value in ((route.obj, o), (route.pupil, p), (route.omax, m)):
                     set_state(mesh, grid, ranks, value)
                 if home:
@@ -325,6 +435,7 @@ def _sharded_sweep(mesh: Mesh, route: ComplexRoute, *, opts: EPRYOptions):
         state["steps"] = steps
 
     pipelined_chunks(route.n_chunks, increments, reduce, apply, opts.stale_consensus)
+    back_to_start(mesh, route, bufs, route.n_chunks)
     mesh.end_sweep(route.obj, route.pupil, route.omax, tensors=[state["mets"]])
     return state["mets"]
 
@@ -395,22 +506,15 @@ def prepare_led_sharded(images, geom: LEDGeometry, cfg: FPMConfig, mesh: Mesh,
     return route, opts
 
 
-def run_sweeps(sweep, iterations: int):
-    """``iterations`` sweeps of ``sweep() -> mets``; returns the
-    (iterations, 2) metrics array (the one synchronisation with the card,
-    after the last sweep)."""
-    per_sweep = [sweep() for _ in range(iterations)]
-    return (torch.stack(per_sweep).cpu().numpy() if per_sweep
-            else np.zeros((0, 2), np.float64))
-
-
-def result_from(obj_f: torch.Tensor, pupil: torch.Tensor, metrics) -> ReconResult:
-    """The :class:`ReconResult` of a full centered spectrum and a pupil."""
+def result_from(obj_f: torch.Tensor, pupil: torch.Tensor, metrics, replay=None) -> ReconResult:
+    """The :class:`ReconResult` of a full centered spectrum and a pupil,
+    with ``graph.run_sweeps``' metrics and replay figures."""
     obj_crop = ifft2(ifftshift2d(obj_f))
     obj_np, pupil_np = state_to_numpy(obj_f, pupil)
     return ReconResult(
         obj_crop=obj_crop.cpu().numpy(), obj_f_centered=obj_np, pupil=pupil_np,
-        metrics={"data_residual": metrics[:, 0], "update_norm": metrics[:, 1]})
+        metrics={"data_residual": metrics[:, 0], "update_norm": metrics[:, 1]},
+        replay=replay)
 
 
 def reconstruct_led_sharded(images, geom: LEDGeometry, cfg: FPMConfig,
@@ -422,14 +526,18 @@ def reconstruct_led_sharded(images, geom: LEDGeometry, cfg: FPMConfig,
     ``mesh`` defaults to one rank per visible CUDA device (and raises without
     one); pass ``make_mesh(..., devices=["cpu"] * n)`` to run on the CPU.
     ``initial_state`` is an optional ``(obj_f_centered, pupil)`` pair — complex
-    arrays or (2, ...) planes, of either package — to resume from.
+    arrays or (2, ...) planes, of either package — to resume from. Where
+    every rank is a CUDA rank of this process one sweep is captured into a
+    CUDA graph and replayed (``parallel.graph``); else the host walks the
+    chunk loop.
     """
     if mesh is None:
         mesh = make_mesh(tile=1)
     route, opts = prepare_led_sharded(images, geom, cfg, mesh, iterations=iterations,
                                       dtype=dtype, initial_state=initial_state,
                                       **opt_overrides)
-    metrics = run_sweeps(lambda: _sharded_sweep(mesh, route, opts=opts), opts.iterations)
+    metrics, replay = run_sweeps(mesh, route, lambda bufs: _sharded_sweep(
+        mesh, route, opts=opts, bufs=bufs), opts.iterations)
     # Every rank holds the whole spectrum, the same bits on every rank: each
     # process returns the global result from its own first rank.
-    return result_from(*route.final_state(mesh, mesh.local(route.obj)), metrics)
+    return result_from(*route.final_state(mesh, mesh.local(route.obj)), metrics, replay)

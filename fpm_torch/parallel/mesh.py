@@ -52,6 +52,13 @@ tested there. A tensor made on one stream and read on another is handed to
 the reader's stream with ``Tensor.record_stream``, so that the caching
 allocator does not give its memory to a later chunk while the reader may
 still use it.
+
+A sweep over *buffers made once* (``begin_sweep(..., bufs=...)``; the
+sweeps of ``parallel.graph``, which captures one into a CUDA graph) writes
+only into tensors that live for the whole run: nothing is handed over, the
+streams fork from and join into one stream (:attr:`Mesh.home`'s current
+stream, the capturing stream under a capture), and a payload that moves
+between cards lands in a buffer of the mesh made at its first move.
 """
 
 from __future__ import annotations
@@ -172,7 +179,8 @@ class Mesh:
         self.serialize_streams = serialize_streams
         self.schedule: list[Step] = []
         self._events: dict[int, list] = {}
-        self._received: dict = {}      # collect's buffers for payloads from another device
+        self._received: dict = {}      # buffers of payloads moved between cards (_landed)
+        self._bufs = None              # the sweep's buffers made once (begin_sweep), or None
         self._pool: list = []          # events, reused sweep after sweep (_recorded)
         self._used = 0
         self._needed: dict = {}        # collect's default needs by axes
@@ -314,8 +322,9 @@ class Mesh:
 
     def _hand_over(self, tensor, lane: str | None = None, rank=None) -> None:
         """``tensor`` is read on ``lane`` (its card's stream of it) or on
-        ``rank``'s stream: keep its memory from the allocator until then."""
-        if tensor is None or not tensor.is_cuda:
+        ``rank``'s stream: keep its memory from the allocator until then
+        (nothing to keep in a sweep over buffers made once)."""
+        if tensor is None or not tensor.is_cuda or self._bufs is not None:
             return
         stream = (self._lane_streams[lane].get(tensor.device) if lane is not None
                   else self._rank_streams.get(rank))
@@ -348,25 +357,35 @@ class Mesh:
         for rank in ranks:
             self._hand_over(tensor, rank=rank)
 
-    def begin_sweep(self, *grids) -> None:
+    def _origin(self, stream):
+        """The stream a sweep's ``stream`` forks from and joins into: its
+        card's current stream, or in a sweep over buffers made once
+        :attr:`home`'s (under a capture the capturing stream, so that every
+        card's streams join the capture)."""
+        return torch.cuda.current_stream(self.home if self._bufs is not None else stream.device)
+
+    def begin_sweep(self, *grids, bufs=None) -> None:
         """Start a sweep's schedule: the rank and lane streams wait on the
         work enqueued on each card's current stream (the set-up that made
         ``grids``), and each rank's tensors of ``grids`` are handed to its
-        stream."""
-        self.schedule, self._events, self._used = [], {}, 0
+        stream. With ``bufs`` (``parallel.graph.SweepBuffers``) the sweep
+        writes only into buffers made once: the streams fork from
+        :attr:`home`'s current stream and nothing is handed over."""
+        self.schedule, self._events, self._used, self._bufs = [], {}, 0, bufs
         for stream in self.streams():
-            stream.wait_stream(torch.cuda.current_stream(stream.device))
+            stream.wait_stream(self._origin(stream))
         for grid in grids:
             for li, ti in self.local_ranks:
                 self._hand_over(grid[li][ti], rank=(li, ti))
 
     def end_sweep(self, *grids, tensors=()) -> None:
-        """End a sweep: each card's current stream waits on every rank and
-        lane stream, and takes over the tensors of ``grids`` and
-        ``tensors``."""
+        """End a sweep: each card's current stream (with buffers made once,
+        :attr:`home`'s) waits on every rank and lane stream, and takes over
+        the tensors of ``grids`` and ``tensors``."""
         for stream in self.streams():
-            torch.cuda.current_stream(stream.device).wait_stream(stream)
-        if not self._rank_streams:
+            self._origin(stream).wait_stream(stream)
+        fixed, self._bufs = self._bufs is not None, None
+        if not self._rank_streams or fixed:
             return
         held = [grid[li][ti] for grid in grids for li, ti in self.local_ranks]
         for t in (*held, *tensors):
@@ -482,9 +501,6 @@ class Mesh:
         axes, _ = self._groups(axes)
         cards = self.cards()
 
-        def cast(x):
-            return x if wire_dtype is None else x.to(wire_dtype)
-
         def start():
             mine = {}
             for li, ti in self.local_ranks:
@@ -492,16 +508,13 @@ class Mesh:
                 mine[(li, ti)] = grid[li][ti]
             if self.transport is None:
                 return mine
-            return self.transport.start_all_gather(self, {r: cast(x) for r, x in mine.items()})
+            return self.transport.start_all_gather(
+                self, {r: x if wire_dtype is None else x.to(wire_dtype) for r, x in mine.items()})
 
         def arrive(r, x, card):
             if x.device == card:
                 return x
-            x = cast(x)
-            key = (step.get("what"), r, card, x.shape, x.dtype)
-            if key not in self._received:
-                self._received[key] = torch.empty(x.shape, dtype=x.dtype, device=card)
-            return self._received[key].copy_(x, non_blocking=True)
+            return self._landed((step.get("what"), r), x, card, wire_dtype or x.dtype)
 
         def finish(started):
             values = started if self.transport is None else self.transport.finish(started)
@@ -518,6 +531,24 @@ class Mesh:
             return Pending(idx, grid=finish(start()))
         step.setdefault("wait", False)
         return self._collective(op, axes, payload, start, finish, lane=lane, **step)
+
+    def _landed(self, key, x, device, dtype):
+        """``x`` from another card, cast to ``dtype``, in a buffer on
+        ``device`` made at its first move under ``key`` (with the shape and
+        dtype) and reused after: cast and made contiguous first in a buffer
+        on ``x``'s card where it must be, so that a move makes no tensor. The
+        copies run on the current streams (the lanes), each buffer's next
+        copy after this one's."""
+
+        def buffer(where, on):
+            full = (*key, where, on, tuple(x.shape), dtype)
+            if full not in self._received:
+                self._received[full] = torch.empty(x.shape, dtype=dtype, device=on)
+            return self._received[full]
+
+        if x.dtype != dtype or not x.is_contiguous():
+            x = buffer("sent", x.device).copy_(x)
+        return buffer("landed", device).copy_(x, non_blocking=True)
 
     def carried(self, op: str, axes, payload_like, lane="comm", chunk=None, after=(),
                 what="") -> int:
@@ -577,10 +608,19 @@ class Mesh:
                      for ti in range(self.shape["tile"])]
             return self.transport.start_exchange(self, sent, pairs)
 
+        def moved(x, li, ti):
+            dst = self.devices[li][ti]
+            if x.device == dst or self._bufs is None:
+                return x.to(dst)
+            # Over buffers made once: one pair a chunk parity, since chunk
+            # c+1's halo is sent while chunk c's may still be read.
+            return self._landed((step.get("what"), (li, ti), step.get("chunk", 0) % 2), x, dst,
+                                x.dtype)
+
         def finish(started):
             if self.transport is None:
-                out = self.grid(lambda li, ti: started[src(li, ti)[0]][src(li, ti)[1]]
-                                .to(self.devices[li][ti]))
+                out = self.grid(lambda li, ti: moved(started[src(li, ti)[0]][src(li, ti)[1]],
+                                                     li, ti))
             else:
                 received = self.transport.finish(started)
                 out = self.grid(lambda li, ti: received[(li, ti)].to(self.devices[li][ti]))

@@ -23,6 +23,12 @@ stream waits on them, so that under the stale consensus they run while
 the card computes the next chunk's K3; over gloo the copies to the host
 and the exchange wait until then, after the next chunk's K3 is enqueued.
 
+A run under a transport walks the chunk loop from Python, sweep after
+sweep, and is never captured into a CUDA graph (``parallel.graph.replays``):
+gloo's exchanges go through the host and cannot be captured, and a captured
+NCCL sweep across processes could not be checked on the one card of the
+chip smoke; capturing it is the next step (ROADMAP.md).
+
 Tested without a cluster by the two-process harness of
 ``tests/test_torch_multihost.py``.
 """

@@ -45,18 +45,23 @@ from ..models.epry import (
     _sorted_device_inputs,
     effective_chunk_size,
 )
+from .graph import run_sweeps
 from .led_shard import (
     ComplexRoute,
     _wire_dtype,
+    back_to_start,
     check_route,
     initial_grids,
     issue_metrics,
+    next_slot,
+    parity_buffer,
     pipelined_chunks,
     result_from,
     route_for,
-    run_sweeps,
     set_state,
     sharded_options,
+    start_state,
+    sweep_outputs,
 )
 from .mesh import Mesh, unzip
 
@@ -129,11 +134,11 @@ def _slab_like(route: ComplexRoute, like, rows: int, wire):
     return torch.empty((2, *x.shape[-2:]), dtype=wire, device="meta")
 
 
-def _tile_sweep(mesh: Mesh, route: ComplexRoute, *, opts: EPRYOptions, s: int):
+def _tile_sweep(mesh: Mesh, route: ComplexRoute, *, opts: EPRYOptions, s: int, bufs=None):
     """One sweep: chunks in order, each with its own halo exchange and
-    consensus round; ``opts.stale_consensus`` as in ``led_shard``. Updates
-    ``route``'s state grids (each rank's row tile) and returns the sweep's
-    (2,) metric sums.
+    consensus round; ``opts.stale_consensus`` and ``bufs`` (write only into
+    its buffers) as in ``led_shard``. Updates ``route``'s state grids (each
+    rank's row tile) and returns the sweep's (2,) metric sums.
 
     Per chunk: the forward halo (on the mesh's halo lane, from the state
     after the previous chunk's object step; the total bytes are independent
@@ -160,7 +165,9 @@ def _tile_sweep(mesh: Mesh, route: ComplexRoute, *, opts: EPRYOptions, s: int):
     # The led groups each card reads: its tiles' and, for each hop j, tile i−j's.
     needs = {card: [(li, (ti - j) % n_tile) for ti in tiles[card] for j in range(len(hops) + 1)
                     for li in range(n_led)] for card, _ in cards}
-    mesh.begin_sweep(route.obj, route.pupil)
+    real = route.opts.rdtype
+    start_state(mesh, route, bufs)
+    mesh.begin_sweep(route.obj, route.pupil, bufs=bufs)
 
     def increments(c):
         parts, halo_steps = [route.obj], []
@@ -172,12 +179,22 @@ def _tile_sweep(mesh: Mesh, route: ComplexRoute, *, opts: EPRYOptions, s: int):
             parts.append(halo.result())
             halo_steps.append(halo.step)
 
-        def one(*args):
-            ext = torch.cat(args[:len(parts)], dim=-2)          # (S+Np, Nlarge)
-            return route.increments(ext, *args[len(parts):], c=c)
+        def extended(li, ti):                                    # (S+Np, Nlarge)
+            own = route.obj[li][ti]
+            rows = sum(p[li][ti].shape[-2] for p in parts)
+            return own.new_empty((*own.shape[:-2], rows, own.shape[-1]))
 
-        out, steps = mesh.each(c, "increments", one, *parts, route.pupil, *route.inputs,
-                               waits=[*halo_steps, *state["pupil"]])
+        exts = sweep_outputs(mesh, bufs, ("extended block",), extended)
+        outs = sweep_outputs(mesh, bufs, ("increments", c % 2), lambda li, ti: route.increments_out(
+            exts[li][ti], route.pupil[li][ti]))
+
+        def one(*args):
+            k = len(parts)
+            ext = torch.cat(args[:k], dim=-2, out=args[k])
+            return route.increments(ext, *args[k + 1:-1], c=c, out=args[-1])
+
+        out, steps = mesh.each(c, "increments", one, *parts, exts, route.pupil, *route.inputs,
+                               outs, waits=[*halo_steps, *state["pupil"]])
         return (*unzip(out, 3), steps)
 
     def reduce(c, inc):
@@ -204,7 +221,11 @@ def _tile_sweep(mesh: Mesh, route: ComplexRoute, *, opts: EPRYOptions, s: int):
                            [[d[card][(li, (ti - j) % n_tile)] for li in range(n_led)]
                             for j, _, _ in hops])
                           for ti, own in zip(tiles[card], held)]
-                outs = route.consensus_tile_object(card, blocks, s=s, hops=hops)
+                outs = route.consensus_tile_object(
+                    card, blocks, s=s, hops=hops, out=None if bufs is None else [
+                        (next_slot(bufs, ("obj", card, ti), c, route.n_chunks, o),
+                         parity_buffer(bufs, ("omax", card, ti), c, (), real, card))
+                        for ti, (o, _, _) in zip(tiles[card], blocks)])
                 for own, (o, m) in zip(held, outs):
                     set_state(mesh, route.obj, own, o)
                     set_state(mesh, local_max, own, m)
@@ -219,11 +240,17 @@ def _tile_sweep(mesh: Mesh, route: ComplexRoute, *, opts: EPRYOptions, s: int):
             li0, ti0 = ranks[0]
             with mesh.on_card(c, card, "consensus pupil",
                               [pmax.step, pv.step, *(p.step for p in pm)]) as idx:
+                p_in = route.pupil[li0][ti0]
                 p, omax, acc = route.consensus_tile_pupil(
-                    card, route.pupil[li0][ti0], [v[card][r] for r in every],
+                    card, p_in, [v[card][r] for r in every],
                     [maxima[card][(li0, ti)] for ti in range(n_tile)],
                     *([m[card][r] for r in every] for m in mets),
-                    state["mets"] if home else None, metrics=home)
+                    state["mets"] if home else None, metrics=home,
+                    out=None if bufs is None else (
+                        next_slot(bufs, ("pupil", card), c, route.n_chunks, p_in),
+                        parity_buffer(bufs, ("omax", card), c, (), real, card),
+                        parity_buffer(bufs, ("metrics", card), c, (2,), route.metrics_dtype,
+                                      card) if home else None))
                 set_state(mesh, route.pupil, ranks, p)
                 set_state(mesh, route.omax, ranks, omax)
                 if home:
@@ -232,6 +259,7 @@ def _tile_sweep(mesh: Mesh, route: ComplexRoute, *, opts: EPRYOptions, s: int):
         state["pupil"] = pupil_steps
 
     pipelined_chunks(route.n_chunks, increments, reduce, apply, opts.stale_consensus)
+    back_to_start(mesh, route, bufs, route.n_chunks)
     mesh.end_sweep(route.obj, route.pupil, route.omax, tensors=[state["mets"]])
     return state["mets"]
 
@@ -295,9 +323,12 @@ def reconstruct_tile_sharded(images, geom: LEDGeometry, cfg: FPMConfig, mesh: Me
     """Reconstruction with the spectrum row-sharded over the mesh's ``tile``
     axis; the ``led`` axis splits each tile's owned LEDs. ``initial_state`` is
     an optional ``(obj_f_centered, pupil)`` pair (complex arrays or planes,
-    of either package) to resume from."""
+    of either package) to resume from. Where every rank is a CUDA rank of
+    this process one sweep is captured into a CUDA graph and replayed
+    (``parallel.graph``); else the host walks the chunk loop."""
     route, opts, s = prepare_tile_sharded(images, geom, cfg, mesh, iterations=iterations,
                                           dtype=dtype, initial_state=initial_state,
                                           **opt_overrides)
-    metrics = run_sweeps(lambda: _tile_sweep(mesh, route, opts=opts, s=s), opts.iterations)
-    return result_from(*route.final_state(mesh, _fetch(mesh, route.obj)), metrics)
+    metrics, replay = run_sweeps(mesh, route, lambda bufs: _tile_sweep(
+        mesh, route, opts=opts, s=s, bufs=bufs), opts.iterations)
+    return result_from(*route.final_state(mesh, _fetch(mesh, route.obj)), metrics, replay)

@@ -14,8 +14,12 @@ crosses a process), as 2 processes (two cards each) with ``--mesh 2 2``, and
 with ``--comm-precision bf16 --stale-consensus`` on (2 processes, ``--mesh 2
 2``) and (4 processes, ``--mesh 1 4``), and with ``--stale-consensus`` (4
 processes, ``--mesh 4 1`` and ``--mesh 2 2``); then, in this process, the
-one-process meshes (4,1) and (2,2) over the four cards, fresh and stale:
-ms per sweep and ``overlap_ms`` (``one_process_sweeps``); then
+one-process meshes (4,1) and (2,2) over the four cards, fresh and stale,
+which replay one sweep captured into a CUDA graph over the four cards: ms
+per sweep, the host's enqueue ms of a replay, the capture ms, the overlaps
+and the chunk stages of a traced sweep (the stale K3 of chunk c+1 inside
+chunk c's reduction), beside the host loop's, the two routes bitwise
+(``one_process_sweeps``); then
 ``--fov-grid 8 8 -n 10`` on the 568×568 frames over 2 and 4 processes. Each run against the same command in
 one process (its mesh's ranks round-robin over the cards): the arrays
 bitwise equal, the counted collectives equal, the transport the layout
@@ -83,60 +87,97 @@ def run_case(label, flags, n_proc, arrays, tmp, transport, gpu) -> dict:
 
 def one_process_sweeps(problem, gpu) -> None:
     """The one-process meshes over the four cards (a rank per card), fresh
-    and stale, chunk 32: ms per sweep (median of 5) and ``overlap_ms`` from a
-    gated trace (``chip_smoke.trace_overlap``: above 0 stale, 0 fresh, every
-    K3 launch seen), with ``consensus_schedule_check``. Their results are
-    those the ``run_case`` lines hold bitwise against the multi-process
-    runs."""
+    and stale, chunk 32. Every rank is a CUDA rank of this process, so the
+    run replays one sweep captured into a CUDA graph (``fpm_torch.parallel.
+    graph``; one graph over the four cards): its ms per sweep (median of
+    5), the host's enqueue ms of a replay, its capture ms, and from a gated
+    trace of a replay (every K3 launch seen) ``overlap_ms``,
+    ``consensus_overlap_ms`` and the chunk stages (``chip_smoke.
+    chunk_stages``, each card on its own clock): under the stale consensus
+    a card's K3 of chunk c+1 runs inside its reduction of chunk c
+    (``next_k3_in_reduction_ms`` above 0), fresh never (exactly 0); with
+    ``consensus_schedule_check`` on the captured schedule. Beside it the
+    host loop on the same prepared grids: its ms per sweep and the same
+    gated trace of a sweep; and the entry point's result on both routes,
+    bitwise. The graph route's results are those the ``run_case`` lines
+    hold bitwise against the multi-process runs."""
     import torch
 
-    from fpm_torch.ops import kernels
-    from fpm_torch.parallel import comm, led_shard, make_mesh, tile_shard
+    from fpm_torch.parallel import comm, graph, led_shard, make_mesh, tile_shard
 
     cfg, geom, frames = problem
+
+    def timed(fn):
+        walls, enqueues = [], []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            enqueues.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return cs.median(walls), walls, enqueues
+
     for led, tile in ONE_PROCESS_MESHES:
         for stale in (False, True):
-            mesh = make_mesh(led, tile)
-            kw = dict(use_pallas=True, chunk_size=32, stale_consensus=stale)
-            if tile == 1:
-                route, opts = led_shard.prepare_led_sharded(frames, geom, cfg, mesh, **kw)
-
-                def sweep():
-                    return led_shard._sharded_sweep(mesh, route, opts=opts)
-            else:
+            def prepared():
+                mesh = make_mesh(led, tile)
+                kw = dict(use_pallas=True, chunk_size=32, stale_consensus=stale)
+                if tile == 1:
+                    route, opts = led_shard.prepare_led_sharded(frames, geom, cfg, mesh, **kw)
+                    return mesh, route, lambda bufs: led_shard._sharded_sweep(
+                        mesh, route, opts=opts, bufs=bufs)
                 route, opts, s = tile_shard.prepare_tile_sharded(frames, geom, cfg, mesh, **kw)
+                return mesh, route, lambda bufs: tile_shard._tile_sweep(mesh, route, opts=opts,
+                                                                        s=s, bufs=bufs)
 
-                def sweep():
-                    return tile_shard._tile_sweep(mesh, route, opts=opts, s=s)
-            k3 = kernels.fused_chunk_increments
-            k3.launches = 0
-            sweep()
-            torch.cuda.synchronize()
-            per_sweep = k3.launches
-            walls = []
-            for _ in range(5):
-                t0 = time.perf_counter()
-                sweep()
-                torch.cuda.synchronize()
-                walls.append((time.perf_counter() - t0) * 1e3)
-            ms = cs.median(walls)
+            _, host_route, host_body = prepared()
+            host_ms, host_walls, _ = timed(lambda: host_body(None))
+            host_gated = cs.gated_trace(lambda: host_body(None), host_ms,
+                                        chunks=host_route.n_chunks)
+            mesh, route, body = prepared()
+            captured = graph.SweepGraph(mesh, route, body)
+            per_sweep = captured.launches["fused_chunk_increments"]
+            ms, walls, enqueues = timed(captured.replay)
             verdict = comm.consensus_schedule_check(mesh.schedule)
-            gated = cs.gated_trace(sweep, ms)
+            gated = cs.complete_trace(lambda: cs.gated_trace(captured.replay, ms,
+                                                             chunks=route.n_chunks), per_sweep)
+            stages = gated["stages"]
+            entry = cs.sharded_run(problem, led, tile, {}, stale)
+            replayed = cs.result_digest(entry)
+            walked = cs.result_digest(cs.host_walked_run(problem, led, tile, {}, stale))
             label = f"one process {led}x{tile}{' stale' if stale else ''}"
             cs.emit({"phase": "multicard_one_process", "mesh": [led, tile],
                      "stale_consensus": stale, "ranks": mesh.describe(),
+                     "graph": entry.replay is not None,
+                     "cards_in_graph": len(mesh.cards()),
+                     "capture_ms": captured.capture_ms,
                      "k3_launches_per_sweep": per_sweep,
                      "wall_ms_per_sweep": ms, "wall_ms_all": walls,
-                     "overlap_ms": gated["overlap_ms"], "trace_unpaced": gated,
-                     "consensus_schedule_check": verdict, "gpu": gpu})
+                     "enqueue_ms": cs.median(enqueues), "enqueue_ms_all": enqueues,
+                     "host_loop_wall_ms_per_sweep": host_ms, "host_loop_wall_ms_all": host_walls,
+                     "overlap_ms": gated["overlap_ms"],
+                     "consensus_overlap_ms": gated["consensus_overlap_ms"],
+                     "stages": stages, "span_ms_unpaced": gated["span_ms"],
+                     "busy_ms_unpaced": gated["busy_ms"], "trace_unpaced": gated,
+                     "host_loop_trace_unpaced": host_gated,
+                     "consensus_schedule_check": verdict, "graph_digest": replayed,
+                     "host_walked_digest": walked, "gpu": gpu})
+            cs.check(entry.replay is not None, f"{label}: the entry point walked the loop")
+            cs.check(replayed == walked, f"{label}: the graph route is not the host loop's bits")
             cs.check(verdict["issued_before_compute"] is stale,
                      f"{label}: issued before compute is not {stale}")
             cs.check(gated["gate_held"], f"{label}: the gate ended before the sweep was enqueued")
             cs.check(per_sweep > 0 and gated["k3_kernels"] == per_sweep,
-                     f"{label}: K3 launched {per_sweep} times, traced {gated['k3_kernels']}")
-            cs.check(gated["overlap_ms"] > 0 if stale else gated["overlap_ms"] == 0,
-                     f"{label}: K3 beside a collective for {gated['overlap_ms']} ms")
-
+                     f"{label}: K3 captured {per_sweep} times, traced {gated['k3_kernels']}")
+            # Across cards a chunk's payloads travel 0.5-1.3 ms (each copy
+            # between cards waits on events of two cards, resolved one by one
+            # as the replay is launched), and a K3 lasts 0.03 ms: the stale K3
+            # of chunk c+1 runs while chunk c's payloads travel, and ends
+            # before chunk c's consensus kernel can start, on either route.
+            inside = stages and stages["next_k3_in_reduction_ms"]
+            cs.check(stages is not None and (inside > 0 if stale else inside == 0),
+                     f"{label}: chunk c+1's K3 inside chunk c's reduction for {inside} ms: "
+                     f"{stages}")
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])

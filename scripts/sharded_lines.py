@@ -17,7 +17,9 @@ Then one JSON line per case with, per run, the kernels of a sweep in the
 trace of the sweep enqueued behind a gate (``trace_unpaced``), the wall ms
 a sweep on the host's clock (median of 5) and all 5, the card's busy share
 and the device span of the unpaced sweep; and the card's name and power
-limit. Needs one CUDA card; builds each checkout's kernels in its own
+limit; the digest, whether the run replayed a captured sweep (``graph``),
+its ``capture_ms`` and the ms a sweep through the entry point. Needs one
+CUDA card; builds each checkout's kernels in its own
 ``build/``. It never imports JAX or ``fpm_tpu``.
 """
 
@@ -81,7 +83,9 @@ def main(argv=None) -> int:
                             "busy_share": ln["busy_share"],
                             "span_ms_unpaced": ln["span_ms_unpaced"],
                             "overlap_ms": ln["overlap_ms"],
-                            "enqueue_ms": ln.get("enqueue_ms")})
+                            "enqueue_ms": ln.get("enqueue_ms"), "digest": ln["digest"],
+                            "graph": ln.get("graph", False), "capture_ms": ln.get("capture_ms"),
+                            "entry_ms_per_sweep": ln["entry_point"]["ms_per_sweep"]})
         print(json.dumps({"case": case, "runs": per_run, "gpu": smi}), flush=True)
     print(smi)
     return 0

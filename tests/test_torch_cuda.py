@@ -1265,3 +1265,131 @@ def test_entry_sweeps_are_bitwise_the_prepared_and_serialized_ones(cuda, led, ti
     for res in (got, serial):
         np.testing.assert_array_equal(res.obj_f_centered, obj.cpu().numpy())
         np.testing.assert_array_equal(res.pupil, pupil.cpu().numpy())
+
+
+def sharded_entry(ds, led, tile, mesh=None, **kw):
+    """A run through the entry point (3 sweeps, chunk 8: 3 chunks) on
+    ``mesh`` (default: all ranks on the first card); returns (result, mesh)."""
+    mesh = mesh or make_mesh(led, tile)
+    fn = reconstruct_led_sharded if tile == 1 else reconstruct_tile_sharded
+    res = fn(ds.images, ds.geom, ds.cfg, mesh=mesh, iterations=3, chunk_size=8,
+             use_pallas=True, **kw)
+    return res, mesh
+
+
+def assert_same_result(a, b):
+    np.testing.assert_array_equal(a.obj_f_centered, b.obj_f_centered)
+    np.testing.assert_array_equal(a.pupil, b.pupil)
+    for key in ("data_residual", "update_norm"):
+        np.testing.assert_array_equal(a.metrics[key], b.metrics[key])
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(stale_consensus=True),
+                                dict(comm_precision="bf16", stale_consensus=True),
+                                dict(dtype="complex128")],
+                         ids=["fresh", "stale", "bf16-wire-stale", "complex128"])
+@pytest.mark.parametrize("led,tile", [(4, 1), (2, 2), (1, 6)])
+def test_the_graph_route_is_bitwise_the_host_loop(cuda, monkeypatch, led, tile, kw):
+    """Every rank on the one card: the entry point replays one captured
+    sweep; with the test-only ``force_host_loop`` it walks the loop. Both
+    bitwise, the same launches and counted collectives, and the captured
+    schedule's verdict the host loop's."""
+    from fpm_torch.parallel import comm, graph
+
+    ds = synthetic_dataset(np_size=16, grid=5, seed=5)
+    before = kernels.launch_counts()
+    replayed, mesh = sharded_entry(ds, led, tile, **kw)
+    run = replayed.replay
+    assert run is not None and len(run["enqueue_ms"]) == 3
+    mid = kernels.launch_counts()
+    per_replay = {k: mid[k] - before[k] for k in mid}
+    assert per_replay == {k: 3 * v for k, v in run["launches"].items()}
+    verdict = comm.consensus_schedule_check(mesh.schedule)
+    monkeypatch.setattr(graph.run_sweeps, "force_host_loop", True)
+    walked, host_mesh = sharded_entry(ds, led, tile, **kw)
+    assert walked.replay is None
+    after = kernels.launch_counts()
+    assert {k: after[k] - mid[k] for k in after} == per_replay
+    assert_same_result(replayed, walked)
+    assert mesh.counts == host_mesh.counts
+    assert comm.consensus_schedule_check(host_mesh.schedule) == verdict
+    assert verdict["issued_before_compute"] is bool(kw.get("stale_consensus"))
+
+
+@pytest.mark.parametrize("led,tile", [(4, 1), (2, 2)])
+def test_replays_allocate_nothing(cuda, led, tile):
+    """The graph's sweeps write only into buffers made before the capture:
+    the caching allocator's count of allocations does not move across
+    replays, nor during the capture."""
+    from fpm_torch.parallel import graph, led_shard, tile_shard
+
+    ds = synthetic_dataset(np_size=16, grid=5, seed=5)
+    mesh = make_mesh(led, tile)
+    kw = dict(chunk_size=8, use_pallas=True, stale_consensus=True)
+    if tile == 1:
+        route, opts = led_shard.prepare_led_sharded(ds.images, ds.geom, ds.cfg, mesh, **kw)
+
+        def body(bufs):
+            return led_shard._sharded_sweep(mesh, route, opts=opts, bufs=bufs)
+    else:
+        route, opts, s = tile_shard.prepare_tile_sharded(ds.images, ds.geom, ds.cfg, mesh, **kw)
+
+        def body(bufs):
+            return tile_shard._tile_sweep(mesh, route, opts=opts, s=s, bufs=bufs)
+    run = graph.SweepGraph(mesh, route, body)
+    run.replay()
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_stats()["allocation.all.allocated"]
+    for _ in range(5):
+        run.replay()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] == allocated
+
+
+def test_a_process_transport_walks_the_host_loop(cuda):
+    """Under torch.distributed (one process here, its collectives over the
+    transport's process group) the run is host-walked by rule, and bitwise
+    the graph route of the same mesh shape."""
+    import socket
+
+    import torch.distributed as dist
+
+    from fpm_torch.parallel import multihost
+
+    ds = synthetic_dataset(np_size=16, grid=5, seed=5)
+    replayed, _ = sharded_entry(ds, 2, 1, stale_consensus=True)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    assert multihost.initialize_from_env(f"127.0.0.1:{port}", 1, 0)
+    try:
+        mesh = make_mesh(2, 1)
+        assert mesh.transport is not None
+        walked, _ = sharded_entry(ds, 2, 1, mesh=mesh, stale_consensus=True)
+        assert walked.replay is None
+    finally:
+        dist.destroy_process_group()
+    assert_same_result(replayed, walked)
+
+
+def test_a_capture_that_fails_raises(cuda, monkeypatch):
+    """An operation a capture refuses (a synchronisation, here at the end of
+    the captured sweep) makes the run raise: nothing carries on with the
+    host loop. (Last in this file: the failed capture is left behind.)"""
+    from fpm_torch.parallel import mesh as mesh_module
+
+    end_sweep = mesh_module.Mesh.end_sweep
+    sweeps = []
+
+    def refused(self, *grids, **kw):
+        end_sweep(self, *grids, **kw)
+        sweeps.append(torch.cuda.is_current_stream_capturing())
+        if sweeps[-1]:
+            torch.cuda.synchronize()
+
+    monkeypatch.setattr(mesh_module.Mesh, "end_sweep", refused)
+    ds = synthetic_dataset(np_size=16, grid=5, seed=5)
+    with pytest.raises(RuntimeError):
+        sharded_entry(ds, 2, 1)
+    # The warm-up, then the capture that raised: no sweep of the host loop.
+    assert sweeps == [False, True]
