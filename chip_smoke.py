@@ -195,9 +195,23 @@ tiers of the DFT products (``dft_precision``): ``bf16x3``, the default (a
    each process's counted collectives equal to the one-process mesh's and
    to the model of ``parallel.comm``; ``--fov-grid 8 8 -n 10`` on the
    568×568 frames: ``object_stitched.npy`` bitwise the one-process run;
-   process 1's output directory empty in every run; then ONE process over
-   nccl (``--distributed --mesh 1 1``), bitwise its single-controller run.
-   Wall seconds of every run.
+   process 1's output directory empty in every run. By the rule of
+   ``fpm_torch.parallel.graph.replays`` every gloo run walks the chunk loop
+   from Python (``graph`` false, checked). Then ONE process over nccl (no
+   other process shares the card): ``--distributed`` with ``--mesh 1 1``,
+   ``--mesh 2 1 --comm-precision bf16 --stale-consensus`` (two ranks on
+   the card, the captured all-gathers carrying the bf16 wire) and ``--mesh
+   1 2``: each replays one captured sweep, its NCCL collectives included
+   (``graph`` true, checked, with its capture ms, the host's enqueue ms of
+   a replay and ms a sweep), bitwise its single-controller run, K3 and the
+   mesh's consensus kernels launched, the counted collectives equal to the
+   model. Wall seconds of every run. Then the ``nccl_graph`` lines: the
+   same three meshes in this process under a one-process NCCL world on
+   prepared grids beside the same mesh without a transport, both captured:
+   ms a sweep (median of 5 replays), enqueue ms, capture ms, the overlap
+   and chunk stages of a gated trace, one replay under
+   ``set_sync_debug_mode("error")``, counted collectives and launches a
+   sweep equal.
 10. ``bench``: ``ablate=`` of K1 (chunk 32) and K2 on the mono problem,
    every variant at both tiers, one sweep from the init state through the
    ablation build against the plain version with the same ``ablate``
@@ -822,7 +836,8 @@ def chunk_stages(k3, consensus, chunks: int):
             "next_k3_start_ms": median(nxt_start) if nxt_start else None}
 
 
-def trace_overlap(fn, gate_ms: float = 0.0, chunks: int = 0, records: bool = False) -> dict:
+def trace_overlap(fn, gate_ms: float = 0.0, chunks: int = 0, records: bool = False,
+                  cards=None) -> dict:
     """One call of ``fn`` under ``torch.profiler``, read from its trace: the
     time in which a K3 kernel (``fpm_torch``'s kernels but the consensus
     ones) and the lanes' work (a consensus kernel, a copy, or anything on a
@@ -843,7 +858,8 @@ def trace_overlap(fn, gate_ms: float = 0.0, chunks: int = 0, records: bool = Fal
     count) also :func:`chunk_stages` of the trace (``stages``); with
     ``records`` every record of the work as [card, kind, start µs from the
     first, µs] (``records``; kind ``k3``, ``consensus``, ``copy`` or
-    ``other``)."""
+    ``other``). ``cards``: the cards padded and gated (default every
+    visible card; a process of a multi-process run names its own)."""
     from collections import Counter
 
     import torch
@@ -855,12 +871,13 @@ def trace_overlap(fn, gate_ms: float = 0.0, chunks: int = 0, records: bool = Fal
         # (31 of a replayed sweep's 56 K3 kernels behind 4 spin kernels,
         # late in a long process): PROFILER_PAD spin kernels, left out
         # below, run first on every card.
-        for card in range(torch.cuda.device_count()):
+        cards = range(torch.cuda.device_count()) if cards is None else cards
+        for card in cards:
             with torch.cuda.device(card):
                 for _ in range(PROFILER_PAD):
                     torch.cuda._sleep(1000)
         torch.cuda.synchronize()
-        for card in range(torch.cuda.device_count() if gate_ms else 0):
+        for card in cards if gate_ms else ():
             with torch.cuda.device(card):
                 torch.cuda._sleep(int(gate_ms * 2e6))     # ≥ gate_ms at ≤ 2 GHz
                 gate_ends.append(torch.cuda.Event())
@@ -954,6 +971,50 @@ def median(xs):
     return sorted(xs)[len(xs) // 2]
 
 
+def prepared_sweep(problem, mesh, options: dict, stale: bool):
+    """``(route, body(bufs) -> mets)`` of a sharded run on ``mesh`` at chunk
+    32 on prepared grids: what ``parallel.graph`` captures."""
+    from fpm_torch.parallel import led_shard, tile_shard
+
+    cfg, geom, frames = problem
+    kw = dict(use_pallas=True, chunk_size=32, stale_consensus=stale, **options)
+    if mesh.shape["tile"] == 1:
+        route, opts = led_shard.prepare_led_sharded(frames, geom, cfg, mesh, **kw)
+        return route, lambda bufs: led_shard._sharded_sweep(mesh, route, opts=opts, bufs=bufs)
+    route, opts, s = tile_shard.prepare_tile_sharded(frames, geom, cfg, mesh, **kw)
+    return route, lambda bufs: tile_shard._tile_sweep(mesh, route, opts=opts, s=s, bufs=bufs)
+
+
+def wall_ms(fn):
+    """``fn`` 5 times, each to a synchronisation: the median wall ms, every
+    wall ms, and the host's ms to enqueue each call."""
+    import torch
+
+    walls, enqueues = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        fn()
+        enqueues.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return median(walls), walls, enqueues
+
+
+def no_host_sync(fn) -> bool:
+    """One call of ``fn`` under ``torch.cuda.set_sync_debug_mode("error")``:
+    a synchronisation with the card inside it raises."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return True
+
+
 def sharded_sweep_phase(problems: dict, digests: dict, entry: dict, smi: str) -> None:
     """The ``sharded_sweep`` lines: every ``SHARDED_CASES`` case, fresh and
     stale, all ranks on the one card (not scaling results), so the graph
@@ -970,46 +1031,14 @@ def sharded_sweep_phase(problems: dict, digests: dict, entry: dict, smi: str) ->
     route (:func:`host_walked_run`), ``SHARDED_REPEATS`` - 1 more runs, and
     the mesh with its streams serialized (the test-only
     ``serialize_streams``)."""
-    import torch
-
-    from fpm_torch.parallel import comm, graph, led_shard, make_mesh, tile_shard
-
-    def wall_ms(fn):
-        walls, enqueues = [], []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            fn()
-            enqueues.append((time.perf_counter() - t0) * 1e3)
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
-        return median(walls), walls, enqueues
-
-    def no_sync(fn):
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            fn()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
-        return True
+    from fpm_torch.parallel import comm, graph, make_mesh
 
     for name, led, tile, options in SHARDED_CASES:
         cfg, geom, frames = problem = problems[name]
         for stale in (False, True):
             label = sharded_label(name, led, tile, options, stale)
             mesh = make_mesh(led, tile)
-            kw = dict(use_pallas=True, chunk_size=32, stale_consensus=stale, **options)
-            if tile == 1:
-                route, sopts = led_shard.prepare_led_sharded(frames, geom, cfg, mesh, **kw)
-
-                def body(bufs):
-                    return led_shard._sharded_sweep(mesh, route, opts=sopts, bufs=bufs)
-            else:
-                route, sopts, s = tile_shard.prepare_tile_sharded(frames, geom, cfg, mesh, **kw)
-
-                def body(bufs):
-                    return tile_shard._tile_sweep(mesh, route, opts=sopts, s=s, bufs=bufs)
+            route, body = prepared_sweep(problem, mesh, options, stale)
             check(graph.replays(mesh), f"{label}: the mesh's route is not the graph's")
             captured = graph.SweepGraph(mesh, route, body)
             sweep = captured.replay
@@ -1026,7 +1055,7 @@ def sharded_sweep_phase(problems: dict, digests: dict, entry: dict, smi: str) ->
             verdict = comm.consensus_schedule_check(mesh.schedule)
             paced = complete_trace(lambda: trace_overlap(sweep), per_sweep)
             gated = complete_trace(lambda: gated_trace(sweep, ms, chunks=n_chunks), per_sweep)
-            unsynced = no_sync(sweep)
+            unsynced = no_host_sync(sweep)
             base = digests[label]
             entry_res = sharded_run(problem, led, tile, options, stale)
             entry_digest, entry_graph = result_digest(entry_res), entry_res.replay
@@ -2025,67 +2054,112 @@ LEVERS = ["--comm-precision", "bf16", "--stale-consensus"]
 
 def cli_recording(argv) -> dict:
     """``fpm_torch.cli.main(argv)`` with every launch counter at 0 before:
-    its exit code and wall seconds, the launches of each kernel, and every
-    mesh it built, described and with its counted collectives."""
+    its exit code and wall seconds, the launches of each kernel, every mesh
+    it built, described and with its counted collectives, and the figures
+    of each sharded run that replayed a captured sweep (``graphs``: its
+    capture ms, the host's median enqueue ms of a replay, and ms a sweep
+    from its replays to the synchronisation after the last; none where the
+    host walked the loop)."""
     from fpm_torch import cli
+    from fpm_torch.parallel import led_shard, tile_shard
     from fpm_torch.parallel import mesh as mesh_mod
 
-    meshes, init = [], mesh_mod.Mesh.__init__
+    meshes, init, graphs = [], mesh_mod.Mesh.__init__, []
 
     def record(self, *args, **kwargs):
         init(self, *args, **kwargs)
         meshes.append(self)
 
+    def recorded(run_sweeps):
+        def run(*args, **kwargs):
+            metrics, replay = run_sweeps(*args, **kwargs)
+            if replay is not None:
+                graphs.append({"capture_ms": replay["capture_ms"],
+                               "enqueue_ms": median(replay["enqueue_ms"]),
+                               "replays": len(replay["enqueue_ms"]),
+                               "ms_per_sweep": replay["replays_ms"] / len(replay["enqueue_ms"])})
+            return metrics, replay
+        return run
+
     wrappers = path_wrappers()
     for w in wrappers.values():
         w.launches = 0
     t0 = time.perf_counter()
-    with mock.patch.object(mesh_mod.Mesh, "__init__", record):
+    with mock.patch.object(mesh_mod.Mesh, "__init__", record), \
+            mock.patch.object(led_shard, "run_sweeps", recorded(led_shard.run_sweeps)), \
+            mock.patch.object(tile_shard, "run_sweeps", recorded(tile_shard.run_sweeps)):
         rc = cli.main(argv)
     return {"rc": rc, "wall_s": time.perf_counter() - t0,
             "launches": {k: w.launches for k, w in wrappers.items()},
             "meshes": [m.describe() for m in meshes],
-            "counts": [{",".join(key): v for key, v in m.counts.items()} for m in meshes]}
+            "counts": [{",".join(key): v for key, v in m.counts.items()} for m in meshes],
+            "graphs": graphs}
 
 
 def cli_child(argv) -> int:
-    """One process of a multi-process run: :func:`cli_recording`, printed."""
+    """One process of a multi-process run: :func:`cli_recording`, printed
+    (with ``faulthandler`` on: a SIGABRT prints every thread's stack)."""
+    import faulthandler
+
+    faulthandler.enable()
     rec = cli_recording(argv)
     print("CHILD " + json.dumps(rec), flush=True)
     return rec["rc"]
 
 
-def processes(argv_of, n: int, timeout: float = 600) -> list[dict]:
-    """``fpm_torch run`` as processes 0..n-1 of one run (``FPM_*`` set, a
-    free port on localhost), each through :func:`cli_child`; every process
-    is stopped before this returns. Returns their records."""
+def run_processes(command_of, n: int, timeout: float = 600) -> list[str]:
+    """``command_of(pid)`` as processes 0..n-1 of one run (``FPM_*`` set, a
+    free port on localhost), started from this script's directory; every
+    process is stopped before this returns. Checks that each exited 0;
+    returns their standard outputs. A process still running after
+    ``timeout`` s is sent SIGABRT (a child with ``faulthandler`` enabled
+    then prints every thread's stack) and the check fails with the end of
+    each one's standard error."""
+    import signal
     import socket
 
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
-    procs = []
+    procs, late = [], False
+    deadline = time.monotonic() + timeout
     try:
         for pid in range(n):
             env = dict(os.environ, FPM_COORDINATOR=f"127.0.0.1:{port}",
                        FPM_NUM_PROCESSES=str(n), FPM_PROCESS_ID=str(pid))
-            procs.append(subprocess.Popen(
-                [sys.executable, "-c",
-                 "import sys, chip_smoke; sys.exit(chip_smoke.cli_child(sys.argv[1:]))",
-                 *argv_of(pid)], cwd=HERE, env=env, stdout=subprocess.PIPE,
-                stderr=subprocess.PIPE, text=True))
-        outs = [p.communicate(timeout=timeout) for p in procs]
+            procs.append(subprocess.Popen(command_of(pid), cwd=HERE, env=env,
+                                          stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                          text=True))
+        outs = []
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic())))
+            except subprocess.TimeoutExpired:
+                late = True
+                for q in procs:
+                    if q.poll() is None:
+                        q.send_signal(signal.SIGABRT)
+                outs.append(p.communicate(timeout=60))
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    records = []
-    for pid, (p, (out, err)) in enumerate(zip(procs, outs)):
+    if late:
+        check(False, f"{n} processes still ran after {timeout} s: "
+              + " | ".join(f"process {pid}: {err[-2500:]}" for pid, (_, err) in enumerate(outs)))
+    for pid, (p, (_, err)) in enumerate(zip(procs, outs)):
         check(p.returncode == 0, f"process {pid} exited {p.returncode}: {err[-3000:]}")
-        records.append(json.loads([ln for ln in out.splitlines()
-                                   if ln.startswith("CHILD ")][-1][len("CHILD "):]))
-    return records
+    return [out for out, _ in outs]
+
+
+def processes(argv_of, n: int, timeout: float = 600) -> list[dict]:
+    """``fpm_torch run`` as processes 0..n-1 of one run (:func:`run_processes`),
+    each through :func:`cli_child`. Returns their records."""
+    child = "import sys, chip_smoke; sys.exit(chip_smoke.cli_child(sys.argv[1:]))"
+    outs = run_processes(lambda pid: [sys.executable, "-c", child, *argv_of(pid)], n, timeout)
+    return [json.loads([ln for ln in out.splitlines()
+                        if ln.startswith("CHILD ")][-1][len("CHILD "):]) for out in outs]
 
 
 def oracle_phase(cfg, geom, frames, smi) -> None:
@@ -2222,10 +2296,26 @@ def comm_mismatches(counts: dict, nl: int, n: int, k: int, led: int, tile: int,
     return diffs
 
 
+NCCL_ONE_CARD = ((1, 1, {}, False), (2, 1, {"comm_precision": "bf16"}, True),
+                 (1, 2, {}, False))      # (led, tile, options, stale): one process over nccl
+
+
+def graph_figures(recs) -> dict:
+    """The replayed sweeps' figures of each process of a CLI run
+    (:func:`cli_recording`'s ``graphs``)."""
+    return {"capture_ms": [[g["capture_ms"] for g in r["graphs"]] for r in recs],
+            "enqueue_ms": [[g["enqueue_ms"] for g in r["graphs"]] for r in recs],
+            "ms_per_sweep": [[g["ms_per_sweep"] for g in r["graphs"]] for r in recs]}
+
+
 def distributed_phase(cfg, geom, frames, wide_frames, smi, tmp) -> None:
     """Two processes on the one card over gloo against one process:
     ``--mesh 2 1`` and ``--mesh 1 2`` (each once with the bf16 wire and the
-    stale consensus) and ``--fov-grid 8 8``; then one process over nccl."""
+    stale consensus) and ``--fov-grid 8 8``, every gloo run host-walked
+    (``graph`` false); then one process over nccl, which replays a captured
+    sweep (``graph`` true) as the single-controller run does: ``--mesh 1 1``,
+    ``--mesh 2 1`` with the bf16 wire and the stale consensus, and ``--mesh
+    1 2``; then :func:`nccl_graph_lines`."""
     import numpy as np
 
     mono = write_dataset(os.path.join(tmp, "dist_data"), cfg, geom, frames)
@@ -2243,9 +2333,12 @@ def distributed_phase(cfg, geom, frames, wide_frames, smi, tmp) -> None:
         bitwise = {a: bool(np.array_equal(np.load(os.path.join(dirs[0], a)),
                                           np.load(os.path.join(one_dir, a)))) for a in arrays}
         others = {pid: sorted(os.listdir(dirs[pid])) for pid in range(1, n_proc)}
+        replayed = [bool(r["graphs"]) for r in recs]
         line = {"phase": "distributed", "run": label, "processes": n_proc,
                 "flags": flags[1:], "bitwise_one_process": bitwise,
                 "other_process_files": others,
+                "graph": all(replayed) if transport == "nccl" else any(replayed),
+                **graph_figures(recs), "one_process": graph_figures([one]),
                 "wall_s": {"processes": [r["wall_s"] for r in recs], "one": one["wall_s"],
                            "processes_start_to_exit": launched_s},
                 "launches": {"processes": [r["launches"] for r in recs],
@@ -2261,32 +2354,107 @@ def distributed_phase(cfg, geom, frames, wide_frames, smi, tmp) -> None:
         if transport:
             check(all(f"transport {transport}" in m for r in recs for m in r["meshes"]),
                   f"{label}: transport is not {transport}: {recs[0]['meshes']}")
+            # The rule of fpm_torch.parallel.graph.replays: nccl replays a
+            # captured sweep, gloo walks the chunk loop.
+            check(line["graph"] is (transport == "nccl"),
+                  f"{label}: graph {replayed} over {transport}")
         return line, one, recs
+
+    def mesh_case(label, led, tile, levers, n_proc, transport):
+        flags = [mono, "-n", str(MESH_SWEEPS), "--use-pallas", "--mesh", str(led), str(tile),
+                 *(LEVERS if levers else [])]
+        line, one, recs = compare(label.replace(" ", "_"), flags, n_proc,
+                                  ("object_spectrum.npy", "pupil.npy"), transport, "K3")
+        diffs = {pid: comm_mismatches(r["counts"][0], nl, n, k, led, tile, levers)
+                 for pid, r in enumerate(recs)}
+        same = all(r["counts"] == one["counts"] for r in recs)
+        emit({**line, "counted_collectives": recs[0]["counts"][0],
+              "counts_equal_one_process": same, "counted_vs_model": diffs})
+        check(same, f"{label}: counted collectives differ from the one-process mesh")
+        check(not any(diffs.values()), f"{label}: counted collectives vs model {diffs}")
 
     for led, tile in ((2, 1), (1, 2)):
         for levers in (False, True):
-            label = f"mesh {led} {tile}" + (" bf16 stale" if levers else "")
-            flags = [mono, "-n", str(MESH_SWEEPS), "--use-pallas", "--mesh", str(led),
-                     str(tile), *(LEVERS if levers else [])]
-            line, one, recs = compare(label.replace(" ", "_"), flags, 2,
-                                      ("object_spectrum.npy", "pupil.npy"), "gloo", "K3")
-            diffs = {pid: comm_mismatches(r["counts"][0], nl, n, k, led, tile, levers)
-                     for pid, r in enumerate(recs)}
-            same = all(r["counts"] == one["counts"] for r in recs)
-            emit({**line, "counted_collectives": recs[0]["counts"][0],
-                  "counts_equal_one_process": same, "counted_vs_model": diffs})
-            check(same, f"{label}: counted collectives differ from the one-process mesh")
-            check(not any(diffs.values()), f"{label}: counted collectives vs model {diffs}")
+            mesh_case(f"mesh {led} {tile}" + (" bf16 stale" if levers else ""), led, tile,
+                      levers, 2, "gloo")
 
     flags = [wide, "-n", "10", "--use-pallas", "--fov-grid", "8", "8"]
     line, _, recs = compare("fov_grid_8_8", flags, 2, ("object_stitched.npy",), None, "K2")
     emit(line)
 
-    flags = [mono, "-n", str(MESH_SWEEPS), "--use-pallas", "--mesh", "1", "1"]
-    line, _, _ = compare("mesh_1_1_nccl", flags, 1, ("object_spectrum.npy", "pupil.npy"),
-                         "nccl", "K3")
-    emit(line)
+    mesh_case("mesh 1 1 nccl", 1, 1, False, 1, "nccl")
+    mesh_case("mesh 2 1 nccl bf16 stale", 2, 1, True, 1, "nccl")
+    mesh_case("mesh 1 2 nccl", 1, 2, False, 1, "nccl")
+    nccl_graph_lines((cfg, geom, frames), smi)
 
+
+def nccl_graph_lines(problem, smi) -> None:
+    """The ``nccl_graph`` lines: in this process, a one-process NCCL world
+    on the card (``torch.distributed`` on localhost) and each mesh of
+    ``NCCL_ONE_CARD`` on prepared grids, its ranks' collectives over the
+    transport's NCCL process group, beside the same mesh without a
+    transport: each a ``SweepGraph`` (``capture_ms``) whose replays are
+    timed (ms a sweep, median of 5, and the host's enqueue ms of a replay),
+    ``overlap_ms`` and the chunk stages of one replay behind a gate, one
+    replay under ``set_sync_debug_mode("error")``, and the two routes'
+    counted collectives a sweep equal. The world is destroyed after."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from fpm_torch.parallel import graph, make_mesh, multihost
+    from fpm_torch.parallel.mesh import Mesh
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    check(multihost.initialize_from_env(f"127.0.0.1:{port}", 1, 0), "no one-process world")
+    card = torch.device("cuda", torch.cuda.current_device())
+    try:
+        for led, tile, options, stale in NCCL_ONE_CARD:
+            label = (f"nccl graph {led}x{tile}{' bf16' if options else ''}"
+                     f"{' stale' if stale else ''}")
+            routes = {}
+            for name, mesh in (("one_process", Mesh([[card] * tile for _ in range(led)])),
+                               ("nccl", make_mesh(led, tile))):
+                route, body = prepared_sweep(problem, mesh, options, stale)
+                check(graph.replays(mesh), f"{label} {name}: the route is not the graph's")
+                captured = graph.SweepGraph(mesh, route, body)
+                per_sweep = captured.launches["fused_chunk_increments"]
+                ms, walls, enqueues = wall_ms(captured.replay)
+                gated = complete_trace(lambda: gated_trace(captured.replay, ms,
+                                                           chunks=route.n_chunks), per_sweep)
+                routes[name] = {"mesh": mesh.describe(), "capture_ms": captured.capture_ms,
+                                "wall_ms": ms, "wall_ms_all": walls,
+                                "enqueue_ms": median(enqueues), "enqueue_ms_all": enqueues,
+                                "overlap_ms": gated["overlap_ms"],
+                                "consensus_overlap_ms": gated["consensus_overlap_ms"],
+                                "stages": gated["stages"], "k3_launches_per_sweep": per_sweep,
+                                "k3_traced": gated["k3_kernels"], "gate_held": gated["gate_held"],
+                                "counts_per_sweep": {",".join(key): v for key, v in
+                                                     captured.counts.items()},
+                                "launches_per_sweep": captured.launches}
+                if name == "nccl":
+                    routes[name]["no_host_sync"] = no_host_sync(captured.replay)
+                del captured
+            nccl, one = routes["nccl"], routes["one_process"]
+            emit({"phase": "nccl_graph", "run": label, "mesh": [led, tile], "options": options,
+                  "stale_consensus": stale, **routes,
+                  "wall_ms_nccl_over_one_process": nccl["wall_ms"] / one["wall_ms"], "gpu": smi})
+            check("transport nccl" in nccl["mesh"], f"{label}: {nccl['mesh']}")
+            check(nccl["counts_per_sweep"] == one["counts_per_sweep"],
+                  f"{label}: counted collectives a sweep {nccl['counts_per_sweep']}, one "
+                  f"process {one['counts_per_sweep']}")
+            check(nccl["launches_per_sweep"] == one["launches_per_sweep"],
+                  f"{label}: launches a sweep {nccl['launches_per_sweep']}, one process "
+                  f"{one['launches_per_sweep']}")
+            for name, r in routes.items():
+                check(r["gate_held"] and r["k3_traced"] == r["k3_launches_per_sweep"] > 0,
+                      f"{label} {name}: gate {r['gate_held']}, K3 traced {r['k3_traced']} of "
+                      f"{r['k3_launches_per_sweep']}")
+    finally:
+        dist.destroy_process_group()
 
 
 def main(argv=None) -> int:

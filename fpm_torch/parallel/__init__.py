@@ -3,9 +3,10 @@ spectrum-tile sharding with halo exchange; and the ROI ranks of the
 large-FOV mode (the port of ``fpm_tpu.parallel``). One process drives every
 rank, or, under ``torch.distributed`` (``multihost.py``), each process its
 equal share of them; ranks may share a device (``mesh.py``,
-``roi_shard.py``). Where every rank is a CUDA rank of this one process, a
-sharded run captures one sweep into a CUDA graph and replays it
-(``graph.py``); on the CPU and across processes the host walks the loop."""
+``roi_shard.py``). Where every rank of a process is a CUDA rank and the
+processes, if several, exchange over NCCL, a sharded run captures one sweep
+into a CUDA graph on each process and replays it (``graph.py``); on the
+CPU and over gloo the host walks the loop."""
 
 from .comm import (
     consensus_schedule_check,

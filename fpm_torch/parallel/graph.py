@@ -10,13 +10,15 @@ of the streams — and the run replays it once per iteration, one launch a
 sweep where the host enqueued 35-126 kernels through milliseconds of Python.
 
 **The route is fixed by the mesh** (:func:`replays`): a run replays a graph
-when every rank of its mesh is a CUDA rank of this process (one card, or
-several cards in one process), and walks the chunk loop from Python
+when every rank of this process is a CUDA rank and its collectives between
+processes, if it has any, go over NCCL: one card, several cards in one
+process, or a process of a ``--distributed`` run on cards of its own
+(``parallel.multihost.ProcessTransport``), which captures its own ranks'
+sweep with the transport's NCCL all-gathers, sends and receives, as every
+other process of the run does. It walks the chunk loop from Python
 otherwise: on the CPU, where nothing is captured and the plain versions
-run, and under a ``ProcessTransport`` (``parallel.multihost``), whose
-collectives between processes (gloo, or NCCL between cards of other
-processes) the one-card check cannot hold to a captured graph. A capture
-that fails raises; nothing falls back to the host loop.
+run, and over gloo, whose exchanges pass through the host. A capture that
+fails raises; nothing falls back to the host loop.
 
 A captured sweep writes only into tensors made before the capture: the
 sweep is a body over :class:`SweepBuffers`, whose tensors are made at the
@@ -74,11 +76,12 @@ class SweepBuffers:
 
 def replays(mesh: Mesh) -> bool:
     """The rule: a run replays one captured sweep when every rank of
-    ``mesh`` is a CUDA rank of this process, else walks the chunk loop
-    (the CPU, a ``ProcessTransport``; ``run_sweeps.force_host_loop``, tests
-    only, walks it on a card too)."""
-    return (not run_sweeps.force_host_loop and mesh.transport is None
-            and all(d is not None and d.type == "cuda" for row in mesh.devices for d in row))
+    ``mesh`` in this process is a CUDA rank and its transport between
+    processes is none or NCCL, else walks the chunk loop (CPU ranks, gloo;
+    ``run_sweeps.force_host_loop``, tests only, walks it on a card too)."""
+    return (not run_sweeps.force_host_loop
+            and all(card.type == "cuda" for card, _ in mesh.cards())
+            and (mesh.transport is None or getattr(mesh.transport, "backend", None) == "nccl"))
 
 
 def _counts_less(now: dict, before: dict) -> dict:
@@ -121,10 +124,22 @@ class SweepGraph:
     All ranks of one card, or of several cards of this process, go into one
     graph: the other cards' streams join the capture through the events of
     the fork from the capturing stream, and a peer copy or an event wait
-    between cards is a node of the graph like a launch. Nothing holds the
-    graph but its caller, so that it is freed (and its memory pool with it)
-    when the caller drops it, never by the cyclic collector during a later
-    capture."""
+    between cards is a node of the graph like a launch. Under an NCCL
+    transport the process group's stream joins the capture the same way (it
+    waits on the lane that issues a collective, and the lane on it at the
+    collective's finish), so each collective is a node too; the warm-up ran
+    each of them once, which made NCCL's communicators, and every process
+    captures the same collectives in the same order. Such a capture is made
+    in the "thread_local" mode of ``torch.cuda.graph``: the process group's
+    watchdog thread queries the events of earlier collectives (the
+    warm-up's) from its own thread whenever it wakes, and in the default
+    "global" mode such a query from another thread while the capture runs
+    can invalidate it; the mode keeps the capture's checks to this thread,
+    which makes no call a capture forbids (a one-process run keeps
+    "global"). ``capture_ms`` and the replays' figures are this process's.
+    Nothing holds the graph but its caller, so that it is freed (and its
+    memory pool with it) when the caller drops it, never by the cyclic
+    collector during a later capture."""
 
     def __init__(self, mesh: Mesh, route, body):
         self.mesh = mesh
@@ -136,6 +151,10 @@ class SweepGraph:
         saved = [(t, t.clone()) for t in _state(route)]
         self.bufs = SweepBuffers()
         body(self.bufs)                    # the warm-up: every buffer, plan and matrix made
+        # The warm-up joins its streams into home's alone: another card's
+        # current stream, which puts the state back, waits on nothing of it.
+        for card in self.cards:
+            torch.cuda.synchronize(card)
         for t, was in saved:
             t.copy_(was)
         for card in self.cards:
@@ -143,8 +162,9 @@ class SweepGraph:
         launches1, counts1 = kernels.launch_counts(), copy.deepcopy(mesh.counts)
         self.bufs.frozen = True
         self.graph = torch.cuda.CUDAGraph()
+        mode = "global" if mesh.transport is None else "thread_local"
         with torch.cuda.device(mesh.home), torch.cuda.graph(
-                self.graph, stream=torch.cuda.Stream(mesh.home)):
+                self.graph, stream=torch.cuda.Stream(mesh.home), capture_error_mode=mode):
             self.mets = body(self.bufs)
         self.launches = {k: v - launches1[k] for k, v in kernels.launch_counts().items()}
         self.counts = _counts_less(mesh.counts, counts1)

@@ -24,12 +24,14 @@ With ``stale_consensus`` chunk c's consensus runs while chunk c+1's K3 runs
 state stays in K3's operands for the whole run (:class:`PlanesRoute`) and
 goes back to complex only for the result.
 
-The sweep is a body over buffers: with none (the host loop: the CPU, several
-processes) every chunk makes fresh tensors; over ``parallel.graph``'s
-:class:`~fpm_torch.parallel.graph.SweepBuffers` it writes only into tensors
-made at its first call (:func:`sweep_outputs`, :func:`next_slot`), and
-``parallel.graph`` captures it once into a CUDA graph where every rank is a
-CUDA rank of this process.
+The sweep is a body over buffers: with none (the host loop: the CPU,
+processes over gloo) every chunk makes fresh tensors; over
+``parallel.graph``'s :class:`~fpm_torch.parallel.graph.SweepBuffers` it
+writes only into tensors made at its first call (:func:`sweep_outputs`,
+:func:`next_slot`; the transport's, ``parallel.multihost``), and
+``parallel.graph`` captures it once into a CUDA graph where every rank of
+the process is a CUDA rank and the processes, if several, exchange over
+NCCL.
 """
 
 from __future__ import annotations
@@ -527,9 +529,10 @@ def reconstruct_led_sharded(images, geom: LEDGeometry, cfg: FPMConfig,
     one); pass ``make_mesh(..., devices=["cpu"] * n)`` to run on the CPU.
     ``initial_state`` is an optional ``(obj_f_centered, pupil)`` pair — complex
     arrays or (2, ...) planes, of either package — to resume from. Where
-    every rank is a CUDA rank of this process one sweep is captured into a
-    CUDA graph and replayed (``parallel.graph``); else the host walks the
-    chunk loop.
+    every rank of this process is a CUDA rank and the transport between
+    processes, if any, is NCCL, one sweep is captured into a CUDA graph and
+    replayed (``parallel.graph.replays``); else the host walks the chunk
+    loop.
     """
     if mesh is None:
         mesh = make_mesh(tile=1)

@@ -251,6 +251,12 @@ class Mesh:
 
     # -------------------------------------------------- streams and steps
 
+    @property
+    def sweep_buffers(self):
+        """The buffers of the sweep being enqueued (``begin_sweep``'s
+        ``bufs``), or None: the host loop, which makes fresh tensors."""
+        return self._bufs
+
     def streams(self) -> list:
         """Every stream of this process's ranks and lanes (none on the CPU or
         when the mesh serializes)."""
@@ -452,9 +458,12 @@ class Mesh:
             for li, ti in self.local_ranks:
                 self._hand_over(grid[li][ti], lane=lane)
             # The payloads on the wire; accumulated in full precision below.
-            wire = {(li, ti): grid[li][ti] if wire_dtype is None
+            if self.transport is not None:
+                return self.transport.start_all_gather(
+                    self, {r: grid[r[0]][r[1]] for r in self.local_ranks}, wire_dtype,
+                    _key(step))
+            return {(li, ti): grid[li][ti] if wire_dtype is None
                     else grid[li][ti].to(wire_dtype) for li, ti in self.local_ranks}
-            return wire if self.transport is None else self.transport.start_all_gather(self, wire)
 
         def finish(started):
             values = started if self.transport is None else self.transport.finish(started)
@@ -508,8 +517,7 @@ class Mesh:
                 mine[(li, ti)] = grid[li][ti]
             if self.transport is None:
                 return mine
-            return self.transport.start_all_gather(
-                self, {r: x if wire_dtype is None else x.to(wire_dtype) for r, x in mine.items()})
+            return self.transport.start_all_gather(self, mine, wire_dtype, _key(step))
 
         def arrive(r, x, card):
             if x.device == card:
@@ -606,7 +614,7 @@ class Mesh:
                 return sent
             pairs = [(src(li, ti), (li, ti)) for li in range(self.shape["led"])
                      for ti in range(self.shape["tile"])]
-            return self.transport.start_exchange(self, sent, pairs)
+            return self.transport.start_exchange(self, sent, pairs, _key(step))
 
         def moved(x, li, ti):
             dst = self.devices[li][ti]
@@ -614,8 +622,7 @@ class Mesh:
                 return x.to(dst)
             # Over buffers made once: one pair a chunk parity, since chunk
             # c+1's halo is sent while chunk c's may still be read.
-            return self._landed((step.get("what"), (li, ti), step.get("chunk", 0) % 2), x, dst,
-                                x.dtype)
+            return self._landed((*_key(step), src(li, ti), (li, ti)), x, dst, x.dtype)
 
         def finish(started):
             if self.transport is None:
@@ -623,7 +630,7 @@ class Mesh:
                                                      li, ti))
             else:
                 received = self.transport.finish(started)
-                out = self.grid(lambda li, ti: received[(li, ti)].to(self.devices[li][ti]))
+                out = self.grid(lambda li, ti: moved(received[(li, ti)], li, ti))
             for li, ti in self.local_ranks:
                 self._hand_over(out[li][ti], rank=(li, ti))
             return out
@@ -639,6 +646,13 @@ class Mesh:
             pending = Pending(idx, grid=finish(start()))
             return pending if not step.get("wait", True) else pending.result()
         return self._collective("ppermute", (axis,), payload, start, finish, lane=lane, **step)
+
+
+def _key(step: dict) -> tuple:
+    """The key of a collective's buffers in a sweep over buffers made once:
+    its label and its chunk's parity (chunk c+1's collective is issued while
+    chunk c's result may still be read)."""
+    return step.get("what", ""), (step.get("chunk") or 0) % 2
 
 
 def make_mesh(led: int | None = None, tile: int = 1, devices=None,

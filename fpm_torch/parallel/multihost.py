@@ -23,11 +23,21 @@ stream waits on them, so that under the stale consensus they run while
 the card computes the next chunk's K3; over gloo the copies to the host
 and the exchange wait until then, after the next chunk's K3 is enqueued.
 
-A run under a transport walks the chunk loop from Python, sweep after
-sweep, and is never captured into a CUDA graph (``parallel.graph.replays``):
-gloo's exchanges go through the host and cannot be captured, and a captured
-NCCL sweep across processes could not be checked on the one card of the
-chip smoke; capturing it is the next step (ROADMAP.md).
+A run over NCCL (each process on cards of its own) is captured as a
+one-process run is (``parallel.graph.replays``): each process captures its
+own ranks' sweep, with the all-gathers and point-to-point sends and
+receives this transport issues on its process group's NCCL stream, into one
+CUDA graph on its cards, and replays it once per iteration. Every process
+captures the same collectives in the same order, after a warm-up sweep that
+ran each of them once (NCCL makes its communicators and connections at
+their first use, which a capture cannot hold). In a sweep over buffers made
+once (``Mesh.sweep_buffers``) the transport writes only into buffers of
+that sweep, made at the warm-up: the packed payloads sent and the bytes
+received, keyed by the collective, its chunk's parity (under the stale
+consensus chunk c+1's collective is issued while chunk c's result is still
+read) and, point to point, the pair of ranks. A run over gloo walks the
+chunk loop from Python: its exchanges pass through the host. Without sweep
+buffers (the host loop) every call makes fresh tensors.
 
 Tested without a cluster by the two-process harness of
 ``tests/test_torch_multihost.py``.
@@ -212,6 +222,13 @@ def _as_bytes(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous().reshape(-1).view(torch.uint8)
 
 
+def _pack(out: torch.Tensor, x: torch.Tensor, dtype) -> torch.Tensor:
+    """The bytes ``out`` with ``x`` written into them, cast to ``dtype`` (as
+    ``Tensor.to`` casts): a payload packed for the wire."""
+    out.view(dtype).view(x.shape).copy_(x)
+    return out
+
+
 def _card(d: torch.device):
     """A card's identity across processes (host, UUID); None off the card."""
     if d.type != "cuda":
@@ -255,36 +272,67 @@ class ProcessTransport:
         local ranks (all of one shape and dtype)."""
         return self.finish(self.start_all_gather(mesh, tensors))
 
-    def start_all_gather(self, mesh, tensors: dict):
-        """:meth:`all_gather` begun: over NCCL the all-gather is issued
-        (``async_op``) on the caller's current stream and runs on while the
-        card computes; over gloo nothing moves until :meth:`finish`, which
-        then copies the payloads to the host and exchanges them."""
+    def start_all_gather(self, mesh, tensors: dict, wire=None, key=()):
+        """:meth:`all_gather` begun, each payload cast to ``wire`` (if given):
+        over NCCL the all-gather is issued (``async_op``) after the caller's
+        current stream and runs on while the card computes; over gloo
+        nothing moves until :meth:`finish`, which then copies the payloads
+        to the host and exchanges them. In a sweep over buffers made once
+        the payloads are packed into, and received in, buffers under
+        ``key`` (the collective and its chunk's parity)."""
         import torch.distributed as dist
 
+        bufs = mesh.sweep_buffers
         like = tensors[mesh.local_ranks[0]]
+        dtype = wire or like.dtype
         every = [(li, ti) for li in range(mesh.shape["led"]) for ti in range(mesh.shape["tile"])]
         per = len(mesh.local_ranks)
 
         def unpack(parts):
-            return {every[p * per + j]: chunk.view(like.dtype).reshape(like.shape)
+            return {every[p * per + j]: chunk.view(dtype).reshape(like.shape)
                     for p, part in enumerate(parts) for j, chunk in enumerate(part.view(per, -1))}
+
+        if bufs is None and wire is not None:
+            tensors = {r: x.to(wire) for r, x in tensors.items()}
 
         def gathered():
             buf = torch.cat([_as_bytes(tensors[r]).to(self.device) for r in mesh.local_ranks])
             parts = [torch.empty_like(buf) for _ in range(self.world)]
             work = dist.all_gather(parts, buf, group=self.group, async_op=True)
-            return work, parts
+            return work, unpack(parts)
 
+        def into_buffers():
+            nbytes = like.numel() * dtype.itemsize
+            sent = bufs.get(("all-gather sent", *key), lambda: torch.empty(
+                (per, nbytes), dtype=torch.uint8, device=self.device))
+            got = bufs.get(("all-gather received", *key), lambda: torch.empty(
+                (self.world * per, nbytes), dtype=torch.uint8, device=self.device))
+            for j, r in enumerate(mesh.local_ranks):
+                _pack(sent[j], self._on_own_card(bufs, ("all-gather", *key, r), tensors[r],
+                                                 dtype), dtype)
+            work = dist.all_gather_into_tensor(got, sent, group=self.group, async_op=True)
+            return work, {r: got[i].view(dtype).view(like.shape) for i, r in enumerate(every)}
+
+        issue = gathered if bufs is None else into_buffers
         if self.backend == "nccl":
-            work, parts = gathered()
-            return lambda: (work.wait(), unpack(parts))[1]
+            work, out = issue()
+            return lambda: (work.wait(), out)[1]
 
         def later():
-            work, parts = gathered()
+            work, out = issue()
             work.wait()
-            return unpack(parts)
+            return out
         return later
+
+    def _on_own_card(self, bufs, key, x, dtype):
+        """``x`` as :func:`_pack` can copy it to this transport's card
+        without a tensor of torch's own: where a copy between cards would
+        cast or gather strides, cast and made contiguous on ``x``'s card
+        first, in a buffer under ``key``."""
+        if x.device == self.device or (x.dtype == dtype and x.is_contiguous()):
+            return x
+        return bufs.get(("cast", *key), lambda: torch.empty(
+            x.shape, dtype=dtype, device=x.device)).copy_(x)
 
     def exchange(self, mesh, grid, pairs) -> dict:
         """``{dst: grid value of src}`` for this process's ``dst`` ranks of
@@ -292,35 +340,48 @@ class ProcessTransport:
         sources directly, others received point to point."""
         return self.finish(self.start_exchange(mesh, grid, pairs))
 
-    def start_exchange(self, mesh, grid, pairs):
+    def start_exchange(self, mesh, grid, pairs, key=()):
         """:meth:`exchange` begun, as :meth:`start_all_gather` begins its
-        all-gather (NCCL: the sends and receives issued; gloo: deferred)."""
+        all-gather (NCCL: the sends and receives issued; gloo: deferred). In
+        a sweep over buffers made once each value sent and received is a
+        buffer under ``key`` and its pair of ranks."""
         import torch.distributed as dist
 
+        bufs = mesh.sweep_buffers
         like = mesh.local(grid)
         nbytes = like.numel() * like.element_size()
+
+        def buffer(what, src, dst):
+            return bufs.get((what, *key, src, dst), lambda: torch.empty(
+                nbytes, dtype=torch.uint8, device=self.device))
 
         def issued():
             out, ops, recvs = {}, [], []
             for src, dst in pairs:
                 ps, pd = self._owner(mesh, src), self._owner(mesh, dst)
+                x = grid[src[0]][src[1]]
                 if ps == pd == self.process:
-                    out[dst] = grid[src[0]][src[1]]
+                    out[dst] = x
                 elif ps == self.process:
-                    ops.append(dist.P2POp(dist.isend,
-                                          _as_bytes(grid[src[0]][src[1]]).to(self.device),
-                                          pd, self.group))
+                    if bufs is None:
+                        sent = _as_bytes(x).to(self.device)
+                    else:
+                        sent = _pack(buffer("exchange sent", src, dst),
+                                     self._on_own_card(bufs, ("exchange", *key, src, dst), x,
+                                                       x.dtype), x.dtype)
+                    ops.append(dist.P2POp(dist.isend, sent, pd, self.group))
                 elif pd == self.process:
-                    buf = torch.empty(nbytes, dtype=torch.uint8, device=self.device)
-                    ops.append(dist.P2POp(dist.irecv, buf, ps, self.group))
-                    recvs.append((dst, buf))
+                    got = (torch.empty(nbytes, dtype=torch.uint8, device=self.device)
+                           if bufs is None else buffer("exchange received", src, dst))
+                    ops.append(dist.P2POp(dist.irecv, got, ps, self.group))
+                    recvs.append((dst, got))
             works = dist.batch_isend_irecv(ops) if ops else []
 
             def done():
                 for work in works:
                     work.wait()
-                for dst, buf in recvs:
-                    out[dst] = buf.view(like.dtype).reshape(like.shape)
+                for dst, got in recvs:
+                    out[dst] = got.view(like.dtype).reshape(like.shape)
                 return out
             return done
 

@@ -323,9 +323,10 @@ def reconstruct_tile_sharded(images, geom: LEDGeometry, cfg: FPMConfig, mesh: Me
     """Reconstruction with the spectrum row-sharded over the mesh's ``tile``
     axis; the ``led`` axis splits each tile's owned LEDs. ``initial_state`` is
     an optional ``(obj_f_centered, pupil)`` pair (complex arrays or planes,
-    of either package) to resume from. Where every rank is a CUDA rank of
-    this process one sweep is captured into a CUDA graph and replayed
-    (``parallel.graph``); else the host walks the chunk loop."""
+    of either package) to resume from. Where every rank of this process is a
+    CUDA rank and the transport between processes, if any, is NCCL, one
+    sweep is captured into a CUDA graph and replayed
+    (``parallel.graph.replays``); else the host walks the chunk loop."""
     route, opts, s = prepare_tile_sharded(images, geom, cfg, mesh, iterations=iterations,
                                           dtype=dtype, initial_state=initial_state,
                                           **opt_overrides)

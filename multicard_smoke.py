@@ -5,6 +5,7 @@ cards of one host, against one process.
 Run from the repository root on a machine with four cards:
 
     python3 multicard_smoke.py          # four H100s: NCCL between processes
+    python3 multicard_smoke.py --parent build/parent   # also time a parent checkout
     python3 multicard_smoke.py --cpu    # rehearsal on CPU ranks (gloo)
 
 On the mono dome problem of ``chip_smoke.py`` (Np=90, NL=360, K=193 LEDs),
@@ -24,8 +25,19 @@ chunk c's reduction), beside the host loop's, the two routes bitwise
 one process (its mesh's ranks round-robin over the cards): the arrays
 bitwise equal, the counted collectives equal, the transport the layout
 calls for (nccl: every process on cards of its own), nothing written by a
-process other than 0. One JSON line per run with each process's wall
-seconds; any failure exits non-zero. It never imports JAX or ``fpm_tpu``.
+process other than 0, and the route ``fpm_torch.parallel.graph.replays``
+fixes: over nccl every process replays one sweep captured with its
+collectives (``graph`` true, with each process's capture ms, the host's
+enqueue ms of a replay and ms a sweep of its replays), over gloo the host
+walks the loop (``graph`` false). One JSON line per run with each
+process's wall seconds. Then ``multicard_processes``: 4 processes, a card
+each, ``--mesh 4 1`` and ``--mesh 2 2``, fresh and stale, on prepared grids
+(``scripts/process_sweeps.py``): ms a sweep of each process's host loop and
+of its replayed graph, and of a stale replay traced behind a gate on each
+card its overlaps and chunk stages (recorded, not checked); with
+``--parent DIR`` the host loop of the checkout in DIR too, timed in turns
+(parent, this checkout, this checkout, parent). Any failure exits
+non-zero. It never imports JAX or ``fpm_tpu``.
 """
 
 from __future__ import annotations
@@ -60,7 +72,8 @@ def run_case(label, flags, n_proc, arrays, tmp, transport, gpu) -> dict:
     one = cs.cli_recording(["run", *flags, "-o", one_dir])
     cs.check(one["rc"] == 0, f"{label}: one process exited {one['rc']}")
     t0 = time.perf_counter()
-    recs = cs.processes(lambda pid: ["run", *flags, "-o", dirs[pid], "--distributed"], n_proc)
+    recs = cs.processes(lambda pid: ["run", *flags, "-o", dirs[pid], "--distributed"], n_proc,
+                        timeout=300)
     start_to_exit = time.perf_counter() - t0
     bitwise = {a: bool(np.array_equal(np.load(os.path.join(dirs[0], a)),
                                       np.load(os.path.join(one_dir, a)))) for a in arrays}
@@ -70,6 +83,8 @@ def run_case(label, flags, n_proc, arrays, tmp, transport, gpu) -> dict:
                 all(r["counts"] == one["counts"] for r in recs),
             "mesh_one_process": one["meshes"], "mesh": [r["meshes"] for r in recs],
             "launches": [r["launches"] for r in recs],
+            "graph": bool(recs[0]["graphs"]) and all(r["graphs"] for r in recs),
+            **cs.graph_figures(recs), "one_process": cs.graph_figures([one]),
             "wall_s": {"processes": [r["wall_s"] for r in recs], "one": one["wall_s"],
                        "processes_start_to_exit": start_to_exit}, "gpu": gpu}
     cs.emit(line)
@@ -80,6 +95,9 @@ def run_case(label, flags, n_proc, arrays, tmp, transport, gpu) -> dict:
         cs.check(recs[0]["meshes"] and all(f"transport {transport}" in m
                                            for r in recs for m in r["meshes"]),
                  f"{label}: transport is not {transport}: {recs[0]['meshes']}")
+        replayed = [bool(r["graphs"]) for r in recs]
+        cs.check(all(replayed) if transport == "nccl" else not any(replayed),
+                 f"{label}: graph {replayed} over {transport}")
     for d in (one_dir, *dirs):
         shutil.rmtree(d)
     return line
@@ -101,43 +119,22 @@ def one_process_sweeps(problem, gpu) -> None:
     gated trace of a sweep; and the entry point's result on both routes,
     bitwise. The graph route's results are those the ``run_case`` lines
     hold bitwise against the multi-process runs."""
-    import torch
-
-    from fpm_torch.parallel import comm, graph, led_shard, make_mesh, tile_shard
-
-    cfg, geom, frames = problem
-
-    def timed(fn):
-        walls, enqueues = [], []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            fn()
-            enqueues.append((time.perf_counter() - t0) * 1e3)
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
-        return cs.median(walls), walls, enqueues
+    from fpm_torch.parallel import comm, graph, make_mesh
 
     for led, tile in ONE_PROCESS_MESHES:
         for stale in (False, True):
             def prepared():
                 mesh = make_mesh(led, tile)
-                kw = dict(use_pallas=True, chunk_size=32, stale_consensus=stale)
-                if tile == 1:
-                    route, opts = led_shard.prepare_led_sharded(frames, geom, cfg, mesh, **kw)
-                    return mesh, route, lambda bufs: led_shard._sharded_sweep(
-                        mesh, route, opts=opts, bufs=bufs)
-                route, opts, s = tile_shard.prepare_tile_sharded(frames, geom, cfg, mesh, **kw)
-                return mesh, route, lambda bufs: tile_shard._tile_sweep(mesh, route, opts=opts,
-                                                                        s=s, bufs=bufs)
+                return (mesh, *cs.prepared_sweep(problem, mesh, {}, stale))
 
             _, host_route, host_body = prepared()
-            host_ms, host_walls, _ = timed(lambda: host_body(None))
+            host_ms, host_walls, _ = cs.wall_ms(lambda: host_body(None))
             host_gated = cs.gated_trace(lambda: host_body(None), host_ms,
                                         chunks=host_route.n_chunks)
             mesh, route, body = prepared()
             captured = graph.SweepGraph(mesh, route, body)
             per_sweep = captured.launches["fused_chunk_increments"]
-            ms, walls, enqueues = timed(captured.replay)
+            ms, walls, enqueues = cs.wall_ms(captured.replay)
             verdict = comm.consensus_schedule_check(mesh.schedule)
             gated = cs.complete_trace(lambda: cs.gated_trace(captured.replay, ms,
                                                              chunks=route.n_chunks), per_sweep)
@@ -179,10 +176,69 @@ def one_process_sweeps(problem, gpu) -> None:
                      f"{label}: chunk c+1's K3 inside chunk c's reduction for {inside} ms: "
                      f"{stages}")
 
+
+def process_sweeps(cpu: bool, parent, gpu) -> None:
+    """The ``multicard_processes`` lines: ``scripts/process_sweeps.py`` as 4
+    processes, this checkout with ``--graph --trace`` (on the card), and
+    with ``parent`` that checkout's host loop, in turns: parent, this, this,
+    parent. One line per mesh and consensus: each launch's per-process
+    figures, the medians over processes of ms a sweep, and each card's
+    chunk stages of the stale replay. Checked: every process of this
+    checkout on the card replays a graph and its gate held."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(here, "scripts", "process_sweeps.py")
+    turns = [("parent", parent), ("this", here), ("this", here), ("parent", parent)]
+    launches = []
+    for name, root in turns if parent else turns[1:3]:
+        extra = ["--cpu"] if cpu else ["--graph", "--trace"] if name == "this" else []
+        outs = cs.run_processes(lambda pid: [sys.executable, script, "--root", root, *extra], 4,
+                                timeout=300)
+        launches.append((name, [json.loads(ln[len("SWEEPS "):]) for out in outs
+                                for ln in out.splitlines() if ln.startswith("SWEEPS ")]))
+
+    def med(runs, key):
+        vals = [r[key] for r in runs if r.get(key) is not None]
+        return cs.median(vals) if vals else None
+
+    for j, first in enumerate(launches[0][1][0]["runs"]):
+        (led, tile), stale = first["mesh"], first["stale_consensus"]
+        by_turn = [(name, [p["runs"][j] for p in procs]) for name, procs in launches]
+        mine = [runs for name, runs in by_turn if name == "this"]
+        line = {"phase": "multicard_processes", "mesh": [led, tile], "stale_consensus": stale,
+                "processes": 4, "ranks": mine[0][0]["ranks"],
+                "graph": all(r.get("graph") for runs in mine for r in runs),
+                "graph_ms": [med(runs, "graph_ms") for runs in mine],
+                "enqueue_ms": [med(runs, "enqueue_ms") for runs in mine],
+                "capture_ms": [med(runs, "capture_ms") for runs in mine],
+                "host_loop_ms": [med(runs, "host_loop_ms") for runs in mine],
+                "parent_host_loop_ms": [med(runs, "host_loop_ms")
+                                        for name, runs in by_turn if name == "parent"],
+                "turns": [name for name, _ in by_turn],
+                "fpm_torch": [procs[0]["fpm_torch"] for _, procs in launches],
+                "per_process": by_turn, "gpu": gpu}
+        if stale and not cpu:
+            last = mine[-1]
+            line.update({"overlap_ms": [r["overlap_ms"] for r in last],
+                         "consensus_overlap_ms": [r["consensus_overlap_ms"] for r in last],
+                         "stages": [r["stages"] for r in last],
+                         "gate_held": [r["gate_held"] for r in last],
+                         "k3_traced": [[r["k3_kernels"], r["k3_launches_per_sweep"]]
+                                       for r in last]})
+        cs.emit(line)
+        if not cpu:
+            label = f"4 processes {led}x{tile}{' stale' if stale else ''}"
+            cs.check(line["graph"], f"{label}: a process walked the host loop")
+            cs.check(all(line.get("gate_held", [True])),
+                     f"{label}: a gate ended before the replay was enqueued")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cpu", action="store_true",
                     help="rehearse on CPU ranks at Np 16 (gloo between the processes)")
+    ap.add_argument("--parent", default=None,
+                    help="a checkout (e.g. the parent commit, unpacked with git archive) "
+                         "whose host loop is timed beside this one's")
     args = ap.parse_args(argv)
     import torch
 
@@ -215,6 +271,7 @@ def main(argv=None) -> int:
                      ("object_spectrum.npy", "pupil.npy"), tmp, transport, gpu)
         if not args.cpu:
             one_process_sweeps((cfg, geom, frames), gpu)
+        process_sweeps(args.cpu, args.parent and os.path.abspath(args.parent), gpu)
         for n_proc in FOV_PROCESSES:
             run_case(f"{n_proc} processes --fov-grid 8 8",
                      [widep, "-n", "10", "--use-pallas", *plat, "--fov-grid", "8", "8"], n_proc,

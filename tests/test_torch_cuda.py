@@ -1346,30 +1346,163 @@ def test_replays_allocate_nothing(cuda, led, tile):
     assert torch.cuda.memory_stats()["allocation.all.allocated"] == allocated
 
 
-def test_a_process_transport_walks_the_host_loop(cuda):
-    """Under torch.distributed (one process here, its collectives over the
-    transport's process group) the run is host-walked by rule, and bitwise
-    the graph route of the same mesh shape."""
+@pytest.fixture
+def one_process_world(monkeypatch):
+    """Starts a one-process ``torch.distributed`` world on localhost whose
+    meshes' transport is ``backend`` ("nccl": no other process shares the
+    card; "gloo": as where this torch has no NCCL), and destroys it after."""
     import socket
 
     import torch.distributed as dist
 
     from fpm_torch.parallel import multihost
 
+    def start(backend):
+        if backend == "gloo":
+            monkeypatch.setattr(dist, "is_nccl_available", lambda: False)
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        assert multihost.initialize_from_env(f"127.0.0.1:{port}", 1, 0)
+
+    yield start
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def without_transport(led, tile, card):
+    """The ``led × tile`` mesh of one process on ``card``, made while a
+    ``torch.distributed`` world is open (where ``make_mesh`` would span it)."""
+    from fpm_torch.parallel.mesh import Mesh
+
+    return Mesh([[card] * tile for _ in range(led)])
+
+
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_a_process_transport_walks_the_host_loop(cuda, one_process_world, backend):
+    """Under torch.distributed (one process here, its collectives over the
+    transport's process group) the run is host-walked by rule over gloo,
+    and over NCCL replays one captured sweep, its collectives included;
+    either bitwise the graph route of the same mesh shape without a
+    transport."""
     ds = synthetic_dataset(np_size=16, grid=5, seed=5)
     replayed, _ = sharded_entry(ds, 2, 1, stale_consensus=True)
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    assert multihost.initialize_from_env(f"127.0.0.1:{port}", 1, 0)
-    try:
-        mesh = make_mesh(2, 1)
-        assert mesh.transport is not None
-        walked, _ = sharded_entry(ds, 2, 1, mesh=mesh, stale_consensus=True)
-        assert walked.replay is None
-    finally:
-        dist.destroy_process_group()
+    one_process_world(backend)
+    mesh = make_mesh(2, 1)
+    assert mesh.transport.backend == backend
+    run, _ = sharded_entry(ds, 2, 1, mesh=mesh, stale_consensus=True)
+    assert (run.replay is not None) is (backend == "nccl")
+    assert_same_result(replayed, run)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(comm_precision="bf16", stale_consensus=True)],
+                         ids=["fresh", "bf16-wire-stale"])
+@pytest.mark.parametrize("led,tile", [(2, 1), (1, 2)])
+def test_the_nccl_graph_route_is_bitwise_the_host_loop(cuda, monkeypatch, one_process_world,
+                                                       led, tile, kw):
+    """A one-process NCCL world, two ranks on the card: the entry point
+    replays one captured sweep with the transport's all-gathers in it;
+    with the test-only ``force_host_loop`` it walks the loop. Both bitwise
+    the mesh without a transport, the same launches, and the counted
+    collectives the host loop's and the analytic model's."""
+    from fpm_torch.parallel import comm, graph
+
+    ds = synthetic_dataset(np_size=16, grid=5, seed=5)
+    one_process_world("nccl")
+    single, _ = sharded_entry(ds, led, tile, mesh=without_transport(led, tile, cuda), **kw)
+    before = kernels.launch_counts()
+    replayed, mesh = sharded_entry(ds, led, tile, mesh=make_mesh(led, tile), **kw)
+    assert mesh.transport.backend == "nccl"
+    assert replayed.replay is not None and len(replayed.replay["enqueue_ms"]) == 3
+    mid = kernels.launch_counts()
+    monkeypatch.setattr(graph.run_sweeps, "force_host_loop", True)
+    walked, host_mesh = sharded_entry(ds, led, tile, mesh=make_mesh(led, tile), **kw)
+    assert walked.replay is None
+    after = kernels.launch_counts()
+    assert {k: after[k] - mid[k] for k in after} == {k: mid[k] - before[k] for k in mid}
     assert_same_result(replayed, walked)
+    assert_same_result(replayed, single)
+    assert mesh.counts == host_mesh.counts
+    cfg, k = ds.cfg, ds.geom.num_leds
+    if tile == 1:
+        model, hops = comm.led_shard_comm(cfg.n_large, cfg.np_size, k, 8, led), 1
+    else:
+        model = comm.tile_shard_comm(cfg.n_large, cfg.np_size, k, led, tile, 8)
+        hops = -(-cfg.np_size // (cfg.n_large // tile))
+    if not kw:
+        assert comm.counted_mismatches(mesh.counts, model, sweeps=3, halo_hops=hops) == []
+
+
+@pytest.mark.parametrize("led,tile", [(2, 1), (1, 2)])
+def test_nccl_replays_allocate_nothing_and_never_wait_on_the_card(cuda, one_process_world, led,
+                                                                  tile):
+    """Under a one-process NCCL world the captured sweep, its all-gathers
+    included, writes only into buffers made before the capture: the caching
+    allocator's count of allocations does not move across replays; and a
+    replay passes under ``torch.cuda.set_sync_debug_mode("error")``."""
+    from fpm_torch.parallel import graph, led_shard, tile_shard
+
+    ds = synthetic_dataset(np_size=16, grid=5, seed=5)
+    one_process_world("nccl")
+    mesh = make_mesh(led, tile)
+    kw = dict(chunk_size=8, use_pallas=True, stale_consensus=True, comm_precision="bf16")
+    if tile == 1:
+        route, opts = led_shard.prepare_led_sharded(ds.images, ds.geom, ds.cfg, mesh, **kw)
+
+        def body(bufs):
+            return led_shard._sharded_sweep(mesh, route, opts=opts, bufs=bufs)
+    else:
+        route, opts, s = tile_shard.prepare_tile_sharded(ds.images, ds.geom, ds.cfg, mesh, **kw)
+
+        def body(bufs):
+            return tile_shard._tile_sweep(mesh, route, opts=opts, s=s, bufs=bufs)
+    assert graph.replays(mesh)
+    run = graph.SweepGraph(mesh, route, body)
+    run.replay()
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_stats()["allocation.all.allocated"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for _ in range(5):
+        run.replay()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] == allocated
+
+
+def test_a_graph_over_several_cards_puts_the_warm_up_back_after_it_ends(cuda):
+    """A graph over two cards of this process starts from the state before
+    its warm-up on both cards, even where the warm-up's last work on the
+    second card (here a late write to its state on its comm lane, behind a
+    spin kernel) is still running when the warm-up returns."""
+    from fpm_torch.parallel import graph, led_shard
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: the ranks of one mesh on different cards")
+    ds = synthetic_dataset(np_size=16, grid=5, seed=5)
+    mesh = make_mesh(2, 1)
+    route, opts = led_shard.prepare_led_sharded(ds.images, ds.geom, ds.cfg, mesh,
+                                                chunk_size=8, use_pallas=True)
+    before = [t.clone() for t in graph._state(route)]
+    second = mesh.devices[1][0]
+    assert second != mesh.home
+
+    def body(bufs):
+        mets = led_shard._sharded_sweep(mesh, route, opts=opts, bufs=bufs)
+        if not bufs.frozen:
+            lane = mesh._lane_streams["comm"][second]
+            with torch.cuda.device(second), torch.cuda.stream(lane):
+                torch.cuda._sleep(100_000_000)              # ~50 ms on the second card
+                route.obj[1][0].add_(1.0)
+        return mets
+
+    graph.SweepGraph(mesh, route, body)
+    for card in (mesh.home, second):
+        torch.cuda.synchronize(card)
+    for now, was in zip(graph._state(route), before):
+        assert torch.equal(now.cpu(), was.cpu())
 
 
 def test_a_capture_that_fails_raises(cuda, monkeypatch):
