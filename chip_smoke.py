@@ -22,7 +22,7 @@ tiers of the DFT products (``dft_precision``): ``bf16x3``, the default (a
    ``build.start_ablation_builds``), ptxas's registers and spills, and the
    HMMA (tensor-core) instructions in each main kernel instantiation's SASS
    (``cuobjdump``): more than 0 in every bf16x3 one, none in the highest
-   ones nor in the consensus kernels.
+   ones nor in the consensus and peer route kernels.
    Then a ``digests`` line (``kernel_digests``): SHA-256 of K1, K2 and K3's
    results at Np 90 and 100, both tiers and cluster sizes 1-8, and under
    ``sharded`` of the spectrum and pupil after 2 sweeps of every sharded
@@ -147,6 +147,16 @@ tiers of the DFT products (``dft_precision``): ``bf16x3``, the default (a
    the host-walked route of the same run (``force_host_loop``, run only for
    its digest), 4 more runs, and the mesh with its streams serialized
    (``serialize_streams``).
+   Then the peer route's kernels (``csrc/epry_peer.cu``: the epoch, the
+   post, the wait, the halo pull; ``peer_rows``) against their plain
+   versions, each a ``timing`` line, and ``peer_order`` lines
+   (``peer_order_phase``): mono (4,1) and (2,2), fresh and stale, with the
+   test-only ``peer_route.force_flags``, which orders the streams of one
+   card with flags as the one-process sweep over several cards orders its
+   cards: each run through the entry point replays its graph on the route
+   ``streams``, launches every kernel of that route (with the counts at 0
+   just before), holds no event edge between two streams in its chunk loop
+   and is bitwise the ``digests`` line's default route.
 6. ``dogstomach``: the dogStomach optics of tests/test_torch_np200.py
    (Np=200, NL=600, K=88 dome LEDs, bbox 112 at offset 48, object from
    ``--seed``, 16-bit frames; nothing cut). K2 exact and lazy, K1 at chunk 16
@@ -840,7 +850,7 @@ def trace_overlap(fn, gate_ms: float = 0.0, chunks: int = 0, records: bool = Fal
                   cards=None) -> dict:
     """One call of ``fn`` under ``torch.profiler``, read from its trace: the
     time in which a K3 kernel (``fpm_torch``'s kernels but the consensus
-    ones) and the lanes' work (a consensus kernel, a copy, or anything on a
+    ones and the peer route's) and the lanes' work (a consensus kernel, a copy, or anything on a
     stream that runs no K3: the mesh's comm and halo lanes) run at once
     (``overlap_ms``; with a consensus kernel alone ``consensus_overlap_ms``,
     which leaves out the copies of a chunk's payloads between cards while
@@ -859,7 +869,10 @@ def trace_overlap(fn, gate_ms: float = 0.0, chunks: int = 0, records: bool = Fal
     ``records`` every record of the work as [card, kind, start µs from the
     first, µs] (``records``; kind ``k3``, ``consensus``, ``copy`` or
     ``other``). ``cards``: the cards padded and gated (default every
-    visible card; a process of a multi-process run names its own)."""
+    visible card; a process of a multi-process run names its own).
+    ``by_card``: ``overlap_ms`` and ``consensus_overlap_ms`` of each card
+    on its own clock; the peer route's waits (``peer_wait_ms``, which spin
+    until a flag is posted) are left out of the work."""
     from collections import Counter
 
     import torch
@@ -895,9 +908,12 @@ def trace_overlap(fn, gate_ms: float = 0.0, chunks: int = 0, records: bool = Fal
             events = json.load(f)["traceEvents"]
     every = [e for e in events if e.get("ph") == "X"
              and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    work = [e for e in every if "spin_kernel" not in e["name"]]
+    # The peer route's waits (csrc/epry_peer.cu) spin until a flag is
+    # posted: time a stream holds, not work.
+    waits = [e for e in every if "peer_wait" in e["name"]]
+    work = [e for e in every if "spin_kernel" not in e["name"] and "peer_wait" not in e["name"]]
     k3 = [e for e in work if e["cat"] == "kernel" and "fpm::" in e["name"]
-          and "consensus" not in e["name"]]
+          and "consensus" not in e["name"] and "peer_" not in e["name"]]
 
     def stream(e):
         return e["args"].get("device"), e["args"].get("stream")
@@ -912,6 +928,14 @@ def trace_overlap(fn, gate_ms: float = 0.0, chunks: int = 0, records: bool = Fal
     u_k3, u_lanes, u_work = union(k3), union(lanes), union(work)
     consensus = [e for e in work if "consensus" in e["name"]]
     u_consensus = union(consensus)
+    by_card = {}
+    for dev in sorted({e["args"].get("device", -1) for e in k3}):
+        mine = union([e for e in k3 if e["args"].get("device", -1) == dev])
+        by_card[dev] = {
+            "overlap_ms": meet(mine, union([e for e in lanes
+                                            if e["args"].get("device", -1) == dev])) / 1e3,
+            "consensus_overlap_ms": meet(mine, union([
+                e for e in consensus if e["args"].get("device", -1) == dev])) / 1e3}
     stages = {"stages": chunk_stages(k3, consensus, chunks)} if chunks else {}
     if records and work:
         t0 = min(e["ts"] for e in work)
@@ -923,6 +947,7 @@ def trace_overlap(fn, gate_ms: float = 0.0, chunks: int = 0, records: bool = Fal
     return {**stages, "k3_ms": length(u_k3) / 1e3, "lane_ms": length(u_lanes) / 1e3,
             "overlap_ms": meet(u_k3, u_lanes) / 1e3,
             "consensus_overlap_ms": meet(u_k3, u_consensus) / 1e3,
+            "by_card": by_card, "peer_wait_ms": length(union(waits)) / 1e3,
             "busy_ms": length(u_work) / 1e3,
             "span_ms": (u_work[-1][1] - u_work[0][0]) / 1e3 if u_work else 0.0,
             "k3_streams": len(k3_streams),
@@ -1112,6 +1137,151 @@ def sharded_sweep_phase(problems: dict, digests: dict, entry: dict, smi: str) ->
                   f"{label}: K3 beside a collective for {gated['overlap_ms']} ms: {gated}")
             check(all(r == base for r in repeats), f"{label}: repeats differ")
             check(serialized == base, f"{label}: serialized streams change the result")
+
+
+PEER_KEYS = ("peer_epoch", "peer_post", "peer_wait", "peer_pull")
+PEER_REPLACES = ("fpm_tpu/parallel/led_shard.py:164-209 (none: XLA orders a mesh run's chunks, "
+                 "collectives and halo inside its one program; no Pallas kernel)")
+
+
+def peer_rows(problem, smi: str) -> list:
+    """The peer route's kernels (``kernels.peer_*``, ``csrc/epry_peer.cu``)
+    against their plain versions, at the main path's shapes: the epoch and
+    a post on a card's flag block against the plain versions' words; a wait
+    on one stream that holds a copy until a post on another, which runs
+    after a 20 ms spin (the copy must read what was written before the
+    post: max |Δ| of the copy), at epochs 1-3 and chunks 0-3 (both
+    parities); a pull of the forward halo of mono mesh (2,2) (the 90 rows of
+    a 180×360 tile) against ``copy_``. ms a call on CUDA events, the plain
+    versions' ms on the card, the bound: the bytes a call moves at the
+    H100's 3.35 TB/s (the pull's rows read and written once; a flag or an
+    epoch 8 bytes read and 8 written, a wait 8 bytes a flag and the epoch),
+    ``library_ms`` the pull's one PyTorch call (``Tensor.copy_``)."""
+    import torch
+
+    from fpm_torch.bench import bound
+    from fpm_torch.ops import kernels
+
+    cfg, _, _ = problem
+    dev = torch.device("cuda")
+    words, plain = kernels.flag_block(dev), kernels.flag_block("cpu")
+    a, b = torch.cuda.Stream(), torch.cuda.Stream()
+    src, dst = torch.zeros(1 << 20, device=dev), torch.empty(1 << 20, device=dev)
+    wait_err, word_err = 0.0, 0
+    for epoch in range(1, 4):
+        kernels.peer_epoch(words)
+        kernels.peer_epoch_plain(plain)
+        for stream in (a, b):
+            stream.wait_stream(torch.cuda.current_stream())
+        for chunk in range(4):
+            with torch.cuda.stream(a):
+                torch.cuda._sleep(40_000_000)              # ~20 ms at ≤ 2 GHz
+                src.fill_(10.0 * epoch + chunk)
+                kernels.peer_post(words, chunk % 2, chunk)
+            with torch.cuda.stream(b):
+                kernels.peer_wait([(words, chunk % 2, chunk)], words)
+                dst.copy_(src)
+            kernels.peer_post_plain(plain, chunk % 2, chunk)
+            kernels.peer_wait_plain([(plain, chunk % 2, chunk)], plain)
+            torch.cuda.synchronize()
+            wait_err = max(wait_err, float((dst - (10.0 * epoch + chunk)).abs().max()))
+            word_err = max(word_err, int((words.cpu() - plain).abs().max()))
+    nl, n = cfg.n_large, cfg.np_size
+    tile = torch.randn((2, nl // 2, nl), device=dev)
+    halo = torch.empty((2, n, nl), device=dev)
+    kernels.peer_pull(halo, tile[:, :n])
+    torch.cuda.synchronize()
+    pull_err = float((halo - tile[:, :n]).abs().max())
+    cuda_words = plain.to(dev)
+    cases = {
+        "peer_epoch": (lambda: kernels.peer_epoch(words),
+                       lambda: kernels.peer_epoch_plain(cuda_words), float(word_err), 16,
+                       "a card's epoch word += 1"),
+        "peer_post": (lambda: kernels.peer_post(words, 0, 0),
+                      lambda: kernels.peer_post_plain(cuda_words, 0, 0), float(word_err), 16,
+                      "one flag := (epoch << 32) | (chunk + 1)"),
+        "peer_wait": (lambda: kernels.peer_wait([(words, 0, 0)], words),
+                      lambda: kernels.peer_wait_plain([(cuda_words, 0, 0)], cuda_words),
+                      wait_err, 16, "one flag, already posted"),
+        "peer_pull": (lambda: kernels.peer_pull(halo, tile[:, :n]),
+                      lambda: kernels.peer_pull_plain(halo, tile[:, :n]), pull_err,
+                      2 * halo.numel() * 4, "mono mesh (2,2): the 90 halo rows of a 180x360 "
+                      "tile, on this card"),
+    }
+    rows = []
+    for name, (fn, plain_fn, err, nbytes, lines) in cases.items():
+        kernels.peer_post(words, 0, 0)
+        ms, plain_ms = cuda_ms(fn, 50), cuda_ms(plain_fn, 5)
+        bound_ms, bound_by = bound(nbytes, 0)
+        line = {"name": name, "route": "cuda", "source": "fpm_torch/ops/csrc/epry_peer.cu",
+                "replaces": PEER_REPLACES, "launches": None, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": cuda_ms(lambda: halo.copy_(tile[:, :n]), 50)
+                if name == "peer_pull" else None}
+        emit({"phase": "timing", "kernel": name, "as": lines, "bytes": nbytes,
+              **{k: v for k, v in line.items() if k not in ("name", "launches")}, "gpu": smi})
+        check(err == 0, f"{name}: not its plain version's result ({err})")
+        rows.append(line)
+    return rows
+
+
+def peer_order_phase(problem, digests: dict, rows: list, smi: str) -> None:
+    """The peer route's order on one card: ``peer_route.force_flags``
+    (tests only) orders the streams of one card with flags as the peer
+    route orders cards, and pulls the halo. Mono (4,1) and (2,2), fresh and
+    stale, through the entry point, every launch count at 0 just before
+    each run and read just after: the run replays its graph on the route
+    ``streams``, launches every kernel of the route (the pull on the tile
+    axis) and no other kernel's count moves but K3's and its consensus
+    kernels'; its result is bitwise the default route's (the ``digests``
+    line); the captured sweep holds no event edge between two streams in
+    its chunk loop. Fills the ``launches`` of ``rows`` (:func:`peer_rows`)
+    from the stale (2,2) run, whose path holds all four."""
+    import torch
+
+    from fpm_torch.ops import kernels
+    from fpm_torch.parallel import comm, make_mesh, peer_route
+
+    wrappers = {**path_wrappers(), **{key: getattr(kernels, key) for key in PEER_KEYS}}
+    counted = {}
+    for led, tile in ((4, 1), (2, 2)):
+        for stale in (False, True):
+            label = sharded_label("mono", led, tile, {}, stale)
+            mesh = make_mesh(led, tile, devices=[torch.device("cuda", 0)] * (led * tile))
+            peer_route.force_flags = True
+            try:
+                for w in wrappers.values():
+                    w.launches = 0
+                res = sharded_run(problem, led, tile, {}, stale, mesh=mesh)
+                counts = {k: w.launches for k, w in wrappers.items()}
+            finally:
+                peer_route.force_flags = False
+            edges = comm.card_edges(mesh.schedule, mesh.edges)
+            in_loop = [j for i, (s, e) in enumerate(zip(mesh.schedule, mesh.edges))
+                       if s.chunk is not None for j in e.events
+                       if mesh.schedule[j].stream != s.stream]
+            digest = result_digest(res)
+            replay = res.replay or {}
+            emit({"phase": "peer_order", "case": label, "route": replay.get("peer_route"),
+                  "graph": res.replay is not None, "launches": counts,
+                  "flags_per_sweep": edges["flags"], "card_edges": edges,
+                  "events_between_streams_in_chunk_loop": len(in_loop),
+                  "enqueue_ms": median(replay.get("enqueue_ms") or [0.0]),
+                  "ms_per_sweep": replay.get("replays_ms", 0.0) / SHARDED_SWEEPS,
+                  "digest": digest, "default_digest": digests[label], "gpu": smi})
+            own = {"peer_epoch", "peer_post", "peer_wait"} | ({"peer_pull"} if tile > 1 else set())
+            check(res.replay is not None and replay["peer_route"] == "streams",
+                  f"{label}: flags forced, route {replay.get('peer_route')}")
+            check(digest == digests[label], f"{label}: flags forced {digest}, default "
+                                            f"{digests[label]}")
+            check(all(counts[k] > 0 for k in own) and ran_only(
+                {k: v for k, v in counts.items() if k not in PEER_KEYS}, "K3", tile)
+                  and all(counts[k] == 0 for k in set(PEER_KEYS) - own),
+                  f"{label}: launches {counts}")
+            check(not in_loop, f"{label}: {len(in_loop)} event edges between streams")
+            counted[(led, tile, stale)] = counts
+    for row in rows:
+        row["launches"] = counted[(2, 2, True)][row["name"]]
 
 
 CONSENSUS_REPLACES = {
@@ -2504,7 +2674,7 @@ def main(argv=None) -> int:
           "ptxas": {stem: {short_name(k): v for k, v in build.resources(stem).items()}
                     for stem in sorted(libs)}})
     for stem, counts in hmma.items():
-        if stem == "epry_consensus":   # no products, no tiers
+        if stem in ("epry_consensus", "epry_peer"):   # no products, no tiers
             check(not any(counts.values()), f"{stem} holds HMMA instructions: {counts}")
             continue
         by_tier = {}
@@ -3312,6 +3482,9 @@ def main(argv=None) -> int:
     sharded_sweep_phase({"mono": (cfg, geom, frames),
                          "dogStomach": sharded_problem("dogStomach", args.seed)},
                         digests["sharded"], sharded_entry_timing(args.seed), smi)
+    peer = peer_rows((cfg, geom, frames), smi)
+    peer_order_phase((cfg, geom, frames), digests["sharded"], peer, smi)
+    rows += peer
 
     t0 = time.perf_counter()
     ablation_libs = ablation_builds()

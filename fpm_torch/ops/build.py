@@ -34,6 +34,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -117,12 +118,18 @@ def _finish(procs) -> None:
         raise RuntimeError("nvcc failed to build the port's kernels:\n" + "\n".join(failures))
 
 
+# One build at a time in a process: threads that first launch a kernel at
+# once (the ROI runner's, a thread a card) would name the same temporary file.
+_BUILDING = threading.Lock()
+
+
 def _build(requests) -> list[dict[str, Path]]:
     """Compile the missing libraries of several builds (:func:`_start`), their
     ``nvcc`` runs all started together, and wait; returns {stem: path} per
     build."""
-    builds, procs = _start(requests)
-    _finish(procs)
+    with _BUILDING:
+        builds, procs = _start(requests)
+        _finish(procs)
     return builds
 
 
@@ -157,6 +164,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _U = ctypes.c_uint
+_L = ctypes.c_longlong
 _IP = ctypes.POINTER(ctypes.c_int)
 
 # C signatures of the entry points (see the sources for the argument meaning).
@@ -176,6 +184,11 @@ _SIGNATURES = {
                                       _P, _P, _I, _P, _P, _I, _I, _P, _IP],
         "fpm_consensus_tile_pupil": [_P, _P, _I, _P, _U, _P, _P, _I, _P, _I, _P, _P, _P, _F,
                                      _I, _I, _I, _P, _IP]},
+    "epry_peer": {"fpm_enable_peer_access": [_I, _I],
+                  "fpm_peer_epoch": [_P, _I, _P, _IP],
+                  "fpm_peer_post": [_P, _I, _I, _I, _P, _IP],
+                  "fpm_peer_wait": [_P, _P, _I, _P, _I, _P, _IP],
+                  "fpm_peer_pull": [_P, _P, _I, _I, _I, _L, _L, _I, _P, _IP]},
 }
 
 

@@ -21,7 +21,15 @@ sharded sweeps, each beside its plain version.
   launch each per card and chunk; CUDA source ``csrc/epry_consensus.cu``).
   They replace no Pallas kernel: ``fpm_tpu`` leaves these collectives and
   element-wise ops to XLA inside its one program of a mesh run. They count
-  their ``launches`` like the others and take no plan (section below).
+  their ``launches`` like the others and take no plan (section below). They
+  take payloads on another card where this card reads its memory
+  (:func:`enable_peer_access`).
+* The peer route of the one-process sweep over several cards,
+  :func:`peer_epoch`, :func:`peer_post`, :func:`peer_wait` and
+  :func:`peer_pull` (CUDA source ``csrc/epry_peer.cu``): the signal and
+  wait kernels that keep the order between cards on the cards, and the
+  forward halo pulled from a peer's rows. No Pallas kernel either: XLA
+  orders and moves a mesh run's collectives inside its program.
 
 K1-K3 take and return the JAX package's operands: the centered object
 spectrum as (2, NL, NL) float32 (re, im) planes (K3: any (2, R, Ncols)
@@ -1152,10 +1160,11 @@ def _payload_list(ts, like, dev, what):
         raise ValueError(f"{what}: {len(ts)} payloads; the kernel takes 1 to "
                          f"{CONSENSUS_MAX_RANKS}")
     for t in ts:
-        if (t.device != dev or t.dtype not in (torch.float32, torch.bfloat16)
+        if (not _readable(t, dev) or t.dtype not in (torch.float32, torch.bfloat16)
                 or not t.is_contiguous() or (like is not None and t.shape != like)):
             raise ValueError(f"{what}: a payload {t.dtype} {tuple(t.shape)} on {t.device}; "
-                             f"the kernel takes contiguous f32 or bf16 {like} on {dev}")
+                             f"the kernel takes contiguous f32 or bf16 {like} on {dev} "
+                             "or on a card whose memory it reads")
     return _pointers(ts), sum(1 << r for r, t in enumerate(ts) if t.dtype == torch.bfloat16)
 
 
@@ -1343,9 +1352,137 @@ def consensus_tile_pupil(pc, vs, maxima, resid=(), upd=(), acc=None, *, wire=Non
     raise ValueError(f"no kernel for device {pc.device}")
 
 
+# ----------------------------------------------------------- the peer route
+# The signal and wait kernels of the sharded sweeps' peer route and its halo
+# pull (csrc/epry_peer.cu; ``parallel.mesh``: the one-process sweep over
+# several cards reads its peers' payloads in place and keeps the order
+# between cards on the cards). A card's flag block is a (1 + FLAG_SIGNALS)
+# int64 tensor on it: word 0 the card's epoch, bumped once a sweep; word
+# 1 + s the flag of signal s, (epoch << 32) | (chunk + 1) after each post.
+# The plain versions run on CPU tensors, where steps run in the order they
+# are enqueued: a post writes its word, and a wait raises where a flag it
+# polls was not posted before it.
+
+FLAG_SIGNALS, PEER_MAX_WAITS = 63, 32
+_PEERS: set = set()        # (device, peer) indices whose peer access is enabled
+
+
+def flag_block(device) -> torch.Tensor:
+    """A card's flag block, zero (epoch 0, nothing posted)."""
+    return torch.zeros(1 + FLAG_SIGNALS, dtype=torch.int64, device=device)
+
+
+def enable_peer_access(device, peer) -> None:
+    """Let kernels on CUDA ``device`` read ``peer``'s memory (and take
+    payloads on it: :func:`consensus_led` and the other consensus kernels,
+    :func:`peer_wait`, :func:`peer_pull`)."""
+    lib = build.library("epry_peer")
+    build.check(lib, lib.fpm_enable_peer_access(device.index, peer.index),
+                f"peer access from {device} to {peer}")
+    _PEERS.add((device.index, peer.index))
+
+
+def _readable(t: torch.Tensor, dev) -> bool:
+    """``t`` is on ``dev`` or on a card whose memory ``dev`` reads."""
+    return t.device == dev or (t.is_cuda and (dev.index, t.device.index) in _PEERS)
+
+
+def _flag_value(words, chunk: int):
+    return (words[0] << 32) | (chunk + 1)
+
+
+def _peer_launch(wrapper, name, *args):
+    lib = build.library("epry_peer")
+    launched = ctypes.c_int(0)
+    err = getattr(lib, name)(*args, ctypes.byref(launched))
+    _count(wrapper, launched)
+    build.check(lib, err, wrapper.__name__)
+
+
+def _stream_of(words, stream):
+    return _current_stream(words.device) if stream is None else stream
+
+
+def peer_epoch_plain(words) -> None:
+    words[0] += 1
+
+
+def peer_epoch(words, *, stream=None) -> None:
+    """A card's sweep starts: its epoch += 1 (one launch on ``stream``, a
+    raw handle, default the current stream)."""
+    if words.is_cuda:
+        return _peer_launch(peer_epoch, "fpm_peer_epoch", words.data_ptr(), words.device.index,
+                            _stream_of(words, stream))
+    peer_epoch_plain(words)
+
+
+def peer_post_plain(words, slot: int, chunk: int) -> None:
+    words[1 + slot] = _flag_value(words, chunk)
+
+
+def peer_post(words, slot: int, chunk: int, *, stream=None) -> None:
+    """Signal ``slot`` of the card of ``words`` posts ``chunk``: one launch
+    after the step's work on its stream."""
+    if not 0 <= slot < FLAG_SIGNALS or chunk < 0:
+        raise ValueError(f"peer_post: signal {slot}, chunk {chunk}; the block holds "
+                         f"{FLAG_SIGNALS} signals")
+    if words.is_cuda:
+        return _peer_launch(peer_post, "fpm_peer_post", words.data_ptr(), slot, chunk,
+                            words.device.index, _stream_of(words, stream))
+    peer_post_plain(words, slot, chunk)
+
+
+def peer_wait_plain(flags, words) -> None:
+    for block, slot, chunk in flags:
+        if int(block[1 + slot]) < int(_flag_value(words, chunk)):
+            raise RuntimeError(f"peer_wait: signal {slot} has not posted chunk {chunk}: on "
+                               "the CPU every post must be enqueued before its wait")
+
+
+def peer_wait(flags, words, *, stream=None) -> None:
+    """Hold ``stream`` (of the card of ``words``, whose epoch it reads)
+    until every ``(block, slot, chunk)`` of ``flags`` has posted ``chunk``
+    in this sweep: the blocks are this card's or its peers'. One launch of
+    one block per PEER_MAX_WAITS flags."""
+    if not words.is_cuda:
+        return peer_wait_plain(flags, words)
+    dev = words.device
+    for block, slot, chunk in flags:
+        if not _readable(block, dev) or not 0 <= slot < FLAG_SIGNALS:
+            raise ValueError(f"peer_wait: signal {slot} of a block on {block.device}, which "
+                             f"{dev} cannot read")
+    for i in range(0, len(flags), PEER_MAX_WAITS):
+        part = flags[i:i + PEER_MAX_WAITS]
+        ptrs = (ctypes.c_void_p * len(part))(*(b.data_ptr() + 8 * (1 + s) for b, s, _ in part))
+        _peer_launch(peer_wait, "fpm_peer_wait", ptrs, _ints([c for _, _, c in part]),
+                     len(part), words.data_ptr(), dev.index, _stream_of(words, stream))
+
+
+def peer_pull_plain(dst, src) -> None:
+    dst.copy_(src)
+
+
+def peer_pull(dst, src, *, stream=None) -> None:
+    """``dst`` (contiguous float32 planes on this card) := ``src``, a view
+    of the same shape with unit stride along its last dimension, on this
+    card or a peer's: one launch on the card of ``dst``."""
+    if not dst.is_cuda:
+        return peer_pull_plain(dst, src)
+    dev = dst.device
+    if (src.shape != dst.shape or dst.dim() != 3 or src.dtype != torch.float32
+            or dst.dtype != torch.float32 or not dst.is_contiguous() or src.stride(-1) != 1
+            or not _readable(src, dev)):
+        raise ValueError(f"peer_pull: {src.dtype} {tuple(src.shape)} on {src.device} into "
+                         f"{dst.dtype} {tuple(dst.shape)} on {dev}: the kernel takes float32 "
+                         "(planes, rows, cols) rows it can read into contiguous ones")
+    _peer_launch(peer_pull, "fpm_peer_pull", dst.data_ptr(), src.data_ptr(), *dst.shape,
+                 src.stride(0), src.stride(1), dev.index, _stream_of(dst, stream))
+
+
 # Every wrapper that counts its launches.
 COUNTED = (fused_epry_sweep, fused_epry_chunked, fused_chunk_increments, consensus_led,
-           consensus_tile_object, consensus_tile_pupil)
+           consensus_tile_object, consensus_tile_pupil, peer_epoch, peer_post, peer_wait,
+           peer_pull)
 
 
 def launch_counts() -> dict[str, int]:

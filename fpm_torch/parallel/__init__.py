@@ -9,14 +9,16 @@ into a CUDA graph on each process and replays it (``graph.py``); on the
 CPU and over gloo the host walks the loop."""
 
 from .comm import (
+    card_edges,
     consensus_schedule_check,
     counted_mismatches,
     led_shard_comm,
+    ordered_before,
     project_weak_scaling,
     tile_shard_comm,
 )
 from .led_shard import prepare_led_sharded, reconstruct_led_sharded
-from .mesh import Mesh, make_mesh, mesh_shape_for
+from .mesh import Mesh, make_mesh, mesh_shape_for, peer_route
 from .roi_shard import RoiMesh, make_roi_mesh, reconstruct_large_fov_sharded
 from .tile_shard import (
     partition_leds_by_tile,
@@ -38,6 +40,9 @@ __all__ = [
     "project_weak_scaling",
     "counted_mismatches",
     "consensus_schedule_check",
+    "card_edges",
+    "ordered_before",
+    "peer_route",
     "RoiMesh",
     "make_roi_mesh",
     "reconstruct_large_fov_sharded",

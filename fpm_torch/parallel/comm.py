@@ -27,7 +27,9 @@ bytes the mesh counted (``Mesh.counts``) — the port's counterpart of the JAX
 package's inventory of the compiled program's collectives — and the order
 of the issued work by :func:`consensus_schedule_check`, which reads the
 steps a sweep enqueued (``Mesh.schedule``) where the JAX package reads the
-scheduled program.
+scheduled program. :func:`ordered_before` and :func:`card_edges` read the
+same steps with how each was ordered on the cards (``Mesh.edges``: events,
+and the flags of the peer route between the cards of one process).
 """
 
 from __future__ import annotations
@@ -278,3 +280,56 @@ def consensus_schedule_check(schedule) -> dict:
         "consensus_bytes": sum(schedule[i].nbytes for i in cons[chunks[0]]),
         "issued_before_compute": ok,
     }
+
+
+def ordered_before(schedule, edges) -> list[set[int]]:
+    """For each step of a sweep (``Mesh.schedule`` with ``Mesh.edges``),
+    the steps the cards finish before it starts: through the events it
+    waited on, the flags it polled and the order of its stream (the stream
+    of that label on its card; a step of no card is on every card's), and so
+    on back. Only steps that enqueued work take part: one that enqueued
+    nothing (a collective that moved nothing) orders nothing itself, and
+    the steps waiting on it name, in their edges, the steps it stood for."""
+    cards = sorted({e.card for e in edges if e.card is not None})
+    last: dict = {}
+    masks: list[int] = []
+    for i, (step, e) in enumerate(zip(schedule, edges)):
+        mask = 0
+        if e.work:
+            preds = [*e.events, *e.flags]
+            for key in ((c, step.stream) for c in (cards if e.card is None else [e.card])):
+                if key in last:
+                    preds.append(last[key])
+                last[key] = i
+            for j in preds:
+                mask |= masks[j] | (1 << j)
+        masks.append(mask)
+    return [{j for j in range(i) if mask >> j & 1} for i, mask in enumerate(masks)]
+
+
+def card_edges(schedule, edges) -> dict:
+    """The event edges between cards that one sweep's schedule holds
+    (``Mesh.schedule`` with ``Mesh.edges``): for each step, each pair of a
+    card it runs on and a card of a step whose events it waited on, where
+    the two differ, and two for each payload it copied between cards
+    (ordered on both). By where they lie: ``fork`` (each card's sweep start
+    after :attr:`Mesh.home`'s stream), ``join``, ``chunk_loop`` and
+    ``other``; and ``flags``, the flags polled between cards or streams. On
+    the peer route a sweep holds at most 2·(cards − 1), none in the chunk
+    loop; on the copy route the fork and join of its streams are not steps
+    of the schedule and are not counted."""
+    cards = sorted({e.card for e in edges if e.card is not None})
+
+    def on(e):
+        return cards if e.card is None else [e.card]
+
+    out = {"fork": 0, "join": 0, "chunk_loop": 0, "other": 0, "flags": 0}
+    for step, e in zip(schedule, edges):
+        n = sum(1 for j in e.events for a in on(e) for b in on(edges[j]) if a != b) + 2 * e.copies
+        where = ("chunk_loop" if step.chunk is not None else "fork" if step.op == "sweep start"
+                 else "join" if step.op == "join" else "other")
+        out[where] += n
+        out["flags"] += len(e.flags)
+    out["total"] = out["fork"] + out["join"] + out["chunk_loop"] + out["other"]
+    return out
+

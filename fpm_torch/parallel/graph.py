@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from ..ops import kernels
+from .comm import card_edges
 from .mesh import Mesh
 
 
@@ -123,8 +124,13 @@ class SweepGraph:
 
     All ranks of one card, or of several cards of this process, go into one
     graph: the other cards' streams join the capture through the events of
-    the fork from the capturing stream, and a peer copy or an event wait
-    between cards is a node of the graph like a launch. Under an NCCL
+    the fork from the capturing stream. On the peer route
+    (``mesh.peer_route``) the fork and the join are the graph's only edges
+    between cards: the consensus kernels read their peers' payloads in
+    place, and the flags that order the cards are kernels like the others.
+    On the copy route a peer copy or an event wait between cards is a node
+    of the graph like a launch, and the graph's launch resolves each edge
+    between cards on the host. Under an NCCL
     transport the process group's stream joins the capture the same way (it
     waits on the lane that issues a collective, and the lane on it at the
     collective's finish), so each collective is a node too; the warm-up ran
@@ -200,8 +206,11 @@ def run_sweeps(mesh: Mesh, route, body, iterations: int):
     :func:`replays`, one captured sweep replayed ``iterations`` times, each
     sweep's metrics copied into one tensor on the card; the figures are the
     :class:`SweepGraph`'s ``capture_ms``, ``enqueue_ms``, ``replays_ms``
-    and ``launches``. Else the host loop, ``body(None)`` (fresh tensors
-    every chunk), and the figures None."""
+    and ``launches``, with ``peer_route`` (the route between cards the
+    captured sweep took, ``Mesh.sweep_route``: ``mesh.peer_route``'s) and
+    ``card_edges`` (``comm.card_edges`` of the captured sweep). Else the
+    host loop, ``body(None)`` (fresh tensors every chunk), and the figures
+    None."""
     if iterations and replays(mesh):
         graph = SweepGraph(mesh, route, body)
         metrics = torch.empty((iterations, 2), dtype=graph.mets.dtype, device=mesh.home)
@@ -212,7 +221,9 @@ def run_sweeps(mesh: Mesh, route, body, iterations: int):
         out = metrics.cpu().numpy()
         graph.replays_ms = (time.perf_counter() - t0) * 1e3
         return out, {"capture_ms": graph.capture_ms, "enqueue_ms": graph.enqueue_ms,
-                     "replays_ms": graph.replays_ms, "launches": graph.launches}
+                     "replays_ms": graph.replays_ms, "launches": graph.launches,
+                     "peer_route": mesh.sweep_route,
+                     "card_edges": card_edges(mesh.schedule, mesh.edges)}
     per_sweep = [body(None) for _ in range(iterations)]
     return (torch.stack(per_sweep).cpu().numpy() if per_sweep
             else np.zeros((0, 2), np.float64)), None

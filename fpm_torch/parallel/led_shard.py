@@ -123,6 +123,9 @@ class ComplexRoute:
     the plain version of the kernels' (``ops.kernels.consensus_*_plain``)."""
 
     pupil_payload = None      # the pupil psum's payload as counted: the payload itself
+    # Its consensus (PyTorch's ops on one card) cannot read another CUDA
+    # card's payloads in place: between CUDA cards it keeps the copy route.
+    in_place = False
 
     def __init__(self, opts: EPRYOptions, obj, pupil, support, amps, starts, mask):
         self.opts, self.obj, self.pupil, self.frame = opts, obj, pupil, pupil
@@ -224,6 +227,8 @@ class PlanesRoute(ComplexRoute):
         route.scratch = {card: kernels.ConsensusScratch(card, b)
                          for card, _ in mesh.cards() if card.type == "cuda"}
         return route
+
+    in_place = True           # the consensus kernels read their peers' payloads
 
     def increments(self, block, pc, sc, amps, starts, valid, scratch, *, c, out=None):
         o = self.opts
@@ -395,7 +400,7 @@ def _sharded_sweep(mesh: Mesh, route: ComplexRoute, *, opts: EPRYOptions, bufs=N
     group = [(li, 0) for li in range(mesh.shape["led"])]
     state = {"steps": (), "mets": None}
     start_state(mesh, route, bufs)
-    mesh.begin_sweep(route.obj, route.pupil, bufs=bufs)
+    mesh.begin_sweep(route.obj, route.pupil, bufs=bufs, in_place=route.in_place)
 
     def increments(c):
         outs = sweep_outputs(mesh, bufs, ("increments", c % 2), lambda li, ti: route.increments_out(

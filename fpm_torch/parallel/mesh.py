@@ -59,6 +59,25 @@ only into tensors that live for the whole run: nothing is handed over, the
 streams fork from and join into one stream (:attr:`Mesh.home`'s current
 stream, the capturing stream under a capture), and a payload that moves
 between cards lands in a buffer of the mesh made at its first move.
+
+**The peer route** (:func:`peer_route`, fixed by the mesh). One process
+over several cards, every pair of which reads the other's memory (peer
+access, enabled at the mesh's creation; CPU "cards", ``torch.device("cpu",
+i)``, share the host's): a sweep over buffers made once moves nothing
+between cards. :meth:`Mesh.collect` hands each consumer the payloads where
+their ranks wrote them, the forward halo (:meth:`Mesh.ppermute`) is pulled
+by a kernel on the receiving card (``kernels.peer_pull``), and the order
+between cards is kept on the cards: a step whose stream another card waits
+on posts a flag after its work (``kernels.peer_post``), and a step that
+waits on another card's step polls its flag first (``kernels.peer_wait``;
+the epoch each card bumps at its sweep's first node tells one sweep's
+posts from the last's). The only event edges between cards left are the
+fork at :meth:`begin_sweep` and the join at :meth:`end_sweep`, one each per
+card other than :attr:`home`'s. :attr:`Mesh.edges` records, beside each
+step of the schedule, its card and the steps it waited on through events
+and through flags (``parallel.comm.card_edges``, ``comm.ordered_before``).
+The host loop, a pair of cards without peer access, and a run over
+processes keep events and copies between cards (the copy route).
 """
 
 from __future__ import annotations
@@ -69,9 +88,12 @@ from typing import NamedTuple
 import torch
 
 from ..models.epry import resolve_device
+from ..ops import kernels
 
 AXES = ("led", "tile")
 LANES = ("comm", "halo")
+# The routes of peer_route that keep the order between cards with flags.
+FLAG_ROUTES = ("peer", "streams")
 
 
 class Step(NamedTuple):
@@ -89,6 +111,23 @@ class Step(NamedTuple):
     op: str
     waits_on: tuple[int, ...]
     nbytes: int = 0
+
+
+class Edges(NamedTuple):
+    """How a step of :attr:`Mesh.schedule` was ordered (:attr:`Mesh.edges`,
+    one per step): ``card``, the index in :meth:`Mesh.cards` of the card
+    whose stream it runs on (None: every card's lane, a collective of the
+    copy route); ``events``, the steps whose events its streams waited on
+    (a step that enqueued nothing stands for the steps it names);
+    ``flags``, the steps whose posts it polled (the peer route); ``copies``,
+    the payloads it copied between cards (each ordered on both); ``work``
+    False for a step that enqueued nothing."""
+
+    card: int | None
+    events: tuple[int, ...] = ()
+    flags: tuple[int, ...] = ()
+    copies: int = 0
+    work: bool = True
 
 
 class Pending:
@@ -178,16 +217,36 @@ class Mesh:
         self.counts: dict[tuple[str, str], dict[str, int]] = {}
         self.serialize_streams = serialize_streams
         self.schedule: list[Step] = []
+        self.edges: list[Edges] = []
         self._events: dict[int, list] = {}
+        self._sources: dict = {}       # steps that enqueued nothing: {card or None: steps}
+        self._posts: dict = {}         # step: (card, signal) of the flag it posted
+        self._signals: dict = {}       # (card, stream, op, n-th in its chunk): signal
+        self._nth: dict = {}
+        self._flags = None             # each card's flag block (kernels.flag_block)
+        self._route, self._flagged, self._lane_step = "one card", False, None
+        self.sweep_route = "one card"     # the route of the last sweep (begin_sweep)
         self._received: dict = {}      # buffers of payloads moved between cards (_landed)
         self._bufs = None              # the sweep's buffers made once (begin_sweep), or None
-        self._pool: list = []          # events, reused sweep after sweep (_recorded)
-        self._used = 0
+        self._pool: dict = {}          # each device's events, reused sweep after sweep
+        self._used: dict = {}
         self._needed: dict = {}        # collect's default needs by axes
         by_card: dict = {}
         for li, ti in self.local_ranks:
             by_card.setdefault(self.devices[li][ti], []).append((li, ti))
         self._cards = list(by_card.items())
+        self._card_index = {card: k for k, (card, _) in enumerate(self._cards)}
+        # Every pair of this process's cards reads the other's memory: CUDA
+        # cards with peer access (enabled here), or CPU "cards" (the host's).
+        self.peer_access = transport is None and len(self._cards) > 1 and all(
+            a.type == b.type == "cpu" or (a.type == b.type == "cuda"
+                                          and torch.cuda.can_device_access_peer(a, b))
+            for a in by_card for b in by_card if a != b)
+        if self.peer_access:
+            for a in by_card:
+                for b in by_card:
+                    if a != b and a.type == "cuda":
+                        kernels.enable_peer_access(a, b)
         cards = [d for d in by_card if d.type == "cuda"]
         streamed = bool(cards) and not serialize_streams
         self._rank_streams = {r: torch.cuda.Stream(self.devices[r[0]][r[1]])
@@ -214,7 +273,8 @@ class Mesh:
 
     def describe(self) -> str:
         """``led=L tile=T (N ranks on D devices: ...)`` for the CLI's line;
-        across processes also the process layout and the transport."""
+        across processes also the process layout and the transport, and on
+        several devices the route between them (:func:`peer_route`)."""
         distinct = list(dict.fromkeys(str(self.devices[li][ti]) for li, ti in self.local_ranks))
         n_local = len(self.local_ranks)
         shared = "; ranks share a device" if len(distinct) < n_local else ""
@@ -222,6 +282,8 @@ class Mesh:
                  f"{'s' if len(distinct) != 1 else ''}: {', '.join(distinct)}{shared}")
         if self.transport is not None:
             where = f"{self.transport.describe()}; this process's {where}"
+        if len(self._cards) > 1:
+            where = f"{where}; {peer_route(self)} route between them"
         return f"led={self.shape['led']} tile={self.shape['tile']} ({where})"
 
     # ------------------------------------------------------------- grids
@@ -263,26 +325,90 @@ class Mesh:
         return [*self._rank_streams.values(),
                 *(s for lane in self._lane_streams.values() for s in lane.values())]
 
-    def _log(self, chunk, rank, stream: str, op: str, waits, nbytes: int = 0) -> int:
+    def _log(self, chunk, rank, stream: str, op: str, waits, nbytes: int = 0, card=None,
+             work: bool = True) -> int:
         self.schedule.append(Step(chunk, rank, "current" if self.serialize_streams else stream,
                                   op, tuple(waits), nbytes))
+        self.edges.append(Edges(card, work=work))
         return len(self.schedule) - 1
 
-    def _wait(self, stream, waits) -> None:
-        # A step may name several steps that share events (a collect that
-        # moved nothing holds the events of the steps that made its payloads).
-        for event in {id(e): e for j in waits for e in self._events.get(j, ())}.values():
-            stream.wait_event(event)
+    def _card_of(self, rank) -> int:
+        return self._card_index[self.devices[rank[0]][rank[1]]]
+
+    def _domain(self, idx: int):
+        """Steps of one domain wait on each other through events, of two
+        through flags: a card on the peer route, a stream of the card on the
+        route ``peer_route.force_flags`` gives one card."""
+        card = self.edges[idx].card
+        return card if self._route == "peer" else (card, self.schedule[idx].stream)
+
+    def _resolve(self, waits, card) -> list[int]:
+        """The steps that enqueued work which ``waits`` stand for, for a
+        waiter on ``card``: a step that enqueued nothing stands for the steps
+        it names for that card, or for every card (a waiter of no card
+        waits on those of each)."""
+        out = []
+        for j in waits:
+            src = self._sources.get(j)
+            if src is None:
+                out.append(j)
+            else:
+                mine = src.get(card, src.get(None)) if card in src or None in src else [
+                    i for steps in src.values() for i in steps]
+                out += self._resolve(mine, card)
+        return list(dict.fromkeys(out))
+
+    def _wait(self, idx: int, stream, waits, events_only: bool = False) -> None:
+        """Step ``idx``'s ``stream`` (None: nothing to enqueue it on) after
+        the steps ``waits``: the events of those of its domain, the flags of
+        the others' on a route of flags. Recorded in :attr:`edges`."""
+        steps = self._resolve(waits, self.edges[idx].card)
+        mine = self._domain(idx)
+        flagged = [j for j in steps if self._flagged and not events_only
+                   and self._domain(j) != mine]
+        events = [j for j in steps if j not in flagged]
+        self.edges[idx] = self.edges[idx]._replace(events=tuple(events), flags=tuple(flagged))
+        if stream is not None:
+            for event in {id(e): e for j in events for e in self._events.get(j, ())}.values():
+                stream.wait_event(event)
+        if flagged:
+            polled = []
+            for j in flagged:
+                if j not in self._posts:
+                    raise RuntimeError(f"step {j} ({self.schedule[j].op}) of another card is "
+                                       "waited on but posted no flag")
+                card, signal = self._posts[j]
+                polled.append((self._flags[card], signal, self.schedule[j].chunk))
+            kernels.peer_wait(polled, self._flags[self.edges[idx].card],
+                              stream=None if stream is None else stream.cuda_stream)
+
+    def _post(self, idx: int, stream) -> None:
+        """On a route of flags, step ``idx`` of the chunk loop posts its flag
+        after its work, on ``stream``: signal n of its card is the n-th step
+        of a chunk with its stream and op."""
+        step, card = self.schedule[idx], self.edges[idx].card
+        if not self._flagged or step.chunk is None:
+            return
+        key = (card, step.stream, step.op)
+        nth = self._nth[(key, step.chunk)] = self._nth.get((key, step.chunk), -1) + 1
+        if (*key, nth) not in self._signals:
+            self._signals[(*key, nth)] = sum(1 for k in self._signals if k[0] == card)
+        signal = self._signals[(*key, nth)]
+        kernels.peer_post(self._flags[card], signal, step.chunk,
+                          stream=None if stream is None else stream.cuda_stream)
+        self._posts[idx] = (card, signal)
 
     def _recorded(self, idx: int, streams) -> None:
-        # Events are reused from sweep to sweep (begin_sweep starts the pool
-        # over): every wait on an event's earlier record was enqueued before.
+        # Events are reused from sweep to sweep (begin_sweep starts each
+        # device's pool over; an event records on one device only): every
+        # wait on an event's earlier record was enqueued before.
         events = []
         for stream in streams:
-            if self._used == len(self._pool):
-                self._pool.append(torch.cuda.Event())
-            event = self._pool[self._used]
-            self._used += 1
+            pool, used = self._pool.setdefault(stream.device, []), self._used.get(stream.device, 0)
+            if used == len(pool):
+                pool.append(torch.cuda.Event())
+            event = pool[used]
+            self._used[stream.device] = used + 1
             event.record(stream)
             events.append(event)
         self._events[idx] = events
@@ -292,15 +418,15 @@ class Mesh:
         """A step of rank ``rank``: its work, enqueued in the body, runs on
         the rank's stream after the events of the steps ``waits``. Yields
         the step's index in the schedule."""
-        idx = self._log(chunk, rank, f"rank {rank[0]},{rank[1]}", op, waits)
+        idx = self._log(chunk, rank, f"rank {rank[0]},{rank[1]}", op, waits,
+                        card=self._card_of(rank))
         stream = self._rank_streams.get(rank)
-        if stream is None:
+        self._wait(idx, stream, waits)
+        with _current(stream) if stream is not None else contextlib.nullcontext():
             yield idx
-            return
-        self._wait(stream, waits)
-        with _current(stream):
-            yield idx
-        self._recorded(idx, [stream])
+        if stream is not None:
+            self._recorded(idx, [stream])
+        self._post(idx, stream)
 
     def each(self, chunk, op: str, fn, *grids, waits=()):
         """``fn(*values of rank)`` over the local ranks, each as a step of
@@ -319,9 +445,11 @@ class Mesh:
         two cards runs on, and is ordered on, both), after ``waits``."""
         streams = list(self._lane_streams[lane].values())
         with contextlib.ExitStack() as stack:
-            for stream in streams:
-                self._wait(stream, waits)
-                stack.enter_context(_current(stream))
+            for stream in streams or [None]:
+                self._wait(idx, stream, waits, events_only=True)
+                if stream is not None:
+                    stack.enter_context(_current(stream))
+            self._lane_step = idx          # the step whose copies _landed counts
             yield
         if streams:
             self._recorded(idx, streams)
@@ -347,15 +475,14 @@ class Mesh:
         """A step of ``card`` on its comm lane (a chunk's consensus): its
         work, enqueued in the body, runs on the card's comm stream after the
         events of the steps ``waits``. Yields the step's index."""
-        idx = self._log(chunk, None, "comm", op, waits)
+        idx = self._log(chunk, None, "comm", op, waits, card=self._card_index[card])
         stream = self._lane_streams["comm"].get(card)
-        if stream is None:
+        self._wait(idx, stream, waits)
+        with _current(stream) if stream is not None else contextlib.nullcontext():
             yield idx
-            return
-        self._wait(stream, waits)
-        with _current(stream):
-            yield idx
-        self._recorded(idx, [stream])
+        if stream is not None:
+            self._recorded(idx, [stream])
+        self._post(idx, stream)
 
     def share(self, tensor, ranks) -> None:
         """``tensor``, made on a lane, is read on the streams of ``ranks``:
@@ -370,24 +497,85 @@ class Mesh:
         card's streams join the capture)."""
         return torch.cuda.current_stream(self.home if self._bufs is not None else stream.device)
 
-    def begin_sweep(self, *grids, bufs=None) -> None:
+    def _card_streams(self, card) -> list:
+        """The streams of ``card``: its ranks' and its lanes'."""
+        return [*(s for r, s in self._rank_streams.items()
+                  if self.devices[r[0]][r[1]] == card),
+                *(lane[card] for lane in self._lane_streams.values() if card in lane)]
+
+    def begin_sweep(self, *grids, bufs=None, in_place: bool = True) -> None:
         """Start a sweep's schedule: the rank and lane streams wait on the
         work enqueued on each card's current stream (the set-up that made
         ``grids``), and each rank's tensors of ``grids`` are handed to its
         stream. With ``bufs`` (``parallel.graph.SweepBuffers``) the sweep
         writes only into buffers made once: the streams fork from
-        :attr:`home`'s current stream and nothing is handed over."""
-        self.schedule, self._events, self._used, self._bufs = [], {}, 0, bufs
+        :attr:`home`'s current stream and nothing is handed over. On a route
+        of flags (:func:`peer_route`) each card's comm lane forks from it
+        (the only event edge into another card), bumps the card's epoch and
+        forks the card's other streams. ``in_place`` False: the sweep's
+        consumers cannot read another CUDA card's memory (the complex
+        route's consensus, PyTorch's ops on one card), which keeps the copy
+        route between cards. :attr:`sweep_route` is the route the sweep
+        takes."""
+        self.schedule, self.edges, self._events, self._used, self._bufs = [], [], {}, {}, bufs
+        self._sources, self._posts, self._nth = {}, {}, {}
+        self._route = peer_route(self)
+        self._flagged = bufs is not None and self._route in FLAG_ROUTES and (
+            in_place or self._route == "streams" or all(c.type == "cpu" for c, _ in self._cards))
+        self.sweep_route = (self._route if self._flagged or self._route not in FLAG_ROUTES
+                            else "copy" if len(self._cards) > 1 else "one card")
+        if self._flagged:
+            self._fork()
+            return
         for stream in self.streams():
             stream.wait_stream(self._origin(stream))
         for grid in grids:
             for li, ti in self.local_ranks:
                 self._hand_over(grid[li][ti], rank=(li, ti))
 
+    def _fork(self) -> None:
+        if self._flags is None:
+            self._flags = [kernels.flag_block(card) for card, _ in self._cards]
+        origin = torch.cuda.current_stream(self.home) if self._rank_streams else None
+        fork = self._log(None, None, "origin", "fork", (), card=self._card_index[self.home])
+        if origin is not None:
+            self._recorded(fork, [origin])
+        for k, (card, _) in enumerate(self._cards):
+            root = self._lane_streams["comm"].get(card)
+            idx = self._log(None, None, "comm", "sweep start", (fork,), card=k)
+            self._wait(idx, root, [fork], events_only=True)
+            kernels.peer_epoch(self._flags[k], stream=None if root is None else root.cuda_stream)
+            if root is not None:
+                self._recorded(idx, [root])
+                for stream in self._card_streams(card):
+                    if stream is not root:
+                        stream.wait_stream(root)
+
+    def _join(self) -> None:
+        ends = []
+        for k, (card, _) in enumerate(self._cards):
+            root = self._lane_streams["comm"].get(card)
+            if root is not None:
+                for stream in self._card_streams(card):
+                    if stream is not root:
+                        root.wait_stream(stream)
+            ends.append(self._log(None, None, "comm", "sweep end", (), card=k))
+            if root is not None:
+                self._recorded(ends[-1], [root])
+        join = self._log(None, None, "origin", "join", ends, card=self._card_index[self.home])
+        self._wait(join, torch.cuda.current_stream(self.home) if self._rank_streams else None,
+                   ends, events_only=True)
+
     def end_sweep(self, *grids, tensors=()) -> None:
         """End a sweep: each card's current stream (with buffers made once,
         :attr:`home`'s) waits on every rank and lane stream, and takes over
-        the tensors of ``grids`` and ``tensors``."""
+        the tensors of ``grids`` and ``tensors``. On a route of flags each
+        card's comm lane joins the card's other streams, and :attr:`home`'s
+        current stream joins the comm lanes."""
+        if self._flagged:
+            self._join()
+            self._bufs, self._flagged = None, False
+            return
         for stream in self.streams():
             self._origin(stream).wait_stream(stream)
         fixed, self._bufs = self._bufs is not None, None
@@ -503,7 +691,11 @@ class Mesh:
         ``wire_dtype`` and copied; between processes the transport's
         all-gather carries every payload, cast. A copy lands in a buffer
         of this mesh, made at the first chunk and reused: the next copy into
-        it is enqueued on the same lane after this chunk's consumer.
+        it is enqueued on the same lane after this chunk's consumer. On a
+        route of flags (:func:`peer_route`) nothing moves: each card gets
+        the payloads where their ranks wrote them (f32, rounded to the wire
+        by the consumer), and a consumer that waits on the collective waits
+        on the steps that made its card's payloads.
         ``step`` as for :meth:`psum`, ``wait`` False by default."""
         if needs is None:
             needs = self._needs(axes)
@@ -520,7 +712,9 @@ class Mesh:
             return self.transport.start_all_gather(self, mine, wire_dtype, _key(step))
 
         def arrive(r, x, card):
-            if x.device == card:
+            # Without a transport x is rank r's own tensor, on its card.
+            where = x.device if self.transport is not None else self.devices[r[0]][r[1]]
+            if self._flagged or where == card:
                 return x
             return self._landed((step.get("what"), r), x, card, wire_dtype or x.dtype)
 
@@ -532,31 +726,69 @@ class Mesh:
         payload = self.local(grid) if count_like is None else count_like
         if wire_dtype is not None:
             payload = torch.empty(payload.shape, dtype=wire_dtype, device="meta")
-        if self.transport is None and all(grid[r[0]][r[1]].device == card
-                                          for card, ranks in needs.items() for r in ranks):
+        if self.transport is None and (self._flagged or all(
+                self.devices[r[0]][r[1]] == card for card, ranks in needs.items()
+                for r in ranks)):
             idx = self._unmoved(op, axes, payload, lane, step.get("chunk"),
-                                step.get("after", ()), step.get("what", ""))
+                                step.get("after", ()), step.get("what", ""), needs=needs)
             return Pending(idx, grid=finish(start()))
         step.setdefault("wait", False)
         return self._collective(op, axes, payload, start, finish, lane=lane, **step)
 
+    def _buffer(self, key, where, device, shape, dtype):
+        """The buffer of this mesh under ``key`` and ``where`` on ``device``,
+        made at its first use (with the shape and dtype) and reused after."""
+        full = (*key, where, device, tuple(shape), dtype)
+        if full not in self._received:
+            self._received[full] = torch.empty(shape, dtype=dtype, device=device)
+        return self._received[full]
+
     def _landed(self, key, x, device, dtype):
         """``x`` from another card, cast to ``dtype``, in a buffer on
-        ``device`` made at its first move under ``key`` (with the shape and
-        dtype) and reused after: cast and made contiguous first in a buffer
-        on ``x``'s card where it must be, so that a move makes no tensor. The
-        copies run on the current streams (the lanes), each buffer's next
-        copy after this one's."""
-
-        def buffer(where, on):
-            full = (*key, where, on, tuple(x.shape), dtype)
-            if full not in self._received:
-                self._received[full] = torch.empty(x.shape, dtype=dtype, device=on)
-            return self._received[full]
-
+        ``device`` under ``key`` (:meth:`_buffer`): cast and made contiguous
+        first in a buffer on ``x``'s card where it must be, so that a move
+        makes no tensor. The copies run on the current streams (the lanes),
+        each buffer's next copy after this one's; each is counted in the
+        step's :class:`Edges` (ordered on both cards)."""
         if x.dtype != dtype or not x.is_contiguous():
-            x = buffer("sent", x.device).copy_(x)
-        return buffer("landed", device).copy_(x, non_blocking=True)
+            x = self._buffer(key, "sent", x.device, x.shape, dtype).copy_(x)
+        idx = self._lane_step
+        self.edges[idx] = self.edges[idx]._replace(copies=self.edges[idx].copies + 1)
+        return self._buffer(key, "landed", device, x.shape, dtype).copy_(x, non_blocking=True)
+
+    def _pulled(self, grid, axis, src, payload, lane, step) -> Pending:
+        """:meth:`ppermute` on a route of flags: on each card one step of its
+        ``lane`` that waits on those of ``step``'s ``after`` that ran on a
+        source's card or its own, pulls each of its ranks' payload from the
+        source's rows into a buffer of the card (``kernels.peer_pull``, the
+        pair's buffer of the chunk's parity) and posts. Counted once, as the
+        collective it is; a step that waits on it waits on its card's
+        pull."""
+        chunk, what = step.get("chunk"), step.get("what", "")
+        out, pulls = self.grid(lambda li, ti: None), {}
+        nbytes = payload.numel() * payload.element_size()
+        for k, (card, ranks) in enumerate(self._cards):
+            srcs = [src(li, ti) for li, ti in ranks]
+            waits = self._owned(step.get("after", ()), [*srcs, *ranks])
+            idx = self._log(chunk, None, lane, f"pull {what}", waits, nbytes * len(ranks), card=k)
+            stream = self._lane_streams[lane].get(card)
+            self._wait(idx, stream, waits)
+            with _current(stream) if stream is not None else contextlib.nullcontext():
+                for (li, ti), (sl, st) in zip(ranks, srcs):
+                    x = grid[sl][st]
+                    out[li][ti] = self._buffer((*_key(step), (sl, st), (li, ti)), "pulled", card,
+                                               x.shape, x.dtype)
+                    kernels.peer_pull(_words(out[li][ti]), _words(x),
+                                      stream=None if stream is None else stream.cuda_stream)
+            if stream is not None:
+                self._recorded(idx, [stream])
+            self._post(idx, stream)
+            pulls[k] = (idx,)
+        self._count("ppermute", (axis,), payload)
+        idx = self._log(chunk, None, lane, f"ppermute {what}" if what else "ppermute",
+                        [j for (j,) in pulls.values()], nbytes, work=False)
+        self._sources[idx] = pulls
+        return Pending(idx, grid=out)
 
     def carried(self, op: str, axes, payload_like, lane="comm", chunk=None, after=(),
                 what="") -> int:
@@ -567,14 +799,27 @@ class Mesh:
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
         return self._unmoved(op, axes, payload_like, lane, chunk, after, what)
 
-    def _unmoved(self, op, axes, payload, lane, chunk, after, what) -> int:
+    def _unmoved(self, op, axes, payload, lane, chunk, after, what, needs=None) -> int:
         """Count and log a collective whose step moves nothing and enqueues
-        no work: a step that waits on it waits on the steps ``after``."""
+        no work: a step that waits on it waits on the steps ``after``, or
+        with ``needs`` ({card: ranks}) a step on a card on those of
+        ``after`` that ran on the card's ranks of ``needs`` or their cards."""
         self._count(op, axes, payload)
         idx = self._log(chunk, None, lane, f"{op} {what}" if what else op, after,
-                        payload.numel() * payload.element_size())
-        self._events[idx] = [e for j in after for e in self._events.get(j, ())]
+                        payload.numel() * payload.element_size(), work=False)
+        self._sources[idx] = ({None: tuple(after)} if needs is None else
+                              {self._card_index[card]: self._owned(after, ranks)
+                               for card, ranks in needs.items()})
         return idx
+
+    def _owned(self, steps, ranks) -> tuple[int, ...]:
+        """The steps of ``steps`` that ran on a rank of ``ranks``, on the
+        card of one, or on every card (a step that enqueued nothing)."""
+        ranks = set(ranks)
+        cards = {self._card_of(r) for r in ranks}
+        return tuple(j for j in steps if (
+            self.schedule[j].rank in ranks if self.schedule[j].rank is not None
+            else self.edges[j].card is None or self.edges[j].card in cards))
 
     def psum(self, grid, axes, wire_dtype=None, **step):
         """All-reduce sum over ``axes`` (``"led"``, ``"tile"`` or both).
@@ -638,6 +883,11 @@ class Mesh:
         payload = self.local(grid)
         if prepare is not None:
             payload = prepare(payload.to("meta"))
+        if self._flagged and self.transport is None:
+            if prepare is not None:
+                raise ValueError("the peer route pulls payloads as their ranks wrote them")
+            pending = self._pulled(grid, axis, src, payload, lane, step)
+            return pending if not step.get("wait", True) else pending.result()
         if prepare is None and self.transport is None and all(
                 self.devices[li][ti] == self.devices[src(li, ti)[0]][src(li, ti)[1]]
                 for li, ti in self.local_ranks):
@@ -648,11 +898,38 @@ class Mesh:
         return self._collective("ppermute", (axis,), payload, start, finish, lane=lane, **step)
 
 
+def _words(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s elements as float32 (planes, rows, cols): the same bytes (a
+    complex row of n values is 2n or 4n floats)."""
+    w = t if t.dtype == torch.float32 else t.view(torch.float32)
+    return w if w.dim() == 3 else w.unsqueeze(0)
+
+
 def _key(step: dict) -> tuple:
     """The key of a collective's buffers in a sweep over buffers made once:
     its label and its chunk's parity (chunk c+1's collective is issued while
     chunk c's result may still be read)."""
     return step.get("what", ""), (step.get("chunk") or 0) % 2
+
+
+def peer_route(mesh: Mesh) -> str:
+    """The rule for how a sweep over buffers made once orders and moves its
+    work between the cards of this process: ``"one card"`` where its ranks
+    share one card (nothing crosses a card); ``"peer"`` where it has
+    several and every pair reads the other's memory (:attr:`Mesh.
+    peer_access`) and no transport joins other processes (payloads read in
+    place, the halo pulled, order kept with flags; :class:`Mesh`); else
+    ``"copy"`` (events and copies between cards). Nothing is tried and
+    caught: the mesh's cards decide. ``peer_route.force_flags`` (tests only;
+    nothing on the main path sets it) gives one card ``"streams"``: its
+    streams ordered with flags as the peer route orders cards, the halo
+    pulled."""
+    if len(mesh.cards()) > 1:
+        return "peer" if mesh.peer_access else "copy"
+    return "streams" if peer_route.force_flags and mesh.transport is None else "one card"
+
+
+peer_route.force_flags = False     # tests only: flags between the streams of one card
 
 
 def make_mesh(led: int | None = None, tile: int = 1, devices=None,

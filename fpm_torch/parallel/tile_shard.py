@@ -167,7 +167,7 @@ def _tile_sweep(mesh: Mesh, route: ComplexRoute, *, opts: EPRYOptions, s: int, b
                     for li in range(n_led)] for card, _ in cards}
     real = route.opts.rdtype
     start_state(mesh, route, bufs)
-    mesh.begin_sweep(route.obj, route.pupil, bufs=bufs)
+    mesh.begin_sweep(route.obj, route.pupil, bufs=bufs, in_place=route.in_place)
 
     def increments(c):
         parts, halo_steps = [route.obj], []

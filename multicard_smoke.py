@@ -16,11 +16,16 @@ with ``--comm-precision bf16 --stale-consensus`` on (2 processes, ``--mesh 2
 2``) and (4 processes, ``--mesh 1 4``), and with ``--stale-consensus`` (4
 processes, ``--mesh 4 1`` and ``--mesh 2 2``); then, in this process, the
 one-process meshes (4,1) and (2,2) over the four cards, fresh and stale,
-which replay one sweep captured into a CUDA graph over the four cards: ms
-per sweep, the host's enqueue ms of a replay, the capture ms, the overlaps
-and the chunk stages of a traced sweep (the stale K3 of chunk c+1 inside
-chunk c's reduction), beside the host loop's, the two routes bitwise
-(``one_process_sweeps``); then
+which replay one sweep captured into a CUDA graph over the four cards on
+the peer route (``fpm_torch.parallel.mesh.peer_route``: payloads read in
+place, the order between cards kept by flags): ms per sweep, the host's
+enqueue ms of a replay, the capture ms, the event edges between cards a
+sweep, the overlaps of each card and the chunk stages of a traced sweep
+(under the stale consensus a consensus kernel beside the next K3 on every
+card), beside the host loop's, the two routes bitwise
+(``one_process_sweeps``); with ``--parent DIR`` also the one-process
+graphs of that checkout, timed in turns with this one's (parent, this,
+this, parent; ``scripts/process_sweeps.py --one-process``); then
 ``--fov-grid 8 8 -n 10`` on the 568×568 frames over 2 and 4 processes. Each run against the same command in
 one process (its mesh's ranks round-robin over the cards): the arrays
 bitwise equal, the counted collectives equal, the transport the layout
@@ -61,6 +66,38 @@ MESH_CASES = ((4, ["--mesh", "2", "2"]), (4, ["--mesh", "4", "1"]), (4, ["--mesh
               (4, ["--mesh", "2", "2", "--stale-consensus"]))
 ONE_PROCESS_MESHES = ((4, 1), (2, 2))
 FOV_PROCESSES = (2, 4)
+HBM_BYTES_S, NVLINK_BYTES_S = 3.35e12, 450e9    # an H100's memory; its NVLink, each way
+
+
+def consensus_bounds(cfg, led: int, tile: int) -> dict:
+    """Card 0's consensus kernels of one chunk on the peer route, a rank a
+    card, and on the tile axis its halo pull: the bytes each reads and
+    writes in its own memory (its rank's payload, the state read and
+    written once; the pulled rows written) and those it reads from its
+    peers over NVLink (their payloads in place; the rows pulled), and the
+    least time, the larger of the two at the H100's 3.35 TB/s and 450 GB/s
+    each way."""
+    from fpm_torch.geometry import pupil_radius
+    from fpm_torch.ops import kernels
+
+    nl, n = cfg.n_large, cfg.np_size
+    b, _ = kernels.bbox_extent(n, pupil_radius(cfg))
+    pupil, metrics = 2 * b * b * 4, 2 * 4
+    if tile == 1:
+        d = 2 * nl * nl * 4
+        rows = {"consensus_led": (d + pupil + metrics + 2 * d + 2 * pupil,
+                                  (led - 1) * (d + pupil + metrics))}
+    else:
+        s = nl // tile
+        own, halo = 2 * s * nl * 4, 2 * min(n, s) * nl * 4
+        rows = {"peer_pull": (halo, halo),
+                "consensus_tile_object": (own + 2 * own, (led - 1) * own + led * halo),
+                "consensus_tile_pupil": (pupil + metrics + 4 + 2 * pupil,
+                                         (led * tile - 1) * (pupil + metrics) + (tile - 1) * 4)}
+    return {name: {"hbm_bytes": hbm, "nvlink_bytes": peer,
+                   "bound_ms": max(hbm / HBM_BYTES_S, peer / NVLINK_BYTES_S) * 1e3,
+                   "bound_by": "nvlink bytes" if peer / NVLINK_BYTES_S > hbm / HBM_BYTES_S
+                   else "hbm bytes"} for name, (hbm, peer) in rows.items()}
 
 
 def run_case(label, flags, n_proc, arrays, tmp, transport, gpu) -> dict:
@@ -107,19 +144,24 @@ def one_process_sweeps(problem, gpu) -> None:
     """The one-process meshes over the four cards (a rank per card), fresh
     and stale, chunk 32. Every rank is a CUDA rank of this process, so the
     run replays one sweep captured into a CUDA graph (``fpm_torch.parallel.
-    graph``; one graph over the four cards): its ms per sweep (median of
-    5), the host's enqueue ms of a replay, its capture ms, and from a gated
-    trace of a replay (every K3 launch seen) ``overlap_ms``,
-    ``consensus_overlap_ms`` and the chunk stages (``chip_smoke.
-    chunk_stages``, each card on its own clock): under the stale consensus
-    a card's K3 of chunk c+1 runs inside its reduction of chunk c
-    (``next_k3_in_reduction_ms`` above 0), fresh never (exactly 0); with
-    ``consensus_schedule_check`` on the captured schedule. Beside it the
-    host loop on the same prepared grids: its ms per sweep and the same
-    gated trace of a sweep; and the entry point's result on both routes,
-    bitwise. The graph route's results are those the ``run_case`` lines
-    hold bitwise against the multi-process runs."""
-    from fpm_torch.parallel import comm, graph, make_mesh
+    graph``; one graph over the four cards), on the peer route where every
+    pair of cards has peer access (``peer_route``, recorded): its ms per
+    sweep (median of 5), the host's enqueue ms of a replay, its capture ms,
+    the event edges between cards a sweep (``comm.card_edges`` of the
+    captured schedule: on the peer route the fork and the join alone, none
+    in the chunk loop), and from a gated trace of a replay (every K3 launch
+    seen) ``overlap_ms``, ``consensus_overlap_ms`` of the whole and of each
+    card (``by_card``, each card on its own clock) and the chunk stages
+    (``chip_smoke.chunk_stages``): under the stale consensus a consensus
+    kernel of chunk c runs beside a K3 of chunk c+1 on every card
+    (``consensus_overlap_ms`` above 0 on each), fresh never (exactly 0);
+    with ``consensus_schedule_check`` on the captured schedule. Beside it
+    the host loop on the same prepared grids (the copy route): its ms per
+    sweep, its edges and the same gated trace of a sweep; and the entry
+    point's result on both routes, bitwise. The graph route's results are
+    those the ``run_case`` lines hold bitwise against the multi-process
+    runs."""
+    from fpm_torch.parallel import comm, graph, make_mesh, peer_route
 
     for led, tile in ONE_PROCESS_MESHES:
         for stale in (False, True):
@@ -127,8 +169,9 @@ def one_process_sweeps(problem, gpu) -> None:
                 mesh = make_mesh(led, tile)
                 return (mesh, *cs.prepared_sweep(problem, mesh, {}, stale))
 
-            _, host_route, host_body = prepared()
+            host_mesh, host_route, host_body = prepared()
             host_ms, host_walls, _ = cs.wall_ms(lambda: host_body(None))
+            host_edges = comm.card_edges(host_mesh.schedule, host_mesh.edges)
             host_gated = cs.gated_trace(lambda: host_body(None), host_ms,
                                         chunks=host_route.n_chunks)
             mesh, route, body = prepared()
@@ -136,6 +179,7 @@ def one_process_sweeps(problem, gpu) -> None:
             per_sweep = captured.launches["fused_chunk_increments"]
             ms, walls, enqueues = cs.wall_ms(captured.replay)
             verdict = comm.consensus_schedule_check(mesh.schedule)
+            edges, route_name = comm.card_edges(mesh.schedule, mesh.edges), peer_route(mesh)
             gated = cs.complete_trace(lambda: cs.gated_trace(captured.replay, ms,
                                                              chunks=route.n_chunks), per_sweep)
             stages = gated["stages"]
@@ -146,7 +190,11 @@ def one_process_sweeps(problem, gpu) -> None:
             cs.emit({"phase": "multicard_one_process", "mesh": [led, tile],
                      "stale_consensus": stale, "ranks": mesh.describe(),
                      "graph": entry.replay is not None,
-                     "cards_in_graph": len(mesh.cards()),
+                     "cards_in_graph": len(mesh.cards()), "peer_route": route_name,
+                     "consensus_bounds": consensus_bounds(problem[0], led, tile),
+                     "card_edges_per_sweep": edges, "host_loop_card_edges": host_edges,
+                     "peer_launches_per_sweep": {k: v for k, v in captured.launches.items()
+                                                 if k.startswith("peer_")},
                      "capture_ms": captured.capture_ms,
                      "k3_launches_per_sweep": per_sweep,
                      "wall_ms_per_sweep": ms, "wall_ms_all": walls,
@@ -154,6 +202,7 @@ def one_process_sweeps(problem, gpu) -> None:
                      "host_loop_wall_ms_per_sweep": host_ms, "host_loop_wall_ms_all": host_walls,
                      "overlap_ms": gated["overlap_ms"],
                      "consensus_overlap_ms": gated["consensus_overlap_ms"],
+                     "by_card": gated["by_card"], "peer_wait_ms": gated["peer_wait_ms"],
                      "stages": stages, "span_ms_unpaced": gated["span_ms"],
                      "busy_ms_unpaced": gated["busy_ms"], "trace_unpaced": gated,
                      "host_loop_trace_unpaced": host_gated,
@@ -166,15 +215,46 @@ def one_process_sweeps(problem, gpu) -> None:
             cs.check(gated["gate_held"], f"{label}: the gate ended before the sweep was enqueued")
             cs.check(per_sweep > 0 and gated["k3_kernels"] == per_sweep,
                      f"{label}: K3 captured {per_sweep} times, traced {gated['k3_kernels']}")
-            # Across cards a chunk's payloads travel 0.5-1.3 ms (each copy
-            # between cards waits on events of two cards, resolved one by one
-            # as the replay is launched), and a K3 lasts 0.03 ms: the stale K3
-            # of chunk c+1 runs while chunk c's payloads travel, and ends
-            # before chunk c's consensus kernel can start, on either route.
-            inside = stages and stages["next_k3_in_reduction_ms"]
-            cs.check(stages is not None and (inside > 0 if stale else inside == 0),
-                     f"{label}: chunk c+1's K3 inside chunk c's reduction for {inside} ms: "
-                     f"{stages}")
+            # On the peer route nothing but the fork and the join crosses a
+            # card as an event, so the graph's launch resolves no edge
+            # between cards in the chunk loop, and each card's consensus of
+            # chunk c runs beside its K3 of chunk c+1 (stale) as on one card.
+            n_cards = len(mesh.cards())
+            cs.check(route_name == "peer" and edges["chunk_loop"] == 0
+                     and edges["total"] <= 2 * (n_cards - 1),
+                     f"{label}: route {route_name}, edges between cards {edges}")
+            beside = {card: v["consensus_overlap_ms"] for card, v in gated["by_card"].items()}
+            cs.check(len(beside) == n_cards and all(v > 0 if stale else v == 0
+                                                    for v in beside.values()),
+                     f"{label}: a consensus kernel beside a K3 for {beside} ms by card")
+
+
+def one_process_turns(parent, gpu) -> None:
+    """The ``multicard_one_process_turns`` lines: the one-process graphs
+    over the four cards of ``parent`` and of this checkout in turns
+    (parent, this, this, parent; ``scripts/process_sweeps.py
+    --one-process``, a process each): for each mesh and consensus, ms a
+    sweep of the host loop and of the replayed graph (a median of 3 rounds
+    of 10 sweeps), the host's enqueue ms of a replay, and for this
+    checkout its route and edges between cards."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(here, "scripts", "process_sweeps.py")
+    turns = [("parent", parent), ("this", here), ("this", here), ("parent", parent)]
+    got = []
+    for name, root in turns:
+        out = subprocess.run([sys.executable, script, "--root", root, "--graph",
+                              "--one-process"], capture_output=True, text=True, timeout=600)
+        cs.check(out.returncode == 0, f"one process of {name}: exit {out.returncode}: "
+                                      f"{out.stderr[-2000:]}")
+        got.append((name, next(json.loads(ln[len("SWEEPS "):]) for ln in out.stdout.splitlines()
+                               if ln.startswith("SWEEPS "))))
+    for j, first in enumerate(got[0][1]["runs"]):
+        runs = [(name, rec["runs"][j]) for name, rec in got]
+        cs.emit({"phase": "multicard_one_process_turns", "mesh": first["mesh"],
+                 "stale_consensus": first["stale_consensus"], "turns": [n for n, _ in runs],
+                 **{key: [r.get(key) for _, r in runs] for key in (
+                     "graph_ms", "enqueue_ms", "host_loop_ms", "capture_ms", "peer_route",
+                     "card_edges")}, "gpu": gpu})
 
 
 def process_sweeps(cpu: bool, parent, gpu) -> None:
@@ -271,6 +351,8 @@ def main(argv=None) -> int:
                      ("object_spectrum.npy", "pupil.npy"), tmp, transport, gpu)
         if not args.cpu:
             one_process_sweeps((cfg, geom, frames), gpu)
+            if args.parent:
+                one_process_turns(os.path.abspath(args.parent), gpu)
         process_sweeps(args.cpu, args.parent and os.path.abspath(args.parent), gpu)
         for n_proc in FOV_PROCESSES:
             run_case(f"{n_proc} processes --fov-grid 8 8",

@@ -29,8 +29,15 @@ global mesh (``make_mesh``: a rank a card), on prepared grids:
   on this card's own clock, with ``gate_held`` and the K3 kernels traced
   (no retry: one process alone cannot replay its collectives).
 
+With ``--one-process`` it runs as one process over every visible card
+(no ``torch.distributed``; ``make_mesh``: a rank a card, round-robin): the
+one-process graph over the cards, and where the checkout has them its
+``peer_route`` and the event edges between cards of the captured sweep
+(``comm.card_edges``).
+
 Each figure in ms a sweep is the median of 3 rounds, a round being 10
-sweeps from a barrier of the processes to a synchronisation with the card.
+sweeps from a barrier of the processes (none with ``--one-process``) to a
+synchronisation with the card.
 Prints one line ``SWEEPS {json}`` with this process's figures. ``--cpu``
 rehearses it on CPU ranks at Np 16 (the host loop only; host times, no
 device metric). It never imports JAX or ``fpm_tpu``.
@@ -55,6 +62,8 @@ def main(argv=None) -> int:
     ap.add_argument("--graph", action="store_true", help="also the captured sweep's replays")
     ap.add_argument("--trace", action="store_true", help="also a gated trace of a stale replay")
     ap.add_argument("--cpu", action="store_true", help="rehearse on CPU ranks at Np 16")
+    ap.add_argument("--one-process", action="store_true",
+                    help="one process over every visible card, without torch.distributed")
     args = ap.parse_args(argv)
     faulthandler.enable()           # a SIGABRT prints every thread's stack
     root = os.path.abspath(args.root)
@@ -68,7 +77,8 @@ def main(argv=None) -> int:
     from fpm_torch.parallel import led_shard, make_mesh, tile_shard
     from fpm_torch.parallel.multihost import initialize_from_env
 
-    assert initialize_from_env()
+    one = args.one_process
+    assert one or initialize_from_env()
     cfg = (FPMConfig(max_illumination_na=0.2, np_size=16) if args.cpu
            else FPMConfig(max_illumination_na=0.45))
     geom = compute_geometry(cfg)
@@ -81,7 +91,8 @@ def main(argv=None) -> int:
     def per_sweep(fn) -> float:
         rounds = []
         for _ in range(ROUNDS):
-            dist.barrier()
+            if not one:
+                dist.barrier()
             t0 = time.perf_counter()
             for _ in range(SWEEPS_A_ROUND):
                 fn()
@@ -92,8 +103,8 @@ def main(argv=None) -> int:
     runs = []
     for led, tile in MESHES:
         for stale in (False, True):
-            mesh = make_mesh(led, tile, devices=["cpu"] * (led * tile // dist.get_world_size())
-                             if args.cpu else None)
+            mesh = make_mesh(led, tile, devices=["cpu"] * (led * tile // (
+                1 if one else dist.get_world_size())) if args.cpu else None)
             kw = dict(use_pallas=True, chunk_size=32, stale_consensus=stale)
             if tile == 1:
                 route, opts = led_shard.prepare_led_sharded(frames, geom, cfg, mesh, **kw)
@@ -117,6 +128,11 @@ def main(argv=None) -> int:
                 run["capture_ms"] = captured.capture_ms
                 run["graph_ms"] = per_sweep(captured.replay)
                 run["enqueue_ms"] = sorted(captured.enqueue_ms)[len(captured.enqueue_ms) // 2]
+                from fpm_torch.parallel import comm, mesh as mesh_module
+
+                if hasattr(mesh_module, "peer_route"):
+                    run["peer_route"] = mesh_module.peer_route(mesh)
+                    run["card_edges"] = comm.card_edges(mesh.schedule, mesh.edges)
                 if args.trace and stale:
                     sys.path.insert(1, os.path.dirname(os.path.dirname(os.path.abspath(
                         __file__))))
@@ -125,7 +141,8 @@ def main(argv=None) -> int:
                     # One traced replay in every process, behind one gate of
                     # a fixed length: a retry in one process alone would
                     # replay collectives that no other process joins.
-                    dist.barrier()
+                    if not one:
+                        dist.barrier()
                     gated = cs.trace_overlap(captured.replay, gate_ms=10 * run["graph_ms"] + 200,
                                              chunks=route.n_chunks,
                                              cards=[c.index for c, _ in mesh.cards()])
@@ -137,11 +154,12 @@ def main(argv=None) -> int:
             runs.append(run)
     import fpm_torch
 
-    print("SWEEPS " + json.dumps({"process": dist.get_rank(), "root": root,
+    print("SWEEPS " + json.dumps({"process": 0 if one else dist.get_rank(), "root": root,
                                   "fpm_torch": os.path.dirname(fpm_torch.__file__), "runs": runs,
                                   "device": "cpu" if args.cpu
                                   else torch.cuda.get_device_name(mesh.home)}), flush=True)
-    dist.destroy_process_group()
+    if not one:
+        dist.destroy_process_group()
     return 0
 
 

@@ -3,8 +3,9 @@ plain PyTorch versions, a sharded sweep (K3 and the consensus kernels)
 against the single-device one (K1), K1 and K2 with a
 problem axis against solo launches (bitwise, at forced cluster sizes, with a
 NaN problem), and the --fov-grid and --color-mode rgb runs per tile and per
-channel against solo solves, on the card. They skip without a CUDA device
-(one case needs two). This file imports neither JAX nor fpm_tpu, so it also
+channel against solo solves, on the card; the peer route's signal, wait
+and pull kernels and its order, on one card and between two. They skip
+without a CUDA device (the cases between cards need two). This file imports neither JAX nor fpm_tpu, so it also
 runs where JAX is not installed:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -1293,7 +1294,11 @@ def test_the_graph_route_is_bitwise_the_host_loop(cuda, monkeypatch, led, tile, 
     """Every rank on the one card: the entry point replays one captured
     sweep; with the test-only ``force_host_loop`` it walks the loop. Both
     bitwise, the same launches and counted collectives, and the captured
-    schedule's verdict the host loop's."""
+    schedule's verdict the host loop's. (On a machine with several cards
+    ``make_mesh`` spreads the ranks over them: the graph takes the peer
+    route, whose signal, wait and pull kernels the host loop, on the copy
+    route, does not launch; every other launch count is the same. The
+    complex128 state keeps the copy route between cards.)"""
     from fpm_torch.parallel import comm, graph
 
     ds = synthetic_dataset(np_size=16, grid=5, seed=5)
@@ -1309,10 +1314,21 @@ def test_the_graph_route_is_bitwise_the_host_loop(cuda, monkeypatch, led, tile, 
     walked, host_mesh = sharded_entry(ds, led, tile, **kw)
     assert walked.replay is None
     after = kernels.launch_counts()
-    assert {k: after[k] - mid[k] for k in after} == per_replay
+    peer = {k for k in after if k.startswith("peer_")}
+    assert {k: after[k] - mid[k] for k in after if k not in peer} == {
+        k: v for k, v in per_replay.items() if k not in peer}
+    assert all(after[k] == mid[k] for k in peer)
+    want = ("one card" if len(mesh.cards()) == 1
+            else "copy" if kw.get("dtype") == "complex128" else "peer")
+    assert run["peer_route"] == want
+    assert any(per_replay[k] > 0 for k in peer) is (want == "peer")
     assert_same_result(replayed, walked)
     assert mesh.counts == host_mesh.counts
-    assert comm.consensus_schedule_check(host_mesh.schedule) == verdict
+    walked_verdict = comm.consensus_schedule_check(host_mesh.schedule)
+    if want == "peer":      # the peer route's schedule also holds its fork and pulls
+        walked_verdict, verdict = ({k: v for k, v in d.items() if not k.endswith("_idx")}
+                                   for d in (walked_verdict, verdict))
+    assert walked_verdict == verdict
     assert verdict["issued_before_compute"] is bool(kw.get("stale_consensus"))
 
 
@@ -1503,6 +1519,102 @@ def test_a_graph_over_several_cards_puts_the_warm_up_back_after_it_ends(cuda):
         torch.cuda.synchronize(card)
     for now, was in zip(graph._state(route), before):
         assert torch.equal(now.cpu(), was.cpu())
+
+
+def test_the_signal_and_wait_kernels_order_two_streams(cuda):
+    """``peer_post`` and ``peer_wait`` at epochs 1-3 and chunks 0-3 (both
+    parities of a signal): a wait on one stream holds a copy until a post
+    on another stream, which runs after a ~20 ms spin, so the copy reads
+    what was written before the post; the flag block holds the plain
+    versions' words. Across two cards (with two) the same, the flag on one
+    card and its waiter on the other."""
+    from fpm_torch.parallel import make_mesh
+
+    pairs = [(cuda, cuda)]
+    if torch.cuda.device_count() > 1:
+        make_mesh(2, 1)                          # peer access between cards 0 and 1
+        pairs.append((torch.device("cuda", 0), torch.device("cuda", 1)))
+    for poster, waiter in pairs:
+        words, mine = kernels.flag_block(poster), kernels.flag_block(waiter)
+        plain = kernels.flag_block("cpu")
+        a, b = torch.cuda.Stream(poster), torch.cuda.Stream(waiter)
+        src = torch.zeros(1 << 20, device=poster)
+        dst = torch.empty(1 << 20, device=waiter)
+        for epoch in range(1, 4):
+            for w in (words, mine):
+                kernels.peer_epoch(w)
+            kernels.peer_epoch_plain(plain)
+            torch.cuda.synchronize(poster)
+            torch.cuda.synchronize(waiter)
+            for chunk in range(4):
+                with torch.cuda.device(poster), torch.cuda.stream(a):
+                    torch.cuda._sleep(40_000_000)
+                    src.fill_(10.0 * epoch + chunk)
+                    kernels.peer_post(words, chunk % 2, chunk)
+                with torch.cuda.device(waiter), torch.cuda.stream(b):
+                    kernels.peer_wait([(words, chunk % 2, chunk)], mine)
+                    dst.copy_(src)
+                kernels.peer_post_plain(plain, chunk % 2, chunk)
+                torch.cuda.synchronize(poster)
+                torch.cuda.synchronize(waiter)
+                assert torch.all(dst == 10.0 * epoch + chunk)
+                assert torch.equal(words.cpu(), plain)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(stale_consensus=True),
+                                dict(comm_precision="bf16", stale_consensus=True)],
+                         ids=["fresh", "stale", "bf16-wire-stale"])
+@pytest.mark.parametrize("led,tile", [(2, 1), (1, 2)])
+def test_the_peer_route_over_two_cards_is_bitwise_the_copy_route_and_the_host_loop(
+        cuda, monkeypatch, led, tile, kw):
+    """A rank on each of two cards: the graph on the peer route (payloads
+    read in place, flags between the cards; no event edge between them in
+    the chunk loop), the graph on the copy route (the same mesh with its
+    peer access taken back, test-only), and the host loop, bitwise."""
+    from fpm_torch.parallel import graph
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: the ranks of one mesh on different cards")
+    ds = synthetic_dataset(np_size=16, grid=5, seed=5)
+    devices = [torch.device("cuda", i) for i in range(2)]
+    peer, mesh = sharded_entry(ds, led, tile, mesh=make_mesh(led, tile, devices=devices), **kw)
+    assert mesh.peer_access and peer.replay["peer_route"] == "peer"
+    assert peer.replay["card_edges"]["chunk_loop"] == 0
+    assert peer.replay["card_edges"]["total"] == 2
+    assert peer.replay["launches"]["peer_wait"] > 0
+    copy_mesh = make_mesh(led, tile, devices=devices)
+    copy_mesh.peer_access = False
+    copied, _ = sharded_entry(ds, led, tile, mesh=copy_mesh, **kw)
+    assert copied.replay["peer_route"] == "copy"
+    assert copied.replay["card_edges"]["chunk_loop"] > 0
+    monkeypatch.setattr(graph.run_sweeps, "force_host_loop", True)
+    walked, _ = sharded_entry(ds, led, tile, mesh=make_mesh(led, tile, devices=devices), **kw)
+    assert_same_result(peer, copied)
+    assert_same_result(peer, walked)
+
+
+@pytest.mark.parametrize("stale", [False, True], ids=["fresh", "stale"])
+@pytest.mark.parametrize("led,tile", [(4, 1), (2, 2)])
+def test_flags_between_the_streams_of_one_card_are_bitwise_the_default(cuda, monkeypatch, led,
+                                                                      tile, stale):
+    """The test-only ``peer_route.force_flags``: every rank on one card, the
+    order between its streams kept by flags and the halo pulled, as the
+    peer route does between cards; bitwise the default route, and every
+    kernel of the route launched."""
+    from fpm_torch.parallel import peer_route
+
+    ds = synthetic_dataset(np_size=16, grid=5, seed=5)
+    devices = [torch.device("cuda", 0)] * (led * tile)
+    default, _ = sharded_entry(ds, led, tile, mesh=make_mesh(led, tile, devices=devices),
+                               stale_consensus=stale)
+    monkeypatch.setattr(peer_route, "force_flags", True)
+    flagged, _ = sharded_entry(ds, led, tile, mesh=make_mesh(led, tile, devices=devices),
+                               stale_consensus=stale)
+    run = flagged.replay
+    assert default.replay["peer_route"] == "one card" and run["peer_route"] == "streams"
+    assert all(run["launches"][k] > 0 for k in ("peer_epoch", "peer_post", "peer_wait"))
+    assert (run["launches"]["peer_pull"] > 0) is (tile > 1)
+    assert_same_result(flagged, default)
 
 
 def test_a_capture_that_fails_raises(cuda, monkeypatch):
