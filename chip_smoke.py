@@ -871,8 +871,10 @@ def trace_overlap(fn, gate_ms: float = 0.0, chunks: int = 0, records: bool = Fal
     ``other``). ``cards``: the cards padded and gated (default every
     visible card; a process of a multi-process run names its own).
     ``by_card``: ``overlap_ms`` and ``consensus_overlap_ms`` of each card
-    on its own clock; the peer route's waits (``peer_wait_ms``, which spin
-    until a flag is posted) are left out of the work."""
+    on its own clock, and ``kernel_ms``, the mean device ms a launch of
+    each consensus kernel and of the halo pull on that card; the peer
+    route's waits (``peer_wait_ms``, which spin until a flag is posted)
+    are left out of the work."""
     from collections import Counter
 
     import torch
@@ -931,11 +933,17 @@ def trace_overlap(fn, gate_ms: float = 0.0, chunks: int = 0, records: bool = Fal
     by_card = {}
     for dev in sorted({e["args"].get("device", -1) for e in k3}):
         mine = union([e for e in k3 if e["args"].get("device", -1) == dev])
+        durs: dict[str, list] = {}
+        for e in work:
+            m = re.search(r"consensus_\w+?(?=<|\(|$)|peer_pull", e["name"])
+            if m and e["args"].get("device", -1) == dev:
+                durs.setdefault(m.group(0), []).append(e["dur"] / 1e3)
         by_card[dev] = {
             "overlap_ms": meet(mine, union([e for e in lanes
                                             if e["args"].get("device", -1) == dev])) / 1e3,
             "consensus_overlap_ms": meet(mine, union([
-                e for e in consensus if e["args"].get("device", -1) == dev])) / 1e3}
+                e for e in consensus if e["args"].get("device", -1) == dev])) / 1e3,
+            "kernel_ms": {k: sum(v) / len(v) for k, v in sorted(durs.items())}}
     stages = {"stages": chunk_stages(k3, consensus, chunks)} if chunks else {}
     if records and work:
         t0 = min(e["ts"] for e in work)
@@ -1152,11 +1160,15 @@ def peer_rows(problem, smi: str) -> list:
     after a 20 ms spin (the copy must read what was written before the
     post: max |Δ| of the copy), at epochs 1-3 and chunks 0-3 (both
     parities); a pull of the forward halo of mono mesh (2,2) (the 90 rows of
-    a 180×360 tile) against ``copy_``. ms a call on CUDA events, the plain
-    versions' ms on the card, the bound: the bytes a call moves at the
-    H100's 3.35 TB/s (the pull's rows read and written once; a flag or an
-    epoch 8 bytes read and 8 written, a wait 8 bytes a flag and the epoch),
-    ``library_ms`` the pull's one PyTorch call (``Tensor.copy_``)."""
+    a 180×360 tile) against ``copy_``. ms a call on CUDA events (the host's
+    pace of back-to-back calls where a call's device time is shorter),
+    ``device_ms`` the kernel's device time of one call (torch.profiler),
+    the plain versions' ms on the card, the bound: the bytes a call moves
+    at the H100's 3.35 TB/s (the pull's rows read and written once; a flag
+    or an epoch 8 bytes read and 8 written, a wait 8 bytes a flag and the
+    epoch), ``library_ms`` the pull's one PyTorch call (``Tensor.copy_``)
+    and, on its ``timing`` line, ``library_device_ms`` that call's device
+    time."""
     import torch
 
     from fpm_torch.bench import bound
@@ -1213,13 +1225,16 @@ def peer_rows(problem, smi: str) -> list:
         kernels.peer_post(words, 0, 0)
         ms, plain_ms = cuda_ms(fn, 50), cuda_ms(plain_fn, 5)
         bound_ms, bound_by = bound(nbytes, 0)
+        library = (lambda: halo.copy_(tile[:, :n])) if name == "peer_pull" else None
         line = {"name": name, "route": "cuda", "source": "fpm_torch/ops/csrc/epry_peer.cu",
                 "replaces": PEER_REPLACES, "launches": None, "max_abs_err": err, "ms": ms,
+                "device_ms": sum(device_ms_by_kernel(fn).values()),
                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": cuda_ms(lambda: halo.copy_(tile[:, :n]), 50)
-                if name == "peer_pull" else None}
+                "library_ms": cuda_ms(library, 50) if library else None}
         emit({"phase": "timing", "kernel": name, "as": lines, "bytes": nbytes,
-              **{k: v for k, v in line.items() if k not in ("name", "launches")}, "gpu": smi})
+              **{k: v for k, v in line.items() if k not in ("name", "launches")},
+              "library_device_ms": sum(device_ms_by_kernel(library).values())
+              if library else None, "gpu": smi})
         check(err == 0, f"{name}: not its plain version's result ({err})")
         rows.append(line)
     return rows

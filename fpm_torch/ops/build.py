@@ -10,8 +10,9 @@ launched: this module imports on machines without ``nvcc`` or a GPU.
 
 ``profile_library(stem)`` builds a second variant with ``-DFPM_PROFILE``,
 whose kernel counts SM cycles per phase: K2's of an LED (``csrc/epry_common.cuh``,
-``FPM_PHASES``), K1's of a chunk (``csrc/epry_chunked.cu``, ``FPM_K1_PHASES``);
-only measurements ask for it, no wrapper does.
+``FPM_PHASES``), K1's of a chunk (``csrc/epry_chunked.cu``, ``FPM_K1_PHASES``),
+or stamps each block's marks (the consensus kernels, ``csrc/epry_consensus.cu``,
+``FPM_CONSENSUS_MARKS``); only measurements ask for it, no wrapper does.
 ``ablation_library(stem)`` (K1 and K2) builds one with ``-DFPM_ABLATE``,
 which adds the kernels of ``ablate=`` (each stage that a variant turns off
 is a template argument of those kernels alone, ``Ablate`` in
@@ -179,9 +180,9 @@ _SIGNATURES = {
                         + [_I, _I, _I, _P, _I, _I, _IP, _IP]},
     "epry_consensus": {
         "fpm_consensus_led": [_P, _P, _I, _I, _P, _U, _P, _P, _I, _P, _U, _P, _P, _I, _P, _P,
-                              _P, _F, _I, _I, _P, _P, _P, _I, _I, _P, _IP],
+                              _P, _F, _I, _I, _P, _I, _I, _I, _I, _P, _IP],
         "fpm_consensus_tile_object": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                      _P, _P, _I, _P, _P, _I, _I, _P, _IP],
+                                      _P, _P, _I, _P, _I, _I, _I, _P, _IP],
         "fpm_consensus_tile_pupil": [_P, _P, _I, _P, _U, _P, _P, _I, _P, _I, _P, _P, _P, _F,
                                      _I, _I, _I, _P, _IP]},
     "epry_peer": {"fpm_enable_peer_access": [_I, _I],
@@ -218,18 +219,28 @@ def library(stem: str) -> ctypes.CDLL:
     return _load(build_all()[stem], stem)
 
 
+# The profile build's reader: K1's and K2's ``fpm_phase_read(out, reset)``
+# (cycles summed by phase); the consensus kernels'
+# ``fpm_consensus_records(out, n, reset)`` (each block's stamps at each mark).
+_PROFILE_READERS = {None: ("fpm_phase_read", [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int]),
+                    "epry_consensus": ("fpm_consensus_records",
+                                       [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+                                        ctypes.c_int])}
+
+
 @functools.lru_cache(maxsize=None)
 def profile_library(stem: str) -> ctypes.CDLL:
     """The cycle-counting variant of ``csrc/<stem>.cu`` (built alone, on
     first use): the same entry points, plus ``fpm_phase_count()``,
-    ``fpm_phase_name(i)`` and ``fpm_phase_read(out, reset)``."""
+    ``fpm_phase_name(i)`` and the reader of _PROFILE_READERS."""
     lib = _load(build_all((stem,), profile=True)[stem], stem)
     lib.fpm_phase_count.argtypes = []
     lib.fpm_phase_count.restype = ctypes.c_int
     lib.fpm_phase_name.argtypes = [ctypes.c_int]
     lib.fpm_phase_name.restype = ctypes.c_char_p
-    lib.fpm_phase_read.argtypes = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int]
-    lib.fpm_phase_read.restype = ctypes.c_int
+    name, argtypes = _PROFILE_READERS.get(stem, _PROFILE_READERS[None])
+    getattr(lib, name).argtypes = argtypes
+    getattr(lib, name).restype = ctypes.c_int
     return lib
 
 

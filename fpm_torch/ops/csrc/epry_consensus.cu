@@ -29,36 +29,144 @@
 //   * the metric sums in rank order, added to the sweep's accumulator
 //     (0 + sums on the first chunk).
 //
-// fpm_consensus_led (LED axis): one launch, no grid barrier. Every block
-// adds its elements of O', writes its max to scratch and the bbox pupil
-// sums of its elements to scratch, then takes a ticket (atomicInc, which
-// wraps to 0 for the next launch); the last block to finish reduces the
-// blocks' maxima and makes the pupil step and the metric sums. So the grid
-// never waits on a block that is not resident, and it shares the card with
-// the next chunk's K3 under the stale consensus (a cooperative grid would
-// wait until all of its blocks fit).
-// fpm_consensus_tile_object (tile axis): the same object phase for each row
-// tile that the card holds (blockIdx.y), each tile's max|O'| by its own
-// ticket. The pmax over the tile axis, a collective, comes between it and
-// fpm_consensus_tile_pupil: max over the tiles' maxima in tile order, then
-// the pupil step and the metric sums of the (led, tile) group.
-//
 // Bound: bytes. The L payloads of d are read once (R·NL·8 bytes each in f32,
 // half on the bf16 wire), O read and O' written once; the pupil's L payloads
-// and the state are b·b·8 bytes each. No operation count comes near.
+// and the state are b·b·8 bytes each. No operation count comes near. What
+// the design does about it (fpm_consensus_led, C1, and
+// fpm_consensus_tile_object, C2; the host's plan is kernels.consensus_plan):
+//   * Each thread of the object phase takes kPerThread elements of a plane:
+//     one 16-byte chunk (float4 of f32, 8 bytes of bf16) where NL is a
+//     multiple of 4 and every plane is aligned (the vector path), else four
+//     elements a block's width apart (the scalar path). It starts the loads
+//     of kRankBatch ranks of its group, of its first halo hop's group and of
+//     O before it adds any of them, so each SM keeps tens of KB in flight
+//     (peer cards' payloads arrive over NVLink, at microseconds a trip).
+//   * The phase is a template on the chunk, on the payloads' pattern (all
+//     f32, all bf16, mixed: a test a rank, not an element) and on the wire,
+//     so the inner loop carries no test of the payloads' type.
+//   * max|O'| across the grid is one atomicMax on the float's bits a block,
+//     which orders the maxima as floats because |O'| >= 0, and in which a
+//     NaN (any sign) wins as in torch.max. The block stores O' as soon as
+//     it is made; after the block's reduction (one barrier) thread 0 alone
+//     puts the block's max and then its arrival, a release atomic that
+//     orders the max before it: one fence a block (C1: an add; C2: an
+//     atomicInc that wraps to 0 and also acquires).
+//   * C2's tile ends in the block that arrives last: it swaps the tile's
+//     maximum for 0 and writes it. C1 has no single-block tail: its last
+//     blocks (enough for kPerThread pupil elements a thread) load and add
+//     the pupil payloads and P while the object blocks run, then thread 0
+//     of each polls (ld.acquire) until every object block has arrived, and
+//     they make the pupil step over several SMs. The pupil blocks come last
+//     in the grid, so the blocks they wait on are dispatched before them,
+//     and they never wait on each other; the last of them to leave puts the
+//     words back to 0 for the next launch. A wait unmet after
+//     kWaitTimeoutNs traps rather than hang.
+//   * No grid barrier and no cooperative launch: a block waits only on
+//     object blocks, which wait on nothing, so the grid shares the card with
+//     the next chunk's cooperative K3 under the stale consensus (a
+//     cooperative grid would wait until all of its blocks fit).
+// fpm_consensus_tile_pupil (C3) is the pmax's max over the tiles' maxima in
+// tile order, then the pupil step and the metric sums of the (led, tile)
+// group, an element a thread.
 
 #include <c10/util/complex.h>
+
+#include <cstdint>
 
 #include "epry_common.cuh"
 
 namespace fpm {
 
-constexpr int kConsensusThreads = 512;
+constexpr int kConsensusThreads = 256;   // C1's and C2's
+constexpr int kPupilThreads = 512;       // C3's
+constexpr int kPerThread = 4;    // elements of a plane a thread takes (C1, C2)
+constexpr int kRankBatch = 4;    // ranks of a group whose loads a thread starts together
 constexpr int kMaxRanks = 32;    // payloads of one reduction
 constexpr int kMaxTiles = 8;     // row tiles of one card, and tiles of one group
 constexpr int kMaxHops = kMaxTiles - 1;
+constexpr long long kWaitTimeoutNs = 20LL * 1000 * 1000 * 1000;
 
 using cfloat = c10::complex<float>;
+
+// The phase stamps of one launch, per block (the LED kernel's blocks, or
+// the tile kernel's blockIdx.y × gridDim.x + blockIdx.x). Built with
+// -DFPM_PROFILE (fpm_torch/ops/build.py, profile_library), thread 0 of each
+// block stamps the card's global clock (ns) and its SM's cycle counter
+// after a block barrier (the one difference in schedule from a plain
+// build) at each mark: the block's start, the end of its payload sums and
+// apply (C1's pupil blocks: their pupil sums), the end of its fence and
+// ticket (C1's pupil blocks: of their wait), and, in a block that makes the
+// tail (the grid's max, the pupil step), the tail's end.
+// fpm_consensus_records hands them out. A plain build compiles the marks away.
+#define FPM_CONSENSUS_MARKS(X)       \
+  X(Start, "start")                  \
+  X(Apply, "payload sums and apply") \
+  X(Ticket, "fence and ticket")      \
+  X(Tail, "tail")
+enum Mark {
+#define FPM_MARK_ID(id, name) kMark##id,
+  FPM_CONSENSUS_MARKS(FPM_MARK_ID)
+#undef FPM_MARK_ID
+  kMarks
+};
+#ifdef FPM_PROFILE
+constexpr int kRecords = 8 * 1024;
+__device__ long long fpm_consensus_stamps[kRecords][2 * kMarks];
+#define FPM_MARK(i)                                                          \
+  do {                                                                       \
+    __syncthreads();                                                         \
+    const int r_ = blockIdx.y * gridDim.x + blockIdx.x;                      \
+    if (threadIdx.x == 0 && r_ < kRecords) {                                 \
+      fpm_consensus_stamps[r_][i] = global_ns();                             \
+      fpm_consensus_stamps[r_][kMarks + i] = clock64();                      \
+    }                                                                        \
+  } while (0)
+// A mark reached only where ``cond`` (the same in every thread of the block).
+#define FPM_MARK_IF(cond, i) \
+  do {                       \
+    if (cond) FPM_MARK(i);   \
+  } while (0)
+#else
+#define FPM_MARK(i)
+#define FPM_MARK_IF(cond, i)
+#endif
+
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// The words of a launch's scratch (ConsensusScratch: two a tile, 0 between
+// launches): blocks arrived, and the bits of the max|O'| so far.
+enum SyncWord { kArrived = 0, kMaxBits = 1, kSyncWords = 2 };
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ unsigned ld_relaxed(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ unsigned add_release(unsigned* p, unsigned v) {
+  unsigned old;
+  asm volatile("atom.release.gpu.global.add.u32 %0, [%1], %2;"
+               : "=r"(old) : "l"(p), "r"(v) : "memory");
+  return old;
+}
+
+// old = *p; *p = old >= wrap ? 0 : old + 1 (acquire and release at once).
+__device__ __forceinline__ unsigned inc_acq_rel(unsigned* p, unsigned wrap) {
+  unsigned old;
+  asm volatile("atom.acq_rel.gpu.global.inc.u32 %0, [%1], %2;"
+               : "=r"(old) : "l"(p), "r"(wrap) : "memory");
+  return old;
+}
 
 // One reduction's payloads on this card, in rank order: f32 values, or bf16
 // values where bit r of ``bf16`` is set (a payload that travelled on the
@@ -70,12 +178,25 @@ struct Payloads {
   int count;
 };
 
+// Which payloads of a launch arrived as bf16 (a template argument of C1's
+// and C2's object phase): none, all, or some (bit r of Payloads::bf16).
+enum Pattern { kF32 = 0, kBf16 = 1, kMixed = 2, kPatterns = 3 };
+
+template <int P>
+__device__ __forceinline__ bool is_bf16(const Payloads& l, int r) {
+  return P == kBf16 || (P == kMixed && ((l.bf16 >> r) & 1u));
+}
+
+__device__ __forceinline__ float wire_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 // Payload r's element i as the sum takes it: on the bf16 wire an f32 value
-// is rounded to bf16 first.
+// is rounded to bf16 first (C3's pupil step, an element a thread).
 __device__ __forceinline__ float payload_at(const Payloads& l, int r, size_t i, bool wire) {
   if ((l.bf16 >> r) & 1u) return __bfloat162float(static_cast<const __nv_bfloat16*>(l.p[r])[i]);
   const float x = static_cast<const float*>(l.p[r])[i];
-  return wire ? __bfloat162float(__float2bfloat16_rn(x)) : x;
+  return wire ? wire_round(x) : x;
 }
 
 // Σ_r payload_r[i], in rank order.
@@ -85,33 +206,124 @@ __device__ __forceinline__ float rank_sum(const Payloads& l, size_t i, bool wire
   return acc;
 }
 
-__device__ __forceinline__ float wire_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
+// W consecutive elements of one payload as loaded: W f32 words, or W bf16
+// values in the low then high halves of W / 2 words (one word's low half
+// for W = 1).
+template <int W>
+struct Raw {
+  unsigned w[W];
+};
+
+template <int W>
+__device__ __forceinline__ void load_raw(Raw<W>& x, const void* p, unsigned i, bool bf16) {
+  if constexpr (W == 4) {
+    if (bf16) {
+      const uint2 v = *reinterpret_cast<const uint2*>(static_cast<const __nv_bfloat16*>(p) + i);
+      x.w[0] = v.x;
+      x.w[1] = v.y;
+    } else {
+      const uint4 v = *reinterpret_cast<const uint4*>(static_cast<const float*>(p) + i);
+      x.w[0] = v.x;
+      x.w[1] = v.y;
+      x.w[2] = v.z;
+      x.w[3] = v.w;
+    }
+  } else {
+    x.w[0] = bf16 ? static_cast<const unsigned short*>(p)[i] : static_cast<const unsigned*>(p)[i];
+  }
+}
+
+// Element k of ``x`` as the sum takes it (payload_at's value): a bf16 value
+// widened exactly, an f32 value rounded to bf16 on the wire.
+template <int W, bool Wire>
+__device__ __forceinline__ float raw_value(const Raw<W>& x, int k, bool bf16) {
+  if (bf16) return __uint_as_float((W == 4 ? x.w[k >> 1] >> (16 * (k & 1)) : x.w[0]) << 16);
+  const float f = __uint_as_float(x.w[k]);
+  return Wire ? wire_round(f) : f;
+}
+
+// The loads of kRankBatch ranks of a group at a thread's U chunks of W
+// elements, real and imaginary planes.
+template <int U, int W>
+struct Loads {
+  Raw<W> re[kRankBatch][U], im[kRankBatch][U];
+};
+
+// Start the loads of ranks [r0, r0 + kRankBatch) of ``g`` at the chunks
+// ``at`` (the imaginary plane ``plane`` elements further) where ``ok``.
+template <int U, int W, int P>
+__device__ __forceinline__ void load_ranks(Loads<U, W>& x, const Payloads& g, int r0,
+                                           const unsigned (&at)[U], unsigned plane,
+                                           const bool (&ok)[U]) {
+#pragma unroll
+  for (int k = 0; k < kRankBatch; ++k) {
+    if (r0 + k >= g.count) break;
+    const bool h = is_bf16<P>(g, r0 + k);
+    const void* const p = g.p[r0 + k];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (ok[u]) {
+        load_raw(x.re[k][u], p, at[u], h);
+        load_raw(x.im[k][u], p, plane + at[u], h);
+      }
+  }
+}
+
+// Add the loads of ranks [r0, r0 + kRankBatch) to the sums, in rank order
+// (rank 0's value starts them).
+template <int U, int W, int P, bool Wire>
+__device__ __forceinline__ void add_ranks(float (&re)[U][W], float (&im)[U][W],
+                                          const Loads<U, W>& x, const Payloads& g, int r0) {
+#pragma unroll
+  for (int k = 0; k < kRankBatch; ++k) {
+    if (r0 + k >= g.count) break;
+    const bool h = is_bf16<P>(g, r0 + k);
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int j = 0; j < W; ++j) {
+        const float vr = raw_value<W, Wire>(x.re[k][u], j, h);
+        const float vi = raw_value<W, Wire>(x.im[k][u], j, h);
+        re[u][j] = r0 + k == 0 ? vr : re[u][j] + vr;
+        im[u][j] = r0 + k == 0 ? vi : im[u][j] + vi;
+      }
+  }
+}
+
+// Σ_r of group ``g`` at the chunks, in rank order: the first batch's loads
+// ``first`` already started, the later batches (more than kRankBatch ranks)
+// loaded and added batch by batch.
+template <int U, int W, int P, bool Wire>
+__device__ __forceinline__ void group_sum(float (&re)[U][W], float (&im)[U][W],
+                                          const Loads<U, W>& first, const Payloads& g,
+                                          const unsigned (&at)[U], unsigned plane,
+                                          const bool (&ok)[U]) {
+  add_ranks<U, W, P, Wire>(re, im, first, g, 0);
+  for (int r0 = kRankBatch; r0 < g.count; r0 += kRankBatch) {
+    Loads<U, W> x;
+    load_ranks<U, W, P>(x, g, r0, at, plane, ok);
+    add_ranks<U, W, P, Wire>(re, im, x, g, r0);
+  }
 }
 
 // torch.maximum's max: NaN if either is NaN.
 __device__ __forceinline__ float nan_max(float a, float b) { return (a != a || a > b) ? a : b; }
 
+// The block's max of ``v``, in thread 0 (one barrier).
 __device__ float block_nan_max(float v, float* red) {
   for (int o = 16; o > 0; o >>= 1) v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, o));
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < (int)(blockDim.x >> 5) ? red[lane] : 0.f;
-    for (int o = 16; o > 0; o >>= 1) v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, o));
-    if (lane == 0) red[0] = v;
-  }
-  __syncthreads();
-  return red[0];
+  if (threadIdx.x == 0)
+    for (int w = 1; w < kConsensusThreads / 32; ++w) v = nan_max(v, red[w]);
+  return v;
 }
 
 // The pupil step and the metric sums of a consensus. ``pc``, ``pc_out``:
-// (2, b, b) planes of the centered bbox pupil; ``v``: its numerators' payloads
-// (or, with ``vsum``, their sums already made); ``resid``, ``upd``: the
-// metric payloads; ``acc_in`` the sweep's metric sums so far (null on the
-// first chunk: 0), ``acc_out`` the new ones (``metrics`` 0: not this card's).
+// (2, b, b) planes of the centered bbox pupil; ``v``: its numerators'
+// payloads; ``resid``, ``upd``: the metric payloads; ``acc_in`` the sweep's
+// metric sums so far (null on the first chunk: 0), ``acc_out`` the new ones
+// (``metrics`` 0: not this card's).
 struct Pupil {
   const float* pc;
   float* pc_out;
@@ -124,31 +336,45 @@ struct Pupil {
   int wire, metrics;
 };
 
-__device__ void pupil_step(const Pupil& a, const float* vsum, float omax, int tid, int threads) {
+// One element's pupil step, from its numerator's sum (vr, vi).
+__device__ __forceinline__ cfloat pupil_at(const Pupil& a, float vr, float vi, float pr, float pi,
+                                           float omax) {
   const cfloat scale(a.scale, 0.f), alpha(1.f, 0.f), denom(omax, 0.f);
-  for (int e = tid; e < a.bb; e += threads) {
-    const float vr = vsum ? ld_state(vsum + e) : rank_sum(a.v, e, a.wire);
-    const float vi = vsum ? ld_state(vsum + a.bb + e) : rank_sum(a.v, (size_t)a.bb + e, a.wire);
-    const cfloat step = (scale * cfloat(vr, vi)) / denom;
-    const cfloat p = cfloat(a.pc[e], a.pc[a.bb + e]) + alpha * step;
-    a.pc_out[e] = p.real();
-    a.pc_out[a.bb + e] = p.imag();
+  const cfloat step = (scale * cfloat(vr, vi)) / denom;
+  return cfloat(pr, pi) + alpha * step;
+}
+
+// The metric sums' operands: the sweep's sums so far and the psums of the
+// metric payloads (read by one thread; ``metrics`` 0: none).
+struct Metrics {
+  float acc[2], sum[2];
+};
+
+__device__ __forceinline__ Metrics read_metrics(const Pupil& a) {
+  Metrics m{};
+  if (a.metrics) {
+    m.acc[0] = a.acc_in ? a.acc_in[0] : 0.f;
+    m.acc[1] = a.acc_in ? a.acc_in[1] : 0.f;
+    m.sum[0] = rank_sum(a.resid, 0, false);
+    m.sum[1] = rank_sum(a.upd, 0, false);
   }
-  if (tid == 0) {
-    *a.omax_out = omax;
-    if (a.metrics) {
-      const float resid = rank_sum(a.resid, 0, false), upd = rank_sum(a.upd, 0, false);
-      a.acc_out[0] = (a.acc_in ? a.acc_in[0] : 0.f) + resid;
-      a.acc_out[1] = (a.acc_in ? a.acc_in[1] : 0.f) + upd;
-    }
+  return m;
+}
+
+// max|O'| and the metric sums, written once (by the thread that read ``m``).
+__device__ __forceinline__ void write_scalars(const Pupil& a, const Metrics& m, float omax) {
+  *a.omax_out = omax;
+  if (a.metrics) {
+    a.acc_out[0] = m.acc[0] + m.sum[0];
+    a.acc_out[1] = m.acc[1] + m.sum[1];
   }
 }
 
 // One row tile (the whole spectrum on the LED axis) of this card: its state
 // ``o`` → ``o_out``, (2, s, nl) planes; its max|O'| into ``max_out`` (tile
-// axis; the LED axis writes Pupil::omax_out); the
-// index in Tiles::src of its group's payloads (``own``) and of tile i−j's
-// for hop j (``halo[j − 1]``).
+// axis; the LED axis writes Pupil::omax_out); the index in Tiles::src of
+// its group's payloads (``own``) and of tile i−j's for hop j
+// (``halo[j − 1]``).
 struct Tile {
   const float* o;
   float* o_out;
@@ -160,97 +386,244 @@ struct Tile {
 struct Tiles {
   Payloads src[kMaxTiles];   // each (2, r_ext, nl): a group's d payloads
   Tile tile[kMaxTiles];
-  int s, nl, r_ext, n_hops, wire;
+  int s, nl, r_ext, n_hops;
   int hop_lo[kMaxHops], hop_rows[kMaxHops];
 };
 
-// O' = O + d over this block's share of tile ``t``'s elements; returns the
-// block's max|O'| (every thread gets it).
-__device__ float object_phase(const Tiles& a, int t, float* red) {
+// A thread's U chunks of W elements of a tile plane (all W in one row) in
+// the block's share of the tile, and their O' = O + d.
+template <int U, int W>
+struct Chunks {
+  unsigned at[U];
+  bool ok[U];
+  float re[U][W], im[U][W];
+};
+
+// The chunks of hop ``h`` among a thread's chunks ``at``: where its rows
+// are (the first hop_rows[h] rows of the tile), and where it reads the halo
+// rows of its group's payloads.
+template <int U>
+__device__ __forceinline__ void hop_chunks(const Tiles& a, int h, const unsigned (&at)[U],
+                                           const bool (&ok)[U], unsigned (&hat)[U],
+                                           bool (&hok)[U]) {
+  const unsigned lo = (unsigned)(a.s + a.hop_lo[h]) * a.nl, rows = (unsigned)a.hop_rows[h] * a.nl;
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    hok[u] = ok[u] && at[u] < rows;
+    hat[u] = lo + at[u];
+  }
+}
+
+// The chunks' O' into tile ``t``'s o_out.
+template <int U, int W>
+__device__ __forceinline__ void store_chunks(const Tiles& a, int t, const Chunks<U, W>& c) {
+  float* const out = a.tile[t].o_out;
+  const unsigned n = (unsigned)a.s * a.nl;
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    if (c.ok[u]) {
+      if constexpr (W == 4) {
+        *reinterpret_cast<float4*>(out + c.at[u]) =
+            make_float4(c.re[u][0], c.re[u][1], c.re[u][2], c.re[u][3]);
+        *reinterpret_cast<float4*>(out + n + c.at[u]) =
+            make_float4(c.im[u][0], c.im[u][1], c.im[u][2], c.im[u][3]);
+      } else {
+        out[c.at[u]] = c.re[u][0];
+        out[n + c.at[u]] = c.im[u][0];
+      }
+    }
+}
+
+// O' = O + d at this block's chunks of tile ``t`` (the plan's blocks cover
+// the tile, kPerThread elements a thread: the vector path (U, W) = (1, 4),
+// the scalar path (4, 1)), stored as soon as they are made; returns the
+// thread's max|O'|.
+template <int U, int W, int P, bool Wire>
+__device__ float object_phase(const Tiles& a, int t) {
+  static_assert(U * W == kPerThread, "kPerThread elements a thread");
   const Tile& tl = a.tile[t];
   const Payloads& own = a.src[tl.own];
-  const bool wire = a.wire != 0;
-  const int n = a.s * a.nl;
-  const size_t pplane = (size_t)a.r_ext * a.nl;
-  float m = 0.f;
-  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < n; e += gridDim.x * blockDim.x) {
-    float dr = rank_sum(own, e, wire), di = rank_sum(own, pplane + e, wire);
-    const int r = e / a.nl;
-    for (int h = 0; h < a.n_hops; ++h) {   // the reverse halo, hop by hop
-      if (r >= a.hop_rows[h]) continue;
-      const Payloads& src = a.src[tl.halo[h]];
-      const size_t i = (size_t)(a.s + a.hop_lo[h]) * a.nl + e;
-      float br = rank_sum(src, i, wire), bi = rank_sum(src, pplane + i, wire);
-      if (wire) {
-        br = wire_round(br);
-        bi = wire_round(bi);
+  const unsigned n = (unsigned)a.s * a.nl, plane = (unsigned)a.r_ext * a.nl;
+  Chunks<U, W> c;
+  unsigned hat[U];
+  bool hok[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    c.at[u] = ((blockIdx.x * U + u) * kConsensusThreads + threadIdx.x) * W;
+    c.ok[u] = c.at[u] < n;
+  }
+  // Every load of the first round before any add: the own group's first
+  // batch, the first hop's, O.
+  Loads<U, W> x_own, x_hop;
+  load_ranks<U, W, P>(x_own, own, 0, c.at, plane, c.ok);
+  if (a.n_hops > 0) {
+    hop_chunks(a, 0, c.at, c.ok, hat, hok);
+    load_ranks<U, W, P>(x_hop, a.src[tl.halo[0]], 0, hat, plane, hok);
+  }
+  float o_re[U][W], o_im[U][W];
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    if (c.ok[u]) {
+      if constexpr (W == 4) {
+        const float4 r = *reinterpret_cast<const float4*>(tl.o + c.at[u]);
+        const float4 i = *reinterpret_cast<const float4*>(tl.o + n + c.at[u]);
+        o_re[u][0] = r.x, o_re[u][1] = r.y, o_re[u][2] = r.z, o_re[u][3] = r.w;
+        o_im[u][0] = i.x, o_im[u][1] = i.y, o_im[u][2] = i.z, o_im[u][3] = i.w;
+      } else {
+        o_re[u][0] = tl.o[c.at[u]];
+        o_im[u][0] = tl.o[n + c.at[u]];
       }
-      dr = dr + br;
-      di = di + bi;
     }
-    const float re = tl.o[e] + dr, im = tl.o[n + e] + di;
-    tl.o_out[e] = re;
-    tl.o_out[n + e] = im;
-    m = nan_max(m, std::abs(cfloat(re, im)));
+  float dr[U][W], di[U][W];
+  group_sum<U, W, P, Wire>(dr, di, x_own, own, c.at, plane, c.ok);
+  for (int h = 0; h < a.n_hops; ++h) {   // the reverse halo, hop by hop
+    const Payloads& src = a.src[tl.halo[h]];
+    if (h > 0) {
+      hop_chunks(a, h, c.at, c.ok, hat, hok);
+      load_ranks<U, W, P>(x_hop, src, 0, hat, plane, hok);
+    }
+    float br[U][W], bi[U][W];
+    group_sum<U, W, P, Wire>(br, bi, x_hop, src, hat, plane, hok);
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (hok[u]) {
+#pragma unroll
+        for (int j = 0; j < W; ++j) {
+          dr[u][j] = dr[u][j] + (Wire ? wire_round(br[u][j]) : br[u][j]);
+          di[u][j] = di[u][j] + (Wire ? wire_round(bi[u][j]) : bi[u][j]);
+        }
+      }
   }
-  return block_nan_max(m, red);
-}
-
-// This block's max into ``block_max[blockIdx.x]``, after every thread's
-// writes are fenced; true in the block that finishes last (``ticket`` back
-// at 0 for the next launch), which then sees every block's writes.
-__device__ bool last_block(float m, float* block_max, unsigned* ticket) {
-  __shared__ bool last;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    block_max[blockIdx.x] = m;
-    __threadfence();
-    last = atomicInc(ticket, gridDim.x - 1) == gridDim.x - 1;
-  }
-  __syncthreads();
-  if (last) __threadfence();
-  return last;
-}
-
-// The max of the blocks' maxima, in the last block.
-__device__ float grid_max(const float* block_max, float* red) {
   float m = 0.f;
-  for (int i = threadIdx.x; i < (int)gridDim.x; i += blockDim.x)
-    m = nan_max(m, ld_state(block_max + i));
-  return block_nan_max(m, red);
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    if (c.ok[u]) {
+#pragma unroll
+      for (int j = 0; j < W; ++j) {
+        c.re[u][j] = o_re[u][j] + dr[u][j];
+        c.im[u][j] = o_im[u][j] + di[u][j];
+        m = nan_max(m, std::abs(cfloat(c.re[u][j], c.im[u][j])));
+      }
+    }
+  store_chunks(a, t, c);
+  return m;
 }
 
-__global__ void __launch_bounds__(kConsensusThreads)
-consensus_led(Tiles a, Pupil pu, float* vsum, float* block_max, unsigned* ticket) {
-  __shared__ float red[32];
-  const int tid = blockIdx.x * blockDim.x + threadIdx.x, threads = gridDim.x * blockDim.x;
-  for (int e = tid; e < pu.bb; e += threads) {   // the pupil numerators' sums, for the last block
-    vsum[e] = rank_sum(pu.v, e, pu.wire);
-    vsum[pu.bb + e] = rank_sum(pu.v, (size_t)pu.bb + e, pu.wire);
+// C1's pupil block ``p`` of the grid's last ones: loads and adds its
+// pupil elements' numerators and P, waits until ``blocks`` object blocks
+// have arrived, reads max|O'|, and makes the pupil step; block 0 writes
+// max|O'| and the metric sums; the last block to leave puts ``sync`` back to 0.
+template <bool Wire>
+__device__ void pupil_block(const Pupil& a, unsigned* sync, int blocks) {
+  constexpr int U = kPerThread;
+  const int p = blockIdx.x - blocks, n_pupil = gridDim.x - blocks;
+  unsigned at[U];
+  bool ok[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    at[u] = (p * U + u) * kConsensusThreads + threadIdx.x;
+    ok[u] = at[u] < (unsigned)a.bb;
   }
-  const float m = object_phase(a, 0, red);
-  if (!last_block(m, block_max, ticket)) return;
-  pupil_step(pu, vsum, grid_max(block_max, red), threadIdx.x, blockDim.x);
+  Loads<U, 1> x;
+  load_ranks<U, 1, kMixed>(x, a.v, 0, at, a.bb, ok);
+  float pr[U], pi[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    if (ok[u]) {
+      pr[u] = a.pc[at[u]];
+      pi[u] = a.pc[a.bb + at[u]];
+    }
+  const bool writer = p == 0 && threadIdx.x == 0;
+  const Metrics mets = writer ? read_metrics(a) : Metrics{};
+  float vr[U][1], vi[U][1];
+  group_sum<U, 1, kMixed, Wire>(vr, vi, x, a.v, at, a.bb, ok);
+  FPM_MARK(kMarkApply);
+  __shared__ float omax_s;
+  if (threadIdx.x == 0) {
+    const long long t0 = global_ns();
+    while (ld_acquire(sync + kArrived) < (unsigned)blocks)
+      if (global_ns() - t0 > kWaitTimeoutNs) __trap();
+    omax_s = __uint_as_float(ld_relaxed(sync + kMaxBits));
+  }
+  __syncthreads();
+  const float omax = omax_s;
+  FPM_MARK(kMarkTicket);
+  cfloat q[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    if (ok[u]) q[u] = pupil_at(a, vr[u][0], vi[u][0], pr[u], pi[u], omax);
+  // Thread 0 leaves before its stores, which its release would wait for.
+  if (threadIdx.x == 0
+      && add_release(sync + kArrived, 1) == (unsigned)(blocks + n_pupil - 1)) {
+    sync[kArrived] = 0;   // every block has read both words
+    sync[kMaxBits] = 0;
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    if (ok[u]) {
+      a.pc_out[at[u]] = q[u].real();
+      a.pc_out[a.bb + at[u]] = q[u].imag();
+    }
+  if (writer) write_scalars(a, mets, omax);
+  FPM_MARK(kMarkTail);
 }
 
+// C1: ``blocks`` object blocks, then the pupil blocks.
+template <int U, int W, int P, bool Wire>
 __global__ void __launch_bounds__(kConsensusThreads)
-consensus_tile_object(Tiles a, float* block_max, unsigned* ticket) {
-  __shared__ float red[32];
+consensus_led(Tiles a, Pupil pu, unsigned* sync, int blocks) {
+  __shared__ float red[kConsensusThreads / 32];
+  FPM_MARK(kMarkStart);
+  if ((int)blockIdx.x >= blocks) {
+    pupil_block<Wire>(pu, sync, blocks);
+    return;
+  }
+  const float m = block_nan_max(object_phase<U, W, P, Wire>(a, 0), red);
+  FPM_MARK(kMarkApply);
+  if (threadIdx.x == 0) {
+    atomicMax(sync + kMaxBits, __float_as_uint(m));
+    add_release(sync + kArrived, 1);
+  }
+  FPM_MARK(kMarkTicket);
+}
+
+// C2: gridDim.x blocks a tile (blockIdx.y); the tile's last block to arrive
+// (its arrival wraps the count to 0, and acquires the others' maxima)
+// swaps the tile's max for 0 and writes it.
+template <int U, int W, int P, bool Wire>
+__global__ void __launch_bounds__(kConsensusThreads)
+consensus_tile_object(Tiles a, unsigned* sync) {
+  __shared__ float red[kConsensusThreads / 32];
+  __shared__ bool last;
+  FPM_MARK(kMarkStart);
   const int t = blockIdx.y;
-  const float m = object_phase(a, t, red);
-  float* const maxima = block_max + (size_t)t * gridDim.x;
-  if (!last_block(m, maxima, ticket + t)) return;
-  const float omax = grid_max(maxima, red);
-  if (threadIdx.x == 0) *a.tile[t].max_out = omax;
+  const float m = block_nan_max(object_phase<U, W, P, Wire>(a, t), red);
+  FPM_MARK(kMarkApply);
+  unsigned* const words = sync + kSyncWords * t;
+  if (threadIdx.x == 0) {
+    atomicMax(words + kMaxBits, __float_as_uint(m));
+    last = inc_acq_rel(words + kArrived, gridDim.x - 1) == gridDim.x - 1;
+  }
+  FPM_MARK(kMarkTicket);
+  if (threadIdx.x == 0 && last)
+    *a.tile[t].max_out = __uint_as_float(atomicExch(words + kMaxBits, 0u));
+  FPM_MARK_IF(last, kMarkTail);
 }
 
-__global__ void __launch_bounds__(kConsensusThreads)
+// C3, an element a thread.
+__global__ void __launch_bounds__(kPupilThreads)
 consensus_tile_pupil(Pupil pu, Payloads maxima) {
   float omax = static_cast<const float*>(maxima.p[0])[0];
   for (int t = 1; t < maxima.count; ++t)   // the pmax over the tile axis, in tile order
     omax = nan_max(omax, static_cast<const float*>(maxima.p[t])[0]);
-  pupil_step(pu, nullptr, omax, blockIdx.x * blockDim.x + threadIdx.x, gridDim.x * blockDim.x);
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x, threads = gridDim.x * blockDim.x;
+  for (int e = tid; e < pu.bb; e += threads) {
+    const cfloat q = pupil_at(pu, rank_sum(pu.v, e, pu.wire), rank_sum(pu.v, (size_t)pu.bb + e,
+                              pu.wire), pu.pc[e], pu.pc[pu.bb + e], omax);
+    pu.pc_out[e] = q.real();
+    pu.pc_out[pu.bb + e] = q.imag();
+  }
+  if (tid == 0) write_scalars(pu, read_metrics(pu), omax);
 }
 
 inline int set_payloads(Payloads* l, const void* const* p, unsigned bf16, int count) {
@@ -272,12 +645,64 @@ inline int set_pupil(Pupil* a, const float* pc, float* pc_out, int bb, const voi
   return set_payloads(&a->upd, upd, 0u, count);
 }
 
-// Blocks of an object phase over ``n`` elements: enough for one element a
-// thread, at most ``max_blocks`` (the caller's scratch of block maxima).
-inline int object_blocks(int n, int max_blocks) {
-  const int want = (n + kConsensusThreads - 1) / kConsensusThreads;
-  return imax(1, want < max_blocks ? want : max_blocks);
+// The pattern of the ``n`` groups' payloads: no bf16 bit set, every rank's
+// set, or some.
+inline int pattern(const Payloads* g, int n) {
+  bool none = true, all = true;
+  for (int i = 0; i < n; ++i) {
+    const unsigned every = g[i].count == 32 ? ~0u : (1u << g[i].count) - 1u;
+    none = none && (g[i].bf16 & every) == 0u;
+    all = all && (g[i].bf16 & every) == every;
+  }
+  return none ? kF32 : all ? kBf16 : kMixed;
 }
+
+inline bool aligned(const void* p, size_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// The vector path's condition (kernels.consensus_plan's): NL a multiple of
+// 4, each state plane and every payload aligned to its 4 elements.
+inline bool vector_ok(const Tiles& a, int n_src, int n_tiles) {
+  if (a.nl % 4) return false;
+  for (int t = 0; t < n_tiles; ++t)
+    if (!aligned(a.tile[t].o, 16) || !aligned(a.tile[t].o_out, 16)) return false;
+  for (int g = 0; g < n_src; ++g)
+    for (int r = 0; r < a.src[g].count; ++r)
+      if (!aligned(a.src[g].p[r], (a.src[g].bf16 >> r) & 1u ? 8 : 16)) return false;
+  return true;
+}
+
+// The plan's blocks cover the ``n`` elements of a plane (kPerThread a
+// thread), whose planes (2·r_ext·NL elements) a 32-bit index reaches, and its
+// path is one these operands take.
+inline bool plan_ok(const Tiles& a, int n_src, int n_tiles, size_t n, int blocks, int vector) {
+  return blocks >= 1 && (size_t)blocks * kConsensusThreads * kPerThread >= n
+         && 2 * (size_t)a.r_ext * a.nl + (size_t)blocks * kConsensusThreads * kPerThread
+                < (1ull << 31)
+         && (vector == 0 || (vector == 1 && vector_ok(a, n_src, n_tiles)));
+}
+
+template <int U, int W, int P, bool Wire>
+void launch_led(int grid, cudaStream_t stream, const Tiles& a, const Pupil& pu, unsigned* sync,
+                int blocks) {
+  consensus_led<U, W, P, Wire><<<grid, kConsensusThreads, 0, stream>>>(a, pu, sync, blocks);
+}
+
+template <int U, int W, int P, bool Wire>
+void launch_tile_object(dim3 grid, cudaStream_t stream, const Tiles& a, unsigned* sync) {
+  consensus_tile_object<U, W, P, Wire><<<grid, kConsensusThreads, 0, stream>>>(a, sync);
+}
+
+// A launcher's instantiations, [vector][pattern][wire]: the scalar path
+// (U, W) = (4, 1), the vector path (1, 4).
+#define FPM_CONSENSUS_INSTANCES(launch)                                                       \
+  {{{launch<4, 1, kF32, false>, launch<4, 1, kF32, true>},                                    \
+    {launch<4, 1, kBf16, false>, launch<4, 1, kBf16, true>},                                  \
+    {launch<4, 1, kMixed, false>, launch<4, 1, kMixed, true>}},                               \
+   {{launch<1, 4, kF32, false>, launch<1, 4, kF32, true>},                                    \
+    {launch<1, 4, kBf16, false>, launch<1, 4, kBf16, true>},                                  \
+    {launch<1, 4, kMixed, false>, launch<1, 4, kMixed, true>}}}
 
 }  // namespace fpm
 
@@ -290,8 +715,12 @@ inline int object_blocks(int n, int max_blocks) {
 //   resid, upd    ``count`` pointers to f32 scalars (with ``metrics``)
 //   acc_in        (2) f32, the sweep's metric sums so far, or null; acc_out (2)
 //   omax_out      (1) f32, max|O'|
-//   vsum          (2, b, b) f32 scratch; block_max f32 scratch of max_blocks
-//   ticket        u32, 0 between launches (the kernel leaves it 0)
+//   sync          u32 scratch of 2 words, 0 between launches (the kernel
+//                 leaves them 0)
+//   blocks, pupil_blocks, vector   the plan (kernels.consensus_plan): object
+//                 blocks, pupil blocks after them, the vector path (1) or the
+//                 scalar one (0); refused if they do not cover the elements
+//                 or the operands do not allow the path
 //   launches      host int, incremented at the accepted launch
 // Returns a cudaError_t value (0 = the launch was accepted).
 extern "C" int fpm_consensus_led(const float* o, float* o_out, int n_rows, int nl,
@@ -299,10 +728,12 @@ extern "C" int fpm_consensus_led(const float* o, float* o_out, int n_rows, int n
                                  float* pc_out, int b, const void* const* v, unsigned v_bf16,
                                  const void* const* resid, const void* const* upd, int count,
                                  const float* acc_in, float* acc_out, float* omax_out,
-                                 float scale, int wire, int metrics, float* vsum,
-                                 float* block_max, unsigned* ticket, int max_blocks, int device,
-                                 void* stream, int* launches) {
+                                 float scale, int wire, int metrics, unsigned* sync, int blocks,
+                                 int pupil_blocks, int vector, int device, void* stream,
+                                 int* launches) {
   using namespace fpm;
+  using Launch = void (*)(int, cudaStream_t, const Tiles&, const Pupil&, unsigned*, int);
+  static const Launch launch[2][kPatterns][2] = FPM_CONSENSUS_INSTANCES(launch_led);
   const DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   Tiles a{};
@@ -310,13 +741,15 @@ extern "C" int fpm_consensus_led(const float* o, float* o_out, int n_rows, int n
   a.tile[0] = Tile{o, o_out, nullptr, 0, {}};
   a.s = a.r_ext = n_rows;
   a.nl = nl;
-  a.wire = wire;
   Pupil pu;
   if (const int e = set_pupil(&pu, pc, pc_out, b * b, v, v_bf16, resid, upd, count, acc_in,
                               acc_out, omax_out, scale, wire, metrics))
     return e;
-  consensus_led<<<object_blocks(n_rows * nl, max_blocks), kConsensusThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(a, pu, vsum, block_max, ticket);
+  if (!plan_ok(a, 1, 1, (size_t)n_rows * nl, blocks, vector) || pupil_blocks < 1
+      || (size_t)pupil_blocks * kConsensusThreads * kPerThread < (size_t)b * b)
+    return (int)cudaErrorInvalidValue;
+  launch[vector != 0][pattern(a.src, 1)][wire != 0](
+      blocks + pupil_blocks, static_cast<cudaStream_t>(stream), a, pu, sync, blocks);
   return (int)count_launch(launches);
 }
 
@@ -332,17 +765,19 @@ extern "C" int fpm_consensus_led(const float* o, float* o_out, int n_rows, int n
 //   own           n_tiles group indices; halo n_tiles × n_hops group indices
 //                 (tile i−j's group for hop j)
 //   hop_lo, hop_rows   each hop's first halo row and its rows
-//   block_max     f32 scratch of n_tiles × max_blocks; ticket n_tiles u32, 0
-//                 between launches
+//   sync          u32 scratch of 2 words a tile, 0 between launches
+//   blocks, vector     the plan: blocks a tile, the vector path or not
 extern "C" int fpm_consensus_tile_object(const void* const* src, const unsigned* src_bf16,
                                          int n_src, int count, const float* const* o,
                                          float* const* o_out, float* const* max_out,
                                          const int* own, const int* halo, int n_tiles, int s,
                                          int nl, int r_ext, int n_hops, const int* hop_lo,
-                                         const int* hop_rows, int wire, float* block_max,
-                                         unsigned* ticket, int max_blocks, int device,
-                                         void* stream, int* launches) {
+                                         const int* hop_rows, int wire, unsigned* sync,
+                                         int blocks, int vector, int device, void* stream,
+                                         int* launches) {
   using namespace fpm;
+  using Launch = void (*)(dim3, cudaStream_t, const Tiles&, unsigned*);
+  static const Launch launch[2][kPatterns][2] = FPM_CONSENSUS_INSTANCES(launch_tile_object);
   if (n_src < 1 || n_src > kMaxTiles || n_tiles < 1 || n_tiles > kMaxTiles || n_hops < 0
       || n_hops > kMaxHops)
     return (int)cudaErrorInvalidValue;
@@ -360,14 +795,14 @@ extern "C" int fpm_consensus_tile_object(const void* const* src, const unsigned*
   a.nl = nl;
   a.r_ext = r_ext;
   a.n_hops = n_hops;
-  a.wire = wire;
   for (int h = 0; h < n_hops; ++h) {
     a.hop_lo[h] = hop_lo[h];
     a.hop_rows[h] = hop_rows[h];
   }
-  const dim3 grid(object_blocks(s * nl, max_blocks), n_tiles);
-  consensus_tile_object<<<grid, kConsensusThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, block_max, ticket);
+  if (!plan_ok(a, n_src, n_tiles, (size_t)s * nl, blocks, vector))
+    return (int)cudaErrorInvalidValue;
+  launch[vector != 0][pattern(a.src, n_src)][wire != 0](
+      dim3(blocks, n_tiles), static_cast<cudaStream_t>(stream), a, sync);
   return (int)count_launch(launches);
 }
 
@@ -390,8 +825,38 @@ extern "C" int fpm_consensus_tile_pupil(const float* pc, float* pc_out, int b,
     return e;
   Payloads m;
   if (const int e = set_payloads(&m, maxima, 0u, n_maxima)) return e;
-  const int blocks = imax(1, (b * b + kConsensusThreads - 1) / kConsensusThreads);
-  consensus_tile_pupil<<<blocks, kConsensusThreads, 0, static_cast<cudaStream_t>(stream)>>>(pu,
-                                                                                            m);
+  const int blocks = imax(1, (b * b + kPupilThreads - 1) / kPupilThreads);
+  consensus_tile_pupil<<<blocks, kPupilThreads, 0, static_cast<cudaStream_t>(stream)>>>(pu, m);
   return (int)count_launch(launches);
 }
+
+#ifdef FPM_PROFILE
+extern "C" int fpm_phase_count() { return fpm::kMarks; }
+
+// The name of mark ``i`` (FPM_CONSENSUS_MARKS), or null.
+extern "C" const char* fpm_phase_name(int i) {
+  static const char* const names[] = {
+#define FPM_MARK_NAME(id, name) name,
+      FPM_CONSENSUS_MARKS(FPM_MARK_NAME)
+#undef FPM_MARK_NAME
+  };
+  return i >= 0 && i < fpm::kMarks ? names[i] : nullptr;
+}
+
+// The stamps of the last launches' first ``n`` records (n × 2·kMarks values:
+// each record's global ns at each mark, then its SM cycles; 0 where a mark
+// was not reached), after waiting for the device; with ``reset`` every
+// record back to 0.
+extern "C" int fpm_consensus_records(long long* out, int n, int reset) {
+  using namespace fpm;
+  if (n < 0 || n > kRecords) return (int)cudaErrorInvalidValue;
+  const size_t bytes = sizeof(fpm_consensus_stamps[0]);
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err == cudaSuccess && n) err = cudaMemcpyFromSymbol(out, fpm_consensus_stamps, n * bytes);
+  void* at = nullptr;
+  if (err == cudaSuccess && reset) err = cudaGetSymbolAddress(&at, fpm_consensus_stamps);
+  if (err == cudaSuccess && reset) err = cudaMemset(at, 0, kRecords * bytes);
+  if (err == cudaSuccess && reset) err = cudaDeviceSynchronize();
+  return (int)err;
+}
+#endif

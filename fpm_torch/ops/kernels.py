@@ -21,9 +21,9 @@ sharded sweeps, each beside its plain version.
   launch each per card and chunk; CUDA source ``csrc/epry_consensus.cu``).
   They replace no Pallas kernel: ``fpm_tpu`` leaves these collectives and
   element-wise ops to XLA inside its one program of a mesh run. They count
-  their ``launches`` like the others and take no plan (section below). They
-  take payloads on another card where this card reads its memory
-  (:func:`enable_peer_access`).
+  their ``launches`` like the others; their launch shape is
+  :func:`consensus_plan`'s (section below). They take payloads on another
+  card where this card reads its memory (:func:`enable_peer_access`).
 * The peer route of the one-process sweep over several cards,
   :func:`peer_epoch`, :func:`peer_post`, :func:`peer_wait` and
   :func:`peer_pull` (CUDA source ``csrc/epry_peer.cu``): the signal and
@@ -102,6 +102,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -1127,22 +1128,54 @@ def consensus_led_plain(o, pc, ds, vs, resid=(), upd=(), acc=None, *, wire=None,
 
 
 # Tile groups and ranks per group an entry point of csrc/epry_consensus.cu
-# takes (kMaxTiles, kMaxRanks there).
+# takes (kMaxTiles, kMaxRanks there); its threads a block, elements of a
+# plane a thread of C1's and C2's (kConsensusThreads, kPerThread), and the
+# scratch words a tile (kSyncWords: blocks arrived, the max's bits).
 CONSENSUS_MAX_TILES, CONSENSUS_MAX_RANKS = 8, 32
+CONSENSUS_THREADS, CONSENSUS_PER_THREAD = 256, 4
+CONSENSUS_SYNC_WORDS = 2
+
+
+class ConsensusPlan(NamedTuple):
+    """The launch of :func:`consensus_led` (C1) or
+    :func:`consensus_tile_object` (C2): ``blocks`` object blocks (a tile,
+    C2's grid ``(blocks, tiles)``), then ``pupil_blocks`` (C1's, 0 for C2)
+    of ``threads`` threads, ``per_thread`` elements of a plane each; the
+    vector path (16-byte loads and stores) or the scalar one."""
+    blocks: int
+    pupil_blocks: int
+    threads: int
+    per_thread: int
+    vector: bool
+
+
+def consensus_plan(elements: int, *, aligned: bool, nl: int, pupil: int = 0) -> ConsensusPlan:
+    """The launch for ``elements`` elements of a plane (a tile's s·NL, or
+    R·NL on the LED axis) and, for C1, ``pupil`` = b² pupil elements:
+    every element taken by one thread, CONSENSUS_PER_THREAD a thread. The
+    vector path where NL is a multiple of 4 and every plane is ``aligned``
+    (state and f32 payloads on 16 bytes, bf16 payloads on 8), as
+    csrc/epry_consensus.cu's ``vector_ok`` requires."""
+    per_block = CONSENSUS_THREADS * CONSENSUS_PER_THREAD
+    return ConsensusPlan(blocks=max(1, -(-elements // per_block)),
+                         pupil_blocks=-(-pupil // per_block), threads=CONSENSUS_THREADS,
+                         per_thread=CONSENSUS_PER_THREAD, vector=aligned and nl % 4 == 0)
+
+
+def _aligned(ts) -> bool:
+    """Every tensor's first element on 16 bytes (8 for bf16): four elements
+    of a plane load as one."""
+    return all(t.data_ptr() % (4 * t.element_size()) == 0 for t in ts)
 
 
 class ConsensusScratch:
-    """The scratch of one card's consensus launches, made once a run: the
-    tickets (zero between launches; each launch leaves them zero), the
-    blocks' maxima and the LED kernel's pupil sums (bbox ``b``)."""
+    """The scratch of one card's consensus launches, made once a run:
+    CONSENSUS_SYNC_WORDS words a tile (C1 uses the first tile's), zero
+    between launches; each launch leaves them zero."""
 
-    def __init__(self, device, b: int):
-        device = torch.device(device)
-        self.max_blocks = 2 * torch.cuda.get_device_properties(device).multi_processor_count
-        self.ticket = torch.zeros(CONSENSUS_MAX_TILES, dtype=torch.int32, device=device)
-        self.block_max = torch.empty(CONSENSUS_MAX_TILES * self.max_blocks,
-                                     dtype=torch.float32, device=device)
-        self.vsum = torch.empty((2, b, b), dtype=torch.float32, device=device)
+    def __init__(self, device):
+        self.sync = torch.zeros(CONSENSUS_SYNC_WORDS * CONSENSUS_MAX_TILES, dtype=torch.int32,
+                                device=device)
 
 
 def _pointers(ts):
@@ -1205,7 +1238,8 @@ def _metric_lists(resid, upd, dev, metrics):
             _payload_list(upd, torch.Size([]), dev, "update norm")[0])
 
 
-def _consensus_led_cuda(o, pc, ds, vs, resid, upd, acc, *, wire, scale, metrics, scratch, out):
+def _consensus_led_cuda(o, pc, ds, vs, resid, upd, acc, *, wire, scale, metrics, scratch, out,
+                        lib=None):
     dev = o.device
     _check_state(dev, o, pc, *(() if acc is None else (acc,)))
     d, d_bf16 = _payload_list(ds, o.shape, dev, "object increments")
@@ -1215,21 +1249,23 @@ def _consensus_led_cuda(o, pc, ds, vs, resid, upd, acc, *, wire, scale, metrics,
     _check_out(dev, (o_out, o.shape), (pc_out, pc.shape), (omax, ()),
                (acc_out if metrics else None, (2,)))
     acc_out = acc_out if metrics else None
-    lib = build.library("epry_consensus")
+    plan = consensus_plan(o[0].numel(), aligned=_aligned([o, o_out, *ds]), nl=o.shape[2],
+                          pupil=pc[0].numel())
+    lib = lib or build.library("epry_consensus")
     launched = ctypes.c_int(0)
     err = lib.fpm_consensus_led(
         o.data_ptr(), o_out.data_ptr(), o.shape[1], o.shape[2], d, d_bf16, pc.data_ptr(),
         pc_out.data_ptr(), pc.shape[-1], v, v_bf16, r, u, len(ds),
         None if acc is None else acc.data_ptr(), None if acc_out is None else acc_out.data_ptr(),
-        omax.data_ptr(), scale, int(wire is not None), int(metrics), scratch.vsum.data_ptr(),
-        scratch.block_max.data_ptr(), scratch.ticket.data_ptr(), scratch.max_blocks, dev.index,
-        _current_stream(dev), ctypes.byref(launched))
+        omax.data_ptr(), scale, int(wire is not None), int(metrics), scratch.sync.data_ptr(),
+        plan.blocks, plan.pupil_blocks, int(plan.vector), dev.index, _current_stream(dev),
+        ctypes.byref(launched))
     _count(consensus_led, launched)
     build.check(lib, err, "consensus_led")
     return o_out, pc_out, omax, acc_out
 
 
-def _consensus_tile_object_cuda(blocks, *, s, hops, wire, scratch, out):
+def _consensus_tile_object_cuda(blocks, *, s, hops, wire, scratch, out, lib=None):
     dev = blocks[0][0].device
     groups, own, halo = [], [], []
 
@@ -1259,7 +1295,9 @@ def _consensus_tile_object_cuda(blocks, *, s, hops, wire, scratch, out):
     outs = list(out)
     _check_out(dev, *((t, shape) for (o, _, _), pair in zip(blocks, outs)
                       for t, shape in zip(pair, (o.shape, ()))))
-    lib = build.library("epry_consensus")
+    plan = consensus_plan(s * like[-1], nl=like[-1], aligned=_aligned(
+        [o for o, _, _ in blocks] + [o for o, _ in outs] + [t for _, ts in groups for t in ts]))
+    lib = lib or build.library("epry_consensus")
     launched = ctypes.c_int(0)
     err = lib.fpm_consensus_tile_object(
         _pointers([t for _, ts in groups for t in ts]),
@@ -1267,9 +1305,8 @@ def _consensus_tile_object_cuda(blocks, *, s, hops, wire, scratch, out):
         _pointers([o for o, _, _ in blocks]), _pointers([o for o, _ in outs]),
         _pointers([m for _, m in outs]), _ints(own), _ints(halo), len(blocks), s, like[-1],
         like[-2], len(hops), _ints([lo for _, lo, _ in hops]),
-        _ints([rows for _, _, rows in hops]), int(wire is not None),
-        scratch.block_max.data_ptr(), scratch.ticket.data_ptr(), scratch.max_blocks, dev.index,
-        _current_stream(dev), ctypes.byref(launched))
+        _ints([rows for _, _, rows in hops]), int(wire is not None), scratch.sync.data_ptr(),
+        plan.blocks, int(plan.vector), dev.index, _current_stream(dev), ctypes.byref(launched))
     _count(consensus_tile_object, launched)
     build.check(lib, err, "consensus_tile_object")
     return outs
@@ -1350,6 +1387,29 @@ def consensus_tile_pupil(pc, vs, maxima, resid=(), upd=(), acc=None, *, wire=Non
         return _copied(out, consensus_tile_pupil_plain(pc, vs, maxima, resid, upd, acc,
                                                        wire=wire, scale=scale, metrics=metrics))
     raise ValueError(f"no kernel for device {pc.device}")
+
+
+def consensus_phase_profile(kernel: str, *args, **kw):
+    """A measurement aid: one call of :func:`consensus_led` (``kernel``
+    "C1") or :func:`consensus_tile_object` ("C2") on the card through the
+    stamping build of ``csrc/epry_consensus.cu`` (``build.profile_library``;
+    the wrappers never load it), every argument of the wrapper's CUDA path
+    given (``scratch`` and ``out`` too). Returns the call's outputs, bitwise
+    the wrapper's, and for each block that ran ``{mark: (global ns, SM
+    cycles)}`` of the marks it reached (``FPM_CONSENSUS_MARKS``). Waits
+    for the card."""
+    fn = {"C1": _consensus_led_cuda, "C2": _consensus_tile_object_cuda}[kernel]
+    lib = build.profile_library("epry_consensus")
+    marks = [lib.fpm_phase_name(i).decode() for i in range(lib.fpm_phase_count())]
+    n = CONSENSUS_MAX_TILES * 1024          # the build's records (kRecords), a block each
+    stamps = (ctypes.c_longlong * (n * 2 * len(marks)))()
+    build.check(lib, lib.fpm_consensus_records(stamps, 0, 1), "consensus profile")
+    out = fn(*args, lib=lib, **kw)
+    build.check(lib, lib.fpm_consensus_records(stamps, n, 1), "consensus profile")
+    k = len(marks)
+    records = [{m: (stamps[r * 2 * k + i], stamps[r * 2 * k + k + i])
+                for i, m in enumerate(marks) if stamps[r * 2 * k + i]} for r in range(n)]
+    return out, [r for r in records if r]
 
 
 # ----------------------------------------------------------- the peer route

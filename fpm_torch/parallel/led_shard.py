@@ -224,7 +224,7 @@ class PlanesRoute(ComplexRoute):
         route.inputs += (scratch,)
         route.frame, route.b, route.lo = frame, b, lo
         route.pupil_payload = torch.empty((2, n, n), dtype=torch.float32, device="meta")
-        route.scratch = {card: kernels.ConsensusScratch(card, b)
+        route.scratch = {card: kernels.ConsensusScratch(card)
                          for card, _ in mesh.cards() if card.type == "cuda"}
         return route
 

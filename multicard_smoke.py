@@ -69,14 +69,16 @@ FOV_PROCESSES = (2, 4)
 HBM_BYTES_S, NVLINK_BYTES_S = 3.35e12, 450e9    # an H100's memory; its NVLink, each way
 
 
-def consensus_bounds(cfg, led: int, tile: int) -> dict:
+def consensus_bounds(cfg, led: int, tile: int, by_card=None) -> dict:
     """Card 0's consensus kernels of one chunk on the peer route, a rank a
     card, and on the tile axis its halo pull: the bytes each reads and
     writes in its own memory (its rank's payload, the state read and
     written once; the pulled rows written) and those it reads from its
     peers over NVLink (their payloads in place; the rows pulled), and the
     least time, the larger of the two at the H100's 3.35 TB/s and 450 GB/s
-    each way."""
+    each way; with ``by_card`` (a trace's, ``chip_smoke.gated_trace``)
+    beside it ``device_ms``, card 0's mean device ms a launch of the kernel
+    in that trace, and ``bound_share`` (bound / device ms). Not a gate."""
     from fpm_torch.geometry import pupil_radius
     from fpm_torch.ops import kernels
 
@@ -94,10 +96,16 @@ def consensus_bounds(cfg, led: int, tile: int) -> dict:
                 "consensus_tile_object": (own + 2 * own, (led - 1) * own + led * halo),
                 "consensus_tile_pupil": (pupil + metrics + 4 + 2 * pupil,
                                          (led * tile - 1) * (pupil + metrics) + (tile - 1) * 4)}
-    return {name: {"hbm_bytes": hbm, "nvlink_bytes": peer,
-                   "bound_ms": max(hbm / HBM_BYTES_S, peer / NVLINK_BYTES_S) * 1e3,
-                   "bound_by": "nvlink bytes" if peer / NVLINK_BYTES_S > hbm / HBM_BYTES_S
-                   else "hbm bytes"} for name, (hbm, peer) in rows.items()}
+    measured = ((by_card or {}).get(0) or {}).get("kernel_ms", {})
+    out = {}
+    for name, (hbm, peer) in rows.items():
+        bound_ms = max(hbm / HBM_BYTES_S, peer / NVLINK_BYTES_S) * 1e3
+        device_ms = measured.get(name)
+        out[name] = {"hbm_bytes": hbm, "nvlink_bytes": peer, "bound_ms": bound_ms,
+                     "bound_by": "nvlink bytes" if peer / NVLINK_BYTES_S > hbm / HBM_BYTES_S
+                     else "hbm bytes", "device_ms": device_ms,
+                     "bound_share": bound_ms / device_ms if device_ms else None}
+    return out
 
 
 def run_case(label, flags, n_proc, arrays, tmp, transport, gpu) -> dict:
@@ -191,7 +199,8 @@ def one_process_sweeps(problem, gpu) -> None:
                      "stale_consensus": stale, "ranks": mesh.describe(),
                      "graph": entry.replay is not None,
                      "cards_in_graph": len(mesh.cards()), "peer_route": route_name,
-                     "consensus_bounds": consensus_bounds(problem[0], led, tile),
+                     "consensus_bounds": consensus_bounds(problem[0], led, tile,
+                                                          gated["by_card"]),
                      "card_edges_per_sweep": edges, "host_loop_card_edges": host_edges,
                      "peer_launches_per_sweep": {k: v for k, v in captured.launches.items()
                                                  if k.startswith("peer_")},

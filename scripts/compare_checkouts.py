@@ -12,12 +12,15 @@ that checkout first on ``sys.path`` and this checkout's ``chip_smoke.py``
 loaded by path, so the same functions run on either package: the kernel
 digests (``kernel_digests``), the digests of the sharded sweeps
 (``sharded_digests``), their timing through the entry point
-(``sharded_entry_timing``) and K3's time a call through its wrapper
-(``k3_call_timing``); and of each checkout's main libraries, ptxas's
+(``sharded_entry_timing``), K3's time a call through its wrapper
+(``k3_call_timing``) and the consensus kernels' rows (``consensus_rows``:
+each bitwise its plain version, its device ms a call, its ms on CUDA
+events, its bound); and of each checkout's main libraries, ptxas's
 registers, stack and spills per function (``build.resources``) and a digest
 of each function's SASS (``cuobjdump -sass``). One JSON line per run, then
 one line that says which digests (and which kernel cases differ), resources
-and SASS are equal between the checkouts and gives each case's ms per sweep and busy share in each run. Needs one CUDA card; builds each
+and SASS are equal between the checkouts and gives each case's ms per sweep and busy share,
+and each consensus kernel's device ms, in each run. Needs one CUDA card; builds each
 checkout's kernels in its own ``build/``. It never imports JAX or
 ``fpm_tpu``.
 """
@@ -39,7 +42,7 @@ sys.path.insert(0, root)
 spec = importlib.util.spec_from_file_location("smoke", smoke)
 cs = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(cs)
-import hashlib, re, subprocess
+import collections, hashlib, re, subprocess
 import torch
 import fpm_torch
 from fpm_torch.ops import build
@@ -60,12 +63,17 @@ def sass(path):
 
 libs = build.build_all()
 digests = cs.kernel_digests(torch.device("cuda"))
+smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                     capture_output=True, text=True, check=True).stdout.strip()
+counts = collections.defaultdict(lambda: collections.defaultdict(int))   # no main-path run here
+consensus = {r["name"]: {k: r[k] for k in ("device_ms", "ms", "bound_ms", "bitwise")}
+             for r in cs.consensus_rows(cs.sharded_problem("mono"), counts, smi)}
 print("RUN " + json.dumps({
     "kernels": digests["all"], "kernel_cases": digests["cases"],
     "resources": {stem: build.resources(stem) for stem in sorted(libs)},
     "sass": {stem: sass(path) for stem, path in sorted(libs.items())},
     "sharded": cs.sharded_digests(), "timing": cs.sharded_entry_timing(busy=True),
-    "k3": cs.k3_call_timing()}), flush=True)
+    "k3": cs.k3_call_timing(), "consensus": consensus}), flush=True)
 """
 
 
@@ -112,6 +120,9 @@ def main(argv=None) -> int:
                            for name, rs in by.items()} for c in cases},
         "k3_per_call": {tier: {name: [r["k3"][tier] for r in rs] for name, rs in by.items()}
                         for tier in by["this"][0]["k3"]},
+        "consensus_device_ms": {k: {name: [r["consensus"][k]["device_ms"] for r in rs]
+                                    for name, rs in by.items()}
+                                for k in by["this"][0]["consensus"]},
         "order": [n for n, _ in order], "gpu": smi}), flush=True)
     print(smi)
     return 0

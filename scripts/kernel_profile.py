@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""K1's or K2's time on the card, stage by stage, in one or two checkouts.
+"""K1's, K2's or the consensus kernels' time on the card, stage by stage,
+in one or two checkouts.
 
 Run from the root of this checkout, on a machine with one CUDA card:
 
     python3 scripts/kernel_profile.py [--kernel K2] [--other DIR] [--out FILE]
+    python3 scripts/kernel_profile.py --kernel C1|C2 [--shapes mono dog] [--other DIR]
     python3 scripts/kernel_profile.py --kernel K1 [--shapes mono dog]
         [--cs 0 1 2 4 8] [--tiers bf16x3 highest] [--chunks 15 30]
         [--z-layout 0] [--other DIR] [--out FILE]
@@ -28,6 +30,19 @@ simulated from seed 0):
   the same loop with P = 16, 66 and 132 problems in one launch (the
   ``--fov-grid`` ROI runner's problem axis), bf16x3, on a ladder of 2/6
   sweeps.
+
+``--kernel C1`` / ``--kernel C2``: the sharded sweeps' consensus on the
+LED axis (``kernels.consensus_led``, mesh (4,1)) or the tile axis's object
+step (``kernels.consensus_tile_object``, mesh (2,2)), for each shape of
+``--shapes`` (``mono``: NL 360, Np 90, bbox 64, as chip_smoke's
+``consensus_rows``; ``dog``: NL 600, Np 200, bbox 112), on seeded random
+f32 payloads: ``device_us`` a call (a torch.profiler window of TIMED
+calls after PAD short spin kernels, over the calls it kept: ``device_calls``),
+``event_us`` (CUDA events over 50 calls), and, where the checkout
+has the stamping build (``kernels.consensus_phase_profile``), ``stamped``:
+the median over STAMPED calls of each block's µs in its payload sums and
+apply, its fence and ticket and the tail, and the grid's timeline on the
+card's global clock (``stamp_summary``).
 
 ``--kernel K1``: for each shape, K1's sweep loop as the batched cell runs it
 (``bench.solver``, one problem, chunk strided): ``mono`` is the cell's
@@ -236,6 +251,141 @@ def k1_run(root: str, args) -> dict:
     return {"rows": rows}
 
 
+# (NL, Np, bbox b) of the consensus kernels' shapes, and the mesh (led,
+# tile) each kernel runs on: chip_smoke's consensus_rows (mono) and the
+# dogStomach optics.
+CONSENSUS_SHAPES = {"mono": (360, 90, 64), "dog": (600, 200, 112)}
+CONSENSUS_MESH = {"C1": (4, 1), "C2": (2, 2)}
+STAMPED, TIMED, PAD = 5, 20, 64
+
+
+def consensus_inputs(kernel: str, shape: str):
+    """The wrapper's arguments for one chunk's consensus on one card, on
+    seeded random payloads of the main path's shapes (f32): C1 the LED
+    axis's 4 ranks of a (NL, NL) spectrum, C2 the 2 tiles of mesh (2,2)
+    with their halo hops. Returns (args, keywords)."""
+    import numpy as np
+    import torch
+
+    from fpm_torch.ops import kernels
+
+    nl, n, b = CONSENSUS_SHAPES[shape]
+    led, tile = CONSENSUS_MESH[kernel]
+    r = np.random.default_rng(nl + n + b)
+    dev = torch.device("cuda")
+
+    def rnd(*shape_, scale=1.0):
+        return torch.from_numpy((r.standard_normal(shape_) * scale).astype(np.float32)).to(dev)
+
+    try:
+        scratch = kernels.ConsensusScratch(dev)
+    except TypeError:       # a checkout whose scratch still holds C1's pupil sums (bbox b)
+        scratch = kernels.ConsensusScratch(dev, b)
+    if kernel == "C1":
+        o, pc = rnd(2, nl, nl, scale=10), rnd(2, b, b)
+        ds = [rnd(2, nl, nl, scale=0.1) for _ in range(led)]
+        vs = [rnd(2, b, b, scale=0.1) for _ in range(led)]
+        mets = [rnd(2).abs() for _ in range(led)]
+        out = (torch.empty_like(o), torch.empty_like(pc), torch.empty((), device=dev),
+               torch.empty(2, device=dev))
+        return ((o, pc, ds, vs, [m[0] for m in mets], [m[1] for m in mets], None),
+                dict(wire=None, scale=0.75, metrics=True, scratch=scratch, out=out))
+    s = nl // tile
+    hops = [(j, lo, min(s, n - lo)) for j, lo in enumerate(range(0, n, s), start=1)]
+    objs = [rnd(2, s, nl, scale=10) for _ in range(tile)]
+    pay = {(li, ti): rnd(2, s + n, nl, scale=0.1) for li in range(led) for ti in range(tile)}
+    blocks = [(objs[ti], [pay[(li, ti)] for li in range(led)],
+               [[pay[(li, (ti - j) % tile)] for li in range(led)] for j, _, _ in hops])
+              for ti in range(tile)]
+    out = [(torch.empty_like(o), torch.empty((), device=dev)) for o in objs]
+    return (blocks,), dict(s=s, hops=hops, wire=None, scratch=scratch, out=out)
+
+
+def stamp_summary(records: list) -> dict:
+    """One stamped call's blocks: the payload sums and apply and the fence
+    and ticket of the blocks that make no tail, µs a block (mean and max,
+    from the SM cycles at the clock the stamps give); the tail's µs in the
+    blocks that make it (its own work after its ticket or wait); and the
+    grid's timeline on the card's global clock: µs from the first block's
+    start to the last start, the last apply and ticket of the blocks that
+    make no tail, and the tail's end."""
+    spans = [(max(r.values())[1] - r["start"][1], max(r.values())[0] - r["start"][0])
+             for r in records]
+    ghz = statistics.median(c / ns for c, ns in spans if ns > 0)
+    t0 = min(r["start"][0] for r in records)
+
+    def us(a, b, rs):
+        return [(r[b][1] - r[a][1]) / ghz / 1e3 for r in rs if a in r and b in r]
+
+    objects = [r for r in records if "tail" not in r]   # blocks that make no tail
+    apply = us("start", "payload sums and apply", objects)
+    ticket = us("payload sums and apply", "fence and ticket", objects)
+    tail = us("fence and ticket", "tail", records)
+
+    def last(mark, rs=objects):
+        at = [r[mark][0] for r in rs if mark in r]
+        return (max(at) - t0) / 1e3 if at else None
+
+    return {"blocks": len(records), "sm_ghz": ghz,
+            "sums_apply_us": {"mean": statistics.mean(apply), "max": max(apply)},
+            "fence_ticket_us": {"mean": statistics.mean(ticket), "max": max(ticket)},
+            "tail_us": {"blocks": len(tail), "max": max(tail) if tail else None},
+            "timeline_us": {"last_start": last("start", records),
+                            "last_apply": last("payload sums and apply"),
+                            "last_ticket": last("fence and ticket"),
+                            "tail_end": last("tail", records)}}
+
+
+def consensus_run(root: str, args) -> dict:
+    """For each shape: the kernel's device µs a call (a profiler window of
+    TIMED calls after one), its µs a call on CUDA events, and, where the
+    checkout has the stamping build (``kernels.consensus_phase_profile``),
+    the median of STAMPED stamped calls' summaries."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fpm_torch.ops import kernels
+
+    wrapper = kernels.consensus_led if args.kernel == "C1" else kernels.consensus_tile_object
+    rows = []
+    for shape in args.shapes:
+        a, kw = consensus_inputs(args.kernel, shape)
+        call = (lambda: wrapper(*a, **kw))
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(PAD):     # the window's first device records may be lost
+                torch.cuda._sleep(1000)
+            for _ in range(TIMED):
+                call()
+            torch.cuda.synchronize()
+        dev_us = [(e.count, getattr(e, "device_time_total", 0)) for e in prof.key_averages()
+                  if "consensus" in e.key]
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(50):
+            call()
+        end.record()
+        torch.cuda.synchronize()
+        row = {"shape": shape, "mesh": CONSENSUS_MESH[args.kernel],
+               "device_us": sum(us for _, us in dev_us) / max(1, sum(n for n, _ in dev_us)),
+               "device_calls": sum(n for n, _ in dev_us),
+               "event_us": start.elapsed_time(end) / 50 * 1e3}
+        if hasattr(kernels, "consensus_phase_profile"):
+            got = [stamp_summary(kernels.consensus_phase_profile(args.kernel, *a, **kw)[1])
+                   for _ in range(STAMPED + 1)][1:]
+            row["stamped"] = {k: _median_tree([g[k] for g in got]) for k in got[0]}
+        rows.append(row)
+    return {"rows": rows}
+
+
+def _median_tree(xs):
+    if isinstance(xs[0], dict):
+        return {k: _median_tree([x[k] for x in xs]) for k in xs[0]}
+    vals = [x for x in xs if x is not None]
+    return statistics.median(vals) if vals else None
+
+
 def child(root: str, args) -> int:
     """One checkout's run, in this process: printed as ``RUN <json>``."""
     sys.path.insert(0, root)
@@ -243,7 +393,7 @@ def child(root: str, args) -> int:
 
     assert fpm_torch.__file__.startswith(root), fpm_torch.__file__
     os.makedirs(os.path.join(root, "build"), exist_ok=True)
-    res = k1_run(root, args) if args.kernel == "K1" else k2_run(root, args)
+    res = {"K1": k1_run, "K2": k2_run}.get(args.kernel, consensus_run)(root, args)
     print("RUN " + json.dumps(res), flush=True)
     return 0
 
@@ -275,6 +425,11 @@ def side_by_side(kernel: str, runs: list) -> dict:
                                for t in ("bf16x3", "highest")},
             "bf16x3_by_phase": {ph: side(lambda r, ph=ph: r["k2_phase_profile"]["bf16x3"]
                                          ["by_phase"].get(ph)) for ph in phases}}
+    if kernel in CONSENSUS_MESH:
+        keys = ("device_us", "event_us", "stamped")
+        return {"rows": [{"shape": row["shape"],
+                          **{k: side(lambda r, k=k, i=i: r["rows"][i].get(k)) for k in keys}}
+                         for i, row in enumerate(by["this"][0]["rows"])]}
     rows = []
     for i, row in enumerate(by["this"][0]["rows"]):
         head = {k: row[k] for k in ("shape", "tier", "chunk", "forced_cs")}
@@ -287,7 +442,7 @@ def side_by_side(kernel: str, runs: list) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", default="K2", choices=("K1", "K2"))
+    ap.add_argument("--kernel", default="K2", choices=("K1", "K2", *CONSENSUS_MESH))
     ap.add_argument("--other", help="the root of another checkout, run in turns with this one")
     ap.add_argument("--out", help="also write the lines to this file")
     ap.add_argument("--shapes", nargs="+", default=["mono"], choices=sorted(CHUNKS))

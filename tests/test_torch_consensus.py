@@ -238,6 +238,58 @@ def test_consensus_wrappers_refuse_a_device_without_a_kernel():
         kernels.consensus_tile_pupil(o, [o], [o])
 
 
+# The launch of C1 and C2 (``kernels.consensus_plan``) at the main path's
+# shapes and at its edges: (elements, NL, pupil elements, planes aligned) →
+# (object blocks, pupil blocks, vector path). Blocks of 256 threads, 4
+# elements of a plane a thread: 1024 elements a block.
+CONSENSUS_PLANS = {
+    "mono 4 1": ((360 * 360, 360, 64 * 64, True), (127, 4, True)),
+    "mono 2 2": ((180 * 360, 360, 0, True), (64, 0, True)),
+    "mono 1 8": ((45 * 360, 360, 0, True), (16, 0, True)),
+    "dogStomach 4 1": ((600 * 600, 600, 112 * 112, True), (352, 13, True)),
+    "dogStomach 2 2": ((300 * 600, 600, 0, True), (176, 0, True)),
+    "NL not a multiple of 4": ((62 * 62, 62, 40 * 40, True), (4, 2, False)),
+    "a plane off its 16 bytes": ((64 * 64, 64, 40 * 40, False), (4, 2, False)),
+    "one element": ((1, 1, 1, True), (1, 1, False)),
+    "one block exactly": ((1024, 64, 1024, True), (1, 1, True)),
+    "one past a block": ((1025, 1025, 1025, True), (2, 2, False)),
+}
+
+
+@pytest.mark.parametrize("case", list(CONSENSUS_PLANS))
+def test_consensus_plan_covers_every_element_once_on_the_path_the_planes_allow(case):
+    (elements, nl, pupil, aligned), (blocks, pupil_blocks, vector) = CONSENSUS_PLANS[case]
+    plan = kernels.consensus_plan(elements, aligned=aligned, nl=nl, pupil=pupil)
+    assert (plan.blocks, plan.pupil_blocks, plan.vector) == (blocks, pupil_blocks, vector)
+    assert (plan.threads, plan.per_thread) == (256, 4)
+    per_block = plan.threads * plan.per_thread
+    assert plan.blocks * per_block >= elements > (plan.blocks - 1) * per_block
+    assert plan.pupil_blocks * per_block >= pupil > (plan.pupil_blocks - 1) * per_block
+
+
+@pytest.mark.parametrize("dtype,offset,aligned", [
+    (torch.float32, 0, True), (torch.float32, 1, False), (torch.float32, 4, True),
+    (torch.bfloat16, 0, True), (torch.bfloat16, 1, False), (torch.bfloat16, 2, False),
+    (torch.bfloat16, 4, True)])
+def test_consensus_planes_are_aligned_where_four_elements_load_as_one(dtype, offset, aligned):
+    """``kernels._aligned``: a view ``offset`` elements into its buffer
+    takes the vector path only where its four elements make 16 bytes (f32)
+    or 8 (bf16) from an aligned start."""
+    buf = torch.zeros(4 * 64 + 8, dtype=dtype)
+    view = buf[offset:offset + 4 * 64].view(2, 2, 64)
+    assert kernels._aligned([buf, view]) is aligned
+    assert kernels._aligned([view, buf]) is aligned
+
+
+def test_consensus_scratch_is_two_zero_words_a_tile():
+    """Each launch's scratch: blocks arrived and the max's bits, for each
+    of the CONSENSUS_MAX_TILES tiles, zero (the kernels leave it zero)."""
+    scratch = kernels.ConsensusScratch("cpu")
+    assert scratch.sync.dtype == torch.int32
+    assert scratch.sync.shape == (kernels.CONSENSUS_SYNC_WORDS * kernels.CONSENSUS_MAX_TILES,)
+    assert kernels.CONSENSUS_SYNC_WORDS == 2 and not scratch.sync.any()
+
+
 # SHA-256 (first 16 hex digits) of the spectrum, pupil and metrics after 2
 # sweeps at chunk 4 of synthetic_dataset(np_size=16, grid=5, seed=7) on CPU
 # ranks, taken on the sweeps as they were before the consensus kernels (each

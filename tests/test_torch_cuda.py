@@ -687,9 +687,10 @@ def test_k3_is_one_launch_and_bitwise_the_three_launches_it_replaces(cuda, tier,
 
 
 # The block shapes of the consensus on the main path: (NL, Np, bbox b,
-# led, tile) of mono (4,1), (2,2), (1,8) and dogStomach (2,2).
+# led, tile) of mono (4,1), (2,2), (1,8) and dogStomach (4,1), (2,2).
 CONSENSUS_SHAPES = {"mono 4 1": (360, 90, 64, 4, 1), "mono 2 2": (360, 90, 64, 2, 2),
-                    "mono 1 8": (360, 90, 64, 1, 8), "dogStomach 2 2": (600, 200, 112, 2, 2)}
+                    "mono 1 8": (360, 90, 64, 1, 8), "dogStomach 4 1": (600, 200, 112, 4, 1),
+                    "dogStomach 2 2": (600, 200, 112, 2, 2)}
 
 
 @pytest.mark.parametrize("wire", [None, torch.bfloat16], ids=["f32", "bf16"])
@@ -721,7 +722,7 @@ def test_consensus_kernels_are_bitwise_their_plain_versions(cuda, case, wire):
         ds = [rnd(2, nl, nl, scale=0.1) for _ in ranks]
         if wire is not None:
             ds[-1] = ds[-1].to(wire)
-        scratch = kernels.ConsensusScratch(cuda, b)
+        scratch = kernels.ConsensusScratch(cuda)
         for a in (None, acc):
             got = kernels.consensus_led(o, pc, ds, vs, resid, upd, a, wire=wire, scale=0.75,
                                         scratch=scratch)
@@ -739,7 +740,7 @@ def test_consensus_kernels_are_bitwise_their_plain_versions(cuda, case, wire):
                [[pay[(li, (ti - j) % tile)] for li in range(led)] for j, _, _ in hops])
               for ti in range(tile)]
     got = kernels.consensus_tile_object(blocks, s=s, hops=hops, wire=wire,
-                                        scratch=kernels.ConsensusScratch(cuda, b))
+                                        scratch=kernels.ConsensusScratch(cuda))
     for (o, m), blk in zip(got, blocks):
         wo, wm = kernels.consensus_tile_object_plain(*blk, s=s, hops=hops, wire=wire)
         assert torch.equal(o, wo) and torch.equal(m, wm)
@@ -750,6 +751,89 @@ def test_consensus_kernels_are_bitwise_their_plain_versions(cuda, case, wire):
     assert all(torch.equal(x, y) for x, y in zip(got, want))
     assert kernels.consensus_tile_object.launches == launches[1] + 1
     assert kernels.consensus_tile_pupil.launches == launches[2] + 1
+
+
+# The paths of C1's and C2's object phase (kernels.consensus_plan): "vector"
+# (16-byte chunks), "odd-nl" (NL not a multiple of 4: the scalar path) and
+# "offset" (NL a multiple of 4, the last rank's payload a view one element
+# into its buffer: the scalar path); the payloads' patterns (every rank
+# f32, every rank bf16, odd ranks bf16) and both wires.
+CONSENSUS_PATHS = ("vector", "odd-nl", "offset")
+CONSENSUS_PATTERNS = ("f32", "bf16", "mixed")
+
+
+def consensus_payloads(g, shape, count, pattern, path, cuda, scale=0.1):
+    """``count`` payloads of ``shape`` in the ``pattern``; on the "offset"
+    path the last one a view at one element into its buffer."""
+    out = []
+    for r in range(count):
+        x = torch.randn(*shape, generator=g) * scale
+        if pattern == "bf16" or (pattern == "mixed" and r % 2):
+            x = x.to(torch.bfloat16)
+        if path == "offset" and r == count - 1:
+            buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+            out.append(buf[1:].view(shape).copy_(x))
+        else:
+            out.append(x.to(cuda))
+    return out
+
+
+@pytest.mark.parametrize("path", CONSENSUS_PATHS)
+@pytest.mark.parametrize("count", [1, 2, 4, 8, 32])
+def test_consensus_led_is_bitwise_its_plain_version_on_every_path(cuda, count, path):
+    """C1 with 1 to kMaxRanks ranks, on each path, pattern and wire: the
+    state, pupil (b = 40: two pupil blocks), max|O| and metric sums bitwise
+    the plain version's; the path the plan chose is the one asked for."""
+    nl, b = (62 if path == "odd-nl" else 64), 40
+    g = torch.Generator().manual_seed(1000 * count + len(path))
+    o = (torch.randn(2, nl, nl, generator=g) * 10).to(cuda)
+    pc = torch.randn(2, b, b, generator=g).to(cuda)
+    mets = [torch.randn(2, generator=g).abs().to(cuda) for _ in range(count)]
+    acc = torch.randn(2, generator=g).abs().to(cuda)
+    scratch = kernels.ConsensusScratch(cuda)
+    for pattern in CONSENSUS_PATTERNS:
+        ds = consensus_payloads(g, (2, nl, nl), count, pattern, path, cuda)
+        vs = consensus_payloads(g, (2, b, b), count, pattern, "vector", cuda)
+        plan = kernels.consensus_plan(nl * nl, aligned=kernels._aligned([o, *ds]), nl=nl,
+                                      pupil=b * b)
+        assert plan.vector == (path == "vector") and plan.pupil_blocks == 2
+        for wire in (None, torch.bfloat16):
+            for a in (None, acc):
+                args = (o, pc, ds, vs, [m[0] for m in mets], [m[1] for m in mets], a)
+                got = kernels.consensus_led(*args, wire=wire, scale=0.75, scratch=scratch)
+                want = kernels.consensus_led_plain(*args, wire=wire, scale=0.75)
+                assert all(torch.equal(x, y) for x, y in zip(got, want)), (pattern, wire)
+    assert not scratch.sync.any()
+
+
+@pytest.mark.parametrize("path", CONSENSUS_PATHS)
+@pytest.mark.parametrize("tiles,count", [(1, 1), (2, 2), (3, 4), (4, 8), (8, 2), (2, 32)])
+def test_consensus_tile_object_is_bitwise_its_plain_version_on_every_path(cuda, tiles, count,
+                                                                          path):
+    """C2 with 1 to 8 tiles of 24 rows, each with two halo hops (Np 40)
+    from the tiles before it, ``count`` ranks a group, on each path,
+    pattern and wire: each tile's state and max|O| bitwise the plain
+    version's; the path the plan chose is the one asked for."""
+    nl, s, n = (66 if path == "odd-nl" else 64), 24, 40
+    hops = [(j, lo, min(s, n - lo)) for j, lo in enumerate(range(0, n, s), start=1)]
+    g = torch.Generator().manual_seed(100 * tiles + count + len(path))
+    objs = [(torch.randn(2, s, nl, generator=g) * 10).to(cuda) for _ in range(tiles)]
+    scratch = kernels.ConsensusScratch(cuda)
+    for pattern in CONSENSUS_PATTERNS:
+        pay = {ti: consensus_payloads(g, (2, s + n, nl), count, pattern, path, cuda)
+               for ti in range(tiles)}
+        blocks = [(objs[ti], pay[ti], [pay[(ti - j) % tiles] for j, _, _ in hops])
+                  for ti in range(tiles)]
+        plan = kernels.consensus_plan(s * nl, nl=nl, aligned=kernels._aligned(
+            objs + [t for ts in pay.values() for t in ts]))
+        assert plan.vector == (path == "vector") and plan.pupil_blocks == 0
+        for wire in (None, torch.bfloat16):
+            got = kernels.consensus_tile_object(blocks, s=s, hops=hops, wire=wire,
+                                                scratch=scratch)
+            for (o, m), blk in zip(got, blocks):
+                wo, wm = kernels.consensus_tile_object_plain(*blk, s=s, hops=hops, wire=wire)
+                assert torch.equal(o, wo) and torch.equal(m, wm), (pattern, wire)
+    assert not scratch.sync.any()
 
 
 @pytest.mark.parametrize("led,tile", [(4, 1), (2, 3), (1, 6)])
