@@ -871,8 +871,11 @@ def trace_overlap(fn, gate_ms: float = 0.0, chunks: int = 0, records: bool = Fal
     ``other``). ``cards``: the cards padded and gated (default every
     visible card; a process of a multi-process run names its own).
     ``by_card``: ``overlap_ms`` and ``consensus_overlap_ms`` of each card
-    on its own clock, and ``kernel_ms``, the mean device ms a launch of
-    each consensus kernel and of the halo pull on that card; the peer
+    on its own clock, and ``kernel_ms`` and ``kernel_ms_median``, the mean
+    and the median device ms a launch of each consensus kernel and of the
+    halo pull on that card (behind a gate the first launch that reads a
+    peer's memory has been seen to take ~0.1 ms, the link waking after the
+    gate's idle, which the mean carries and the median does not); the peer
     route's waits (``peer_wait_ms``, which spin until a flag is posted)
     are left out of the work."""
     from collections import Counter
@@ -943,7 +946,8 @@ def trace_overlap(fn, gate_ms: float = 0.0, chunks: int = 0, records: bool = Fal
                                             if e["args"].get("device", -1) == dev])) / 1e3,
             "consensus_overlap_ms": meet(mine, union([
                 e for e in consensus if e["args"].get("device", -1) == dev])) / 1e3,
-            "kernel_ms": {k: sum(v) / len(v) for k, v in sorted(durs.items())}}
+            "kernel_ms": {k: sum(v) / len(v) for k, v in sorted(durs.items())},
+            "kernel_ms_median": {k: median(v) for k, v in sorted(durs.items())}}
     stages = {"stages": chunk_stages(k3, consensus, chunks)} if chunks else {}
     if records and work:
         t0 = min(e["ts"] for e in work)
@@ -1152,6 +1156,37 @@ PEER_REPLACES = ("fpm_tpu/parallel/led_shard.py:164-209 (none: XLA orders a mesh
                  "collectives and halo inside its one program; no Pallas kernel)")
 
 
+FLOOR_CALLS = 20
+
+
+def launch_floor_ms() -> float:
+    """An empty kernel's device ms (``fpm_launch_floor`` of
+    csrc/epry_peer.cu; torch.profiler, the mean of FLOOR_CALLS calls in one
+    window, where one call's record has been seen lost): the least a launch
+    of the peer route's one-thread kernels can take on this card."""
+    import torch
+
+    from fpm_torch.ops import build, kernels
+
+    lib = build.library("epry_peer")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    stream = kernels._current_stream(dev)
+
+    def empty():
+        build.check(lib, lib.fpm_launch_floor(dev.index, stream), "empty kernel")
+
+    empty()
+    return sum(device_ms_by_kernel(lambda: [empty() for _ in range(FLOOR_CALLS)]).values()) / (
+        FLOOR_CALLS)
+
+
+# The forward halos the pull is timed at: (row name, what it is), the mono
+# problem's and the dogStomach optics'.
+PULL_HALOS = (("peer_pull", "mono mesh (2,2): the 90 halo rows of a 180x360 tile, on this card"),
+              ("peer_pull [dogStomach (2,2)]",
+               "dogStomach mesh (2,2): the 200 halo rows of a 300x600 tile, on this card"))
+
+
 def peer_rows(problem, smi: str) -> list:
     """The peer route's kernels (``kernels.peer_*``, ``csrc/epry_peer.cu``)
     against their plain versions, at the main path's shapes: the epoch and
@@ -1160,21 +1195,25 @@ def peer_rows(problem, smi: str) -> list:
     after a 20 ms spin (the copy must read what was written before the
     post: max |Δ| of the copy), at epochs 1-3 and chunks 0-3 (both
     parities); a pull of the forward halo of mono mesh (2,2) (the 90 rows of
-    a 180×360 tile) against ``copy_``. ms a call on CUDA events (the host's
-    pace of back-to-back calls where a call's device time is shorter),
-    ``device_ms`` the kernel's device time of one call (torch.profiler),
-    the plain versions' ms on the card, the bound: the bytes a call moves
-    at the H100's 3.35 TB/s (the pull's rows read and written once; a flag
-    or an epoch 8 bytes read and 8 written, a wait 8 bytes a flag and the
-    epoch), ``library_ms`` the pull's one PyTorch call (``Tensor.copy_``)
-    and, on its ``timing`` line, ``library_device_ms`` that call's device
-    time."""
+    a 180×360 tile) and of dogStomach mesh (2,2) (the 200 rows of a 300×600
+    tile), each against ``copy_``, with the plan it launches. ms a call on
+    CUDA events (the host's pace of back-to-back calls where a call's
+    device time is shorter), ``device_ms`` the kernel's device time of one
+    call (torch.profiler), ``launch_floor_device_ms`` an empty kernel's
+    (:func:`launch_floor_ms`, the same call), the plain versions' ms on the
+    card, the bound: the bytes a call moves at the H100's 3.35 TB/s (the
+    pull's rows read and written once; a flag or an epoch 8 bytes read and
+    8 written, a wait 8 bytes a flag and the epoch), ``library_ms`` the
+    pull's one PyTorch call (``Tensor.copy_``) and, on its ``timing`` line,
+    ``library_device_ms`` that call's device time."""
     import torch
 
     from fpm_torch.bench import bound
+    from fpm_torch.config import FPMConfig
     from fpm_torch.ops import kernels
 
     cfg, _, _ = problem
+    dog = FPMConfig(**DOG_OPTICS)
     dev = torch.device("cuda")
     words, plain = kernels.flag_block(dev), kernels.flag_block("cpu")
     a, b = torch.cuda.Stream(), torch.cuda.Stream()
@@ -1198,41 +1237,50 @@ def peer_rows(problem, smi: str) -> list:
             torch.cuda.synchronize()
             wait_err = max(wait_err, float((dst - (10.0 * epoch + chunk)).abs().max()))
             word_err = max(word_err, int((words.cpu() - plain).abs().max()))
-    nl, n = cfg.n_large, cfg.np_size
-    tile = torch.randn((2, nl // 2, nl), device=dev)
-    halo = torch.empty((2, n, nl), device=dev)
-    kernels.peer_pull(halo, tile[:, :n])
-    torch.cuda.synchronize()
-    pull_err = float((halo - tile[:, :n]).abs().max())
+    planned = hasattr(kernels, "pull_plan_of")     # an older checkout has neither
+    halos, plans = [], {}
+    for (name, lines), (nl, n) in zip(PULL_HALOS, ((cfg.n_large, cfg.np_size),
+                                                   (dog.n_large, dog.np_size))):
+        tile = torch.randn((2, nl // 2, nl), device=dev)
+        halo = torch.empty((2, n, nl), device=dev)
+        kernels.peer_pull(halo, tile[:, :n])
+        torch.cuda.synchronize()
+        halos.append((name, lines, tile[:, :n], halo, float((halo - tile[:, :n]).abs().max())))
+        plans[name] = kernels.pull_plan_of(halo, tile[:, :n])._asdict() if planned else None
     cuda_words = plain.to(dev)
     cases = {
         "peer_epoch": (lambda: kernels.peer_epoch(words),
                        lambda: kernels.peer_epoch_plain(cuda_words), float(word_err), 16,
-                       "a card's epoch word += 1"),
+                       "a card's epoch word += 1", None),
         "peer_post": (lambda: kernels.peer_post(words, 0, 0),
                       lambda: kernels.peer_post_plain(cuda_words, 0, 0), float(word_err), 16,
-                      "one flag := (epoch << 32) | (chunk + 1)"),
+                      "one flag := (epoch << 32) | (chunk + 1)", None),
         "peer_wait": (lambda: kernels.peer_wait([(words, 0, 0)], words),
                       lambda: kernels.peer_wait_plain([(cuda_words, 0, 0)], cuda_words),
-                      wait_err, 16, "one flag, already posted"),
-        "peer_pull": (lambda: kernels.peer_pull(halo, tile[:, :n]),
-                      lambda: kernels.peer_pull_plain(halo, tile[:, :n]), pull_err,
-                      2 * halo.numel() * 4, "mono mesh (2,2): the 90 halo rows of a 180x360 "
-                      "tile, on this card"),
+                      wait_err, 16, "one flag, already posted", None),
+        **{name: ((lambda h=h, t=t: kernels.peer_pull(h, t)),
+                  (lambda h=h, t=t: kernels.peer_pull_plain(h, t)), err, 2 * h.numel() * 4,
+                  lines, (lambda h=h, t=t: h.copy_(t)))
+           for name, lines, t, h, err in halos},
     }
+    floor_ms = launch_floor_ms() if planned else None
+    emit({"phase": "timing", "kernel": "empty kernel (launch floor)",
+          "source": "fpm_torch/ops/csrc/epry_peer.cu (launch_floor)",
+          "device_ms": floor_ms, "gpu": smi})
     rows = []
-    for name, (fn, plain_fn, err, nbytes, lines) in cases.items():
+    for name, (fn, plain_fn, err, nbytes, lines, library) in cases.items():
         kernels.peer_post(words, 0, 0)
         ms, plain_ms = cuda_ms(fn, 50), cuda_ms(plain_fn, 5)
         bound_ms, bound_by = bound(nbytes, 0)
-        library = (lambda: halo.copy_(tile[:, :n])) if name == "peer_pull" else None
         line = {"name": name, "route": "cuda", "source": "fpm_torch/ops/csrc/epry_peer.cu",
                 "replaces": PEER_REPLACES, "launches": None, "max_abs_err": err, "ms": ms,
                 "device_ms": sum(device_ms_by_kernel(fn).values()),
+                "launch_floor_device_ms": floor_ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": cuda_ms(library, 50) if library else None}
         emit({"phase": "timing", "kernel": name, "as": lines, "bytes": nbytes,
               **{k: v for k, v in line.items() if k not in ("name", "launches")},
+              "plan": plans.get(name),
               "library_device_ms": sum(device_ms_by_kernel(library).values())
               if library else None, "gpu": smi})
         check(err == 0, f"{name}: not its plain version's result ({err})")
@@ -1240,7 +1288,7 @@ def peer_rows(problem, smi: str) -> list:
     return rows
 
 
-def peer_order_phase(problem, digests: dict, rows: list, smi: str) -> None:
+def peer_order_phase(problem, digests: dict, rows: list, smi: str) -> dict:
     """The peer route's order on one card: ``peer_route.force_flags``
     (tests only) orders the streams of one card with flags as the peer
     route orders cards, and pulls the halo. Mono (4,1) and (2,2), fresh and
@@ -1251,14 +1299,17 @@ def peer_order_phase(problem, digests: dict, rows: list, smi: str) -> None:
     kernels'; its result is bitwise the default route's (the ``digests``
     line); the captured sweep holds no event edge between two streams in
     its chunk loop. Fills the ``launches`` of ``rows`` (:func:`peer_rows`)
-    from the stale (2,2) run, whose path holds all four."""
+    from the stale (2,2) run, whose path holds all four; the dogStomach
+    halo's row keeps None, since no path here pulls it (the dogStomach
+    sharded sweep runs on one card without flags). Returns each run's ms a
+    sweep by its label."""
     import torch
 
     from fpm_torch.ops import kernels
     from fpm_torch.parallel import comm, make_mesh, peer_route
 
     wrappers = {**path_wrappers(), **{key: getattr(kernels, key) for key in PEER_KEYS}}
-    counted = {}
+    counted, ms_per_sweep = {}, {}
     for led, tile in ((4, 1), (2, 2)):
         for stale in (False, True):
             label = sharded_label("mono", led, tile, {}, stale)
@@ -1295,8 +1346,10 @@ def peer_order_phase(problem, digests: dict, rows: list, smi: str) -> None:
                   f"{label}: launches {counts}")
             check(not in_loop, f"{label}: {len(in_loop)} event edges between streams")
             counted[(led, tile, stale)] = counts
+            ms_per_sweep[label] = replay.get("replays_ms", 0.0) / SHARDED_SWEEPS
     for row in rows:
-        row["launches"] = counted[(2, 2, True)][row["name"]]
+        row["launches"] = counted[(2, 2, True)].get(row["name"])
+    return ms_per_sweep
 
 
 CONSENSUS_REPLACES = {

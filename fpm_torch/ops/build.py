@@ -12,7 +12,8 @@ launched: this module imports on machines without ``nvcc`` or a GPU.
 whose kernel counts SM cycles per phase: K2's of an LED (``csrc/epry_common.cuh``,
 ``FPM_PHASES``), K1's of a chunk (``csrc/epry_chunked.cu``, ``FPM_K1_PHASES``),
 or stamps each block's marks (the consensus kernels, ``csrc/epry_consensus.cu``,
-``FPM_CONSENSUS_MARKS``); only measurements ask for it, no wrapper does.
+``FPM_CONSENSUS_MARKS``; the peer route's pull, ``csrc/epry_peer.cu``); only
+measurements ask for it, no wrapper does.
 ``ablation_library(stem)`` (K1 and K2) builds one with ``-DFPM_ABLATE``,
 which adds the kernels of ``ablate=`` (each stage that a variant turns off
 is a template argument of those kernels alone, ``Ablate`` in
@@ -189,7 +190,8 @@ _SIGNATURES = {
                   "fpm_peer_epoch": [_P, _I, _P, _IP],
                   "fpm_peer_post": [_P, _I, _I, _I, _P, _IP],
                   "fpm_peer_wait": [_P, _P, _I, _P, _I, _P, _IP],
-                  "fpm_peer_pull": [_P, _P, _I, _I, _I, _L, _L, _I, _P, _IP]},
+                  "fpm_peer_pull": [_P, _P, _I, _I, _I, _L, _L, _I, _I, _I, _I, _P, _IP],
+                  "fpm_launch_floor": [_I, _P]},
 }
 
 
@@ -221,11 +223,16 @@ def library(stem: str) -> ctypes.CDLL:
 
 # The profile build's reader: K1's and K2's ``fpm_phase_read(out, reset)``
 # (cycles summed by phase); the consensus kernels'
-# ``fpm_consensus_records(out, n, reset)`` (each block's stamps at each mark).
+# ``fpm_consensus_records(out, n, reset)`` (each block's stamps at each mark);
+# the pull's ``fpm_peer_records(out, n, reset, device, made)`` (each block's
+# start and end).
 _PROFILE_READERS = {None: ("fpm_phase_read", [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int]),
                     "epry_consensus": ("fpm_consensus_records",
                                        [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
-                                        ctypes.c_int])}
+                                        ctypes.c_int]),
+                    "epry_peer": ("fpm_peer_records",
+                                  [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_int, _IP])}
 
 
 @functools.lru_cache(maxsize=None)

@@ -17,9 +17,7 @@
 //                   and a replay needs no host argument.
 //   fpm_peer_post   after a step (a rank's K3, a card's consensus, a halo
 //                   pull): its flag word := (epoch << 32) | (chunk + 1),
-//                   a st.release.sys store after a system-scope fence, so
-//                   that the step's writes are visible to every card that
-//                   sees the flag.
+//                   one system-scope release (below).
 //   fpm_peer_wait   before a step: one block whose threads poll one flag
 //                   each (ld.acquire.sys, which reads a peer card's word
 //                   through peer access) until it holds at least
@@ -43,6 +41,52 @@
 // on the same card needs. A wait that is still unmet after kWaitTimeoutNs
 // traps (the launch fails, and with it the sweep) rather than hang.
 //
+// The post (P2): one system-scope release, fence.acq_rel.sys then a
+// st.relaxed.sys of the flag (a release pattern). Why the step's writes are
+// visible to a peer that reads the flag with ld.acquire.sys, under the PTX
+// memory model: the step (K3, a consensus, a pull) is the kernel before the
+// post on the same stream, so every write of its grid is performed before
+// the post's grid starts (stream order, at least gpu scope) and precedes
+// the fence in causality order. A release pattern is cumulative: the
+// fence.acq_rel.sys and the strong store after it order every write that
+// precedes the fence in causality order, whichever thread made it, before
+// the flag's new value at system scope. An ld.acquire.sys that reads that
+// value (or a later one of the same word, which only grows) synchronizes
+// with the pattern, so every later read of the waiting card, the reads of
+// the step that the wait guards on its stream included, sees those writes.
+// The post was once a fence.sc.sys before a st.release.sys: two
+// system-scope orderings, of which the second orders nothing the first does
+// not (the sc fence is for sequential consistency between fences, which no
+// reader here relies on). Measured in turns on one H100 (PERF.md §5): this
+// pattern and st.release.sys alone cost the same within 0.04 µs (this one
+// the less in 3 of 4 turns), about 1.85 µs above an empty kernel, as P1's
+// one fence.sc.sys does; the two orderings 1.6 µs more.
+//
+// The pull (P4): the halo is planes × rows runs of cols contiguous floats
+// (mono (2,2): 2 × 90 runs of 1,440 bytes, 259 KB; dogStomach (2,2): 2 ×
+// 200 of 2,400, 960 KB), read from a peer over NVLink or from this card.
+// Its time is latency: the bytes in flight, not the threads, set the rate,
+// and the whole halo fits in flight at once. So one warp a plane-row, in a
+// 2-D grid (row blocks, planes) of blocks of 8 warps: each lane loads up to
+// kPerLane float4 of its row (3 at mono, 5 at dogStomach) into registers
+// before it stores any, every row of the halo in one wave of blocks that
+// need no shared memory and few registers, so they fit beside the kernels
+// that hold the SMs. No 64-bit division. The vector path where vector_ok
+// holds (cols % 4 == 0, strides % 4 == 0, both pointers on 16 bytes), the
+// scalar path (the same with floats) for unaligned views and odd columns.
+// kernels.pull_plan chooses, the C entry checks again: blocks of 256
+// threads, the least from a peer's memory on both halos and below
+// Tensor.copy_ on one card (scripts/kernel_profile.py --kernel P4, PERF.md
+// §5). Taken over TMA bulk copies (a few blocks whose elected thread kept a
+// ring of rows in shared memory filled with cp.async.bulk, each stage
+// completed on its mbarrier and stored with a bulk store; a bulk copy takes
+// a peer's address), which measured 2 to 80 times slower: a block's bulk
+// copies of these 1.4-2.4 KB rows complete about one every 0.27 µs, so few
+// blocks serialise and many are no better than a warp a row. From a peer
+// the pull stays above Tensor.copy_, whose kernel runs on the source card
+// and pushes the rows: both move them at the same rate, but a read waits a
+// round trip over NVLink that a posted write does not.
+//
 // Bound: a post or an epoch writes 8 bytes, a wait reads 8 bytes a flag:
 // each is a launch's latency. A pull moves its rows once (read over NVLink
 // from a peer, written to this card's memory).
@@ -53,8 +97,8 @@ namespace fpm {
 
 constexpr int kMaxWaits = 32;                           // flags one wait polls
 constexpr long long kWaitTimeoutNs = 20LL * 1000 * 1000 * 1000;
-constexpr int kPullThreads = 256;
-constexpr int kPullMaxBlocks = 1024;
+enum PullPath { kPathScalar = 0, kPathVector = 1 };     // kernels.PULL_PATHS
+constexpr int kPerLane = 8;                  // loads a lane holds before it stores
 
 using u64 = unsigned long long;
 
@@ -80,6 +124,38 @@ __device__ __forceinline__ long long global_ns() {
   return t;
 }
 
+// The pull's stamps. Built with -DFPM_PROFILE (fpm_torch/ops/build.py,
+// profile_library), thread 0 of each block of a pull records the launch's
+// number (the entry point's count of its pulls), its block, and the card's
+// global clock (ns) at the block's start and after its last store
+// completed (a block barrier first: the one difference in schedule from a
+// plain build); fpm_peer_records hands them out. A plain build compiles
+// the stamps away.
+#ifdef FPM_PROFILE
+constexpr int kPullRecords = 64 * 1024;
+__device__ long long fpm_pull_stamps[kPullRecords][4];
+__device__ unsigned fpm_pull_next;
+#define FPM_SEQ_PARAM , int seq
+#define FPM_PULL_START() const long long t0_ = global_ns()
+#define FPM_PULL_END()                                                        \
+  do {                                                                        \
+    __syncthreads();                                                          \
+    if (threadIdx.x == 0) {                                                   \
+      const unsigned i_ = atomicAdd(&fpm_pull_next, 1u);                      \
+      if (i_ < kPullRecords) {                                                \
+        fpm_pull_stamps[i_][0] = seq;                                         \
+        fpm_pull_stamps[i_][1] = blockIdx.y * gridDim.x + blockIdx.x;         \
+        fpm_pull_stamps[i_][2] = t0_;                                         \
+        fpm_pull_stamps[i_][3] = global_ns();                                 \
+      }                                                                       \
+    }                                                                         \
+  } while (0)
+#else
+#define FPM_SEQ_PARAM
+#define FPM_PULL_START()
+#define FPM_PULL_END()
+#endif
+
 __global__ void peer_epoch(u64* words) {
   words[0] = __ldcg(words) + 1ull;
   __threadfence_system();
@@ -87,8 +163,9 @@ __global__ void peer_epoch(u64* words) {
 
 __global__ void peer_post(u64* words, int slot, int chunk) {
   const u64 value = (__ldcg(words) << 32) | (u64)(chunk + 1);
-  __threadfence_system();
-  store_release_sys(words + 1 + slot, value);
+  asm volatile("fence.acq_rel.sys;" ::: "memory");
+  asm volatile("st.relaxed.sys.global.u64 [%0], %1;" ::"l"(words + 1 + slot), "l"(value)
+               : "memory");
 }
 
 __global__ void __launch_bounds__(kMaxWaits) peer_wait(Waits w, const u64* epoch) {
@@ -104,25 +181,44 @@ __global__ void __launch_bounds__(kMaxWaits) peer_wait(Waits w, const u64* epoch
   __syncthreads();
 }
 
-// dst (planes, rows, cols) contiguous ← src's view with the given strides;
-// four floats a thread where the rows and both pointers allow it.
-__global__ void __launch_bounds__(kPullThreads)
-peer_pull(float* dst, const float* src, int planes, int rows, int cols, long long plane_stride,
-          long long row_stride, int vec) {
-  const int w = vec ? cols / 4 : cols;
-  const long long n = (long long)planes * rows * w;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    const int x = (int)(i % w);
-    const long long pr = i / w;
-    const int r = (int)(pr % rows), pl = (int)(pr / rows);
-    const long long s = pl * plane_stride + r * row_stride;
-    const long long d = ((long long)pl * rows + r) * cols;
-    if (vec)
-      reinterpret_cast<float4*>(dst + d)[x] = reinterpret_cast<const float4*>(src + s)[x];
-    else
-      dst[d + x] = src[s + x];
+// dst (planes, rows, w) contiguous ← src's view at strides (plane_stride,
+// row_stride, 1), all in units of T (float4: the vector path, float: the
+// scalar one). Grid (row blocks, planes), a warp a row; each lane holds up
+// to kPerLane elements of its row in registers before it stores any.
+template <typename T>
+__global__ void __launch_bounds__(1024)
+peer_pull_rows(T* __restrict__ dst, const T* __restrict__ src, int rows, int w,
+               long long plane_stride, long long row_stride FPM_SEQ_PARAM) {
+  FPM_PULL_START();
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (r < rows) {
+    const T* s = src + blockIdx.y * plane_stride + r * row_stride;
+    T* d = dst + ((long long)blockIdx.y * rows + r) * w;
+    for (int x0 = lane; x0 < w; x0 += 32 * kPerLane) {
+      T v[kPerLane];
+#pragma unroll
+      for (int k = 0; k < kPerLane; ++k)
+        if (x0 + 32 * k < w) v[k] = s[x0 + 32 * k];
+#pragma unroll
+      for (int k = 0; k < kPerLane; ++k)
+        if (x0 + 32 * k < w) d[x0 + 32 * k] = v[k];
+    }
   }
+  FPM_PULL_END();
+}
+
+// An empty kernel: the least a launch takes on this card, the yardstick of
+// the one-thread kernels above (no path launches it).
+__global__ void launch_floor() {}
+
+
+// The vector path is allowed: 16-byte rows (cols % 4 == 0, strides % 4 ==
+// 0, both pointers on 16 bytes).
+inline bool vector_ok(const float* dst, const float* src, int cols, long long plane_stride,
+                      long long row_stride) {
+  return cols % 4 == 0 && plane_stride % 4 == 0 && row_stride % 4 == 0 &&
+         reinterpret_cast<uintptr_t>(dst) % 16 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0;
 }
 
 }  // namespace fpm
@@ -182,21 +278,80 @@ extern "C" int fpm_peer_wait(const void* const* flags, const int* chunks, int co
 
 // dst: (planes, rows, cols) contiguous f32 on ``device``; src: the same
 // shape at element strides (plane_stride, row_stride, 1), on this card or a
-// peer's.
+// peer's. The launch is the host's plan (kernels.pull_plan): ``path``, its
+// ``blocks``, (row blocks) × planes of ``threads`` threads, a warp a row.
+// A plan the operands do not allow is refused (cudaErrorInvalidValue).
 extern "C" int fpm_peer_pull(float* dst, const float* src, int planes, int rows, int cols,
-                             long long plane_stride, long long row_stride, int device,
-                             void* stream, int* launches) {
+                             long long plane_stride, long long row_stride, int path, int blocks,
+                             int threads, int device, void* stream, int* launches) {
   using namespace fpm;
-  if (planes < 1 || rows < 1 || cols < 1) return (int)cudaErrorInvalidValue;
+  if (planes < 1 || rows < 1 || cols < 1 || blocks < 1) return (int)cudaErrorInvalidValue;
+  const bool vec = vector_ok(dst, src, cols, plane_stride, row_stride);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#ifdef FPM_PROFILE
+  static int seq = 0;
+#define FPM_SEQ_ARG , seq++
+#else
+#define FPM_SEQ_ARG
+#endif
   const DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
-  const int vec = cols % 4 == 0 && plane_stride % 4 == 0 && row_stride % 4 == 0
-                  && reinterpret_cast<uintptr_t>(dst) % 16 == 0
-                  && reinterpret_cast<uintptr_t>(src) % 16 == 0;
-  const long long n = (long long)planes * rows * (vec ? cols / 4 : cols);
-  const long long want = (n + kPullThreads - 1) / kPullThreads;
-  const int blocks = (int)(want < kPullMaxBlocks ? want : kPullMaxBlocks);
-  peer_pull<<<blocks, kPullThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      dst, src, planes, rows, cols, plane_stride, row_stride, vec);
+  if ((path != kPathVector && path != kPathScalar) || (path == kPathVector && !vec) ||
+      threads < 32 || threads > 1024 || threads % 32 || planes > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int warps = threads / 32;
+  const int row_blocks = (rows + warps - 1) / warps;
+  if ((long long)row_blocks * planes != blocks) return (int)cudaErrorInvalidValue;
+  const dim3 grid(row_blocks, planes);
+  if (path == kPathVector)
+    peer_pull_rows<float4><<<grid, threads, 0, st>>>(
+        reinterpret_cast<float4*>(dst), reinterpret_cast<const float4*>(src), rows, cols / 4,
+        plane_stride / 4, row_stride / 4 FPM_SEQ_ARG);
+  else
+    peer_pull_rows<float><<<grid, threads, 0, st>>>(dst, src, rows, cols, plane_stride,
+                                                    row_stride FPM_SEQ_ARG);
   return (int)count_launch(launches);
+#undef FPM_SEQ_ARG
 }
+
+// One launch of the empty kernel on ``device``'s ``stream``.
+extern "C" int fpm_launch_floor(int device, void* stream) {
+  using namespace fpm;
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  launch_floor<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
+}
+
+#ifdef FPM_PROFILE
+extern "C" int fpm_phase_count() { return 2; }
+
+// The names of a pull record's two stamps.
+extern "C" const char* fpm_phase_name(int i) {
+  static const char* const names[] = {"start", "end"};
+  return i >= 0 && i < 2 ? names[i] : nullptr;
+}
+
+// The pull records of ``device`` since its last reset, after waiting for
+// it: up to ``n`` of them into ``out`` (n × 4 values: the launch's number,
+// the block, its start and its end in global ns); returns the count made
+// (more than n: some were not kept) through ``made``; with ``reset`` the
+// count back to 0.
+extern "C" int fpm_peer_records(long long* out, int n, int reset, int device, int* made) {
+  using namespace fpm;
+  if (n < 0 || n > kPullRecords) return (int)cudaErrorInvalidValue;
+  const DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  unsigned count = 0;
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(&count, fpm_pull_next, sizeof(count));
+  *made = (int)count;
+  const unsigned kept = count < (unsigned)n ? count : (unsigned)n;
+  if (err == cudaSuccess && kept)
+    err = cudaMemcpyFromSymbol(out, fpm_pull_stamps, kept * sizeof(fpm_pull_stamps[0]));
+  const unsigned zero = 0;
+  if (err == cudaSuccess && reset) err = cudaMemcpyToSymbol(fpm_pull_next, &zero, sizeof(zero));
+  if (err == cudaSuccess && reset) err = cudaDeviceSynchronize();
+  return (int)err;
+}
+#endif

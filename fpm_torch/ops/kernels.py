@@ -1522,21 +1522,72 @@ def peer_pull_plain(dst, src) -> None:
     dst.copy_(src)
 
 
-def peer_pull(dst, src, *, stream=None) -> None:
-    """``dst`` (contiguous float32 planes on this card) := ``src``, a view
-    of the same shape with unit stride along its last dimension, on this
-    card or a peer's: one launch on the card of ``dst``."""
-    if not dst.is_cuda:
-        return peer_pull_plain(dst, src)
+# The pull's paths (csrc/epry_peer.cu ``PullPath``, in its order) and
+# threads a block (a warp a row; chosen on H100s, scripts/kernel_profile.py
+# --kernel P4).
+PULL_PATHS = ("scalar", "vector")
+PULL_THREADS = 256
+
+
+class PullPlan(NamedTuple):
+    """The launch of :func:`peer_pull`: ``path`` (one of PULL_PATHS),
+    ``blocks`` in its grid, (row blocks) × planes of ``threads`` threads, a
+    warp a row."""
+    path: str
+    blocks: int
+    threads: int
+
+
+def pull_plan(planes: int, rows: int, cols: int, plane_stride: int, row_stride: int, *,
+              aligned: bool) -> PullPlan:
+    """The launch for ``planes`` × ``rows`` runs of ``cols`` floats at
+    element strides (``plane_stride``, ``row_stride``, 1), both pointers
+    on 16 bytes where ``aligned``: a warp a row, every row of every plane
+    in one grid of blocks of PULL_THREADS threads; the vector path (float4)
+    where each row is 16-byte chunks that start on 16 bytes (as
+    csrc/epry_peer.cu's ``vector_ok`` requires), the scalar path otherwise
+    (odd columns, unaligned views)."""
+    vector = aligned and cols % 4 == 0 and plane_stride % 4 == 0 and row_stride % 4 == 0
+    return PullPlan("vector" if vector else "scalar", -(-rows // (PULL_THREADS // 32)) * planes,
+                    PULL_THREADS)
+
+
+def pull_operands(dst, src) -> None:
+    """Raise unless :func:`peer_pull`'s kernel takes ``dst`` and ``src``:
+    float32 (planes, rows, cols), at most 65535 planes, ``dst`` contiguous,
+    ``src`` of the same shape with unit stride along its rows, on the card
+    of ``dst`` or one whose memory it reads."""
     dev = dst.device
     if (src.shape != dst.shape or dst.dim() != 3 or src.dtype != torch.float32
             or dst.dtype != torch.float32 or not dst.is_contiguous() or src.stride(-1) != 1
-            or not _readable(src, dev)):
+            or not _readable(src, dev) or dst.shape[0] > 65535):
         raise ValueError(f"peer_pull: {src.dtype} {tuple(src.shape)} on {src.device} into "
                          f"{dst.dtype} {tuple(dst.shape)} on {dev}: the kernel takes float32 "
-                         "(planes, rows, cols) rows it can read into contiguous ones")
+                         "(planes, rows, cols) rows it can read into contiguous ones, at most "
+                         "65535 planes")
+
+
+def pull_plan_of(dst, src) -> PullPlan:
+    """The launch :func:`peer_pull` makes for these operands: test-only
+    ``peer_pull.force_plan`` where set, else :func:`pull_plan` of their
+    shape, strides and alignment."""
+    return peer_pull.force_plan or pull_plan(*dst.shape, src.stride(0), src.stride(1),
+                                             aligned=_aligned([dst, src]))
+
+
+def peer_pull(dst, src, *, stream=None) -> None:
+    """``dst`` (contiguous float32 planes on this card) := ``src``, a view
+    of the same shape with unit stride along its last dimension, on this
+    card or a peer's (:func:`pull_operands`): one launch on the card of
+    ``dst`` as :func:`pull_plan_of` plans it, which the C entry checks
+    again (a plan the operands do not allow raises)."""
+    if not dst.is_cuda:
+        return peer_pull_plain(dst, src)
+    pull_operands(dst, src)
+    plan = pull_plan_of(dst, src)
     _peer_launch(peer_pull, "fpm_peer_pull", dst.data_ptr(), src.data_ptr(), *dst.shape,
-                 src.stride(0), src.stride(1), dev.index, _stream_of(dst, stream))
+                 src.stride(0), src.stride(1), PULL_PATHS.index(plan.path), plan.blocks,
+                 plan.threads, dst.device.index, _stream_of(dst, stream))
 
 
 # Every wrapper that counts its launches.
@@ -1562,6 +1613,7 @@ def add_launches(counts: dict[str, int], times: int = 1) -> None:
 
 for _wrapper in COUNTED:
     _wrapper.launches = 0
+peer_pull.force_plan = None            # tests and measurements only: a PullPlan
 for _wrapper in (fused_epry_sweep, fused_epry_chunked, fused_chunk_increments):
     _wrapper.launches = 0
     _wrapper.cluster_size = 0          # as chosen by the last launch

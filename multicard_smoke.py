@@ -15,6 +15,11 @@ crosses a process), as 2 processes (two cards each) with ``--mesh 2 2``, and
 with ``--comm-precision bf16 --stale-consensus`` on (2 processes, ``--mesh 2
 2``) and (4 processes, ``--mesh 1 4``), and with ``--stale-consensus`` (4
 processes, ``--mesh 4 1`` and ``--mesh 2 2``); then, in this process, the
+peer route's halo pull on an idle pair of cards beside ``copy_`` from the
+same peer (``peer_pair``) and the ordering litmus of its flags across
+cards (``ordering_litmus``: a writer's post, a reader on another card that
+waits for it and pulls the writer's 8 MB in place, every element checked);
+then the
 one-process meshes (4,1) and (2,2) over the four cards, fresh and stale,
 which replay one sweep captured into a CUDA graph over the four cards on
 the peer route (``fpm_torch.parallel.mesh.peer_route``: payloads read in
@@ -69,7 +74,109 @@ FOV_PROCESSES = (2, 4)
 HBM_BYTES_S, NVLINK_BYTES_S = 3.35e12, 450e9    # an H100's memory; its NVLink, each way
 
 
-def consensus_bounds(cfg, led: int, tile: int, by_card=None) -> dict:
+PAIR_CALLS = 20
+
+
+def peer_pair(cfg, gpu) -> dict:
+    """The ``multicard_peer_pair`` lines: cards 0 and 1 idle, the forward
+    halo of mesh (2,2) (mono: 2 × 90 rows of a 180 × 360 tile; dogStomach:
+    2 × 200 of a 300 × 600 tile) pulled by card 0 from a tile on card 1
+    (``kernels.peer_pull``, the plan it launches) and copied by
+    ``Tensor.copy_`` from the same view: each one's device ms a call, the
+    mean of PAIR_CALLS back-to-back calls in one profiler window after as
+    many to warm (``chip_smoke.device_ms_by_kernel``; the first read over a
+    link idle for milliseconds has been seen to take ~0.1 ms), and ms a
+    call on CUDA events, the pull bitwise the tile's rows, and the NVLink
+    bound (the rows read over NVLink once). Returns {halo: line}."""
+    import torch
+
+    from fpm_torch.config import FPMConfig
+    from fpm_torch.ops import kernels
+
+    d0, d1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    kernels.enable_peer_access(d0, d1)
+    dog = FPMConfig(**cs.DOG_OPTICS)
+    out = {}
+    for name, (nl, n) in (("mono", (cfg.n_large, cfg.np_size)),
+                          ("dogStomach", (dog.n_large, dog.np_size))):
+        tile = torch.randn((2, nl // 2, nl), device=d1)
+        src, dst = tile[:, :n], torch.empty((2, n, nl), device=d0)
+        pull, copy = (lambda: kernels.peer_pull(dst, src)), (lambda: dst.copy_(src))
+        pull()
+        torch.cuda.synchronize(d0)
+        bitwise = bool(torch.equal(dst.cpu(), src.cpu()))
+
+        def device_ms(fn):
+            for _ in range(PAIR_CALLS):
+                fn()
+            return sum(cs.device_ms_by_kernel(
+                lambda: [fn() for _ in range(PAIR_CALLS)]).values()) / PAIR_CALLS
+
+        with torch.cuda.device(d0):
+            line = {"phase": "multicard_peer_pair", "halo": name, "shape": [2, n, nl],
+                    "plan": kernels.pull_plan_of(dst, src)._asdict()
+                    if hasattr(kernels, "pull_plan_of") else None, "bitwise": bitwise,
+                    "device_ms": device_ms(pull), "copy_device_ms": device_ms(copy),
+                    "ms": cs.cuda_ms(pull, 50), "copy_ms": cs.cuda_ms(copy, 50),
+                    "nvlink_bound_ms": 2 * n * nl * 4 / NVLINK_BYTES_S * 1e3, "gpu": gpu}
+        cs.emit(line)
+        cs.check(bitwise, f"{name}: the pull from a peer is not the tile's rows")
+        out[name] = line
+    return out
+
+
+def ordering_litmus(gpu, repeats: int = 8) -> None:
+    """The ``multicard_litmus`` lines: for each pair of cards (0 → 1, 1 → 0,
+    2 → 3), card A spins (0 to ~2 ms), writes an 8 MB buffer (a pattern
+    plus the round's number) and posts its flag (``kernels.peer_post``);
+    card B waits on that flag on its own stream (``peer_wait``) and pulls
+    A's buffer in place (``peer_pull``). Every element read must be the
+    round's, over ``repeats`` times epochs 1-3 (each sweep's epoch bumped
+    on both cards) and chunks 0-3 (both parities of a signal): each round
+    waits for a post no earlier round made, since a flag only grows. Any
+    element wrong fails the run."""
+    import torch
+
+    from fpm_torch.ops import kernels
+
+    for pa, pb in ((0, 1), (1, 0), (2, 3)):
+        a, b = torch.device("cuda", pa), torch.device("cuda", pb)
+        kernels.enable_peer_access(b, a)
+        words, mine = kernels.flag_block(a), kernels.flag_block(b)
+        pattern = torch.arange(2 * 1024 * 1024, dtype=torch.float32, device=a).view(2, 1024, 1024)
+        src, dst = torch.empty_like(pattern), torch.empty(pattern.shape, device=b)
+        want = pattern.to(b)
+        sa, sb = torch.cuda.Stream(a), torch.cuda.Stream(b)
+        wrong, checked, t0 = 0, 0, time.perf_counter()
+        for epoch in range(1, 3 * repeats + 1):
+            for w in (words, mine):
+                kernels.peer_epoch(w)
+            for d in (a, b):
+                torch.cuda.synchronize(d)
+            for chunk in range(4):
+                spin = (0, 100_000, 1_000_000, 4_000_000)[(epoch + chunk) % 4]
+                value = float(100 * epoch + chunk)
+                with torch.cuda.device(a), torch.cuda.stream(sa):
+                    if spin:
+                        torch.cuda._sleep(spin)
+                    torch.add(pattern, value, out=src)
+                    kernels.peer_post(words, chunk % 2, chunk)
+                with torch.cuda.device(b), torch.cuda.stream(sb):
+                    kernels.peer_wait([(words, chunk % 2, chunk)], mine)
+                    kernels.peer_pull(dst, src)
+                for d in (a, b):
+                    torch.cuda.synchronize(d)
+                wrong += int((dst != want + value).sum())
+                checked += dst.numel()
+        cs.emit({"phase": "multicard_litmus", "poster": pa, "reader": pb,
+                 "rounds": 3 * repeats * 4, "elements_checked": checked, "wrong": wrong,
+                 "plan": kernels.pull_plan_of(dst, src)._asdict()
+                 if hasattr(kernels, "pull_plan_of") else None,
+                 "seconds": time.perf_counter() - t0, "gpu": gpu})
+        cs.check(wrong == 0, f"litmus {pa} -> {pb}: {wrong} elements read before the post")
+
+
+def consensus_bounds(cfg, led: int, tile: int, by_card=None, pair=None) -> dict:
     """Card 0's consensus kernels of one chunk on the peer route, a rank a
     card, and on the tile axis its halo pull: the bytes each reads and
     writes in its own memory (its rank's payload, the state read and
@@ -78,7 +185,10 @@ def consensus_bounds(cfg, led: int, tile: int, by_card=None) -> dict:
     least time, the larger of the two at the H100's 3.35 TB/s and 450 GB/s
     each way; with ``by_card`` (a trace's, ``chip_smoke.gated_trace``)
     beside it ``device_ms``, card 0's mean device ms a launch of the kernel
-    in that trace, and ``bound_share`` (bound / device ms). Not a gate."""
+    in that trace (``device_ms_median`` its median), and ``bound_share``
+    (bound / device ms); with ``pair``
+    (:func:`peer_pair`'s mono line) beside the pull the same pull's and
+    ``copy_``'s device ms on an idle pair of cards. Not a gate."""
     from fpm_torch.geometry import pupil_radius
     from fpm_torch.ops import kernels
 
@@ -96,7 +206,8 @@ def consensus_bounds(cfg, led: int, tile: int, by_card=None) -> dict:
                 "consensus_tile_object": (own + 2 * own, (led - 1) * own + led * halo),
                 "consensus_tile_pupil": (pupil + metrics + 4 + 2 * pupil,
                                          (led * tile - 1) * (pupil + metrics) + (tile - 1) * 4)}
-    measured = ((by_card or {}).get(0) or {}).get("kernel_ms", {})
+    card0 = (by_card or {}).get(0) or {}
+    measured, medians = card0.get("kernel_ms", {}), card0.get("kernel_ms_median", {})
     out = {}
     for name, (hbm, peer) in rows.items():
         bound_ms = max(hbm / HBM_BYTES_S, peer / NVLINK_BYTES_S) * 1e3
@@ -104,7 +215,11 @@ def consensus_bounds(cfg, led: int, tile: int, by_card=None) -> dict:
         out[name] = {"hbm_bytes": hbm, "nvlink_bytes": peer, "bound_ms": bound_ms,
                      "bound_by": "nvlink bytes" if peer / NVLINK_BYTES_S > hbm / HBM_BYTES_S
                      else "hbm bytes", "device_ms": device_ms,
+                     "device_ms_median": medians.get(name),
                      "bound_share": bound_ms / device_ms if device_ms else None}
+    if pair and "peer_pull" in out:
+        out["peer_pull"].update(idle_pair_device_ms=pair["device_ms"],
+                                idle_pair_copy_device_ms=pair["copy_device_ms"])
     return out
 
 
@@ -148,7 +263,7 @@ def run_case(label, flags, n_proc, arrays, tmp, transport, gpu) -> dict:
     return line
 
 
-def one_process_sweeps(problem, gpu) -> None:
+def one_process_sweeps(problem, gpu, pair=None) -> None:
     """The one-process meshes over the four cards (a rank per card), fresh
     and stale, chunk 32. Every rank is a CUDA rank of this process, so the
     run replays one sweep captured into a CUDA graph (``fpm_torch.parallel.
@@ -200,7 +315,7 @@ def one_process_sweeps(problem, gpu) -> None:
                      "graph": entry.replay is not None,
                      "cards_in_graph": len(mesh.cards()), "peer_route": route_name,
                      "consensus_bounds": consensus_bounds(problem[0], led, tile,
-                                                          gated["by_card"]),
+                                                          gated["by_card"], pair),
                      "card_edges_per_sweep": edges, "host_loop_card_edges": host_edges,
                      "peer_launches_per_sweep": {k: v for k, v in captured.launches.items()
                                                  if k.startswith("peer_")},
@@ -359,7 +474,9 @@ def main(argv=None) -> int:
                      [mono, "-n", "3", "--use-pallas", *plat, *extra], n_proc,
                      ("object_spectrum.npy", "pupil.npy"), tmp, transport, gpu)
         if not args.cpu:
-            one_process_sweeps((cfg, geom, frames), gpu)
+            pair = peer_pair(cfg, gpu)
+            ordering_litmus(gpu)
+            one_process_sweeps((cfg, geom, frames), gpu, pair["mono"])
             if args.parent:
                 one_process_turns(os.path.abspath(args.parent), gpu)
         process_sweeps(args.cpu, args.parent and os.path.abspath(args.parent), gpu)

@@ -15,7 +15,10 @@ digests (``kernel_digests``), the digests of the sharded sweeps
 (``sharded_entry_timing``), K3's time a call through its wrapper
 (``k3_call_timing``) and the consensus kernels' rows (``consensus_rows``:
 each bitwise its plain version, its device ms a call, its ms on CUDA
-events, its bound); and of each checkout's main libraries, ptxas's
+events, its bound), the peer route's kernels' rows (``peer_rows``: device
+ms, ms, the pull's ``copy_`` and, where the checkout has it, the launch
+floor) and its order on one card (``peer_order_phase``: ms a sweep of the
+flag-ordered runs, bitwise the digests); and of each checkout's main libraries, ptxas's
 registers, stack and spills per function (``build.resources``) and a digest
 of each function's SASS (``cuobjdump -sass``). One JSON line per run, then
 one line that says which digests (and which kernel cases differ), resources
@@ -68,12 +71,18 @@ smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=cs
 counts = collections.defaultdict(lambda: collections.defaultdict(int))   # no main-path run here
 consensus = {r["name"]: {k: r[k] for k in ("device_ms", "ms", "bound_ms", "bitwise")}
              for r in cs.consensus_rows(cs.sharded_problem("mono"), counts, smi)}
+sharded = cs.sharded_digests()
+rows = cs.peer_rows(cs.sharded_problem("mono"), smi)
+peer = {r["name"]: {k: r[k] for k in ("device_ms", "ms", "library_ms", "launch_floor_device_ms")}
+        for r in rows}
+peer_order = cs.peer_order_phase(cs.sharded_problem("mono"), sharded, rows, smi)
 print("RUN " + json.dumps({
     "kernels": digests["all"], "kernel_cases": digests["cases"],
     "resources": {stem: build.resources(stem) for stem in sorted(libs)},
     "sass": {stem: sass(path) for stem, path in sorted(libs.items())},
-    "sharded": cs.sharded_digests(), "timing": cs.sharded_entry_timing(busy=True),
-    "k3": cs.k3_call_timing(), "consensus": consensus}), flush=True)
+    "sharded": sharded, "timing": cs.sharded_entry_timing(busy=True),
+    "k3": cs.k3_call_timing(), "consensus": consensus, "peer": peer,
+    "peer_order_ms_per_sweep": peer_order}), flush=True)
 """
 
 
@@ -123,6 +132,14 @@ def main(argv=None) -> int:
         "consensus_device_ms": {k: {name: [r["consensus"][k]["device_ms"] for r in rs]
                                     for name, rs in by.items()}
                                 for k in by["this"][0]["consensus"]},
+        "peer_device_ms": {k: {name: [r["peer"][k]["device_ms"] for r in rs]
+                               for name, rs in by.items()} for k in by["this"][0]["peer"]
+                           if all(k in r["peer"] for rs in by.values() for r in rs)},
+        "peer_launch_floor_device_ms": [r["peer"]["peer_post"]["launch_floor_device_ms"]
+                                        for r in by["this"]],
+        "peer_order_ms_per_sweep": {c: {name: [r["peer_order_ms_per_sweep"][c] for r in rs]
+                                        for name, rs in by.items()}
+                                    for c in by["this"][0]["peer_order_ms_per_sweep"]},
         "order": [n for n, _ in order], "gpu": smi}), flush=True)
     print(smi)
     return 0

@@ -6,6 +6,7 @@ Run from the root of this checkout, on a machine with one CUDA card:
 
     python3 scripts/kernel_profile.py [--kernel K2] [--other DIR] [--out FILE]
     python3 scripts/kernel_profile.py --kernel C1|C2 [--shapes mono dog] [--other DIR]
+    python3 scripts/kernel_profile.py --kernel P4|P2 [--shapes mono dog] [--other DIR]
     python3 scripts/kernel_profile.py --kernel K1 [--shapes mono dog]
         [--cs 0 1 2 4 8] [--tiers bf16x3 highest] [--chunks 15 30]
         [--z-layout 0] [--other DIR] [--out FILE]
@@ -44,6 +45,43 @@ the median over STAMPED calls of each block's µs in its payload sums and
 apply, its fence and ticket and the tail, and the grid's timeline on the
 card's global clock (``stamp_summary``).
 
+``--kernel P4``: the peer route's halo pull (``kernels.peer_pull``) of the
+forward halo of mesh (2,2) for each shape of ``--shapes`` (``mono``: the
+2 × 90 rows of 360 floats of a 180 × 360 tile, 259 KB; ``dog``: 2 × 200
+rows of 600 of a 300 × 600 tile, 960 KB), from a tile on this card and,
+with two cards or more, on a peer card (peer access enabled): ``device_us``
+a call (a torch.profiler window of TIMED calls after PAD short spin
+kernels: every device record but the spin kernels') and ``event_us`` (CUDA
+events over 50 calls) of the wrapper as the checkout plans it, of
+``Tensor.copy_`` (the library's yardstick), and, where the checkout has
+``kernels.pull_plan``, of each plan of ``pull_variants`` (the vector path
+at 32-1024 threads a block and the scalar path, forced through
+``peer_pull.force_plan``), each also through the profile build
+``build.profile_library("epry_peer")`` with its block stamps
+(``stamped``: the blocks' span and each block's µs, medians over the
+launches), and of an empty kernel (``fpm_launch_floor``: the launch
+floor); every result checked bitwise against the tile's rows. A plan the
+card refuses is recorded as ``refused``. With four cards also ``in_sweep``:
+the one-process mesh (2,2) over the four cards, fresh and stale, replaying
+its captured sweep (``chip_smoke.prepared_sweep``, ``graph.SweepGraph``):
+card 0's pulls in a traced replay, ungated and behind a gate as
+``chip_smoke.gated_trace`` holds the cards (``device_us``, the median of
+a replay's launches), the checkout's plan from its main build and, where
+the checkout has the profile build's stamps, from the profile build
+(``stamped``), split on the card's global clock into
+the wait from its traced start to its first block, its blocks' span and
+the drain after its last block (``split_launches``), to set beside the
+same pull alone on an idle pair; and ``by_card_kernel_ms``, each card's
+consensus kernels and pull in ``gated_trace`` (multicard_smoke's
+``consensus_bounds`` reads that).
+
+``--kernel P2``: the post (``kernels.peer_post``), the epoch
+(``peer_epoch``, P1), a wait on a posted flag (``peer_wait``, P3) and,
+where the checkout has it, an empty kernel (``fpm_launch_floor``: the
+launch floor) on one card, ``device_us`` and ``event_us`` as above, in
+turns (forward, then backward). ``--other`` gives the other checkout's
+post beside this one's.
+
 ``--kernel K1``: for each shape, K1's sweep loop as the batched cell runs it
 (``bench.solver``, one problem, chunk strided): ``mono`` is the cell's
 configuration (Np 90, chunk 32), ``dog`` the dogStomach optics
@@ -75,6 +113,7 @@ whole, 2 cut), one row:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -379,6 +418,322 @@ def consensus_run(root: str, args) -> dict:
     return {"rows": rows}
 
 
+# The forward halo of mesh (2,2) at each shape: (NL, Np), a (2, NL/2, NL)
+# tile whose first Np rows are pulled.
+PULL_SHAPES = {"mono": (360, 90), "dog": (600, 200)}
+
+
+def pull_variants(kernels, planes, rows):
+    """The plans timed beside the checkout's own: the vector path at 32-1024
+    threads a block and the scalar path, a warp a row."""
+    P = kernels.PullPlan
+    out = {f"vector {t}": P("vector", -(-rows // (t // 32)) * planes, t)
+           for t in (32, 64, 128, 256, 512, 1024)}
+    out["scalar 256"] = P("scalar", -(-rows // 8) * planes, 256)
+    return out
+
+
+def floor_call(build, dev):
+    """One launch of the empty kernel (``fpm_launch_floor``) on ``dev``, or
+    None where the checkout has none."""
+    from fpm_torch.ops import kernels
+
+    lib = build.library("epry_peer")
+    if not hasattr(lib, "fpm_launch_floor"):
+        return None
+    stream = kernels._current_stream(dev)
+    return lambda: build.check(lib, lib.fpm_launch_floor(dev.index, stream), "launch floor")
+
+
+def device_us(call, dev_count: int, calls: int = None) -> dict:
+    """``call`` TIMED times in a torch.profiler window after PAD spin
+    kernels on every card: the device µs a call of every record but the
+    spin kernels', and the records by name (calls, µs)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    calls = calls or TIMED
+    call()
+    for d in range(dev_count):
+        torch.cuda.synchronize(d)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for d in range(dev_count):
+            with torch.cuda.device(d):
+                for _ in range(PAD):
+                    torch.cuda._sleep(1000)
+        for _ in range(calls):
+            call()
+        for d in range(dev_count):
+            torch.cuda.synchronize(d)
+    got = {e.key[:70]: (e.count, getattr(e, "device_time_total", 0) or 0)
+           for e in prof.key_averages() if "spin_kernel" not in e.key}
+    got = {k: v for k, v in got.items() if v[1] > 0}
+    return {"device_us": sum(us for _, us in got.values()) / calls, "by_name": got}
+
+
+def event_us(call, reps: int = 50) -> float:
+    import torch
+
+    call()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        call()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps * 1e3
+
+
+def pull_records(lib, device: int, reset: bool = True) -> list:
+    """The profile build's pull stamps on ``device`` since the last reset:
+    [launch, block, start ns, end ns] each."""
+    import ctypes
+
+    n = 64 * 1024
+    out, made = (ctypes.c_longlong * (4 * n))(), ctypes.c_int(0)
+    err = lib.fpm_peer_records(out, n, int(reset), device, ctypes.byref(made))
+    if err:
+        raise RuntimeError(f"fpm_peer_records: error {err}")
+    return [list(out[4 * i:4 * i + 4]) for i in range(min(made.value, n))]
+
+
+def stamp_spans(records: list) -> dict:
+    """Per launch of the records: the blocks' span (first start to last
+    end) and each block's µs; their medians over the launches."""
+    by: dict = {}
+    for launch, _, t0, t1 in records:
+        by.setdefault(launch, []).append((t0, t1))
+    spans = [(max(b for _, b in v) - min(a for a, _ in v)) / 1e3 for v in by.values()]
+    blocks = [(b - a) / 1e3 for v in by.values() for a, b in v]
+    starts = [(max(a for a, _ in v) - min(a for a, _ in v)) / 1e3 for v in by.values()]
+    return {"launches": len(by), "span_us": statistics.median(spans) if spans else None,
+            "block_us": statistics.median(blocks) if blocks else None,
+            "block_us_max": max(blocks) if blocks else None,
+            "last_start_us": statistics.median(starts) if starts else None}
+
+
+@contextlib.contextmanager
+def stamping(build):
+    """Every peer kernel from the profile build of ``csrc/epry_peer.cu``
+    (its pulls stamp their blocks) while the context lasts."""
+    library = build.library
+    build.library = (lambda stem: build.profile_library(stem) if stem == "epry_peer"
+                     else library(stem))
+    try:
+        yield
+    finally:
+        build.library = library
+
+
+def pull_call(kernels, dst, src, plan):
+    """One pull of ``src`` into ``dst``: the wrapper as planned (``plan``
+    None) or forced to ``plan``."""
+    if plan is None:
+        return lambda: kernels.peer_pull(dst, src)
+
+    def forced():
+        kernels.peer_pull.force_plan = plan
+        try:
+            kernels.peer_pull(dst, src)
+        finally:
+            kernels.peer_pull.force_plan = None
+    return forced
+
+
+def pull_run(root: str, args) -> dict:
+    """The P4 rows (see the module's docstring)."""
+    import torch
+
+    from fpm_torch.ops import build, kernels
+
+    cards = torch.cuda.device_count()
+    new = hasattr(kernels, "pull_plan")
+    out: dict = {"cards": cards, "rows": []}
+    d0 = torch.device("cuda", 0)
+    if cards > 1:
+        kernels.enable_peer_access(d0, torch.device("cuda", 1))
+    for shape in args.shapes:
+        nl, n = PULL_SHAPES[shape]
+        for where in ["this card"] + (["peer"] if cards > 1 else []):
+            sdev = torch.device("cuda", 1 if where == "peer" else 0)
+            g = torch.Generator(device="cpu").manual_seed(nl + n)
+            tile = torch.randn((2, nl // 2, nl), generator=g).to(sdev)
+            src, dst = tile[:, :n], torch.empty((2, n, nl), device=d0)
+            want = src.cpu()
+            calls = {"wrapper": None}
+            if new:
+                calls.update(pull_variants(kernels, 2, n))
+            for name, plan in calls.items():
+                call = pull_call(kernels, dst, src, plan)
+                row = {"shape": shape, "source": where, "call": name,
+                       "plan": None if plan is None else plan._asdict()}
+                if plan is None and new:
+                    row["plan"] = kernels.pull_plan(2, n, nl, src.stride(0), src.stride(1),
+                                                    aligned=kernels._aligned([dst, src]))._asdict()
+                dst.zero_()
+                try:
+                    call()
+                    torch.cuda.synchronize(d0)
+                except RuntimeError as e:
+                    out["rows"].append(dict(row, refused=str(e)))
+                    continue
+                row["bitwise"] = bool(torch.equal(dst.cpu(), want))
+                row.update(device_us(call, cards))
+                row["event_us"] = event_us(call)
+                if new:         # the same calls through the profile build, stamped
+                    lib = build.profile_library("epry_peer")
+                    with stamping(build):
+                        pull_records(lib, 0)
+                        for _ in range(TIMED):
+                            call()
+                        row["stamped"] = stamp_spans(pull_records(lib, 0))
+                out["rows"].append(row)
+            copy = (lambda: dst.copy_(src))
+            out["rows"].append({"shape": shape, "source": where, "call": "copy_",
+                                **device_us(copy, cards), "event_us": event_us(copy)})
+    empty = floor_call(build, d0)
+    if empty:
+        out["rows"].append({"call": "empty kernel", **device_us(empty, cards),
+                            "event_us": event_us(empty)})
+    if cards >= 4:
+        out["in_sweep"] = pull_in_sweep(new)
+    return out
+
+
+def pull_in_sweep(new: bool) -> list:
+    """Card 0's pull in the one-process (2,2) sweep over four cards, fresh
+    and stale (see the module's docstring)."""
+    import importlib.util
+
+    import torch
+
+    from fpm_torch.ops import build, kernels
+    from fpm_torch.parallel import graph, make_mesh
+
+    spec = importlib.util.spec_from_file_location("smoke", os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    problem = cs.sharded_problem("mono")
+    rows = []     # stamped: every peer kernel from the profile build
+    for stale in (False, True):
+        for stamped in (False, True) if new else (False,):
+            with stamping(build) if stamped else contextlib.nullcontext():
+                mesh = make_mesh(2, 2)
+                route, body = cs.prepared_sweep(problem, mesh, {}, stale)
+                captured = graph.SweepGraph(mesh, route, body)
+                ms, _, _ = cs.wall_ms(captured.replay)
+                row = {"stale": stale, "stamped": stamped, "wall_ms_per_sweep": ms,
+                       "pulls_per_sweep": captured.launches["peer_pull"]}
+                row.update(split_launches(build, kernels, captured.replay, ms, stamped))
+                traced = cs.gated_trace(captured.replay, ms)
+                row["by_card_kernel_ms"] = {k: v["kernel_ms"] for k, v in traced["by_card"].items()}
+                row["by_card_kernel_ms_median"] = {k: v.get("kernel_ms_median")
+                                                   for k, v in traced["by_card"].items()}
+                rows.append(row)
+            for d in range(torch.cuda.device_count()):
+                torch.cuda.synchronize(d)
+    return rows
+
+
+CALIBRATION = 5     # pulls alone on an idle card 0, after a traced replay
+
+
+def split_launches(build, kernels, replay, ms: float, stamped: bool) -> dict:
+    """Card 0's pulls in one ``replay`` of the sweep under torch.profiler,
+    ungated and behind a gate (a spin kernel of 10 × ``ms`` + 50 ms on each
+    card first, as ``chip_smoke.gated_trace`` holds the cards), each
+    followed in the same window by CALIBRATION pulls of the mono halo
+    alone on card 0: the replay's pulls' median device µs and, ``stamped``
+    (the profile build's block stamps), each one's device µs split on the
+    card's global clock into the wait from its traced start to its first
+    block, its blocks' span and the drain after its last block. The
+    trace's clock and the stamps' are set against each other by the alone
+    pulls (the median of their first block's start less their traced
+    start), so a wait is counted beyond an idle launch's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    lib = build.profile_library("epry_peer") if stamped else None
+    nl, n = PULL_SHAPES["mono"]
+    d0 = torch.device("cuda", 0)
+    tile = torch.randn((2, nl // 2, nl), device=d0)
+    halo = torch.empty((2, n, nl), device=d0)
+    cards = range(torch.cuda.device_count())
+    out = {}
+    for gated in (False, True):
+        if stamped:
+            pull_records(lib, 0)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for d in cards:
+                with torch.cuda.device(d):
+                    for _ in range(PAD):
+                        torch.cuda._sleep(1000)
+                    if gated:
+                        torch.cuda._sleep(int((10 * ms + 50) * 2e6))
+            replay()
+            for d in cards:
+                torch.cuda.synchronize(d)
+            for _ in range(CALIBRATION):
+                kernels.peer_pull(halo, tile[:, :n])
+                torch.cuda.synchronize(d0)
+        path = os.path.join(HERE, "build", "p4_split.trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        os.unlink(path)
+        traced = sorted((e["ts"], e["dur"]) for e in events
+                        if e.get("ph") == "X" and e.get("cat") == "kernel"
+                        and "peer_pull" in e["name"] and e["args"].get("device") == 0)
+        sweep = traced[:-CALIBRATION]
+        res = {"launches_traced": len(sweep),
+               "device_us": statistics.median(d for _, d in sweep) if sweep else None}
+        if stamped:
+            by: dict = {}
+            for launch, _, t0, t1 in pull_records(lib, 0):
+                by.setdefault(launch, []).append((t0, t1))
+            got = sorted((min(a for a, _ in v), max(b for _, b in v)) for v in by.values())
+            res["launches_stamped"] = len(got) - CALIBRATION
+            if len(got) == len(traced) and sweep:
+                t_0, s_0 = traced[0][0], got[0][0]
+                offset = statistics.median((ts - t_0) - (first - s_0) / 1e3 for (ts, _), (first, _)
+                                           in zip(traced[-CALIBRATION:], got[-CALIBRATION:]))
+                split = [((first - s_0) / 1e3 + offset - (ts - t_0), (last - first) / 1e3,
+                          (ts + dur - t_0) - ((last - s_0) / 1e3 + offset), dur)
+                         for (ts, dur), (first, last) in zip(traced, got)]
+                for name, rows in (("in_sweep", split[:-CALIBRATION]),
+                                   ("alone", split[-CALIBRATION:])):
+                    res[name] = {key: statistics.median(r[i] for r in rows) for i, key in
+                                 enumerate(("wait_to_first_block_us", "blocks_span_us",
+                                            "drain_us", "device_us"))}
+                    res[name]["each"] = [[round(x, 3) for x in r] for r in rows]
+        out["gated" if gated else "ungated"] = res
+    return out
+
+
+def post_run(root: str, args) -> dict:
+    """The P2 rows (see the module's docstring)."""
+    import torch
+
+    from fpm_torch.ops import build, kernels
+
+    dev = torch.device("cuda", 0)
+    words = kernels.flag_block(dev)
+    kernels.peer_epoch(words)
+    kernels.peer_post(words, 0, 0)
+    calls = {"peer_post": lambda: kernels.peer_post(words, 0, 0),
+             "peer_epoch": lambda: kernels.peer_epoch(words),
+             "peer_wait": lambda: kernels.peer_wait([(words, 0, 0)], words),
+             "empty kernel": floor_call(build, dev)}
+    order = [name for name, call in calls.items() if call]
+    rows = []
+    for name in order + order[::-1]:
+        rows.append({"call": name, **device_us(calls[name], 1),
+                     "event_us": event_us(calls[name])})
+        kernels.peer_post(words, 0, 0)
+    return {"rows": rows}
+
+
 def _median_tree(xs):
     if isinstance(xs[0], dict):
         return {k: _median_tree([x[k] for x in xs]) for k in xs[0]}
@@ -393,7 +748,8 @@ def child(root: str, args) -> int:
 
     assert fpm_torch.__file__.startswith(root), fpm_torch.__file__
     os.makedirs(os.path.join(root, "build"), exist_ok=True)
-    res = {"K1": k1_run, "K2": k2_run}.get(args.kernel, consensus_run)(root, args)
+    res = {"K1": k1_run, "K2": k2_run, "P4": pull_run, "P2": post_run}.get(
+        args.kernel, consensus_run)(root, args)
     print("RUN " + json.dumps(res), flush=True)
     return 0
 
@@ -425,6 +781,21 @@ def side_by_side(kernel: str, runs: list) -> dict:
                                for t in ("bf16x3", "highest")},
             "bf16x3_by_phase": {ph: side(lambda r, ph=ph: r["k2_phase_profile"]["bf16x3"]
                                          ["by_phase"].get(ph)) for ph in phases}}
+    if kernel in ("P4", "P2"):
+        def key(row):
+            return tuple(row.get(k) for k in ("shape", "source", "call"))
+        sides: dict = {}
+        for name, rs in by.items():
+            for r in rs:
+                for row in r["rows"]:
+                    if "device_us" in row:
+                        sides.setdefault(key(row), {"other": [], "this": []})[name].append(
+                            [row["device_us"], row["event_us"]])
+        out = {"device_us_event_us": [dict(zip(("shape", "source", "call"), k), **v)
+                                      for k, v in sides.items()]}
+        if kernel == "P4":
+            out["in_sweep"] = {name: [r.get("in_sweep") for r in rs] for name, rs in by.items()}
+        return out
     if kernel in CONSENSUS_MESH:
         keys = ("device_us", "event_us", "stamped")
         return {"rows": [{"shape": row["shape"],
@@ -442,7 +813,7 @@ def side_by_side(kernel: str, runs: list) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", default="K2", choices=("K1", "K2", *CONSENSUS_MESH))
+    ap.add_argument("--kernel", default="K2", choices=("K1", "K2", *CONSENSUS_MESH, "P4", "P2"))
     ap.add_argument("--other", help="the root of another checkout, run in turns with this one")
     ap.add_argument("--out", help="also write the lines to this file")
     ap.add_argument("--shapes", nargs="+", default=["mono"], choices=sorted(CHUNKS))

@@ -1645,6 +1645,141 @@ def test_the_signal_and_wait_kernels_order_two_streams(cuda):
                 assert torch.equal(words.cpu(), plain)
 
 
+@pytest.fixture
+def two_cards(cuda):
+    """Cards 0 and 1 with peer access both ways; skips under two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: a flag and the rows it guards on one, the "
+                    "reader on the other")
+    a, b = torch.device("cuda", 0), torch.device("cuda", 1)
+    kernels.enable_peer_access(a, b)
+    kernels.enable_peer_access(b, a)
+    return a, b
+
+
+# Pulls held against peer_pull_plain: (planes, rows, cols) of the halo, the
+# rows of the tile it is taken from, the offset of the tile in its buffer
+# (in floats), and the path the plan takes.
+PULLS = {"mono (2,2)": ((2, 90, 360), 180, 0, "vector"),
+         "dogStomach (2,2)": ((2, 200, 600), 300, 0, "vector"),
+         "odd columns": ((2, 90, 361), 180, 0, "scalar"),
+         "a view one float in": ((2, 90, 360), 180, 1, "scalar"),
+         "one row": ((1, 1, 4), 2, 0, "vector"),
+         "rows past a lane's loads": ((2, 3, 4 * 32 * 8 * 2 + 4), 5, 0, "vector"),
+         "odd rows past a lane's loads": ((3, 3, 32 * 8 * 2 + 1), 4, 0, "scalar")}
+# Plans forced on the main path's halos beside the planned one: the vector
+# and scalar paths at 32 and 1024 threads a block.
+FORCED = {"vector 32": ("vector", 32), "vector 1024": ("vector", 1024),
+          "scalar 32": ("scalar", 32), "scalar 1024": ("scalar", 1024)}
+
+
+def forced_plan(name, planes, rows):
+    path, threads = FORCED[name]
+    return kernels.PullPlan(path, -(-rows // (threads // 32)) * planes, threads)
+
+
+@pytest.mark.parametrize("source", ["this card", "a peer"])
+@pytest.mark.parametrize("forced", [None, *FORCED])
+@pytest.mark.parametrize("case", list(PULLS))
+def test_the_pull_is_bitwise_its_plain_version_on_every_path(cuda, monkeypatch, case, forced,
+                                                             source):
+    """P4 on the path its plan takes and, on the main path's halos, on
+    forced plans (the vector and scalar paths at 32 and 1024 threads):
+    every element as ``peer_pull_plain`` copies it, from a tile on this
+    card and from one on a peer card (two cards)."""
+    (planes, rows, cols), tile_rows, offset, path = PULLS[case]
+    if source == "a peer" and torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: the tile on a peer card")
+    if forced and case not in ("mono (2,2)", "dogStomach (2,2)"):
+        pytest.skip("the forced plans are for the main path's halos")
+    home = torch.device("cuda", 0)
+    sdev = torch.device("cuda", 1 if source == "a peer" else 0)
+    if sdev != home:
+        kernels.enable_peer_access(home, sdev)
+    g = torch.Generator().manual_seed(planes * rows + cols + offset)
+    buf = torch.randn(offset + planes * tile_rows * cols, generator=g).to(sdev)
+    src = buf[offset:].view(planes, tile_rows, cols)[:, :rows]
+    dst = torch.full((planes, rows, cols), float("nan"), device=home)
+    plan = kernels.pull_plan_of(dst, src)
+    assert plan.path == path
+    if forced:
+        monkeypatch.setattr(kernels.peer_pull, "force_plan", forced_plan(forced, planes, rows))
+    before = kernels.peer_pull.launches
+    kernels.peer_pull(dst, src)
+    torch.cuda.synchronize(home)
+    assert kernels.peer_pull.launches == before + 1
+    want = torch.empty(planes, rows, cols)
+    kernels.peer_pull_plain(want, src.cpu())
+    assert torch.equal(dst.cpu(), want)
+
+
+@pytest.mark.parametrize("case", ["vector on a view one float in", "vector on odd columns",
+                                  "a grid short of the rows", "threads not whole warps",
+                                  "threads past 1024"])
+def test_a_pull_plan_the_operands_do_not_allow_raises(cuda, monkeypatch, case):
+    """The C entry checks the plan again: a path the rows do not allow, or
+    a grid that does not cover them or that no block can hold, is refused,
+    and nothing is launched."""
+    cols = 361 if case == "vector on odd columns" else 360
+    buf = torch.zeros(1 + 2 * 180 * cols, device=cuda)
+    src = buf[1 if "one float in" in case else 0:][:2 * 180 * cols].view(2, 180, cols)[:, :90]
+    dst = torch.empty((2, 90, cols), device=cuda)
+    P = kernels.PullPlan
+    plan = {"vector on a view one float in": P("vector", 90, 64),
+            "vector on odd columns": P("vector", 90, 64),
+            "a grid short of the rows": P("vector", 88, 64),
+            "threads not whole warps": P("vector", 90, 48),
+            "threads past 1024": P("vector", 2 * 2, 2048)}[case]
+    monkeypatch.setattr(kernels.peer_pull, "force_plan", plan)
+    before = kernels.peer_pull.launches
+    with pytest.raises(RuntimeError, match="peer_pull"):
+        kernels.peer_pull(dst, src)
+    assert kernels.peer_pull.launches == before
+
+
+@pytest.mark.parametrize("path", ["planned", "scalar"])
+def test_a_post_orders_every_write_before_it_for_a_reader_on_another_card(two_cards, monkeypatch,
+                                                                          path):
+    """The ordering litmus across cards: card A spins, writes an 8 MB buffer
+    (a pattern plus the round's number) and posts; card B waits on A's flag
+    on its own stream and pulls A's buffer in place. Every element read is
+    the round's, over 48 rounds: four times epochs 1-3 (each sweep's epoch
+    bumped on both cards, 12 in all) and chunks 0-3 (both parities of a
+    signal), with spins of 0 to ~2 ms; each round waits for a post no
+    earlier round made, since a flag only grows."""
+    a, b = two_cards
+    words, mine = kernels.flag_block(a), kernels.flag_block(b)
+    pattern = torch.arange(2 * 1024 * 1024, dtype=torch.float32, device=a).view(2, 1024, 1024)
+    src, dst = torch.empty_like(pattern), torch.empty(pattern.shape, device=b)
+    want = pattern.to(b)
+    sa, sb = torch.cuda.Stream(a), torch.cuda.Stream(b)
+    if path == "scalar":
+        monkeypatch.setattr(kernels.peer_pull, "force_plan",
+                            kernels.PullPlan("scalar", 2 * 512, 64))
+    wrong, rounds = 0, 0
+    for epoch in range(1, 13):
+        for w in (words, mine):
+            kernels.peer_epoch(w)
+        for d in (a, b):
+            torch.cuda.synchronize(d)
+        for chunk in range(4):
+            spin = (0, 100_000, 1_000_000, 4_000_000)[(epoch + chunk) % 4]
+            value = float(100 * epoch + chunk)
+            with torch.cuda.device(a), torch.cuda.stream(sa):
+                if spin:
+                    torch.cuda._sleep(spin)
+                torch.add(pattern, value, out=src)
+                kernels.peer_post(words, chunk % 2, chunk)
+            with torch.cuda.device(b), torch.cuda.stream(sb):
+                kernels.peer_wait([(words, chunk % 2, chunk)], mine)
+                kernels.peer_pull(dst, src)
+            for d in (a, b):
+                torch.cuda.synchronize(d)
+            wrong += int((dst != want + value).sum())
+            rounds += 1
+    assert rounds == 48 and wrong == 0
+
+
 @pytest.mark.parametrize("kw", [dict(), dict(stale_consensus=True),
                                 dict(comm_precision="bf16", stale_consensus=True)],
                          ids=["fresh", "stale", "bf16-wire-stale"])
