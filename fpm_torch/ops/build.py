@@ -185,7 +185,7 @@ _SIGNATURES = {
         "fpm_consensus_tile_object": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                       _P, _P, _I, _P, _I, _I, _I, _P, _IP],
         "fpm_consensus_tile_pupil": [_P, _P, _I, _P, _U, _P, _P, _I, _P, _I, _P, _P, _P, _F,
-                                     _I, _I, _I, _P, _IP]},
+                                     _I, _I, _I, _I, _P, _IP]},
     "epry_peer": {"fpm_enable_peer_access": [_I, _I],
                   "fpm_peer_epoch": [_P, _I, _P, _IP],
                   "fpm_peer_post": [_P, _I, _I, _I, _P, _IP],

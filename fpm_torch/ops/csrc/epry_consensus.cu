@@ -33,7 +33,8 @@
 // half on the bf16 wire), O read and O' written once; the pupil's L payloads
 // and the state are b·b·8 bytes each. No operation count comes near. What
 // the design does about it (fpm_consensus_led, C1, and
-// fpm_consensus_tile_object, C2; the host's plan is kernels.consensus_plan):
+// fpm_consensus_tile_object, C2, with the host's plan
+// kernels.consensus_plan; C3 last):
 //   * Each thread of the object phase takes kPerThread elements of a plane:
 //     one 16-byte chunk (float4 of f32, 8 bytes of bf16) where NL is a
 //     multiple of 4 and every plane is aligned (the vector path), else four
@@ -65,9 +66,20 @@
 //     object blocks, which wait on nothing, so the grid shares the card with
 //     the next chunk's cooperative K3 under the stale consensus (a
 //     cooperative grid would wait until all of its blocks fit).
-// fpm_consensus_tile_pupil (C3) is the pmax's max over the tiles' maxima in
-// tile order, then the pupil step and the metric sums of the (led, tile)
-// group, an element a thread.
+//   * C3 (fpm_consensus_tile_pupil) is the pmax's max over the tiles' maxima
+//     in tile order, then the pupil step and the metric sums of the (led,
+//     tile) group. Its blocks run the body of C1's pupil blocks
+//     (pupil_body) at kPupilPerThread elements a thread (1: 2 and 4 were
+//     slower from a peer and on one card; C1's pupil blocks take
+//     kPerThread). A block starts every load before it uses
+//     any: in thread 0 the tile maxima, in the grid's first thread the
+//     sweep's sums and the metric payloads, in every thread the first
+//     kRankBatch ranks' numerators and P; so it waits about one round trip
+//     (over NVLink where the payloads are peers'), and no load follows the
+//     grid's work. The max is thread 0's, handed to its block by one
+//     barrier. The host's plan (kernels.pupil_plan) covers b² once, which
+//     the C entry checks; no scratch and no wait, so C3 too fits beside the
+//     next chunk's K3.
 
 #include <c10/util/complex.h>
 
@@ -77,9 +89,9 @@
 
 namespace fpm {
 
-constexpr int kConsensusThreads = 256;   // C1's and C2's
-constexpr int kPupilThreads = 512;       // C3's
+constexpr int kConsensusThreads = 256;   // threads a block, C1-C3
 constexpr int kPerThread = 4;    // elements of a plane a thread takes (C1, C2)
+constexpr int kPupilPerThread = 1;   // C3's (kernels.PUPIL_PER_THREAD)
 constexpr int kRankBatch = 4;    // ranks of a group whose loads a thread starts together
 constexpr int kMaxRanks = 32;    // payloads of one reduction
 constexpr int kMaxTiles = 8;     // row tiles of one card, and tiles of one group
@@ -191,21 +203,6 @@ __device__ __forceinline__ float wire_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// Payload r's element i as the sum takes it: on the bf16 wire an f32 value
-// is rounded to bf16 first (C3's pupil step, an element a thread).
-__device__ __forceinline__ float payload_at(const Payloads& l, int r, size_t i, bool wire) {
-  if ((l.bf16 >> r) & 1u) return __bfloat162float(static_cast<const __nv_bfloat16*>(l.p[r])[i]);
-  const float x = static_cast<const float*>(l.p[r])[i];
-  return wire ? wire_round(x) : x;
-}
-
-// Σ_r payload_r[i], in rank order.
-__device__ __forceinline__ float rank_sum(const Payloads& l, size_t i, bool wire) {
-  float acc = payload_at(l, 0, i, wire);
-  for (int r = 1; r < l.count; ++r) acc = acc + payload_at(l, r, i, wire);
-  return acc;
-}
-
 // W consecutive elements of one payload as loaded: W f32 words, or W bf16
 // values in the low then high halves of W / 2 words (one word's low half
 // for W = 1).
@@ -233,7 +230,7 @@ __device__ __forceinline__ void load_raw(Raw<W>& x, const void* p, unsigned i, b
   }
 }
 
-// Element k of ``x`` as the sum takes it (payload_at's value): a bf16 value
+// Element k of ``x`` as the sum takes it: a bf16 value
 // widened exactly, an f32 value rounded to bf16 on the wire.
 template <int W, bool Wire>
 __device__ __forceinline__ float raw_value(const Raw<W>& x, int k, bool bf16) {
@@ -345,18 +342,54 @@ __device__ __forceinline__ cfloat pupil_at(const Pupil& a, float vr, float vi, f
 }
 
 // The metric sums' operands: the sweep's sums so far and the psums of the
-// metric payloads (read by one thread; ``metrics`` 0: none).
+// metric payloads (read by one thread; ``metrics`` 0: none), f32 values
+// added in rank order. load_metrics starts the loads of the sums so far and
+// of the first kRankBatch ranks' payloads; sum_metrics adds them, and the
+// later ranks' batch by batch.
 struct Metrics {
   float acc[2], sum[2];
 };
 
-__device__ __forceinline__ Metrics read_metrics(const Pupil& a) {
-  Metrics m{};
-  if (a.metrics) {
-    m.acc[0] = a.acc_in ? a.acc_in[0] : 0.f;
-    m.acc[1] = a.acc_in ? a.acc_in[1] : 0.f;
-    m.sum[0] = rank_sum(a.resid, 0, false);
-    m.sum[1] = rank_sum(a.upd, 0, false);
+struct MetricLoads {
+  float acc[2], x[2][kRankBatch];
+};
+
+__device__ __forceinline__ void metric_batch(float (&x)[2][kRankBatch], const Pupil& a, int r0) {
+#pragma unroll
+  for (int k = 0; k < kRankBatch; ++k)
+    if (r0 + k < a.resid.count) {
+      x[0][k] = *static_cast<const float*>(a.resid.p[r0 + k]);
+      x[1][k] = *static_cast<const float*>(a.upd.p[r0 + k]);
+    }
+}
+
+__device__ __forceinline__ MetricLoads load_metrics(const Pupil& a) {
+  MetricLoads l{};
+  if (!a.metrics) return l;
+  l.acc[0] = a.acc_in ? a.acc_in[0] : 0.f;
+  l.acc[1] = a.acc_in ? a.acc_in[1] : 0.f;
+  metric_batch(l.x, a, 0);
+  return l;
+}
+
+__device__ __forceinline__ Metrics sum_metrics(const Pupil& a, const MetricLoads& l) {
+  Metrics m{{l.acc[0], l.acc[1]}, {}};
+  if (!a.metrics) return m;
+  float x[2][kRankBatch];
+  for (int r0 = 0; r0 < a.resid.count; r0 += kRankBatch) {
+    if (r0 == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int k = 0; k < kRankBatch; ++k) x[i][k] = l.x[i][k];
+    } else {
+      metric_batch(x, a, r0);
+    }
+#pragma unroll
+    for (int k = 0; k < kRankBatch; ++k)
+      if (r0 + k < a.resid.count)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) m.sum[i] = r0 + k == 0 ? x[i][k] : m.sum[i] + x[i][k];
   }
   return m;
 }
@@ -509,14 +542,61 @@ __device__ float object_phase(const Tiles& a, int t) {
   return m;
 }
 
-// C1's pupil block ``p`` of the grid's last ones: loads and adds its
-// pupil elements' numerators and P, waits until ``blocks`` object blocks
-// have arrived, reads max|O'|, and makes the pupil step; block 0 writes
-// max|O'| and the metric sums; the last block to leave puts ``sync`` back to 0.
-template <bool Wire>
-__device__ void pupil_block(const Pupil& a, unsigned* sync, int blocks) {
-  constexpr int U = kPerThread;
-  const int p = blockIdx.x - blocks, n_pupil = gridDim.x - blocks;
+// How C1's pupil blocks obtain max|O'|: thread 0 polls (ld.acquire) until
+// the ``blocks`` object blocks have arrived and reads their max; each
+// pupil block arrives again as it leaves, and the last one to leave puts
+// ``sync`` back to 0.
+struct ArrivedMax {
+  unsigned* sync;
+  int blocks, n_pupil;
+
+  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ float get() const {
+    const long long t0 = global_ns();
+    while (ld_acquire(sync + kArrived) < (unsigned)blocks)
+      if (global_ns() - t0 > kWaitTimeoutNs) __trap();
+    return __uint_as_float(ld_relaxed(sync + kMaxBits));
+  }
+  // Thread 0 leaves before its stores, which its release would wait for.
+  __device__ __forceinline__ void leave() const {
+    if (add_release(sync + kArrived, 1) == (unsigned)(blocks + n_pupil - 1)) {
+      sync[kArrived] = 0;   // every block has read both words
+      sync[kMaxBits] = 0;
+    }
+  }
+};
+
+// How C3's blocks obtain max|O'|: thread 0 starts the loads of the first
+// kMaxTiles tile maxima with the block's other loads, and after the sums
+// takes their nan_max in tile order (more maxima, rarely: loaded then).
+struct TileMaxima {
+  const Payloads& m;
+  float x[kMaxTiles];
+
+  __device__ __forceinline__ void start() {
+#pragma unroll
+    for (int t = 0; t < kMaxTiles; ++t)
+      if (t < m.count) x[t] = *static_cast<const float*>(m.p[t]);
+  }
+  __device__ __forceinline__ float get() const {
+    float v = x[0];
+#pragma unroll
+    for (int t = 1; t < kMaxTiles; ++t)
+      if (t < m.count) v = nan_max(v, x[t]);
+    for (int t = kMaxTiles; t < m.count; ++t) v = nan_max(v, *static_cast<const float*>(m.p[t]));
+    return v;
+  }
+  __device__ __forceinline__ void leave() const {}
+};
+
+// Pupil block ``p`` (of C1's last blocks, or of C3's grid), U elements of
+// the pupil a thread: starts the loads of ``omax_of`` (thread 0), of the
+// metric operands (the ``writer`` thread), of the first kRankBatch ranks'
+// numerators and of P before it uses any; the sums; thread 0 obtains
+// max|O'| from ``omax_of`` and one barrier hands it to the block; the
+// pupil step, stored; the writer writes max|O'| and the metric sums.
+template <int U, bool Wire, class Max>
+__device__ __forceinline__ void pupil_body(const Pupil& a, int p, bool writer, Max& omax_of) {
   unsigned at[U];
   bool ok[U];
 #pragma unroll
@@ -524,6 +604,8 @@ __device__ void pupil_block(const Pupil& a, unsigned* sync, int blocks) {
     at[u] = (p * U + u) * kConsensusThreads + threadIdx.x;
     ok[u] = at[u] < (unsigned)a.bb;
   }
+  if (threadIdx.x == 0) omax_of.start();
+  const MetricLoads ml = writer ? load_metrics(a) : MetricLoads{};
   Loads<U, 1> x;
   load_ranks<U, 1, kMixed>(x, a.v, 0, at, a.bb, ok);
   float pr[U], pi[U];
@@ -533,18 +615,12 @@ __device__ void pupil_block(const Pupil& a, unsigned* sync, int blocks) {
       pr[u] = a.pc[at[u]];
       pi[u] = a.pc[a.bb + at[u]];
     }
-  const bool writer = p == 0 && threadIdx.x == 0;
-  const Metrics mets = writer ? read_metrics(a) : Metrics{};
+  const Metrics mets = writer ? sum_metrics(a, ml) : Metrics{};
   float vr[U][1], vi[U][1];
   group_sum<U, 1, kMixed, Wire>(vr, vi, x, a.v, at, a.bb, ok);
   FPM_MARK(kMarkApply);
   __shared__ float omax_s;
-  if (threadIdx.x == 0) {
-    const long long t0 = global_ns();
-    while (ld_acquire(sync + kArrived) < (unsigned)blocks)
-      if (global_ns() - t0 > kWaitTimeoutNs) __trap();
-    omax_s = __uint_as_float(ld_relaxed(sync + kMaxBits));
-  }
+  if (threadIdx.x == 0) omax_s = omax_of.get();
   __syncthreads();
   const float omax = omax_s;
   FPM_MARK(kMarkTicket);
@@ -552,12 +628,7 @@ __device__ void pupil_block(const Pupil& a, unsigned* sync, int blocks) {
 #pragma unroll
   for (int u = 0; u < U; ++u)
     if (ok[u]) q[u] = pupil_at(a, vr[u][0], vi[u][0], pr[u], pi[u], omax);
-  // Thread 0 leaves before its stores, which its release would wait for.
-  if (threadIdx.x == 0
-      && add_release(sync + kArrived, 1) == (unsigned)(blocks + n_pupil - 1)) {
-    sync[kArrived] = 0;   // every block has read both words
-    sync[kMaxBits] = 0;
-  }
+  if (threadIdx.x == 0) omax_of.leave();
 #pragma unroll
   for (int u = 0; u < U; ++u)
     if (ok[u]) {
@@ -575,7 +646,9 @@ consensus_led(Tiles a, Pupil pu, unsigned* sync, int blocks) {
   __shared__ float red[kConsensusThreads / 32];
   FPM_MARK(kMarkStart);
   if ((int)blockIdx.x >= blocks) {
-    pupil_block<Wire>(pu, sync, blocks);
+    ArrivedMax omax_of{sync, blocks, (int)gridDim.x - blocks};
+    const int p = blockIdx.x - blocks;
+    pupil_body<kPerThread, Wire>(pu, p, p == 0 && threadIdx.x == 0, omax_of);
     return;
   }
   const float m = block_nan_max(object_phase<U, W, P, Wire>(a, 0), red);
@@ -610,20 +683,14 @@ consensus_tile_object(Tiles a, unsigned* sync) {
   FPM_MARK_IF(last, kMarkTail);
 }
 
-// C3, an element a thread.
-__global__ void __launch_bounds__(kPupilThreads)
+// C3: the plan's blocks, kPupilPerThread pupil elements a thread.
+template <bool Wire>
+__global__ void __launch_bounds__(kConsensusThreads)
 consensus_tile_pupil(Pupil pu, Payloads maxima) {
-  float omax = static_cast<const float*>(maxima.p[0])[0];
-  for (int t = 1; t < maxima.count; ++t)   // the pmax over the tile axis, in tile order
-    omax = nan_max(omax, static_cast<const float*>(maxima.p[t])[0]);
-  const int tid = blockIdx.x * blockDim.x + threadIdx.x, threads = gridDim.x * blockDim.x;
-  for (int e = tid; e < pu.bb; e += threads) {
-    const cfloat q = pupil_at(pu, rank_sum(pu.v, e, pu.wire), rank_sum(pu.v, (size_t)pu.bb + e,
-                              pu.wire), pu.pc[e], pu.pc[pu.bb + e], omax);
-    pu.pc_out[e] = q.real();
-    pu.pc_out[pu.bb + e] = q.imag();
-  }
-  if (tid == 0) write_scalars(pu, read_metrics(pu), omax);
+  FPM_MARK(kMarkStart);
+  TileMaxima omax_of{maxima, {}};
+  pupil_body<kPupilPerThread, Wire>(pu, blockIdx.x, blockIdx.x == 0 && threadIdx.x == 0,
+                                    omax_of);
 }
 
 inline int set_payloads(Payloads* l, const void* const* p, unsigned bf16, int count) {
@@ -692,6 +759,14 @@ void launch_led(int grid, cudaStream_t stream, const Tiles& a, const Pupil& pu, 
 template <int U, int W, int P, bool Wire>
 void launch_tile_object(dim3 grid, cudaStream_t stream, const Tiles& a, unsigned* sync) {
   consensus_tile_object<U, W, P, Wire><<<grid, kConsensusThreads, 0, stream>>>(a, sync);
+}
+
+// C3's plan: ``blocks`` blocks of kConsensusThreads threads,
+// kPupilPerThread elements each, cover the ``bb`` elements once (no block
+// without one).
+inline bool pupil_plan_ok(int bb, int blocks) {
+  const long long per_block = (long long)kConsensusThreads * kPupilPerThread;
+  return blocks >= 1 && blocks * per_block >= bb && (blocks - 1) * per_block < bb;
 }
 
 // A launcher's instantiations, [vector][pattern][wire]: the scalar path
@@ -808,14 +883,15 @@ extern "C" int fpm_consensus_tile_object(const void* const* src, const unsigned*
 
 // Tile axis, second launch: the (led, tile) group's pupil consensus, with
 // max|O'| the max of ``n_maxima`` tile maxima (one f32 each, tile order);
-// the arguments as fpm_consensus_led's.
+// the arguments as fpm_consensus_led's, and the plan (kernels.pupil_plan):
+// ``blocks`` blocks, refused unless they cover the b² elements once.
 extern "C" int fpm_consensus_tile_pupil(const float* pc, float* pc_out, int b,
                                         const void* const* v, unsigned v_bf16,
                                         const void* const* resid, const void* const* upd,
                                         int count, const void* const* maxima, int n_maxima,
                                         const float* acc_in, float* acc_out, float* omax_out,
-                                        float scale, int wire, int metrics, int device,
-                                        void* stream, int* launches) {
+                                        float scale, int wire, int metrics, int blocks,
+                                        int device, void* stream, int* launches) {
   using namespace fpm;
   const DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
@@ -825,8 +901,9 @@ extern "C" int fpm_consensus_tile_pupil(const float* pc, float* pc_out, int b,
     return e;
   Payloads m;
   if (const int e = set_payloads(&m, maxima, 0u, n_maxima)) return e;
-  const int blocks = imax(1, (b * b + kPupilThreads - 1) / kPupilThreads);
-  consensus_tile_pupil<<<blocks, kPupilThreads, 0, static_cast<cudaStream_t>(stream)>>>(pu, m);
+  if (!pupil_plan_ok(b * b, blocks)) return (int)cudaErrorInvalidValue;
+  const auto kernel = wire ? consensus_tile_pupil<true> : consensus_tile_pupil<false>;
+  kernel<<<blocks, kConsensusThreads, 0, static_cast<cudaStream_t>(stream)>>>(pu, m);
   return (int)count_launch(launches);
 }
 

@@ -26,7 +26,23 @@
 //                   after sweep), so "at least" also holds for a post that
 //                   is further on. Every card's epoch is bumped once a
 //                   sweep, so a card's epoch is its peers' while the sweep
-//                   runs.
+//                   runs. A thread starts the load of the epoch and the
+//                   first load of its flag together and compares once both
+//                   have arrived, so a flag already posted costs one round
+//                   trip; an unmet flag it polls with kPauseNs between
+//                   polls (3 µs of polls without a pause, then 32-64 ns
+//                   pauses, woke it no sooner, on this card or from a
+//                   peer, and moved no sweep: PERF.md §6).
+//                   A thread leaves when its flag is met: no barrier, since
+//                   the kernel's end, which the guarded step waits for in
+//                   stream order, is every thread's. The count, the
+//                   epoch's address and the first threads' flags and chunks
+//                   share one line of the constant cache, which a thread
+//                   reads before its loads (the count first, uniform, so
+//                   the threads past it never read a flag: an indexed read
+//                   by all 32 took 0.47 µs more; three lines, the count's,
+//                   the addresses' and the chunks', 0.07-0.09 µs more than
+//                   one: PERF.md §6).
 //   fpm_peer_pull   the forward halo: the receiving card copies the rows of
 //                   the peer's state into its own buffer, behind a wait.
 //
@@ -54,6 +70,15 @@
 // value (or a later one of the same word, which only grows) synchronizes
 // with the pattern, so every later read of the waiting card, the reads of
 // the step that the wait guards on its stream included, sees those writes.
+// In the wait every load of the flag is that ld.acquire.sys: the first,
+// started with the epoch's, and each poll after it; whichever of them
+// reads a value at least the one awaited is the acquire that synchronizes.
+// The epoch's load (ld.global.cg, this card's word, written by P1 earlier
+// on the stream or on one the sweep's events order before it) comes first
+// in program order, and an acquire orders only what follows it, so the two
+// loads are in flight at once. The wait's reads that follow the acquire are
+// none of its own: they are the guarded step's, in the next kernel on the
+// stream, which stream order puts after every thread of the wait.
 // The post was once a fence.sc.sys before a st.release.sys: two
 // system-scope orderings, of which the second orders nothing the first does
 // not (the sc fence is for sequential consistency between fences, which no
@@ -97,15 +122,24 @@ namespace fpm {
 
 constexpr int kMaxWaits = 32;                           // flags one wait polls
 constexpr long long kWaitTimeoutNs = 20LL * 1000 * 1000 * 1000;
+constexpr unsigned kPauseNs = 100;           // between a wait's polls
 enum PullPath { kPathScalar = 0, kPathVector = 1 };     // kernels.PULL_PATHS
 constexpr int kPerLane = 8;                  // loads a lane holds before it stores
 
 using u64 = unsigned long long;
 
+// A wait's launch parameters: this card's epoch word, the count of its
+// flags, then each flag and the awaited step's chunk + 1, so the first
+// threads' reads of them share one line of the constant cache.
+struct Wait {
+  const u64* flag;
+  u64 chunk1;
+};
+
 struct Waits {
-  const u64* flag[kMaxWaits];
-  u64 chunk1[kMaxWaits];     // the awaited step's chunk + 1
+  const u64* epoch;
   int count;
+  Wait wait[kMaxWaits];
 };
 
 __device__ __forceinline__ u64 load_acquire_sys(const u64* p) {
@@ -114,8 +148,14 @@ __device__ __forceinline__ u64 load_acquire_sys(const u64* p) {
   return v;
 }
 
-__device__ __forceinline__ void store_release_sys(u64* p, u64 v) {
-  asm volatile("st.release.sys.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+// The epoch's load (L2, this card's word) and the flag's first acquire
+// load, both started before either is used.
+__device__ __forceinline__ void load_epoch_and_flag(const u64* epoch, const u64* flag, u64& e,
+                                                    u64& f) {
+  asm volatile(
+      "ld.global.cg.u64 %0, [%2];\n\t"
+      "ld.acquire.sys.global.u64 %1, [%3];"
+      : "=l"(e), "=l"(f) : "l"(epoch), "l"(flag) : "memory");
 }
 
 __device__ __forceinline__ long long global_ns() {
@@ -168,17 +208,19 @@ __global__ void peer_post(u64* words, int slot, int chunk) {
                : "memory");
 }
 
-__global__ void __launch_bounds__(kMaxWaits) peer_wait(Waits w, const u64* epoch) {
-  const int t = threadIdx.x;
-  if (t < w.count) {
-    const u64 want = (__ldcg(epoch) << 32) | w.chunk1[t];
-    const long long t0 = global_ns();
-    while (load_acquire_sys(w.flag[t]) < want) {
-      __nanosleep(100);
-      if (global_ns() - t0 > kWaitTimeoutNs) __trap();
-    }
+__global__ void __launch_bounds__(kMaxWaits) peer_wait(Waits w) {
+  if ((int)threadIdx.x >= w.count) return;
+  const Wait mine = w.wait[threadIdx.x];
+  const u64* const flag = mine.flag;
+  u64 e, f;
+  load_epoch_and_flag(w.epoch, flag, e, f);
+  const u64 want = (e << 32) | mine.chunk1;
+  if (f >= want) return;
+  const long long t0 = global_ns();
+  while (load_acquire_sys(flag) < want) {
+    __nanosleep(kPauseNs);
+    if (global_ns() - t0 > kWaitTimeoutNs) __trap();
   }
-  __syncthreads();
 }
 
 // dst (planes, rows, w) contiguous ← src's view at strides (plane_stride,
@@ -264,15 +306,12 @@ extern "C" int fpm_peer_wait(const void* const* flags, const int* chunks, int co
   if (count < 1 || count > kMaxWaits) return (int)cudaErrorInvalidValue;
   const DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
-  Waits w{};
+  Waits w{static_cast<const u64*>(epoch), count, {}};
   for (int i = 0; i < count; ++i) {
     if (chunks[i] < 0) return (int)cudaErrorInvalidValue;
-    w.flag[i] = static_cast<const u64*>(flags[i]);
-    w.chunk1[i] = (u64)(chunks[i] + 1);
+    w.wait[i] = Wait{static_cast<const u64*>(flags[i]), (u64)chunks[i] + 1};
   }
-  w.count = count;
-  peer_wait<<<1, kMaxWaits, 0, static_cast<cudaStream_t>(stream)>>>(
-      w, static_cast<const u64*>(epoch));
+  peer_wait<<<1, kMaxWaits, 0, static_cast<cudaStream_t>(stream)>>>(w);
   return (int)count_launch(launches);
 }
 

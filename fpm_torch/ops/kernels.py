@@ -1133,15 +1133,20 @@ def consensus_led_plain(o, pc, ds, vs, resid=(), upd=(), acc=None, *, wire=None,
 # scratch words a tile (kSyncWords: blocks arrived, the max's bits).
 CONSENSUS_MAX_TILES, CONSENSUS_MAX_RANKS = 8, 32
 CONSENSUS_THREADS, CONSENSUS_PER_THREAD = 256, 4
+# C3's elements of the pupil a thread (``pupil_plan``; kPupilPerThread
+# there): 1, faster than 2 and 4 from a peer's payloads and on one card
+# (H100s, scripts/kernel_profile.py --kernel C3).
+PUPIL_PER_THREAD = 1
 CONSENSUS_SYNC_WORDS = 2
 
 
 class ConsensusPlan(NamedTuple):
-    """The launch of :func:`consensus_led` (C1) or
-    :func:`consensus_tile_object` (C2): ``blocks`` object blocks (a tile,
-    C2's grid ``(blocks, tiles)``), then ``pupil_blocks`` (C1's, 0 for C2)
-    of ``threads`` threads, ``per_thread`` elements of a plane each; the
-    vector path (16-byte loads and stores) or the scalar one."""
+    """The launch of :func:`consensus_led` (C1), :func:`consensus_tile_object`
+    (C2) or :func:`consensus_tile_pupil` (C3): ``blocks`` object blocks (a
+    tile, C2's grid ``(blocks, tiles)``; 0 for C3), then ``pupil_blocks``
+    (C1's and C3's, 0 for C2) of ``threads`` threads, ``per_thread``
+    elements of a plane each; the vector path (16-byte loads and stores) or
+    the scalar one (C3: neither, a pupil element a load)."""
     blocks: int
     pupil_blocks: int
     threads: int
@@ -1160,6 +1165,16 @@ def consensus_plan(elements: int, *, aligned: bool, nl: int, pupil: int = 0) -> 
     return ConsensusPlan(blocks=max(1, -(-elements // per_block)),
                          pupil_blocks=-(-pupil // per_block), threads=CONSENSUS_THREADS,
                          per_thread=CONSENSUS_PER_THREAD, vector=aligned and nl % 4 == 0)
+
+
+def pupil_plan(pupil: int) -> ConsensusPlan:
+    """The launch of :func:`consensus_tile_pupil` (C3) for ``pupil`` = b²
+    elements: ``pupil_blocks`` blocks of CONSENSUS_THREADS threads,
+    PUPIL_PER_THREAD elements each, every element taken once and no block
+    without one (the C entry refuses any other grid)."""
+    per_block = CONSENSUS_THREADS * PUPIL_PER_THREAD
+    return ConsensusPlan(blocks=0, pupil_blocks=-(-pupil // per_block),
+                         threads=CONSENSUS_THREADS, per_thread=PUPIL_PER_THREAD, vector=False)
 
 
 def _aligned(ts) -> bool:
@@ -1312,7 +1327,8 @@ def _consensus_tile_object_cuda(blocks, *, s, hops, wire, scratch, out, lib=None
     return outs
 
 
-def _consensus_tile_pupil_cuda(pc, vs, maxima, resid, upd, acc, *, wire, scale, metrics, out):
+def _consensus_tile_pupil_cuda(pc, vs, maxima, resid, upd, acc, *, wire, scale, metrics, out,
+                               lib=None):
     dev = pc.device
     _check_state(dev, pc, *(() if acc is None else (acc,)))
     v, v_bf16 = _payload_list(vs, pc.shape, dev, "pupil increments")
@@ -1321,13 +1337,14 @@ def _consensus_tile_pupil_cuda(pc, vs, maxima, resid, upd, acc, *, wire, scale, 
     pc_out, omax, acc_out = out or _empty(dev, pc.shape, (), (2,))
     _check_out(dev, (pc_out, pc.shape), (omax, ()), (acc_out if metrics else None, (2,)))
     acc_out = acc_out if metrics else None
-    lib = build.library("epry_consensus")
+    plan = pupil_plan(pc[0].numel())
+    lib = lib or build.library("epry_consensus")
     launched = ctypes.c_int(0)
     err = lib.fpm_consensus_tile_pupil(
         pc.data_ptr(), pc_out.data_ptr(), pc.shape[-1], v, v_bf16, r, u, len(vs), m,
         len(maxima), None if acc is None else acc.data_ptr(),
         None if acc_out is None else acc_out.data_ptr(), omax.data_ptr(), scale,
-        int(wire is not None), int(metrics), dev.index,
+        int(wire is not None), int(metrics), plan.pupil_blocks, dev.index,
         _current_stream(dev), ctypes.byref(launched))
     _count(consensus_tile_pupil, launched)
     build.check(lib, err, "consensus_tile_pupil")
@@ -1378,8 +1395,8 @@ def consensus_tile_pupil(pc, vs, maxima, resid=(), upd=(), acc=None, *, wire=Non
     """The tile axis's pupil step of one chunk on one card: ``maxima`` the
     tiles' max|O| in tile order (what the pmax gathered), the rest as
     :func:`consensus_led`'s. Returns ``(pc', max|O|, acc')``, or ``out``. On
-    the card one launch on the current stream; on the CPU
-    :func:`consensus_tile_pupil_plain`."""
+    the card one launch on the current stream as :func:`pupil_plan` plans
+    it; on the CPU :func:`consensus_tile_pupil_plain`."""
     if pc.is_cuda:
         return _consensus_tile_pupil_cuda(pc, vs, maxima, resid, upd, acc, wire=wire,
                                           scale=scale, metrics=metrics, out=out)
@@ -1391,14 +1408,16 @@ def consensus_tile_pupil(pc, vs, maxima, resid=(), upd=(), acc=None, *, wire=Non
 
 def consensus_phase_profile(kernel: str, *args, **kw):
     """A measurement aid: one call of :func:`consensus_led` (``kernel``
-    "C1") or :func:`consensus_tile_object` ("C2") on the card through the
+    "C1"), :func:`consensus_tile_object` ("C2") or
+    :func:`consensus_tile_pupil` ("C3") on the card through the
     stamping build of ``csrc/epry_consensus.cu`` (``build.profile_library``;
     the wrappers never load it), every argument of the wrapper's CUDA path
     given (``scratch`` and ``out`` too). Returns the call's outputs, bitwise
     the wrapper's, and for each block that ran ``{mark: (global ns, SM
     cycles)}`` of the marks it reached (``FPM_CONSENSUS_MARKS``). Waits
     for the card."""
-    fn = {"C1": _consensus_led_cuda, "C2": _consensus_tile_object_cuda}[kernel]
+    fn = {"C1": _consensus_led_cuda, "C2": _consensus_tile_object_cuda,
+          "C3": _consensus_tile_pupil_cuda}[kernel]
     lib = build.profile_library("epry_consensus")
     marks = [lib.fpm_phase_name(i).decode() for i in range(lib.fpm_phase_count())]
     n = CONSENSUS_MAX_TILES * 1024          # the build's records (kRecords), a block each

@@ -358,8 +358,8 @@ def one_process_turns(parent, gpu) -> None:
     over the four cards of ``parent`` and of this checkout in turns
     (parent, this, this, parent; ``scripts/process_sweeps.py
     --one-process``, a process each): for each mesh and consensus, ms a
-    sweep of the host loop and of the replayed graph (a median of 3 rounds
-    of 10 sweeps), the host's enqueue ms of a replay, and for this
+    sweep of the host loop and of the replayed graph (medians of 3 and of
+    15 rounds of 10 sweeps), the host's enqueue ms of a replay, and for this
     checkout its route and edges between cards."""
     here = os.path.dirname(os.path.abspath(__file__))
     script = os.path.join(here, "scripts", "process_sweeps.py")

@@ -5,8 +5,8 @@ in one or two checkouts.
 Run from the root of this checkout, on a machine with one CUDA card:
 
     python3 scripts/kernel_profile.py [--kernel K2] [--other DIR] [--out FILE]
-    python3 scripts/kernel_profile.py --kernel C1|C2 [--shapes mono dog] [--other DIR]
-    python3 scripts/kernel_profile.py --kernel P4|P2 [--shapes mono dog] [--other DIR]
+    python3 scripts/kernel_profile.py --kernel C1|C2|C3 [--shapes mono dog] [--other DIR]
+    python3 scripts/kernel_profile.py --kernel P4|P3|P2 [--shapes mono dog] [--other DIR]
     python3 scripts/kernel_profile.py --kernel K1 [--shapes mono dog]
         [--cs 0 1 2 4 8] [--tiers bf16x3 highest] [--chunks 15 30]
         [--z-layout 0] [--other DIR] [--out FILE]
@@ -44,6 +44,36 @@ has the stamping build (``kernels.consensus_phase_profile``), ``stamped``:
 the median over STAMPED calls of each block's µs in its payload sums and
 apply, its fence and ticket and the tail, and the grid's timeline on the
 card's global clock (``stamp_summary``).
+
+``--kernel C3``: the tile axis's pupil step (``kernels.consensus_tile_pupil``)
+of mesh (2,2) for each shape of ``--shapes`` (``mono``: bbox 64, ``dog``:
+bbox 112; 4 ranks' pupil and metric payloads, 2 tile maxima, the sweep's
+metric sums, seeded random f32), with its payloads and maxima on this card
+and, with two cards or more, on a peer card (peer access enabled):
+``device_us`` and ``event_us`` as P4's below, of the wrapper as the
+checkout plans it (with its plan where the checkout has
+``kernels.pupil_plan``), the result checked bitwise against
+``consensus_tile_pupil_plain``; ``stamped`` where the checkout's
+stamping build takes C3 (``consensus_phase_profile("C3", ...)``): the
+median over STAMPED calls of each block's µs in its pupil sums, in
+obtaining max|O| and in its step and stores, and the grid's timeline
+(``pupil_stamp_summary``); and an empty kernel (``fpm_launch_floor``).
+With four cards also ``in_sweep``: the one-process mesh (2,2) over the
+four cards, fresh and stale, replaying its captured sweep: card 0's C3
+in SWEEP_TRACES traces ungated and as
+many behind ``chip_smoke.gated_trace``'s gate, the mean and the median
+device ms a launch of each trace.
+
+``--kernel P3``: the wait (``kernels.peer_wait``) on one card in three
+cases: ``met``, its flag already posted, on this card and (two cards or
+more) on a peer card, ``device_us`` and ``event_us`` as above; and
+``woken``, a wait that starts with a spin of each of WAKE_DELAYS_US on
+another stream, then a post (both behind one gate): the µs from the post's
+end to the wait's end in the trace of WAKE_ROUNDS rounds (each round a
+chunk no earlier round posted), their median, least and largest, with the
+flag on this card and, with two cards, on a peer card (the post launched on
+this card, into the peer's flag block, so both ends are on one card's
+clock); beside them the epoch, the post and an empty kernel.
 
 ``--kernel P4``: the peer route's halo pull (``kernels.peer_pull``) of the
 forward halo of mesh (2,2) for each shape of ``--shapes`` (``mono``: the
@@ -418,6 +448,261 @@ def consensus_run(root: str, args) -> dict:
     return {"rows": rows}
 
 
+# C3 on mesh (2,2): the pupil payloads of the (led, tile) group's 4 ranks,
+# the 2 tiles' maxima.
+PUPIL_RANKS, PUPIL_MAXIMA = 4, 2
+SWEEP_TRACES = 3
+
+
+def pupil_inputs(shape: str, src, dev):
+    """C3's arguments for one chunk of mesh (2,2) on card ``dev``, at the
+    bbox of ``shape``, the payloads and maxima on card ``src``: seeded
+    random f32, metrics kept, the sweep's sums given. Returns (args,
+    keywords)."""
+    import numpy as np
+    import torch
+
+    b = CONSENSUS_SHAPES[shape][2]
+    r = np.random.default_rng(b)
+
+    def rnd(d, *shape_, scale=1.0):
+        return torch.from_numpy((r.standard_normal(shape_) * scale).astype(np.float32)).to(d)
+
+    pc = rnd(dev, 2, b, b)
+    vs = [rnd(src, 2, b, b, scale=0.1) for _ in range(PUPIL_RANKS)]
+    mets = [rnd(src, 2).abs() for _ in range(PUPIL_RANKS)]
+    maxima = [rnd(src, 1).abs().reshape(()) * 10 for _ in range(PUPIL_MAXIMA)]
+    acc = rnd(dev, 2).abs()
+    out = (torch.empty_like(pc), torch.empty((), device=dev), torch.empty(2, device=dev))
+    return ((pc, vs, maxima, [m[0] for m in mets], [m[1] for m in mets], acc),
+            dict(wire=None, scale=0.75, metrics=True, out=out))
+
+
+def forced_call(wrapper, plan, call):
+    """``call`` with ``wrapper.force_plan`` set to ``plan`` (None: as the
+    wrapper plans)."""
+    if plan is None:
+        return call
+
+    def forced():
+        wrapper.force_plan = plan
+        try:
+            call()
+        finally:
+            wrapper.force_plan = None
+    return forced
+
+
+def pupil_stamp_summary(records: list) -> dict:
+    """One stamped C3 call's blocks: µs a block (mean and max, SM cycles at
+    the clock the stamps give) in its pupil sums (start to "payload sums and
+    apply"), in obtaining max|O| ("fence and ticket") and in its step and
+    stores ("tail"); the grid's timeline on the card's global clock, µs from
+    the first block's start to the last block's start, sums, max and end."""
+    spans = [(r["tail"][1] - r["start"][1], r["tail"][0] - r["start"][0]) for r in records]
+    ghz = statistics.median(c / ns for c, ns in spans if ns > 0)
+    t0 = min(r["start"][0] for r in records)
+    out = {"blocks": len(records), "sm_ghz": ghz}
+    for name, a, b in (("sums_us", "start", "payload sums and apply"),
+                       ("max_us", "payload sums and apply", "fence and ticket"),
+                       ("step_us", "fence and ticket", "tail")):
+        got = [(r[b][1] - r[a][1]) / ghz / 1e3 for r in records]
+        out[name] = {"mean": statistics.mean(got), "max": max(got)}
+    out["timeline_us"] = {m: (max(r[k][0] for r in records) - t0) / 1e3 for m, k in (
+        ("last_start", "start"), ("last_sums", "payload sums and apply"),
+        ("last_max", "fence and ticket"), ("end", "tail"))}
+    return out
+
+
+def pupil_run(root: str, args) -> dict:
+    """The C3 rows (see the module's docstring)."""
+    import torch
+
+    from fpm_torch.ops import build, kernels
+
+    cards = torch.cuda.device_count()
+    new = hasattr(kernels, "pupil_plan")
+    wrapper = kernels.consensus_tile_pupil
+    d0 = torch.device("cuda", 0)
+    if cards > 1:
+        kernels.enable_peer_access(d0, torch.device("cuda", 1))
+    out: dict = {"cards": cards, "rows": []}
+    for shape in args.shapes:
+        b = CONSENSUS_SHAPES[shape][2]
+        for where in ["this card"] + (["peer"] if cards > 1 else []):
+            a, kw = pupil_inputs(shape, torch.device("cuda", 1 if where == "peer" else 0), d0)
+            want = kernels.consensus_tile_pupil_plain(
+                *[[t.to(d0) for t in x] if isinstance(x, list) else x for x in a],
+                **{k: v for k, v in kw.items() if k != "out"})
+            def call():
+                wrapper(*a, **kw)
+            row = {"shape": shape, "source": where, "call": "wrapper",
+                   "plan": kernels.pupil_plan(b * b)._asdict() if new else None}
+            call()
+            torch.cuda.synchronize(d0)
+            row["bitwise"] = all(torch.equal(x, y) for x, y in zip(kw["out"], want))
+            row.update(device_us(call, cards))
+            row["event_us"] = event_us(call)
+            if new:         # the same call through the stamping build
+                got = [pupil_stamp_summary(kernels.consensus_phase_profile("C3", *a, **kw)[1])
+                       for _ in range(STAMPED + 1)][1:]     # the first one warms
+                row["stamped"] = {k: _median_tree([g[k] for g in got]) for k in got[0]}
+            out["rows"].append(row)
+    empty = floor_call(build, d0)
+    if empty:
+        out["rows"].append({"call": "empty kernel", **device_us(empty, cards),
+                            "event_us": event_us(empty)})
+    if cards >= 4:
+        out["in_sweep"] = pupil_in_sweep()
+    return out
+
+
+def smoke_module():
+    """``chip_smoke.py`` of this checkout, as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("smoke", os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+def pupil_in_sweep() -> list:
+    """Card 0's C3 in the one-process (2,2) sweep over four cards, fresh
+    and stale: the mean and the median device ms a launch in each of SWEEP_TRACES
+    traces of one replay, ungated (``trace_overlap``) and behind the gate
+    (``gated_trace``)."""
+    import torch
+
+    from fpm_torch.parallel import graph, make_mesh
+
+    cs = smoke_module()
+    problem = cs.sharded_problem("mono")
+    rows = []
+    for stale in (False, True):
+        mesh = make_mesh(2, 2)
+        route, body = cs.prepared_sweep(problem, mesh, {}, stale)
+        captured = graph.SweepGraph(mesh, route, body)
+        ms, _, _ = cs.wall_ms(captured.replay)
+        row = {"stale": stale, "call": "wrapper", "wall_ms_per_sweep": ms,
+               "c3_per_sweep": captured.launches["consensus_tile_pupil"]}
+        for gated in (False, True):
+            got = []
+            for _ in range(SWEEP_TRACES):
+                traced = (cs.gated_trace(captured.replay, ms) if gated
+                          else cs.trace_overlap(captured.replay))
+                card = traced["by_card"].get(0, {})
+                got.append([card.get("kernel_ms", {}).get("consensus_tile_pupil"),
+                            card.get("kernel_ms_median", {}).get("consensus_tile_pupil")])
+            row["gated" if gated else "ungated"] = {
+                "mean_median_ms": got,
+                "median_of_medians_ms": statistics.median(m for _, m in got if m is not None)}
+        rows.append(row)
+        for d in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(d)
+    return rows
+
+
+# The woken wait's rounds and the post's delays: 2 µs, within the wait's
+# first polls (the peer route's waits spin 0.22-0.33 ms of a four-card
+# sweep over about 100 waits a card, 2-3 µs each), and 20 µs.
+WAKE_ROUNDS, WAKE_DELAYS_US = 50, (2, 20)
+
+
+def wake_us(post, wait, dev, delay_us: int) -> dict:
+    """WAKE_ROUNDS rounds in one profiler window, each a wait on stream B
+    of ``dev`` and, on stream A, a spin of ~``delay_us`` and a post
+    (``wait(k, B)`` and ``post(k, A)`` of round k's chunk), both streams
+    held behind one gate (a spin kernel and an event) until the host has
+    enqueued the round, so the wait and the spin start together: the µs
+    from each post kernel's end to its wait kernel's end."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    a, b, g = (torch.cuda.Stream(dev) for _ in range(3))
+    with torch.cuda.device(dev):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(PAD):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize(dev)
+            for k in range(WAKE_ROUNDS):
+                with torch.cuda.stream(g):
+                    torch.cuda._sleep(200_000)                 # ≥ 0.1 ms: the round's enqueue
+                    gate = torch.cuda.Event()
+                    gate.record()
+                b.wait_event(gate)
+                a.wait_event(gate)
+                with torch.cuda.stream(b):
+                    wait(k, b)
+                with torch.cuda.stream(a):
+                    torch.cuda._sleep(delay_us * 2000)         # ≥ the delay at ≤ 2 GHz
+                    post(k, a)
+                torch.cuda.synchronize(dev)
+    path = os.path.join(HERE, "build", "p3_wake.trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    os.unlink(path)
+
+    def ends(name):
+        return sorted(e["ts"] + e["dur"] for e in events if e.get("ph") == "X"
+                      and e.get("cat") == "kernel" and name in e["name"])
+
+    posts, waits = ends("peer_post"), ends("peer_wait")
+    lat = [w - p for p, w in zip(posts, waits)] if len(posts) == len(waits) else []
+    return {"delay_us": delay_us, "rounds": len(lat), "posts_traced": len(posts),
+            "waits_traced": len(waits),
+            "wake_us_median": statistics.median(lat) if lat else None,
+            "wake_us_min": min(lat) if lat else None, "wake_us_max": max(lat) if lat else None}
+
+
+def wait_run(root: str, args) -> dict:
+    """The P3 rows (see the module's docstring)."""
+    import ctypes
+
+    import torch
+
+    from fpm_torch.ops import build, kernels
+
+    cards = torch.cuda.device_count()
+    d0 = torch.device("cuda", 0)
+    words = kernels.flag_block(d0)          # card 0's block: its epoch, the flags here
+    blocks = {"this card": words}
+    if cards > 1:
+        kernels.enable_peer_access(d0, torch.device("cuda", 1))
+        blocks["peer"] = kernels.flag_block(torch.device("cuda", 1))
+    for block in blocks.values():           # every block at epoch 1
+        kernels.peer_epoch(block)
+    lib = build.library("epry_peer")
+    rows = []
+    for where, block in blocks.items():
+        def post(k, stream, block=block):   # launched on card 0, into the block's slot 1
+            launched = ctypes.c_int(0)
+            build.check(lib, lib.fpm_peer_post(block.data_ptr(), 1, k, 0, stream.cuda_stream,
+                                               ctypes.byref(launched)), "peer_post")
+
+        def wait(k, stream, block=block):
+            kernels.peer_wait([(block, 1, k)], words, stream=stream.cuda_stream)
+
+        kernels.peer_post(block, 0, 0)      # slot 0 posted by the block's own card
+        for d in range(cards):
+            torch.cuda.synchronize(d)
+        met = (lambda block=block: kernels.peer_wait([(block, 0, 0)], words))
+        rows.append({"case": "met", "source": where, **device_us(met, cards),
+                     "event_us": event_us(met)})
+        for n, delay in enumerate(WAKE_DELAYS_US):     # each delay's rounds on chunks of their own
+            rows.append({"case": f"woken {delay} us", "source": where,
+                         **wake_us(lambda k, st, n=n: post(n * WAKE_ROUNDS + k, st),
+                                   lambda k, st, n=n: wait(n * WAKE_ROUNDS + k, st), d0, delay)})
+    calls = {"peer_post": lambda: kernels.peer_post(words, 0, 0),
+             "peer_epoch": lambda: kernels.peer_epoch(words),
+             "empty kernel": floor_call(build, d0)}
+    for name, call in calls.items():
+        if call:
+            rows.append({"case": name, **device_us(call, cards), "event_us": event_us(call)})
+    return {"cards": cards, "rows": rows}
+
+
 # The forward halo of mesh (2,2) at each shape: (NL, Np), a (2, NL/2, NL)
 # tile whose first Np rows are pulled.
 PULL_SHAPES = {"mono": (360, 90), "dog": (600, 200)}
@@ -529,16 +814,7 @@ def stamping(build):
 def pull_call(kernels, dst, src, plan):
     """One pull of ``src`` into ``dst``: the wrapper as planned (``plan``
     None) or forced to ``plan``."""
-    if plan is None:
-        return lambda: kernels.peer_pull(dst, src)
-
-    def forced():
-        kernels.peer_pull.force_plan = plan
-        try:
-            kernels.peer_pull(dst, src)
-        finally:
-            kernels.peer_pull.force_plan = None
-    return forced
+    return forced_call(kernels.peer_pull, plan, lambda: kernels.peer_pull(dst, src))
 
 
 def pull_run(root: str, args) -> dict:
@@ -604,16 +880,12 @@ def pull_run(root: str, args) -> dict:
 def pull_in_sweep(new: bool) -> list:
     """Card 0's pull in the one-process (2,2) sweep over four cards, fresh
     and stale (see the module's docstring)."""
-    import importlib.util
-
     import torch
 
     from fpm_torch.ops import build, kernels
     from fpm_torch.parallel import graph, make_mesh
 
-    spec = importlib.util.spec_from_file_location("smoke", os.path.join(HERE, "chip_smoke.py"))
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
+    cs = smoke_module()
     problem = cs.sharded_problem("mono")
     rows = []     # stamped: every peer kernel from the profile build
     for stale in (False, True):
@@ -748,7 +1020,8 @@ def child(root: str, args) -> int:
 
     assert fpm_torch.__file__.startswith(root), fpm_torch.__file__
     os.makedirs(os.path.join(root, "build"), exist_ok=True)
-    res = {"K1": k1_run, "K2": k2_run, "P4": pull_run, "P2": post_run}.get(
+    res = {"K1": k1_run, "K2": k2_run, "C3": pupil_run, "P4": pull_run, "P3": wait_run,
+           "P2": post_run}.get(
         args.kernel, consensus_run)(root, args)
     print("RUN " + json.dumps(res), flush=True)
     return 0
@@ -781,19 +1054,22 @@ def side_by_side(kernel: str, runs: list) -> dict:
                                for t in ("bf16x3", "highest")},
             "bf16x3_by_phase": {ph: side(lambda r, ph=ph: r["k2_phase_profile"]["bf16x3"]
                                          ["by_phase"].get(ph)) for ph in phases}}
-    if kernel in ("P4", "P2"):
+    if kernel in ("C3", "P4", "P3", "P2"):
+        names = ("case", "shape", "source", "call")
+
         def key(row):
-            return tuple(row.get(k) for k in ("shape", "source", "call"))
+            return tuple(row.get(k) for k in names)
         sides: dict = {}
         for name, rs in by.items():
             for r in rs:
                 for row in r["rows"]:
-                    if "device_us" in row:
+                    if "device_us" in row or "wake_us_median" in row:
                         sides.setdefault(key(row), {"other": [], "this": []})[name].append(
-                            [row["device_us"], row["event_us"]])
-        out = {"device_us_event_us": [dict(zip(("shape", "source", "call"), k), **v)
-                                      for k, v in sides.items()]}
-        if kernel == "P4":
+                            [row.get("device_us"), row.get("event_us")]
+                            if "device_us" in row else row["wake_us_median"])
+        out = {"device_us_event_us": [dict({n: v for n, v in zip(names, k) if v is not None},
+                                           **v) for k, v in sides.items()]}
+        if kernel in ("C3", "P4"):
             out["in_sweep"] = {name: [r.get("in_sweep") for r in rs] for name, rs in by.items()}
         return out
     if kernel in CONSENSUS_MESH:
@@ -813,7 +1089,8 @@ def side_by_side(kernel: str, runs: list) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", default="K2", choices=("K1", "K2", *CONSENSUS_MESH, "P4", "P2"))
+    ap.add_argument("--kernel", default="K2",
+                    choices=("K1", "K2", *CONSENSUS_MESH, "C3", "P4", "P3", "P2"))
     ap.add_argument("--other", help="the root of another checkout, run in turns with this one")
     ap.add_argument("--out", help="also write the lines to this file")
     ap.add_argument("--shapes", nargs="+", default=["mono"], choices=sorted(CHUNKS))

@@ -35,7 +35,8 @@ one-process graph over the cards, and where the checkout has them its
 ``peer_route`` and the event edges between cards of the captured sweep
 (``comm.card_edges``).
 
-Each figure in ms a sweep is the median of 3 rounds, a round being 10
+Each figure in ms a sweep is the median of 3 rounds (of 15 for the
+graph's replays, which take well under a millisecond), a round being 10
 sweeps from a barrier of the processes (none with ``--one-process``) to a
 synchronisation with the card.
 Prints one line ``SWEEPS {json}`` with this process's figures. ``--cpu``
@@ -53,7 +54,7 @@ import sys
 import time
 
 MESHES = ((4, 1), (2, 2))
-ROUNDS, SWEEPS_A_ROUND = 3, 10
+ROUNDS, GRAPH_ROUNDS, SWEEPS_A_ROUND = 3, 15, 10
 
 
 def main(argv=None) -> int:
@@ -88,9 +89,9 @@ def main(argv=None) -> int:
         if not args.cpu:
             torch.cuda.synchronize()
 
-    def per_sweep(fn) -> float:
+    def per_sweep(fn, n_rounds=ROUNDS) -> float:
         rounds = []
-        for _ in range(ROUNDS):
+        for _ in range(n_rounds):
             if not one:
                 dist.barrier()
             t0 = time.perf_counter()
@@ -98,7 +99,7 @@ def main(argv=None) -> int:
                 fn()
             sync()
             rounds.append((time.perf_counter() - t0) * 1e3 / SWEEPS_A_ROUND)
-        return sorted(rounds)[ROUNDS // 2]
+        return sorted(rounds)[n_rounds // 2]
 
     runs = []
     for led, tile in MESHES:
@@ -126,7 +127,7 @@ def main(argv=None) -> int:
                 run["graph"] = graph.replays(mesh)
                 captured = graph.SweepGraph(mesh, route, body)
                 run["capture_ms"] = captured.capture_ms
-                run["graph_ms"] = per_sweep(captured.replay)
+                run["graph_ms"] = per_sweep(captured.replay, GRAPH_ROUNDS)
                 run["enqueue_ms"] = sorted(captured.enqueue_ms)[len(captured.enqueue_ms) // 2]
                 from fpm_torch.parallel import comm, mesh as mesh_module
 

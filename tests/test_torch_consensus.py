@@ -267,6 +267,77 @@ def test_consensus_plan_covers_every_element_once_on_the_path_the_planes_allow(c
     assert plan.pupil_blocks * per_block >= pupil > (plan.pupil_blocks - 1) * per_block
 
 
+# The optics of the configurations the port runs at its main path's C3
+# shapes: mono, the reference's dataset_mono.json (Np 90, pixel 6.5 µm,
+# objective 8x NA 0.2, λ 0.5 µm: FPMConfig's defaults) with the dome's LEDs
+# to NA 0.45; dogStomach, its dataset_dogStomach.json (Np 200, λ 0.63 µm,
+# LEDs to NA 0.30).
+REFERENCE_OPTICS = {"mono": dict(max_illumination_na=0.45),
+                    "dogStomach": dict(np_size=200, max_illumination_na=0.30, wavelength=0.63)}
+
+
+def reference_bbox(name: str) -> int:
+    """The bbox b the kernels take at a REFERENCE_OPTICS configuration."""
+    from fpm_torch.config import FPMConfig
+    from fpm_torch.models import epry
+
+    cfg = FPMConfig(**REFERENCE_OPTICS[name])
+    return kernels.bbox_extent(cfg.np_size, epry.EPRYOptions.from_config(cfg).pupil_radius)[0]
+
+
+def pupil_entry_accepts(bb: int, plan) -> bool:
+    """csrc/epry_consensus.cu's ``pupil_plan_ok``, the C entry's check of
+    C3's plan: blocks of 256 threads, an element a thread (kPupilPerThread),
+    that cover the b² elements with no block left without one."""
+    per_block = plan.threads * plan.per_thread
+    return (plan.per_thread == 1 and plan.threads == 256 and plan.pupil_blocks >= 1
+            and plan.pupil_blocks * per_block >= bb > (plan.pupil_blocks - 1) * per_block)
+
+
+# C3's bbox b at the configurations the port runs, and at edges: one
+# element, a pupil under a block (b 8: the CPU tests'), and b² a multiple
+# of a block (b 32).
+PUPIL_BBOXES = {"mono": None, "dogStomach": None, "one element": 1, "b 8": 8, "b 32": 32}
+
+
+@pytest.mark.parametrize("case", list(PUPIL_BBOXES))
+def test_pupil_plan_takes_each_pupil_element_once_where_the_c_entry_accepts_it(case):
+    """``kernels.pupil_plan``: block p's thread t takes element p·256 + t:
+    every one of the b² once, every block at least one; the C entry accepts
+    that grid."""
+    b = PUPIL_BBOXES[case] or reference_bbox(case)
+    bb = b * b
+    plan = kernels.pupil_plan(bb)
+    assert (plan.blocks, plan.threads, plan.per_thread, plan.vector) == (0, 256, 1, False)
+    taken = [[e for t in range(plan.threads) if (e := p * plan.threads + t) < bb]
+             for p in range(plan.pupil_blocks)]
+    assert sorted(e for es in taken for e in es) == list(range(bb))
+    assert all(taken)
+    assert pupil_entry_accepts(bb, plan)
+
+
+@pytest.mark.parametrize("change", ["a block fewer", "a block more", "no block"])
+@pytest.mark.parametrize("case", list(PUPIL_BBOXES))
+def test_the_c_entry_refuses_a_pupil_grid_that_does_not_cover_b2_once(case, change):
+    """The C entry's rule refuses C3's plan with a block fewer (an element
+    left out), a block more (a block without one) or none."""
+    b = PUPIL_BBOXES[case] or reference_bbox(case)
+    plan = kernels.pupil_plan(b * b)
+    blocks = {"a block fewer": plan.pupil_blocks - 1, "a block more": plan.pupil_blocks + 1,
+              "no block": 0}[change]
+    assert not pupil_entry_accepts(b * b, plan._replace(pupil_blocks=blocks))
+
+
+def test_pupil_plan_at_the_main_path_bboxes():
+    """The reference configurations' b (mono 64, dogStomach 112) and C3's
+    grid at an element a thread (PUPIL_PER_THREAD): 16 and 49 blocks of
+    256 threads."""
+    assert (reference_bbox("mono"), reference_bbox("dogStomach")) == (64, 112)
+    assert kernels.PUPIL_PER_THREAD == 1
+    assert kernels.pupil_plan(64 * 64).pupil_blocks == 16
+    assert kernels.pupil_plan(112 * 112).pupil_blocks == 49
+
+
 @pytest.mark.parametrize("dtype,offset,aligned", [
     (torch.float32, 0, True), (torch.float32, 1, False), (torch.float32, 4, True),
     (torch.bfloat16, 0, True), (torch.bfloat16, 1, False), (torch.bfloat16, 2, False),

@@ -836,6 +836,65 @@ def test_consensus_tile_object_is_bitwise_its_plain_version_on_every_path(cuda, 
     assert not scratch.sync.any()
 
 
+def same_bits(x, y) -> bool:
+    """Bitwise equal, a NaN where the other has one (whatever its bits)."""
+    nan = torch.isnan(x)
+    return bool(torch.equal(nan, torch.isnan(y)) and torch.equal(x[~nan], y[~nan]))
+
+
+@pytest.mark.parametrize("b,count", [(64, 1), (64, 32), (112, 1), (112, 32)])
+def test_consensus_tile_pupil_is_bitwise_its_plain_version_on_every_path(cuda, b, count):
+    """C3 with ``count`` ranks (1 and kMaxRanks) at b 64 (b² sixteen blocks
+    of 256 exactly) and 112 (not a multiple of a block): f32, bf16 and mixed
+    payloads, both wires, metrics kept or not, the sweep's sums given or
+    not, 1 to 8 tile maxima with and without a NaN among them: the pupil,
+    max|O| and metric sums bitwise the plain version's, one launch a call."""
+    g = torch.Generator().manual_seed(10 * b + count)
+    pc = torch.randn(2, b, b, generator=g).to(cuda)
+    mets = [torch.randn(2, generator=g).abs().to(cuda) for _ in range(count)]
+    resid, upd = [m[0] for m in mets], [m[1] for m in mets]
+    acc = torch.randn(2, generator=g).abs().to(cuda)
+    tile_max = [(torch.rand((), generator=g) * 10).to(cuda) for _ in range(8)]
+    wrapper = kernels.consensus_tile_pupil
+    for pattern in CONSENSUS_PATTERNS:
+        vs = consensus_payloads(g, (2, b, b), count, pattern, "vector", cuda)
+        for n_max in range(1, 9):
+            for nan_at in (None, n_max // 2):
+                maxima = list(tile_max[:n_max])
+                if nan_at is not None:
+                    maxima[nan_at] = torch.tensor(float("nan"), device=cuda)
+                for wire in (None, torch.bfloat16):
+                    for metrics in (True, False):
+                        for a in (None, acc):
+                            args = (pc, vs, maxima, resid, upd, a)
+                            kw = dict(wire=wire, scale=0.75, metrics=metrics)
+                            before = wrapper.launches
+                            got = wrapper(*args, **kw)
+                            assert wrapper.launches == before + 1
+                            want = kernels.consensus_tile_pupil_plain(*args, **kw)
+                            assert all(x is None and y is None or same_bits(x, y)
+                                       for x, y in zip(got, want)), (
+                                pattern, n_max, nan_at, wire, metrics)
+
+
+@pytest.mark.parametrize("case", ["a block short", "a block past", "no block"])
+def test_a_pupil_plan_that_does_not_cover_the_pupil_once_raises(cuda, monkeypatch, case):
+    """The C entry checks C3's plan again: a grid that leaves an element out
+    or holds a block without one is refused, and nothing is launched."""
+    b = 64
+    plan = kernels.pupil_plan(b * b)
+    blocks = {"a block short": plan.pupil_blocks - 1, "a block past": plan.pupil_blocks + 1,
+              "no block": 0}[case]
+    pc = torch.randn(2, b, b, device=cuda)
+    vs = [torch.randn(2, b, b, device=cuda)]
+    one = torch.ones((), device=cuda)
+    monkeypatch.setattr(kernels, "pupil_plan", lambda bb: plan._replace(pupil_blocks=blocks))
+    before = kernels.consensus_tile_pupil.launches
+    with pytest.raises(RuntimeError, match="consensus_tile_pupil"):
+        kernels.consensus_tile_pupil(pc, vs, [one], [one], [one])
+    assert kernels.consensus_tile_pupil.launches == before
+
+
 @pytest.mark.parametrize("led,tile", [(4, 1), (2, 3), (1, 6)])
 def test_sharded_sweep_on_the_card_matches_k1(cuda, led, tile):
     """All ranks share the one card; (1,6): tile height 8 below Np=16."""
@@ -1643,6 +1702,48 @@ def test_the_signal_and_wait_kernels_order_two_streams(cuda):
                 torch.cuda.synchronize(waiter)
                 assert torch.all(dst == 10.0 * epoch + chunk)
                 assert torch.equal(words.cpu(), plain)
+
+
+def test_a_wait_met_at_launch_returns_for_one_flag_and_for_32(cuda):
+    """A wait on flags already posted (the chunk awaited, or an earlier
+    one: a flag that holds a later post meets it) ends without a post
+    after it: one launch a wait of up to 32 flags."""
+    words = kernels.flag_block(cuda)
+    kernels.peer_epoch(words)
+    for slot in range(32):
+        kernels.peer_post(words, slot, 5)
+    for n in (1, 32):
+        before = kernels.peer_wait.launches
+        kernels.peer_wait([(words, slot, 5) for slot in range(n)], words)
+        kernels.peer_wait([(words, slot, 2) for slot in range(n)], words)
+        torch.cuda.synchronize()
+        assert kernels.peer_wait.launches == before + 2
+
+
+def test_a_wait_on_32_flags_woken_by_later_posts_orders_its_stream_after_them(cuda):
+    """One wait on 32 flags, enqueued on stream B before stream A posts
+    them, each post after a ~0.1 ms spin and a write of its own slice (3
+    rounds, a chunk each): the copy that follows the wait on B reads every
+    slice as written before its post."""
+    words = kernels.flag_block(cuda)
+    kernels.peer_epoch(words)
+    a, b = torch.cuda.Stream(), torch.cuda.Stream()
+    src = torch.zeros(32, 1 << 15, device=cuda)
+    dst = torch.empty_like(src)
+    for stream in (a, b):
+        stream.wait_stream(torch.cuda.current_stream())
+    for chunk in range(3):
+        with torch.cuda.stream(b):
+            kernels.peer_wait([(words, slot, chunk) for slot in range(32)], words)
+            dst.copy_(src)
+        with torch.cuda.stream(a):
+            for slot in range(32):
+                torch.cuda._sleep(200_000)
+                src[slot].fill_(100.0 * chunk + slot)
+                kernels.peer_post(words, slot, chunk)
+        torch.cuda.synchronize()
+        want = 100.0 * chunk + torch.arange(32.0, device=cuda)[:, None]
+        assert torch.equal(dst, want.expand_as(dst))
 
 
 @pytest.fixture
