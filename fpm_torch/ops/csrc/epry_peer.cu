@@ -14,7 +14,9 @@
 //
 //   fpm_peer_epoch  a card's sweep starts: its epoch word += 1 (the first
 //                   node of the sweep on the card), so flags are never reset
-//                   and a replay needs no host argument.
+//                   and a replay needs no host argument. One thread, one
+//                   red.relaxed.gpu.global.add.u64: no load, no store that
+//                   waits on a load, no fence (the epoch, below).
 //   fpm_peer_post   after a step (a rank's K3, a card's consensus, a halo
 //                   pull): its flag word := (epoch << 32) | (chunk + 1),
 //                   one system-scope release (below).
@@ -84,8 +86,8 @@
 // not (the sc fence is for sequential consistency between fences, which no
 // reader here relies on). Measured in turns on one H100 (PERF.md §5): this
 // pattern and st.release.sys alone cost the same within 0.04 µs (this one
-// the less in 3 of 4 turns), about 1.85 µs above an empty kernel, as P1's
-// one fence.sc.sys does; the two orderings 1.6 µs more.
+// the less in 3 of 4 turns), about 1.85 µs above an empty kernel; the two
+// orderings 1.6 µs more.
 //
 // The pull (P4): the halo is planes × rows runs of cols contiguous floats
 // (mono (2,2): 2 × 90 runs of 1,440 bytes, 259 KB; dogStomach (2,2): 2 ×
@@ -111,6 +113,29 @@
 // the pull stays above Tensor.copy_, whose kernel runs on the source card
 // and pushes the rows: both move them at the same rate, but a read waits a
 // round trip over NVLink that a posted write does not.
+//
+// The epoch (P1): why gpu scope and the kernel boundary suffice. A card's
+// word 0 is read by two kernels only, both on the same card: the post (P2,
+// ld.global.cg of its own card's word) and the wait (P3, the same load of
+// the waiting card's word; kernels.peer_wait launches on the card whose
+// block it is given, and the mesh gives each wait its own step's card).
+// Each runs after P1 on the card, in stream order or behind the sweep's
+// fork, whose events the card's other streams wait on after P1's lane; a
+// kernel's end orders its writes, at least at gpu scope, before every
+// kernel that stream order or an event puts after it. The reduction is
+// performed at the card's L2, where both readers' .cg loads read. No peer
+// reads word 0: peers read the flag words 1..63 only (ld.acquire.sys in
+// the wait), and a flag's high word is the posting card's epoch as its
+// post read it after that card's P1. A waiter compares it with its own
+// card's epoch, which every card bumps once a sweep, so no card needs
+// another card's epoch, and nothing orders word 0 at system scope. The
+// one hazard is a stale read of the epoch: a waiter that read the last
+// sweep's epoch would be met by the last sweep's flags and let its step
+// run early; the order above rules it out, and the stale-epoch litmus of
+// tests/test_torch_cuda.py is aimed at it. A __threadfence_system() after
+// the add (membar.sys) would cost ~1.8 µs, twice a launch, and order nothing
+// the kernel's end does not; a load, add and store without it ~0.15 µs
+// more than the reduction (scripts/kernel_profile.py --kernel P1).
 //
 // Bound: a post or an epoch writes 8 bytes, a wait reads 8 bytes a flag:
 // each is a launch's latency. A pull moves its rows once (read over NVLink
@@ -197,8 +222,7 @@ __device__ unsigned fpm_pull_next;
 #endif
 
 __global__ void peer_epoch(u64* words) {
-  words[0] = __ldcg(words) + 1ull;
-  __threadfence_system();
+  asm volatile("red.relaxed.gpu.global.add.u64 [%0], %1;" ::"l"(words), "l"(1ull) : "memory");
 }
 
 __global__ void peer_post(u64* words, int slot, int chunk) {

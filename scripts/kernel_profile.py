@@ -6,7 +6,7 @@ Run from the root of this checkout, on a machine with one CUDA card:
 
     python3 scripts/kernel_profile.py [--kernel K2] [--other DIR] [--out FILE]
     python3 scripts/kernel_profile.py --kernel C1|C2|C3 [--shapes mono dog] [--other DIR]
-    python3 scripts/kernel_profile.py --kernel P4|P3|P2 [--shapes mono dog] [--other DIR]
+    python3 scripts/kernel_profile.py --kernel P4|P3|P2|P1 [--shapes mono dog] [--other DIR]
     python3 scripts/kernel_profile.py --kernel K1 [--shapes mono dog]
         [--cs 0 1 2 4 8] [--tiers bf16x3 highest] [--chunks 15 30]
         [--z-layout 0] [--other DIR] [--out FILE]
@@ -111,6 +111,16 @@ where the checkout has it, an empty kernel (``fpm_launch_floor``: the
 launch floor) on one card, ``device_us`` and ``event_us`` as above, in
 turns (forward, then backward). ``--other`` gives the other checkout's
 post beside this one's.
+
+``--kernel P1``: the epoch (``kernels.peer_epoch``) on one card beside
+three forms of its kernel built from ``P1_FORMS_SOURCE`` (``nvcc`` into the
+checkout's ``build/p1_forms/``, the same for either checkout): the load,
+add and store with ``__threadfence_system()`` after them, the same without
+the fence, and one ``red.relaxed.gpu.global.add.u64``; and an empty kernel
+(``fpm_launch_floor``). ``device_us`` and ``event_us`` as above, in turns
+(forward, then backward); ``words_after``: word 0 after EPOCH_CALLS calls
+of each on a zeroed block; ``sass``: the memory and fence instructions of
+the checkout's ``peer_epoch`` and of each form (``cuobjdump -sass``).
 
 ``--kernel K1``: for each shape, K1's sweep loop as the batched cell runs it
 (``bench.solver``, one problem, chunk strided): ``mono`` is the cell's
@@ -1006,6 +1016,117 @@ def post_run(root: str, args) -> dict:
     return {"rows": rows}
 
 
+# P1's forms, timed beside the checkout's own (``--kernel P1``).
+P1_FORMS = ("ld, st, membar.sys", "ld, st", "red.relaxed.gpu")
+P1_FORMS_SOURCE = r"""
+#include <cuda_runtime.h>
+typedef unsigned long long u64;
+__global__ void epoch_fenced(u64* w) { w[0] = __ldcg(w) + 1ull; __threadfence_system(); }
+__global__ void epoch_stored(u64* w) { w[0] = __ldcg(w) + 1ull; }
+__global__ void epoch_reduced(u64* w) {
+  asm volatile("red.relaxed.gpu.global.add.u64 [%0], %1;" ::"l"(w), "l"(1ull) : "memory");
+}
+extern "C" int fpm_p1_form(int form, void* words, void* stream) {
+  u64* w = static_cast<u64*>(words);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (form == 0) epoch_fenced<<<1, 1, 0, s>>>(w);
+  else if (form == 1) epoch_stored<<<1, 1, 0, s>>>(w);
+  else epoch_reduced<<<1, 1, 0, s>>>(w);
+  return (int)cudaGetLastError();
+}
+"""
+EPOCH_CALLS = 1000
+SASS_MEMORY = {"MEMBAR", "FENCE", "ERRBAR", "CCTL", "RED", "REDG", "ATOM", "ATOMG", "LDG",
+               "STG", "LD", "ST"}
+
+
+def p1_forms_library(root: str):
+    """P1_FORMS_SOURCE built into ``root``'s ``build/p1_forms/``,
+    loaded: (library, its path)."""
+    import ctypes
+
+    from fpm_torch.ops import build
+
+    out = os.path.join(root, "build", "p1_forms")
+    os.makedirs(out, exist_ok=True)
+    src, lib = os.path.join(out, "p1_forms.cu"), os.path.join(out, "libp1_forms.so")
+    with open(src, "w") as f:
+        f.write(P1_FORMS_SOURCE)
+    made = subprocess.run([build._tool("nvcc"), *build.NVCC_FLAGS, "-o", lib, src],
+                          capture_output=True, text=True)
+    if made.returncode:
+        raise RuntimeError(f"nvcc failed on {src}:\n{made.stdout}{made.stderr}")
+    cdll = ctypes.CDLL(lib)
+    cdll.fpm_p1_form.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    cdll.fpm_p1_form.restype = ctypes.c_int
+    return cdll, lib
+
+
+def sass_memory(path: str, names: tuple) -> dict:
+    """The memory and fence instructions (opcodes of SASS_MEMORY) of each
+    function of ``path`` whose name holds one of ``names``, in order."""
+    import re
+
+    from fpm_torch.ops import build
+
+    text = subprocess.run([build._tool("cuobjdump"), "-sass", path], capture_output=True,
+                          text=True, check=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1) if any(n in m.group(1) for n in names) else None
+            if name:
+                out[name] = []
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(.*?)\s*;", line)
+        if name and m:
+            words = m.group(1).split()
+            opcode = words[1] if words[0].startswith("@") and len(words) > 1 else words[0]
+            if opcode.split(".")[0] in SASS_MEMORY:
+                out[name].append(m.group(1))
+    return out
+
+
+def epoch_run(root: str, args) -> dict:
+    """The P1 rows (see the module's docstring)."""
+    import torch
+
+    from fpm_torch.ops import build, kernels
+
+    dev = torch.device("cuda", 0)
+    forms, forms_path = p1_forms_library(root)
+    stream = kernels._current_stream(dev)
+
+    def form_call(i, block):
+        def call():
+            err = forms.fpm_p1_form(i, block.data_ptr(), stream)
+            if err:
+                raise RuntimeError(f"{P1_FORMS[i]}: CUDA error {err}")
+        return call
+
+    def epoch_calls(block):
+        return {"peer_epoch": lambda: kernels.peer_epoch(block),
+                **{form: form_call(i, block) for i, form in enumerate(P1_FORMS)}}
+
+    calls = {**epoch_calls(kernels.flag_block(dev)), "empty kernel": floor_call(build, dev)}
+    order = [name for name, call in calls.items() if call]
+    rows = [{"call": name, **device_us(calls[name], 1), "event_us": event_us(calls[name])}
+            for name in order + order[::-1]]
+    after = {}
+    for name in ("peer_epoch", *P1_FORMS):
+        block = kernels.flag_block(dev)
+        call = epoch_calls(block)[name]
+        for _ in range(EPOCH_CALLS):
+            call()
+        torch.cuda.synchronize(dev)
+        after[name] = int(block[0])
+    main = str(build.build_all(("epry_peer",))["epry_peer"])
+    return {"rows": rows, "calls": EPOCH_CALLS, "words_after": after,
+            "sass": {**sass_memory(main, ("peer_epoch",)),
+                     **sass_memory(forms_path, ("epoch_",))}}
+
+
 def _median_tree(xs):
     if isinstance(xs[0], dict):
         return {k: _median_tree([x[k] for x in xs]) for k in xs[0]}
@@ -1021,7 +1142,7 @@ def child(root: str, args) -> int:
     assert fpm_torch.__file__.startswith(root), fpm_torch.__file__
     os.makedirs(os.path.join(root, "build"), exist_ok=True)
     res = {"K1": k1_run, "K2": k2_run, "C3": pupil_run, "P4": pull_run, "P3": wait_run,
-           "P2": post_run}.get(
+           "P2": post_run, "P1": epoch_run}.get(
         args.kernel, consensus_run)(root, args)
     print("RUN " + json.dumps(res), flush=True)
     return 0
@@ -1054,7 +1175,7 @@ def side_by_side(kernel: str, runs: list) -> dict:
                                for t in ("bf16x3", "highest")},
             "bf16x3_by_phase": {ph: side(lambda r, ph=ph: r["k2_phase_profile"]["bf16x3"]
                                          ["by_phase"].get(ph)) for ph in phases}}
-    if kernel in ("C3", "P4", "P3", "P2"):
+    if kernel in ("C3", "P4", "P3", "P2", "P1"):
         names = ("case", "shape", "source", "call")
 
         def key(row):
@@ -1090,7 +1211,7 @@ def side_by_side(kernel: str, runs: list) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", default="K2",
-                    choices=("K1", "K2", *CONSENSUS_MESH, "C3", "P4", "P3", "P2"))
+                    choices=("K1", "K2", *CONSENSUS_MESH, "C3", "P4", "P3", "P2", "P1"))
     ap.add_argument("--other", help="the root of another checkout, run in turns with this one")
     ap.add_argument("--out", help="also write the lines to this file")
     ap.add_argument("--shapes", nargs="+", default=["mono"], choices=sorted(CHUNKS))

@@ -1881,6 +1881,126 @@ def test_a_post_orders_every_write_before_it_for_a_reader_on_another_card(two_ca
     assert rounds == 48 and wrong == 0
 
 
+# The stale-epoch litmus: its rounds, and the spins (torch.cuda._sleep
+# cycles, 0 to ~0.5 ms at ≤ 2 GHz) before each round's post, in turn.
+EPOCH_ROUNDS = 256
+EPOCH_SPINS = (0, 2_000, 20_000, 200_000, 1_000_000)
+
+
+@pytest.mark.parametrize("cards", ["one card", "0 to 1", "1 to 0"])
+def test_a_wait_never_reads_the_last_sweeps_epoch(cuda, cards):
+    """The stale-epoch litmus, EPOCH_ROUNDS sweeps of one chunk: the last
+    sweep's flag is already posted when a sweep opens with ``peer_epoch``
+    on stream A of the waiting card; stream B waits on A's event, then
+    (``peer_wait``) on chunk 0 of the new sweep, then pulls the poster's
+    buffer; stream C, on the posting card, waits on A's event too, bumps
+    that card's epoch (two cards), spins, fills the buffer with the
+    round's number and posts. A wait that read the last sweep's epoch
+    would be met by the last sweep's flag and pull the last fill: no round
+    may. The next sweep opens after B and C end, as the mesh's join
+    orders it. On one card, and with the post on card 0 and the epoch and
+    the wait on card 1, and the other way."""
+    if cards == "one card":
+        poster = waiter = torch.device("cuda", 0)
+    else:
+        if torch.cuda.device_count() < 2:
+            pytest.skip("needs two CUDA devices: the post on one, the epoch and the wait on "
+                        "the other")
+        p, w = (0, 1) if cards == "0 to 1" else (1, 0)
+        poster, waiter = torch.device("cuda", p), torch.device("cuda", w)
+        kernels.enable_peer_access(waiter, poster)
+    home = kernels.flag_block(poster)
+    mine = home if poster == waiter else kernels.flag_block(waiter)
+    blocks = [home] if mine is home else [home, mine]
+    a, b, c = torch.cuda.Stream(waiter), torch.cuda.Stream(waiter), torch.cuda.Stream(poster)
+    src = torch.zeros((1, 32, 1024), device=poster)
+    out = torch.zeros((EPOCH_ROUNDS, 1, 32, 1024), device=waiter)
+    for block in blocks:                        # the sweep before the first: chunk 0 posted
+        kernels.peer_epoch(block)
+    kernels.peer_post(home, 0, 0)
+    for d in {poster, waiter}:
+        torch.cuda.synchronize(d)
+    before = kernels.peer_epoch.launches
+    for k in range(EPOCH_ROUNDS):
+        with torch.cuda.device(waiter), torch.cuda.stream(a):
+            a.wait_stream(b)
+            a.wait_stream(c)
+            kernels.peer_epoch(mine)
+            opened = torch.cuda.Event()
+            opened.record(a)
+        c.wait_event(opened)
+        b.wait_event(opened)
+        with torch.cuda.device(poster), torch.cuda.stream(c):
+            if mine is not home:
+                kernels.peer_epoch(home)
+            spin = EPOCH_SPINS[k % len(EPOCH_SPINS)]
+            if spin:
+                torch.cuda._sleep(spin)
+            src.fill_(float(k + 1))
+            kernels.peer_post(home, 0, 0)
+        with torch.cuda.device(waiter), torch.cuda.stream(b):
+            kernels.peer_wait([(home, 0, 0)], mine)
+            kernels.peer_pull(out[k], src)
+    for d in {poster, waiter}:
+        torch.cuda.synchronize(d)
+    want = torch.arange(1, EPOCH_ROUNDS + 1, dtype=torch.float32, device=waiter)
+    wrong = int((out != want[:, None, None, None]).any(dim=(1, 2, 3)).sum())
+    assert wrong == 0
+    assert kernels.peer_epoch.launches == before + EPOCH_ROUNDS * len(blocks)
+    assert all(int(block[0]) == EPOCH_ROUNDS + 1 for block in blocks)
+    assert int(home[1]) == ((EPOCH_ROUNDS + 1) << 32) | 1
+
+
+REPLAYS = 5
+
+
+@pytest.mark.parametrize("route", ["streams", "peer"])
+@pytest.mark.parametrize("led,tile", [(4, 1), (2, 2)])
+def test_each_replay_bumps_every_cards_epoch_once_and_every_flag_carries_it(
+        cuda, monkeypatch, led, tile, route):
+    """A stale sweep on a route of flags, captured and replayed REPLAYS
+    times: the one card's streams ordered by flags (``streams``, the
+    test-only ``force_flags``) or a rank a card over the cards there are
+    (``peer``, two cards or more). Each card's word 0 is then the
+    warm-up's one bump and one a replay, and the high word of every flag
+    posted is that epoch."""
+    from fpm_torch.parallel import graph, led_shard, peer_route, tile_shard
+
+    n = torch.cuda.device_count()
+    if route == "peer" and n < 2:
+        pytest.skip("needs two CUDA devices: the ranks of one mesh on different cards")
+    if route == "streams":
+        monkeypatch.setattr(peer_route, "force_flags", True)
+    devices = [torch.device("cuda", i % n if route == "peer" else 0) for i in range(led * tile)]
+    ds = synthetic_dataset(np_size=16, grid=5, seed=5)
+    mesh = make_mesh(led, tile, devices=devices)
+    kw = dict(chunk_size=8, use_pallas=True, stale_consensus=True)
+    if tile == 1:
+        prep, opts = led_shard.prepare_led_sharded(ds.images, ds.geom, ds.cfg, mesh, **kw)
+
+        def body(bufs):
+            return led_shard._sharded_sweep(mesh, prep, opts=opts, bufs=bufs)
+    else:
+        prep, opts, s = tile_shard.prepare_tile_sharded(ds.images, ds.geom, ds.cfg, mesh, **kw)
+
+        def body(bufs):
+            return tile_shard._tile_sweep(mesh, prep, opts=opts, s=s, bufs=bufs)
+    assert peer_route(mesh) == route
+    run = graph.SweepGraph(mesh, prep, body)
+    cards = [card for card, _ in mesh.cards()]
+    assert run.launches["peer_epoch"] == len(cards) and run.launches["peer_post"] > 0
+    for _ in range(REPLAYS):
+        run.replay()
+    for card in cards:
+        torch.cuda.synchronize(card)
+    assert len(mesh._flags) == len(cards)
+    for block in mesh._flags:
+        words = block.cpu()
+        assert int(words[0]) == 1 + REPLAYS
+        posted = words[1:][words[1:] != 0]
+        assert posted.numel() > 0 and torch.all(posted >> 32 == 1 + REPLAYS)
+
+
 @pytest.mark.parametrize("kw", [dict(), dict(stale_consensus=True),
                                 dict(comm_precision="bf16", stale_consensus=True)],
                          ids=["fresh", "stale", "bf16-wire-stale"])

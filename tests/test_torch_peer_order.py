@@ -194,6 +194,65 @@ def test_the_sweep_over_buffers_with_payloads_in_place_is_bitwise_the_host_loop(
         assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+@pytest.mark.parametrize("stale", [False, True], ids=["fresh", "stale"])
+@pytest.mark.parametrize("led,tile,cards", [(4, 1, 4), (2, 2, 4), (2, 2, 2)],
+                         ids=["4x1-on-4", "2x2-on-4", "2x2-on-2"])
+def test_every_epoch_is_read_on_its_own_card_and_no_flag_read_names_it(ds, monkeypatch, led,
+                                                                        tile, cards, stale):
+    """What lets the epoch kernel order its word at gpu scope alone: in
+    SWEEPS sweeps of the peer route over buffers, every ``peer_wait`` and
+    every ``peer_post`` is handed as ``words`` (whose word 0, the epoch,
+    it reads) the flag block of the card of the step it guards; every
+    flag a wait polls is a word 1..FLAG_SIGNALS of a card's block, never a
+    word 0; and each card's block is bumped by ``peer_epoch`` once a
+    sweep. After them every card's epoch is SWEEPS, and the high word of
+    every posted flag is its card's epoch."""
+    mesh, route, body = prepared(ds, led, tile, cards, **KERNEL_ROUTE, stale_consensus=stale)
+    steps, calls = [], []
+
+    def guarded(method):
+        def run(self, idx, *args, **kw):
+            steps.append(idx)
+            try:
+                return method(self, idx, *args, **kw)
+            finally:
+                steps.pop()
+        return run
+
+    def recorded(name, wrapper):
+        def run(*args, **kw):
+            calls.append((name, steps[-1] if steps else None, args))
+            return wrapper(*args, **kw)
+        return run
+
+    for method in ("_wait", "_post"):
+        monkeypatch.setattr(Mesh, method, guarded(getattr(Mesh, method)))
+    for name in ("peer_epoch", "peer_post", "peer_wait"):
+        monkeypatch.setattr(kernels, name, recorded(name, getattr(kernels, name)))
+    bufs = graph.SweepBuffers()
+    for _ in range(SWEEPS):
+        body(bufs)
+    blocks = mesh._flags
+    assert peer_route(mesh) == "peer" and len(blocks) == cards
+    assert {name for name, _, _ in calls} == {"peer_epoch", "peer_post", "peer_wait"}
+    for name, idx, args in calls:
+        if name == "peer_epoch":
+            continue
+        words = args[-1] if name == "peer_wait" else args[0]
+        assert words is blocks[mesh.edges[idx].card], (name, mesh.schedule[idx])
+        if name == "peer_wait":
+            for block, slot, _ in args[0]:
+                assert any(block is b for b in blocks)
+                assert 0 <= slot < kernels.FLAG_SIGNALS     # the word 1 + slot
+    bumped = [args[0] for name, _, args in calls if name == "peer_epoch"]
+    assert len(bumped) == SWEEPS * cards
+    assert all(sum(w is b for w in bumped) == SWEEPS for b in blocks)
+    for b in blocks:
+        assert int(b[0]) == SWEEPS
+        posted = b[1:][b[1:] != 0]
+        assert posted.numel() > 0 and torch.all(posted >> 32 == SWEEPS)
+
+
 @pytest.mark.parametrize("kw", [dict(KERNEL_ROUTE, comm_precision="bf16"),
                                 dict(dtype="complex128", chunk_size=8)],
                          ids=["bf16-wire", "complex128-eager"])
